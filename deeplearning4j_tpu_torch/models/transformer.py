@@ -1,18 +1,28 @@
 """TransformerLM — the flagship decoder-only LM (mirrors
-``deeplearning4j_tpu/models/transformer.py``; inference).
+``deeplearning4j_tpu/models/transformer.py``; scoring, training and
+decode).
 
 ``block_params``/``block_apply`` hold the block math; the
-``TransformerBlock`` layer (full-sequence scoring through
-``MultiLayerNetwork.output``, attention through kernel K1) and the
-decode adapter's prefill/step/re-encode (``block_kv_project`` +
-``ops.kv_cache.det_attention`` + ``block_finish``) share every
+``TransformerBlock`` layer (full-sequence scoring and training through
+``MultiLayerNetwork``, attention through the flash kernels K1-K3) and
+the decode adapter's prefill/step/re-encode (``kv_rows`` +
+``ops.kv_cache.det_attention`` + ``finish_rows``) share every
 per-position op.
+
+The decode program holds the reference's contract that decode logits
+are bitwise the re-encode logits.  cuBLAS and PyTorch's reductions pick
+their kernels, and with them the order of their sums, by shape, so the
+program runs every per-position op through ``per_row``: rows in chunks
+of exactly ``DECODE_ROWS``, zero-padded, so each GEMM and layer norm
+sees the same shape whether it serves a 4-slot step, a prefill bucket
+or a re-encode.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+import functools
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
@@ -21,12 +31,16 @@ from ..nn.layers import EmbeddingSequence, RnnOutputLayer
 from ..nn.layers.base import ForwardOut, Layer, register_layer
 from ..nn.layers.normalization import layer_norm
 from ..nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+from ..nn.updaters import Adam, GradientNormalization, Updater
 from ..ops.activations import gelu
 from ..ops.attention import flash_mha, merge_heads, mha, split_heads
 from ..ops.initializers import init_weight
 from ..utils.device import DeviceLike
 
 Tensor = torch.Tensor
+
+#: rows per chunk of every per-position op in the decode program
+DECODE_ROWS = 64
 
 
 def block_params(generator: torch.Generator, d_model: int, n_heads: int,
@@ -49,38 +63,59 @@ def block_params(generator: torch.Generator, d_model: int, n_heads: int,
     }
 
 
+def kv_rows(p: Dict[str, Tensor], x: Tensor) -> tuple:
+    """First half of the block: (q, k, v) projections of LN(x), each
+    [..., d_model] (heads not yet split)."""
+    u = layer_norm(x, p["ln1_g"], p["ln1_b"])
+    return u @ p["Wq"], u @ p["Wk"], u @ p["Wv"]
+
+
+def finish_rows(p: Dict[str, Tensor], x: Tensor, att: Tensor) -> Tensor:
+    """Second half of the block: output projection of the merged heads
+    ``att``, residual and FFN."""
+    h = x + (att @ p["Wo"] + p["bo"])
+    u = layer_norm(h, p["ln2_g"], p["ln2_b"])
+    f = gelu(u @ p["W1"] + p["b1"])
+    return h + f @ p["W2"] + p["b2"]
+
+
 def block_apply(p: Dict[str, Tensor], h: Tensor, n_heads: int, *,
                 causal: bool = True,
                 attention_fn: Optional[Callable] = None) -> Tensor:
     """Pre-LN block: h + attn(LN(h)); h + FFN(LN(h)).  Attention
-    defaults to ``flash_mha`` (kernel K1 on the card)."""
-    u = layer_norm(h, p["ln1_g"], p["ln1_b"])
-    q = split_heads(u @ p["Wq"], n_heads)
-    k = split_heads(u @ p["Wk"], n_heads)
-    v = split_heads(u @ p["Wv"], n_heads)
+    defaults to ``flash_mha`` (kernels K1-K3 on the card)."""
+    q, k, v = (split_heads(a, n_heads) for a in kv_rows(p, h))
     if attention_fn is None:
         attention_fn = lambda q, k, v: flash_mha(q, k, v, causal)
-    h = h + (merge_heads(attention_fn(q, k, v)) @ p["Wo"] + p["bo"])
-    u = layer_norm(h, p["ln2_g"], p["ln2_b"])
-    f = gelu(u @ p["W1"] + p["b1"])
-    return h + f @ p["W2"] + p["b2"]
+    return finish_rows(p, h, merge_heads(attention_fn(q, k, v)))
 
 
-def block_kv_project(p: Dict[str, Tensor], h: Tensor, n_heads: int) -> tuple:
-    """First half of the block for the decode path: (q, k, v) head
-    projections of LN(h), each [B, H, T, d_head]."""
-    u = layer_norm(h, p["ln1_g"], p["ln1_b"])
-    return (split_heads(u @ p["Wq"], n_heads),
-            split_heads(u @ p["Wk"], n_heads),
-            split_heads(u @ p["Wv"], n_heads))
+def per_row(fn: Callable, *xs: Tensor, rows: Optional[int] = None):
+    """``fn`` over inputs [..., K_i] that share their leading shape, in
+    chunks of exactly ``rows`` rows (``DECODE_ROWS``, read at each call,
+    by default) of one zero-padded [n_chunks·rows, K_i] buffer, so every
+    call of ``fn`` sees the same shapes and alignment and a row's bits do
+    not depend on how many rows came with it.  ``fn`` returns a tensor or
+    a tuple of tensors of [rows, N]; the result has the inputs' leading
+    shape."""
+    rows = DECODE_ROWS if rows is None else rows
+    lead = xs[0].shape[:-1]
+    n = xs[0].numel() // xs[0].shape[-1]
+    padded = -(-n // rows) * rows
+    bufs = []
+    for x in xs:
+        buf = x.new_zeros(padded, x.shape[-1])
+        buf[:n] = x.reshape(n, x.shape[-1])
+        bufs.append(buf)
+    outs = [fn(*(b[a:a + rows] for b in bufs)) for a in range(0, padded, rows)]
 
+    def join(chunks):
+        y = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+        return y[:n].reshape(*lead, -1)
 
-def block_finish(p: Dict[str, Tensor], h: Tensor, att_heads: Tensor) -> Tensor:
-    """Second half of the block: output projection, residual and FFN."""
-    h = h + (merge_heads(att_heads) @ p["Wo"] + p["bo"])
-    u = layer_norm(h, p["ln2_g"], p["ln2_b"])
-    f = gelu(u @ p["W1"] + p["b1"])
-    return h + f @ p["W2"] + p["b2"]
+    if isinstance(outs[0], tuple):
+        return tuple(join(c) for c in zip(*outs))
+    return join(outs)
 
 
 @register_layer
@@ -109,9 +144,11 @@ class TransformerBlock(Layer):
         return block_params(generator, self.d_model, self.n_heads,
                             self.d_ff or 4 * self.d_model, dtype, self._winit())
 
-    def forward(self, params, state, x, *, mask=None) -> ForwardOut:
+    def forward(self, params, state, x, *, train=False, mask=None) -> ForwardOut:
+        self._check_train(train)
         # a layer mask, or kernel="xla", takes the plain mha path (as in
         # the reference); otherwise attention runs through flash_mha
+        # (K1 forward, K2/K3 backward on the card)
         if mask is not None or self.kernel == "xla":
             att_mask = mask[:, None, None, :] if mask is not None else None
             attention_fn = lambda q, k, v: mha(q, k, v, causal=self.causal,
@@ -143,24 +180,25 @@ class PositionalEmbedding(Layer):
         return {"P": (0.02 * torch.randn((self.max_len, self.d_model),
                                          generator=generator)).to(dtype)}
 
-    def forward(self, params, state, x, *, mask=None) -> ForwardOut:
+    def forward(self, params, state, x, *, train=False, mask=None) -> ForwardOut:
+        self._check_train(train)
         t = x.shape[1]
         return ForwardOut(x + params["P"][:t].to(x.dtype), state, mask)
 
 
 def TransformerLM(vocab_size: int = 256, n_layers: int = 4, d_model: int = 256,
                   n_heads: int = 8, d_ff: int = 0, max_len: int = 512,
-                  seed: int = 42, updater: Optional[dict] = None,
+                  seed: int = 42, updater: Union[Updater, dict, None] = None,
                   kernel: str = "flash",
                   device: DeviceLike = None) -> MultiLayerNetwork:
     """Decoder-only LM: EmbeddingSequence + positions + N blocks + head,
-    initialized from ``seed`` on ``device`` (default ``cuda``)."""
+    initialized from ``seed`` on ``device`` (default ``cuda``).
+    ``updater`` is an updater object or its configuration dict (default
+    ``Adam(lr=3e-4)``); gradients are clipped per layer to L2 norm 1."""
     b = (NeuralNetConfiguration.builder()
          .seed(seed)
-         .updater(updater or {"type": "Adam", "lr": 3e-4, "beta1": 0.9,
-                              "beta2": 0.999, "eps": 1e-8,
-                              "moment_dtype": None})
-         .gradient_normalization("clip_l2_per_layer", 1.0)
+         .updater(updater or Adam(lr=3e-4))
+         .gradient_normalization(GradientNormalization.CLIP_L2_PER_LAYER, 1.0)
          .layer(EmbeddingSequence(n_in=vocab_size, n_out=d_model))
          .layer(PositionalEmbedding(max_len=max_len, d_model=d_model)))
     for _ in range(n_layers):
@@ -176,9 +214,10 @@ def TransformerLM(vocab_size: int = 256, n_layers: int = 4, d_model: int = 256,
 class TransformerDecodeAdapter:
     """Serve a ``TransformerLM`` network through ``serving.DecodeEngine``:
     ``params`` plus ``decode_program()``, whose prefill / step /
-    re-encode share the embedding lookup, position add,
-    ``block_kv_project``/``block_finish``, the pre-softmax head and
-    ``det_attention``.  The wrapped network is untouched."""
+    re-encode share the embedding lookup, position add, ``kv_rows`` /
+    ``finish_rows`` and the pre-softmax head (each through ``per_row``)
+    and ``det_attention`` (kernel D1 on the card).  The wrapped network
+    is untouched."""
 
     def __init__(self, net: MultiLayerNetwork):
         layers = net.conf.layers
@@ -231,7 +270,16 @@ class TransformerDecodeAdapter:
             return embed_lay._lookup(params["embed"], idx)
 
         def head(params, h):
-            return out_lay._pre(params["head"], h)   # pre-softmax logits
+            # pre-softmax logits, row by row
+            return per_row(functools.partial(out_lay._pre, params["head"]), h)
+
+        def kv_project(bp, h):
+            return tuple(split_heads(a, n_heads)
+                         for a in per_row(functools.partial(kv_rows, bp), h))
+
+        def finish(bp, h, att_heads):
+            return per_row(functools.partial(finish_rows, bp), h,
+                           merge_heads(att_heads))
 
         def visible(q_pos, n_keys):
             """[..., n_keys] additive bias: key j visible iff j <= q_pos."""
@@ -244,13 +292,13 @@ class TransformerDecodeAdapter:
             bias = visible(torch.arange(tb, device=h.device), L)[None, None]
             pt = page_table_row[None]
             for i, bp in enumerate(params["blocks"]):
-                q, k, v = block_kv_project(bp, h, n_heads)
+                q, k, v = kv_project(bp, h)
                 write_prefill(k_pages, i, page_table_row, k.transpose(1, 2)[0])
                 write_prefill(v_pages, i, page_table_row, v.transpose(1, 2)[0])
                 k_all = gather_layer(k_pages, i, pt).transpose(1, 2)
                 v_all = gather_layer(v_pages, i, pt).transpose(1, 2)
-                h = block_finish(bp, h, det_attention(q, k_all, v_all, bias))
-            return k_pages, v_pages, head(params, h)[0, n_real - 1]
+                h = finish(bp, h, det_attention(q, k_all, v_all, bias))
+            return k_pages, v_pages, head(params, h[0, n_real - 1])
 
         def step(params, k_pages, v_pages, page_table, tokens, positions, active):
             h = (tok_embed(params, tokens) + params["pos"]["P"][positions])[:, None]
@@ -258,12 +306,12 @@ class TransformerDecodeAdapter:
             pt = torch.where(active[:, None], page_table,
                              torch.zeros_like(page_table))
             for i, bp in enumerate(params["blocks"]):
-                q, k, v = block_kv_project(bp, h, n_heads)
+                q, k, v = kv_project(bp, h)
                 write_step(k_pages, i, pt, positions, k[:, :, 0])
                 write_step(v_pages, i, pt, positions, v[:, :, 0])
                 k_all = gather_layer(k_pages, i, pt).transpose(1, 2)
                 v_all = gather_layer(v_pages, i, pt).transpose(1, 2)
-                h = block_finish(bp, h, det_attention(q, k_all, v_all, bias))
+                h = finish(bp, h, det_attention(q, k_all, v_all, bias))
             return k_pages, v_pages, head(params, h)[:, 0]
 
         def reencode(params, tokens):
@@ -271,8 +319,8 @@ class TransformerDecodeAdapter:
             h = tok_embed(params, tokens) + params["pos"]["P"][:t]
             bias = visible(torch.arange(t, device=h.device), t)[None, None]
             for bp in params["blocks"]:
-                q, k, v = block_kv_project(bp, h, n_heads)
-                h = block_finish(bp, h, det_attention(q, k, v, bias))
+                q, k, v = kv_project(bp, h)
+                h = finish(bp, h, det_attention(q, k, v, bias))
             return head(params, h)
 
         return DecodeProgram(

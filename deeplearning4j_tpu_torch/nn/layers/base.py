@@ -8,8 +8,10 @@ unchanged.  Config types the port has not registered (updaters, dropout
 and constraint configs) stay plain dicts and are written back as read.
 
 Parameters are per-layer dicts of tensors keyed as in the JAX trees
-(``W``, ``b``, ``P``, ``ln1_g``, ...).  Only inference is ported: a
-layer's ``forward`` takes no ``train``/``rng`` arguments.
+(``W``, ``b``, ``P``, ``ln1_g``, ...).  ``forward`` takes ``train``;
+there is no ``rng`` argument, because the stochastic training settings
+(dropout, weight noise) are not ported: a layer that has one raises in
+training (``_check_train``).
 """
 
 from __future__ import annotations
@@ -102,9 +104,10 @@ class ForwardOut(NamedTuple):
 @dataclasses.dataclass
 class Layer:
     """Base hyperparameters shared by all layers — the reference's field
-    set, so configurations round-trip.  ``dropout``, ``l1``/``l2``,
-    ``updater``, ``weight_noise`` and ``constraints`` are training
-    settings: parsed and written back, not applied."""
+    set, so configurations round-trip.  ``l1``/``l2`` enter the training
+    loss (``regularization_score``) and ``updater`` overrides the
+    network's; ``dropout``, ``weight_noise`` and ``constraints`` are
+    parsed and written back, and training a layer that sets one raises."""
 
     name: Optional[str] = None
     activation: Optional[str] = None
@@ -135,8 +138,43 @@ class Layer:
         return {}
 
     def forward(self, params: Dict[str, Tensor], state: Dict[str, Tensor],
-                x: Tensor, *, mask: Optional[Tensor] = None) -> ForwardOut:
+                x: Tensor, *, train: bool = False,
+                mask: Optional[Tensor] = None) -> ForwardOut:
         raise NotImplementedError
+
+    def _check_train(self, train: bool) -> None:
+        """Raise for a training setting the port does not apply: dropout
+        and weight noise draw random numbers the reference draws from its
+        own generator, so they wait."""
+        if not train:
+            return
+        d = self.dropout
+        if d is not None and not (isinstance(d, (int, float)) and d <= 0.0):
+            raise NotImplementedError(
+                f"layer {self.name or type(self).__name__}: dropout in training "
+                "is not ported yet")
+        if self.weight_noise is not None:
+            raise NotImplementedError(
+                f"layer {self.name or type(self).__name__}: weight noise in "
+                "training is not ported yet")
+
+    def regularization_score(self, params: Dict[str, Tensor]) -> Tensor:
+        """l1*|W| + 0.5*l2*W² over weight-class params (biases and
+        normalization params excluded), in at least float32."""
+        leaves = [v for k, v in params.items()
+                  if k not in ("b", "beta", "gamma", "mean", "var")]
+        if (self.l1 == 0.0 and self.l2 == 0.0) or not leaves:
+            dev = next(iter(params.values())).device if params else None
+            return torch.zeros((), dtype=torch.float32, device=dev)
+        acc = torch.promote_types(torch.float32, leaves[0].dtype)
+        score = torch.zeros((), dtype=acc, device=leaves[0].device)
+        for v in leaves:
+            va = v.to(acc)
+            if self.l1:
+                score = score + self.l1 * va.abs().sum()
+            if self.l2:
+                score = score + 0.5 * self.l2 * (va * va).sum()
+        return score
 
     def _act(self, x: Tensor) -> Tensor:
         return get_activation(self.activation or "identity")(x)

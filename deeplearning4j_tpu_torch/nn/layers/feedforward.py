@@ -40,7 +40,8 @@ class Embedding(Layer):
             y = y + params["b"]
         return self._act(y)
 
-    def forward(self, params, state, x, *, mask=None) -> ForwardOut:
+    def forward(self, params, state, x, *, train=False, mask=None) -> ForwardOut:
+        self._check_train(train)
         idx = x.long()
         if idx.ndim == 2 and idx.shape[-1] == 1:
             idx = idx[:, 0]
@@ -55,5 +56,6 @@ class EmbeddingSequence(Embedding):
     def output_type(self, in_type: InputType) -> InputType:
         return InputType.recurrent(self.n_out, in_type.timesteps)
 
-    def forward(self, params, state, x, *, mask=None) -> ForwardOut:
+    def forward(self, params, state, x, *, train=False, mask=None) -> ForwardOut:
+        self._check_train(train)
         return ForwardOut(self._lookup(params, x.long()), state, mask)

@@ -1,13 +1,14 @@
 """Recurrent-family layers (mirrors ``deeplearning4j_tpu/nn/layers/recurrent.py``;
-``RnnOutputLayer``'s forward pass only — its loss is training)."""
+``RnnOutputLayer`` only)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
+from ...ops.losses import get_loss, summed_per_example
 from ..conf.inputs import InputType
 from .base import ForwardOut, Layer, register_layer
 
@@ -41,5 +42,19 @@ class RnnOutputLayer(Layer):
             y = y + params["b"].to(x.dtype)
         return y
 
-    def forward(self, params, state, x, *, mask=None) -> ForwardOut:
+    def forward(self, params, state, x, *, train=False, mask=None) -> ForwardOut:
+        self._check_train(train)
         return ForwardOut(self._act(self._pre(params, x)), state, mask)
+
+    def score(self, params, state, x, labels, *,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Mean loss of the pre-activations [mb, t, n_out] against
+        ``labels`` (one-hot [mb, t, n_out] or class ids [mb, t])."""
+        return get_loss(self.loss)(labels, self._pre(params, x),
+                                   self.activation or "identity", mask)
+
+    def score_examples(self, params, state, x, labels, *,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[mb] scores: the per-timestep loss summed over the sequence."""
+        return summed_per_example(self.loss, labels, self._pre(params, x),
+                                  self.activation, mask)

@@ -1,32 +1,35 @@
 """MultiLayerNetwork — the sequential-stack model container (mirrors
-``deeplearning4j_tpu/nn/multilayer.py``; configuration, ``init`` and the
-inference path of ``output``).
+``deeplearning4j_tpu/nn/multilayer.py``: configuration, ``init``,
+``output``, ``score`` and training through ``fit_batch`` / ``fit``).
 
 Parameters are a list of per-layer dicts of tensors keyed as in the JAX
-trees.  The updater and gradient-normalization sections of the
-configuration are parsed and written back unchanged (unregistered
-config types stay plain dicts), so a checkpoint round-trips; training is
-a later slice, so they are not applied.
+trees; ``opt_state`` is the list of per-layer updater states (``{}`` for
+a layer without parameters).  One training step is the reference's:
+loss (output layer + L1/L2) → gradients by autograd → per-layer gradient
+normalization → per-layer updater ``apply``.  The update builds new
+tensors rather than writing in place, as the reference's pure step does.
+Not ported yet: the nan guard, TBPTT, ``fit_batches`` and the
+stochastic layer settings (dropout, weight noise).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
+from ..datasets.dataset import DataSet
 from ..ops.dtypes import canonical_dtype
+from ..optimize.score import LazyScore, materialize_scores
 from ..utils.device import DeviceLike, resolve_device
 from .conf.inputs import InputType
 from .layers.base import Layer, config_from_dict, config_to_dict
+from .updaters import (Adam, GradientNormalization, Updater,
+                       normalize_gradients, tree_leaves, tree_unflatten)
 
 Tensor = torch.Tensor
-
-#: the reference's default updater, ``Adam()``, as its configuration dict
-DEFAULT_UPDATER = {"type": "Adam", "lr": 1e-3, "beta1": 0.9, "beta2": 0.999,
-                   "eps": 1e-8, "moment_dtype": None}
 
 
 @dataclasses.dataclass
@@ -37,7 +40,7 @@ class MultiLayerConfiguration:
     layers: List[Layer] = dataclasses.field(default_factory=list)
     input_type: Optional[InputType] = None
     preprocessors: Dict[int, Any] = dataclasses.field(default_factory=dict)
-    updater: Any = dataclasses.field(default_factory=lambda: dict(DEFAULT_UPDATER))
+    updater: Any = dataclasses.field(default_factory=Adam)
     gradient_normalization: str = "none"
     gradient_normalization_threshold: float = 1.0
     seed: int = 12345
@@ -85,10 +88,10 @@ class ListBuilder:
         self._conf.seed = s
         return self
 
-    def updater(self, u: dict) -> "ListBuilder":
-        """The updater's configuration dict, e.g. ``{"type": "Adam",
-        "lr": 3e-4, ...}`` (carried, not applied)."""
-        self._conf.updater = u
+    def updater(self, u: Union[Updater, dict]) -> "ListBuilder":
+        """An updater object, or its configuration dict as a checkpoint
+        writes it (``{"type": "Adam", "lr": 3e-4, ...}``)."""
+        self._conf.updater = config_from_dict(u) if isinstance(u, dict) else u
         return self
 
     def gradient_normalization(self, mode: str, threshold: float = 1.0) -> "ListBuilder":
@@ -123,12 +126,13 @@ class NeuralNetConfiguration:
 
 
 class MultiLayerNetwork:
-    """Sequential model on one device: ``init`` / ``output`` / ``save``.
+    """Sequential model on one device: ``init`` / ``output`` / ``score``
+    / ``fit_batch`` / ``fit`` / ``save``.
 
     ``device`` defaults to ``cuda`` and raises without a card unless
     ``device="cpu"`` is passed.  ``carried_entries`` holds checkpoint
-    entries the port reads but does not use (``updater.npz``) as raw
-    bytes, written back unchanged by ``save``."""
+    entries the port reads but does not use (``grad_residual.npz``) as
+    raw bytes, written back unchanged by ``save``."""
 
     def __init__(self, conf: MultiLayerConfiguration, device: DeviceLike = None):
         self.conf = conf
@@ -143,7 +147,10 @@ class MultiLayerNetwork:
                 "compute dtypes")
         self.params: List[Dict[str, Tensor]] = []
         self.state: List[Dict[str, Tensor]] = []
+        self.opt_state: List[Dict] = []
         self.iteration = 0
+        self._it_dev: Optional[Tensor] = None   # iteration as an f32 on the device
+        self._it_dev_val = -1                   # the value _it_dev holds
         self.epoch = 0
         self.carried_entries: Dict[str, bytes] = {}
         self.input_types: List[InputType] = []
@@ -177,7 +184,16 @@ class MultiLayerNetwork:
         params, state = self._draw(generator)
         self.params = [{k: v.to(self.device) for k, v in p.items()} for p in params]
         self.state = [{k: v.to(self.device) for k, v in s.items()} for s in state]
+        self.opt_state = self.init_opt_state(self.params)
         self.iteration = 0
+
+    def _updater_for(self, layer: Layer) -> Updater:
+        return layer.updater if layer.updater is not None else self.conf.updater
+
+    def init_opt_state(self, params) -> List[Dict]:
+        """Fresh per-layer updater state for ``params`` (zeros)."""
+        return [self._updater_for(layer).init_state(p) if p else {}
+                for layer, p in zip(self.conf.layers, params)]
 
     def _draw(self, generator: torch.Generator):
         """Per-layer (params, state) lists drawn from ``generator``."""
@@ -194,24 +210,149 @@ class MultiLayerNetwork:
         with torch.device("meta"):
             return self._draw(torch.Generator())
 
-    def _apply_layers(self, params, state, x: Tensor, mask: Optional[Tensor]):
-        """Inference forward through every layer → (y, mask)."""
+    def _apply_layers(self, params, state, x: Tensor, mask: Optional[Tensor], *,
+                      train: bool = False, upto: Optional[int] = None):
+        """Forward through layers [0, upto) (all by default) → (y, mask)."""
         if x.is_floating_point():
             x = x.to(canonical_dtype(self.conf.compute_dtype))
-        for i, layer in enumerate(self.conf.layers):
-            out = layer.forward(params[i], state[i], x, mask=mask)
+        n = len(self.conf.layers) if upto is None else upto
+        for i in range(n):
+            out = self.conf.layers[i].forward(params[i], state[i], x, train=train,
+                                              mask=mask)
             x, mask = out.y, out.mask
         return x, mask
+
+    def _loss(self, params, state, x, labels, *, train: bool,
+              mask=None, label_mask=None) -> Tensor:
+        """Full score: the output layer's loss plus every layer's L1/L2."""
+        n = len(self.conf.layers)
+        h, mask_out = self._apply_layers(params, state, x, mask, train=train,
+                                         upto=n - 1)
+        last = self.conf.layers[n - 1]
+        last._check_train(train)
+        lm = label_mask if label_mask is not None else (
+            mask_out if labels is not None and labels.ndim == 3 else None)
+        if not hasattr(last, "score"):
+            raise ValueError(f"last layer {type(last).__name__} has no score(); "
+                             "use an output layer")
+        loss = last.score(params[n - 1], state[n - 1], h, labels, mask=lm)
+        acc = (torch.float64 if canonical_dtype(self.conf.compute_dtype) == torch.float64
+               else torch.float32)
+        reg = torch.zeros((), dtype=acc, device=loss.device)
+        for layer, p in zip(self.conf.layers, params):
+            if p:
+                reg = reg + layer.regularization_score(p).to(acc)
+        return loss.to(acc) + reg
+
+    def _apply_updates(self, grads, params, opt_state, it: Tensor):
+        """Per layer: gradient normalization, then the updater's ``apply``
+        (updater math + param step; Adam/Nadam take the fused kernel K4
+        when ``DL4J_TPU_FUSED_UPDATE=1``)."""
+        conf = self.conf
+        new_params, new_opt = [], []
+        for layer, g, p, os_ in zip(conf.layers, grads, params, opt_state):
+            if not p:
+                new_params.append(p)
+                new_opt.append(os_)
+                continue
+            if layer.constraints:
+                raise NotImplementedError(
+                    f"layer {layer.name or type(layer).__name__}: parameter "
+                    "constraints are not ported yet")
+            if conf.gradient_normalization != GradientNormalization.NONE:
+                g = normalize_gradients(g, conf.gradient_normalization,
+                                        conf.gradient_normalization_threshold)
+            p2, os2 = self._updater_for(layer).apply(p, g, os_, it)
+            new_params.append(p2)
+            new_opt.append(os2)
+        return new_params, new_opt
+
+    def _iter_tensor(self) -> Tensor:
+        """``iteration`` as a 0-dim f32 on the device, kept there and
+        advanced there, so a step reads it without a host copy."""
+        if self._it_dev is None or self._it_dev_val != self.iteration:
+            self._it_dev = torch.full((), float(self.iteration), dtype=torch.float32,
+                                      device=self.device)
+            self._it_dev_val = self.iteration
+        return self._it_dev
+
+    def _batch(self, ds: DataSet):
+        return tuple(None if a is None else self._as_tensor(a)
+                     for a in (ds.features, ds.labels, ds.features_mask, ds.labels_mask))
+
+    def _as_tensor(self, a) -> Tensor:
+        return torch.as_tensor(np.asarray(a) if not isinstance(a, Tensor) else a,
+                               device=self.device)
+
+    def _loss_and_grads(self, ds: DataSet):
+        """The training loss on ``ds`` and its gradient with respect to
+        every parameter, as per-layer dicts shaped like ``params``."""
+        x, y, m, lm = self._batch(ds)
+        live = [[t.detach().requires_grad_(True) for t in tree_leaves(p)]
+                for p in self.params]
+        params = [tree_unflatten(p, ls) for p, ls in zip(self.params, live)]
+        with torch.enable_grad():
+            loss = self._loss(params, self.state, x, y, train=True, mask=m,
+                              label_mask=lm)
+            flat = [t for ls in live for t in ls]
+            gflat = torch.autograd.grad(loss, flat) if flat else []
+        grads, off = [], 0
+        for p, ls in zip(self.params, live):
+            grads.append(tree_unflatten(p, list(gflat[off:off + len(ls)])))
+            off += len(ls)
+        return loss.detach(), grads
+
+    def fit_batch(self, ds: DataSet) -> LazyScore:
+        """One optimization step on one minibatch.  Returns the loss as a
+        :class:`LazyScore`: reading it syncs with the device, and a loop
+        that only chains steps never does."""
+        if self.conf.backprop_type == "tbptt":
+            raise NotImplementedError("TBPTT training is not ported yet")
+        loss, grads = self._loss_and_grads(ds)
+        it = self._iter_tensor()
+        with torch.no_grad():
+            self.params, self.opt_state = self._apply_updates(
+                grads, self.params, self.opt_state, it)
+            self._it_dev = it + 1
+        self.iteration += 1
+        self._it_dev_val = self.iteration
+        return LazyScore(loss)
+
+    def fit(self, data, epochs: int = 1) -> List[LazyScore]:
+        """Train on a DataSet, an ``(x, y)`` pair or a list / iterable of
+        DataSets for ``epochs`` passes; each epoch's scores are read in
+        one device copy at its end.  More than one epoch needs data that
+        can be iterated again (not a one-shot iterator)."""
+        if isinstance(data, DataSet):
+            data = [data]
+        elif isinstance(data, tuple) and len(data) == 2:
+            data = [DataSet(data[0], data[1])]
+        if epochs > 1 and iter(data) is data:
+            raise ValueError("fit(epochs > 1) needs data it can iterate again, "
+                             "e.g. a list of DataSets, not a one-shot iterator")
+        losses: List[LazyScore] = []
+        for _ in range(epochs):
+            start = len(losses)
+            for ds in data:
+                losses.append(self.fit_batch(ds))
+            materialize_scores(losses[start:])
+            self.epoch += 1
+        return losses
+
+    def score(self, ds: DataSet) -> float:
+        """Loss on a DataSet (regularization included) without updating."""
+        x, y, m, lm = self._batch(ds)
+        with torch.no_grad():
+            loss = self._loss(self.params, self.state, x, y, train=False, mask=m,
+                              label_mask=lm)
+        return float(loss)
 
     def output(self, x, mask=None) -> Tensor:
         """Inference activations of the last layer, a tensor on the
         network's device.  ``x`` is a tensor or array (token ids for a
         TransformerLM); ``mask`` [B, T] with 1 = real step."""
-        x = torch.as_tensor(np.asarray(x) if not isinstance(x, Tensor) else x,
-                            device=self.device)
-        m = None if mask is None else torch.as_tensor(
-            np.asarray(mask) if not isinstance(mask, Tensor) else mask,
-            device=self.device)
+        x = self._as_tensor(x)
+        m = None if mask is None else self._as_tensor(mask)
         with torch.inference_mode():
             y, _ = self._apply_layers(self.params, self.state, x, m)
         return y

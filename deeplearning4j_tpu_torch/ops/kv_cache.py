@@ -12,18 +12,26 @@ through each call, the port writes pages IN PLACE (no copy of a pool
 that can hold hundreds of MB); the write functions still return the
 pool so call sites read as in the reference.
 
-``det_attention`` keeps the reference's formulation: broadcast-multiply
-plus a trailing-axis sum over a fixed key length L with ``NEG_INF``
-masking, so every caller (prefill, decode step, re-encode) reduces each
-row the same way.  The reference's bitwise decode-vs-re-encode contract
-rests on XLA facts (row-count-invariant ``X @ W``); on CUDA that is
-measured, not assumed (PERF.md).  Eager PyTorch materializes the
-[B,H,Tq,L,d] product that XLA fuses away, so ``det_attention`` walks the
-query rows in chunks that keep each transient under ``DET_CHUNK_BYTES``.
+``det_attention`` is kernel D1 (``csrc/det_attention.cu``) on a CUDA
+tensor and ``det_attention_plain`` on a CPU tensor.  The reference's
+bitwise decode-vs-re-encode contract needs each query row's reduction
+order to depend on nothing but that row; D1 fixes that order (one warp
+per row, keys by lane in ascending order, fixed butterflies), and
+masked keys add exact zeros, so prefill (L keys), step (L keys) and
+re-encode (t keys) give the same bits.  ``det_attention_plain`` keeps
+the reference's formulation, broadcast-multiply plus trailing-axis sums
+with ``NEG_INF`` masking, and takes every sum in ascending order (a
+cumulative sum's last entry), so on the CPU too masked keys add exact
+zeros and the decode program holds the bitwise contract.  Eager PyTorch
+materializes the [B,H,Tq,L,d] product that XLA fuses away, so it walks
+the query rows in chunks that keep each transient under
+``DET_CHUNK_BYTES``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Any, Callable, NamedTuple
 
@@ -97,20 +105,29 @@ def gather_layer(pages: Tensor, layer: int, page_table: Tensor) -> Tensor:
     return g.reshape(s, pps * page, h, d)
 
 
+def _seq_sum(x: Tensor, dim: int) -> Tensor:
+    """Sum over ``dim`` taken in ascending order (the last entry of a
+    cumulative sum), so entries past a row's last nonzero one leave it
+    unchanged: a sum over L keys equals the sum over the first t when
+    the rest are exact zeros."""
+    return x.cumsum(dim=dim).select(dim, -1)
+
+
 def det_scores(q: Tensor, k: Tensor) -> Tensor:
-    """[B,H,Tq,d] x [B,H,L,d] → [B,H,Tq,L] by broadcast-multiply and a
-    trailing-axis sum."""
-    return (q[:, :, :, None, :] * k[:, :, None, :, :]).sum(dim=-1)
+    """[B,H,Tq,d] x [B,H,L,d] → [B,H,Tq,L] by broadcast-multiply and an
+    ordered trailing-axis sum."""
+    return _seq_sum(q[:, :, :, None, :] * k[:, :, None, :, :], -1)
 
 
 def det_weighted_sum(p: Tensor, v: Tensor) -> Tensor:
     """[B,H,Tq,L] x [B,H,L,d] → [B,H,Tq,d]; exact-zero weights
     contribute exact zeros."""
-    return (p[:, :, :, :, None] * v[:, :, None, :, :]).sum(dim=-2)
+    return _seq_sum(p[:, :, :, :, None] * v[:, :, None, :, :], -2)
 
 
-def det_attention(q: Tensor, k: Tensor, v: Tensor, bias: Tensor) -> Tensor:
-    """Row-deterministic attention over a FIXED key length L.
+def det_attention_plain(q: Tensor, k: Tensor, v: Tensor, bias: Tensor) -> Tensor:
+    """D1's plain PyTorch version: row-deterministic attention over a key
+    length L.
 
     ``q`` [B,H,Tq,d]; ``k``/``v`` [B,H,L,d]; ``bias`` broadcastable to
     [B,H,Tq,L], 0 on visible keys and ``NEG_INF`` elsewhere.  Query rows
@@ -126,9 +143,64 @@ def det_attention(q: Tensor, k: Tensor, v: Tensor, bias: Tensor) -> Tensor:
         b = min(Tq, a + rows)
         bias_c = bias[..., a:b, :] if bias.shape[-2] == Tq else bias
         s = det_scores(q[:, :, a:b], k) * scale + bias_c
-        p = torch.softmax(s, dim=-1)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e / _seq_sum(e, -1)[..., None]
         outs.append(det_weighted_sum(p, v))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
+@functools.lru_cache(maxsize=None)
+def _det_fn():
+    """``dl4j_det_attention`` from the built library, its C signature set once."""
+    from ..utils import cuda_build
+
+    fn = cuda_build.load("det_attention").dl4j_det_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def det_attention_cuda(q: Tensor, k: Tensor, v: Tensor, bias: Tensor) -> Tensor:
+    """Launch D1 (``csrc/det_attention.cu``) on CUDA tensors.  ``k`` and
+    ``v`` may be strided views (the gathered pages) with a unit last
+    stride; ``bias`` is read through its broadcast strides.  Raises for
+    anything the kernel does not take."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape \
+            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"det_attention wants q [B,H,Tq,d], k/v [B,H,L,d]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if not all(t.dtype == torch.float32 for t in (q, k, v, bias)):
+        raise TypeError("the det_attention kernel takes float32 q, k, v and bias")
+    if not all(t.is_cuda and t.device == q.device for t in (k, v, bias)) or not q.is_cuda:
+        raise ValueError("det_attention_cuda needs q, k, v, bias on one CUDA device")
+    B, H, Tq, d = q.shape
+    L = k.shape[2]
+    q = q.contiguous()
+    if k.stride(3) != 1 or k.stride() != v.stride():
+        k, v = k.contiguous(), v.contiguous()
+    bias = bias.expand(B, H, Tq, L)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _det_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                       out.data_ptr(), B, H, Tq, L, d, *k.stride()[:3],
+                       *bias.stride(), 1.0 / math.sqrt(d), stream)
+    if rc != 0:
+        raise RuntimeError(f"det_attention kernel launch failed (code {rc})")
+    det_attention_cuda.launches += 1
+    return out
+
+
+det_attention_cuda.launches = 0
+
+
+def det_attention(q: Tensor, k: Tensor, v: Tensor, bias: Tensor) -> Tensor:
+    """Row-deterministic attention over a key length L (D1 on the card,
+    the plain version on the CPU)."""
+    if q.device.type == "cpu":
+        return det_attention_plain(q, k, v, bias)
+    return det_attention_cuda(q, k, v, bias)
 
 
 class DecodeProgram(NamedTuple):

@@ -1,9 +1,10 @@
 """Bridges between numpy parameter trees and the port's parameters.
 
-The JAX package keeps a network's parameters as a list of per-layer
-dicts; ``params_to_numpy`` of a port network and ``np.asarray`` over a
-JAX tree give the same structure, so tests move identical weights
-between the two packages with these two functions.
+The JAX package keeps a network's parameters, and its optimizer state,
+as lists of per-layer (nested) dicts; ``params_to_numpy`` of a port
+network's ``params`` or ``opt_state`` and ``np.asarray`` over the JAX
+tree give the same structure, so tests start both packages from
+identical weights and Adam moments with these two functions.
 """
 
 from __future__ import annotations

@@ -1,14 +1,15 @@
 """Model serialization — the reference's checkpoint zip, read and written
 by the port (mirrors ``deeplearning4j_tpu/utils/serializer.py``).
 
-The zip holds ``configuration.json``, ``meta.json`` and ``params.npz`` /
-``state.npz`` with entries ``<layer_idx>/<param_name>``.  Versions 1-4
+The zip holds ``configuration.json``, ``meta.json`` (iteration, epoch),
+``params.npz`` / ``state.npz`` with entries ``<layer_idx>/<param_name>``
+and ``updater.npz``, the optimizer state, with entries
+``<layer_idx>/<slot>/<param_name>`` (``net.opt_state``).  Versions 1-4
 load: v2 stores bfloat16 leaves as uint16 bits under ``<name>#bfloat16``,
 v4 records a sha256 per entry in ``meta.json["integrity"]``, verified on
-load.  ``updater.npz`` and ``grad_residual.npz`` (training state) are
-carried as the raw bytes read and written back unchanged, so a
-checkpoint round-trips through the port; a zip written by either
-package loads in the other.
+load.  ``grad_residual.npz`` (compressed data-parallel training, not
+ported) is carried as the raw bytes read and written back unchanged.  A
+zip written by either package loads, and resumes training, in the other.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from .device import DeviceLike
 
 FORMAT_VERSION = 4
 SUPPORTED_VERSIONS = (1, 2, 3, 4)
-_CARRIED = ("updater.npz", "grad_residual.npz")
+_CARRIED = ("grad_residual.npz",)
 
 
 class CheckpointIntegrityError(RuntimeError):
@@ -93,9 +94,9 @@ def save_model(net, path: str, save_updater: bool = True,
                json.dumps(net.conf.to_dict(), indent=1).encode(),
                "params.npz": _npz_bytes(_flatten_tree(net.params)),
                "state.npz": _npz_bytes(_flatten_tree(net.state))}
-    for name, data in net.carried_entries.items():
-        if name != "updater.npz" or save_updater:
-            entries[name] = data
+    if save_updater:
+        entries["updater.npz"] = _npz_bytes(_flatten_tree(net.opt_state))
+    entries.update(net.carried_entries)
     meta = {
         "format_version": FORMAT_VERSION,
         "iteration": net.iteration,
@@ -137,9 +138,10 @@ def load_model(path: str, load_updater: bool = True, device: DeviceLike = None):
         params_flat = _load_npz(_read_verified(zf, "params.npz", integrity, path))
         state_flat = _load_npz(_read_verified(zf, "state.npz", integrity, path))
         names = zf.namelist()
+        upd_flat = _load_npz(_read_verified(zf, "updater.npz", integrity, path)) if (
+            load_updater and "updater.npz" in names) else None
         carried = {n: _read_verified(zf, n, integrity, path)
-                   for n in _CARRIED if n in names
-                   and (load_updater or n != "updater.npz")}
+                   for n in _CARRIED if n in names}
 
     if conf_d.get("type") == "ComputationGraphConfiguration":
         raise NotImplementedError("ComputationGraph checkpoints are not ported yet")
@@ -149,6 +151,8 @@ def load_model(path: str, load_updater: bool = True, device: DeviceLike = None):
     params_t, state_t = net.param_templates()
     net.params = _unflatten_into(params_t, params_flat, net.device)
     net.state = _unflatten_into(state_t, state_flat, net.device)
+    net.opt_state = (net.init_opt_state(net.params) if upd_flat is None else
+                     _unflatten_into(net.init_opt_state(params_t), upd_flat, net.device))
     net.carried_entries = carried
     net.iteration = meta.get("iteration", 0)
     net.epoch = meta.get("epoch", 0)

@@ -1,24 +1,34 @@
 #!/usr/bin/env python3
 """Where the device time goes on the PyTorch/CUDA port's main path (one GPU).
 
-    python3 scripts/torch_step_breakdown.py [--trace-dir DIR]
+    python3 scripts/torch_step_breakdown.py [--trace-dir DIR] [--decode-rows 64,128]
 
 Builds the full-width TransformerLM that ``chip_smoke.py`` drives (vocab
 50304, 12 layers, d_model 768, 12 heads, f32, random weights from the
-same numpy seed) and traces three pieces of work with ``torch.profiler``:
+same numpy seed) and traces these pieces of work with ``torch.profiler``:
 
   score    one ``MultiLayerNetwork.output`` on [4, 1024] tokens (kernel K1)
-  prefill  one decode prefill of a 512-token prompt (bucket 512, L 1024)
+  prefill  one decode prefill of a 512-token prompt (bucket 512, L 1024;
+           kernel D1)
   step     8 decode steps over 4 active slots near position 300, each
            with its sampling (two greedy slots, two at temperature 0.8 /
-           top_k 50), as the engine runs them
+           top_k 50), as the engine runs them (kernel D1)
+  train    one ``fit_batch`` on [8, 1024] tokens, Adam with
+           ``DL4J_TPU_FUSED_UPDATE=1`` (kernels K1-K4)
+  train_per_leaf  the same with the switch at 0: the per-leaf Adam step
+           instead of K4, for the A/B of the two update paths
 
-For each it prints one JSON line: the wall time of an untraced repeat
-(host clock around work that ends in ``torch.cuda.synchronize``), the
-device-busy time of the traced run (the union of its kernels' intervals),
-the device's idle share (1 - busy / wall), and the kernel time grouped
-by class and by name.  ``--trace-dir`` also writes each Chrome trace.
-Needs a CUDA device; exits non-zero without one.
+``--decode-rows`` measures prefill and step once for each chunk size of
+the decode program's per-position ops (``models.transformer.DECODE_ROWS``,
+64 by default); rows past the first are named ``prefill@R``/``step@R``.
+
+For each it prints one JSON line: the median wall time of 3 untraced
+repeats after warm-up calls (2; 3 for a training step), each on the host
+clock around work that ends in ``torch.cuda.synchronize``; the
+device-busy time of one traced run right after them (the union of its
+kernels' intervals); the device's idle share (1 - busy / wall); and the
+kernel time grouped by class and by name.  ``--trace-dir`` also writes
+each Chrome trace.  Needs a CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -34,6 +44,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: kernel-name fragments → class, first match wins
 _CLASSES = (
     ("flash_fwd", "K1 flash_fwd"),
+    ("flash_bwd_dkdv", "K2 flash_bwd_dkdv"), ("flash_bwd_dq", "K3 flash_bwd_dq"),
+    ("fused_update", "K4 fused_update"), ("det_attention", "D1 det_attention"),
     ("gemm", "gemm"), ("nvjet", "gemm"), ("xmma", "gemm"), ("cutlass", "gemm"),
     ("softmax", "softmax"),
     ("reduce", "reduce"),
@@ -74,16 +86,20 @@ def _busy_us(spans) -> float:
     return total
 
 
-def measure(name: str, fn, trace_dir):
+def measure(name: str, fn, trace_dir, warm: int = 2, repeats: int = 3):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()                                   # warm: allocator, cuBLAS heuristics
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(warm):                  # allocator, cuBLAS heuristics
+        fn()
+    walls = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = sorted(walls)[len(walls) // 2]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -95,7 +111,7 @@ def measure(name: str, fn, trace_dir):
         by_name[n] = (c + 1, t + (b - a) / 1e3)
     busy_ms = _busy_us(spans) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    rec = {"phase": name, "wall_ms": wall_ms,
+    rec = {"phase": name, "wall_ms": wall_ms, "wall_ms_repeats": walls,
            "device_busy_ms": busy_ms if spans else None,
            "idle_share": 1 - busy_ms / wall_ms if spans else None,
            "kernels": len(spans),
@@ -112,7 +128,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace-dir", default=None,
                     help="also write one Chrome trace per phase here")
+    ap.add_argument("--decode-rows", default="64",
+                    help="comma-separated chunk sizes of the decode program's "
+                         "per-position ops to measure prefill and step at")
     args = ap.parse_args()
+    decode_rows = [int(r) for r in args.decode_rows.split(",")]
 
     import numpy as np
     import torch
@@ -121,6 +141,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import chip_smoke as cs
+    from deeplearning4j_tpu_torch.models import transformer
     from deeplearning4j_tpu_torch.models.transformer import TransformerDecodeAdapter
     from deeplearning4j_tpu_torch.ops.kv_cache import alloc_cache
     from deeplearning4j_tpu_torch.ops.sampling import sample_tokens
@@ -140,23 +161,36 @@ def main() -> int:
                          prog.d_head, device=dev)
     table = torch.arange(1, 1 + 4 * pps, device=dev).reshape(4, pps)
     prompt = torch.from_numpy(rng.integers(0, cs.VOCAB, 512)).to(dev)
+    toks = torch.from_numpy(rng.integers(0, cs.VOCAB, 4)).to(dev)
+    pos = torch.tensor([300, 310, 320, 330], device=dev)
+    act = torch.ones(4, dtype=torch.bool, device=dev)
+
+    def steps():                           # the engine's step: forward + sampling
+        for j in range(8):
+            _, _, lgs = prog.step(params, kp, vp, table, toks, pos + j, act)
+            sample_tokens(lgs, [0.0, 0.8, 0.0, 0.8], [0, 50, 0, 50],
+                          [1.0] * 4, [1, 2, 3, 4], [j] * 4, prog.vocab_size)
+
     with torch.inference_mode():
         for i in range(4):                 # fill each slot's first 512 rows
             prog.prefill(params, kp, vp, table[i], prompt, 512)
-        measure("prefill",
-                lambda: prog.prefill(params, kp, vp, table[0], prompt, 512),
-                args.trace_dir)
-        toks = torch.from_numpy(rng.integers(0, cs.VOCAB, 4)).to(dev)
-        pos = torch.tensor([300, 310, 320, 330], device=dev)
-        act = torch.ones(4, dtype=torch.bool, device=dev)
+        for n, rows in enumerate(decode_rows):
+            transformer.DECODE_ROWS = rows  # read by per_row at each call
+            tag = "" if n == 0 else f"@{rows}"
+            measure("prefill" + tag,
+                    lambda: prog.prefill(params, kp, vp, table[0], prompt, 512),
+                    args.trace_dir)
+            measure("step" + tag, steps, args.trace_dir)
+        transformer.DECODE_ROWS = decode_rows[0]
 
-        def steps():                       # the engine's step: forward + sampling
-            for j in range(8):
-                _, _, lgs = prog.step(params, kp, vp, table, toks, pos + j, act)
-                sample_tokens(lgs, [0.0, 0.8, 0.0, 0.8], [0, 50, 0, 50],
-                              [1.0] * 4, [1, 2, 3, 4], [j] * 4, prog.vocab_size)
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.ops import update_kernel
 
-        measure("step", steps, args.trace_dir)
+    seq = torch.from_numpy(rng.integers(0, cs.VOCAB, (8, cs.MAX_LEN + 1))).to(dev)
+    batch = DataSet(seq[:, :-1], seq[:, 1:])
+    for name, switch in (("train", "1"), ("train_per_leaf", "0")):
+        os.environ[update_kernel.ENV_SWITCH] = switch
+        measure(name, lambda: net.fit_batch(batch), args.trace_dir, warm=3)
     return 0
 
 

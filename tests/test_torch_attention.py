@@ -149,3 +149,95 @@ def test_heads_layout_matches_jax():
     np.testing.assert_array_equal(tatt.merge_heads(st).numpy(), x)
     np.testing.assert_array_equal(tatt.causal_bias(4, 6, 2, 0).numpy(),
                                   np.asarray(jatt.causal_bias(4, 6, 2, 0)))
+
+
+# -- backward: K2/K3's plain versions and the autograd Function ------------------------
+
+
+def _jax_grads(q, k, v, g, causal, km, kernel=True):
+    """(dq, dk, dv) of <flash_mha(q, k, v), g> by jax.grad: the custom
+    VJP's Pallas backward (interpret mode) where the lengths tile, its
+    XLA backward where they do not."""
+    import jax
+
+    def f(q_, k_, v_):
+        o = jatt.flash_mha(q_, k_, v_, causal,
+                           kmask=None if km is None else jnp.asarray(km))
+        return jnp.sum(o * jnp.asarray(g))
+
+    return [np.asarray(a) for a in
+            jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
+
+
+def _port_grads(q, k, v, g, causal, km):
+    qt, kt, vt = (t.requires_grad_() for t in _t(q, k, v))
+    o = tatt.flash_mha(qt, kt, vt, causal,
+                       kmask=None if km is None else torch.from_numpy(km))
+    o.backward(torch.from_numpy(g))
+    return [t.grad.numpy() for t in (qt, kt, vt)]
+
+
+@pytest.mark.parametrize("t", [64, 20], ids=["tiles", "mha_route"])
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "kmask"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_backward_matches_jax_grad(causal, masked, t):
+    q, k, v = _qkv(2, 3, t, t, 16, seed=80 + t + 2 * causal + masked)
+    g = np.random.default_rng(81).standard_normal(q.shape, dtype=np.float32)
+    km = _kmask(2, t, seed=82) if masked else None
+    for got, want in zip(_port_grads(q, k, v, g, causal, km),
+                         _jax_grads(q, k, v, g, causal, km)):
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_flash_backward_plain_matches_jax_kernels():
+    b, h, t, d = 2, 2, 64, 16
+    q, k, v = _qkv(b, h, t, t, d, seed=83)
+    g = np.random.default_rng(84).standard_normal(q.shape, dtype=np.float32)
+    km = _kmask(b, t, seed=85)
+    scale = 1.0 / math.sqrt(d)
+    jq, jk, jv, jkm, jg = (jnp.asarray(a) for a in (q, k, v, km, g))
+    o_j, lse_j = jatt._flash_forward(jq, jk, jv, jkm, True, scale)
+    want = jatt._flash_backward(jq, jk, jv, jkm, o_j, lse_j, jg, True, scale)
+    qt, kt, vt, gt = _t(q, k, v, g)
+    o, lse = tatt.flash_forward(qt, kt, vt, torch.from_numpy(km), True, scale)
+    delta = tatt.flash_delta(o, gt)
+    got = tatt.flash_backward_plain(qt, kt, vt, gt, lse, delta, torch.from_numpy(km),
+                                    True, scale)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL)
+    dk, dv = tatt.flash_bwd_dkdv_plain(qt, kt, vt, gt, lse, delta,
+                                       torch.from_numpy(km), True, scale)
+    assert torch.equal(dk, got[1]) and torch.equal(dv, got[2])
+
+
+def test_rows_without_a_live_key_get_zero_gradients():
+    b, h, t, d = 1, 2, 32, 8
+    q, k, v = _qkv(b, h, t, t, d, seed=86)
+    g = np.random.default_rng(87).standard_normal(q.shape, dtype=np.float32)
+    km = np.ones((b, t), np.int32)
+    km[:, :4] = 0                      # causal rows 0..3 see no live key
+    dq, dk, dv = _port_grads(q, k, v, g, True, km)
+    assert not dq[:, :, :4].any()      # exactly zero, not merely small
+    assert not dk[:, :, :4].any() and not dv[:, :, :4].any()
+    for got, want in zip((dq, dk, dv), _jax_grads(q, k, v, g, True, km)):
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_flash_backward_on_cpu_takes_the_plain_versions():
+    q, k, v = _t(*_qkv(1, 1, 16, 16, 8, seed=88))
+    before = (tatt.flash_bwd_dkdv_cuda.launches, tatt.flash_bwd_dq_cuda.launches)
+    o, lse = tatt.flash_forward(q, k, v, None, True)
+    grads = tatt.flash_backward(q, k, v, None, o, lse, torch.ones_like(q), True,
+                                1.0 / math.sqrt(8))
+    assert (tatt.flash_bwd_dkdv_cuda.launches, tatt.flash_bwd_dq_cuda.launches) == before
+    assert all(gr.shape == q.shape for gr in grads)
+
+
+def test_float64_gradients_take_the_mha_route():
+    q, k, v = (torch.from_numpy(a.astype(np.float64)).requires_grad_()
+               for a in _qkv(1, 2, 24, 24, 8, seed=89))
+    tatt.flash_mha(q, k, v, True).sum().backward()
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    tatt.mha(q2, k2, v2, causal=True).sum().backward()
+    for a, b_ in ((q, q2), (k, k2), (v, v2)):
+        assert torch.equal(a.grad, b_.grad)

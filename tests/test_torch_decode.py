@@ -5,7 +5,8 @@ The same small LM (vocab 64, 2 blocks, d_model 64, 4 heads, max_len 64)
 serves 4 co-batched prompts, two greedy and two seeded at temperature
 > 0, in both engines: the tokens must be identical and the echoed
 logits, the prefill row first, agree at atol 1e-5 (f32, sums in another
-order).
+order).  Within the port, decode logits are bitwise the re-encode logits
+(the reference's contract), on the CPU as on the card.
 """
 
 import math
@@ -103,7 +104,7 @@ def test_greedy_tokens_are_the_reencode_argmax(port_run, prompts):
         seq = torch.tensor([p + r.tokens[:-1]])
         with torch.inference_mode():
             ref = eng.program.reencode(eng.params, seq)[0, len(p) - 1:].numpy()
-        np.testing.assert_allclose(r.logits, ref, atol=1e-5, rtol=0)
+        np.testing.assert_array_equal(r.logits, ref)
         if kw["temperature"] == 0.0:
             assert ref.argmax(-1).tolist() == r.tokens
 
@@ -204,6 +205,31 @@ def test_det_attention_matches_jax_and_chunks_bitwise(monkeypatch):
     monkeypatch.setattr(tkv, "DET_CHUNK_BYTES", 5 * row_bytes)   # 5 rows a chunk
     assert torch.equal(tkv.det_attention(*args), whole)
     assert math.ceil(Tq / 5) > 1
+
+
+def test_decode_program_ops_are_row_count_invariant():
+    from deeplearning4j_tpu_torch.models.transformer import DECODE_ROWS, per_row
+    rng = np.random.default_rng(6)
+    w = torch.from_numpy(rng.standard_normal((48, 40)).astype(np.float32))
+    row = torch.from_numpy(rng.standard_normal(48).astype(np.float32))
+    fn = lambda x: (x @ w, x.sum(-1, keepdim=True))
+    want = per_row(fn, row[None])
+    for n in (1, 4, DECODE_ROWS, DECODE_ROWS + 3, 3 * DECODE_ROWS):
+        x = torch.from_numpy(rng.standard_normal((n, 48)).astype(np.float32))
+        i = n // 2
+        x[i] = row
+        got = per_row(fn, x)
+        assert got[0].shape == (n, 40) and got[1].shape == (n, 1)
+        assert torch.equal(got[0][i], want[0][0]) and torch.equal(got[1][i], want[1][0])
+    # keys past a row's last visible one add exact zeros in det_attention
+    q = torch.from_numpy(rng.standard_normal((1, 2, 3, 8)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 2, 20, 8)).astype(np.float32))
+            for _ in range(2))
+    vis = torch.arange(20)[None, :] <= torch.tensor([4, 9, 11])[:, None]
+    bias = torch.where(vis, 0.0, tkv.NEG_INF).float()[None, None]
+    full = tkv.det_attention(q, k, v, bias)
+    assert torch.equal(full, tkv.det_attention(q, k[:, :, :12], v[:, :, :12],
+                                               bias[..., :12]))
 
 
 def test_alloc_cache_is_f32_only():
