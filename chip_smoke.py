@@ -5,10 +5,11 @@
 
 It builds every CUDA kernel of the port from ``deeplearning4j_tpu_torch/csrc``
 with ``nvcc`` (one process per source, started together), then drives the
-port's main path — TransformerLM inference, decode serving and training —
+port's main paths — TransformerLM inference, decode serving and training
 at the full width of the repository's benchmarked model (vocab 50304, 12
 layers, d_model 768, 12 heads, d_ff 3072, max_len 1024, f32, ~163M
-parameters; weights random from a numpy seed with GPT-2's initialisation):
+parameters; weights random from a numpy seed with GPT-2's initialisation),
+and the recurrent path's training and streaming:
 
   kernel  each kernel against its plain PyTorch version on the same inputs
           at the shapes the main path gives it: errors, median time, the
@@ -35,7 +36,25 @@ parameters; weights random from a numpy seed with GPT-2's initialisation):
           the loss is finite and falls on every step, each step launches
           K1 12, K2 12, K3 12 and K4 15 times, and one step's loss and
           per-layer clipped gradients agree with the port on the CPU with
-          the same weights at a cut ([1, 128] tokens).
+          the same weights at a cut ([1, 128] tokens);
+  recurrent  the char-RNN that bench config 4 trains, at its full width
+          (vocab 96, 2 x 256 units, softmax/mcxent head, Adam lr 1e-3,
+          elementwise clipping 1.0, TBPTT 50, one fixed [64, 100] batch of
+          ids, weights from a seed), K4 switched on: the LSTM stack as the
+          port runs it (K5a/K5b) and, for the A/B, with the plain cell
+          patched in, 5 ``fit_batch`` calls each, in turns (losses finite
+          and falling, equal across the arms within 1e-5, 200 K5a and 200
+          K5b launches per call through K5 and none with the plain
+          cell); the zoo's ``TextGenerationLSTM`` (GravesLSTM
+          peephole cells, which never reach K5) 5 calls; one K5 call at
+          [4, 100] against the port on the CPU (loss and every parameter
+          within 1e-4); then the trained K5 net saved, loaded on the card
+          and serving 64 greedy tokens from a 16-token prompt through the
+          CLI's recurrent ``generate`` path: K5a launches twice per token,
+          and every streamed distribution equals ``output()`` over the
+          whole sequence within 1e-5, through K5 and with the plain cell.
+          K5a/K5b are held to their plain versions at [64, 256], [64, 512],
+          [7, 256] and the stream's [1, 256], in f32 and bf16.
 
 Each phase prints JSON lines; then one ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -91,6 +110,34 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Device milliseconds per call of ``fn`` with the host's enqueue
+    hidden: a sleep kernel holds the stream while the calls are queued, so
+    the two events time only their work on the device (the gaps between
+    its kernels there included).  Where the enqueue outlasts the sleep the
+    time would include host waits: the run is repeated with a sleep four
+    times longer, and after three such runs it raises."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    cycles = 50_000_000                      # tens of ms at the card's clock
+    for _ in range(3):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        queued = not a.query()               # the sleep still holds the stream
+        b.synchronize()
+        if queued:
+            return a.elapsed_time(b) / iters
+        cycles *= 4
+    raise AssertionError("device_ms: the host's enqueue outlasted every sleep")
 
 
 # -- kernel phase ----------------------------------------------------------------
@@ -367,6 +414,99 @@ def fused_update_case(net):
     return rec
 
 
+# the counted operations of one (row, unit) of the LSTM cell, a
+# transcendental as one: 3 sigmoids (4 each), 2 tanhs, c' (3), h' (1);
+# the backward recomputes them and adds 22 products and differences
+LSTM_FWD_OPS, LSTM_BWD_OPS = 18, 40
+RNN_VOCAB, RNN_HIDDEN, RNN_B, RNN_T, RNN_TBPTT = 96, 256, 64, 100, 50
+
+
+def lstm_case(mb, n, dtype):
+    """K5a and K5b against their plain versions on one input set; returns
+    its record.  Times are device times (``device_ms``): one launch takes
+    a few microseconds on the card and tens on the host, so a launch timed
+    alone (``launch_ms``) reads the host's enqueue.  z ~ N(0, 1),
+    c ~ N(0, 0.25), dh and dc' ~ N(0, 0.01), a trained cell's ranges.
+    bf16 is held against the plain version evaluated in f32 on the same
+    bf16 inputs, element by element in units of one bf16 spacing
+    (2^-7 of the value, plus 1e-6): the kernel rounds each result once,
+    so each is within half a spacing; the bf16 plain version rounds after
+    every op (its gap is printed too).  The library's
+    ``_thnn_fused_lstm_cell`` (gate order [i|f|g|o], columns permuted
+    before timing) is a yardstick only."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import lstm_kernel as lk
+
+    rng = np.random.default_rng(SEED + 40 + mb + n)
+    dev = torch.device("cuda")
+    t = lambda shape, sd: torch.from_numpy(sd * rng.standard_normal(shape, dtype=np.float32))
+    z, c, dh, dcn = (x.to(dev, dtype) for x in (t((mb, 4 * n), 1.0), t((mb, n), 0.5),
+                                                 t((mb, n), 0.1), t((mb, n), 0.1)))
+    got = lk.lstm_cell_fwd_cuda(z, c) + lk.lstm_cell_bwd_cuda(z, c, dh, dcn)
+    torch.cuda.synchronize()
+    f32 = lambda *ts: [x.float() for x in ts]
+    want = lk.lstm_cell_plain(*f32(z, c)) + lk.lstm_cell_bwd_plain(*f32(z, c, dh, dcn))
+    same = lk.lstm_cell_plain(z, c) + lk.lstm_cell_bwd_plain(z, c, dh, dcn)
+    err = [float((a.float() - w).abs().max()) for a, w in zip(got, want)]
+    spacings = [float(((a.float() - w).abs() / (2.0 ** -7 * w.abs() + 1e-6)).max())
+                for a, w in zip(got, want)]
+    err_same = [float((a.float() - w.float()).abs().max()) for a, w in zip(got, same)]
+    dname = "float32" if dtype == torch.float32 else "bfloat16"
+    rec = {"phase": "kernel", "case": f"lstm_cell_{mb}x{n}_{dname}", "shape": [mb, n],
+           "dtype": dname, "library": "aten._thnn_fused_lstm_cell(_backward_impl)"}
+    # the library's cell: its gates [i|f|g|o], the hidden gates zero
+    zl = torch.cat([z[:, :2 * n], z[:, 3 * n:], z[:, 2 * n:3 * n]], dim=1).contiguous()
+    lib = getattr(torch.ops.aten, "_thnn_fused_lstm_cell", None)
+    lib_fwd = lib_bwd = None
+    if lib is None:
+        rec["library_error"] = "this torch has no aten._thnn_fused_lstm_cell"
+    else:
+        zeros = torch.zeros_like(zl)
+        try:
+            hy, cy, ws = lib(zl, zeros, c)
+            lib_bwd = lambda: torch.ops.aten._thnn_fused_lstm_cell_backward_impl(
+                dh, dcn, c, cy, ws, False)
+            lib_bwd()
+            lib_fwd = lambda: lib(zl, zeros, c)
+            rec["library_max_abs_err_h"] = float((hy.float() - got[0].float()).abs().max())
+        except RuntimeError as e:        # a yardstick only: its absence is recorded
+            lib_bwd = None
+            rec["library_error"] = str(e).splitlines()[0]
+    es = z.element_size()
+    for name, fn, plain, libfn, outs, vals, ops in (
+            ("lstm_cell_fwd", lambda: lk.lstm_cell_fwd_cuda(z, c),
+             lambda: lk.lstm_cell_plain(z, c), lib_fwd, slice(0, 2), 7, LSTM_FWD_OPS),
+            ("lstm_cell_bwd", lambda: lk.lstm_cell_bwd_cuda(z, c, dh, dcn),
+             lambda: lk.lstm_cell_bwd_plain(z, c, dh, dcn), lib_bwd, slice(2, 4),
+             12, LSTM_BWD_OPS)):
+        b_ms, b_by = bound(float(ops * mb * n), float(vals * mb * n * es), "float32")
+        rec[name] = {"max_abs_err": max(err[outs]), "max_err_bf16_spacings": max(spacings[outs]),
+                     "max_abs_err_vs_same_dtype_plain": max(err_same[outs]),
+                     "ms": device_ms(fn), "plain_ms": device_ms(plain),
+                     "library_ms": None if libfn is None else device_ms(libfn),
+                     "launch_ms": cuda_ms(fn, 20),
+                     "bound_ms": b_ms, "bound_by": b_by, "bytes": vals * mb * n * es}
+    emit(rec)
+    return rec
+
+
+def phase_kernel_lstm():
+    import torch
+    # f32: 2e-6 max abs (the same rounded ops; expf/tanhf may differ in the
+    # last bit); bf16: every element within one bf16 spacing
+    ok = {"float32": lambda r: r["max_abs_err"] <= 2e-6,
+          "bfloat16": lambda r: r["max_err_bf16_spacings"] <= 1.0}
+    recs = [lstm_case(mb, n, dt) for dt in (torch.float32, torch.bfloat16)
+            for mb, n in ((RNN_B, RNN_HIDDEN), (RNN_B, 512), (7, RNN_HIDDEN), (1, RNN_HIDDEN))]
+    bad = [f"{r['case']}/{k}" for r in recs for k in ("lstm_cell_fwd", "lstm_cell_bwd")
+           if not ok[r["dtype"]](r[k])]
+    if bad:
+        raise AssertionError(f"LSTM cell kernels disagree with their plain versions: {bad}")
+    return recs[0]
+
+
 # -- the model ----------------------------------------------------------------------
 
 
@@ -572,7 +712,7 @@ def phase_train(net):
     cpu.state = [{} for _ in net.params]
     clipped = []
     for m in (net, cpu):
-        loss, grads = m._loss_and_grads(cut)
+        loss, grads, _ = m._loss_and_grads(cut)
         clipped.append((float(loss), [
             [t.cpu() for t in tree_leaves(normalize_gradients(
                 g, conf.gradient_normalization, conf.gradient_normalization_threshold))]
@@ -623,6 +763,165 @@ def phase_train(net):
     return rec
 
 
+# -- recurrent phase -------------------------------------------------------------------
+
+
+def build_rnn(device, cell: str = "LSTM"):
+    """Bench config 4's char-RNN (``bench.py``: ``TextGenerationLSTM`` at
+    vocab 96 with Adam lr 1e-3) with ``cell`` layers, weights drawn from
+    the configuration's seed, so every build starts from the same ones."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Adam, GradientNormalization
+
+    conf = (NeuralNetConfiguration.builder().seed(SEED).updater(Adam(lr=1e-3))
+            .gradient_normalization(GradientNormalization.CLIP_ELEMENTWISE_ABSOLUTE, 1.0)
+            .layer(getattr(L, cell)(n_out=RNN_HIDDEN)).layer(getattr(L, cell)(n_out=RNN_HIDDEN))
+            .layer(L.RnnOutputLayer(n_out=RNN_VOCAB, activation="softmax", loss="mcxent"))
+            .tbptt(RNN_TBPTT).set_input_type(InputType.recurrent(RNN_VOCAB)).build())
+    net = MultiLayerNetwork(conf, device=device)
+    net.init()
+    return net
+
+
+def phase_recurrent():
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.nn.layers import recurrent
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.ops import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.ops import update_kernel as uk
+    from deeplearning4j_tpu_torch.utils.serializer import load_model, save_model
+
+    os.environ[uk.ENV_SWITCH] = "1"
+    rng = np.random.default_rng(SEED + 50)
+    seq = rng.integers(0, RNN_VOCAB, (RNN_B, RNN_T + 1)).astype(np.int32)
+    dev = torch.device("cuda")
+    ds = DataSet(torch.from_numpy(seq[:, :-1]).to(dev), torch.from_numpy(seq[:, 1:]).to(dev))
+    counters = {"lstm_cell_fwd": lk.lstm_cell_fwd_cuda, "lstm_cell_bwd": lk.lstm_cell_bwd_cuda,
+                "fused_update": uk.fused_update_cuda}
+
+    def plain_cell(fn):
+        """``fn()`` with the plain cell patched in where the layers call
+        the fused one: the A/B's other arm."""
+        recurrent.fused_lstm_cell = lk.lstm_cell_plain
+        try:
+            return fn()
+        finally:
+            recurrent.fused_lstm_cell = lk.fused_lstm_cell
+
+    def call(net):
+        """One fit_batch; the counts are set to 0 just before it and read
+        just after."""
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = net.fit_batch(ds)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        return float(loss), sec, {k: c.launches for k, c in counters.items()}
+
+    # the two arms in turns, so drift on the host touches both alike
+    arms = {"k5": build_rnn("cuda"), "plain_cell": build_rnn("cuda")}
+    runs = {name: [] for name in arms}
+    for _ in range(5):
+        runs["k5"].append(call(arms["k5"]))
+        runs["plain_cell"].append(plain_cell(lambda: call(arms["plain_cell"])))
+    zoo = TextGenerationLSTM(vocab_size=RNN_VOCAB, updater=Adam(lr=1e-3), seed=SEED,
+                             device="cuda")
+    runs["zoo_graves"] = [call(zoo) for _ in range(5)]
+    chunks = -(-RNN_T // RNN_TBPTT)
+    want = {"k5": {"lstm_cell_fwd": 2 * RNN_T, "lstm_cell_bwd": 2 * RNN_T,
+                   "fused_update": 3 * chunks},
+            "plain_cell": {"lstm_cell_fwd": 0, "lstm_cell_bwd": 0, "fused_update": 3 * chunks},
+            "zoo_graves": {"lstm_cell_fwd": 0, "lstm_cell_bwd": 0, "fused_update": 3 * chunks}}
+    arms_rec = {}
+    for name, rs in runs.items():
+        losses = [r[0] for r in rs]
+        med = sorted(r[1] for r in rs)[2]
+        arms_rec[name] = {"losses": losses, "fit_batch_s": [r[1] for r in rs],
+                          "median_fit_batch_ms": med * 1e3,
+                          "chars_per_s": RNN_B * RNN_T / med,
+                          "launches_per_call": [r[2] for r in rs],
+                          "launches_ok": all(r[2] == want[name] for r in rs),
+                          "finite_and_falling": (all(math.isfinite(x) for x in losses)
+                                                 and losses[-1] < losses[0])}
+    arm_gap = max(abs(a[0] - b[0]) for a, b in zip(runs["k5"], runs["plain_cell"]))
+
+    # one K5 call at [4, 100], card against the port on the CPU, same weights
+    small = DataSet(seq[:4, :-1], seq[:4, 1:])
+    pair = [build_rnn("cuda"), build_rnn("cpu")]
+    cpu_losses = [float(m.fit_batch(small)) for m in pair]
+    rel = max(float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30))
+              for pa, pb in zip(pair[0].params, pair[1].params) for a, b in
+              ((pa[k], pb[k]) for k in pa))
+
+    # serve: the trained K5 net through a checkpoint and the CLI's path
+    net = arms["k5"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "charrnn.zip")
+        save_model(net, path)
+        served = load_model(path, device="cuda")
+    prompt = rng.integers(0, RNN_VOCAB, 16).tolist()
+    stamps, streamed = [], []
+    step_fn = served.rnn_time_step
+
+    def timed_step(x):
+        stamps.append(time.perf_counter())
+        y = step_fn(x)
+        streamed.append(y)
+        return y
+
+    served.rnn_time_step = timed_step
+    cli.generate_recurrent(served, prompt, 4)          # warm the allocator and cuBLAS
+    stamps.clear()
+    streamed.clear()
+    lk.lstm_cell_fwd_cuda.launches = 0
+    toks = cli.generate_recurrent(served, prompt, 64)
+    stamps.append(time.perf_counter())
+    k5a_serve = lk.lstm_cell_fwd_cuda.launches
+    del served.rnn_time_step
+    gaps = sorted((b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:]))
+    stream = torch.cat([streamed[0][0]] + streamed[1:], dim=0)   # [16 + 64, vocab]
+    whole = np.asarray([prompt + toks], np.int32)
+    full = served.output(whole)[0]
+    stream_err = float((stream - full).abs().max())
+    # the stream ran K5a at [1, 256]; the plain cell is its independent check
+    stream_plain_err = float((stream - plain_cell(lambda: served.output(whole))[0]).abs().max())
+    greedy = [int(streamed[k][0, -1].argmax()) if k == 0 else int(streamed[k][0].argmax())
+              for k in range(64)]
+    rec = {"phase": "recurrent", "config": {"vocab": RNN_VOCAB, "layers": [RNN_HIDDEN] * 2,
+                                            "batch": [RNN_B, RNN_T], "tbptt": RNN_TBPTT,
+                                            "updater": "Adam(lr=1e-3)", "clip": 1.0},
+           "arms": arms_rec, "arm_loss_max_abs_diff": arm_gap, "tolerance_arms": 1e-5,
+           "cpu_cut": [4, RNN_T], "cpu_loss_abs_diff": abs(cpu_losses[0] - cpu_losses[1]),
+           "cpu_param_rel_diff": rel, "tolerance_cpu": 1e-4,
+           "serve": {"prompt": 16, "tokens": len(toks), "k5a_launches": k5a_serve,
+                     "k5a_per_token": k5a_serve / (16 + len(toks)),
+                     "prompt_ms": (stamps[1] - stamps[0]) * 1e3,
+                     "token_ms_p50": gaps[len(gaps) // 2],
+                     "token_ms_p99": gaps[min(len(gaps) - 1, int(0.99 * len(gaps)))],
+                     "stream_vs_output_max_abs_diff": stream_err,
+                     "stream_vs_plain_cell_output_max_abs_diff": stream_plain_err,
+                     "greedy_is_stream_argmax": greedy == toks}}
+    emit(rec)
+    ok = (all(a["launches_ok"] and a["finite_and_falling"] for a in arms_rec.values())
+          and arm_gap <= 1e-5 and abs(cpu_losses[0] - cpu_losses[1]) <= 1e-4 and rel <= 1e-4
+          and len(toks) == 64 and k5a_serve == 2 * (16 + 64) and stream_err <= 1e-5
+          and stream_plain_err <= 1e-5 and greedy == toks)
+    if not ok:
+        raise AssertionError("recurrent phase failed")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -646,11 +945,16 @@ def main() -> int:
           "libraries": {k: os.path.relpath(str(v), REPO) for k, v in built.items()}})
 
     k1, bwd, det = phase_kernel()
+    k5 = phase_kernel_lstm()
     net = build_model()
     score = phase_score(net)
     serve = phase_serve(net)
     train = phase_train(net)
     k4 = fused_update_case(net)
+    del net
+    torch.cuda.empty_cache()
+    rnn = phase_recurrent()
+    k5_launches = rnn["arms"]["k5"]["launches_per_call"][0]
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda",
@@ -675,6 +979,10 @@ def main() -> int:
         entry("det_attention", "det_attention.cu",
               "deeplearning4j_tpu/ops/kv_cache.py:362",
               serve["launches"]["det_attention"], det),
+        entry("lstm_cell_fwd", "lstm_cell.cu", "deeplearning4j_tpu/ops/lstm_kernel.py:81",
+              k5_launches["lstm_cell_fwd"], k5["lstm_cell_fwd"]),
+        entry("lstm_cell_bwd", "lstm_cell.cu", "deeplearning4j_tpu/ops/lstm_kernel.py:87",
+              k5_launches["lstm_cell_bwd"], k5["lstm_cell_bwd"]),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
+from .textgen_lstm import TextGenerationLSTM
 from .transformer import (PositionalEmbedding, TransformerBlock,
                           TransformerDecodeAdapter, TransformerLM)
 
-__all__ = ["PositionalEmbedding", "TransformerBlock",
+__all__ = ["PositionalEmbedding", "TextGenerationLSTM", "TransformerBlock",
            "TransformerDecodeAdapter", "TransformerLM"]

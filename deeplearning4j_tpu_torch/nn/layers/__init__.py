@@ -3,11 +3,13 @@ from .base import (CONFIG_REGISTRY, ForwardOut, Layer, config_from_dict,
                    register_config, register_layer)
 from .feedforward import Embedding, EmbeddingSequence
 from .normalization import layer_norm
-from .recurrent import RnnOutputLayer
+from .recurrent import (LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM,
+                        LastTimeStep, RnnOutputLayer, SimpleRnn)
 
 __all__ = [
     "CONFIG_REGISTRY", "ForwardOut", "Layer", "config_from_dict",
     "config_to_dict", "layer_from_dict", "layer_to_dict", "register_config",
     "register_layer", "Embedding", "EmbeddingSequence", "layer_norm",
-    "RnnOutputLayer",
+    "LSTM", "Bidirectional", "GravesBidirectionalLSTM", "GravesLSTM",
+    "LastTimeStep", "RnnOutputLayer", "SimpleRnn",
 ]

@@ -93,12 +93,14 @@ def layer_from_dict(d: dict) -> "Layer":
 
 
 class ForwardOut(NamedTuple):
-    """Result of ``Layer.forward``: activations, non-trainable state and
-    the per-timestep mask threaded through the stack."""
+    """Result of ``Layer.forward``: activations, non-trainable state, the
+    per-timestep mask threaded through the stack, and the recurrent
+    carry a layer emits when driven with one (TBPTT chunks, streaming)."""
 
     y: Tensor
     state: Dict[str, Tensor]
     mask: Optional[Tensor]
+    carry: Any = None
 
 
 @dataclasses.dataclass
@@ -123,6 +125,13 @@ class Layer:
 
     #: expected input kind: None = any, else "ff" / "cnn" / "rnn"
     wants: ClassVar[Optional[str]] = None
+    #: True for layers whose forward() takes a ``carry`` argument
+    #: (LSTM, SimpleRnn): TBPTT chunking and streaming thread it
+    recurrent: ClassVar[bool] = False
+
+    def init_carry(self, mb: int, dtype=torch.float32, device=None):
+        """Zero recurrent carry for batch size ``mb`` (None if stateless)."""
+        return None
 
     def output_type(self, in_type: InputType) -> InputType:
         return in_type

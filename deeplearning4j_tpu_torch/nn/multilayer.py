@@ -1,6 +1,7 @@
 """MultiLayerNetwork — the sequential-stack model container (mirrors
 ``deeplearning4j_tpu/nn/multilayer.py``: configuration, ``init``,
-``output``, ``score`` and training through ``fit_batch`` / ``fit``).
+``output``, ``score``, training through ``fit_batch`` / ``fit`` with
+standard backprop or TBPTT, and streaming through ``rnn_time_step``).
 
 Parameters are a list of per-layer dicts of tensors keyed as in the JAX
 trees; ``opt_state`` is the list of per-layer updater states (``{}`` for
@@ -8,8 +9,9 @@ a layer without parameters).  One training step is the reference's:
 loss (output layer + L1/L2) → gradients by autograd → per-layer gradient
 normalization → per-layer updater ``apply``.  The update builds new
 tensors rather than writing in place, as the reference's pure step does.
-Not ported yet: the nan guard, TBPTT, ``fit_batches`` and the
-stochastic layer settings (dropout, weight noise).
+Recurrent layers thread a carry (``carries``, one entry per layer) through
+TBPTT chunks and streaming calls.  Not ported yet: the nan guard,
+``fit_batches`` and the stochastic layer settings (dropout, weight noise).
 """
 
 from __future__ import annotations
@@ -30,6 +32,14 @@ from .updaters import (Adam, GradientNormalization, Updater,
                        normalize_gradients, tree_leaves, tree_unflatten)
 
 Tensor = torch.Tensor
+
+
+def _detached(carry):
+    """A layer's carry (a tensor, a tuple of tensors, or None) cut from the
+    autograd graph."""
+    if isinstance(carry, tuple):
+        return tuple(t.detach() for t in carry)
+    return None if carry is None else carry.detach()
 
 
 @dataclasses.dataclass
@@ -110,6 +120,13 @@ class ListBuilder:
         self._conf.input_type = t
         return self
 
+    def tbptt(self, length: int) -> "ListBuilder":
+        """Truncated BPTT: ``fit_batch`` takes one optimizer step per
+        ``length`` time steps, carrying recurrent state between chunks."""
+        self._conf.backprop_type = "tbptt"
+        self._conf.tbptt_length = length
+        return self
+
     def dtype(self, param_dtype: str = "float32", compute_dtype: str = "float32") -> "ListBuilder":
         self._conf.param_dtype = param_dtype
         self._conf.compute_dtype = compute_dtype
@@ -153,6 +170,7 @@ class MultiLayerNetwork:
         self._it_dev_val = -1                   # the value _it_dev holds
         self.epoch = 0
         self.carried_entries: Dict[str, bytes] = {}
+        self._stream_carries: Optional[List[Any]] = None   # rnn_time_step state
         self.input_types: List[InputType] = []
         self._infer_types()
 
@@ -211,23 +229,33 @@ class MultiLayerNetwork:
             return self._draw(torch.Generator())
 
     def _apply_layers(self, params, state, x: Tensor, mask: Optional[Tensor], *,
-                      train: bool = False, upto: Optional[int] = None):
-        """Forward through layers [0, upto) (all by default) → (y, mask)."""
+                      train: bool = False, upto: Optional[int] = None, carries=None):
+        """Forward through layers [0, upto) (all by default) → (y, mask,
+        new_carries).  ``carries`` (one entry per layer, or None for zero
+        state) threads recurrent hidden state for TBPTT and streaming."""
+        # layers that need the compute dtype apart from their input's
+        # (integer-id LSTM inputs) read it from this attribute
+        for layer in self.conf.layers:
+            layer._compute_dtype = self.conf.compute_dtype
         if x.is_floating_point():
             x = x.to(canonical_dtype(self.conf.compute_dtype))
         n = len(self.conf.layers) if upto is None else upto
+        new_carries = list(carries) if carries is not None else [None] * len(self.conf.layers)
         for i in range(n):
-            out = self.conf.layers[i].forward(params[i], state[i], x, train=train,
-                                              mask=mask)
+            layer = self.conf.layers[i]
+            kwargs = {"carry": carries[i]} if layer.recurrent and carries is not None else {}
+            out = layer.forward(params[i], state[i], x, train=train, mask=mask, **kwargs)
             x, mask = out.y, out.mask
-        return x, mask
+            new_carries[i] = out.carry
+        return x, mask, new_carries
 
     def _loss(self, params, state, x, labels, *, train: bool,
-              mask=None, label_mask=None) -> Tensor:
-        """Full score: the output layer's loss plus every layer's L1/L2."""
+              mask=None, label_mask=None, carries=None):
+        """Full score: the output layer's loss plus every layer's L1/L2
+        → (loss, new_carries)."""
         n = len(self.conf.layers)
-        h, mask_out = self._apply_layers(params, state, x, mask, train=train,
-                                         upto=n - 1)
+        h, mask_out, new_carries = self._apply_layers(
+            params, state, x, mask, train=train, upto=n - 1, carries=carries)
         last = self.conf.layers[n - 1]
         last._check_train(train)
         lm = label_mask if label_mask is not None else (
@@ -242,7 +270,7 @@ class MultiLayerNetwork:
         for layer, p in zip(self.conf.layers, params):
             if p:
                 reg = reg + layer.regularization_score(p).to(acc)
-        return loss.to(acc) + reg
+        return loss.to(acc) + reg, new_carries
 
     def _apply_updates(self, grads, params, opt_state, it: Tensor):
         """Per layer: gradient normalization, then the updater's ``apply``
@@ -284,31 +312,31 @@ class MultiLayerNetwork:
         return torch.as_tensor(np.asarray(a) if not isinstance(a, Tensor) else a,
                                device=self.device)
 
-    def _loss_and_grads(self, ds: DataSet):
-        """The training loss on ``ds`` and its gradient with respect to
-        every parameter, as per-layer dicts shaped like ``params``."""
+    def _loss_and_grads(self, ds: DataSet, carries=None):
+        """The training loss on ``ds``, its gradient with respect to every
+        parameter (per-layer dicts shaped like ``params``) and the
+        recurrent carries after it, detached: the next TBPTT chunk takes
+        them as constants, as the reference differentiates each chunk on
+        its own."""
         x, y, m, lm = self._batch(ds)
         live = [[t.detach().requires_grad_(True) for t in tree_leaves(p)]
                 for p in self.params]
         params = [tree_unflatten(p, ls) for p, ls in zip(self.params, live)]
         with torch.enable_grad():
-            loss = self._loss(params, self.state, x, y, train=True, mask=m,
-                              label_mask=lm)
+            loss, new_carries = self._loss(params, self.state, x, y, train=True, mask=m,
+                                           label_mask=lm, carries=carries)
             flat = [t for ls in live for t in ls]
             gflat = torch.autograd.grad(loss, flat) if flat else []
         grads, off = [], 0
         for p, ls in zip(self.params, live):
             grads.append(tree_unflatten(p, list(gflat[off:off + len(ls)])))
             off += len(ls)
-        return loss.detach(), grads
+        return loss.detach(), grads, [_detached(c) for c in new_carries]
 
-    def fit_batch(self, ds: DataSet) -> LazyScore:
-        """One optimization step on one minibatch.  Returns the loss as a
-        :class:`LazyScore`: reading it syncs with the device, and a loop
-        that only chains steps never does."""
-        if self.conf.backprop_type == "tbptt":
-            raise NotImplementedError("TBPTT training is not ported yet")
-        loss, grads = self._loss_and_grads(ds)
+    def _step(self, ds: DataSet, carries=None):
+        """One optimizer step on ``ds`` at the current iteration, which it
+        advances → (loss, carries after it)."""
+        loss, grads, carries = self._loss_and_grads(ds, carries)
         it = self._iter_tensor()
         with torch.no_grad():
             self.params, self.opt_state = self._apply_updates(
@@ -316,7 +344,80 @@ class MultiLayerNetwork:
             self._it_dev = it + 1
         self.iteration += 1
         self._it_dev_val = self.iteration
-        return LazyScore(loss)
+        return loss, carries
+
+    def fit_batch(self, ds: DataSet) -> LazyScore:
+        """One optimization step on one minibatch (one per chunk under
+        TBPTT).  Returns the loss as a :class:`LazyScore`: reading it
+        syncs with the device, and a loop that only chains steps never
+        does."""
+        if self.conf.backprop_type == "tbptt":
+            return self._fit_batch_tbptt(ds)
+        return LazyScore(self._step(ds)[0])
+
+    def _init_carries(self, mb: int):
+        dtype = canonical_dtype(self.conf.compute_dtype)
+        return [l.init_carry(mb, dtype, self.device) if l.recurrent else None
+                for l in self.conf.layers]
+
+    def _fit_batch_tbptt(self, ds: DataSet) -> LazyScore:
+        """Truncated BPTT: the time axis in ``tbptt_length`` chunks, one
+        optimizer step per chunk (at iterations ``iteration``,
+        ``iteration + 1``, ...), recurrent state carried from chunk to
+        chunk.  The score is the mean of the full chunks' losses, folded
+        with a ragged tail chunk as (mean·n + tail) / (n + 1)."""
+        x, y, m, lm = self._batch(ds)
+
+        def rank_ok(a):
+            return a.ndim == 3 or (a.ndim == 2 and not a.is_floating_point())
+        if not rank_ok(x) or (y is not None and not rank_ok(y)):
+            raise ValueError("TBPTT requires [mb, time, features] inputs and "
+                             "[mb, time, classes] labels (or [mb, time] "
+                             "integer index arrays)")
+        L = self.conf.tbptt_length
+        mb, T = x.shape[0], x.shape[1]
+        n, tail = divmod(T, L)
+        carries = self._init_carries(mb)
+
+        def cut(a, s):
+            return None if a is None else a[:, s:s + L]
+        losses = []
+        for s in range(0, T, L):
+            loss, carries = self._step(DataSet(cut(x, s), cut(y, s), cut(m, s), cut(lm, s)),
+                                       carries)
+            losses.append(loss)
+        mean = torch.stack(losses[:n]).mean() if n else None
+        if tail:
+            mean = losses[-1] if mean is None else (mean * n + losses[-1]) / (n + 1)
+        return LazyScore(mean)
+
+    def rnn_time_step(self, x) -> Tensor:
+        """Streaming inference that keeps recurrent state across calls:
+        one step [mb, f] (or [mb] integer ids) or several [mb, t, f]
+        ([mb, t] ids) → the last layer's activations, a tensor on the
+        network's device ([mb, out] for one step).  A new batch size
+        starts from zero state."""
+        x = self._as_tensor(x)
+        squeeze = x.ndim == (2 if x.is_floating_point() else 1)
+        if squeeze:
+            x = x[:, None]
+        mb = x.shape[0]
+        if self._stream_carries is not None:
+            first = next((c for c in self._stream_carries if c is not None), None)
+            first = first[0] if isinstance(first, tuple) else first
+            if first is not None and first.shape[0] != mb:
+                self._stream_carries = None
+        if self._stream_carries is None:
+            self._stream_carries = self._init_carries(mb)
+        with torch.inference_mode():
+            y, _, self._stream_carries = self._apply_layers(
+                self.params, self.state, x, None, carries=self._stream_carries)
+        return y[:, 0] if squeeze and y.ndim == 3 else y
+
+    def rnn_clear_previous_state(self) -> None:
+        """Forget the streaming state: the next ``rnn_time_step`` starts
+        from zeros."""
+        self._stream_carries = None
 
     def fit(self, data, epochs: int = 1) -> List[LazyScore]:
         """Train on a DataSet, an ``(x, y)`` pair or a list / iterable of
@@ -343,8 +444,8 @@ class MultiLayerNetwork:
         """Loss on a DataSet (regularization included) without updating."""
         x, y, m, lm = self._batch(ds)
         with torch.no_grad():
-            loss = self._loss(self.params, self.state, x, y, train=False, mask=m,
-                              label_mask=lm)
+            loss, _ = self._loss(self.params, self.state, x, y, train=False, mask=m,
+                                 label_mask=lm)
         return float(loss)
 
     def output(self, x, mask=None) -> Tensor:
@@ -354,7 +455,7 @@ class MultiLayerNetwork:
         x = self._as_tensor(x)
         m = None if mask is None else self._as_tensor(mask)
         with torch.inference_mode():
-            y, _ = self._apply_layers(self.params, self.state, x, m)
+            y, _, _ = self._apply_layers(self.params, self.state, x, m)
         return y
 
     def save(self, path: str, save_updater: bool = True) -> None:

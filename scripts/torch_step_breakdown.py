@@ -5,7 +5,8 @@
 
 Builds the full-width TransformerLM that ``chip_smoke.py`` drives (vocab
 50304, 12 layers, d_model 768, 12 heads, f32, random weights from the
-same numpy seed) and traces these pieces of work with ``torch.profiler``:
+same numpy seed), then its char-RNN, and traces these pieces of work with
+``torch.profiler``:
 
   score    one ``MultiLayerNetwork.output`` on [4, 1024] tokens (kernel K1)
   prefill  one decode prefill of a 512-token prompt (bucket 512, L 1024;
@@ -17,6 +18,14 @@ same numpy seed) and traces these pieces of work with ``torch.profiler``:
            ``DL4J_TPU_FUSED_UPDATE=1`` (kernels K1-K4)
   train_per_leaf  the same with the switch at 0: the per-leaf Adam step
            instead of K4, for the A/B of the two update paths
+  rnn_train  one ``fit_batch`` of ``chip_smoke.py``'s char-RNN (bench
+           config 4: vocab 96, 2 x LSTM(256), TBPTT 50) on [64, 100] ids,
+           K4 on (kernels K5a/K5b)
+  rnn_train_plain_cell  the same with the plain cell under autograd
+           patched in where the layers call the fused one, for the K5 A/B
+  rnn_stream  8 streamed tokens of the trained char-RNN at batch 1, each
+           an ``rnn_time_step`` and the host's greedy pick, as the CLI's
+           recurrent ``generate`` runs them (K5a)
 
 ``--decode-rows`` measures prefill and step once for each chunk size of
 the decode program's per-position ops (``models.transformer.DECODE_ROWS``,
@@ -46,7 +55,9 @@ _CLASSES = (
     ("flash_fwd", "K1 flash_fwd"),
     ("flash_bwd_dkdv", "K2 flash_bwd_dkdv"), ("flash_bwd_dq", "K3 flash_bwd_dq"),
     ("fused_update", "K4 fused_update"), ("det_attention", "D1 det_attention"),
-    ("gemm", "gemm"), ("nvjet", "gemm"), ("xmma", "gemm"), ("cutlass", "gemm"),
+    ("lstm_cell_fwd", "K5a lstm_cell_fwd"), ("lstm_cell_bwd", "K5b lstm_cell_bwd"),
+    ("gemm", "gemm"), ("gemv", "gemm"), ("nvjet", "gemm"), ("xmma", "gemm"),
+    ("cutlass", "gemm"),
     ("softmax", "softmax"),
     ("reduce", "reduce"),
     ("index", "gather/scatter"), ("scatter", "gather/scatter"),
@@ -191,6 +202,28 @@ def main() -> int:
     for name, switch in (("train", "1"), ("train_per_leaf", "0")):
         os.environ[update_kernel.ENV_SWITCH] = switch
         measure(name, lambda: net.fit_batch(batch), args.trace_dir, warm=3)
+
+    from deeplearning4j_tpu_torch.nn.layers import recurrent
+    from deeplearning4j_tpu_torch.ops import lstm_kernel
+
+    os.environ[update_kernel.ENV_SWITCH] = "1"
+    chars = torch.from_numpy(rng.integers(0, cs.RNN_VOCAB, (cs.RNN_B, cs.RNN_T + 1))).to(dev)
+    rnn_batch = DataSet(chars[:, :-1], chars[:, 1:])
+    rnn = cs.build_rnn("cuda")
+    for name, cell in (("rnn_train", lstm_kernel.fused_lstm_cell),
+                       ("rnn_train_plain_cell", lstm_kernel.lstm_cell_plain)):
+        recurrent.fused_lstm_cell = cell
+        measure(name, lambda: rnn.fit_batch(rnn_batch), args.trace_dir, warm=3)
+    recurrent.fused_lstm_cell = lstm_kernel.fused_lstm_cell
+    rnn.rnn_clear_previous_state()
+    rnn.rnn_time_step(chars[:1, :16])      # a 16-token prompt
+
+    def stream():                          # the CLI's loop: step, then greedy pick on host
+        tok = 0
+        for _ in range(8):
+            tok = int(rnn.rnn_time_step(torch.tensor([tok], device=dev))[0].argmax().cpu())
+
+    measure("rnn_stream", stream, args.trace_dir)
     return 0
 
 

@@ -10,8 +10,13 @@ on a machine that has only PyTorch:
 
 Tolerances: K1, K2, K3 f32 2e-5 and bf16 2e-2 max abs (sums in another
 order; bf16 rounds p and ds before their products); D1 2e-5; K4 bitwise
-(the same rounded ops in the same order); whole-model probabilities and
-training losses 1e-5; decode logits bitwise the re-encode logits.
+(the same rounded ops in the same order); K5a/K5b f32 2e-6 (the same
+rounded ops; only expf/tanhf may differ in the last bit) and, in bf16,
+each element within one bf16 spacing (2^-7 of its size, plus 1e-6) of
+the plain version evaluated in f32 on the same bf16 inputs (the kernel
+rounds each result once); whole-model probabilities and training
+losses 1e-5; decode logits bitwise the re-encode logits; a recurrent
+``fit_batch`` on the card against the CPU 1e-4.
 """
 
 import math
@@ -22,6 +27,7 @@ import torch
 
 from deeplearning4j_tpu_torch.ops import attention as tatt
 from deeplearning4j_tpu_torch.ops import kv_cache as tkv
+from deeplearning4j_tpu_torch.ops import lstm_kernel as tlk
 from deeplearning4j_tpu_torch.ops import sampling as ts
 from deeplearning4j_tpu_torch.ops import update_kernel as tuk
 
@@ -158,7 +164,8 @@ def test_decode_engine_on_card(cuda_dev):
 def test_kernel_library_builds_once(cuda_dev):
     from deeplearning4j_tpu_torch.utils import cuda_build
     built = cuda_build.build(cuda_build.sources())
-    assert sorted(built) == ["det_attention", "flash_bwd", "flash_fwd", "fused_update"]
+    assert sorted(built) == ["det_attention", "flash_bwd", "flash_fwd", "fused_update",
+                             "lstm_cell"]
     assert all(p.exists() for p in built.values())
     assert cuda_build.load("flash_fwd") is cuda_build.load("flash_fwd")
 
@@ -300,3 +307,98 @@ def test_fit_batch_on_card_matches_cpu_and_launches_k1_to_k4(cuda_dev, monkeypat
         for key in pc:
             assert np.abs(pc[key] - pg[key]).max() <= lr
             assert np.linalg.norm(pc[key] - pg[key]) <= 1e-2 * np.linalg.norm(pc[key] - p0[key])
+
+
+def _cell_inputs(mb, n, seed, dev, dtype):
+    """z ~ N(0, 1), c ~ N(0, 0.25), cotangents ~ N(0, 0.01): a trained
+    cell's ranges."""
+    rng = np.random.default_rng(seed)
+    t = lambda shape, s: torch.from_numpy(s * rng.standard_normal(shape, dtype=np.float32))
+    return tuple(x.to(dev, dtype) for x in (t((mb, 4 * n), 1.0), t((mb, n), 0.5),
+                                            t((mb, n), 0.1), t((mb, n), 0.1)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [32, 256, 512])
+@pytest.mark.parametrize("mb", [1, 7, 64])
+def test_lstm_cell_kernels_match_plain(cuda_dev, mb, n, dtype):
+    z, c, dh, dcn = _cell_inputs(mb, n, mb * n, cuda_dev, dtype)
+    before = (tlk.lstm_cell_fwd_cuda.launches, tlk.lstm_cell_bwd_cuda.launches)
+    got = tlk.lstm_cell_fwd(z, c) + tlk.lstm_cell_bwd(z, c, dh, dcn)
+    torch.cuda.synchronize()
+    assert (tlk.lstm_cell_fwd_cuda.launches, tlk.lstm_cell_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    f = lambda *ts: [t.float() for t in ts]
+    want = (tlk.lstm_cell_plain(*f(z, c)) + tlk.lstm_cell_bwd_plain(*f(z, c, dh, dcn)))
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        err = (a.float() - w).abs()
+        if dtype == torch.float32:
+            assert float(err.max()) <= 2e-6
+        else:
+            # the kernel rounds the f32 result once: within one bf16
+            # spacing (2^-7 relative) of the plain version in f32
+            assert bool((err <= 2.0 ** -7 * w.abs() + 1e-6).all())
+
+
+def test_lstm_cell_kernels_raise_for_what_they_do_not_take(cuda_dev):
+    z, c, dh, dcn = _cell_inputs(4, 8, 1, cuda_dev, torch.float32)
+    with pytest.raises(TypeError):
+        tlk.lstm_cell_fwd(z.half(), c.half())
+    with pytest.raises(TypeError):
+        tlk.lstm_cell_fwd(z, c.bfloat16())
+    with pytest.raises(ValueError, match="z \\[mb, 4n\\]"):
+        tlk.lstm_cell_fwd(z[:, :-1].contiguous(), c)
+    with pytest.raises(ValueError, match="contiguous"):
+        tlk.lstm_cell_bwd(z, c, dh.t().contiguous().t(), dcn)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tlk.lstm_cell_bwd(z, c.cpu(), dh, dcn)
+
+
+def _small_rnn(device):
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import LSTM, RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    conf = (NeuralNetConfiguration.builder().seed(3).updater(Adam(lr=1e-3))
+            .gradient_normalization("clip_elementwise_absolute_value", 1.0)
+            .layer(LSTM(n_out=64)).layer(LSTM(n_out=64))
+            .layer(RnnOutputLayer(n_out=20, activation="softmax", loss="mcxent"))
+            .tbptt(10).set_input_type(InputType.recurrent(20)).build())
+    net = MultiLayerNetwork(conf, device=device)
+    net.init()
+    return net
+
+
+@pytest.mark.parametrize("fused", ["0", "1"], ids=["plain_cell", "fused_cell"])
+def test_recurrent_fit_batch_on_card_matches_cpu_and_counts_k5(cuda_dev, monkeypatch, fused):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.utils.params import params_to_numpy
+
+    from deeplearning4j_tpu_torch.nn.layers import recurrent
+
+    if fused == "0":                    # the plain cell on the card, for the A/B
+        monkeypatch.setattr(recurrent, "fused_lstm_cell", tlk.lstm_cell_plain)
+    cpu_net, card_net = _small_rnn("cpu"), _small_rnn(cuda_dev)
+    x = np.random.default_rng(5).integers(0, 20, (4, 31)).astype(np.int32)
+    ds = DataSet(x[:, :-1], x[:, 1:])
+    before = (tlk.lstm_cell_fwd_cuda.launches, tlk.lstm_cell_bwd_cuda.launches)
+    for _ in range(2):
+        lc, lg = cpu_net.fit_batch(ds), card_net.fit_batch(ds)
+        assert abs(float(lc) - float(lg)) <= 1e-4
+    torch.cuda.synchronize()
+    steps = 2 * 2 * 30                  # calls x layers x time steps
+    want = (steps, steps) if fused == "1" else (0, 0)
+    assert (tlk.lstm_cell_fwd_cuda.launches - before[0],
+            tlk.lstm_cell_bwd_cuda.launches - before[1]) == want
+    assert cpu_net.iteration == card_net.iteration == 6
+    for pc, pg in zip(params_to_numpy(cpu_net.params), params_to_numpy(card_net.params)):
+        for key in pc:
+            assert np.linalg.norm(pc[key] - pg[key]) <= 1e-4 * np.linalg.norm(pc[key])
+    # streaming on the card: the same distributions as output()
+    card_net.rnn_clear_previous_state()
+    full = card_net.output(x[:, :5])
+    for t in range(5):
+        step = card_net.rnn_time_step(x[:, t])
+        assert float((step - full[:, t]).abs().max()) <= 1e-5

@@ -366,8 +366,8 @@ def test_training_refuses_what_is_not_ported():
         net.fit_batch(DataSet(x, y))
     net.output(x)                      # inference ignores training settings
     net.conf.layers[2].dropout = 0.0
-    net.conf.backprop_type = "tbptt"
-    with pytest.raises(NotImplementedError, match="TBPTT"):
+    net.conf.layers[2].weight_noise = {"type": "WeightNoise", "stddev": 0.1}
+    with pytest.raises(NotImplementedError, match="weight noise"):
         net.fit_batch(DataSet(x, y))
 
 
