@@ -55,6 +55,26 @@ and the recurrent path's training and streaming:
           whole sequence within 1e-5, through K5 and with the plain cell.
           K5a/K5b are held to their plain versions at [64, 256], [64, 512],
           [7, 256] and the stream's [1, 256], in f32 and bf16.
+  compressed  data-parallel training of the TransformerLM through
+          ``parallel.ShardedTrainer`` over ``torch.distributed``: two rank
+          processes on cuda:0 (gloo; mesh dcn=2, data=1), each taking
+          [4, 1024] of one fixed [8, 1024] batch, Adam with per-layer
+          clipping, K4 on, 4 MiB buckets, 5 steps in each of four arms from
+          the same weights: (a) threshold fixed ``COMPRESS_T`` as the port
+          runs it (K6 encodes and counts every bucket; the buckets whose
+          count exceeds k are encoded again by the top-k pack), (b) the
+          same with the top-k pack on every bucket (``top_k_only`` patched
+          in for the one-pass pack), (c) threshold adaptive, (d) dense.
+          Gates: both ranks' parameters bitwise equal after every step in
+          every arm (an exact integer fingerprint of the f32 bits), (a)
+          bitwise (b) (losses and fingerprints), losses finite and falling,
+          K6 launched on every bucket of every step of (a), the bytes
+          gathered per step equal to ``compression_stats``'s and at least
+          8x below dense.  It also reads, from a ``torch.profiler`` trace
+          of one all-gather of a step's wire buffer, whether gloo copied
+          the CUDA tensors through host memory.  K6 is held
+          to its plain version bitwise at n = 1024, 4096, 2^20 and 2^20 + 333
+          with no selection, exactly k selections and a 2%-hot gradient.
 
 Each phase prints JSON lines; then one ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -507,6 +527,85 @@ def phase_kernel_lstm():
     return recs[0]
 
 
+# -- K6: the one-pass threshold encode ------------------------------------------------
+
+#: the fixed threshold of the compressed phase's arms (a) and (b): the
+#: reference EncodingHandler's default
+COMPRESS_T = 1e-3
+
+
+def encode_input(n, kind, t=COMPRESS_T):
+    """float32[n] on the card: "hot" has ~2% of its elements at |g| >= t
+    (the JAX package's tests/test_fused_encode.py generator), "none" none,
+    "exact_k" exactly k = n/16."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import compression as comp
+
+    rng = np.random.default_rng(SEED + 60 + n)
+    if kind == "exact_k":
+        g = rng.uniform(-0.5, 0.5, size=n).astype(np.float32) * t
+        hot = rng.choice(n, comp.default_k_max(n), replace=False)
+        g[hot] = np.where(rng.random(hot.size) < 0.5, -1, 1) * t * (1 + rng.random(hot.size))
+    else:
+        g = rng.normal(size=n).astype(np.float32) * (t / 10)
+        hot = rng.choice(n, max(1, int(n * 0.02)), replace=False)
+        g[hot] = rng.normal(size=hot.size).astype(np.float32) * 10 * t
+        if kind == "none":
+            g *= 1e-3
+    return torch.from_numpy(g.astype(np.float32)).to("cuda")
+
+
+def encode_case(n, kind, t=COMPRESS_T):
+    """K6 against its plain version ``_streaming_pack`` on one input,
+    bitwise, with its selection count exact; device times (``device_ms``) of both and the bound (4n bytes
+    read, 4k written).  The library yardstick is ``torch.nonzero`` of the
+    selection plus the same pack, timed with CUDA events: ``nonzero``
+    copies its size to the host, so the stream cannot be held for it."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import compression as comp
+
+    g = encode_input(n, kind, t)
+    k = comp.default_k_max(n)
+    got, got_count = comp.threshold_encode_cuda(g, k, t)
+    want = comp._streaming_pack(g, g.abs(), k, t, n)
+    torch.cuda.synchronize()
+    count = int((g.abs() >= t).sum())
+    bitwise = bool(torch.equal(got, want)) and int(got_count) == count
+
+    def library():
+        idx = torch.nonzero(g.abs() >= t).squeeze(1)
+        out = torch.zeros(k, dtype=torch.int32, device=g.device)
+        out[:idx.numel()] = torch.where(g[idx] >= 0, 1, -1).to(torch.int32) * (idx + 1).int()
+        return out
+
+    lib_ok = bool(torch.equal(library(), want))
+    b_ms, b_by = bound(0.0, 4.0 * n + 4.0 * k, "float32")
+    rec = {"phase": "kernel", "case": f"threshold_encode_{n}_{kind}", "kind": kind, "n": n,
+           "k": k,
+           "count": count, "bitwise": bitwise, "max_abs_err": 0.0 if bitwise else None,
+           "library_matches": lib_ok,
+           "ms": device_ms(lambda: comp.threshold_encode_cuda(g, k, t)),
+           "plain_ms": device_ms(lambda: comp._streaming_pack(g, g.abs(), k, t, n)),
+           "library_ms": cuda_ms(library, 20), "library": "torch.nonzero + pack",
+           "launch_ms": cuda_ms(lambda: comp.threshold_encode_cuda(g, k, t), 20),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": 4.0 * n + 4.0 * k}
+    emit(rec)
+    return rec
+
+
+def phase_kernel_encode():
+    recs = [encode_case(n, kind) for n in (1 << 20, 1024, 4096, (1 << 20) + 333)
+            for kind in ("hot", "none", "exact_k")]
+    want = {"none": lambda r: 0, "exact_k": lambda r: r["k"], "hot": lambda r: r["count"]}
+    bad = [r["case"] for r in recs if not r["bitwise"] or r["count"] != want[r["kind"]](r)]
+    if bad:
+        raise AssertionError(f"K6 disagrees with its plain version: {bad}")
+    return recs[0]                      # the 4 MiB bucket, 2% hot
+
+
 # -- the model ----------------------------------------------------------------------
 
 
@@ -922,6 +1021,227 @@ def phase_recurrent():
     return rec
 
 
+# -- compressed phase ----------------------------------------------------------------
+
+#: (arm, grad_compression, threshold, the top-k pack on every bucket)
+COMPRESS_ARMS = (("a_one_pass", "threshold", COMPRESS_T, False),
+                 ("b_top_k", "threshold", COMPRESS_T, True),
+                 ("c_adaptive", "threshold", None, False),
+                 ("d_dense", None, None, False))
+COMPRESS_STEPS = 5
+
+
+def top_k_only(g, k, t):
+    """Stands in for ``ops.compression.one_pass_pack`` in arm (b): reports
+    every bucket as overflowing, so the top-k pack encodes all of them."""
+    import torch
+    return None, torch.full((), k + 1, device=g.device)
+
+
+def gloo_host_copies(words: int, group) -> dict:
+    """Memory copies between the card and the host in a ``torch.profiler``
+    trace of one all-gather of a ``words``-long int32 CUDA buffer over
+    ``group`` (a collective: every rank of it calls this)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.ops import compression as comp
+
+    wire = torch.zeros(words, dtype=torch.int32, device="cuda")
+    comp.all_gather_stack(wire, group)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        comp.all_gather_stack(wire, group)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"device_to_host": sum("DtoH" in n for n in names),
+            "host_to_device": sum("HtoD" in n for n in names),
+            "device_events": len(names)}
+
+
+def fingerprint(params):
+    """Two int64 sums over the f32 bit patterns of every parameter: of the
+    bits, and of the bits times their 1-based position, modulo 2^64.  The
+    sums are exact integer arithmetic, so equal parameters give equal
+    fingerprints whatever the order of the sums; two that differ in any
+    bit give equal ones with negligible chance."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+
+    flat = torch.cat([t.reshape(-1).float() for p in params for t in tree_leaves(p)])
+    bits = flat.view(torch.int32).to(torch.int64)
+    pos = torch.arange(1, bits.numel() + 1, device=bits.device, dtype=torch.int64)
+    return [int(bits.sum()), int((bits * pos).sum())]
+
+
+def compressed_rank(rank: int, work: str) -> None:
+    """One rank of the compressed phase (``--compressed-rank R DIR``): the
+    four arms in turn, each from the same weights; writes DIR/rankR.json."""
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.ops import compression as comp
+    from deeplearning4j_tpu_torch.ops import update_kernel as uk
+    from deeplearning4j_tpu_torch.parallel import (ShardedTrainer, build_two_tier_mesh,
+                                                   initialize, shutdown)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize(init_method="file://" + os.path.join(work, "rendezvous"), num_processes=2,
+               process_id=rank, backend="gloo", timeout_s=600)
+    os.environ[uk.ENV_SWITCH] = "1"
+    seq = np.random.default_rng(SEED + 70).integers(0, VOCAB, (8, MAX_LEN + 1))
+    dev = torch.device("cuda")
+    ds = DataSet(torch.from_numpy(seq[:, :-1]).to(dev), torch.from_numpy(seq[:, 1:]).to(dev))
+    counters = {"flash_fwd": att.flash_forward_cuda, "flash_bwd_dkdv": att.flash_bwd_dkdv_cuda,
+                "flash_bwd_dq": att.flash_bwd_dq_cuda, "fused_update": uk.fused_update_cuda,
+                "threshold_encode": comp.threshold_encode_cuda}
+    out = {"rank": rank, "arms": {}}
+    one_pass = comp.one_pass_pack
+    for name, method, t, top_k in COMPRESS_ARMS:
+        comp.one_pass_pack = top_k_only if top_k else one_pass
+        net = build_model()
+        trainer = ShardedTrainer(net, build_two_tier_mesh(2, {"data": 1}),
+                                 grad_compression=method, compression_threshold=t)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        steps = []
+        for _ in range(COMPRESS_STEPS):
+            before = {k: c.launches for k, c in counters.items()}
+            t0 = time.perf_counter()
+            loss = float(trainer.fit_batch(ds))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = [] if top_k else trainer.last_bucket_counts
+            ratios = sorted(c / k for c, k in counts)
+            steps.append({"loss": loss, "ms": ms, "fingerprint": fingerprint(net.params),
+                          "launches": {k: c.launches - before[k] for k, c in counters.items()},
+                          "wire_bytes": trainer.wire_bytes_last_step,
+                          "buckets_fit": sum(c <= k for c, k in counts),
+                          "buckets_overflow": sum(c > k for c, k in counts),
+                          "count_over_k_min_median_max": (
+                              [ratios[0], statistics.median(ratios), ratios[-1]]
+                              if ratios else None)})
+        out["arms"][name] = {
+            "grad_compression": method, "threshold": t, "top_k_only": top_k,
+            "steps": steps, "launches": {k: c.launches for k, c in counters.items()},
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "n_params": trainer.bucketer.total, "n_buckets": trainer.bucketer.n_buckets}
+        if name == "a_one_pass":
+            out["gloo_host_copies"] = gloo_host_copies(
+                trainer.wire_bytes_last_step // 4, trainer.mesh.group(trainer.dcn_axis))
+        del trainer, net
+        gc.collect()
+        torch.cuda.empty_cache()
+    comp.one_pass_pack = one_pass
+    shutdown()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_compressed():
+    import statistics
+    import tempfile
+
+    from deeplearning4j_tpu_torch.ops import compression as comp
+
+    with tempfile.TemporaryDirectory() as work:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--compressed-rank", str(r), work]) for r in range(2)]
+        try:
+            deadline = time.monotonic() + 900
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        rcs = [p.returncode for p in procs]
+        if rcs != [0, 0]:
+            raise AssertionError(f"compressed phase: a rank failed (exit codes {rcs})")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+
+    arms, bad = {}, []
+    a0 = ranks[0]["arms"]
+    want_kernels = {"flash_fwd": LAYERS, "flash_bwd_dkdv": LAYERS, "flash_bwd_dq": LAYERS,
+                    "fused_update": LAYERS + 3}
+    for name, method, t, _ in COMPRESS_ARMS:
+        steps = [rk["arms"][name]["steps"] for rk in ranks]
+        losses = [s["loss"] for s in steps[0]]
+        n = a0[name]["n_params"]
+        stats = comp.compression_stats(n, method or "threshold", 2)
+        rec = {"grad_compression": method, "threshold": t, "losses": losses,
+               "step_ms": [s["ms"] for s in steps[0]],
+               "median_step_ms": statistics.median(s["ms"] for s in steps[0]),
+               "peak_memory_gib_per_rank": [rk["arms"][name]["peak_memory_gib"] for rk in ranks],
+               "launches_per_step": [s["launches"] for s in steps[0]],
+               "ranks_bitwise_equal": all(x["fingerprint"] == y["fingerprint"]
+                                          and x["loss"] == y["loss"]
+                                          for x, y in zip(*steps)),
+               "finite_and_falling": (all(math.isfinite(x) for x in losses)
+                                      and losses[-1] < losses[0])}
+        if method is not None:
+            wire = [s["wire_bytes"] for s in steps[0]]
+            rec.update(wire_bytes_per_step=wire,
+                       compression_stats_wire_bytes=stats["compressed_wire_bytes_per_step"],
+                       wire_ratio_vs_dense=stats["dense_wire_bytes_per_step"] / max(wire),
+                       n_buckets=a0[name]["n_buckets"])
+            if any(w != stats["compressed_wire_bytes_per_step"] for w in wire) \
+                    or rec["wire_ratio_vs_dense"] < 8.0:
+                bad.append(f"{name}: wire bytes")
+        if t is not None and name.startswith("a_"):
+            rec["buckets_k6_kept_per_step"] = [s["buckets_fit"] for s in steps[0]]
+            rec["buckets_overflow_per_step"] = [s["buckets_overflow"] for s in steps[0]]
+            rec["count_over_k_per_step"] = [s["count_over_k_min_median_max"] for s in steps[0]]
+            rec["k6_launches"] = a0[name]["launches"]["threshold_encode"]
+            if any(s["launches"]["threshold_encode"] != a0[name]["n_buckets"]
+                   or s["buckets_fit"] < 1 for s in steps[0]):
+                bad.append(f"{name}: K6 did not encode every bucket of every step")
+        elif any(s["launches"]["threshold_encode"] for s in steps[0]):
+            bad.append(f"{name}: K6 launched outside arm (a)")
+        if any({k: v for k, v in s["launches"].items() if k != "threshold_encode"}
+               != want_kernels for s in steps[0]):
+            bad.append(f"{name}: K1-K4 launches")
+        if not rec["ranks_bitwise_equal"]:
+            bad.append(f"{name}: ranks differ")
+        if not rec["finite_and_falling"]:
+            bad.append(f"{name}: loss")
+        arms[name] = rec
+    a_is_b = all(x["loss"] == y["loss"] and x["fingerprint"] == y["fingerprint"]
+                 for x, y in zip(a0["a_one_pass"]["steps"], a0["b_top_k"]["steps"]))
+    if not a_is_b:
+        bad.append("arms (a) and (b) differ")
+    rec = {"phase": "compressed", "ranks": 2, "mesh": {"dcn": 2, "data": 1},
+           "backend": "gloo", "device": "cuda:0 (both ranks)",
+           # the trainer hands gloo the CUDA tensors (a refusal would have
+           # failed a rank); gloo's own copies through host memory, read
+           # from a trace of one all-gather of arm (a)'s wire buffer
+           "gloo_given_cuda_tensors": True,
+           "gloo_host_copies": ranks[0]["gloo_host_copies"],
+           "gloo_stages_through_host": ranks[0]["gloo_host_copies"]["device_to_host"] > 0,
+           "batch": [8, MAX_LEN],
+           "rank_batch": [4, MAX_LEN], "steps": COMPRESS_STEPS, "bucket_mb": 4.0,
+           "one_pass_bitwise_top_k": a_is_b, "arms": arms, "failures": bad}
+    emit(rec)
+    if bad:
+        raise AssertionError(f"compressed phase failed: {bad}")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -955,6 +1275,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     rnn = phase_recurrent()
     k5_launches = rnn["arms"]["k5"]["launches_per_call"][0]
+    k6 = phase_kernel_encode()
+    compressed = phase_compressed()
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda",
@@ -983,6 +1305,9 @@ def main() -> int:
               k5_launches["lstm_cell_fwd"], k5["lstm_cell_fwd"]),
         entry("lstm_cell_bwd", "lstm_cell.cu", "deeplearning4j_tpu/ops/lstm_kernel.py:87",
               k5_launches["lstm_cell_bwd"], k5["lstm_cell_bwd"]),
+        entry("threshold_encode", "threshold_encode.cu",
+              "deeplearning4j_tpu/ops/compression.py:128",
+              compressed["arms"]["a_one_pass"]["k6_launches"], k6),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -992,4 +1317,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--compressed-rank"]:
+        compressed_rank(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

@@ -147,9 +147,10 @@ class MultiLayerNetwork:
     / ``fit_batch`` / ``fit`` / ``save``.
 
     ``device`` defaults to ``cuda`` and raises without a card unless
-    ``device="cpu"`` is passed.  ``carried_entries`` holds checkpoint
-    entries the port reads but does not use (``grad_residual.npz``) as
-    raw bytes, written back unchanged by ``save``."""
+    ``device="cpu"`` is passed.  ``grad_residual`` holds a checkpoint's
+    error-feedback residual (one tree shaped like ``params`` with a
+    leading slice axis) until a ``parallel.ShardedTrainer`` adopts it, and
+    ``save`` writes it back."""
 
     def __init__(self, conf: MultiLayerConfiguration, device: DeviceLike = None):
         self.conf = conf
@@ -169,7 +170,7 @@ class MultiLayerNetwork:
         self._it_dev: Optional[Tensor] = None   # iteration as an f32 on the device
         self._it_dev_val = -1                   # the value _it_dev holds
         self.epoch = 0
-        self.carried_entries: Dict[str, bytes] = {}
+        self.grad_residual: Optional[List[Dict[str, Tensor]]] = None
         self._stream_carries: Optional[List[Any]] = None   # rnn_time_step state
         self.input_types: List[InputType] = []
         self._infer_types()

@@ -1,0 +1,299 @@
+"""ShardedTrainer — data-parallel training over ``torch.distributed``, with
+the reference's compressed two-tier gradient exchange (mirrors
+``deeplearning4j_tpu/parallel/trainer.py``).
+
+One process per rank, each holding a replica of the network.  A step:
+
+  1. each rank takes its rows of the global batch (ranks are numbered
+     ``dcn``-major, so a rank's rows are the rows the reference's
+     ``P((dcn, data))`` gives that device) and computes its loss and
+     gradients;
+  2. ``grad_compression=None``: the flat gradient is all-reduced over
+     every rank and divided by the rank count (the dense path);
+     ``"threshold"``/``"bitmap"``: tier 1 all-reduces it over the ``data``
+     group and divides by its size; tier 2 adds this slice's
+     error-feedback residual, cuts the sum into buckets, encodes each
+     (``ops/compression.py``: the one-pass fixed-threshold encode is
+     kernel K6 on the card), all-gathers the ENCODED buffers over the
+     ``dcn`` group in one call, decode-sums them in rank order and divides
+     by the slice count; the part of the sum this slice did not send is
+     its next residual;
+  3. the network's own ``_apply_updates`` (normalization, updater, K4).
+
+Every rank decodes the same gathered bytes in the same order, so the
+replicas stay bitwise equal.  The backend: NCCL when each rank has a
+card, gloo when ranks share one or run on the CPU (the trainer passes
+gloo the CUDA tensors; gloo copies them through host memory itself).
+
+The residual lives on the trainer, one flat f32 buffer per rank (its
+slice's).  ``save`` gathers the slices' residuals over the ``dcn`` group
+into the checkpoint's ``grad_residual.npz`` (leading axis = slice
+count, the reference's layout); a trainer built on a network loaded
+from such a checkpoint adopts its slice when the slice count matches.
+
+Not ported (ROADMAP queue 9 and queue 1 item 4): the ``model`` (TP),
+``seq`` and ``pipe`` axes, pipeline schedules, ``nan_guard``, TBPTT
+under data parallelism, and the elastic residual snapshot.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from ..datasets.dataset import DataSet
+from ..ops import compression as C
+from ..optimize.score import LazyScore, materialize_scores
+from .distributed import detect_num_slices, process_count
+from .mesh import DATA_AXIS, DCN_AXIS, RankMesh, build_mesh, build_two_tier_mesh
+
+Tensor = torch.Tensor
+
+_SCHEDULES = ("gpipe", "1f1b")
+
+
+class ShardedTrainer:
+    """Wraps a ``MultiLayerNetwork`` for data-parallel training.
+
+    >>> distributed.initialize(init_method="file:///tmp/rdv", num_processes=4, process_id=r)
+    >>> trainer = ShardedTrainer.two_tier(net, 2, grad_compression="threshold")
+    >>> trainer.fit(batches, epochs=2)
+
+    Every rank passes the same global batch; each takes its own rows."""
+
+    @classmethod
+    def two_tier(cls, net, n_slices: Optional[int] = None,
+                 axes: Optional[dict] = None, **kwargs) -> "ShardedTrainer":
+        """A trainer over ``build_two_tier_mesh``; ``n_slices`` defaults to
+        ``distributed.detect_num_slices()``.  Keyword arguments pass through."""
+        if n_slices is None:
+            n_slices = detect_num_slices()
+        return cls(net, build_two_tier_mesh(n_slices, axes), **kwargs)
+
+    def __init__(self, net, mesh: Optional[RankMesh] = None,
+                 data_axis: str = DATA_AXIS,
+                 pipeline_schedule: str = "gpipe",
+                 grad_compression: Optional[str] = None,
+                 dcn_axis: str = DCN_AXIS,
+                 compression_threshold: Optional[float] = None,
+                 compression_bucket_mb: float = 4.0,
+                 nan_guard: Optional[int] = None):
+        if pipeline_schedule not in _SCHEDULES:
+            raise ValueError(f"pipeline_schedule must be one of {_SCHEDULES}, "
+                             f"got {pipeline_schedule!r}")
+        if grad_compression is not None and grad_compression not in C.METHODS:
+            raise ValueError(
+                f"grad_compression must be one of {C.METHODS} or "
+                f"None, got {grad_compression!r}")
+        self.net = net
+        self.mesh = mesh if mesh is not None else build_mesh()
+        self.data_axis, self.dcn_axis = data_axis, dcn_axis
+        self.grad_compression = grad_compression
+        self.compression_threshold = compression_threshold
+        self.compression_bucket_bytes = max(4, int(compression_bucket_mb * (1 << 20)))
+        shape = self.mesh.shape
+        if grad_compression is not None:
+            if dcn_axis not in shape:
+                raise ValueError(
+                    f"grad_compression={grad_compression!r} needs a "
+                    f"{dcn_axis!r} mesh axis (build_two_tier_mesh) — got "
+                    f"axes {dict(shape)}")
+            for ax, size in shape.items():
+                if ax not in (dcn_axis, data_axis) and size > 1:
+                    raise ValueError(
+                        f"grad_compression composes with dcn×data parallelism "
+                        f"only (axis {ax!r} has size {size}); drop the axis "
+                        "or run grad_compression=None")
+        for ax, size in shape.items():
+            if ax not in (dcn_axis, data_axis) and size > 1:
+                raise NotImplementedError(
+                    f"mesh axis {ax!r} (size {size}): tensor, sequence and pipeline "
+                    "parallelism are not ported yet (ROADMAP queue 9)")
+        if pipeline_schedule != "gpipe":
+            raise NotImplementedError(
+                "pipeline schedules are not ported yet (ROADMAP queue 9)")
+        if nan_guard is not None:
+            raise NotImplementedError(
+                "nan_guard is not ported yet (ROADMAP queue 1 item 4)")
+        if self.mesh.size != process_count():
+            raise RuntimeError(
+                f"the mesh spans {self.mesh.size} ranks but the process group has "
+                f"{process_count()}: call distributed.initialize() in every rank "
+                "before building the mesh")
+        self.n_data = shape.get(data_axis, 1)
+        self.n_dcn = shape.get(dcn_axis, 1)
+        self.dp_size = self.n_data * self.n_dcn
+        self.dp_index = (self.mesh.coords.get(dcn_axis, 0) * self.n_data
+                         + self.mesh.coords.get(data_axis, 0))
+        self.bucketer = C.GradBucketer(net.params, self.compression_bucket_bytes)
+        #: bytes this rank received from the other slices in the last step's
+        #: tier-2 gather (the compressed path's wire)
+        self.wire_bytes_last_step = 0
+        #: (selection count, k) of each bucket in the last step's
+        #: fixed-threshold encode; a bucket whose count exceeds k went to
+        #: the top-k pack (empty for the other modes)
+        self.last_bucket_counts: List[tuple] = []
+        self._residual: Optional[Tensor] = None
+        if grad_compression is not None:
+            self._place_residual()
+
+    # -- collectives -------------------------------------------------------
+
+    def _all_reduce_mean(self, t: Tensor, axis: Optional[str]) -> Tensor:
+        """Mean of ``t`` over ``axis``'s group (None: every rank)."""
+        import torch.distributed as dist
+
+        size = self.mesh.size if axis is None else self.mesh.shape.get(axis, 1)
+        if size == 1:
+            return t
+        t = t.contiguous()
+        dist.all_reduce(t, group=None if axis is None else self.mesh.group(axis))
+        return t / size
+
+    def _gather(self, t: Tensor, axis: str) -> Tensor:
+        """[P, *t.shape]: ``t`` of every rank along ``axis``, in rank order."""
+        if self.mesh.shape.get(axis, 1) == 1:
+            return t[None]
+        return C.all_gather_stack(t, self.mesh.group(axis))
+
+    # -- residual ----------------------------------------------------------
+
+    def _place_residual(self) -> None:
+        """This slice's error-feedback residual as one flat f32 buffer:
+        adopted from ``net.grad_residual`` (a checkpoint's, leading axis =
+        slice count) when its slice count matches, else zeros (error
+        feedback only defers compression error, so dropping it costs one
+        step's deferral).  ``net.grad_residual`` is then cleared: the live
+        residual is the trainer's (``gather_residual``, ``save``)."""
+        net = self.net
+        existing = getattr(net, "grad_residual", None)
+        leaves = C.flat_leaves(existing) if existing is not None else []
+        if leaves and all(l.shape[0] == self.n_dcn for l in leaves):
+            mine = self.mesh.coords.get(self.dcn_axis, 0)
+            flat = torch.cat([l[mine].reshape(-1).float() for l in leaves])
+            self._residual = flat.to(net.device)
+        else:
+            self._residual = torch.zeros(self.bucketer.total, dtype=torch.float32,
+                                         device=net.device)
+        net.grad_residual = None
+
+    def gather_residual(self):
+        """Every slice's residual as one params-shaped tree of f32 tensors
+        with a leading axis of the slice count (the checkpoint layout).
+        A collective: every rank calls it."""
+        if self._residual is None:
+            return None
+        stacked = self._gather(self._residual, self.dcn_axis)        # [n_dcn, total]
+        per = [C.flat_leaves(self.bucketer.unflat(row, cast=False)) for row in stacked]
+        return C.rebuild(self.net.params, [torch.stack(ls) for ls in zip(*per)])
+
+    def save(self, path: str, save_updater: bool = True) -> None:
+        """Write the network, with the gathered residual when compressed,
+        as a checkpoint zip from rank 0.  A collective: every rank calls it
+        and returns once rank 0 has written."""
+        import torch.distributed as dist
+
+        from ..utils.serializer import save_model
+
+        residual = self.gather_residual()
+        if self.mesh.rank == 0:
+            self.net.grad_residual = residual
+            try:
+                save_model(self.net, path, save_updater=save_updater)
+            finally:
+                self.net.grad_residual = None
+        if self.mesh.size > 1:
+            dist.barrier()
+
+    # -- batches -----------------------------------------------------------
+
+    def _local(self, ds: DataSet) -> DataSet:
+        """This rank's rows of the global batch."""
+        def cut(a):
+            if a is None:
+                return None
+            n = a.shape[0]
+            if n % self.dp_size:
+                raise ValueError(
+                    f"global batch {n} not divisible by data axis {self.dp_size} "
+                    "(pad or drop the remainder)")
+            per = n // self.dp_size
+            return a[self.dp_index * per:(self.dp_index + 1) * per]
+        return DataSet(cut(ds.features), cut(ds.labels), cut(ds.features_mask),
+                       cut(ds.labels_mask))
+
+    # -- training ----------------------------------------------------------
+
+    def _exchange(self, flat: Tensor) -> Tensor:
+        """The mean gradient over the data-parallel ranks from this rank's
+        flat gradient; on the compressed path also the next residual."""
+        if self.grad_compression is None:
+            return self._all_reduce_mean(flat, None)
+        flat = self._all_reduce_mean(flat, self.data_axis)           # tier 1
+        acc = flat + self._residual                                   # tier 2
+
+        def gather(wire):
+            out = self._gather(wire, self.dcn_axis)
+            self.wire_bytes_last_step = (out.shape[0] - 1) * wire.numel() * wire.element_size()
+            return out
+
+        means, local, self.last_bucket_counts = C.compressed_pmean(
+            self.bucketer.split(acc), method=self.grad_compression,
+            threshold=self.compression_threshold, gather=gather, with_counts=True)
+        self._residual = acc - torch.cat(local)
+        return torch.cat(means)
+
+    def fit_batch(self, ds: DataSet) -> LazyScore:
+        """One global step: this rank's rows, the gradient exchange, the
+        update.  Returns the global-batch loss (the mean over ranks) as a
+        ``LazyScore``."""
+        net = self.net
+        if net.conf.backprop_type == "tbptt":
+            raise NotImplementedError(
+                "TBPTT under data parallelism is not ported yet (ROADMAP "
+                "queue 9); run the network's own fit_batch")
+        loss, grads, _ = net._loss_and_grads(self._local(ds))
+        with torch.no_grad():
+            mean = self._exchange(self.bucketer.flat(grads))
+            it = net._iter_tensor()
+            net.params, net.opt_state = net._apply_updates(
+                self.bucketer.unflat(mean), net.params, net.opt_state, it)
+            net._it_dev = it + 1
+            if self.grad_compression is None:
+                loss = self._all_reduce_mean(loss.reshape(1), None)
+            else:
+                loss = self._all_reduce_mean(self._all_reduce_mean(
+                    loss.reshape(1), self.data_axis), self.dcn_axis)
+        net.iteration += 1
+        net._it_dev_val = net.iteration
+        return LazyScore(loss.reshape(()))
+
+    def fit_batches(self, batches) -> List[LazyScore]:
+        """One ``fit_batch`` per batch (the residual threads through every
+        exchange, as in the reference's compressed route)."""
+        return [self.fit_batch(ds) for ds in batches]
+
+    def fit(self, data, epochs: int = 1) -> List[LazyScore]:
+        """Train on a DataSet, an ``(x, y)`` pair or a list of DataSets for
+        ``epochs`` passes, as ``MultiLayerNetwork.fit`` does."""
+        if isinstance(data, DataSet):
+            data = [data]
+        elif isinstance(data, tuple) and len(data) == 2:
+            data = [DataSet(data[0], data[1])]
+        if epochs > 1 and iter(data) is data:
+            raise ValueError("fit(epochs > 1) needs data it can iterate again, "
+                             "e.g. a list of DataSets, not a one-shot iterator")
+        losses: List[LazyScore] = []
+        for _ in range(epochs):
+            start = len(losses)
+            for ds in data:
+                losses.append(self.fit_batch(ds))
+            materialize_scores(losses[start:])
+            self.net.epoch += 1
+        return losses
+
+    def output(self, x, **kw) -> Tensor:
+        """Inference on this rank's replica (the parameters are equal on
+        every rank)."""
+        return self.net.output(x, **kw)

@@ -7,9 +7,11 @@ and ``updater.npz``, the optimizer state, with entries
 ``<layer_idx>/<slot>/<param_name>`` (``net.opt_state``).  Versions 1-4
 load: v2 stores bfloat16 leaves as uint16 bits under ``<name>#bfloat16``,
 v4 records a sha256 per entry in ``meta.json["integrity"]``, verified on
-load.  ``grad_residual.npz`` (compressed data-parallel training, not
-ported) is carried as the raw bytes read and written back unchanged.  A
-zip written by either package loads, and resumes training, in the other.
+load.  ``grad_residual.npz`` (v3+) is the error-feedback residual of
+compressed data-parallel training (``parallel/trainer.py``), keyed as
+``params.npz`` with a leading axis of the slice count; it is read into
+``net.grad_residual`` and written from it.  A zip written by either
+package loads, and resumes training, in the other.
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ from .device import DeviceLike
 
 FORMAT_VERSION = 4
 SUPPORTED_VERSIONS = (1, 2, 3, 4)
-_CARRIED = ("grad_residual.npz",)
 
 
 class CheckpointIntegrityError(RuntimeError):
@@ -59,13 +60,16 @@ def _load_npz(data: bytes) -> Dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
-def _unflatten_into(template, flat: Dict[str, np.ndarray], device, prefix=""):
-    """Rebuild the template's structure from name → array, on ``device``."""
+def _unflatten_into(template, flat: Dict[str, np.ndarray], device, prefix="",
+                    lead: bool = False):
+    """Rebuild the template's structure from name → array, on ``device``;
+    with ``lead`` each array has one more leading axis than its template
+    leaf (the residual's slice axis)."""
     if isinstance(template, dict):
-        return {k: _unflatten_into(v, flat, device, f"{prefix}{k}/")
+        return {k: _unflatten_into(v, flat, device, f"{prefix}{k}/", lead)
                 for k, v in template.items()}
     if isinstance(template, (list, tuple)):
-        seq = [_unflatten_into(v, flat, device, f"{prefix}{i}/")
+        seq = [_unflatten_into(v, flat, device, f"{prefix}{i}/", lead)
                for i, v in enumerate(template)]
         return type(template)(seq) if isinstance(template, tuple) else seq
     key = prefix[:-1]
@@ -76,10 +80,11 @@ def _unflatten_into(template, flat: Dict[str, np.ndarray], device, prefix=""):
     else:
         raise KeyError(f"checkpoint missing parameter '{key}' (bfloat16 "
                        f"leaves are stored under '<name>{BF16_SUFFIX}')")
-    if tuple(t.shape) != tuple(template.shape):
+    shape = tuple(t.shape)[1:] if lead else tuple(t.shape)
+    if (lead and t.ndim == 0) or shape != tuple(template.shape):
         raise ValueError(f"checkpoint parameter '{key}' has shape "
                          f"{tuple(t.shape)}, the configuration wants "
-                         f"{tuple(template.shape)}")
+                         f"{'(slices, ...) + ' if lead else ''}{tuple(template.shape)}")
     return t.to(device)
 
 
@@ -96,7 +101,8 @@ def save_model(net, path: str, save_updater: bool = True,
                "state.npz": _npz_bytes(_flatten_tree(net.state))}
     if save_updater:
         entries["updater.npz"] = _npz_bytes(_flatten_tree(net.opt_state))
-    entries.update(net.carried_entries)
+    if net.grad_residual is not None:
+        entries["grad_residual.npz"] = _npz_bytes(_flatten_tree(net.grad_residual))
     meta = {
         "format_version": FORMAT_VERSION,
         "iteration": net.iteration,
@@ -140,8 +146,8 @@ def load_model(path: str, load_updater: bool = True, device: DeviceLike = None):
         names = zf.namelist()
         upd_flat = _load_npz(_read_verified(zf, "updater.npz", integrity, path)) if (
             load_updater and "updater.npz" in names) else None
-        carried = {n: _read_verified(zf, n, integrity, path)
-                   for n in _CARRIED if n in names}
+        resid_flat = _load_npz(_read_verified(zf, "grad_residual.npz", integrity, path)) if (
+            "grad_residual.npz" in names) else None
 
     if conf_d.get("type") == "ComputationGraphConfiguration":
         raise NotImplementedError("ComputationGraph checkpoints are not ported yet")
@@ -153,7 +159,8 @@ def load_model(path: str, load_updater: bool = True, device: DeviceLike = None):
     net.state = _unflatten_into(state_t, state_flat, net.device)
     net.opt_state = (net.init_opt_state(net.params) if upd_flat is None else
                      _unflatten_into(net.init_opt_state(params_t), upd_flat, net.device))
-    net.carried_entries = carried
+    if resid_flat is not None:
+        net.grad_residual = _unflatten_into(params_t, resid_flat, net.device, lead=True)
     net.iteration = meta.get("iteration", 0)
     net.epoch = meta.get("epoch", 0)
     return net

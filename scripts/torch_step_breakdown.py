@@ -26,6 +26,14 @@ same numpy seed), then its char-RNN, and traces these pieces of work with
   rnn_stream  8 streamed tokens of the trained char-RNN at batch 1, each
            an ``rnn_time_step`` and the host's greedy pick, as the CLI's
            recurrent ``generate`` runs them (K5a)
+  dp_one_pass, dp_top_k, dp_adaptive, dp_dense  one ``ShardedTrainer``
+           step of ``chip_smoke.py``'s compressed phase: two rank processes
+           on cuda:0 (gloo, dcn=2), [4, 1024] rows each of one [8, 1024]
+           batch, threshold 1e-3 as the port runs it (K6 on every bucket,
+           top-k where a bucket overflows) and with the top-k pack on every
+           bucket (``chip_smoke.top_k_only``), adaptive, and dense.  Rank 0 reports; its trace holds only its
+           own kernels, so "busy" is rank 0's and "idle" counts the other
+           rank's kernels as idle
 
 ``--decode-rows`` measures prefill and step once for each chunk size of
 the decode program's per-position ops (``models.transformer.DECODE_ROWS``,
@@ -56,6 +64,7 @@ _CLASSES = (
     ("flash_bwd_dkdv", "K2 flash_bwd_dkdv"), ("flash_bwd_dq", "K3 flash_bwd_dq"),
     ("fused_update", "K4 fused_update"), ("det_attention", "D1 det_attention"),
     ("lstm_cell_fwd", "K5a lstm_cell_fwd"), ("lstm_cell_bwd", "K5b lstm_cell_bwd"),
+    ("threshold_", "K6 threshold_encode"),
     ("gemm", "gemm"), ("gemv", "gemm"), ("nvjet", "gemm"), ("xmma", "gemm"),
     ("cutlass", "gemm"),
     ("softmax", "softmax"),
@@ -97,7 +106,7 @@ def _busy_us(spans) -> float:
     return total
 
 
-def measure(name: str, fn, trace_dir, warm: int = 2, repeats: int = 3):
+def measure(name: str, fn, trace_dir, warm: int = 2, repeats: int = 3, report: bool = True):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -128,6 +137,8 @@ def measure(name: str, fn, trace_dir, warm: int = 2, repeats: int = 3):
            "kernels": len(spans),
            "class_ms": dict(sorted(by_cls.items(), key=lambda kv: -kv[1])),
            "top": [{"name": n[:120], "count": c, "ms": t} for n, (c, t) in top]}
+    if not report:
+        return rec
     print(json.dumps(rec), flush=True)
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
@@ -224,8 +235,60 @@ def main() -> int:
             tok = int(rnn.rnn_time_step(torch.tensor([tok], device=dev))[0].argmax().cpu())
 
     measure("rnn_stream", stream, args.trace_dir)
-    return 0
+    del net, rnn
+    torch.cuda.empty_cache()
+
+    import subprocess
+    import tempfile
+    with tempfile.TemporaryDirectory() as work:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank",
+                                   str(r), work, args.trace_dir or ""]) for r in range(2)]
+        try:
+            for p in procs:
+                p.wait(timeout=900)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return 0 if all(p.returncode == 0 for p in procs) else 1
+
+
+def dp_rank(rank: int, work: str, trace_dir) -> None:
+    """One of the two ranks of the dp_* rows."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.ops import compression, update_kernel
+    from deeplearning4j_tpu_torch.parallel import (ShardedTrainer, build_two_tier_mesh,
+                                                   initialize, shutdown)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize(init_method="file://" + os.path.join(work, "rendezvous"), num_processes=2,
+               process_id=rank, backend="gloo", timeout_s=600)
+    os.environ[update_kernel.ENV_SWITCH] = "1"
+    rng = np.random.default_rng(cs.SEED + 3)
+    seq = torch.from_numpy(rng.integers(0, cs.VOCAB, (8, cs.MAX_LEN + 1))).to("cuda")
+    batch = DataSet(seq[:, :-1], seq[:, 1:])
+    one_pass = compression.one_pass_pack
+    for name, method, t, top_k in (("dp_one_pass", "threshold", cs.COMPRESS_T, False),
+                                   ("dp_top_k", "threshold", cs.COMPRESS_T, True),
+                                   ("dp_adaptive", "threshold", None, False),
+                                   ("dp_dense", None, None, False)):
+        compression.one_pass_pack = cs.top_k_only if top_k else one_pass
+        trainer = ShardedTrainer(cs.build_model(), build_two_tier_mesh(2, {"data": 1}),
+                                 grad_compression=method, compression_threshold=t)
+        measure(name, lambda: trainer.fit_batch(batch), trace_dir, warm=3, report=rank == 0)
+        del trainer
+        torch.cuda.empty_cache()
+    shutdown()
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4] or None)
+        sys.exit(0)
     sys.exit(main())

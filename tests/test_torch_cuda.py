@@ -16,7 +16,9 @@ each element within one bf16 spacing (2^-7 of its size, plus 1e-6) of
 the plain version evaluated in f32 on the same bf16 inputs (the kernel
 rounds each result once); whole-model probabilities and training
 losses 1e-5; decode logits bitwise the re-encode logits; a recurrent
-``fit_batch`` on the card against the CPU 1e-4.
+``fit_batch`` on the card against the CPU 1e-4; K6 bitwise its plain
+version (integer output); a compressed trainer step on the card against
+the CPU 1e-5.
 """
 
 import math
@@ -26,6 +28,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.ops import attention as tatt
+from deeplearning4j_tpu_torch.ops import compression as tcomp
 from deeplearning4j_tpu_torch.ops import kv_cache as tkv
 from deeplearning4j_tpu_torch.ops import lstm_kernel as tlk
 from deeplearning4j_tpu_torch.ops import sampling as ts
@@ -165,7 +168,7 @@ def test_kernel_library_builds_once(cuda_dev):
     from deeplearning4j_tpu_torch.utils import cuda_build
     built = cuda_build.build(cuda_build.sources())
     assert sorted(built) == ["det_attention", "flash_bwd", "flash_fwd", "fused_update",
-                             "lstm_cell"]
+                             "lstm_cell", "threshold_encode"]
     assert all(p.exists() for p in built.values())
     assert cuda_build.load("flash_fwd") is cuda_build.load("flash_fwd")
 
@@ -402,3 +405,114 @@ def test_recurrent_fit_batch_on_card_matches_cpu_and_counts_k5(cuda_dev, monkeyp
     for t in range(5):
         step = card_net.rnn_time_step(x[:, t])
         assert float((step - full[:, t]).abs().max()) <= 1e-5
+
+
+def _hot_grad(n, seed, frac=0.02, t=1e-3):
+    """~frac of the elements clear t (the JAX package's test_fused_encode generator)."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=n).astype(np.float32) * (t / 10)
+    hot = rng.choice(n, max(1, int(n * frac)), replace=False)
+    g[hot] = rng.normal(size=hot.size).astype(np.float32) * 10 * t
+    return g
+
+
+def _encode_input(n, kind, t=1e-3):
+    """The kernel phase's cases: the 2%-hot gradient, none selected, or
+    exactly k = n/16 selected."""
+    if kind == "hot":
+        return _hot_grad(n, n)
+    if kind == "none":
+        return _hot_grad(n, n) * 1e-3
+    rng = np.random.default_rng(n + 1)
+    g = rng.uniform(-0.5, 0.5, size=n).astype(np.float32) * t
+    hot = rng.choice(n, tcomp.default_k_max(n), replace=False)
+    g[hot] = (np.where(rng.random(hot.size) < 0.5, -1, 1) * t * (1 + rng.random(hot.size)))
+    return g
+
+
+_ENC_CASES = [(n, kind) for n in (1024, 4096, 1 << 20, (1 << 20) + 333)
+              for kind in ("hot", "none", "exact_k")]
+
+
+@pytest.mark.parametrize("n,kind", _ENC_CASES, ids=[f"{n}_{k}" for n, k in _ENC_CASES])
+def test_threshold_encode_kernel_is_bitwise_its_plain_version(cuda_dev, n, kind):
+    g = torch.from_numpy(_encode_input(n, kind)).to(cuda_dev)
+    k = tcomp.default_k_max(n)
+    got, got_count = tcomp.threshold_encode_cuda(g, k, 1e-3)
+    want = tcomp._streaming_pack(g, g.abs(), k, 1e-3, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), tcomp._streaming_pack(g.cpu(), g.abs().cpu(), k, 1e-3, n))
+    count = int((g.abs() >= 1e-3).sum())
+    assert int(got_count) == count
+    assert int((got != 0).sum()) == min(count, k)
+    if kind == "exact_k":
+        assert count == k
+
+
+def test_threshold_encode_kernel_raises_for_what_it_does_not_take(cuda_dev):
+    g = torch.ones(64, device=cuda_dev)
+    for bad, err in ((g.cpu(), ValueError), (g.double(), TypeError), (g.reshape(8, 8), ValueError),
+                     (g[::2], ValueError), (g[:0], ValueError)):
+        with pytest.raises(err):
+            tcomp.threshold_encode_cuda(bad, 4, 0.5)
+    with pytest.raises(ValueError):
+        tcomp.threshold_encode_cuda(g, 0, 0.5)
+    with pytest.raises(ValueError):
+        tcomp.threshold_encode_cuda(g, 4, 0.0)
+
+
+def test_threshold_encode_on_card_counts_then_routes(cuda_dev):
+    """K6 runs on every bucket and counts it; the buckets whose count
+    exceeds k are encoded again by the top-k pack; every message and
+    count is the CPU's, entry for entry."""
+    n = 1 << 16
+    grads = [_hot_grad(n, 1), _hot_grad(n, 2, frac=0.2), _hot_grad(n, 3), _hot_grad(77, 4, 0.3)]
+    fits = [int((np.abs(g) >= 1e-3).sum()) <= tcomp.default_k_max(g.size) for g in grads]
+    assert fits == [True, False, True, False]
+    before = tcomp.threshold_encode_cuda.launches
+    card, card_counts = tcomp.threshold_encode_buckets(
+        [torch.from_numpy(g).to(cuda_dev) for g in grads], threshold=1e-3)
+    torch.cuda.synchronize()
+    assert tcomp.threshold_encode_cuda.launches - before == len(grads)
+    cpu, cpu_counts = tcomp.threshold_encode_buckets([torch.from_numpy(g) for g in grads],
+                                                     threshold=1e-3)
+    assert card_counts == cpu_counts
+    assert [c <= k for c, k in card_counts] == fits
+    for (ec, sc), (eg, sg) in zip(cpu, card):
+        assert torch.equal(ec, eg.cpu()) and sc.item() == sg.item()
+
+
+@pytest.mark.parametrize("method,t", [("threshold", 0.05), ("threshold", None), ("bitmap", None)])
+def test_compressed_trainer_on_card_matches_cpu(cuda_dev, method, t):
+    """One rank, one slice: the compressed step on the card (K6 on every
+    fixed-threshold bucket) against the same step on the CPU, losses
+    within 1e-5."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import Dense, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    from deeplearning4j_tpu_torch.parallel import ShardedTrainer, build_two_tier_mesh
+
+    rng = np.random.default_rng(0)
+    xs = rng.normal(size=(64, 12)).astype(np.float32)
+    ys = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 64)]
+    losses = []
+    for dev in ("cpu", cuda_dev):
+        conf = (NeuralNetConfiguration.builder().seed(7).updater(Sgd(lr=0.05))
+                .layer(Dense(n_out=16, activation="tanh"))
+                .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+                .set_input_type(InputType.feed_forward(12)).build())
+        net = MultiLayerNetwork(conf, device=dev)
+        net.init()
+        trainer = ShardedTrainer(net, build_two_tier_mesh(1), grad_compression=method,
+                                 compression_threshold=t)
+        before = tcomp.threshold_encode_cuda.launches
+        losses.append([float(trainer.fit_batch(DataSet(xs, ys))) for _ in range(4)])
+        launched = tcomp.threshold_encode_cuda.launches - before
+    # a fixed threshold launches K6 on the one bucket at every step (at
+    # t = 0.05 one of the four fits k; the others go on to the top-k pack)
+    assert launched == (4 if t == 0.05 else 0)
+    np.testing.assert_allclose(losses[1], losses[0], atol=1e-5, rtol=0)
+    assert losses[1][-1] < losses[1][0]

@@ -1,0 +1,377 @@
+"""The port's data-parallel trainer (``deeplearning4j_tpu_torch/parallel``)
+against the JAX package's ``ShardedTrainer`` on the CPU.
+
+The JAX side runs on four of the virtual CPU devices as
+``build_two_tier_mesh(2, {"data": 2})``; the port side is four processes
+(gloo, a ``file://`` rendezvous under ``tmp_path``), the same mesh over
+ranks, started by this file run as a script (``--worker``).  Both train
+the reference test's MLP (Dense(16, tanh) → OutputLayer(3, softmax,
+mcxent), SGD lr 0.05) from the same weights on the same 128-row blobs
+for 5 steps in six arms: dense, threshold adaptive, threshold fixed 1e-3
+through the top-k pack alone (the port's one-pass route patched out,
+the JAX one-pass switch off) and routed (JAX switch on), the same routed
+at 0.3, and bitmap adaptive.
+
+Tolerances: losses within 1e-5 of the JAX run at every step; final
+parameters and each slice's residual within 1e-5 (the per-rank
+gradients are f32 sums in another order; the adaptive scales differ by
+a few float32 spacings, tests/test_torch_compression.py); every rank's
+parameters bitwise equal to every other's.  Also: the trainer's
+validation errors, and the residual checkpoint both ways.
+
+The workers import neither JAX nor the JAX package; JAX is imported
+inside the JAX-side helpers only.  Every spawn has a 120 s limit.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEPS = 5
+RANKS = 4
+#: arm → (trainer kwargs, one-pass route: the port's as it runs, and the
+#: JAX package's switch)
+ARMS = {
+    "dense": ({}, False),
+    "threshold_adaptive": ({"grad_compression": "threshold"}, False),
+    "threshold_fixed_top_k": ({"grad_compression": "threshold",
+                               "compression_threshold": 1e-3}, False),
+    "threshold_fixed_routed": ({"grad_compression": "threshold",
+                                "compression_threshold": 1e-3}, True),
+    "bitmap": ({"grad_compression": "bitmap"}, False),
+    # at 1e-3 every bucket of this small MLP overflows k = n/16, so the
+    # routed arm above ends in the top-k pack; at 0.3 the first step fits
+    # and keeps its one-pass message
+    "threshold_fixed_0.3_routed": ({"grad_compression": "threshold",
+                                    "compression_threshold": 0.3}, True),
+}
+COMPRESSED = [a for a, (kw, _) in ARMS.items() if kw]
+
+
+def _blobs(n=128, f=12, classes=3, seed=0):
+    """The JAX package's tests/test_compression.py data."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(classes, f)) * 3
+    ys = rng.integers(0, classes, size=n)
+    xs = (centers[ys] + rng.normal(size=(n, f))).astype(np.float32)
+    return xs, np.eye(classes, dtype=np.float32)[ys]
+
+
+def _jax_mlp(seed=3, lr=0.05):
+    """The JAX package's tests/test_compression.py ``_mlp``."""
+    from deeplearning4j_tpu.nn.conf.inputs import InputType
+    from deeplearning4j_tpu.nn.layers import Dense, OutputLayer
+    from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu.nn.updaters import Sgd
+
+    conf = (NeuralNetConfiguration.builder().seed(seed).updater(Sgd(lr=lr))
+            .layer(Dense(n_out=16, activation="tanh"))
+            .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(12)).build())
+    net = MultiLayerNetwork(conf)
+    net.init()
+    return net
+
+
+def _flat(tree):
+    """f32 leaves of a list-of-dicts tree in sorted-key order, concatenated."""
+    return np.concatenate([np.asarray(l[k], np.float32).reshape(-1)
+                           for l in tree for k in sorted(l)]) if tree else np.zeros(0)
+
+
+# -- the port's ranks ---------------------------------------------------------------
+
+
+def _port_net(work):
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerConfiguration, MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils.params import params_from_numpy
+
+    with open(os.path.join(work, "conf.json")) as f:
+        net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(json.load(f)), device="cpu")
+    w = np.load(os.path.join(work, "weights.npz"))
+    net.params = params_from_numpy([{"W": w[f"{i}/W"], "b": w[f"{i}/b"]} for i in range(2)],
+                                   device="cpu")
+    net.state = [{}, {}]
+    net.opt_state = net.init_opt_state(net.params)
+    return net
+
+
+def _worker(rank: int, work: str) -> None:
+    torch.set_num_threads(1)
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.parallel import (ShardedTrainer, build_two_tier_mesh,
+                                                   initialize, shutdown)
+    from deeplearning4j_tpu_torch.utils.serializer import load_model
+
+    initialize(init_method="file://" + os.path.join(work, "rendezvous"),
+               num_processes=RANKS, process_id=rank, backend="gloo", timeout_s=100)
+    from deeplearning4j_tpu_torch.ops import compression
+
+    one_pass = compression.one_pass_pack
+    calls = []
+
+    def counted(*a):
+        calls.append(1)
+        return one_pass(*a)
+
+    def top_k_only(g, k, t):
+        # every bucket reports an overflow, so the top-k pack encodes it
+        return None, torch.full((), k + 1)
+
+    xs, ys = _blobs()
+    ds = DataSet(xs, ys)
+    out = {}
+    for arm, (kw, routed) in ARMS.items():
+        compression.one_pass_pack = counted if routed else top_k_only
+        calls.clear()
+        trainer = ShardedTrainer(_port_net(work), build_two_tier_mesh(2, {"data": 2}), **kw)
+        # the three entry points: fit_batch, fit_batches, fit (one epoch)
+        fits = 0
+        if arm == "threshold_adaptive":
+            losses = trainer.fit([ds] * STEPS)
+        elif arm == "bitmap":
+            losses = trainer.fit_batches([ds] * STEPS)
+        else:
+            losses = []
+            for _ in range(STEPS):
+                losses.append(trainer.fit_batch(ds))
+                fits += sum(c <= k for c, k in trainer.last_bucket_counts)
+        out[f"{arm}/losses"] = np.asarray([float(x) for x in losses], np.float32)
+        out[f"{arm}/params"] = _flat([{k: v.numpy() for k, v in p.items()}
+                                      for p in trainer.net.params])
+        out[f"{arm}/one_pass_calls"] = np.asarray(len(calls))
+        out[f"{arm}/buckets_fit"] = np.asarray(fits)
+        out[f"{arm}/n_buckets"] = np.asarray(trainer.bucketer.n_buckets)
+        if kw:
+            out[f"{arm}/residual"] = trainer._residual.numpy()
+        if arm == "threshold_fixed_top_k":
+            trainer.save(os.path.join(work, "port.zip"))
+    # a zip the JAX package wrote: every rank adopts its slice's residual
+    compression.one_pass_pack = one_pass
+    net = load_model(os.path.join(work, "jax.zip"), device="cpu")
+    out["adopt/loaded_shape"] = np.asarray(net.grad_residual[0]["W"].shape)
+    trainer = ShardedTrainer(net, build_two_tier_mesh(2, {"data": 2}),
+                             grad_compression="threshold")
+    out["adopt/residual"] = trainer._residual.numpy()
+    trainer.fit_batch(ds)              # and training continues
+    shutdown()
+    np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
+
+
+# -- the JAX side and the run -----------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both packages' five arms (and the checkpoint exchange): the JAX arms
+    in this process, then the port's four ranks as subprocesses."""
+    import jax
+
+    from deeplearning4j_tpu.datasets import DataSet as JDataSet
+    from deeplearning4j_tpu.ops import compression as J
+    from deeplearning4j_tpu.parallel import ShardedTrainer as JTrainer
+    from deeplearning4j_tpu.parallel.mesh import build_two_tier_mesh as j_two_tier
+
+    work = str(tmp_path_factory.mktemp("ranks"))
+    net = _jax_mlp()
+    with open(os.path.join(work, "conf.json"), "w") as f:
+        json.dump(net.conf.to_dict(), f)
+    np.savez(os.path.join(work, "weights.npz"),
+             **{f"{i}/{k}": np.asarray(v) for i, p in enumerate(net.params) for k, v in p.items()})
+
+    xs, ys = _blobs()
+    ds = JDataSet(xs, ys)
+    jax_out = {}
+    fused = J.FUSED_ENCODE
+    try:
+        for arm, (kw, routed) in ARMS.items():
+            J.FUSED_ENCODE = routed             # read when the step is traced
+            trainer = JTrainer(_jax_mlp(), j_two_tier(2, {"data": 2}, jax.devices()[:4]), **kw)
+            jax_out[arm] = {"losses": np.asarray([float(trainer.fit_batch(ds))
+                                                  for _ in range(STEPS)], np.float32),
+                            "params": _flat(jax.tree_util.tree_map(np.asarray,
+                                                                   trainer.net.params))}
+            if kw:
+                res = jax.tree_util.tree_map(np.asarray, trainer.net.grad_residual)
+                jax_out[arm]["residual"] = [_flat(jax.tree_util.tree_map(lambda a: a[s], res))
+                                            for s in range(2)]
+            if arm == "threshold_adaptive":
+                trainer.net.save(os.path.join(work, "jax.zip"))
+                jax_out["jax_zip_residual"] = jax_out[arm]["residual"]
+    finally:
+        J.FUSED_ENCODE = fused
+
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker",
+                               str(r), work], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=120)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{log[-3000:]}"
+    port = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in range(RANKS)]
+    return {"jax": jax_out, "port": port, "work": work}
+
+
+@pytest.mark.parametrize("arm", list(ARMS))
+def test_losses_match_jax_at_every_step(runs, arm):
+    want = runs["jax"][arm]["losses"]
+    for r in range(RANKS):
+        got = runs["port"][r][f"{arm}/losses"]
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    assert want[-1] < want[0]
+
+
+@pytest.mark.parametrize("arm", list(ARMS))
+def test_final_params_match_jax(runs, arm):
+    np.testing.assert_allclose(runs["port"][0][f"{arm}/params"], runs["jax"][arm]["params"],
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("arm", list(ARMS))
+def test_ranks_stay_bitwise_equal(runs, arm):
+    for r in range(1, RANKS):
+        np.testing.assert_array_equal(runs["port"][r][f"{arm}/params"],
+                                      runs["port"][0][f"{arm}/params"])
+        np.testing.assert_array_equal(runs["port"][r][f"{arm}/losses"],
+                                      runs["port"][0][f"{arm}/losses"])
+
+
+def test_one_pass_route_runs_only_where_buckets_fit(runs):
+    """The routed arms run the one-pass pack on every bucket of every step;
+    only the 0.3 arm has buckets that fit k and keep its message."""
+    port = runs["port"][0]
+    calls = {arm: int(port[f"{arm}/one_pass_calls"]) for arm in ARMS}
+    fits = {arm: int(port[f"{arm}/buckets_fit"]) for arm in ARMS}
+    for arm, (_, routed) in ARMS.items():
+        every = STEPS * int(port[f"{arm}/n_buckets"])
+        assert calls[arm] == (every if routed else 0)
+    assert fits["threshold_fixed_0.3_routed"] > 0
+    assert all(f == 0 for arm, f in fits.items() if arm != "threshold_fixed_0.3_routed")
+
+
+@pytest.mark.parametrize("arm", COMPRESSED)
+def test_each_slices_residual_matches_jax(runs, arm):
+    """Rank r is slice r // 2 (dcn-major); both ranks of a slice hold its
+    residual bitwise, and it matches the JAX slice's."""
+    for r in range(RANKS):
+        got = runs["port"][r][f"{arm}/residual"]
+        np.testing.assert_allclose(got, runs["jax"][arm]["residual"][r // 2], atol=1e-5, rtol=0)
+        np.testing.assert_array_equal(got, runs["port"][r ^ 1][f"{arm}/residual"])
+    assert np.abs(runs["port"][0][f"{arm}/residual"]).max() > 0
+
+
+def test_port_trainer_adopts_a_jax_residual(runs):
+    """A zip the JAX trainer saved: the port reads a [2, ...] residual and
+    each rank's trainer adopts its own slice, bitwise."""
+    assert tuple(runs["port"][0]["adopt/loaded_shape"]) == (2, 12, 16)
+    for r in range(RANKS):
+        np.testing.assert_array_equal(runs["port"][r]["adopt/residual"],
+                                      runs["jax"]["jax_zip_residual"][r // 2])
+
+
+def test_jax_loads_the_port_trainers_residual(runs):
+    """``ShardedTrainer.save`` gathers both slices' residuals into the
+    zip; the JAX package's ``load_model`` reads them, bitwise."""
+    import jax
+
+    from deeplearning4j_tpu.utils.serializer import load_model as j_load
+
+    net = j_load(os.path.join(runs["work"], "port.zip"))
+    res = jax.tree_util.tree_map(np.asarray, net.grad_residual)
+    assert res[0]["W"].shape == (2, 12, 16)
+    for s in range(2):
+        np.testing.assert_array_equal(_flat(jax.tree_util.tree_map(lambda a: a[s], res)),
+                                      runs["port"][2 * s]["threshold_fixed_top_k/residual"])
+    np.testing.assert_array_equal(_flat(jax.tree_util.tree_map(np.asarray, net.params)),
+                                  runs["port"][0]["threshold_fixed_top_k/params"])
+
+
+# -- validation, in one process -------------------------------------------------------
+
+
+def _cpu_mlp():
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import Dense, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+
+    conf = (NeuralNetConfiguration.builder().seed(7).updater(Sgd(lr=0.05))
+            .layer(Dense(n_out=16, activation="tanh"))
+            .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(12)).build())
+    net = MultiLayerNetwork(conf, device="cpu")
+    net.init()
+    return net
+
+
+_INVALID = {
+    "grad_compression": (lambda m: m.build_two_tier_mesh(2, {"data": 4}, world_size=8),
+                         {"grad_compression": "gzip"}, ValueError),
+    "dcn": (lambda m: m.build_mesh({"data": 8}, world_size=8),
+            {"grad_compression": "threshold"}, ValueError),
+    "model": (lambda m: m.build_mesh({"dcn": 2, "data": 2, "model": 2}, world_size=8),
+              {"grad_compression": "threshold"}, ValueError),
+    "pipeline_schedule": (lambda m: m.build_mesh(), {"pipeline_schedule": "zigzag"}, ValueError),
+    "queue 9": (lambda m: m.build_mesh({"data": 2, "model": 2}, world_size=4), {},
+                NotImplementedError),
+    "pipeline schedules": (lambda m: m.build_mesh(), {"pipeline_schedule": "1f1b"},
+                           NotImplementedError),
+    "nan_guard": (lambda m: m.build_mesh(), {"nan_guard": 3}, NotImplementedError),
+    "initialize": (lambda m: m.build_two_tier_mesh(2, world_size=2), {}, RuntimeError),
+}
+
+
+@pytest.mark.parametrize("match", list(_INVALID))
+def test_trainer_validation_errors(match):
+    """The reference's errors (tests/test_compression.py), plus what the
+    port does not run yet and a mesh wider than the process group."""
+    from deeplearning4j_tpu_torch.parallel import ShardedTrainer, mesh
+
+    make_mesh, kw, err = _INVALID[match]
+    with pytest.raises(err, match=match):
+        ShardedTrainer(_cpu_mlp(), make_mesh(mesh), **kw)
+
+
+def test_mesh_layout_and_errors():
+    from deeplearning4j_tpu_torch.parallel import build_mesh, build_two_tier_mesh
+
+    m = build_two_tier_mesh(2, world_size=8)
+    assert m.shape == {"dcn": 2, "data": 4} and m.size == 8
+    assert build_mesh().shape == {"data": 1}
+    with pytest.raises(ValueError, match="n_slices"):
+        build_two_tier_mesh(0)
+    with pytest.raises(ValueError, match="dcn"):
+        build_two_tier_mesh(2, {"dcn": 2})
+    with pytest.raises(ValueError, match="devices"):
+        build_mesh({"data": 3}, world_size=8)
+
+
+def test_single_rank_compressed_training_runs_without_a_process_group():
+    """One rank, one slice: the exchange gathers only itself; the loss falls."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.parallel import ShardedTrainer, build_two_tier_mesh
+
+    trainer = ShardedTrainer(_cpu_mlp(), build_two_tier_mesh(1), grad_compression="bitmap")
+    xs, ys = _blobs()
+    losses = [float(x) for x in trainer.fit([DataSet(xs, ys)] * 5, epochs=2)]
+    assert losses[-1] < losses[0] and trainer.net.iteration == 10 and trainer.net.epoch == 2
+    assert trainer.wire_bytes_last_step == 0
+    assert trainer.gather_residual()[0]["W"].shape == (1, 12, 16)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:
+    _worker(int(sys.argv[2]), sys.argv[3])
