@@ -15,10 +15,15 @@ and the recurrent path's training and streaming:
           at the shapes the main path gives it: errors, median time, the
           plain version's time, the least time the card could take (bound)
           and one PyTorch library call's time as a yardstick.  K1 (flash
-          forward), K2/K3 (flash backward dK/dV and dQ, at the train
-          phase's [8, 12, 1024, 64] and more cases at B = 4) and D1 (decode
+          forward, at [4, 12, 1024, 64] and the train phase's B = 8),
+          K2/K3 (flash backward dK/dV and dQ, at the train phase's
+          [8, 12, 1024, 64] and more cases at B = 4) and D1 (decode
           attention, on the decode program's strided and paged K/V
-          views) run first; K4 (fused Adam) runs after the train phase
+          views; its split-key launch at the step, its tiled launch at
+          the prefill and the re-encode) run first; K1's and D1's times
+          and their SDPA yardsticks' are device times (``device_ms``)
+          beside the same calls timed alone with CUDA events
+          (``cuda_ms``, the wrapper's host cost included); K4 (fused Adam) runs after the train phase
           on the model's real per-layer buffers and must match bitwise;
   score   ``MultiLayerNetwork.output`` on [4, 1024] tokens; K1 must have
           launched; the result must be a distribution and agree with the
@@ -163,6 +168,15 @@ def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
 # -- kernel phase ----------------------------------------------------------------
 
 
+def timed(kernel, library) -> dict:
+    """A kernel's and its library yardstick's times: device time per call
+    with the host's enqueue hidden (``device_ms``: "ms", "library_ms")
+    and each call timed alone with CUDA events, the wrapper's host cost
+    included (``cuda_ms``: "cuda_ms", "library_cuda_ms")."""
+    return {"ms": device_ms(kernel), "cuda_ms": cuda_ms(kernel, 20),
+            "library_ms": device_ms(library), "library_cuda_ms": cuda_ms(library, 20)}
+
+
 def flash_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL // HEADS):
     """K1 against its plain version on one input set; returns its record."""
     import numpy as np
@@ -188,7 +202,7 @@ def flash_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL // HE
     err = float(diff.abs().max())
     rel_err = float(diff.norm() / o_ref.float().norm())
     lse_err = float((lse - lse_ref).abs().max())
-    ms = cuda_ms(lambda: att.flash_forward_cuda(q, k, v, kmask, True, scale), 20)
+    kernel = lambda: att.flash_forward_cuda(q, k, v, kmask, True, scale)
     plain_ms = cuda_ms(lambda: att.flash_forward_plain(q, k, v, kmask, True, scale), 5)
     if kmask is None:
         lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
@@ -196,7 +210,6 @@ def flash_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL // HE
         allowed = (torch.ones(T, T, dtype=torch.bool, device=dev).tril()[None, None]
                    & (kmask != 0)[:, None, None, :])
         lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)
-    library_ms = cuda_ms(lib, 20)
     # the work this input needs: (query, live key) pairs on or below the diagonal
     live = torch.ones(B, T, device=dev) if kmask is None else kmask.float()
     pairs = float((torch.cumsum(live, dim=1).sum()) * H)
@@ -208,8 +221,8 @@ def flash_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL // HE
     rec = {"phase": "kernel", "case": name, "dtype": dname,
            "shape": [B, H, T, D], "causal": True, "kmask": kmask is not None,
            "max_abs_err": err, "rel_err": rel_err, "lse_max_abs_err": lse_err,
-           "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
+           **timed(kernel, lib),
+           "plain_ms": plain_ms,
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "flops": flops, "bytes": nbytes}
@@ -325,9 +338,9 @@ def det_case(name, B, Tq, L, q_pos, paged, H=HEADS, d=D_MODEL // HEADS, page=16)
     out = kvc.det_attention_cuda(q, k, v, bias)
     torch.cuda.synchronize()
     err = float((out - kvc.det_attention_plain(q, k, v, bias)).abs().max())
-    ms = cuda_ms(lambda: kvc.det_attention_cuda(q, k, v, bias), 20)
     plain_ms = cuda_ms(lambda: kvc.det_attention_plain(q, k, v, bias), 5)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias), 20)
+    times = timed(lambda: kvc.det_attention_cuda(q, k, v, bias),
+                  lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
     pairs = float(vis.sum()) * H
     flops = 4.0 * d * pairs
     # q and out once, the bias once, and only the K/V rows some query of
@@ -337,8 +350,8 @@ def det_case(name, B, Tq, L, q_pos, paged, H=HEADS, d=D_MODEL // HEADS, page=16)
     b_ms, b_by = bound(flops, nbytes, "float32")
     rec = {"phase": "kernel", "case": "det_" + name, "shape": [B, H, Tq, L, d],
            "kv_layout": "paged" if paged else "strided", "bias_shape": list(bias.shape),
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
+           "max_abs_err": err, "launch": "split-key" if Tq <= kvc.SPLIT_ROWS else "tiled",
+           **times, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
     emit(rec)
     return rec
 
@@ -350,7 +363,10 @@ def phase_kernel():
     # is f32 from the same inputs in either dtype
     tol = {"float32": 2e-5, "bfloat16": 2e-2}
     rel_tol = {"float32": 1e-5, "bfloat16": 1e-2}
+    # [4, 12, 1024, 64] first (the kernels line reports it), then the
+    # train phase's B = 8
     recs = [flash_case("f32", torch.float32, 0.0),
+            flash_case("f32_train", torch.float32, 0.0, B=8),
             flash_case("bf16", torch.bfloat16, 0.0),
             flash_case("f32_kmask", torch.float32, 0.25)]
     bad = [r["case"] for r in recs

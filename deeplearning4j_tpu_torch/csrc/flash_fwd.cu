@@ -1,4 +1,4 @@
-// Flash-attention forward (kernel K1) for Hopper, plain SIMT float32.
+// Flash-attention forward (kernel K1) for Hopper, SIMT float32.
 //
 // Replaces deeplearning4j_tpu/ops/attention.py::_flash_kernel (launched by
 // _flash_forward).  Same function: O = softmax(q.k^T * scale + bias) . v and
@@ -6,35 +6,39 @@
 // [B, S] key mask (1 = attend), f32 or bf16 inputs, f32 statistics, and the
 // LSE sentinel +1e30 for rows that never saw a live key.
 //
-// Design.  On the TPU the grid runs in order and carries (acc, m, l) in VMEM
-// from one key block to the next.  Here one thread block owns BQ query rows
-// of one (batch, head) and walks the key tiles itself, so the running
-// statistics stay in registers; blocks run in any order.  Each key tile is
-// staged in shared memory as f32 (K transposed so a thread reads four
-// neighbouring keys as one float4), scores are a 4x4 register tile per
-// thread, the online-softmax row statistics are reduced across the 16
-// threads that share a row with warp shuffles, and P is staged in shared
-// memory for the P.V product.  Tiles wholly above the causal diagonal are
-// never loaded; the ragged edges of T, S and D are masked in the kernel, so
-// any T and S work and D <= 128 (padded to 64 or 128).
-//
-// Bound on H100: the work is 4*B*H*T*S*D flops (half that when causal)
+// Bound on H100: the work is 4*B*H*T*S*D flops (about half that when causal)
 // against ~2*(T+S)*B*H*D elements of traffic, so at the slice's shapes it is
-// bound by operations; this kernel uses the f32 SIMT pipes (67 TFLOP/s),
-// not the tensor cores, and is fed from shared memory (five shared loads per
-// sixteen FMAs), which is what it trades for simplicity.  wgmma, TMA and
-// pipelining are later work.  No TF32: it must agree with the plain f32
-// version at f32 tolerance.
+// bound by operations.  The main path computes in f32 with TF32 off (parity
+// with the plain version at 2e-5), so the limit is the f32 FFMA pipes (67
+// TFLOP/s), and the design makes the FMAs, not shared memory or the copies,
+// the limit:
+//   * register blocking: a block of 128 threads owns 64 query rows of one
+//     (batch, head); each thread holds a 4-row x 4-key score tile and a 4-row
+//     x D/8-column output tile, fed by float4 shared loads along d (8 FMAs
+//     per shared load for S, 10.7 for P.V at D 64), loops fully unrolled.
+//     8 rows per thread (128-row blocks, 230 registers) ran slower: fewer,
+//     longer blocks balance worse over 132 SMs;
+//   * K/V tiles of 32 keys staged by 16-byte cp.async.cg copies,
+//     double-buffered: the next tile is in flight during the current tile's
+//     math, one __syncthreads per tile on each side.  Tiles are row-major with
+//     rows padded by 16 bytes, so neither the copies nor the float4 reads of
+//     eight consecutive key rows conflict on banks; nothing is transposed;
+//   * P is written once into a per-row shared tile and read back as float4
+//     by the same warp (a __syncwarp, not a block barrier);
+//   * causal: tiles wholly above the diagonal are never loaded, and the grid
+//     walks the query tiles heaviest first, so the long diagonal tiles do not
+//     form the tail.
+// The online-softmax statistics stay in registers (reduced over the 8 threads
+// that share a row with shuffles); exponentials are ex2.approx of x*log2(e).
+// Ragged T, S and D are masked in the kernel (D <= 128, zero-padded to 64 or
+// 128); a D that is not a multiple of 16 bytes takes plain loads for the
+// tiles instead of cp.async.  bf16 inputs are staged as bf16 and converted on
+// each shared load; p takes v's dtype before the P.V product.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // keys per tile
-constexpr int NT = 256;          // threads: 16 x 16, each a 4x4 score tile
-constexpr float NEG_LARGE = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -54,159 +58,234 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32<T>(from_f32<T>(x));
 }
 
-__device__ __forceinline__ float row_max16(float x) {
-  #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+constexpr int BK = 32;           // keys per tile
+constexpr int TR = 4;            // query rows per thread
+constexpr int BQ = 16 * TR;      // query rows per block
+constexpr int NT = 128;          // threads: 16 row groups x 8
+constexpr int PS = BK + 8;       // row stride of the P tile (floats)
+constexpr float NEG_LARGE = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float fast_exp(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * LOG2E));
+  return y;
 }
 
-__device__ __forceinline__ float row_sum16(float x) {
-  #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 16 : 0;   // 0: no bytes read, the 16 bytes zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four neighbouring elements along d, as f32
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <typename T, int DP> struct Tile {
+  static constexpr int E = 16 / sizeof(T);       // elements per 16-byte copy
+  static constexpr int SP = DP + E;              // row stride (elements): +16 bytes
+};
+
+// Rows r0 .. r0+rows-1 of a [n, D] matrix into a [rows, SP] shared tile,
+// zero past n and past D: 16-byte cp.async copies when `vec` (D a multiple of
+// 16 bytes), else plain loads and stores.  The caller commits and waits.
+template <typename T, int DP>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int rows, int r0, int n, int D,
+                                          bool vec) {
+  constexpr int E = Tile<T, DP>::E, SP = Tile<T, DP>::SP, SEG = DP / E;
+  if (vec) {
+    for (int e = threadIdx.x; e < rows * SEG; e += NT) {
+      const int r = e / SEG, c = (e % SEG) * E;
+      const bool ok = r0 + r < n && c < D;
+      cp16(dst + r * SP + c, src + (ok ? (size_t)(r0 + r) * D + c : 0), ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * DP; e += NT) {
+      const int r = e / DP, c = e % DP;
+      dst[r * SP + c] = (r0 + r < n && c < D) ? src[(size_t)(r0 + r) * D + c] : from_f32<T>(0.f);
+    }
+  }
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(NT)
+constexpr size_t smem_bytes() {
+  return (size_t)(BQ * Tile<T, DP>::SP + 4 * BK * Tile<T, DP>::SP) * sizeof(T) +
+         (size_t)BQ * PS * sizeof(float);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(NT, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ kmask,
                  T* __restrict__ o, float* __restrict__ lse,
                  int H, int T_, int S, int D, float scale, int causal) {
-  constexpr int QS = DP + 4;     // row stride of Qs and Vs (floats)
-  constexpr int KS = BK + 4;     // row stride of Kt and Ps
-  constexpr int NC = DP / 16;    // output columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;              // [BQ][QS]
-  float* Kt = Qs + BQ * QS;      // [DP][KS]  key tile, transposed
-  float* Vs = Kt + DP * KS;      // [BK][QS]
-  float* Ps = Vs + BK * QS;      // [BQ][KS]
+  constexpr int SP = Tile<T, DP>::SP;
+  constexpr int NG = DP / 32;    // float4 column groups per thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);           // [BQ][SP]
+  T* Ks = Qs + BQ * SP;                              // [2][BK][SP]
+  T* Vs = Ks + 2 * BK * SP;                          // [2][BK][SP]
+  float* Ps = reinterpret_cast<float*>(Vs + 2 * BK * SP);   // [BQ][PS]
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const size_t qoff = (size_t)bh * T_ * D;
-  const size_t koff = (size_t)bh * S * D;
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
+  const T* qb = q + (size_t)bh * T_ * D;
+  const T* kb = k + (size_t)bh * S * D;
+  const T* vb = v + (size_t)bh * S * D;
   const int* km = kmask ? kmask + (size_t)(bh / H) * S : nullptr;
-
-  for (int e = tid; e < BQ * DP; e += NT) {
-    const int r = e / DP, d = e % DP;
-    float x = 0.f;
-    if (q0 + r < T_ && d < D) x = to_f32<T>(q[qoff + (size_t)(q0 + r) * D + d]);
-    Qs[r * QS + d] = x;
-  }
-
-  float m[4], l[4], acc[4][NC];
-  #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_LARGE;
-    l[i] = 0.f;
-    #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+  const bool vec = D % Tile<T, DP>::E == 0 &&
+                   ((reinterpret_cast<size_t>(q) | reinterpret_cast<size_t>(k) |
+                     reinterpret_cast<size_t>(v)) & 15) == 0;
 
   int n_kt = (S + BK - 1) / BK;
   if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / BK + 1);  // skip tiles above the diagonal
 
+  load_tile<T, DP>(Qs, qb, BQ, q0, T_, D, vec);
+  load_tile<T, DP>(Ks, kb, BK, 0, S, D, vec);
+  load_tile<T, DP>(Vs, vb, BK, 0, S, D, vec);
+  cp_commit();
+
+  float m[TR], l[TR], acc[TR][4 * NG];
+  #pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    m[i] = NEG_LARGE;
+    l[i] = 0.f;
+    #pragma unroll
+    for (int c = 0; c < 4 * NG; ++c) acc[i][c] = 0.f;
+  }
+
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done with Kt, Vs, Ps
-    for (int e = tid; e < BK * DP; e += NT) {
-      const int r = e / DP, d = e % DP;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + r < S && d < D) {
-        const size_t g = koff + (size_t)(k0 + r) * D + d;
-        kx = to_f32<T>(k[g]);
-        vx = to_f32<T>(v[g]);
-      }
-      Kt[d * KS + r] = kx;
-      Vs[r * QS + d] = vx;
+    const int buf = kt & 1, k0 = kt * BK;
+    if (kt + 1 < n_kt) {
+      load_tile<T, DP>(Ks + (buf ^ 1) * BK * SP, kb, BK, k0 + BK, S, D, vec);
+      load_tile<T, DP>(Vs + (buf ^ 1) * BK * SP, vb, BK, k0 + BK, S, D, vec);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
+    const T* Kt = Ks + buf * BK * SP;
+    const T* Vt = Vs + buf * BK * SP;
 
-    float s[4][4];
+    float s[TR][4];
     #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TR; ++i)
       #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    #pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      const float4 kv = *reinterpret_cast<const float4*>(&Kt[d * KS + tx * 4]);
+    #pragma unroll
+    for (int c = 0; c < DP; c += 4) {
+      float4 qv[TR], kv[4];
       #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float qv = Qs[(ty * 4 + i) * QS + d];
-        s[i][0] = fmaf(qv, kv.x, s[i][0]);
-        s[i][1] = fmaf(qv, kv.y, s[i][1]);
-        s[i][2] = fmaf(qv, kv.z, s[i][2]);
-        s[i][3] = fmaf(qv, kv.w, s[i][3]);
-      }
+      for (int i = 0; i < TR; ++i) qv[i] = ld4(Qs + (ty + 16 * i) * SP + c);
+      #pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = ld4(Kt + (tx + 8 * j) * SP + c);
+      #pragma unroll
+      for (int i = 0; i < TR; ++i)
+        #pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
     }
 
+    int kmv[4];
     #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      float x[4];
-      float mx = -INFINITY;
+    for (int j = 0; j < 4; ++j) {
+      const int kj = k0 + tx + 8 * j;
+      kmv[j] = (km != nullptr && kj < S) ? km[kj] : 1;
+    }
+    #pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int row = ty + 16 * i, qi = q0 + row;
+      float x[4], mx = -INFINITY;
       #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx * 4 + j;
+        const int kj = k0 + tx + 8 * j;
         if (kj >= S) {
           x[j] = -INFINITY;      // past the ragged edge: no key at all
         } else {
           float b = 0.f;         // bias = causal part + key-mask part, as in the reference
           if (causal && qi < kj) b = NEG_LARGE;
-          if (km != nullptr && km[kj] == 0) b += NEG_LARGE;
+          if (kmv[j] == 0) b += NEG_LARGE;
           x[j] = s[i][j] * scale + b;
         }
         mx = fmaxf(mx, x[j]);
       }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float corr = expf(m[i] - m_new);
+      #pragma unroll
+      for (int off = 4; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = fast_exp(m[i] - m_new);
       float ps = 0.f;
-      float4 pm;
-      float* pmv = reinterpret_cast<float*>(&pm);
       #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(x[j] - m_new);
+        const float p = fast_exp(x[j] - m_new);
         ps += p;
-        pmv[j] = round_to<T>(p);
+        Ps[row * PS + tx + 8 * j] = round_to<T>(p);
       }
-      l[i] = l[i] * corr + row_sum16(ps);
+      #pragma unroll
+      for (int off = 4; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l[i] = l[i] * corr + ps;
       m[i] = m_new;
       #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-      *reinterpret_cast<float4*>(&Ps[(ty * 4 + i) * KS + tx * 4]) = pm;
+      for (int c = 0; c < 4 * NG; ++c) acc[i][c] *= corr;
     }
-    __syncthreads();
+    __syncwarp();                // P rows ty + 16i are this warp's own
 
-    #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4];
+    #pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 pf[TR];
       #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * KS + kk];
+      for (int i = 0; i < TR; ++i)
+        pf[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * PS + kk);
       #pragma unroll
-      for (int g = 0; g < DP / 64; ++g) {
-        const float4 vv = *reinterpret_cast<const float4*>(&Vs[kk * QS + g * 64 + tx * 4]);
+      for (int jj = 0; jj < 4; ++jj) {
+        float4 vv[NG];
         #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][g * 4 + 0] = fmaf(pv[i], vv.x, acc[i][g * 4 + 0]);
-          acc[i][g * 4 + 1] = fmaf(pv[i], vv.y, acc[i][g * 4 + 1]);
-          acc[i][g * 4 + 2] = fmaf(pv[i], vv.z, acc[i][g * 4 + 2]);
-          acc[i][g * 4 + 3] = fmaf(pv[i], vv.w, acc[i][g * 4 + 3]);
+        for (int g = 0; g < NG; ++g) vv[g] = ld4(Vt + (kk + jj) * SP + g * 32 + tx * 4);
+        #pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const float p = jj == 0 ? pf[i].x : jj == 1 ? pf[i].y : jj == 2 ? pf[i].z : pf[i].w;
+          #pragma unroll
+          for (int g = 0; g < NG; ++g) {
+            acc[i][4 * g + 0] = fmaf(p, vv[g].x, acc[i][4 * g + 0]);
+            acc[i][4 * g + 1] = fmaf(p, vv[g].y, acc[i][4 * g + 1]);
+            acc[i][4 * g + 2] = fmaf(p, vv[g].z, acc[i][4 * g + 2]);
+            acc[i][4 * g + 3] = fmaf(p, vv[g].w, acc[i][4 * g + 3]);
+          }
         }
       }
     }
+    __syncthreads();             // buffer `buf` and P are free for the next tiles
   }
 
   #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
+  for (int i = 0; i < TR; ++i) {
+    const int qi = q0 + ty + 16 * i;
     if (qi >= T_) continue;
     const float ls = fmaxf(l[i], 1e-30f);
+    T* orow = o + ((size_t)bh * T_ + qi) * D;
     #pragma unroll
-    for (int g = 0; g < DP / 64; ++g)
+    for (int g = 0; g < NG; ++g)
       #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int d = g * 64 + tx * 4 + c;
-        if (d < D) o[qoff + (size_t)qi * D + d] = from_f32<T>(acc[i][g * 4 + c] / ls);
+        const int d = g * 32 + tx * 4 + c;
+        if (d < D) orow[d] = from_f32<T>(acc[i][4 * g + c] / ls);
       }
     if (tx == 0)
       lse[(size_t)bh * T_ + qi] = (m[i] > NEG_LARGE / 2) ? m[i] + logf(ls) : 1e30f;
@@ -217,13 +296,12 @@ template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, const int* kmask,
            void* o, float* lse, int B, int H, int T_, int S, int D,
            float scale, int causal, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(BQ * (DP + 4) + DP * (BK + 4) + BK * (DP + 4) + BQ * (BK + 4)) * sizeof(float);
+  constexpr size_t smem = smem_bytes<T, DP>();
   // once per template instance (a thread-safe static initialiser)
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((T_ + BQ - 1) / BQ, B * H);
+  const dim3 grid(B * H, (T_ + BQ - 1) / BQ);
   flash_fwd_kernel<T, DP><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       kmask, static_cast<T*>(o), lse, H, T_, S, D, scale, causal);
@@ -239,7 +317,8 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
                               const void* kmask, void* o, void* lse,
                               int B, int H, int T_, int S, int D, float scale,
                               int causal, int is_bf16, void* stream) {
-  if (B < 1 || H < 1 || T_ < 1 || S < 1 || D < 1 || D > 128 || B * H > 65535) return -1;
+  if (B < 1 || H < 1 || T_ < 1 || S < 1 || D < 1 || D > 128) return -1;
+  if ((long long)B * H > 2147483647LL || (T_ + BQ - 1) / BQ > 65535) return -1;
   const int* km = static_cast<const int*>(kmask);
   float* lo = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

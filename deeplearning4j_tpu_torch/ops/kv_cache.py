@@ -15,10 +15,11 @@ pool so call sites read as in the reference.
 ``det_attention`` is kernel D1 (``csrc/det_attention.cu``) on a CUDA
 tensor and ``det_attention_plain`` on a CPU tensor.  The reference's
 bitwise decode-vs-re-encode contract needs each query row's reduction
-order to depend on nothing but that row; D1 fixes that order (one warp
-per row, keys by lane in ascending order, fixed butterflies), and
-masked keys add exact zeros, so prefill (L keys), step (L keys) and
-re-encode (t keys) give the same bits.  ``det_attention_plain`` keeps
+order to depend on nothing but that row; D1 fixes that order (keys in
+fixed 64-key chunks from key 0, one partial per (row, chunk) computed
+the same way in its split-key and tiled launches, partials combined in
+ascending chunk order), and masked keys add exact zeros, so prefill (L
+keys), step (L keys) and re-encode (t keys) give the same bits.  ``det_attention_plain`` keeps
 the reference's formulation, broadcast-multiply plus trailing-axis sums
 with ``NEG_INF`` masking, and takes every sum in ascending order (a
 cumulative sum's last entry), so on the CPU too masked keys add exact
@@ -149,6 +150,12 @@ def det_attention_plain(q: Tensor, k: Tensor, v: Tensor, bias: Tensor) -> Tensor
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
 
+#: D1 takes its split-key launch for calls of at most this many query rows
+#: (one row tile): the decode step, and short prefills
+SPLIT_ROWS = 32
+DET_CHUNK = 64       # D1's fixed key chunk
+
+
 @functools.lru_cache(maxsize=None)
 def _det_fn():
     """``dl4j_det_attention`` from the built library, its C signature set once."""
@@ -156,15 +163,26 @@ def _det_fn():
 
     fn = cuda_build.load("det_attention").dl4j_det_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 10 + [ctypes.c_float, ctypes.c_int,
+                                                 ctypes.c_void_p])
     return fn
 
 
+def _aligned(t: Tensor) -> bool:
+    """Rows of ``t`` [B,H,L,d] start on 16 bytes: what D1's 16-byte copies read."""
+    return t.stride(3) == 1 and all(s % 4 == 0 for s in t.stride()[:3]) \
+        and t.data_ptr() % 16 == 0
+
+
 def det_attention_cuda(q: Tensor, k: Tensor, v: Tensor, bias: Tensor) -> Tensor:
-    """Launch D1 (``csrc/det_attention.cu``) on CUDA tensors.  ``k`` and
-    ``v`` may be strided views (the gathered pages) with a unit last
-    stride; ``bias`` is read through its broadcast strides.  Raises for
+    """Launch D1 (``csrc/det_attention.cu``) on CUDA tensors: its
+    split-key launch for at most ``SPLIT_ROWS`` query rows, else its
+    tiled launch; both give a row the same bits.  ``q``, ``k`` and ``v``
+    may be strided views (the gathered pages, the projections split into
+    heads) with a unit last stride; ``bias`` is read through its
+    broadcast strides.  A head width that is not a multiple of 4 is
+    zero-padded (exact: the padding adds 0·0 to each score).  Raises for
     anything the kernel does not take."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
@@ -176,20 +194,35 @@ def det_attention_cuda(q: Tensor, k: Tensor, v: Tensor, bias: Tensor) -> Tensor:
         raise ValueError("det_attention_cuda needs q, k, v, bias on one CUDA device")
     B, H, Tq, d = q.shape
     L = k.shape[2]
-    q = q.contiguous()
-    if k.stride(3) != 1 or k.stride() != v.stride():
-        k, v = k.contiguous(), v.contiguous()
+    if d > 128:
+        raise ValueError(f"the det_attention kernel supports head_dim <= 128, got {d}")
+    scale = 1.0 / math.sqrt(d)
     bias = bias.expand(B, H, Tq, L)
-    out = torch.empty_like(q)
+    if d % 4:
+        pad = lambda t: torch.nn.functional.pad(t, (0, 4 - d % 4))
+        q, k, v = pad(q), pad(k), pad(v)
+    if q.stride(3) != 1:
+        q = q.contiguous()
+    if not (_aligned(k) and k.stride() == v.stride() and _aligned(v)):
+        k, v = k.contiguous(), v.contiguous()
+    dk = k.shape[3]
+    split = Tq <= SPLIT_ROWS
+    part = None
+    if split:
+        n_chunks = -(-L // DET_CHUNK)
+        part = torch.empty(B * H * Tq * n_chunks * (dk + 2), dtype=torch.float32,
+                           device=q.device)
+    out = torch.empty((B, H, Tq, dk), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _det_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                       out.data_ptr(), B, H, Tq, L, d, *k.stride()[:3],
-                       *bias.stride(), 1.0 / math.sqrt(d), stream)
+                       out.data_ptr(), None if part is None else part.data_ptr(),
+                       B, H, Tq, L, dk, *q.stride()[:3], *k.stride()[:3],
+                       *bias.stride(), scale, int(split), stream)
     if rc != 0:
         raise RuntimeError(f"det_attention kernel launch failed (code {rc})")
     det_attention_cuda.launches += 1
-    return out
+    return out if dk == d else out[..., :d]
 
 
 det_attention_cuda.launches = 0

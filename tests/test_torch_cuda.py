@@ -9,7 +9,8 @@ on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerances: K1, K2, K3 f32 2e-5 and bf16 2e-2 max abs (sums in another
-order; bf16 rounds p and ds before their products); D1 2e-5; K4 bitwise
+order; bf16 rounds p and ds before their products); D1 2e-5, and a
+query row bitwise the same in every launch shape and batch; K4 bitwise
 (the same rounded ops in the same order); K5a/K5b f32 2e-6 (the same
 rounded ops; only expf/tanhf may differ in the last bit) and, in bf16,
 each element within one bf16 spacing (2^-7 of its size, plus 1e-6) of
@@ -71,6 +72,11 @@ _CASES = [
     (2, 2, 200, 200, 16, True, True, torch.float32),
     (2, 4, 256, 256, 64, True, False, torch.bfloat16),
     (1, 2, 90, 90, 128, True, True, torch.bfloat16),
+    # the train phase's shape, and a ragged length with a key mask
+    (8, 12, 1024, 1024, 64, True, False, torch.float32),
+    (8, 12, 1024, 1024, 64, True, False, torch.bfloat16),
+    (2, 12, 1000, 1000, 64, True, True, torch.float32),
+    (2, 12, 1000, 1000, 64, True, True, torch.bfloat16),
 ]
 
 
@@ -279,6 +285,62 @@ def test_det_attention_kernel_on_the_decode_programs_layouts(cuda_dev, tq):
     # the same rows laid out contiguously give the same bits
     assert torch.equal(out, tkv.det_attention(q, k.contiguous(), v.contiguous(),
                                               bias.expand(s, h, tq, L).contiguous()))
+
+
+def test_det_attention_rows_are_bitwise_the_same_in_every_launch(cuda_dev):
+    """D1's contract at the main path's widths (H 12, d 64, L 1024): one
+    sequence's query rows give the same bits in a re-encode of 1024
+    tokens (tiled), a 512-row prefill into L 1024 whose keys past the
+    prompt hold other values (tiled), a re-encode of 544 tokens (L = t)
+    at B 2, one-row steps among 4 and 2 slots whose keys past each
+    position hold other values (split-key), and the 32/33-row calls on
+    either side of the split/tiled threshold."""
+    h, d, L = 12, 64, 1024
+    rng = np.random.default_rng(11)
+    t = lambda *shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda_dev)
+    q, k, v = t(1, h, L, d), t(1, h, L, d), t(1, h, L, d)
+    keys = torch.arange(L, device=cuda_dev)
+
+    def causal(rows, n_keys):            # [len(rows), n_keys] bias: key j visible iff j <= row
+        rows = torch.as_tensor(rows, device=cuda_dev)
+        return torch.where(keys[:n_keys] <= rows[:, None], 0.0, tkv.NEG_INF).float()
+
+    def with_junk(x, pos):                # keys past pos replaced by other values
+        junk = t(*x.shape)
+        return torch.where(keys[None, None, :, None] <= pos, x, junk)
+
+    before = tkv.det_attention_cuda.launches
+    full = tkv.det_attention(q, k, v, causal(range(L), L)[None, None])
+    assert float((full - tkv.det_attention_plain(q, k, v, causal(range(L), L)[None, None]))
+                 .abs().max()) <= 2e-5
+    pre = tkv.det_attention(q[:, :, :512], with_junk(k, 511), with_junk(v, 511),
+                            causal(range(512), L)[None, None])
+    assert torch.equal(pre, full[:, :, :512])
+    q2, k2, v2 = (torch.cat([x[:, :, :544], t(1, h, 544, d)]) for x in (q, k, v))
+    re = tkv.det_attention(q2, k2, v2, causal(range(544), 544)[None, None])
+    assert torch.equal(re[:1], full[:, :, :544])
+    assert tkv.SPLIT_ROWS == 32
+    for lo, hi in ((0, 32), (480, 512), (0, 33), (479, 512)):   # split, split, tiled, tiled
+        part = tkv.det_attention(q[:, :, lo:hi], k, v, causal(range(lo, hi), L)[None, None])
+        assert torch.equal(part, full[:, :, lo:hi]), (lo, hi)
+    for pos in ([15, 300, 511, 1023], [300, 700]):
+        n = len(pos)
+        ks = torch.cat([with_junk(k, p) for p in pos])
+        vs = torch.cat([with_junk(v, p) for p in pos])
+        qs = torch.cat([q[:, :, p:p + 1] for p in pos])
+        step = tkv.det_attention(qs, ks, vs, causal(pos, L)[:, None, None, :])
+        assert step.shape == (n, h, 1, d)
+        for i, p in enumerate(pos):
+            assert torch.equal(step[i, :, 0], full[0, :, p]), p
+    assert tkv.det_attention_cuda.launches == before + 9
+    # a row that sees no key keeps the plain version's answer, in both launches
+    for rows in (1, 40):
+        bias = causal(range(rows), L)[None, None].clone()
+        bias[..., 0, :] = tkv.NEG_INF
+        got = tkv.det_attention(q[:, :, :rows], k, v, bias)
+        want = tkv.det_attention_plain(q[:, :, :rows], k, v, bias)
+        assert float((got - want).abs().max()) <= 2e-5
+        assert torch.equal(got[:, :, 1:], full[:, :, 1:rows])
 
 
 @pytest.mark.parametrize("fused", ["0", "1"], ids=["per_leaf", "fused"])
