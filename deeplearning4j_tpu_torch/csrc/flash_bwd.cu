@@ -1,339 +1,378 @@
-// Flash-attention backward (kernels K2 and K3) for Hopper, plain SIMT float32.
+// Flash-attention backward (kernels K2 and K3) for Hopper, SIMT float32.
 //
 // K2 replaces deeplearning4j_tpu/ops/attention.py::_flash_bwd_dkdv_kernel and
-// K3 replaces ::_flash_bwd_dq_kernel (both built on ::_bwd_tile).  Same
-// function: with s = q.k^T * scale + bias, p = exp(s - lse) rebuilt from the
-// forward's saved log-sum-exp, dp = g.v^T and ds = p * (dp - delta) * scale
-// (zeroed where bias <= NEG_INF / 2), K2 gives dV = p^T.g and dK = ds^T.q, and
-// K3 gives dQ = ds.k.  delta = rowsum(g * o) is computed outside, in f32, as
-// in the reference.  The bias is the causal part plus the key-mask part, as
-// in K1, and a row with no live key carries the LSE sentinel +1e30, so its p
-// and every gradient it feeds are exactly 0.  bf16 inputs: p and ds are
-// rounded to bf16 before the products that take them, and all sums stay f32.
+// K3 replaces ::_flash_bwd_dq_kernel (both built on ::_bwd_tile, launched by
+// ::_flash_backward).  Same function: with s = q.k^T * scale + bias,
+// p = exp(s - lse) rebuilt from the forward's saved log-sum-exp, dp = g.v^T
+// and ds = p * (dp - delta) * scale (zeroed where bias <= NEG_INF / 2), K2
+// gives dV = p^T.g and dK = ds^T.q, and K3 gives dQ = ds.k.  delta =
+// rowsum(g * o) is computed outside, in f32, as in the reference.  The bias
+// is the causal part plus the key-mask part, as in K1, and a row with no live
+// key carries the LSE sentinel +1e30, so its p and every gradient it feeds are
+// exactly 0.  p and ds take the input dtype before the products that read
+// them; all sums are f32.  Ragged T and S (S != T too) are masked in the
+// kernels; D <= 128, zero-padded to 64 or 128.
 //
-// Design.  On the TPU the grid runs in order and each kernel carries its
-// accumulator in VMEM across the innermost grid axis.  CUDA blocks run in no
-// order, so each block owns its accumulator in registers and loops where the
-// TPU grid ran in sequence: K2 has one block per (batch*head, 64-key tile) and
-// walks the query tiles from the causal diagonal on; K3 has one block per
-// (batch*head, 64-query tile) and walks the key tiles up to the diagonal.
-// Neither uses atomics, so both are deterministic.  Tiles are staged in
-// shared memory as f32 (K and V transposed for the q.k^T and g.v^T products,
-// as in K1), every product is a 4x4 register tile per thread over 256 threads,
-// and p / ds go through shared memory to the second products.  Ragged T and S
-// are masked in the kernel; D <= 128 (padded to 64 or 128).
+// Bound on H100: per live (query, key) pair K2 does four products of 2*D
+// flops (s, dp, dV, dK: 8*D) and K3 three (s, dp, dQ: 6*D), against ~(4*T +
+// 4*S)*D elements of traffic per batch*head, so at the training shapes both
+// are bound by operations: the f32 FFMA pipes at 67 TFLOP/s (TF32 off, for
+// parity with the plain version at 2e-5).  What stands between the kernels
+// and that bound is the shared-memory loads that feed the FMAs, the
+// instructions around them, and too few warps to hide their latency.  The
+// design, as K1's (flash_fwd.cu):
+//   * a block of 128 threads (16 row groups x 8) owns 64 rows of one (batch,
+//     head) -- K2 64 keys with K and V resident, K3 64 query rows with Q and
+//     G resident -- and streams tiles of 32 rows of the other side: K2 the
+//     query tiles (Q, G, lse, delta), K3 the key tiles (K, V);
+//   * each score-sized product (s, dp; K2 computes them transposed, keys x
+//     queries) is a 4 x 4 register tile per thread fed by float4 loads along
+//     d on both sides: 8 FMAs per shared load;
+//   * p / ds go once into a per-row shared tile whose rows are the writing
+//     warp's own, are read back as float4 after a __syncwarp, and feed the
+//     output products: each thread accumulates 4 rows x D/8 columns (K2:
+//     of both dK and dV, for exactly the keys whose p^T / ds^T it wrote;
+//     K3: of dQ against row-major K): 10.7 FMAs per shared load at D 64;
+//   * every tile is row-major with rows padded by 16 bytes, so the copies,
+//     the float4 reads of eight consecutive rows and the float4 reads along
+//     d are free of bank conflicts; nothing is transposed or staged twice;
+//   * the streamed tiles are single-buffered and come by cp.async (16 bytes
+//     a copy, 4 for lse and delta) in two copy groups, each issued as soon as
+//     every warp is done with its buffer and waited for a product later (K3:
+//     V after dp, K after dQ; K2: G, lse, delta after dV, Q after dK), so a
+//     copy overlaps a product without a second buffer.  That keeps a block
+//     at 61 KB (K3) / 71 KB (K2) of shared memory at D <= 64, so three
+//     blocks (12 warps, 168 registers a thread) share an SM instead of two;
+//   * causal: tiles wholly above the diagonal are never loaded, and the grid
+//     (batch*head on x) walks the heaviest tiles first -- K2's lowest key
+//     tiles, K3's highest query tiles -- so they do not form the tail.
+// Exponentials are ex2.approx of x*log2(e), as in K1.  bf16 inputs are staged
+// as bf16 and converted on each shared load; their speed is not the target
+// (tensor cores are later work).
 //
-// Bound on H100: 14*D flops per live (query, key) pair (K2: four products of
-// 2*D, K3: three) against ~(4*T + 4*S)*D elements of traffic per batch*head,
-// so at the training shapes the kernels are bound by operations.  They use
-// the f32 SIMT pipes (67 TFLOP/s) and no TF32, so they agree with the plain
-// f32 version at f32 tolerance; wgmma, TMA and pipelining are later work.
+// Why two kernels and no atomics: every gradient element is summed by one
+// thread in a fixed order, so a launch is bitwise the last one on the same
+// inputs, which the port's bit gates rest on (data-parallel replicas stay
+// bitwise equal, an A/B of two exchanges compares bits).  A fused kernel
+// that adds dQ with float atomics would break that; a deterministic fused
+// one (dQ partials per key tile, reduced in a fixed order) would write and
+// read back ~T*S/32*D*4 bytes of scratch per batch*head (~210 MB at [8, 12,
+// 1024, 64], ~0.13 ms at 3.35 TB/s), most of what sharing s and dp between
+// the two would save.  So K2 owns a key tile and K3 a query tile, as in the
+// reference.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int BQ = 64;           // query rows per tile
-constexpr int BK = 64;           // keys per tile
-constexpr int NT = 256;          // threads: 16 x 16, each a 4x4 tile
-constexpr int KS = BK + 4;       // row stride of the transposed / P tiles
-constexpr float NEG_LARGE = -1e30f;
+constexpr int NT = 128;          // threads: 16 row groups x 8
+constexpr int BM = 64;           // rows a block owns: K2 keys, K3 query rows
+constexpr int BN = 32;           // rows of a streamed tile: K2 queries, K3 keys
+constexpr int KJ = BN / 8;       // streamed rows per thread in a score tile: tx + 8 j
+constexpr int PS = BN + 8;       // row stride of the p / ds tiles (floats)
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// p and ds take the input dtype before the products that read them
-// (identity for f32), as _bwd_tile's .astype(...) does
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
-
-// rows [r0, r0+BQ) of a [n, D] matrix into S[r][d] (stride DP + 4), zero-padded
+// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 8 j][d] over two row-major
+// tiles of row stride SP, by float4 loads along d on both sides
 template <typename T, int DP>
-__device__ __forceinline__ void load_rows(float* S, const T* src, int r0, int n, int D) {
-  for (int e = threadIdx.x; e < BQ * DP; e += NT) {
-    const int r = e / DP, d = e % DP;
-    float x = 0.f;
-    if (r0 + r < n && d < D) x = to_f32<T>(src[(size_t)(r0 + r) * D + d]);
-    S[r * (DP + 4) + d] = x;
-  }
-}
-
-// rows [r0, r0+BK) of a [n, D] matrix into S[d][r] (stride KS), zero-padded
-template <typename T, int DP>
-__device__ __forceinline__ void load_rows_t(float* S, const T* src, int r0, int n, int D) {
-  for (int e = threadIdx.x; e < BK * DP; e += NT) {
-    const int r = e / DP, d = e % DP;
-    float x = 0.f;
-    if (r0 + r < n && d < D) x = to_f32<T>(src[(size_t)(r0 + r) * D + d]);
-    S[d * KS + r] = x;
-  }
-}
-
-// acc[i][j] = sum_d A[ty*4+i][d] * Bt[d][tx*4+j]; A stride DP+4, Bt stride KS
-template <int DP>
-__device__ __forceinline__ void tile_nt(float acc[4][4], const float* A, const float* Bt,
-                                        int ty, int tx) {
+__device__ __forceinline__ void dot_tile(float acc[4][KJ], const T* A, const T* B, int ty,
+                                         int tx) {
+  constexpr int SP = Tile<T, DP>::SP;
   #pragma unroll
   for (int i = 0; i < 4; ++i)
     #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  #pragma unroll 8
-  for (int d = 0; d < DP; ++d) {
-    const float4 b = *reinterpret_cast<const float4*>(&Bt[d * KS + tx * 4]);
+    for (int j = 0; j < KJ; ++j) acc[i][j] = 0.f;
+  #pragma unroll 4
+  for (int c = 0; c < DP; c += 4) {
+    float4 a[4], b[KJ];
     #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = A[(ty * 4 + i) * (DP + 4) + d];
-      acc[i][0] = fmaf(a, b.x, acc[i][0]);
-      acc[i][1] = fmaf(a, b.y, acc[i][1]);
-      acc[i][2] = fmaf(a, b.z, acc[i][2]);
-      acc[i][3] = fmaf(a, b.w, acc[i][3]);
+    for (int i = 0; i < 4; ++i) a[i] = ld4(A + (ty + 16 * i) * SP + c);
+    #pragma unroll
+    for (int j = 0; j < KJ; ++j) b[j] = ld4(B + (tx + 8 * j) * SP + c);
+    #pragma unroll
+    for (int i = 0; i < 4; ++i)
+      #pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+      }
+  }
+}
+
+// acc[i][4 g + c] += sum_n W[ty + 16 i][n] * X[n][32 g + 4 tx + c] over the
+// BN rows n of a streamed tile: W a p / ds tile (stride PS), X row-major
+template <typename T, int DP>
+__device__ __forceinline__ void acc_tile(float (*acc)[DP / 8], const float* W, const T* X,
+                                         int ty, int tx) {
+  constexpr int SP = Tile<T, DP>::SP, NG = DP / 32;
+  #pragma unroll 2
+  for (int n = 0; n < BN; n += 4) {
+    float4 w[4];
+    #pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = *reinterpret_cast<const float4*>(W + (ty + 16 * i) * PS + n);
+    #pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float4 x[NG];
+      #pragma unroll
+      for (int g = 0; g < NG; ++g) x[g] = ld4(X + (n + jj) * SP + 32 * g + 4 * tx);
+      #pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = jj == 0 ? w[i].x : jj == 1 ? w[i].y : jj == 2 ? w[i].z : w[i].w;
+        #pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          acc[i][4 * g + 0] = fmaf(p, x[g].x, acc[i][4 * g + 0]);
+          acc[i][4 * g + 1] = fmaf(p, x[g].y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(p, x[g].z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(p, x[g].w, acc[i][4 * g + 3]);
+        }
+      }
     }
   }
 }
 
-// The _bwd_tile element math for score (qi, kj): p and ds from s and dp.
-// A key past S or a query past T gives p = ds = 0.
-__device__ __forceinline__ void p_ds(float s, float dp, int qi, int kj, int T_, int S,
-                                     const int* km, int causal, float scale, float lse,
-                                     float delta, float* p, float* ds) {
-  if (qi >= T_ || kj >= S) {
-    *p = 0.f;
-    *ds = 0.f;
-    return;
+// whether the bias blocks (query qi, key kj): its causal part or its
+// key-mask part is NEG_INF there.  A blocked pair has p = exp(<= -1e30) = 0
+// and ds = 0, and a live one a bias of 0, so the kernels compute p and ds
+// only for live pairs, from s * scale - lse
+__device__ __forceinline__ bool blocked(int qi, int kj, int causal, int kmv) {
+  return (causal && qi < kj) || kmv == 0;
+}
+
+// rows [r0, r0 + BM) of the 4 x D/8 accumulator tile of every thread into
+// out [n, D], rows past n and columns past D dropped
+template <typename T, int DP>
+__device__ __forceinline__ void store_rows(T* out, const float (*acc)[DP / 8], int r0, int n,
+                                           int D, int ty, int tx) {
+  #pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 16 * i;
+    if (r >= n) continue;
+    #pragma unroll
+    for (int g = 0; g < DP / 32; ++g)
+      #pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int d = 32 * g + 4 * tx + c;
+        if (d < D) out[(size_t)r * D + d] = from_f32<T>(acc[i][4 * g + c]);
+      }
   }
-  float b = 0.f;
-  if (causal && qi < kj) b = NEG_LARGE;
-  if (km != nullptr && km[kj] == 0) b += NEG_LARGE;
-  const float pp = expf(s * scale + b - lse);
-  *p = pp;
-  *ds = (b > NEG_LARGE / 2) ? pp * (dp - delta) * scale : 0.f;
+}
+
+template <typename T>
+__device__ __forceinline__ bool vec_ok(int D, const T* a, const T* b, const T* c, const T* d) {
+  return D % Tile<T, 64>::E == 0 &&
+         ((reinterpret_cast<size_t>(a) | reinterpret_cast<size_t>(b) |
+           reinterpret_cast<size_t>(c) | reinterpret_cast<size_t>(d)) & 15) == 0;
+}
+
+// two resident BM-row tiles and two streamed BN-row tiles, then the f32
+// p / ds tiles (K2: p^T and ds^T, lse and delta; K3: ds)
+template <typename T, int DP, bool DKDV>
+constexpr size_t smem_bytes() {
+  return (size_t)(2 * BM + 2 * BN) * Tile<T, DP>::SP * sizeof(T) +
+         (size_t)(DKDV ? 2 * BM * PS + 2 * BN : BM * PS) * sizeof(float);
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(NT)
+// three blocks an SM at D <= 64 (168 registers), two at D 128 (255)
+__global__ void __launch_bounds__(NT, DP <= 64 ? 3 : 2)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ g,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       const int* __restrict__ kmask, T* __restrict__ dk,
                       T* __restrict__ dv, int H, int T_, int S, int D, float scale,
                       int causal) {
-  constexpr int QS = DP + 4;
-  constexpr int NC = DP / 16;    // output columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* Kt = smem;              // [DP][KS]  this block's key tile, transposed
-  float* Vt = Kt + DP * KS;      // [DP][KS]
-  float* Qs = Vt + DP * KS;      // [BQ][QS]  the current query tile
-  float* Gs = Qs + BQ * QS;      // [BQ][QS]
-  float* Ps = Gs + BQ * QS;      // [BQ][KS]
-  float* Ds = Ps + BQ * KS;      // [BQ][KS]
-  float* Ls = Ds + BQ * KS;      // [BQ]  lse of the tile's rows
-  float* Dl = Ls + BQ;           // [BQ]  delta of the tile's rows
+  constexpr int SP = Tile<T, DP>::SP, NC = DP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);           // [BM][SP]  this block's keys
+  T* Vs = Ks + BM * SP;                              // [BM][SP]
+  T* Qs = Vs + BM * SP;                              // [BN][SP]  the streamed queries
+  T* Gs = Qs + BN * SP;                              // [BN][SP]
+  float* Ps = reinterpret_cast<float*>(Gs + BN * SP);       // [BM][PS]  p^T (keys x queries)
+  float* Dss = Ps + BM * PS;                         // [BM][PS]  ds^T
+  float* Ls = Dss + BM * PS;                         // [BN]  lse of the queries
+  float* Dl = Ls + BN;                               // [BN]  delta of the queries
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y, k0 = blockIdx.x * BK;
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BM;   // lowest key tiles, the heaviest when causal, first
   const size_t qoff = (size_t)bh * T_ * D, koff = (size_t)bh * S * D;
+  const T* qb = q + qoff;
+  const T* gb = g + qoff;
+  const float* lb = lse + (size_t)bh * T_;
+  const float* db = delta + (size_t)bh * T_;
   const int* km = kmask ? kmask + (size_t)(bh / H) * S : nullptr;
+  const bool vec = vec_ok(D, q, k, v, g);
 
-  load_rows_t<T, DP>(Kt, k + koff, k0, S, D);
-  load_rows_t<T, DP>(Vt, v + koff, k0, S, D);
+  const int n_qt = (T_ + BN - 1) / BN;
+  const int qt0 = causal ? k0 / BN : 0;   // query tiles wholly above the diagonal see no key here
 
-  float akv[2][4][NC];           // [dk|dv][key ty*4+i][column]
-  #pragma unroll
-  for (int a = 0; a < 2; ++a)
-    #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      #pragma unroll
-      for (int c = 0; c < NC; ++c) akv[a][i][c] = 0.f;
-
-  const int n_qt = (T_ + BQ - 1) / BQ;
-  const int qt0 = causal ? k0 / BQ : 0;  // query tiles wholly above the diagonal see no key here
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // the previous tile's readers are done with Qs, Gs, Ps, Ds
-    load_rows<T, DP>(Qs, q + qoff, q0, T_, D);
-    load_rows<T, DP>(Gs, g + qoff, q0, T_, D);
-    if (tid < BQ) {
-      const bool in = q0 + tid < T_;
-      Ls[tid] = in ? lse[(size_t)bh * T_ + q0 + tid] : 0.f;
-      Dl[tid] = in ? delta[(size_t)bh * T_ + q0 + tid] : 0.f;
+  // G, lse and delta of query tile r0 in one copy group, Q in the next: G
+  // is free (after dV) a product before Q (after dK), and the next tile
+  // reads G first (dp^T) and Q second (s^T), so each copy overlaps a product
+  auto load_g = [&](int r0) {
+    load_tile<T, DP, NT>(Gs, gb, BN, r0, T_, D, vec);
+    for (int e = tid; e < BN; e += NT) {
+      const bool ok = r0 + e < T_;
+      cp4(Ls + e, lb + (ok ? r0 + e : 0), ok);
+      cp4(Dl + e, db + (ok ? r0 + e : 0), ok);
     }
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_nt<DP>(s, Qs, Kt, ty, tx);
-    tile_nt<DP>(dp, Gs, Vt, ty, tx);
-    #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      float4 pv, dv4;
-      float* pa = reinterpret_cast<float*>(&pv);
-      float* da = reinterpret_cast<float*>(&dv4);
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p, ds;
-        p_ds(s[i][j], dp[i][j], q0 + r, k0 + tx * 4 + j, T_, S, km, causal, scale,
-             Ls[r], Dl[r], &p, &ds);
-        pa[j] = round_to<T>(p);
-        da[j] = round_to<T>(ds);
-      }
-      *reinterpret_cast<float4*>(&Ps[r * KS + tx * 4]) = pv;
-      *reinterpret_cast<float4*>(&Ds[r * KS + tx * 4]) = dv4;
-    }
-    __syncthreads();
-
-    // dV[key][d] += sum_r P[r][key] G[r][d];  dK[key][d] += sum_r dS[r][key] Q[r][d]
-    #pragma unroll 4
-    for (int r = 0; r < BQ; ++r) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&Ps[r * KS + ty * 4]);
-      const float4 d4 = *reinterpret_cast<const float4*>(&Ds[r * KS + ty * 4]);
-      const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
-      const float dr[4] = {d4.x, d4.y, d4.z, d4.w};
-      #pragma unroll
-      for (int gq = 0; gq < DP / 64; ++gq) {
-        const float4 gv = *reinterpret_cast<const float4*>(&Gs[r * QS + gq * 64 + tx * 4]);
-        const float4 qv = *reinterpret_cast<const float4*>(&Qs[r * QS + gq * 64 + tx * 4]);
-        #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          akv[1][i][gq * 4 + 0] = fmaf(pr[i], gv.x, akv[1][i][gq * 4 + 0]);
-          akv[1][i][gq * 4 + 1] = fmaf(pr[i], gv.y, akv[1][i][gq * 4 + 1]);
-          akv[1][i][gq * 4 + 2] = fmaf(pr[i], gv.z, akv[1][i][gq * 4 + 2]);
-          akv[1][i][gq * 4 + 3] = fmaf(pr[i], gv.w, akv[1][i][gq * 4 + 3]);
-          akv[0][i][gq * 4 + 0] = fmaf(dr[i], qv.x, akv[0][i][gq * 4 + 0]);
-          akv[0][i][gq * 4 + 1] = fmaf(dr[i], qv.y, akv[0][i][gq * 4 + 1]);
-          akv[0][i][gq * 4 + 2] = fmaf(dr[i], qv.z, akv[0][i][gq * 4 + 2]);
-          akv[0][i][gq * 4 + 3] = fmaf(dr[i], qv.w, akv[0][i][gq * 4 + 3]);
-        }
-      }
-    }
+    cp_commit();
+  };
+  auto load_q = [&](int r0) {
+    load_tile<T, DP, NT>(Qs, qb, BN, r0, T_, D, vec);
+    cp_commit();
+  };
+  if (qt0 < n_qt) {                 // else no query sees these keys: dK = dV = 0
+    load_tile<T, DP, NT>(Ks, k + koff, BM, k0, S, D, vec);
+    load_tile<T, DP, NT>(Vs, v + koff, BM, k0, S, D, vec);
+    load_g(qt0 * BN);
+    load_q(qt0 * BN);
   }
 
+  int kmv[4];                       // the key mask of this thread's keys
   #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + ty * 4 + i;
-    if (kj >= S) continue;
-    #pragma unroll
-    for (int gq = 0; gq < DP / 64; ++gq)
-      #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = gq * 64 + tx * 4 + c;
-        if (d < D) {
-          dk[koff + (size_t)kj * D + d] = from_f32<T>(akv[0][i][gq * 4 + c]);
-          dv[koff + (size_t)kj * D + d] = from_f32<T>(akv[1][i][gq * 4 + c]);
-        }
-      }
+    const int kj = k0 + ty + 16 * i;
+    kmv[i] = (km != nullptr && kj < S) ? km[kj] : 1;
   }
+  float adk[4][NC], adv[4][NC];     // keys ty + 16 i, columns 32 g + 4 tx + c
+  #pragma unroll
+  for (int i = 0; i < 4; ++i)
+    #pragma unroll
+    for (int c = 0; c < NC; ++c) adk[i][c] = adv[i][c] = 0.f;
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * BN;
+    const bool more = qt + 1 < n_qt;
+    cp_wait<1>();                   // K, V, G, lse, delta landed; Q may be in flight
+    __syncthreads();
+    float s[4][KJ], dp[4][KJ];      // transposed: key ty + 16 i, query tx + 8 j
+    dot_tile<T, DP>(dp, Vs, Gs, ty, tx);
+    cp_wait<0>();
+    __syncthreads();                // Q landed
+    dot_tile<T, DP>(s, Ks, Qs, ty, tx);
+    #pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int col = tx + 8 * j, qi = q0 + col;
+      const float ls = Ls[col], dl = Dl[col];
+      #pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = ty + 16 * i;
+        float p = 0.f, ds = 0.f;
+        if (qi < T_ && !blocked(qi, k0 + row, causal, kmv[i])) {
+          p = fast_exp(s[i][j] * scale - ls);
+          ds = p * (dp[i][j] - dl) * scale;
+        }
+        Ps[row * PS + col] = round_to<T>(p);
+        Dss[row * PS + col] = round_to<T>(ds);
+      }
+    }
+    __syncwarp();                   // p^T / ds^T rows ty + 16 i are this warp's own
+    acc_tile<T, DP>(adv, Ps, Gs, ty, tx);
+    __syncthreads();                // every warp is done with G, lse, delta
+    if (more) load_g(q0 + BN);
+    acc_tile<T, DP>(adk, Dss, Qs, ty, tx);
+    __syncthreads();                // every warp is done with Q
+    if (more) load_q(q0 + BN);
+  }
+
+  store_rows<T, DP>(dk + koff, adk, k0, S, D, ty, tx);
+  store_rows<T, DP>(dv + koff, adv, k0, S, D, ty, tx);
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, DP <= 64 ? 3 : 2)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ g,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const int* __restrict__ kmask, T* __restrict__ dq, int H, int T_,
                     int S, int D, float scale, int causal) {
-  constexpr int QS = DP + 4;
-  constexpr int NC = DP / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;              // [BQ][QS]  this block's query tile
-  float* Gs = Qs + BQ * QS;      // [BQ][QS]
-  float* Kt = Gs + BQ * QS;      // [DP][KS]  the current key tile, transposed
-  float* Vt = Kt + DP * KS;      // [DP][KS]
-  float* Ks = Vt + DP * KS;      // [BK][QS]  the same key tile, row-major
-  float* Ds = Ks + BK * QS;      // [BQ][KS]
+  constexpr int SP = Tile<T, DP>::SP, NC = DP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);           // [BM][SP]  this block's query rows
+  T* Gs = Qs + BM * SP;                              // [BM][SP]
+  T* Ks = Gs + BM * SP;                              // [BN][SP]  the streamed keys
+  T* Vs = Ks + BN * SP;                              // [BN][SP]
+  float* Ds = reinterpret_cast<float*>(Vs + BN * SP);       // [BM][PS]  ds
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest causal tiles first
   const size_t qoff = (size_t)bh * T_ * D, koff = (size_t)bh * S * D;
+  const T* kb = k + koff;
+  const T* vb = v + koff;
   const int* km = kmask ? kmask + (size_t)(bh / H) * S : nullptr;
+  const bool vec = vec_ok(D, q, k, v, g);
 
-  load_rows<T, DP>(Qs, q + qoff, q0, T_, D);
-  load_rows<T, DP>(Gs, g + qoff, q0, T_, D);
-  float ls[4], dl[4];
+  int n_kt = (S + BN - 1) / BN;
+  if (causal) n_kt = min(n_kt, (q0 + BM - 1) / BN + 1);  // skip tiles above the diagonal
+
+  // V of key tile r0 in one copy group, K in the next: V is free (after dp)
+  // two products before K (after dQ), and the next tile reads V first (dp)
+  // and K second (s), so each copy overlaps a product
+  load_tile<T, DP, NT>(Qs, q + qoff, BM, q0, T_, D, vec);
+  load_tile<T, DP, NT>(Gs, g + qoff, BM, q0, T_, D, vec);
+  load_tile<T, DP, NT>(Vs, vb, BN, 0, S, D, vec);
+  cp_commit();
+  load_tile<T, DP, NT>(Ks, kb, BN, 0, S, D, vec);
+  cp_commit();
+
+  float ls[4], dl[4], acc[4][NC];   // rows ty + 16 i, columns 32 g + 4 tx + c
   #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
+    const int qi = q0 + ty + 16 * i;
     ls[i] = qi < T_ ? lse[(size_t)bh * T_ + qi] : 0.f;
     dl[i] = qi < T_ ? delta[(size_t)bh * T_ + qi] : 0.f;
-  }
-
-  float acc[4][NC];
-  #pragma unroll
-  for (int i = 0; i < 4; ++i)
     #pragma unroll
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-
-  int n_kt = (S + BK - 1) / BK;
-  if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / BK + 1);  // skip tiles above the diagonal
+  }
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done with Kt, Vt, Ks, Ds
-    load_rows_t<T, DP>(Kt, k + koff, k0, S, D);
-    load_rows_t<T, DP>(Vt, v + koff, k0, S, D);
-    load_rows<T, DP>(Ks, k + koff, k0, S, D);
+    const int k0 = kt * BN;
+    const bool more = kt + 1 < n_kt;
+    cp_wait<1>();                   // Q, G, V landed; K may be in flight
     __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_nt<DP>(s, Qs, Kt, ty, tx);
-    tile_nt<DP>(dp, Gs, Vt, ty, tx);
+    int kmv[KJ];
+    #pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int kj = k0 + tx + 8 * j;
+      kmv[j] = (km != nullptr && kj < S) ? km[kj] : 1;
+    }
+    float s[4][KJ], dp[4][KJ];      // query row ty + 16 i, key tx + 8 j
+    dot_tile<T, DP>(dp, Gs, Vs, ty, tx);
+    __syncthreads();                // every warp is done with V
+    if (more) {
+      load_tile<T, DP, NT>(Vs, vb, BN, k0 + BN, S, D, vec);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();                // K landed
+    dot_tile<T, DP>(s, Qs, Ks, ty, tx);
     #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float4 dv4;
-      float* da = reinterpret_cast<float*>(&dv4);
+      const int row = ty + 16 * i;
       #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p, ds;
-        p_ds(s[i][j], dp[i][j], q0 + ty * 4 + i, k0 + tx * 4 + j, T_, S, km, causal,
-             scale, ls[i], dl[i], &p, &ds);
-        da[j] = round_to<T>(ds);
+      for (int j = 0; j < KJ; ++j) {
+        const int kj = k0 + tx + 8 * j;
+        float ds = 0.f;
+        if (kj < S && !blocked(q0 + row, kj, causal, kmv[j]))
+          ds = fast_exp(s[i][j] * scale - ls[i]) * (dp[i][j] - dl[i]) * scale;
+        Ds[row * PS + tx + 8 * j] = round_to<T>(ds);
       }
-      *reinterpret_cast<float4*>(&Ds[(ty * 4 + i) * KS + tx * 4]) = dv4;
     }
-    __syncthreads();
-
-    // dQ[r][d] += sum_key dS[r][key] K[key][d]
-    #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float dr[4];
-      #pragma unroll
-      for (int i = 0; i < 4; ++i) dr[i] = Ds[(ty * 4 + i) * KS + kk];
-      #pragma unroll
-      for (int gq = 0; gq < DP / 64; ++gq) {
-        const float4 kv = *reinterpret_cast<const float4*>(&Ks[kk * QS + gq * 64 + tx * 4]);
-        #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][gq * 4 + 0] = fmaf(dr[i], kv.x, acc[i][gq * 4 + 0]);
-          acc[i][gq * 4 + 1] = fmaf(dr[i], kv.y, acc[i][gq * 4 + 1]);
-          acc[i][gq * 4 + 2] = fmaf(dr[i], kv.z, acc[i][gq * 4 + 2]);
-          acc[i][gq * 4 + 3] = fmaf(dr[i], kv.w, acc[i][gq * 4 + 3]);
-        }
-      }
+    __syncwarp();                   // ds rows ty + 16 i are this warp's own
+    acc_tile<T, DP>(acc, Ds, Ks, ty, tx);
+    __syncthreads();                // every warp is done with K
+    if (more) {
+      load_tile<T, DP, NT>(Ks, kb, BN, k0 + BN, S, D, vec);
+      cp_commit();
     }
   }
 
-  #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= T_) continue;
-    #pragma unroll
-    for (int gq = 0; gq < DP / 64; ++gq)
-      #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = gq * 64 + tx * 4 + c;
-        if (d < D) dq[qoff + (size_t)qi * D + d] = from_f32<T>(acc[i][gq * 4 + c]);
-      }
-  }
+  store_rows<T, DP>(dq + qoff, acc, q0, T_, D, ty, tx);
 }
 
 template <typename T, int DP>
@@ -341,12 +380,12 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* g,
                 const float* lse, const float* delta, const int* kmask, void* dk,
                 void* dv, int B, int H, int T_, int S, int D, float scale, int causal,
                 cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(2 * DP * KS + 2 * BQ * (DP + 4) + 2 * BQ * KS + 2 * BQ) * sizeof(float);
+  constexpr size_t smem = smem_bytes<T, DP, true>();
+  // once per template instance (a thread-safe static initialiser)
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dkdv_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((S + BK - 1) / BK, B * H);
+  const dim3 grid(B * H, (S + BM - 1) / BM);
   flash_bwd_dkdv_kernel<T, DP><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), lse, delta, kmask, static_cast<T*>(dk),
@@ -358,12 +397,11 @@ template <typename T, int DP>
 int launch_dq(const void* q, const void* k, const void* v, const void* g,
               const float* lse, const float* delta, const int* kmask, void* dq, int B,
               int H, int T_, int S, int D, float scale, int causal, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(2 * BQ * (DP + 4) + 2 * DP * KS + BK * (DP + 4) + BQ * KS) * sizeof(float);
+  constexpr size_t smem = smem_bytes<T, DP, false>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((T_ + BQ - 1) / BQ, B * H);
+  const dim3 grid(B * H, (T_ + BM - 1) / BM);
   flash_bwd_dq_kernel<T, DP><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), lse, delta, kmask, static_cast<T*>(dq), H, T_, S, D,
@@ -372,7 +410,9 @@ int launch_dq(const void* q, const void* k, const void* v, const void* g,
 }
 
 bool bad_args(int B, int H, int T_, int S, int D) {
-  return B < 1 || H < 1 || T_ < 1 || S < 1 || D < 1 || D > 128 || B * H > 65535;
+  return B < 1 || H < 1 || T_ < 1 || S < 1 || D < 1 || D > 128 ||
+         (long long)B * H > 2147483647LL || (T_ + BM - 1) / BM > 65535 ||
+         (S + BM - 1) / BM > 65535;
 }
 
 }  // namespace

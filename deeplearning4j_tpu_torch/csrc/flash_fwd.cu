@@ -35,28 +35,9 @@
 // tiles instead of cp.async.  bf16 inputs are staged as bf16 and converted on
 // each shared load; p takes v's dtype before the P.V product.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_tiles.cuh"
 
 namespace {
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// p takes the value dtype before the P.V product, as blockwise_update casts
-// p to v's dtype (identity for f32)
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
 
 constexpr int BK = 32;           // keys per tile
 constexpr int TR = 4;            // query rows per thread
@@ -64,60 +45,6 @@ constexpr int BQ = 16 * TR;      // query rows per block
 constexpr int NT = 128;          // threads: 16 row groups x 8
 constexpr int PS = BK + 8;       // row stride of the P tile (floats)
 constexpr float NEG_LARGE = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float fast_exp(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * LOG2E));
-  return y;
-}
-
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;   // 0: no bytes read, the 16 bytes zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four neighbouring elements along d, as f32
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-template <typename T, int DP> struct Tile {
-  static constexpr int E = 16 / sizeof(T);       // elements per 16-byte copy
-  static constexpr int SP = DP + E;              // row stride (elements): +16 bytes
-};
-
-// Rows r0 .. r0+rows-1 of a [n, D] matrix into a [rows, SP] shared tile,
-// zero past n and past D: 16-byte cp.async copies when `vec` (D a multiple of
-// 16 bytes), else plain loads and stores.  The caller commits and waits.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int rows, int r0, int n, int D,
-                                          bool vec) {
-  constexpr int E = Tile<T, DP>::E, SP = Tile<T, DP>::SP, SEG = DP / E;
-  if (vec) {
-    for (int e = threadIdx.x; e < rows * SEG; e += NT) {
-      const int r = e / SEG, c = (e % SEG) * E;
-      const bool ok = r0 + r < n && c < D;
-      cp16(dst + r * SP + c, src + (ok ? (size_t)(r0 + r) * D + c : 0), ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * DP; e += NT) {
-      const int r = e / DP, c = e % DP;
-      dst[r * SP + c] = (r0 + r < n && c < D) ? src[(size_t)(r0 + r) * D + c] : from_f32<T>(0.f);
-    }
-  }
-}
 
 template <typename T, int DP>
 constexpr size_t smem_bytes() {
@@ -153,9 +80,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int n_kt = (S + BK - 1) / BK;
   if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / BK + 1);  // skip tiles above the diagonal
 
-  load_tile<T, DP>(Qs, qb, BQ, q0, T_, D, vec);
-  load_tile<T, DP>(Ks, kb, BK, 0, S, D, vec);
-  load_tile<T, DP>(Vs, vb, BK, 0, S, D, vec);
+  load_tile<T, DP, NT>(Qs, qb, BQ, q0, T_, D, vec);
+  load_tile<T, DP, NT>(Ks, kb, BK, 0, S, D, vec);
+  load_tile<T, DP, NT>(Vs, vb, BK, 0, S, D, vec);
   cp_commit();
 
   float m[TR], l[TR], acc[TR][4 * NG];
@@ -170,8 +97,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int buf = kt & 1, k0 = kt * BK;
     if (kt + 1 < n_kt) {
-      load_tile<T, DP>(Ks + (buf ^ 1) * BK * SP, kb, BK, k0 + BK, S, D, vec);
-      load_tile<T, DP>(Vs + (buf ^ 1) * BK * SP, vb, BK, k0 + BK, S, D, vec);
+      load_tile<T, DP, NT>(Ks + (buf ^ 1) * BK * SP, kb, BK, k0 + BK, S, D, vec);
+      load_tile<T, DP, NT>(Vs + (buf ^ 1) * BK * SP, vb, BK, k0 + BK, S, D, vec);
       cp_commit();
       cp_wait<1>();
     } else {

@@ -3,8 +3,9 @@
 Each source under ``deeplearning4j_tpu_torch/csrc/`` has a plain C
 interface and becomes one shared library for ``sm_90a`` (Hopper),
 compiled at first use into ``deeplearning4j_tpu_torch/_build/`` (listed
-in ``.gitignore``).  The library name carries a digest of the source
-and flags, so an edited source is rebuilt and a stale library is never
+in ``.gitignore``).  Sources may include the ``csrc/*.cuh`` headers.  The
+library name carries a digest of the source, the headers and the flags,
+so an edited source or header is rebuilt and a stale library is never
 loaded.  A missing ``nvcc`` or a failed build raises: no path falls back
 to a plain PyTorch version.
 
@@ -43,8 +44,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
