@@ -61,7 +61,9 @@ and the recurrent path's training and streaming:
           and every streamed distribution equals ``output()`` over the
           whole sequence within 1e-5, through K5 and with the plain cell.
           K5a/K5b are held to their plain versions at [64, 256], [64, 512],
-          [7, 256] and the stream's [1, 256], in f32 and bf16.
+          [7, 256] and the stream's [1, 256], and at K5b's other launch
+          shapes (n % 4 != 0: [64, 255] and [3, 3]; many waves of blocks:
+          [4096, 256]), in f32 and bf16.
   compressed  data-parallel training of the TransformerLM through
           ``parallel.ShardedTrainer`` over ``torch.distributed``: two rank
           processes on cuda:0 (gloo; mesh dcn=2, data=1), each taking
@@ -75,13 +77,17 @@ and the recurrent path's training and streaming:
           Gates: both ranks' parameters bitwise equal after every step in
           every arm (an exact integer fingerprint of the f32 bits), (a)
           bitwise (b) (losses and fingerprints), losses finite and falling,
-          K6 launched on every bucket of every step of (a), the bytes
-          gathered per step equal to ``compression_stats``'s and at least
-          8x below dense.  It also reads, from a ``torch.profiler`` trace
-          of one all-gather of a step's wire buffer, whether gloo copied
-          the CUDA tensors through host memory.  K6 is held
-          to its plain version bitwise at n = 1024, 4096, 2^20 and 2^20 + 333
-          with no selection, exactly k selections and a 2%-hot gradient.
+          one K6 launch over every bucket in every step of (a) and none of
+          the one-bucket launch, the bytes gathered per step equal to
+          ``compression_stats``'s and at least 8x below dense.  It also
+          reads, from a ``torch.profiler`` trace of one all-gather of a
+          step's wire buffer, whether gloo copied the CUDA tensors through
+          host memory.  K6 is held to its plain version bitwise over the
+          phase's whole 156-bucket layout (2%-hot gradient; a second launch
+          bitwise the first; timed against its 0.207 ms bound and against
+          ``torch.nonzero`` plus a pack of every bucket), and as one bucket
+          at n = 1024, 4096, 2^20 and 2^20 + 333 with no selection, exactly
+          k selections and a 2%-hot gradient.
 
 Each phase prints JSON lines; then one ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -542,8 +548,11 @@ def phase_kernel_lstm():
     # last bit); bf16: every element within one bf16 spacing
     ok = {"float32": lambda r: r["max_abs_err"] <= 2e-6,
           "bfloat16": lambda r: r["max_err_bf16_spacings"] <= 1.0}
+    # the char-RNN's shape first (the kernels line reports it), then
+    # n % 4 != 0 and a batch of many waves of K5b's blocks
     recs = [lstm_case(mb, n, dt) for dt in (torch.float32, torch.bfloat16)
-            for mb, n in ((RNN_B, RNN_HIDDEN), (RNN_B, 512), (7, RNN_HIDDEN), (1, RNN_HIDDEN))]
+            for mb, n in ((RNN_B, RNN_HIDDEN), (RNN_B, 512), (7, RNN_HIDDEN), (1, RNN_HIDDEN),
+                          (RNN_B, 255), (3, 3), (4096, RNN_HIDDEN))]
     bad = [f"{r['case']}/{k}" for r in recs for k in ("lstm_cell_fwd", "lstm_cell_bwd")
            if not ok[r["dtype"]](r[k])]
     if bad:
@@ -620,14 +629,93 @@ def encode_case(n, kind, t=COMPRESS_T):
     return rec
 
 
-def phase_kernel_encode():
+#: the compressed phase's buckets: ``GradBucketer`` at 4 MiB over the
+#: TransformerLM's 163,131,264 parameters (``main`` checks it on the model)
+DP_BUCKET_SIZES = [1 << 20] * 155 + [601_984]
+
+
+def step_gradient(sizes, t=COMPRESS_T, seed=SEED + 65, frac=0.02):
+    """A flat f32 gradient over buckets of ``sizes`` on the card, ~``frac``
+    of it at |g| >= t (the hot generator's distribution), drawn on the card
+    from a generator seeded with ``seed``.  The card tests and
+    ``scripts/encode_lstm_ab.py`` draw their gradients here too."""
+    import torch
+
+    dev = torch.device("cuda")
+    n = sum(sizes)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(n, device=dev, generator=gen) * (t / 10)
+    hot = torch.rand(n, device=dev, generator=gen) < frac
+    return torch.where(hot, torch.randn(n, device=dev, generator=gen) * (10 * t), g)
+
+
+def encode_step_case(sizes, t=COMPRESS_T):
+    """One K6 launch over a whole step's buckets (``sizes``: the compressed
+    phase's layout) against its plain version on a 2%-hot gradient drawn
+    on the card (``step_gradient``): bitwise, the counts exact, a
+    second launch bitwise the first.  The launch's device time
+    (``device_ms``), the plain version's by events, the bound (4 bytes per
+    element read, 4 per slot written), and the yardstick: ``torch.nonzero`` of the
+    selection over the flat buffer plus a pack of every bucket at once,
+    timed with CUDA events (``nonzero`` copies its size to the host)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import compression as comp
+
+    dev = torch.device("cuda")
+    n = sum(sizes)
+    g = step_gradient(sizes, t)
+    ks = [comp.default_k_max(m) for m in sizes]
+    kernel = lambda: comp.threshold_encode_buckets_cuda(g, sizes, ks, t)
+    plain = lambda: comp.threshold_encode_buckets_plain(g, sizes, ks, t)
+    got, counts = kernel()
+    again, again_counts = kernel()
+    want, want_counts = plain()
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(got, want)) and bool(torch.equal(counts, want_counts))
+    repeat = bool(torch.equal(again, got)) and bool(torch.equal(again_counts, counts))
+    as_t = lambda xs: torch.tensor(xs, dtype=torch.int64, device=dev)
+    starts, slots, caps = as_t(comp._prefix(sizes)), as_t(comp._prefix(ks)), as_t(ks)
+
+    def library():
+        idx = torch.nonzero(g.abs() >= t).squeeze(1)
+        b = torch.searchsorted(starts, idx, right=True) - 1     # each selection's bucket
+        slot = torch.arange(idx.numel(), device=dev) - torch.searchsorted(idx, starts)[b]
+        keep = slot < caps[b]
+        local = (idx - starts[b] + 1).to(torch.int32)
+        out = torch.zeros(sum(ks), dtype=torch.int32, device=dev)
+        out[(slots[b] + slot)[keep]] = torch.where(g[idx] >= 0, local, -local)[keep]
+        return out
+
+    lib_ok = bool(torch.equal(library(), want))
+    nbytes = 4.0 * n + 4.0 * sum(ks)
+    b_ms, b_by = bound(0.0, nbytes, "float32")
+    rec = {"phase": "kernel", "case": "threshold_encode_step", "buckets": len(sizes),
+           "n": n, "k_total": sum(ks), "count": int(counts.sum()),
+           "bitwise": bitwise, "bitwise_repeat": repeat,
+           "max_abs_err": 0.0 if bitwise else None, "library_matches": lib_ok,
+           # the plain version launches ~2,000 kernels a call, whose enqueue
+           # outlasts device_ms's sleep: it is timed with events
+           "ms": device_ms(kernel), "plain_ms": cuda_ms(plain, 3), "plain_timing": "events",
+           "library_ms": cuda_ms(library, 10),
+           "library": "torch.nonzero + pack of every bucket",
+           "launch_ms": cuda_ms(kernel, 20),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    emit(rec)
+    return rec
+
+
+def phase_kernel_encode(step_sizes):
     recs = [encode_case(n, kind) for n in (1 << 20, 1024, 4096, (1 << 20) + 333)
             for kind in ("hot", "none", "exact_k")]
     want = {"none": lambda r: 0, "exact_k": lambda r: r["k"], "hot": lambda r: r["count"]}
     bad = [r["case"] for r in recs if not r["bitwise"] or r["count"] != want[r["kind"]](r)]
+    step = encode_step_case(step_sizes)
+    if not (step["bitwise"] and step["bitwise_repeat"] and step["library_matches"]):
+        bad.append(step["case"])
     if bad:
         raise AssertionError(f"K6 disagrees with its plain version: {bad}")
-    return recs[0]                      # the 4 MiB bucket, 2% hot
+    return recs[0], step                # the 4 MiB bucket, 2% hot; the whole step
 
 
 # -- the model ----------------------------------------------------------------------
@@ -1055,11 +1143,11 @@ COMPRESS_ARMS = (("a_one_pass", "threshold", COMPRESS_T, False),
 COMPRESS_STEPS = 5
 
 
-def top_k_only(g, k, t):
+def top_k_only(g, sizes, ks, t, out=None):
     """Stands in for ``ops.compression.one_pass_pack`` in arm (b): reports
     every bucket as overflowing, so the top-k pack encodes all of them."""
     import torch
-    return None, torch.full((), k + 1, device=g.device)
+    return out, torch.tensor([k + 1 for k in ks], device=g.device)
 
 
 def gloo_host_copies(words: int, group) -> dict:
@@ -1127,7 +1215,8 @@ def compressed_rank(rank: int, work: str) -> None:
     ds = DataSet(torch.from_numpy(seq[:, :-1]).to(dev), torch.from_numpy(seq[:, 1:]).to(dev))
     counters = {"flash_fwd": att.flash_forward_cuda, "flash_bwd_dkdv": att.flash_bwd_dkdv_cuda,
                 "flash_bwd_dq": att.flash_bwd_dq_cuda, "fused_update": uk.fused_update_cuda,
-                "threshold_encode": comp.threshold_encode_cuda}
+                "threshold_encode": comp.threshold_encode_cuda,
+                "threshold_encode_buckets": comp.threshold_encode_buckets_cuda}
     out = {"rank": rank, "arms": {}}
     one_pass = comp.one_pass_pack
     for name, method, t, top_k in COMPRESS_ARMS:
@@ -1231,13 +1320,16 @@ def phase_compressed():
             rec["buckets_k6_kept_per_step"] = [s["buckets_fit"] for s in steps[0]]
             rec["buckets_overflow_per_step"] = [s["buckets_overflow"] for s in steps[0]]
             rec["count_over_k_per_step"] = [s["count_over_k_min_median_max"] for s in steps[0]]
-            rec["k6_launches"] = a0[name]["launches"]["threshold_encode"]
-            if any(s["launches"]["threshold_encode"] != a0[name]["n_buckets"]
+            rec["k6_launches"] = a0[name]["launches"]["threshold_encode_buckets"]
+            if any(s["launches"]["threshold_encode_buckets"] != 1
+                   or s["launches"]["threshold_encode"] != 0
+                   or s["buckets_fit"] + s["buckets_overflow"] != a0[name]["n_buckets"]
                    or s["buckets_fit"] < 1 for s in steps[0]):
-                bad.append(f"{name}: K6 did not encode every bucket of every step")
-        elif any(s["launches"]["threshold_encode"] for s in steps[0]):
+                bad.append(f"{name}: K6 did not run once over every bucket of every step")
+        elif any(s["launches"]["threshold_encode"] or s["launches"]["threshold_encode_buckets"]
+                 for s in steps[0]):
             bad.append(f"{name}: K6 launched outside arm (a)")
-        if any({k: v for k, v in s["launches"].items() if k != "threshold_encode"}
+        if any({k: v for k, v in s["launches"].items() if not k.startswith("threshold_encode")}
                != want_kernels for s in steps[0]):
             bad.append(f"{name}: K1-K4 launches")
         if not rec["ranks_bitwise_equal"]:
@@ -1295,11 +1387,14 @@ def main() -> int:
     serve = phase_serve(net)
     train = phase_train(net)
     k4 = fused_update_case(net)
+    from deeplearning4j_tpu_torch.ops.compression import GradBucketer
+    if GradBucketer(net.params).bucket_sizes() != DP_BUCKET_SIZES:
+        raise AssertionError("DP_BUCKET_SIZES is not the model's bucket layout")
     del net
     torch.cuda.empty_cache()
     rnn = phase_recurrent()
     k5_launches = rnn["arms"]["k5"]["launches_per_call"][0]
-    k6 = phase_kernel_encode()
+    _, k6 = phase_kernel_encode(DP_BUCKET_SIZES)
     compressed = phase_compressed()
 
     def entry(name, source, replaces, launches, r):

@@ -26,20 +26,23 @@ top-k sort: an element's slot is the count of selected elements before
 it, so the message lists the selection in index order.  When at most k
 elements clear t it is the same set as the top-k pack's, so decode gives
 the same bits.  On CUDA tensors the one-pass pack is kernel K6
-(``threshold_encode_cuda``, ``csrc/threshold_encode.cu``, which replaces
-the TPU kernel ``deeplearning4j_tpu/ops/compression.py::_encode_kernel``);
-on CPU tensors, and only there, it is ``_streaming_pack``, the
-reference's plain twin.  The reference's switches
+(``csrc/threshold_encode.cu``, which replaces the TPU kernel
+``deeplearning4j_tpu/ops/compression.py::_encode_kernel``): one launch
+encodes every bucket of a step (``threshold_encode_buckets_cuda``), and
+``threshold_encode_cuda`` is its one-bucket case; on CPU tensors, and
+only there, it is ``threshold_encode_buckets_plain``, the reference's
+plain twin ``_streaming_pack`` on each bucket.  The reference's switches
 ``DL4J_TPU_FUSED_ENCODE`` and ``DL4J_TPU_FUSED_ENCODE_PALLAS`` are not
 read: on the card they could only keep K6 off the main path.
 
 The reference decides "count <= k" inside ``lax.cond``.  Eager PyTorch
-needs the count on the host, so ``threshold_encode_buckets`` runs the
-one-pass pack on every bucket of a step (K6 writes each bucket's
-selection count as it goes), reads the counts in one copy, and encodes
-again with the top-k pack only the buckets whose count exceeds k.  Top-k
-(the adaptive mode and the overflow) is a stable descending sort, so
-ties go to the lower index as ``lax.top_k`` breaks them.
+needs the count on the host, so a step's fixed-threshold encode
+(``encode_wire``) runs the one-pass pack once over every bucket, writing
+each message straight into the wire buffer and each bucket's selection
+count beside it, reads the counts in one copy, and encodes again with the
+top-k pack, over its slice of the wire, only a bucket whose count exceeds
+k.  Top-k (the adaptive mode and the overflow) is a stable descending
+sort, so ties go to the lower index as ``lax.top_k`` breaks them.
 
 Decode sums the P gathered messages participant by participant, in rank
 order, each over every bucket at once (bucket index ranges are
@@ -119,6 +122,25 @@ def _streaming_pack(g: Tensor, mag: Tensor, k: int, threshold: float, n: int) ->
     return out[:k]
 
 
+def threshold_encode_buckets_plain(g: Tensor, sizes: Sequence[int], ks: Sequence[int],
+                                   threshold: float,
+                                   out: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """K6's plain version: ``_streaming_pack`` of each bucket.  Buckets of
+    ``sizes`` elements lie end to end in the flat ``g``, their messages of
+    ``ks`` slots end to end in ``out`` (int32, allocated when None) →
+    ``(out, counts int32[len(sizes)])``, counts being each bucket's number
+    of selections (which may exceed its k)."""
+    if out is None:
+        out = torch.empty(sum(ks), dtype=torch.int32, device=g.device)
+    counts = []
+    for s, m, n, k in zip(_prefix(sizes), _prefix(ks), sizes, ks):
+        gb = g[s:s + n]
+        mag = gb.abs()
+        out[m:m + k] = _streaming_pack(gb, mag, k, threshold, n)
+        counts.append((mag >= threshold).sum())
+    return out, torch.stack(counts).to(torch.int32)
+
+
 @functools.lru_cache(maxsize=None)
 def _encode_fn():
     """``dl4j_threshold_encode`` from the built library, signature set once."""
@@ -126,22 +148,116 @@ def _encode_fn():
 
     fn = cuda_build.load("threshold_encode").dl4j_threshold_encode
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_int]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
     return fn
 
 
-#: elements per tile of K6 (256 threads x 8 rounds), as csrc/threshold_encode.cu
-ENC_TILE = 2048
+#: elements per tile of K6 (256 threads x 4 float4), as csrc/threshold_encode.cu
+ENC_TILE = 4096
+#: the most tiles one block of K6 streams (a segment), as csrc/threshold_encode.cu
+ENC_SEG_TILES = 16
+
+
+def _seg_tiles(tiles: int, sms: int) -> int:
+    """Tiles a segment for a launch of ``tiles`` tiles on ``sms`` SMs: up to
+    ENC_SEG_TILES, while the launch keeps about 8 segments an SM (a small
+    launch gets a block for each tile).  A step of the TransformerLM's 156
+    buckets gets ENC_SEG_TILES; the smaller counts serve small launches,
+    mainly the one-bucket ``threshold_encode_cuda`` (ROADMAP queue 2 item 7)."""
+    return max(1, min(ENC_SEG_TILES, tiles // (8 * sms)))
+
+
+@functools.lru_cache(maxsize=64)
+def _encode_table(sizes: Tuple[int, ...], ks: Tuple[int, ...], seg_tiles: int,
+                  device: torch.device):
+    """K6's tables on ``device`` for buckets of ``sizes`` elements end to
+    end, messages of ``ks`` slots end to end, segments of ``seg_tiles``
+    tiles → ``(buckets, segments, n_segments)``: one row per bucket as
+    csrc's ``Bucket`` (int64 g_off, msg_off, then int32 n, k, first_seg,
+    segs) and one per segment as its ``Segment`` (int64 first element,
+    then int32 bucket, valid elements); a bucket has
+    max(1, ceil(n / (seg_tiles * ENC_TILE))) segments.  Built once per
+    layout, so a step uploads nothing."""
+    span = seg_tiles * ENC_TILE
+    segs = [max(1, -(-n // span)) for n in sizes]
+    rows = [[g, m, n | (k << 32), f | (c << 32)] for g, m, n, k, f, c in
+            zip(_prefix(sizes), _prefix(ks), sizes, ks, _prefix(segs), segs)]
+    as_t = functools.partial(torch.tensor, dtype=torch.int64)
+    b = torch.repeat_interleave(torch.arange(len(sizes)), as_t(segs))
+    j = torch.arange(b.numel()) - as_t(_prefix(segs))[b]          # segment within its bucket
+    valid = (as_t(sizes)[b] - j * span).clamp(max=span)
+    seg_rows = torch.stack([as_t(_prefix(sizes))[b] + j * span, b | (valid << 32)], 1)
+    return as_t(rows).to(device), seg_rows.to(device), b.numel()
+
+
+def _launch_encode(g: Tensor, sizes: Sequence[int], ks: Sequence[int], threshold: float,
+                   out: Tensor) -> Tensor:
+    """One K6 launch over the buckets → counts int32[len(sizes)] on the
+    card.  Raises for anything the kernel does not take."""
+    if not (g.is_cuda and out.is_cuda and g.device == out.device):
+        raise ValueError("the threshold encode kernel needs g and out on one CUDA device")
+    if g.dtype != torch.float32 or out.dtype != torch.int32:
+        raise TypeError("the threshold encode kernel takes float32 g and int32 out, "
+                        f"got {g.dtype} and {out.dtype}")
+    if g.ndim != 1 or out.ndim != 1 or not (g.is_contiguous() and out.is_contiguous()):
+        raise ValueError("the threshold encode kernel takes flat contiguous buffers, "
+                         f"got {tuple(g.shape)} and {tuple(out.shape)}")
+    if not sizes or len(sizes) != len(ks) \
+            or not all(0 <= n < 2 ** 31 - 1 and 0 <= k < 2 ** 31 for n, k in zip(sizes, ks)) \
+            or sum(sizes) > g.numel() or sum(ks) > out.numel():
+        raise ValueError("the threshold encode kernel takes buckets of 0 <= n < 2^31 - 1 "
+                         "elements and 0 <= k < 2^31 slots inside g and out, got "
+                         f"{len(sizes)} sizes summing to {sum(sizes)} for {g.numel()} "
+                         f"elements, {len(ks)} capacities summing to {sum(ks)} for "
+                         f"{out.numel()} slots")
+    if not threshold > 0:
+        raise ValueError(f"the threshold must be > 0, got {threshold}")
+    tiles = sum(max(1, -(-n // ENC_TILE)) for n in sizes)
+    seg_tiles = _seg_tiles(tiles, torch.cuda.get_device_properties(g.device).multi_processor_count)
+    table, seg_table, segs = _encode_table(tuple(sizes), tuple(ks), seg_tiles, g.device)
+    if segs >= 2 ** 31:
+        raise ValueError(f"the threshold encode kernel takes < 2^31 segments, got {segs}")
+    # the status words and the ticket, zeroed: the launch's one memset; the
+    # counts after them
+    scratch = torch.zeros(segs + 1 + -(-len(sizes) // 2), dtype=torch.int64, device=g.device)
+    counts = scratch[segs + 1:].view(torch.int32)[:len(sizes)]
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        rc = _encode_fn()(g.data_ptr(), _f32(threshold), table.data_ptr(),
+                          seg_table.data_ptr(), segs, seg_tiles, out.data_ptr(),
+                          counts.data_ptr(), scratch.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"threshold encode kernel launch failed (code {rc})")
+    return counts
+
+
+def threshold_encode_buckets_cuda(g: Tensor, sizes: Sequence[int], ks: Sequence[int],
+                                  threshold: float,
+                                  out: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Launch K6 (``csrc/threshold_encode.cu``) once over every bucket →
+    ``(out, counts)``, bitwise ``threshold_encode_buckets_plain``: buckets
+    of ``sizes`` elements end to end in the flat f32 ``g``, messages of
+    ``ks`` slots end to end in the int32 ``out`` (allocated when None; the
+    trainer passes its wire buffer); counts int32[len(sizes)] on the card.
+    Raises for anything the kernel does not take."""
+    if out is None:
+        out = torch.empty(sum(ks), dtype=torch.int32, device=g.device)
+    counts = _launch_encode(g, sizes, ks, threshold, out)
+    threshold_encode_buckets_cuda.launches += 1
+    return out, counts
+
+
+threshold_encode_buckets_cuda.launches = 0
 
 
 def threshold_encode_cuda(g: Tensor, k: int, threshold: float) -> Tuple[Tensor, Tensor]:
-    """Launch K6 (``csrc/threshold_encode.cu``) → ``(out, count)``: out is
-    int32[k] holding sign(g_i)·(i+1) for every i with |g_i| >= t in
-    ascending i, then zeros, bitwise ``_streaming_pack`` when at most k
-    elements are selected (later ones are dropped); count is the number
-    of selections, an int32 scalar on the card.  Raises for anything the
-    kernel does not take."""
+    """Launch K6 on one bucket (the table's one-entry case) → ``(out,
+    count)``: out is int32[k] holding sign(g_i)·(i+1) for every i with
+    |g_i| >= t in ascending i, then zeros, bitwise ``_streaming_pack``
+    (selections past k are dropped); count is the number of selections,
+    an int32 scalar on the card.  Raises for anything the kernel does not
+    take."""
     if not g.is_cuda:
         raise ValueError("threshold_encode_cuda needs a CUDA tensor")
     if g.dtype != torch.float32:
@@ -152,30 +268,23 @@ def threshold_encode_cuda(g: Tensor, k: int, threshold: float) -> Tuple[Tensor, 
                          f"contiguous buffer of < 2^31 - 1 elements, got {tuple(g.shape)}")
     if not 1 <= k < 2 ** 31 or not threshold > 0:
         raise ValueError(f"k must be >= 1 and the threshold > 0, got k={k}, t={threshold}")
-    tiles = -(-n // ENC_TILE)
     out = torch.empty(k, dtype=torch.int32, device=g.device)
-    scratch = torch.empty(2 * tiles + 1, dtype=torch.int32, device=g.device)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        rc = _encode_fn()(g.data_ptr(), n, _f32(threshold), k, out.data_ptr(),
-                          scratch.data_ptr(), scratch[tiles:].data_ptr(),
-                          scratch[2 * tiles:].data_ptr(), tiles, stream)
-    if rc != 0:
-        raise RuntimeError(f"threshold encode kernel launch failed (code {rc})")
+    counts = _launch_encode(g, (n,), (k,), threshold, out)
     threshold_encode_cuda.launches += 1
-    return out, scratch[2 * tiles]
+    return out, counts[0]
 
 
 threshold_encode_cuda.launches = 0
 
 
-def one_pass_pack(g: Tensor, k: int, threshold: float) -> Tuple[Tensor, Tensor]:
-    """K6 and its selection count: CPU tensors run the plain version; CUDA
-    tensors run the kernel."""
+def one_pass_pack(g: Tensor, sizes: Sequence[int], ks: Sequence[int], threshold: float,
+                  out: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """K6 over every bucket and each bucket's selection count (see
+    ``threshold_encode_buckets_cuda``): CPU tensors run the plain version;
+    CUDA tensors run the kernel."""
     if g.device.type == "cpu":
-        mag = g.abs()
-        return _streaming_pack(g, mag, k, threshold, g.numel()), (mag >= threshold).sum()
-    return threshold_encode_cuda(g, k, threshold)
+        return threshold_encode_buckets_plain(g, sizes, ks, threshold, out)
+    return threshold_encode_buckets_cuda(g, sizes, ks, threshold, out)
 
 
 # ---------------------------------------------------------------------------
@@ -187,43 +296,81 @@ def _check_threshold(threshold: Optional[float]) -> None:
         raise ValueError(f"threshold must be > 0, got {threshold}")
 
 
+def _flat(gs: Sequence[Tensor]) -> Tensor:
+    """The buckets end to end as one flat buffer: a view where they are
+    consecutive slices of one buffer (the trainer's), else a copy."""
+    first = gs[0]
+    if len(gs) == 1:
+        return first
+    base, off = first.untyped_storage().data_ptr(), first.storage_offset()
+    for g in gs:
+        if not (g.is_contiguous() and g.untyped_storage().data_ptr() == base
+                and g.storage_offset() == off):
+            return torch.cat(gs)
+        off += g.numel()
+    return first.as_strided((off - first.storage_offset(),), (1,))
+
+
+def _fixed_threshold_wire(gs: Sequence[Tensor], ks_max: Sequence[int], t: float):
+    """Every bucket's fixed-threshold message and scale in one int32 wire
+    buffer (``pack_messages``'s layout) → ``(wire, lens, [(count, k)])``.
+
+    One one-pass pack (one K6 launch on the card) writes every message
+    into the wire and counts every bucket; the counts are read in one
+    copy, and a bucket whose count exceeds k is encoded again by the top-k
+    pack over its slice.  The (count, k) pairs are those of the buckets
+    with elements and k > 0; the others send zeros at scale 0."""
+    sizes = [g.numel() for g in gs]
+    live = [n > 0 and k > 0 for n, k in zip(sizes, ks_max)]
+    lens = [min(k, n) if ok else max(k, 0) for n, k, ok in zip(sizes, ks_max, live)]
+    total = sum(lens)
+    wire = torch.empty(total + len(gs), dtype=torch.int32, device=gs[0].device)
+    _, counts = one_pass_pack(_flat(gs), sizes, lens, t, wire)
+    scales = wire[total:].view(torch.float32)
+    scales.fill_(t)
+    if not all(live):
+        scales[[i for i, ok in enumerate(live) if not ok]] = 0.0
+    counts = counts.tolist()                        # the step's one host read
+    for g, o, k, c, ok in zip(gs, _prefix(lens), lens, counts, live):
+        if ok and c > k:
+            wire[o:o + k] = _topk_pack(g, g.abs(), k, t)
+    return wire, lens, [(c, k) for c, k, ok in zip(counts, lens, live) if ok]
+
+
 def threshold_encode_buckets(buckets: Sequence[Tensor], k_max: Optional[Sequence[int]] = None,
                              threshold: Optional[float] = None):
     """``threshold_encode`` of every bucket of one step →
     ``([(enc, scale)], [(count, k)])``.
 
-    With a fixed threshold every non-empty bucket takes the one-pass pack
-    (K6 on CUDA tensors), which also counts its selections; the counts
-    are read in one copy, and a bucket whose count exceeds k is encoded
-    again by the top-k pack (its one-pass message is dropped).  The
-    second list holds each such bucket's (count, k) in bucket order; it
-    is empty in the adaptive mode.  ``k_max`` defaults to
-    ``default_k_max`` per bucket."""
+    With a fixed threshold the messages are slices of one wire buffer
+    (``_fixed_threshold_wire``: one one-pass pack over every bucket, the
+    overflowing buckets encoded again by the top-k pack); the second list
+    holds each counted bucket's (count, k) in bucket order.  It is empty in
+    the adaptive mode.  ``k_max`` defaults to ``default_k_max`` per
+    bucket."""
     _check_threshold(threshold)
+    gs, ks = _as_buckets(buckets, k_max)
+    if threshold is None:
+        return [_adaptive_encode(g, min(k, g.numel())) if min(k, g.numel()) > 0
+                else _empty_message(k, g.device) for g, k in zip(gs, ks)], []
+    if not gs:
+        return [], []
+    wire, lens, counts = _fixed_threshold_wire(gs, ks, _f32(threshold))
+    scales = wire[sum(lens):].view(torch.float32)
+    return [(wire[o:o + k], scales[i]) for i, (o, k) in enumerate(zip(_prefix(lens), lens))], \
+        counts
+
+
+def _as_buckets(buckets: Sequence[Tensor], k_max: Optional[Sequence[int]]):
+    """(flat f32 buckets, their k_max): ``default_k_max`` where not given."""
     ks = [default_k_max(b.numel()) for b in buckets] if k_max is None else list(k_max)
-    gs = [b.reshape(-1).float() for b in buckets]
-    t = None if threshold is None else _f32(threshold)
-    out, live, counts = [], [], []
-    for i, (g, k_max) in enumerate(zip(gs, ks)):
-        k = min(k_max, g.numel())
-        if k <= 0:
-            out.append((torch.zeros(max(k_max, 0), dtype=torch.int32, device=g.device),
-                        torch.zeros((), dtype=torch.float32, device=g.device)))
-        elif t is None:
-            out.append(_adaptive_encode(g, k))
-        else:
-            enc, count = one_pass_pack(g, k, t)
-            out.append(enc)
-            live.append((i, k))
-            counts.append(count)
-    if not counts:
-        return out, []
-    scale = torch.tensor(t, dtype=torch.float32, device=gs[live[0][0]].device)
-    counts = torch.stack(counts).tolist()           # the step's one host read
-    for (i, k), c in zip(live, counts):
-        enc = _topk_pack(gs[i], gs[i].abs(), k, t) if c > k else out[i]
-        out[i] = (enc, scale)
-    return out, [(c, k) for (_, k), c in zip(live, counts)]
+    return [b.reshape(-1).float() for b in buckets], ks
+
+
+def _empty_message(k_max: int, device) -> Tuple[Tensor, Tensor]:
+    """A bucket with nothing to send (no elements, or k <= 0): zeros at scale 0."""
+    return (torch.zeros(max(k_max, 0), dtype=torch.int32, device=device),
+            torch.zeros((), dtype=torch.float32, device=device))
 
 
 def _adaptive_encode(g: Tensor, k: int) -> Tuple[Tensor, Tensor]:
@@ -395,6 +542,22 @@ def pack_messages(msgs: Sequence[Tuple[Tensor, Tensor]]) -> Tensor:
     return torch.cat([e for e, _ in msgs] + [scales])
 
 
+def encode_wire(buckets: Sequence[Tensor], method: str = "threshold",
+                threshold: Optional[float] = None, k_max: Optional[Sequence[int]] = None):
+    """Every bucket of a step encoded into one int32 wire buffer
+    (``pack_messages``'s layout) → ``(wire, lens, [(count, k)])``: lens are
+    the messages' lengths in words.  A fixed threshold writes the messages
+    straight into the wire (``_fixed_threshold_wire``); the other modes
+    encode each bucket and pack them."""
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {METHODS}, got {method!r}")
+    if method == "threshold" and threshold is not None and buckets:
+        _check_threshold(threshold)
+        return _fixed_threshold_wire(*_as_buckets(buckets, k_max), _f32(threshold))
+    msgs, counts = encode_buckets(buckets, method, threshold, k_max)
+    return pack_messages(msgs), [e.numel() for e, _ in msgs], counts
+
+
 def decode_wire(method: str, wire: Tensor, sizes: Sequence[int],
                 lens: Sequence[int]) -> Tensor:
     """Decode-sum P packed wire buffers (``wire [P, L]``, ``pack_messages``
@@ -426,14 +589,13 @@ def compressed_pmean(buckets, group=None, method: str = "threshold",
     single = isinstance(buckets, Tensor)
     bs = [buckets] if single else list(buckets)
     ks = None if k_max is None else ([k_max] if single else list(k_max))
-    msgs, counts = encode_buckets(bs, method, threshold, ks)
+    wire, lens, counts = encode_wire(bs, method, threshold, ks)
     if not bs:
         return ([], [], counts) if with_counts else ([], [])
-    wire = pack_messages(msgs)
     if gather is None:
         gather = functools.partial(all_gather_stack, group=group)
     gathered = gather(wire)
-    sizes, lens = [b.numel() for b in bs], [e.numel() for e, _ in msgs]
+    sizes = [b.numel() for b in bs]
     local = decode_wire(method, wire[None], sizes, lens)
     mean = decode_wire(method, gathered, sizes, lens) / gathered.shape[0]
     means, locals_ = list(mean.split(sizes)), list(local.split(sizes))

@@ -12,12 +12,12 @@ One process per rank, each holding a replica of the network.  A step:
      every rank and divided by the rank count (the dense path);
      ``"threshold"``/``"bitmap"``: tier 1 all-reduces it over the ``data``
      group and divides by its size; tier 2 adds this slice's
-     error-feedback residual, cuts the sum into buckets, encodes each
-     (``ops/compression.py``: the one-pass fixed-threshold encode is
-     kernel K6 on the card), all-gathers the ENCODED buffers over the
-     ``dcn`` group in one call, decode-sums them in rank order and divides
-     by the slice count; the part of the sum this slice did not send is
-     its next residual;
+     error-feedback residual, cuts the sum into buckets and encodes them
+     into one wire buffer (``ops/compression.py``: with a fixed threshold
+     one launch of kernel K6 on the card encodes every bucket),
+     all-gathers the ENCODED buffers over the ``dcn`` group in one call,
+     decode-sums them in rank order and divides by the slice count; the
+     part of the sum this slice did not send is its next residual;
   3. the network's own ``_apply_updates`` (normalization, updater, K4).
 
 Every rank decodes the same gathered bytes in the same order, so the

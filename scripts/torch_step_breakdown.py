@@ -29,9 +29,10 @@ same numpy seed), then its char-RNN, and traces these pieces of work with
   dp_one_pass, dp_top_k, dp_adaptive, dp_dense  one ``ShardedTrainer``
            step of ``chip_smoke.py``'s compressed phase: two rank processes
            on cuda:0 (gloo, dcn=2), [4, 1024] rows each of one [8, 1024]
-           batch, threshold 1e-3 as the port runs it (K6 on every bucket,
-           top-k where a bucket overflows) and with the top-k pack on every
-           bucket (``chip_smoke.top_k_only``), adaptive, and dense.  Rank 0 reports; its trace holds only its
+           batch, threshold 1e-3 as the port runs it (one K6 launch over
+           every bucket, top-k where a bucket overflows) and with the top-k
+           pack on every bucket (``chip_smoke.top_k_only``), adaptive, and
+           dense.  Rank 0 reports; its trace holds only its
            own kernels, so "busy" is rank 0's and "idle" counts the other
            rank's kernels as idle
 

@@ -39,11 +39,11 @@ def grad(n=4096, seed=0, sparse_frac=0.02, t=1e-3):
     return g
 
 
-def exact_k(n=4096, seed=5, t=1e-3):
-    """Exactly default_k_max(n) elements clear t."""
+def exact_k(n=4096, seed=5, t=1e-3, extra=0):
+    """Exactly default_k_max(n) + extra elements clear t."""
     rng = np.random.default_rng(seed)
     g = rng.uniform(-0.5, 0.5, size=n).astype(np.float32) * t
-    hot = rng.choice(n, T.default_k_max(n), replace=False)
+    hot = rng.choice(n, T.default_k_max(n) + extra, replace=False)
     g[hot] = np.where(rng.random(hot.size) < 0.5, -1, 1) * (t + rng.random(hot.size) * t)
     return g.astype(np.float32)
 
@@ -52,10 +52,10 @@ def _ulps(a, b):
     return abs(float(a) - float(b)) / float(np.spacing(np.float32(max(abs(a), abs(b), 1e-30))))
 
 
-def top_k_only(g, k, t):
+def top_k_only(g, sizes, ks, t, out=None):
     """Stands in for ``one_pass_pack``: reports every bucket as
     overflowing, so the top-k pack encodes all of them."""
-    return None, torch.full((), k + 1)
+    return out, torch.tensor([k + 1 for k in ks])
 
 
 _PACK_CASES = [(n, kind) for n in (1024, 4096, 4096 + 77) for kind in ("hot", "none", "exact_k")]
@@ -142,7 +142,7 @@ def test_one_pass_orders_by_index_and_decodes_like_top_k(monkeypatch):
 
 
 def test_bucket_encode_counts_then_routes(monkeypatch):
-    """Every bucket takes the one-pass pack, which counts its selections;
+    """One one-pass pack takes every bucket of the step and counts each;
     a bucket whose count fits k keeps its one-pass message (index order)
     and one that overflows is encoded again by the top-k pack, as the
     reference's lax.cond does per bucket."""
@@ -157,7 +157,7 @@ def test_bucket_encode_counts_then_routes(monkeypatch):
     assert c_fit <= k < c_over
     out, counts = T.threshold_encode_buckets([torch.from_numpy(b) for b in (fits, over, fits)],
                                              threshold=1e-3)
-    assert len(calls) == 3 and counts == [(c_fit, k), (c_over, k), (c_fit, k)]
+    assert len(calls) == 1 and counts == [(c_fit, k), (c_over, k), (c_fit, k)]
     for (enc, scale), b in zip(out, (fits, over, fits)):
         je, js = J.threshold_encode(jnp.asarray(b), k, 1e-3)
         assert sorted(enc.tolist()) == sorted(np.asarray(je).tolist())
@@ -165,6 +165,121 @@ def test_bucket_encode_counts_then_routes(monkeypatch):
     assert out[0][0].tolist() == out[2][0].tolist()
     np.testing.assert_array_equal(out[1][0].numpy(), np.asarray(J.threshold_encode(
         jnp.asarray(over), k, 1e-3)[0]))
+
+
+def _step_case(name):
+    """(bucket sizes, flat gradient, {bucket: selection count it must have})
+    of one step's layout at t = 1e-3; sizes from ``GradBucketer`` where a
+    case is about its bucket_bytes."""
+    def layout(total, bucket_bytes):
+        return T.GradBucketer([{"W": torch.zeros(total)}], bucket_bytes).bucket_sizes()
+
+    if name == "uneven_last_bucket":
+        sizes = layout(3 * 2048 + 999, 4 * 2048)
+        return sizes, grad(sum(sizes), 60), {}
+    if name == "bucket_bytes_not_a_multiple_of_16":
+        sizes = layout(4000, 4 * 1001 + 2)          # 1001-element buckets
+        return sizes, grad(sum(sizes), 61), {}
+    if name == "one_bucket":
+        return [4096 + 77], grad(4096 + 77, 62), {}
+    k = T.default_k_max(2048)
+    middle = {"no_selection": (grad(2048, 63) * 1e-3, 0),
+              "exactly_k": (exact_k(2048, 64), k),
+              "k_plus_1": (exact_k(2048, 65, extra=1), k + 1)}[name]
+    return [2048] * 3, np.concatenate([grad(2048, 66), middle[0], grad(2048, 67)]), \
+        {1: middle[1]}
+
+
+_STEP_CASES = ["uneven_last_bucket", "bucket_bytes_not_a_multiple_of_16", "no_selection",
+               "exactly_k", "k_plus_1", "one_bucket"]
+
+
+@pytest.mark.parametrize("name", _STEP_CASES)
+def test_step_encode_matches_jax_per_bucket(name, monkeypatch):
+    """One step's fixed-threshold encode over every bucket: K6's plain
+    version (``threshold_encode_buckets_plain``) gives, bucket by bucket,
+    the JAX ``_streaming_pack`` bitwise with the counts exact; the wire that
+    ``encode_wire`` builds from it (a bucket over k encoded again by the
+    top-k pack) holds, bucket by bucket, the JAX package's
+    ``threshold_encode`` bitwise (its one-pass switch on) and the scale t;
+    and ``compressed_pmean``'s wire decodes as the JAX decode of each."""
+    J, jnp = _jax()
+    monkeypatch.setattr(J, "FUSED_ENCODE", True)
+    t = 1e-3
+    sizes, g, want = _step_case(name)
+    flat = torch.from_numpy(g)
+    buckets = list(flat.split(sizes))
+    ks = [T.default_k_max(n) for n in sizes]
+    msgs, counts = T.threshold_encode_buckets_plain(flat, sizes, ks, t)
+    wire, lens, routed = T.encode_wire(buckets, "threshold", t)
+    _, local = T.compressed_pmean(buckets, threshold=t, gather=lambda w: w[None])
+    want_counts = [int((np.abs(b.numpy()) >= t).sum()) for b in buckets]
+    assert counts.tolist() == want_counts and lens == ks
+    assert routed == list(zip(want_counts, ks))
+    assert all(want_counts[b] == c for b, c in want.items())
+    scales = wire[sum(ks):].view(torch.float32)
+    for i, (b, m, k) in enumerate(zip(buckets, T._prefix(ks), ks)):
+        gb = jnp.asarray(b.numpy())
+        np.testing.assert_array_equal(
+            msgs[m:m + k].numpy(),
+            np.asarray(J._streaming_pack(gb, jnp.abs(gb), k, t, b.numel())))
+        je, js = J.threshold_encode(gb, k, t)
+        np.testing.assert_array_equal(wire[m:m + k].numpy(), np.asarray(je))
+        assert scales[i].item() == float(js)
+        np.testing.assert_array_equal(local[i].numpy(),
+                                      np.asarray(J.threshold_decode(je, js, b.numel())))
+
+
+@pytest.mark.parametrize("seg_tiles", [1, 2])
+def test_encode_tables_are_the_kernels_structs(seg_tiles):
+    """K6's tables: per bucket int64 g_off and msg_off, then int32 n, k,
+    first segment and segments (an empty bucket gets one); per segment
+    int64 first element, then int32 bucket and valid elements."""
+    table, segs, n_segs = T._encode_table((4096, 8193, 0, 1000), (256, 512, 3, 62), seg_tiles,
+                                          torch.device("cpu"))
+    rows = table.view(torch.int32).reshape(4, 8)
+    assert table[:, 0].tolist() == [0, 4096, 12289, 12289]
+    assert table[:, 1].tolist() == [0, 256, 768, 771]
+    want = {1: ([[0, 1], [1, 3], [4, 1], [5, 1]],
+                [0, 4096, 8192, 12288, 12289, 12289], [[0, 4096], [1, 4096], [1, 4096],
+                                                       [1, 1], [2, 0], [3, 1000]]),
+            2: ([[0, 1], [1, 2], [3, 1], [4, 1]],
+                [0, 4096, 12288, 12289, 12289], [[0, 4096], [1, 8192], [1, 1], [2, 0],
+                                                 [3, 1000]])}[seg_tiles]
+    assert rows[:, 4:6].tolist() == [[4096, 256], [8193, 512], [0, 3], [1000, 62]]
+    assert rows[:, 6:].tolist() == want[0]
+    assert n_segs == len(want[1]) and segs[:, 0].tolist() == want[1]
+    assert segs.view(torch.int32).reshape(-1, 4)[:, 2:].tolist() == want[2]
+
+
+def test_segment_length_keeps_small_launches_one_tile_a_block():
+    assert T._seg_tiles(256, 132) == 1                  # one 4 MiB bucket
+    assert T._seg_tiles(39_827, 132) == T.ENC_SEG_TILES  # the 156-bucket step
+    assert T._seg_tiles(4 * 1056, 132) == 4
+
+
+def test_step_buckets_reach_the_one_pass_pack_as_one_view(monkeypatch):
+    """The trainer's buckets are consecutive slices of one buffer: the
+    one-pass pack gets that buffer itself, not a concatenation; buckets
+    from separate tensors are concatenated."""
+    seen = []
+    one_pass = T.one_pass_pack
+    monkeypatch.setattr(T, "one_pass_pack", lambda g, *a: seen.append(g) or one_pass(g, *a))
+    flat = torch.from_numpy(grad(5000, 68))
+    bucketer = T.GradBucketer([{"W": flat}], 4 * 1001)
+    T.encode_wire(bucketer.split(flat), "threshold", 1e-3)
+    assert seen[0].data_ptr() == flat.data_ptr() and seen[0].numel() == 5000
+    parts = [b.clone() for b in bucketer.split(flat)]
+    T.encode_wire(parts, "threshold", 1e-3)
+    assert seen[1].data_ptr() != flat.data_ptr() and torch.equal(seen[1], flat)
+
+
+def test_threshold_encode_kernels_raise_for_cpu_tensors():
+    """On the CPU only the plain version runs; the kernels' wrappers raise."""
+    with pytest.raises(ValueError, match="CUDA"):
+        T.threshold_encode_buckets_cuda(torch.ones(8), [8], [1], 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        T.threshold_encode_cuda(torch.ones(8), 1, 0.5)
 
 
 def test_empty_gradient_edges():

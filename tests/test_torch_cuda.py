@@ -24,7 +24,9 @@ version (integer output); a compressed trainer step on the card against
 the CPU 1e-5.
 """
 
+import importlib.util
 import math
+import pathlib
 
 import numpy as np
 import pytest
@@ -414,11 +416,8 @@ def _cell_inputs(mb, n, seed, dev, dtype):
                                             t((mb, n), 0.1), t((mb, n), 0.1)))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("n", [32, 256, 512])
-@pytest.mark.parametrize("mb", [1, 7, 64])
-def test_lstm_cell_kernels_match_plain(cuda_dev, mb, n, dtype):
-    z, c, dh, dcn = _cell_inputs(mb, n, mb * n, cuda_dev, dtype)
+def _check_cell_kernels(mb, n, dtype, dev):
+    z, c, dh, dcn = _cell_inputs(mb, n, mb * n, dev, dtype)
     before = (tlk.lstm_cell_fwd_cuda.launches, tlk.lstm_cell_bwd_cuda.launches)
     got = tlk.lstm_cell_fwd(z, c) + tlk.lstm_cell_bwd(z, c, dh, dcn)
     torch.cuda.synchronize()
@@ -435,6 +434,21 @@ def test_lstm_cell_kernels_match_plain(cuda_dev, mb, n, dtype):
             # the kernel rounds the f32 result once: within one bf16
             # spacing (2^-7 relative) of the plain version in f32
             assert bool((err <= 2.0 ** -7 * w.abs() + 1e-6).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [32, 256, 512])
+@pytest.mark.parametrize("mb", [1, 7, 64])
+def test_lstm_cell_kernels_match_plain(cuda_dev, mb, n, dtype):
+    _check_cell_kernels(mb, n, dtype, cuda_dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mb,n", [(64, 255), (3, 3), (4096, 256)])
+def test_lstm_cell_kernels_match_plain_at_more_shapes(cuda_dev, mb, n, dtype):
+    """n % 4 != 0 ([64, 255], [3, 3]: a partial block of K5b's units), and
+    many waves of K5b's blocks ([4096, 256])."""
+    _check_cell_kernels(mb, n, dtype, cuda_dev)
 
 
 def test_lstm_cell_kernels_raise_for_what_they_do_not_take(cuda_dev):
@@ -556,18 +570,19 @@ def test_threshold_encode_kernel_raises_for_what_it_does_not_take(cuda_dev):
 
 
 def test_threshold_encode_on_card_counts_then_routes(cuda_dev):
-    """K6 runs on every bucket and counts it; the buckets whose count
-    exceeds k are encoded again by the top-k pack; every message and
-    count is the CPU's, entry for entry."""
+    """One K6 launch encodes and counts every bucket; the buckets whose
+    count exceeds k are encoded again by the top-k pack; every message
+    and count is the CPU's, entry for entry."""
     n = 1 << 16
     grads = [_hot_grad(n, 1), _hot_grad(n, 2, frac=0.2), _hot_grad(n, 3), _hot_grad(77, 4, 0.3)]
     fits = [int((np.abs(g) >= 1e-3).sum()) <= tcomp.default_k_max(g.size) for g in grads]
     assert fits == [True, False, True, False]
-    before = tcomp.threshold_encode_cuda.launches
+    before = (tcomp.threshold_encode_buckets_cuda.launches, tcomp.threshold_encode_cuda.launches)
     card, card_counts = tcomp.threshold_encode_buckets(
         [torch.from_numpy(g).to(cuda_dev) for g in grads], threshold=1e-3)
     torch.cuda.synchronize()
-    assert tcomp.threshold_encode_cuda.launches - before == len(grads)
+    assert (tcomp.threshold_encode_buckets_cuda.launches - before[0],
+            tcomp.threshold_encode_cuda.launches - before[1]) == (1, 0)
     cpu, cpu_counts = tcomp.threshold_encode_buckets([torch.from_numpy(g) for g in grads],
                                                      threshold=1e-3)
     assert card_counts == cpu_counts
@@ -601,11 +616,113 @@ def test_compressed_trainer_on_card_matches_cpu(cuda_dev, method, t):
         net.init()
         trainer = ShardedTrainer(net, build_two_tier_mesh(1), grad_compression=method,
                                  compression_threshold=t)
-        before = tcomp.threshold_encode_cuda.launches
+        before = tcomp.threshold_encode_buckets_cuda.launches
         losses.append([float(trainer.fit_batch(DataSet(xs, ys))) for _ in range(4)])
-        launched = tcomp.threshold_encode_cuda.launches - before
-    # a fixed threshold launches K6 on the one bucket at every step (at
-    # t = 0.05 one of the four fits k; the others go on to the top-k pack)
+        launched = tcomp.threshold_encode_buckets_cuda.launches - before
+    # a fixed threshold launches K6 once a step (at t = 0.05 one of the
+    # four steps fits k; the others go on to the top-k pack)
     assert launched == (4 if t == 0.05 else 0)
     np.testing.assert_allclose(losses[1], losses[0], atol=1e-5, rtol=0)
     assert losses[1][-1] < losses[1][0]
+
+
+def test_compressed_step_launches_k6_once_over_every_bucket(cuda_dev):
+    """One rank, one slice, 64-element buckets: each step of the
+    fixed-threshold exchange launches K6 once for all its buckets, and
+    never the one-bucket launch; losses within 1e-5 of the CPU's."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import Dense, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    from deeplearning4j_tpu_torch.parallel import ShardedTrainer, build_two_tier_mesh
+
+    rng = np.random.default_rng(0)
+    xs = rng.normal(size=(64, 12)).astype(np.float32)
+    ys = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 64)]
+    losses, counts = [], []
+    for dev in ("cpu", cuda_dev):
+        conf = (NeuralNetConfiguration.builder().seed(7).updater(Sgd(lr=0.05))
+                .layer(Dense(n_out=16, activation="tanh"))
+                .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+                .set_input_type(InputType.feed_forward(12)).build())
+        net = MultiLayerNetwork(conf, device=dev)
+        net.init()
+        trainer = ShardedTrainer(net, build_two_tier_mesh(1), grad_compression="threshold",
+                                 compression_threshold=0.05,
+                                 compression_bucket_mb=256 / (1 << 20))
+        before = (tcomp.threshold_encode_buckets_cuda.launches,
+                  tcomp.threshold_encode_cuda.launches)
+        losses.append([float(trainer.fit_batch(DataSet(xs, ys))) for _ in range(3)])
+        counts.append(trainer.last_bucket_counts)
+    assert trainer.bucketer.n_buckets == 5 and len(counts[1]) == 5
+    assert (tcomp.threshold_encode_buckets_cuda.launches - before[0],
+            tcomp.threshold_encode_cuda.launches - before[1]) == (3, 0)
+    np.testing.assert_allclose(losses[1], losses[0], atol=1e-5, rtol=0)
+
+
+def _smoke():
+    """The repository's ``chip_smoke.py`` as a module: the compressed
+    phase's bucket layout (``DP_BUCKET_SIZES``) and its gradient generator
+    (``step_gradient``) are defined there once."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+cs = _smoke()
+
+
+def _step_case(name, dev):
+    """(g, bucket sizes, {bucket: count it must have}) of one layout."""
+    if name == "full":
+        return cs.step_gradient(cs.DP_BUCKET_SIZES, seed=1), cs.DP_BUCKET_SIZES, {}
+    if name == "misaligned":                  # 1,000,003-element buckets, from g[1]:
+        sizes = [1_000_003] * 40 + [77]       # scalar loads, multi-tile segments
+        return cs.step_gradient([1] + sizes, seed=2)[1:], sizes, {}
+    if name == "tile_edges":                  # below a tile, tile multiples +- 1
+        sizes = [1, 1000, 4095, 4096, 4097, 8191, 8192, 8193, 3 * 4096]
+        return cs.step_gradient(sizes, seed=3, frac=0.05), sizes, {}
+    n = 1 << 16                               # none, exactly k and k + 1 selected
+    k = tcomp.default_k_max(n)
+    parts = [_encode_input(n, "none"), _encode_input(n, "exact_k")]
+    over = _encode_input(n, "none")
+    over[np.random.default_rng(9).choice(n, k + 1, replace=False)] = 2e-3
+    return torch.from_numpy(np.concatenate(parts + [over])).to(dev), [n] * 3, \
+        {0: 0, 1: k, 2: k + 1}
+
+
+@pytest.mark.parametrize("name", ["full", "misaligned", "tile_edges", "counts"])
+def test_threshold_encode_step_is_bitwise_its_plain_version(cuda_dev, name):
+    """One K6 launch over every bucket: each message bitwise
+    ``threshold_encode_buckets_plain``'s and the counts exact, at the
+    compressed phase's 156-bucket layout, with misaligned bucket starts,
+    buckets under a tile and at tile multiples +- 1, and counts of 0, k
+    and k + 1."""
+    g, sizes, want = _step_case(name, cuda_dev)
+    ks = [tcomp.default_k_max(n) for n in sizes]
+    before = tcomp.threshold_encode_buckets_cuda.launches
+    out, counts = tcomp.threshold_encode_buckets_cuda(g, sizes, ks, 1e-3)
+    torch.cuda.synchronize()
+    assert tcomp.threshold_encode_buckets_cuda.launches - before == 1
+    want_out, want_counts = tcomp.threshold_encode_buckets_plain(g, sizes, ks, 1e-3)
+    assert torch.equal(out, want_out)
+    exact = [int((b.abs() >= 1e-3).sum()) for b in g[:sum(sizes)].split(sizes)]
+    assert counts.tolist() == want_counts.tolist() == exact
+    assert all(exact[b] == c for b, c in want.items())
+
+
+def test_threshold_encode_step_is_deterministic(cuda_dev):
+    """50 launches over the full layout give the same bits: the slots do
+    not depend on the order the blocks run in (a missing fence in the
+    look-back would show only now and then)."""
+    g = cs.step_gradient(cs.DP_BUCKET_SIZES, seed=4)
+    ks = [tcomp.default_k_max(n) for n in cs.DP_BUCKET_SIZES]
+    first, first_counts = tcomp.threshold_encode_buckets_cuda(g, cs.DP_BUCKET_SIZES, ks, 1e-3)
+    same = [torch.equal(out, first) and torch.equal(counts, first_counts)
+            for out, counts in (tcomp.threshold_encode_buckets_cuda(g, cs.DP_BUCKET_SIZES, ks, 1e-3)
+                                for _ in range(49))]
+    assert all(same)
+    assert torch.equal(first, tcomp.threshold_encode_buckets_plain(g, cs.DP_BUCKET_SIZES, ks, 1e-3)[0])

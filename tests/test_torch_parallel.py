@@ -117,12 +117,12 @@ def _worker(rank: int, work: str) -> None:
     calls = []
 
     def counted(*a):
-        calls.append(1)
+        calls.append(len(a[1]))         # the buckets this call encodes
         return one_pass(*a)
 
-    def top_k_only(g, k, t):
+    def top_k_only(g, sizes, ks, t, out=None):
         # every bucket reports an overflow, so the top-k pack encodes it
-        return None, torch.full((), k + 1)
+        return out, torch.tensor([k + 1 for k in ks])
 
     xs, ys = _blobs()
     ds = DataSet(xs, ys)
@@ -146,6 +146,7 @@ def _worker(rank: int, work: str) -> None:
         out[f"{arm}/params"] = _flat([{k: v.numpy() for k, v in p.items()}
                                       for p in trainer.net.params])
         out[f"{arm}/one_pass_calls"] = np.asarray(len(calls))
+        out[f"{arm}/one_pass_buckets"] = np.asarray(sum(calls))
         out[f"{arm}/buckets_fit"] = np.asarray(fits)
         out[f"{arm}/n_buckets"] = np.asarray(trainer.bucketer.n_buckets)
         if kw:
@@ -251,14 +252,15 @@ def test_ranks_stay_bitwise_equal(runs, arm):
 
 
 def test_one_pass_route_runs_only_where_buckets_fit(runs):
-    """The routed arms run the one-pass pack on every bucket of every step;
-    only the 0.3 arm has buckets that fit k and keep its message."""
+    """The routed arms run the one-pass pack once a step, over every
+    bucket; only the 0.3 arm has buckets that fit k and keep its message."""
     port = runs["port"][0]
     calls = {arm: int(port[f"{arm}/one_pass_calls"]) for arm in ARMS}
     fits = {arm: int(port[f"{arm}/buckets_fit"]) for arm in ARMS}
     for arm, (_, routed) in ARMS.items():
-        every = STEPS * int(port[f"{arm}/n_buckets"])
-        assert calls[arm] == (every if routed else 0)
+        assert calls[arm] == (STEPS if routed else 0)
+        assert int(port[f"{arm}/one_pass_buckets"]) == (
+            STEPS * int(port[f"{arm}/n_buckets"]) if routed else 0)
     assert fits["threshold_fixed_0.3_routed"] > 0
     assert all(f == 0 for arm, f in fits.items() if arm != "threshold_fixed_0.3_routed")
 
