@@ -48,22 +48,32 @@ and the recurrent path's training and streaming:
           (vocab 96, 2 x 256 units, softmax/mcxent head, Adam lr 1e-3,
           elementwise clipping 1.0, TBPTT 50, one fixed [64, 100] batch of
           ids, weights from a seed), K4 switched on: the LSTM stack as the
-          port runs it (K5a/K5b) and, for the A/B, with the plain cell
-          patched in, 5 ``fit_batch`` calls each, in turns (losses finite
-          and falling, equal across the arms within 1e-5, 200 K5a and 200
-          K5b launches per call through K5 and none with the plain
-          cell); the zoo's ``TextGenerationLSTM`` (GravesLSTM
-          peephole cells, which never reach K5) 5 calls; one K5 call at
-          [4, 100] against the port on the CPU (loss and every parameter
-          within 1e-4); then the trained K5 net saved, loaded on the card
-          and serving 64 greedy tokens from a 16-token prompt through the
-          CLI's recurrent ``generate`` path: K5a launches twice per token,
-          and every streamed distribution equals ``output()`` over the
-          whole sequence within 1e-5, through K5 and with the plain cell.
-          K5a/K5b are held to their plain versions at [64, 256], [64, 512],
-          [7, 256] and the stream's [1, 256], and at K5b's other launch
-          shapes (n % 4 != 0: [64, 255] and [3, 3]; many waves of blocks:
-          [4096, 256]), in f32 and bf16.
+          port runs it (K5a once per layer and TBPTT chunk, K5b every step
+          of the backward) and, for the A/B, with the plain per-step loop
+          patched in (``recurrent.lstm_sequence`` =
+          ``lstm_sequence_plain``), 5 ``fit_batch`` calls each, in turns
+          (losses finite and falling, equal across the arms within 1e-5,
+          4 K5a and 200 K5b launches per call through the kernels and none
+          with the plain loop); the zoo's ``TextGenerationLSTM``
+          (GravesLSTM peephole cells, which never reach K5) 5 calls; one
+          kernel call at [4, 100] against the port on the CPU (loss and
+          every parameter within 1e-4); then the trained net saved, loaded
+          on the card and serving 64 greedy tokens from a 16-token prompt
+          through the CLI's recurrent ``generate`` path: K5a launches twice
+          for the prompt and twice per token, and every streamed
+          distribution equals ``output()`` over the whole sequence within
+          1e-5, through K5a and with the plain loop.
+          K5a (one launch per layer and sequence) is held to the plain loop
+          (evaluated in f32) at the chunk's [64, 50, 256], [64, 100, 512],
+          [7, 13, 256], the stream's [1, 1, 256], n % 4 != 0, a mask,
+          reverse, more tiles than the card holds at once (RW streamed) and
+          bf16 (f32 2e-5 abs and 1e-5 norm-relative; bf16 1e-2
+          norm-relative and 2e-2 abs or one bf16 spacing; a second launch
+          bitwise the first), and timed against cuDNN's LSTM on the same
+          layer's forward; at T = 1 with h0 = 0 and b = 0 (z = zx) against
+          the plain cell (2e-6) at the old cell shapes; K5b against its
+          plain version at [64, 256], [64, 512], [7, 256], [1, 256],
+          [64, 255], [3, 3] and [4096, 256], in f32 and bf16.
   compressed  data-parallel training of the TransformerLM through
           ``parallel.ShardedTrainer`` over ``torch.distributed``: two rank
           processes on cuda:0 (gloo; mesh dcn=2, data=1), each taking
@@ -472,18 +482,19 @@ RNN_VOCAB, RNN_HIDDEN, RNN_B, RNN_T, RNN_TBPTT = 96, 256, 64, 100, 50
 
 
 def lstm_case(mb, n, dtype):
-    """K5a and K5b against their plain versions on one input set; returns
-    its record.  Times are device times (``device_ms``): one launch takes
-    a few microseconds on the card and tens on the host, so a launch timed
-    alone (``launch_ms``) reads the host's enqueue.  z ~ N(0, 1),
-    c ~ N(0, 0.25), dh and dc' ~ N(0, 0.01), a trained cell's ranges.
-    bf16 is held against the plain version evaluated in f32 on the same
-    bf16 inputs, element by element in units of one bf16 spacing
-    (2^-7 of the value, plus 1e-6): the kernel rounds each result once,
-    so each is within half a spacing; the bf16 plain version rounds after
-    every op (its gap is printed too).  The library's
-    ``_thnn_fused_lstm_cell`` (gate order [i|f|g|o], columns permuted
-    before timing) is a yardstick only."""
+    """K5b against its plain version, and K5a through one step of the
+    sequence (T = 1, h0 = 0, b = 0, so z = zx exactly) against the plain
+    cell, on one input set; returns its record.  K5b's times are device
+    times (``device_ms``): one launch takes a few microseconds on the card
+    and tens on the host, so a launch timed alone (``launch_ms``) reads the
+    host's enqueue.  z ~ N(0, 1), c ~ N(0, 0.25), dh and dc' ~ N(0, 0.01),
+    a trained cell's ranges.  bf16 is held against the plain version
+    evaluated in f32 on the same bf16 inputs, element by element in units
+    of one bf16 spacing (2^-7 of the value, plus 1e-6): the kernels round
+    each result once, so each is within half a spacing; the bf16 plain
+    version rounds after every op (its gap is printed too).  The library's
+    ``_thnn_fused_lstm_cell_backward_impl`` (gate order [i|f|g|o], columns
+    permuted before timing) is a yardstick only."""
     import numpy as np
     import torch
 
@@ -494,7 +505,12 @@ def lstm_case(mb, n, dtype):
     t = lambda shape, sd: torch.from_numpy(sd * rng.standard_normal(shape, dtype=np.float32))
     z, c, dh, dcn = (x.to(dev, dtype) for x in (t((mb, 4 * n), 1.0), t((mb, n), 0.5),
                                                  t((mb, n), 0.1), t((mb, n), 0.1)))
-    got = lk.lstm_cell_fwd_cuda(z, c) + lk.lstm_cell_bwd_cuda(z, c, dh, dcn)
+    rw = t((n, 4 * n), 1.0).to(dev, dtype)
+    zeros = torch.zeros(mb, n, device=dev, dtype=dtype)
+    hs, _, _, _, c_new = lk.lstm_seq_fwd_cuda(z[:, None].contiguous(), rw,
+                                              torch.zeros(4 * n, device=dev, dtype=dtype),
+                                              zeros, c)
+    got = [hs[:, 0], c_new] + list(lk.lstm_cell_bwd_cuda(z, c, dh, dcn))
     torch.cuda.synchronize()
     f32 = lambda *ts: [x.float() for x in ts]
     want = lk.lstm_cell_plain(*f32(z, c)) + lk.lstm_cell_bwd_plain(*f32(z, c, dh, dcn))
@@ -505,59 +521,189 @@ def lstm_case(mb, n, dtype):
     err_same = [float((a.float() - w.float()).abs().max()) for a, w in zip(got, same)]
     dname = "float32" if dtype == torch.float32 else "bfloat16"
     rec = {"phase": "kernel", "case": f"lstm_cell_{mb}x{n}_{dname}", "shape": [mb, n],
-           "dtype": dname, "library": "aten._thnn_fused_lstm_cell(_backward_impl)"}
+           "dtype": dname, "library": "aten._thnn_fused_lstm_cell_backward_impl",
+           "lstm_seq_t1": {"max_abs_err": max(err[:2]),
+                           "max_err_bf16_spacings": max(spacings[:2]),
+                           "max_abs_err_vs_same_dtype_plain": max(err_same[:2])}}
     # the library's cell: its gates [i|f|g|o], the hidden gates zero
     zl = torch.cat([z[:, :2 * n], z[:, 3 * n:], z[:, 2 * n:3 * n]], dim=1).contiguous()
     lib = getattr(torch.ops.aten, "_thnn_fused_lstm_cell", None)
-    lib_fwd = lib_bwd = None
+    lib_bwd = None
     if lib is None:
         rec["library_error"] = "this torch has no aten._thnn_fused_lstm_cell"
     else:
-        zeros = torch.zeros_like(zl)
         try:
-            hy, cy, ws = lib(zl, zeros, c)
+            hy, cy, ws = lib(zl, torch.zeros_like(zl), c)
             lib_bwd = lambda: torch.ops.aten._thnn_fused_lstm_cell_backward_impl(
                 dh, dcn, c, cy, ws, False)
             lib_bwd()
-            lib_fwd = lambda: lib(zl, zeros, c)
-            rec["library_max_abs_err_h"] = float((hy.float() - got[0].float()).abs().max())
         except RuntimeError as e:        # a yardstick only: its absence is recorded
             lib_bwd = None
             rec["library_error"] = str(e).splitlines()[0]
     es = z.element_size()
-    for name, fn, plain, libfn, outs, vals, ops in (
-            ("lstm_cell_fwd", lambda: lk.lstm_cell_fwd_cuda(z, c),
-             lambda: lk.lstm_cell_plain(z, c), lib_fwd, slice(0, 2), 7, LSTM_FWD_OPS),
-            ("lstm_cell_bwd", lambda: lk.lstm_cell_bwd_cuda(z, c, dh, dcn),
-             lambda: lk.lstm_cell_bwd_plain(z, c, dh, dcn), lib_bwd, slice(2, 4),
-             12, LSTM_BWD_OPS)):
-        b_ms, b_by = bound(float(ops * mb * n), float(vals * mb * n * es), "float32")
-        rec[name] = {"max_abs_err": max(err[outs]), "max_err_bf16_spacings": max(spacings[outs]),
-                     "max_abs_err_vs_same_dtype_plain": max(err_same[outs]),
-                     "ms": device_ms(fn), "plain_ms": device_ms(plain),
-                     "library_ms": None if libfn is None else device_ms(libfn),
-                     "launch_ms": cuda_ms(fn, 20),
-                     "bound_ms": b_ms, "bound_by": b_by, "bytes": vals * mb * n * es}
+    fn = lambda: lk.lstm_cell_bwd_cuda(z, c, dh, dcn)
+    b_ms, b_by = bound(float(LSTM_BWD_OPS * mb * n), float(12 * mb * n * es), "float32")
+    rec["lstm_cell_bwd"] = {
+        "max_abs_err": max(err[2:]), "max_err_bf16_spacings": max(spacings[2:]),
+        "max_abs_err_vs_same_dtype_plain": max(err_same[2:]),
+        "ms": device_ms(fn), "plain_ms": device_ms(lambda: lk.lstm_cell_bwd_plain(z, c, dh, dcn)),
+        "library_ms": None if lib_bwd is None else device_ms(lib_bwd),
+        "launch_ms": cuda_ms(fn, 20), "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": 12 * mb * n * es}
+    emit(rec)
+    return rec
+
+
+def lstm_seq_inputs(mb, t_len, n, dtype, seed):
+    """zx ~ N(0, 1) [mb, T, 4n], RW ~ N(0, 1/n), b ~ N(0, 0.01), h0 and c0
+    ~ N(0, 0.25) and a 0/1 mask [mb, T] (first step kept), on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda shape, sd: torch.from_numpy(sd * rng.standard_normal(shape, dtype=np.float32))
+    ins = [t((mb, t_len, 4 * n), 1.0), t((n, 4 * n), 1.0 / math.sqrt(n)), t((4 * n,), 0.1),
+           t((mb, n), 0.5), t((mb, n), 0.5)]
+    mask = (rng.random((mb, t_len)) > 0.3).astype(np.float32)
+    mask[:, 0] = 1.0
+    return [x.to("cuda", dtype) for x in ins], torch.from_numpy(mask).to("cuda")
+
+
+def cudnn_layer(W, RW, b):
+    """``torch.nn.LSTM`` (cuDNN) holding one port LSTM layer's weights: its
+    gates [i|f|g|o], W_ih = Wᵀ, W_hh = RWᵀ, b_ih = b, b_hh = 0."""
+    import torch
+
+    n = RW.shape[0]
+    perm = torch.cat([torch.arange(0, 2 * n), torch.arange(3 * n, 4 * n),
+                      torch.arange(2 * n, 3 * n)]).to(W.device)
+    lstm = torch.nn.LSTM(W.shape[0], n, batch_first=True).to(W.device, W.dtype)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(W[:, perm].t())
+        lstm.weight_hh_l0.copy_(RW[:, perm].t())
+        lstm.bias_ih_l0.copy_(b[perm])
+        lstm.bias_hh_l0.zero_()
+    return lstm
+
+
+def lstm_seq_case(mb, t_len, n, dtype, masked=False, reverse=False, timed=False):
+    """K5a over a whole sequence against the plain per-step loop evaluated
+    in f32 on the same inputs (and, for bf16, the plain loop in bf16, whose
+    gap is printed); a second launch must be bitwise the first.  With
+    ``timed``: device times of the kernel and the plain loop, its bound,
+    and (f32) the layer forward, x @ W then K5a on a dense [mb, T, n] input,
+    against cuDNN's LSTM holding the same weights, the yardstick."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import lstm_kernel as lk
+
+    ins, mask = lstm_seq_inputs(mb, t_len, n, dtype, SEED + 70 + mb + t_len + n)
+    mask = mask if masked else None
+    got = lk.lstm_seq_fwd_cuda(*ins, mask, reverse)
+    plan = lk.lstm_seq_fwd_cuda.plan
+    again = lk.lstm_seq_fwd_cuda(*ins, mask, reverse)
+    torch.cuda.synchronize()
+    want = lk.lstm_seq_fwd_plain(*(x.float() for x in ins), mask, reverse)
+    names = ("hs", "z", "c", "h_last", "c_last")
+    dname = "float32" if dtype == torch.float32 else "bfloat16"
+    atol, rtol = (2e-5, 1e-5) if dtype == torch.float32 else (2e-2, 1e-2)
+    errs, ok = {}, all(torch.equal(a, b) for a, b in zip(got, again))
+    bitwise = ok
+    for name, a, w in zip(names, got, want):
+        d = (a.float() - w).abs()
+        limit = (torch.full_like(w, atol) if dtype == torch.float32
+                 else torch.clamp(2.0 ** -7 * w.abs(), min=atol))
+        errs[name] = {"max_abs_err": float(d.max()),
+                      "rel_err": float(d.norm() / w.norm().clamp_min(1e-30))}
+        ok = ok and bool((d <= limit).all()) and errs[name]["rel_err"] <= rtol
+    rec = {"phase": "kernel",
+           "case": f"lstm_seq_{mb}x{t_len}x{n}_{dname}{'_masked' if masked else ''}"
+                   f"{'_reverse' if reverse else ''}",
+           "shape": [mb, t_len, n], "dtype": dname, "masked": masked, "reverse": reverse,
+           "grid": plan[0], "rw_resident": plan[1], "errors": errs,
+           "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           "rel_err": max(e["rel_err"] for e in errs.values()),
+           "bitwise_second_launch": bitwise, "ok": ok}
+    if dtype != torch.float32:
+        same = lk.lstm_seq_fwd_plain(*ins, mask, reverse)
+        rec["max_abs_err_of_the_bf16_plain_vs_f32"] = max(
+            float((s.float() - w).abs().max()) for s, w in zip(same, want))
+    if timed:
+        es = ins[0].element_size()
+        cells = mb * t_len * n
+        flops = 2.0 * cells * 4 * n + (LSTM_FWD_OPS + 8) * cells
+        nbytes = es * (4 * n * n + 4 * n + 4 * mb * n + 2 * 4 * cells + 2 * cells) + (
+            4 * mb * t_len if masked else 0)
+        rec["bound_ms"], rec["bound_by"] = bound(flops, float(nbytes), dname)
+        rec["flops"], rec["bytes"] = flops, nbytes
+        kernel = lambda: lk.lstm_seq_fwd_cuda(*ins, mask, reverse)
+        rec["ms"] = device_ms(kernel)
+        rec["cuda_ms"] = cuda_ms(kernel, 20)
+        # one call: the loop's ~14 launches a step fill the card's queue of
+        # pending launches (about a thousand), which would block the enqueue
+        rec["plain_ms"] = device_ms(lambda: lk.lstm_sequence_plain(*ins, mask, reverse),
+                                    iters=1)
+        rec["library_ms"] = None
+        if dtype == torch.float32 and not masked and not reverse:
+            # layer 2's forward: x [mb, T, n] (layer 1's output, in (-1, 1)) @ W,
+            # then K5a
+            rng = np.random.default_rng(SEED + 71)
+            x = torch.from_numpy(np.tanh(rng.standard_normal((mb, t_len, n), dtype=np.float32)))
+            W = torch.from_numpy(rng.standard_normal((n, 4 * n), dtype=np.float32) / math.sqrt(n))
+            x, W = x.to("cuda"), W.to("cuda")
+            RW, b, h0, c0 = ins[1:]
+            lstm = cudnn_layer(W, RW, b)
+            with torch.no_grad():
+                lib = lambda: lstm(x, (h0[None], c0[None]))
+                layer = lambda: lk.lstm_seq_fwd_cuda(x @ W, RW, b, h0, c0)
+                ours, theirs = layer()[0], lib()[0]
+                rec["library"] = "torch.nn.LSTM (cuDNN), the whole layer forward"
+                rec["library_max_abs_err"] = float((ours - theirs).abs().max())
+                rec["layer_ms"] = device_ms(layer)
+                rec["library_ms"] = device_ms(lib, iters=2)   # cuDNN launches per step
+                rec["library_cuda_ms"] = cuda_ms(lib, 20)
     emit(rec)
     return rec
 
 
 def phase_kernel_lstm():
     import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    # K5a over sequences: the char-RNN's chunk first (the kernels line
+    # reports it), then a wider layer, ragged rows, the stream's step,
+    # n % 4 != 0, masks, reverse, more tiles than the card holds at once
+    # (RW streamed from L2), bf16
+    seqs = [lstm_seq_case(RNN_B, RNN_TBPTT, RNN_HIDDEN, f32, timed=True),
+            lstm_seq_case(RNN_B, RNN_TBPTT, RNN_HIDDEN, bf16, timed=True),
+            lstm_seq_case(1, 1, RNN_HIDDEN, f32, timed=True),
+            lstm_seq_case(1, 1, RNN_HIDDEN, bf16),
+            lstm_seq_case(RNN_B, 2 * RNN_TBPTT, 512, f32),
+            lstm_seq_case(7, 13, RNN_HIDDEN, f32),
+            lstm_seq_case(5, 9, 255, f32),
+            lstm_seq_case(RNN_B, RNN_TBPTT, RNN_HIDDEN, f32, masked=True),
+            lstm_seq_case(RNN_B, RNN_TBPTT, RNN_HIDDEN, f32, reverse=True),
+            lstm_seq_case(7, 13, 255, f32, masked=True, reverse=True),
+            lstm_seq_case(7, 13, 255, bf16, masked=True, reverse=True),
+            lstm_seq_case(2048, 3, RNN_HIDDEN, f32)]
     # f32: 2e-6 max abs (the same rounded ops; expf/tanhf may differ in the
     # last bit); bf16: every element within one bf16 spacing
     ok = {"float32": lambda r: r["max_abs_err"] <= 2e-6,
           "bfloat16": lambda r: r["max_err_bf16_spacings"] <= 1.0}
     # the char-RNN's shape first (the kernels line reports it), then
     # n % 4 != 0 and a batch of many waves of K5b's blocks
-    recs = [lstm_case(mb, n, dt) for dt in (torch.float32, torch.bfloat16)
-            for mb, n in ((RNN_B, RNN_HIDDEN), (RNN_B, 512), (7, RNN_HIDDEN), (1, RNN_HIDDEN),
-                          (RNN_B, 255), (3, 3), (4096, RNN_HIDDEN))]
-    bad = [f"{r['case']}/{k}" for r in recs for k in ("lstm_cell_fwd", "lstm_cell_bwd")
-           if not ok[r["dtype"]](r[k])]
+    cells = [lstm_case(mb, n, dt) for dt in (f32, bf16)
+             for mb, n in ((RNN_B, RNN_HIDDEN), (RNN_B, 512), (7, RNN_HIDDEN), (1, RNN_HIDDEN),
+                           (RNN_B, 255), (3, 3), (4096, RNN_HIDDEN))]
+    bad = [r["case"] for r in seqs if not r["ok"]]
+    bad += [f"{r['case']}/{k}" for r in cells for k in ("lstm_seq_t1", "lstm_cell_bwd")
+            if not ok[r["dtype"]](r[k])]
+    if seqs[-1]["rw_resident"] or not seqs[0]["rw_resident"]:
+        bad.append("K5a's layouts: RW must stay resident at the chunk's shape and be "
+                   "streamed when the tiles outnumber the card")
     if bad:
-        raise AssertionError(f"LSTM cell kernels disagree with their plain versions: {bad}")
-    return recs[0]
+        raise AssertionError(f"LSTM kernels disagree with their plain versions: {bad}")
+    return {"lstm_seq_fwd": seqs[0], "lstm_cell_bwd": cells[0]["lstm_cell_bwd"]}
 
 
 # -- K6: the one-pass threshold encode ------------------------------------------------
@@ -1016,17 +1162,17 @@ def phase_recurrent():
     seq = rng.integers(0, RNN_VOCAB, (RNN_B, RNN_T + 1)).astype(np.int32)
     dev = torch.device("cuda")
     ds = DataSet(torch.from_numpy(seq[:, :-1]).to(dev), torch.from_numpy(seq[:, 1:]).to(dev))
-    counters = {"lstm_cell_fwd": lk.lstm_cell_fwd_cuda, "lstm_cell_bwd": lk.lstm_cell_bwd_cuda,
+    counters = {"lstm_seq_fwd": lk.lstm_seq_fwd_cuda, "lstm_cell_bwd": lk.lstm_cell_bwd_cuda,
                 "fused_update": uk.fused_update_cuda}
 
-    def plain_cell(fn):
-        """``fn()`` with the plain cell patched in where the layers call
-        the fused one: the A/B's other arm."""
-        recurrent.fused_lstm_cell = lk.lstm_cell_plain
+    def plain_loop(fn):
+        """``fn()`` with the plain per-step loop patched in where the layers
+        call the sequence: the A/B's other arm."""
+        recurrent.lstm_sequence = lk.lstm_sequence_plain
         try:
             return fn()
         finally:
-            recurrent.fused_lstm_cell = lk.fused_lstm_cell
+            recurrent.lstm_sequence = lk.lstm_sequence
 
     def call(net):
         """One fit_batch; the counts are set to 0 just before it and read
@@ -1041,19 +1187,20 @@ def phase_recurrent():
         return float(loss), sec, {k: c.launches for k, c in counters.items()}
 
     # the two arms in turns, so drift on the host touches both alike
-    arms = {"k5": build_rnn("cuda"), "plain_cell": build_rnn("cuda")}
+    arms = {"k5": build_rnn("cuda"), "plain_loop": build_rnn("cuda")}
     runs = {name: [] for name in arms}
     for _ in range(5):
         runs["k5"].append(call(arms["k5"]))
-        runs["plain_cell"].append(plain_cell(lambda: call(arms["plain_cell"])))
+        runs["plain_loop"].append(plain_loop(lambda: call(arms["plain_loop"])))
     zoo = TextGenerationLSTM(vocab_size=RNN_VOCAB, updater=Adam(lr=1e-3), seed=SEED,
                              device="cuda")
     runs["zoo_graves"] = [call(zoo) for _ in range(5)]
     chunks = -(-RNN_T // RNN_TBPTT)
-    want = {"k5": {"lstm_cell_fwd": 2 * RNN_T, "lstm_cell_bwd": 2 * RNN_T,
+    # K5a once per layer and TBPTT chunk, K5b once per layer and step
+    want = {"k5": {"lstm_seq_fwd": 2 * chunks, "lstm_cell_bwd": 2 * RNN_T,
                    "fused_update": 3 * chunks},
-            "plain_cell": {"lstm_cell_fwd": 0, "lstm_cell_bwd": 0, "fused_update": 3 * chunks},
-            "zoo_graves": {"lstm_cell_fwd": 0, "lstm_cell_bwd": 0, "fused_update": 3 * chunks}}
+            "plain_loop": {"lstm_seq_fwd": 0, "lstm_cell_bwd": 0, "fused_update": 3 * chunks},
+            "zoo_graves": {"lstm_seq_fwd": 0, "lstm_cell_bwd": 0, "fused_update": 3 * chunks}}
     arms_rec = {}
     for name, rs in runs.items():
         losses = [r[0] for r in rs]
@@ -1065,7 +1212,7 @@ def phase_recurrent():
                           "launches_ok": all(r[2] == want[name] for r in rs),
                           "finite_and_falling": (all(math.isfinite(x) for x in losses)
                                                  and losses[-1] < losses[0])}
-    arm_gap = max(abs(a[0] - b[0]) for a, b in zip(runs["k5"], runs["plain_cell"]))
+    arm_gap = max(abs(a[0] - b[0]) for a, b in zip(runs["k5"], runs["plain_loop"]))
 
     # one K5 call at [4, 100], card against the port on the CPU, same weights
     small = DataSet(seq[:4, :-1], seq[:4, 1:])
@@ -1095,18 +1242,18 @@ def phase_recurrent():
     cli.generate_recurrent(served, prompt, 4)          # warm the allocator and cuBLAS
     stamps.clear()
     streamed.clear()
-    lk.lstm_cell_fwd_cuda.launches = 0
+    lk.lstm_seq_fwd_cuda.launches = 0
     toks = cli.generate_recurrent(served, prompt, 64)
     stamps.append(time.perf_counter())
-    k5a_serve = lk.lstm_cell_fwd_cuda.launches
+    k5a_serve = lk.lstm_seq_fwd_cuda.launches
     del served.rnn_time_step
     gaps = sorted((b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:]))
     stream = torch.cat([streamed[0][0]] + streamed[1:], dim=0)   # [16 + 64, vocab]
     whole = np.asarray([prompt + toks], np.int32)
     full = served.output(whole)[0]
     stream_err = float((stream - full).abs().max())
-    # the stream ran K5a at [1, 256]; the plain cell is its independent check
-    stream_plain_err = float((stream - plain_cell(lambda: served.output(whole))[0]).abs().max())
+    # the stream ran K5a at [1, 1, 256]; the plain loop is its independent check
+    stream_plain_err = float((stream - plain_loop(lambda: served.output(whole))[0]).abs().max())
     greedy = [int(streamed[k][0, -1].argmax()) if k == 0 else int(streamed[k][0].argmax())
               for k in range(64)]
     rec = {"phase": "recurrent", "config": {"vocab": RNN_VOCAB, "layers": [RNN_HIDDEN] * 2,
@@ -1116,17 +1263,17 @@ def phase_recurrent():
            "cpu_cut": [4, RNN_T], "cpu_loss_abs_diff": abs(cpu_losses[0] - cpu_losses[1]),
            "cpu_param_rel_diff": rel, "tolerance_cpu": 1e-4,
            "serve": {"prompt": 16, "tokens": len(toks), "k5a_launches": k5a_serve,
-                     "k5a_per_token": k5a_serve / (16 + len(toks)),
+                     "k5a_prompt_and_per_token": [2, (k5a_serve - 2) / len(toks)],
                      "prompt_ms": (stamps[1] - stamps[0]) * 1e3,
                      "token_ms_p50": gaps[len(gaps) // 2],
                      "token_ms_p99": gaps[min(len(gaps) - 1, int(0.99 * len(gaps)))],
                      "stream_vs_output_max_abs_diff": stream_err,
-                     "stream_vs_plain_cell_output_max_abs_diff": stream_plain_err,
+                     "stream_vs_plain_loop_output_max_abs_diff": stream_plain_err,
                      "greedy_is_stream_argmax": greedy == toks}}
     emit(rec)
     ok = (all(a["launches_ok"] and a["finite_and_falling"] for a in arms_rec.values())
           and arm_gap <= 1e-5 and abs(cpu_losses[0] - cpu_losses[1]) <= 1e-4 and rel <= 1e-4
-          and len(toks) == 64 and k5a_serve == 2 * (16 + 64) and stream_err <= 1e-5
+          and len(toks) == 64 and k5a_serve == 2 + 2 * 64 and stream_err <= 1e-5
           and stream_plain_err <= 1e-5 and greedy == toks)
     if not ok:
         raise AssertionError("recurrent phase failed")
@@ -1420,8 +1567,8 @@ def main() -> int:
         entry("det_attention", "det_attention.cu",
               "deeplearning4j_tpu/ops/kv_cache.py:362",
               serve["launches"]["det_attention"], det),
-        entry("lstm_cell_fwd", "lstm_cell.cu", "deeplearning4j_tpu/ops/lstm_kernel.py:81",
-              k5_launches["lstm_cell_fwd"], k5["lstm_cell_fwd"]),
+        entry("lstm_seq_fwd", "lstm_cell.cu", "deeplearning4j_tpu/ops/lstm_kernel.py:81",
+              k5_launches["lstm_seq_fwd"], k5["lstm_seq_fwd"]),
         entry("lstm_cell_bwd", "lstm_cell.cu", "deeplearning4j_tpu/ops/lstm_kernel.py:87",
               k5_launches["lstm_cell_bwd"], k5["lstm_cell_bwd"]),
         entry("threshold_encode", "threshold_encode.cu",

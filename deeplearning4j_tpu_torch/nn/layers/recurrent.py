@@ -8,12 +8,13 @@ and, for peephole cells, ``pW`` [3·n_out] (i, f, o), with the suffixes
 ``F``/``B`` for ``GravesBidirectionalLSTM``'s two directions and nested
 ``fwd``/``bwd`` trees for ``Bidirectional``.
 
-The reference's ``lax.scan`` over time is a Python loop here.  The input
-projection is hoisted out of it (one [mb·t, f] × [f, 4n] product, or the
-row gather ``W[x]`` for integer ids); each step adds ``h @ RW + b`` and
-runs the cell.  The standard cell (no peepholes, sigmoid gates, tanh)
-goes through ``ops/lstm_kernel.fused_lstm_cell`` (kernels K5a/K5b on the
-card); other activations and peepholes take the general path, as in the
+The input projection is hoisted out of the reference's ``lax.scan`` over
+time (one [mb·t, f] × [f, 4n] product, or the row gather ``W[x]`` for
+integer ids).  The standard cell (no peepholes, sigmoid gates, tanh) runs
+the whole scan through ``ops/lstm_kernel.lstm_sequence``: on the card one
+K5a launch per layer and sequence, and K5b in its backward; on the CPU
+the per-step loop.  Other activations and peepholes take the general
+path, a Python loop that adds ``h @ RW + b`` each step, as in the
 reference.  Streaming is ``forward`` with the carry passed in and
 returned (``MultiLayerNetwork.rnn_time_step``).
 """
@@ -29,33 +30,28 @@ from ...ops.activations import get_activation
 from ...ops.dtypes import canonical_dtype
 from ...ops.initializers import init_weight
 from ...ops.losses import get_loss, summed_per_example
-from ...ops.lstm_kernel import fused_lstm_cell
+from ...ops.lstm_kernel import hold as _hold
+from ...ops.lstm_kernel import lstm_sequence
 from ..conf.inputs import InputType
 from .base import ForwardOut, Layer, register_layer
 
 Tensor = torch.Tensor
 
 
-def _hold(mask_t: Optional[Tensor], new: Tensor, old: Tensor) -> Tensor:
-    """A masked step keeps the old state: m·new + (1 - m)·old."""
-    if mask_t is None:
-        return new
-    m = mask_t[:, None].to(new.dtype)
-    return m * new + (1 - m) * old
+def _standard_cell(cfg) -> bool:
+    return (not cfg.peephole and cfg.gate_activation == "sigmoid"
+            and cfg.activation == "tanh")
 
 
 def _lstm_cell(cfg, params, carry, zx_t, mask_t=None, suffix=""):
-    """One LSTM step: carry (h, c), the input's projection ``zx_t`` =
-    x_t @ W [mb, 4n], mask_t [mb] or None → the new (h, c)."""
+    """One step of the general cell (peepholes or other activations):
+    carry (h, c), the input's projection ``zx_t`` = x_t @ W [mb, 4n],
+    mask_t [mb] or None → the new (h, c)."""
     h, c = carry
     RW = params["RW" + suffix].to(zx_t.dtype)
     b = params["b" + suffix].to(zx_t.dtype)
     z = zx_t + h @ RW + b  # [mb, 4n]
     n = cfg.n_out
-    if (not cfg.peephole and cfg.gate_activation == "sigmoid"
-            and cfg.activation == "tanh"):
-        h_new, c_new = fused_lstm_cell(z, c)
-        return _hold(mask_t, h_new, h), _hold(mask_t, c_new, c)
     zi, zf, zo, zg = z[:, :n], z[:, n:2 * n], z[:, 2 * n:3 * n], z[:, 3 * n:]
     gate = get_activation(cfg.gate_activation)
     act = get_activation(cfg.activation)
@@ -83,6 +79,9 @@ def _scan_lstm(cfg, params, x, mask, h0, c0, reverse=False, suffix=""):
         zx = W[x.long()].to(h0.dtype)   # [mb, t, 4n]
     else:
         zx = x @ W.to(x.dtype)          # [mb, t, 4n]
+    if _standard_cell(cfg):
+        return lstm_sequence(zx, params["RW" + suffix].to(zx.dtype),
+                             params["b" + suffix].to(zx.dtype), h0, c0, mask, reverse)
     t_len = zx.shape[1]
     carry = (h0, c0)
     hs = [None] * t_len

@@ -1,42 +1,45 @@
-"""Fused LSTM cell: the gate math of one step in one pass (mirrors
+"""The LSTM layer's step loop and its cell backward as kernels (mirrors
 ``deeplearning4j_tpu/ops/lstm_kernel.py``).
 
-The cell's products (x·W hoisted over time, h·RW per step) stay plain
-``torch.matmul``; this module covers the elementwise rest: three
-sigmoids, two tanhs and the products and sums that give (h', c') from
-the preactivations z [mb, 4n] in gate order ``[i|f|o|g]`` and the cell
-state c [mb, n].  ``lstm_cell_fwd`` is kernel K5a and ``lstm_cell_bwd``
-kernel K5b: for CUDA tensors they launch the CUDA C++ kernels in
-``csrc/lstm_cell.cu`` (which replace the TPU kernels
-``deeplearning4j_tpu/ops/lstm_kernel.py::_fwd_kernel`` and
-``::_bwd_kernel``); for CPU tensors, and only then, they run the plain
-versions ``lstm_cell_plain`` / ``lstm_cell_bwd_plain``, copies of the
-reference's ``_plain_cell`` / ``_bwd_math``.
+The standard cell (gate order ``[i|f|o|g]``, sigmoid gates, tanh) over a
+sequence: for each step t (backwards with ``reverse``),
+z_t = zx_t + h_{t-1} @ RW + b from the hoisted input projection zx
+[mb, T, 4n], then (h, c) from the cell and, with a mask [mb, T], the hold
+m·new + (1 - m)·old.  ``lstm_seq_fwd`` is kernel K5a: on CUDA tensors the
+whole loop of one layer is one persistent launch of ``csrc/lstm_cell.cu``
+(which replaces the TPU kernel ``deeplearning4j_tpu/ops/lstm_kernel.py::
+_fwd_kernel``, a cell step inside ``lax.scan`` that XLA fused with h·RW and
+the gate sums; the card has no such fusion, and the reference module
+names this seam for a multi-step-fused variant).  ``lstm_cell_bwd`` is
+kernel K5b (``::_bwd_kernel``), the closed-form cell backward.  For CPU
+tensors, and only then, they run the plain versions
+``lstm_seq_fwd_plain`` / ``lstm_cell_bwd_plain`` (copies of the
+reference's ``_plain_cell`` / ``_bwd_math`` around the plain step).
 
-Dispatch (``fused_lstm_cell``), by the tensor's device alone:
-  - a CPU tensor, of any dtype: the plain cell, differentiated by
-    autograd (the reference's default, and its exact float64 path);
-  - a CUDA tensor: ``LSTMCell``, whose forward is K5a and whose backward
-    is K5b on the saved (z, c), as the reference's custom VJP recomputes
-    the gates in ``_bwd_math``.  float32 and bfloat16 reach the kernels;
-    anything they do not take raises.
+Dispatch (``lstm_sequence``), by the tensor's device alone:
+  - a CPU tensor, of any dtype: ``lstm_sequence_plain``, the per-step loop
+    differentiated by autograd (the reference's default, and its exact
+    float64 path);
+  - a CUDA tensor: ``LSTMSequence``, whose forward is K5a and whose
+    backward is one reverse loop of K5b and the dz·RWᵀ product per step,
+    then dRW, db and dzx each in one call over all steps.  float32 and
+    bfloat16 reach the kernels; anything they do not take raises.
 The reference keeps its kernel opt-in (``DL4J_TPU_FUSED_LSTM``) because
-XLA's fusion beat it on the TPU; on the card the kernel replaces about
-ten eager launches per step, so it has no switch here.  The reference's
-``n >= 128`` and batch-tile ``>= 8`` gates are not carried over: they are
-the TPU's 128-lane and VMEM tiling rules, and a thread per (row, unit)
-has no such constraint.
+XLA's fusion beat it on the TPU; on the card K5a replaces four launches a
+step, so it has no switch here.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 Tensor = torch.Tensor
+Carry = Tuple[Tensor, Tensor]
+
 
 def _gates(z: Tensor, n: int):
     i = torch.sigmoid(z[:, :n])
@@ -47,7 +50,7 @@ def _gates(z: Tensor, n: int):
 
 
 def lstm_cell_plain(z: Tensor, c: Tensor) -> Tuple[Tensor, Tensor]:
-    """K5a's plain version (the reference's ``_plain_cell``) → (h', c')."""
+    """The cell of one step (the reference's ``_plain_cell``) → (h', c')."""
     i, f, o, g = _gates(z, c.shape[-1])
     c_new = f * c + i * g
     return o * torch.tanh(c_new), c_new
@@ -71,107 +74,243 @@ def lstm_cell_bwd_plain(z: Tensor, c: Tensor, dh: Tensor,
     return dz, dct * f
 
 
+def hold(mask_t: Optional[Tensor], new: Tensor, old: Tensor) -> Tensor:
+    """A masked step keeps the old state: m·new + (1 - m)·old."""
+    if mask_t is None:
+        return new
+    m = mask_t[:, None].to(new.dtype)
+    return m * new + (1 - m) * old
+
+
+def _steps(t_len: int, reverse: bool):
+    return range(t_len - 1, -1, -1) if reverse else range(t_len)
+
+
+def _plain_loop(zx, RW, b, h0, c0, mask, reverse, keep):
+    """The per-step loop: ``torch.matmul``, the two adds, the cell and the
+    hold.  With ``keep`` it also gathers every step's z and c."""
+    t_len = zx.shape[1]
+    h, c = h0, c0
+    hs = [None] * t_len
+    zs, cs = ([None] * t_len, [None] * t_len) if keep else (None, None)
+    for t in _steps(t_len, reverse):
+        z = zx[:, t] + h @ RW + b
+        h_new, c_new = lstm_cell_plain(z, c)
+        m = None if mask is None else mask[:, t]
+        h, c = hold(m, h_new, h), hold(m, c_new, c)
+        hs[t] = h
+        if keep:
+            zs[t], cs[t] = z, c
+    return hs, zs, cs, h, c
+
+
+def lstm_sequence_plain(zx: Tensor, RW: Tensor, b: Tensor, h0: Tensor, c0: Tensor,
+                        mask: Optional[Tensor] = None,
+                        reverse: bool = False) -> Tuple[Tensor, Carry]:
+    """K5a's plain version, the per-step loop under autograd:
+    zx [mb, T, 4n] → (hs [mb, T, n], (h_T, c_T))."""
+    hs, _, _, h, c = _plain_loop(zx, RW, b, h0, c0, mask, reverse, keep=False)
+    return torch.stack(hs, dim=1), (h, c)
+
+
+def lstm_seq_fwd_plain(zx: Tensor, RW: Tensor, b: Tensor, h0: Tensor, c0: Tensor,
+                       mask: Optional[Tensor] = None, reverse: bool = False):
+    """K5a's outputs from the plain loop: (hs [mb, T, n], z [T, mb, 4n],
+    c [T, mb, n] of every step, h_T, c_T)."""
+    hs, zs, cs, h, c = _plain_loop(zx, RW, b, h0, c0, mask, reverse, keep=True)
+    return torch.stack(hs, dim=1), torch.stack(zs), torch.stack(cs), h, c
+
+
 @functools.lru_cache(maxsize=None)
 def _fns():
-    """(fwd, bwd) C entry points of the built library, signatures set once."""
+    """(seq_fwd, cell_bwd) C entry points of the built library, signatures
+    set once."""
     from ..utils import cuda_build
 
     lib = cuda_build.load("lstm_cell")
-    fwd, bwd = lib.dl4j_lstm_cell_fwd, lib.dl4j_lstm_cell_bwd
-    for fn, n_ptr in ((fwd, 4), (bwd, 6)):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fwd, bwd = lib.dl4j_lstm_seq_fwd, lib.dl4j_lstm_cell_bwd
+    fwd.restype = bwd.restype = ctypes.c_int
+    fwd.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return fwd, bwd
 
 
+def _check_tensors(what: str, ts) -> None:
+    """One CUDA device, float32 or bfloat16 throughout, contiguous."""
+    if not all(t.is_cuda and t.device == ts[0].device for t in ts):
+        raise ValueError(f"the {what} needs every tensor on one CUDA device")
+    if ts[0].dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != ts[0].dtype for t in ts):
+        raise TypeError(f"the {what} takes float32 or bfloat16 tensors of one dtype, "
+                        f"got {[str(t.dtype) for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"the {what} takes contiguous row-major tensors")
+
+
 def _check(z: Tensor, c: Tensor, *more: Tensor) -> None:
-    """Raise for anything the kernels do not take: one CUDA device, f32 or
-    bf16 throughout, z [mb, 4n] and the rest [mb, n], contiguous rows."""
+    """Raise for anything K5b does not take: z [mb, 4n] and the rest
+    [mb, n] on one CUDA device, f32 or bf16, contiguous rows."""
     ts = (z, c) + more
-    if not all(t.is_cuda and t.device == z.device for t in ts):
-        raise ValueError("the LSTM cell kernels need every tensor on one CUDA device")
-    if z.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != z.dtype for t in ts):
-        raise TypeError("the LSTM cell kernels take float32 or bfloat16 tensors "
-                        f"of one dtype, got {[str(t.dtype) for t in ts]}")
+    _check_tensors("LSTM cell kernels", ts)
     if c.ndim != 2 or c.numel() == 0 or tuple(z.shape) != (c.shape[0], 4 * c.shape[1]) \
             or any(tuple(t.shape) != tuple(c.shape) for t in more):
         raise ValueError("the LSTM cell kernels take z [mb, 4n] and c [mb, n] "
                          f"(mb, n >= 1), got {[tuple(t.shape) for t in ts]}")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("the LSTM cell kernels take contiguous row-major tensors")
 
 
-def _launch(fn, ins, outs, mb: int, n: int, dtype) -> None:
-    dev = ins[0].device
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def lstm_seq_fwd_cuda(zx: Tensor, RW: Tensor, b: Tensor, h0: Tensor, c0: Tensor,
+                      mask: Optional[Tensor] = None, reverse: bool = False):
+    """Launch K5a (``csrc/lstm_cell.cu``) over the whole sequence →
+    (hs [mb, T, n], z [T, mb, 4n], c [T, mb, n], h_T, c_T) in the input
+    dtype.  ``lstm_seq_fwd_cuda.plan`` holds the last launch's (grid,
+    RW resident in shared memory)."""
+    ts = (zx, RW, b, h0, c0)
+    _check_tensors("LSTM sequence kernel", ts)
+    if mask is not None and mask.device != zx.device:
+        raise ValueError("the LSTM sequence kernel needs the mask on zx's CUDA device")
+    mb, n = h0.shape if h0.ndim == 2 else (0, 0)
+    t_len = zx.shape[1] if zx.ndim == 3 else 0
+    if (mb < 1 or n < 1 or t_len < 1 or tuple(zx.shape) != (mb, t_len, 4 * n)
+            or tuple(RW.shape) != (n, 4 * n) or tuple(b.shape) != (4 * n,)
+            or tuple(c0.shape) != (mb, n)
+            or (mask is not None and tuple(mask.shape) != (mb, t_len))):
+        raise ValueError("the LSTM sequence kernel takes zx [mb, T, 4n], RW [n, 4n], b [4n], "
+                         "h0 and c0 [mb, n] and a mask [mb, T] (mb, T, n >= 1), got "
+                         f"{[tuple(t.shape) for t in ts]}")
+    dev = zx.device
+    # the mask as the plain version applies it (m in the compute dtype), in f32
+    m = None if mask is None else mask.to(zx.dtype).float().contiguous()
+    hs = torch.empty((mb, t_len, n), dtype=zx.dtype, device=dev)
+    zs = torch.empty((t_len, mb, 4 * n), dtype=zx.dtype, device=dev)
+    cs = torch.empty((t_len, mb, n), dtype=zx.dtype, device=dev)
+    h_t, c_t = torch.empty_like(h0), torch.empty_like(c0)
+    arrived = torch.zeros(1, dtype=torch.int32, device=dev)
+    plan = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(t.data_ptr() for t in ins + outs), mb, n,
-                int(dtype == torch.bfloat16), stream)
+        rc = _fns()[0](*(t.data_ptr() for t in ts), None if m is None else m.data_ptr(),
+                       *(t.data_ptr() for t in (hs, zs, cs, h_t, c_t, arrived)),
+                       mb, t_len, n, int(bool(reverse)), int(zx.dtype == torch.bfloat16),
+                       plan, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"LSTM sequence kernel launch failed (code {rc})")
+    lstm_seq_fwd_cuda.launches += 1
+    lstm_seq_fwd_cuda.plan = (plan[0], bool(plan[1]))
+    return hs, zs, cs, h_t, c_t
+
+
+lstm_seq_fwd_cuda.launches = 0
+lstm_seq_fwd_cuda.plan = None
+
+
+def lstm_cell_bwd_cuda(z: Tensor, c: Tensor, dh: Tensor, dcn: Tensor,
+                       out: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Launch K5b (``csrc/lstm_cell.cu``) → (dz, dc) in the input dtype;
+    dz goes to ``out`` when given (contiguous, z's shape and dtype)."""
+    _check(z, c, dh, dcn)
+    if out is None:
+        out = torch.empty_like(z)
+    else:
+        _check(out, c)
+    dc = torch.empty_like(c)
+    with torch.cuda.device(z.device):
+        rc = _fns()[1](*(t.data_ptr() for t in (z, c, dh, dcn, out, dc)), c.shape[0],
+                       c.shape[1], int(z.dtype == torch.bfloat16), _stream(z.device))
     if rc != 0:
         raise RuntimeError(f"LSTM cell kernel launch failed (code {rc})")
-
-
-def lstm_cell_fwd_cuda(z: Tensor, c: Tensor) -> Tuple[Tensor, Tensor]:
-    """Launch K5a (``csrc/lstm_cell.cu``) → (h', c') in the input dtype."""
-    _check(z, c)
-    h, c_new = torch.empty_like(c), torch.empty_like(c)
-    _launch(_fns()[0], (z, c), (h, c_new), c.shape[0], c.shape[1], z.dtype)
-    lstm_cell_fwd_cuda.launches += 1
-    return h, c_new
-
-
-lstm_cell_fwd_cuda.launches = 0
-
-
-def lstm_cell_bwd_cuda(z: Tensor, c: Tensor, dh: Tensor,
-                       dcn: Tensor) -> Tuple[Tensor, Tensor]:
-    """Launch K5b (``csrc/lstm_cell.cu``) → (dz, dc) in the input dtype."""
-    _check(z, c, dh, dcn)
-    dz, dc = torch.empty_like(z), torch.empty_like(c)
-    _launch(_fns()[1], (z, c, dh, dcn), (dz, dc), c.shape[0], c.shape[1], z.dtype)
     lstm_cell_bwd_cuda.launches += 1
-    return dz, dc
+    return out, dc
 
 
 lstm_cell_bwd_cuda.launches = 0
 
 
-def lstm_cell_fwd(z: Tensor, c: Tensor) -> Tuple[Tensor, Tensor]:
-    """K5a: CPU tensors run the plain version; CUDA tensors run the kernel."""
-    if z.device.type == "cpu":
-        return lstm_cell_plain(z, c)
-    return lstm_cell_fwd_cuda(z, c)
+def lstm_seq_fwd(zx: Tensor, RW: Tensor, b: Tensor, h0: Tensor, c0: Tensor,
+                 mask: Optional[Tensor] = None, reverse: bool = False):
+    """K5a: CPU tensors run the plain loop; CUDA tensors run the kernel."""
+    if zx.device.type == "cpu":
+        return lstm_seq_fwd_plain(zx, RW, b, h0, c0, mask, reverse)
+    return lstm_seq_fwd_cuda(zx, RW, b, h0, c0, mask, reverse)
 
 
-def lstm_cell_bwd(z: Tensor, c: Tensor, dh: Tensor, dcn: Tensor) -> Tuple[Tensor, Tensor]:
+def lstm_cell_bwd(z: Tensor, c: Tensor, dh: Tensor, dcn: Tensor,
+                  out: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """K5b: CPU tensors run the plain version; CUDA tensors run the kernel."""
     if z.device.type == "cpu":
-        return lstm_cell_bwd_plain(z, c, dh, dcn)
-    return lstm_cell_bwd_cuda(z, c, dh, dcn)
+        dz, dc = lstm_cell_bwd_plain(z, c, dh, dcn)
+        return (dz if out is None else out.copy_(dz)), dc
+    return lstm_cell_bwd_cuda(z, c, dh, dcn, out)
 
 
-class LSTMCell(torch.autograd.Function):
-    """The reference's custom VJP around the fused cell: forward K5a,
-    backward K5b from the saved (z, c).  An unused output's cotangent
-    (the last step's dc') arrives as zeros (``materialize_grads``)."""
+class LSTMSequence(torch.autograd.Function):
+    """The layer's forward over a sequence as one Function: forward K5a,
+    backward one reverse loop over the steps, per step K5b from the saved
+    (z_t, c_{t-1}) and dh_{t-1} = dz_t @ RWᵀ; then dRW as one product over
+    all mb·T rows, db as one sum and dzx as one tensor.  Unused outputs'
+    cotangents arrive as zeros (``materialize_grads``).  Inputs: zx
+    [mb, T, 4n], RW [n, 4n], b [4n], h0, c0 [mb, n], mask [mb, T] or None,
+    reverse → (hs [mb, T, n], h_T, c_T)."""
 
     @staticmethod
-    def forward(ctx, z: Tensor, c: Tensor):
+    def forward(ctx, zx, RW, b, h0, c0, mask, reverse):
+        hs, zs, cs, h_t, c_t = lstm_seq_fwd(zx, RW, b, h0, c0, mask, reverse)
         ctx.set_materialize_grads(True)
-        ctx.save_for_backward(z, c)
-        return lstm_cell_fwd(z, c)
+        ctx.save_for_backward(RW, h0, c0, hs, zs, cs, mask)
+        ctx.reverse = bool(reverse)
+        return hs, h_t, c_t
 
     @staticmethod
-    def backward(ctx, dh: Tensor, dcn: Tensor):
-        z, c = ctx.saved_tensors
-        # a step's dh is a strided slice of the stacked outputs' gradient
-        return lstm_cell_bwd(z, c, dh.to(z.dtype).contiguous(),
-                             dcn.to(z.dtype).contiguous())
+    def backward(ctx, dhs, dh_t, dc_t):
+        RW, h0, c0, hs, zs, cs, mask = ctx.saved_tensors
+        t_len, mb, n4 = zs.shape
+        dt = zs.dtype
+        rev = ctx.reverse
+        dhs = dhs.to(dt)
+        dz = torch.empty_like(zs)                      # [T, mb, 4n]
+        RWt = RW.t()
+        if mask is not None:
+            m = mask.to(dt).t()[..., None]             # [T, mb, 1]
+            om = 1 - m
+        gh, gc = dh_t.to(dt), dc_t.to(dt).contiguous()
+        for t in _steps(t_len, not rev):               # the forward's steps, last first
+            first = t == (t_len - 1 if rev else 0)
+            c_prev = c0 if first else cs[t + 1 if rev else t - 1]
+            g = dhs[:, t] + gh
+            if mask is None:
+                _, gc = lstm_cell_bwd(zs[t], c_prev, g, gc, out=dz[t])
+                gh = dz[t] @ RWt
+            else:      # the hold: m to the cell, 1 - m straight to the carry
+                _, dc = lstm_cell_bwd(zs[t], c_prev, m[t] * g, m[t] * gc, out=dz[t])
+                gh = torch.addmm(om[t] * g, dz[t], RWt)
+                gc = torch.addcmul(dc, om[t], gc)
+        need = ctx.needs_input_grad
+        dzx = dz.transpose(0, 1) if need[0] else None
+        dRW = db = None
+        if need[1]:
+            hs_t = hs.transpose(0, 1)                  # h_{t-1} of every step, time-major
+            h_prev = (torch.cat([hs_t[1:], h0[None]]) if rev
+                      else torch.cat([h0[None], hs_t[:-1]]))
+            dRW = h_prev.reshape(t_len * mb, -1).t() @ dz.reshape(t_len * mb, n4)
+        if need[2]:
+            db = dz.reshape(t_len * mb, n4).sum(0)
+        return dzx, dRW, db, gh, gc, None, None
 
 
-def fused_lstm_cell(z: Tensor, c: Tensor) -> Tuple[Tensor, Tensor]:
-    """(h', c') from preactivations z [mb, 4n] (gates ``[i|f|o|g]``) and cell
-    state c [mb, n]: the plain cell for CPU tensors, else K5a/K5b."""
-    if z.device.type == "cpu":
-        return lstm_cell_plain(z, c)
-    return LSTMCell.apply(z.contiguous(), c.contiguous())
+def lstm_sequence(zx: Tensor, RW: Tensor, b: Tensor, h0: Tensor, c0: Tensor,
+                  mask: Optional[Tensor] = None,
+                  reverse: bool = False) -> Tuple[Tensor, Carry]:
+    """The standard cell over a sequence: zx [mb, T, 4n] (gates
+    ``[i|f|o|g]``) → (hs [mb, T, n], (h_T, c_T)); the plain loop for CPU
+    tensors, else K5a/K5b."""
+    if zx.device.type == "cpu":
+        return lstm_sequence_plain(zx, RW, b, h0, c0, mask, reverse)
+    args = [t.contiguous() for t in (zx, RW, b, h0, c0)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        hs, h_t, c_t = LSTMSequence.apply(*args, mask, reverse)
+    else:
+        hs, _, _, h_t, c_t = lstm_seq_fwd_cuda(*args, mask, reverse)
+    return hs, (h_t, c_t)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Launch-shape and load variants of kernels K5b (LSTM cell backward) and
-K6 (threshold encode), timed against the kernels as built (one GPU).
+"""Variants of kernels K5a (LSTM forward over a sequence), K5b (LSTM cell
+backward) and K6 (threshold encode), timed against the kernels as built
+(one GPU).
 
     python3 scripts/k5b_k6_variants.py
 
@@ -9,10 +10,20 @@ and a few variants of each, made by editing the source as text, then
 times every build through the port's own wrappers (its library swapped
 in for the built one) on the main path's shapes:
 
-  lstm_cell  as_built          64-thread blocks, one unit a thread
-             block_32          32-thread blocks
-             block_128         128-thread blocks
-    at the char-RNN's [64, 256] in f32 and bf16, and [4096, 256] f32;
+  lstm_cell  as_built          K5b: 64-thread blocks, one unit a thread
+             block_32          K5b: 32-thread blocks
+             block_128         K5b: 128-thread blocks
+             fence_barrier     K5a: the grid barrier with full fences
+                               (__threadfence around an atomicAdd), not a
+                               release add and acquire loads
+             scalar_h_staging  K5a: h staged one element a load
+             tile_8_rows       K5a: tiles of 8 rows (256 blocks at [64, 256])
+             tile_4_units      K5a: tiles of 4 units (256 blocks at [64, 256])
+             no_grid_barrier   timing only: K5a with no barrier between steps
+             no_product        timing only: K5a with no h·RW product
+    K5b at the char-RNN's [64, 256] in f32 and bf16, and [4096, 256] f32;
+    K5a at the chunk's [64, 50, 256] in f32 and bf16 and the stream's
+    [1, 1, 256];
   threshold_encode  as_built
              one_tile_segments  every segment one tile (no streaming: a
                                 block for each tile, as for a small launch)
@@ -33,7 +44,7 @@ in for the built one) on the main path's shapes:
 
 Every variant but the timing-only ones computes the same function; each
 result is checked against the plain version (K6 bitwise, K5b within 2e-6
-in f32 and one bf16 spacing).  Builds go to the gitignored ``deeplearning4j_tpu_torch/_build/
+in f32 and one bf16 spacing, K5a as ``chip_smoke.py`` holds it).  Builds go to the gitignored ``deeplearning4j_tpu_torch/_build/
 variants``.  Prints one JSON line per kernel, variant and shape (device
 ms per launch, ``device_ms`` of ``chip_smoke.py``, in turns: every
 variant, then every variant again in reverse order), then the card's
@@ -56,6 +67,19 @@ VARIANTS = {
         "as_built": [],
         "block_32": [("constexpr int kBwdThreads = 64;", "constexpr int kBwdThreads = 32;")],
         "block_128": [("constexpr int kBwdThreads = 64;", "constexpr int kBwdThreads = 128;")],
+        "fence_barrier": [(
+            '    asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(arrived), '
+            '"r"(1u) : "memory");\n    while (load_acquire(arrived) < target) {\n    }\n',
+            "    __threadfence();\n    atomicAdd(arrived, 1u);\n"
+            "    while (load_acquire(arrived) < target) {\n    }\n    __threadfence();\n")],
+        "scalar_h_staging": [("  if (a.vec) {  // 16-byte rows", "  if (false) {  // 16-byte rows")],
+        "tile_8_rows": [("constexpr int kTileRows = 16;", "constexpr int kTileRows = 8;"),
+                        ("constexpr int kRowsPerThread = 4;", "constexpr int kRowsPerThread = 2;")],
+        "tile_4_units": [("constexpr int kTileUnits = 8;", "constexpr int kTileUnits = 4;"),
+                         ("constexpr int kRowsPerThread = 4;", "constexpr int kRowsPerThread = 2;")],
+        "no_grid_barrier": [("if (s + 1 < a.T) grid_barrier(", "if (s < 0) grid_barrier(")],
+        "no_product": [("for (int k = 4 * ks; k < klen; k += kKPad) {",
+                        "for (int k = 4 * ks; k < 0; k += kKPad) {")],
     },
     "threshold_encode": {
         "as_built": [],
@@ -79,7 +103,8 @@ VARIANTS = {
 #: variants that leave out a piece of work: wrong messages on purpose, timed
 #: only, to price that piece
 TIMING_ONLY = {("threshold_encode", "no_look_back"), ("threshold_encode", "no_scatter"),
-               ("threshold_encode", "no_tail_zeros")}
+               ("threshold_encode", "no_tail_zeros"), ("lstm_cell", "no_grid_barrier"),
+               ("lstm_cell", "no_product")}
 #: variants that change what the wrapper launches, not the source: the
 #: segment length (tiles a block streams) they force
 SEG_TILES = {("threshold_encode", "one_tile_segments"): 1,
@@ -143,7 +168,7 @@ def main() -> int:
         """The wrappers call variant ``name`` of ``source`` from now on."""
         lib = libs[source, name]
         if source == "lstm_cell":
-            fwd, bwd = lib.dl4j_lstm_cell_fwd, lib.dl4j_lstm_cell_bwd
+            fwd, bwd = lib.dl4j_lstm_seq_fwd, lib.dl4j_lstm_cell_bwd
             for fn, ref in zip((fwd, bwd), built[source]):
                 fn.restype, fn.argtypes = ref.restype, ref.argtypes
             lk._fns = lambda: (fwd, bwd)
@@ -173,6 +198,24 @@ def main() -> int:
 
         cases.append(("lstm_cell", f"bwd_{mb}x{n}_{str(dt)[6:]}",
                       lambda ins=ins: lk.lstm_cell_bwd_cuda(*ins), check))
+    for mb, t_len, n, dt in ((cs.RNN_B, cs.RNN_TBPTT, cs.RNN_HIDDEN, torch.float32),
+                             (cs.RNN_B, cs.RNN_TBPTT, cs.RNN_HIDDEN, torch.bfloat16),
+                             (1, 1, cs.RNN_HIDDEN, torch.float32)):
+        ins, _ = cs.lstm_seq_inputs(mb, t_len, n, dt, mb + t_len + n)
+        want = lk.lstm_seq_fwd_plain(*(x.float() for x in ins))
+
+        def check(ins=ins, want=want, dt=dt):
+            got = lk.lstm_seq_fwd_cuda(*ins)
+            atol, rtol = (2e-5, 1e-5) if dt == torch.float32 else (2e-2, 1e-2)
+            for a, w in zip(got, want):
+                d = (a.float() - w).abs()
+                limit = atol if dt == torch.float32 else torch.clamp(2.0 ** -7 * w.abs(), min=atol)
+                if not bool((d <= limit).all()) or float(d.norm()) > rtol * float(w.norm()):
+                    return False
+            return True
+
+        cases.append(("lstm_cell", f"seq_fwd_{mb}x{t_len}x{n}_{str(dt)[6:]}",
+                      lambda ins=ins: lk.lstm_seq_fwd_cuda(*ins), check))
     t = cs.COMPRESS_T
     for case, sizes in (("encode_step", cs.DP_BUCKET_SIZES), ("encode_4MiB", [1 << 20])):
         g = cs.step_gradient(sizes, t)

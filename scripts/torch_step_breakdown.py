@@ -2,6 +2,7 @@
 """Where the device time goes on the PyTorch/CUDA port's main path (one GPU).
 
     python3 scripts/torch_step_breakdown.py [--trace-dir DIR] [--decode-rows 64,128]
+                                            [--rnn-only]
 
 Builds the full-width TransformerLM that ``chip_smoke.py`` drives (vocab
 50304, 12 layers, d_model 768, 12 heads, f32, random weights from the
@@ -20,9 +21,10 @@ same numpy seed), then its char-RNN, and traces these pieces of work with
            instead of K4, for the A/B of the two update paths
   rnn_train  one ``fit_batch`` of ``chip_smoke.py``'s char-RNN (bench
            config 4: vocab 96, 2 x LSTM(256), TBPTT 50) on [64, 100] ids,
-           K4 on (kernels K5a/K5b)
-  rnn_train_plain_cell  the same with the plain cell under autograd
-           patched in where the layers call the fused one, for the K5 A/B
+           K4 on (K5a once per layer and TBPTT chunk, K5b every step)
+  rnn_train_plain_loop  the same with the plain per-step loop under
+           autograd patched in where the layers call the sequence
+           (``recurrent.lstm_sequence``), for the K5 A/B
   rnn_stream  8 streamed tokens of the trained char-RNN at batch 1, each
            an ``rnn_time_step`` and the host's greedy pick, as the CLI's
            recurrent ``generate`` runs them (K5a)
@@ -64,7 +66,7 @@ _CLASSES = (
     ("flash_fwd", "K1 flash_fwd"),
     ("flash_bwd_dkdv", "K2 flash_bwd_dkdv"), ("flash_bwd_dq", "K3 flash_bwd_dq"),
     ("fused_update", "K4 fused_update"), ("det_attention", "D1 det_attention"),
-    ("lstm_cell_fwd", "K5a lstm_cell_fwd"), ("lstm_cell_bwd", "K5b lstm_cell_bwd"),
+    ("lstm_seq_fwd", "K5a lstm_seq_fwd"), ("lstm_cell_bwd", "K5b lstm_cell_bwd"),
     ("threshold_", "K6 threshold_encode"),
     ("gemm", "gemm"), ("gemv", "gemm"), ("nvjet", "gemm"), ("xmma", "gemm"),
     ("cutlass", "gemm"),
@@ -147,10 +149,43 @@ def measure(name: str, fn, trace_dir, warm: int = 2, repeats: int = 3, report: b
     return rec
 
 
+def rnn_rows(rng, trace_dir) -> None:
+    """The rnn_train, rnn_train_plain_loop and rnn_stream rows."""
+    import torch
+
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.layers import recurrent
+    from deeplearning4j_tpu_torch.ops import lstm_kernel, update_kernel
+
+    dev = torch.device("cuda")
+    os.environ[update_kernel.ENV_SWITCH] = "1"
+    chars = torch.from_numpy(rng.integers(0, cs.RNN_VOCAB, (cs.RNN_B, cs.RNN_T + 1))).to(dev)
+    rnn_batch = DataSet(chars[:, :-1], chars[:, 1:])
+    rnn = cs.build_rnn("cuda")
+    for name, seq in (("rnn_train", lstm_kernel.lstm_sequence),
+                      ("rnn_train_plain_loop", lstm_kernel.lstm_sequence_plain)):
+        recurrent.lstm_sequence = seq
+        measure(name, lambda: rnn.fit_batch(rnn_batch), trace_dir, warm=3)
+    recurrent.lstm_sequence = lstm_kernel.lstm_sequence
+    rnn.rnn_clear_previous_state()
+    rnn.rnn_time_step(chars[:1, :16])      # a 16-token prompt
+
+    def stream():                          # the CLI's loop: step, then greedy pick on host
+        tok = 0
+        for _ in range(8):
+            tok = int(rnn.rnn_time_step(torch.tensor([tok], device=dev))[0].argmax().cpu())
+
+    measure("rnn_stream", stream, trace_dir)
+    del rnn
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace-dir", default=None,
                     help="also write one Chrome trace per phase here")
+    ap.add_argument("--rnn-only", action="store_true",
+                    help="only the char-RNN rows (rnn_train, rnn_train_plain_loop, rnn_stream)")
     ap.add_argument("--decode-rows", default="64",
                     help="comma-separated chunk sizes of the decode program's "
                          "per-position ops to measure prefill and step at")
@@ -171,6 +206,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(json.dumps({"card": cs.card_line(), "torch": torch.__version__}), flush=True)
+    if args.rnn_only:
+        rnn_rows(np.random.default_rng(cs.SEED + 3), args.trace_dir)
+        return 0
     net = cs.build_model()
     rng = np.random.default_rng(cs.SEED + 3)
     tokens = rng.integers(0, cs.VOCAB, (4, cs.MAX_LEN))
@@ -215,28 +253,8 @@ def main() -> int:
         os.environ[update_kernel.ENV_SWITCH] = switch
         measure(name, lambda: net.fit_batch(batch), args.trace_dir, warm=3)
 
-    from deeplearning4j_tpu_torch.nn.layers import recurrent
-    from deeplearning4j_tpu_torch.ops import lstm_kernel
-
-    os.environ[update_kernel.ENV_SWITCH] = "1"
-    chars = torch.from_numpy(rng.integers(0, cs.RNN_VOCAB, (cs.RNN_B, cs.RNN_T + 1))).to(dev)
-    rnn_batch = DataSet(chars[:, :-1], chars[:, 1:])
-    rnn = cs.build_rnn("cuda")
-    for name, cell in (("rnn_train", lstm_kernel.fused_lstm_cell),
-                       ("rnn_train_plain_cell", lstm_kernel.lstm_cell_plain)):
-        recurrent.fused_lstm_cell = cell
-        measure(name, lambda: rnn.fit_batch(rnn_batch), args.trace_dir, warm=3)
-    recurrent.fused_lstm_cell = lstm_kernel.fused_lstm_cell
-    rnn.rnn_clear_previous_state()
-    rnn.rnn_time_step(chars[:1, :16])      # a 16-token prompt
-
-    def stream():                          # the CLI's loop: step, then greedy pick on host
-        tok = 0
-        for _ in range(8):
-            tok = int(rnn.rnn_time_step(torch.tensor([tok], device=dev))[0].argmax().cpu())
-
-    measure("rnn_stream", stream, args.trace_dir)
-    del net, rnn
+    rnn_rows(rng, args.trace_dir)
+    del net
     torch.cuda.empty_cache()
 
     import subprocess

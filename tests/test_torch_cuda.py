@@ -14,10 +14,16 @@ order; bf16 rounds p and ds before their products), K2 and K3 also 1e-5
 second launch bitwise the first (no atomics); D1 2e-5, and a
 query row bitwise the same in every launch shape and batch; K4 bitwise
 (the same rounded ops in the same order); K5a/K5b f32 2e-6 (the same
-rounded ops; only expf/tanhf may differ in the last bit) and, in bf16,
-each element within one bf16 spacing (2^-7 of its size, plus 1e-6) of
-the plain version evaluated in f32 on the same bf16 inputs (the kernel
-rounds each result once); whole-model probabilities and training
+rounded ops; only expf/tanhf may differ in the last bit; K5a as one
+step of the sequence with h0 = 0 and b = 0) and, in bf16, each element
+within one bf16 spacing (2^-7 of its size, plus 1e-6) of the plain
+version evaluated in f32 on the same bf16 inputs (the kernel rounds each
+result once); K5a over a sequence against the plain loop in f32 2e-5
+abs and 1e-5 norm-relative in f32 (h·RW sums in another order, and the
+error carries over the steps), in bf16 1e-2 norm-relative and 2e-2 abs
+or one bf16 spacing where that is larger (z reaches 5-6, where a bf16
+spacing is 0.031), a second launch bitwise the first, and the
+sequence's gradients on the card 1e-5 from the CPU's; whole-model probabilities and training
 losses 1e-5; decode logits bitwise the re-encode logits; a recurrent
 ``fit_batch`` on the card against the CPU 1e-4; K6 bitwise its plain
 version (integer output); a compressed trainer step on the card against
@@ -417,11 +423,18 @@ def _cell_inputs(mb, n, seed, dev, dtype):
 
 
 def _check_cell_kernels(mb, n, dtype, dev):
+    """K5a through one step of the sequence (T = 1, h0 = 0, b = 0, so
+    z = zx exactly) and K5b, against the plain cell and its backward."""
     z, c, dh, dcn = _cell_inputs(mb, n, mb * n, dev, dtype)
-    before = (tlk.lstm_cell_fwd_cuda.launches, tlk.lstm_cell_bwd_cuda.launches)
-    got = tlk.lstm_cell_fwd(z, c) + tlk.lstm_cell_bwd(z, c, dh, dcn)
+    rw = torch.randn(n, 4 * n, generator=torch.Generator().manual_seed(n)).to(dev, dtype)
+    zeros = torch.zeros(mb, n, device=dev, dtype=dtype)
+    before = (tlk.lstm_seq_fwd_cuda.launches, tlk.lstm_cell_bwd_cuda.launches)
+    hs, _, _, _, c_new = tlk.lstm_seq_fwd(z[:, None].contiguous(), rw,
+                                          torch.zeros(4 * n, device=dev, dtype=dtype),
+                                          zeros, c)
+    got = (hs[:, 0], c_new) + tlk.lstm_cell_bwd(z, c, dh, dcn)
     torch.cuda.synchronize()
-    assert (tlk.lstm_cell_fwd_cuda.launches, tlk.lstm_cell_bwd_cuda.launches) == (
+    assert (tlk.lstm_seq_fwd_cuda.launches, tlk.lstm_cell_bwd_cuda.launches) == (
         before[0] + 1, before[1] + 1)
     f = lambda *ts: [t.float() for t in ts]
     want = (tlk.lstm_cell_plain(*f(z, c)) + tlk.lstm_cell_bwd_plain(*f(z, c, dh, dcn)))
@@ -453,16 +466,121 @@ def test_lstm_cell_kernels_match_plain_at_more_shapes(cuda_dev, mb, n, dtype):
 
 def test_lstm_cell_kernels_raise_for_what_they_do_not_take(cuda_dev):
     z, c, dh, dcn = _cell_inputs(4, 8, 1, cuda_dev, torch.float32)
+    zx, rw, b, h0, c0, _ = _seq_inputs(4, 3, 8, 1, cuda_dev, torch.float32)
     with pytest.raises(TypeError):
-        tlk.lstm_cell_fwd(z.half(), c.half())
+        tlk.lstm_seq_fwd(zx.half(), rw.half(), b.half(), h0.half(), c0.half())
     with pytest.raises(TypeError):
-        tlk.lstm_cell_fwd(z, c.bfloat16())
+        tlk.lstm_seq_fwd(zx, rw, b, h0, c0.bfloat16())
+    with pytest.raises(ValueError, match="zx \\[mb, T, 4n\\]"):
+        tlk.lstm_seq_fwd(zx[..., :-1].contiguous(), rw, b, h0, c0)
+    with pytest.raises(ValueError, match="contiguous"):
+        tlk.lstm_seq_fwd(zx.transpose(0, 1).contiguous().transpose(0, 1), rw, b, h0, c0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tlk.lstm_seq_fwd(zx, rw, b, h0.cpu(), c0)
     with pytest.raises(ValueError, match="z \\[mb, 4n\\]"):
-        tlk.lstm_cell_fwd(z[:, :-1].contiguous(), c)
+        tlk.lstm_cell_bwd(z[:, :-1].contiguous(), c, dh, dcn)
     with pytest.raises(ValueError, match="contiguous"):
         tlk.lstm_cell_bwd(z, c, dh.t().contiguous().t(), dcn)
     with pytest.raises(ValueError, match="CUDA device"):
         tlk.lstm_cell_bwd(z, c.cpu(), dh, dcn)
+
+
+def _seq_inputs(mb, t_len, n, seed, dev, dtype):
+    """zx ~ N(0, 1), RW ~ N(0, 1/n), b ~ N(0, 0.01), h0 and c0 ~ N(0, 0.25)
+    and a 0/1 mask (first step kept), the same draws for every dtype."""
+    rng = np.random.default_rng(seed)
+    t = lambda shape, sd: torch.from_numpy(sd * rng.standard_normal(shape, dtype=np.float32))
+    ins = (t((mb, t_len, 4 * n), 1.0), t((n, 4 * n), 1.0 / math.sqrt(n)), t((4 * n,), 0.1),
+           t((mb, n), 0.5), t((mb, n), 0.5))
+    mask = (rng.random((mb, t_len)) > 0.3).astype(np.float32)
+    mask[:, 0] = 1.0
+    return tuple(x.to(dev, dtype) for x in ins) + (torch.from_numpy(mask).to(dev),)
+
+
+# (mb, T, n, dtype, masked, reverse): the char-RNN's chunk, a wider layer,
+# ragged rows, the stream's step, n % 4 != 0 and n < 8 (partial unit
+# tiles), more tiles than the card holds at once (streamed RW), n past one
+# chunk of k, masks, reverse, bf16
+_SEQ_CASES = [
+    (64, 50, 256, torch.float32, False, False),
+    (64, 100, 512, torch.float32, False, False),
+    (7, 13, 256, torch.float32, False, False),
+    (1, 1, 256, torch.float32, False, False),
+    (5, 9, 255, torch.float32, False, False),
+    (3, 4, 3, torch.float32, True, False),
+    (64, 50, 256, torch.float32, True, False),
+    (64, 50, 256, torch.float32, False, True),
+    (7, 13, 256, torch.float32, True, True),
+    (2048, 3, 256, torch.float32, False, False),
+    (64, 5, 1200, torch.float32, True, False),
+    (64, 50, 256, torch.bfloat16, False, False),
+    (7, 13, 255, torch.bfloat16, True, True),
+    (1, 1, 256, torch.bfloat16, False, False),
+]
+
+
+@pytest.mark.parametrize("case", _SEQ_CASES, ids=[
+    f"{mb}x{t}x{n}_{str(dt)[6:]}{'_masked' if m else ''}{'_reverse' if r else ''}"
+    for mb, t, n, dt, m, r in _SEQ_CASES])
+def test_lstm_seq_kernel_matches_plain(cuda_dev, case):
+    """K5a against the plain per-step loop evaluated in f32 on the same
+    inputs: f32 2e-5 abs and 1e-5 norm-relative, bf16 1e-2 norm-relative
+    and 2e-2 abs, or one bf16 spacing (2^-7 of the value) where that is
+    larger: z reaches 5-6 here, where bf16's own spacing is 0.031 and the
+    plain version in bf16 misses 2e-2 by as much; a second launch bitwise
+    the first."""
+    mb, t_len, n, dtype, masked, reverse = case
+    *ins, mask = _seq_inputs(mb, t_len, n, mb + t_len + n, cuda_dev, dtype)
+    mask = mask if masked else None
+    before = tlk.lstm_seq_fwd_cuda.launches
+    got = tlk.lstm_seq_fwd(*ins, mask, reverse)
+    again = tlk.lstm_seq_fwd(*ins, mask, reverse)
+    torch.cuda.synchronize()
+    assert tlk.lstm_seq_fwd_cuda.launches == before + 2
+    want = tlk.lstm_seq_fwd_plain(*(x.float() for x in ins), mask, reverse)
+    atol, rel = (2e-5, 1e-5) if dtype == torch.float32 else (2e-2, 1e-2)
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert torch.equal(a, b)
+        d = a.float() - w
+        if dtype == torch.float32:
+            assert float(d.abs().max()) <= atol
+        else:
+            assert bool((d.abs() <= torch.clamp(2.0 ** -7 * w.abs(), min=atol)).all())
+        assert float(d.norm()) <= rel * float(w.norm())
+
+
+def test_lstm_seq_kernel_keeps_rw_resident_on_the_char_rnn_shape(cuda_dev):
+    ins = _seq_inputs(64, 50, 256, 1, cuda_dev, torch.float32)[:5]
+    tlk.lstm_seq_fwd(*ins)
+    assert tlk.lstm_seq_fwd_cuda.plan == (128, True)
+    tlk.lstm_seq_fwd(*_seq_inputs(1, 1, 256, 1, cuda_dev, torch.float32)[:5])
+    assert tlk.lstm_seq_fwd_cuda.plan == (32, True)
+    tlk.lstm_seq_fwd(*_seq_inputs(2048, 2, 256, 1, cuda_dev, torch.float32)[:5])
+    assert tlk.lstm_seq_fwd_cuda.plan[1] is False
+
+
+@pytest.mark.parametrize("masked,reverse", [(False, False), (True, True)],
+                         ids=["unmasked", "masked_reverse"])
+def test_lstm_sequence_gradients_on_card_match_cpu(cuda_dev, masked, reverse):
+    """LSTMSequence on the card (K5a, K5b per step) against autograd of the
+    plain loop on the CPU: 1e-5 on every gradient."""
+    *ins, mask = _seq_inputs(6, 12, 40, 7, "cpu", torch.float32)
+    mask = mask if masked else None
+    w = torch.randn(6, 12, 40, generator=torch.Generator().manual_seed(1))
+
+    def grads(dev):
+        xs = [x.to(dev).requires_grad_() for x in ins]
+        hs, (h, c) = tlk.lstm_sequence(*xs, None if mask is None else mask.to(dev), reverse)
+        ((hs * w.to(dev)).sum() + h.sum() + 2 * c.sum()).backward()
+        return [x.grad.cpu() for x in xs]
+
+    before = (tlk.lstm_seq_fwd_cuda.launches, tlk.lstm_cell_bwd_cuda.launches)
+    card = grads(cuda_dev)
+    assert (tlk.lstm_seq_fwd_cuda.launches - before[0],
+            tlk.lstm_cell_bwd_cuda.launches - before[1]) == (1, 12)
+    for a, b in zip(card, grads("cpu")):
+        assert float((a - b).abs().max()) <= 1e-5
 
 
 def _small_rnn(device):
@@ -488,19 +606,19 @@ def test_recurrent_fit_batch_on_card_matches_cpu_and_counts_k5(cuda_dev, monkeyp
 
     from deeplearning4j_tpu_torch.nn.layers import recurrent
 
-    if fused == "0":                    # the plain cell on the card, for the A/B
-        monkeypatch.setattr(recurrent, "fused_lstm_cell", tlk.lstm_cell_plain)
+    if fused == "0":                    # the plain loop on the card, for the A/B
+        monkeypatch.setattr(recurrent, "lstm_sequence", tlk.lstm_sequence_plain)
     cpu_net, card_net = _small_rnn("cpu"), _small_rnn(cuda_dev)
     x = np.random.default_rng(5).integers(0, 20, (4, 31)).astype(np.int32)
     ds = DataSet(x[:, :-1], x[:, 1:])
-    before = (tlk.lstm_cell_fwd_cuda.launches, tlk.lstm_cell_bwd_cuda.launches)
+    before = (tlk.lstm_seq_fwd_cuda.launches, tlk.lstm_cell_bwd_cuda.launches)
     for _ in range(2):
         lc, lg = cpu_net.fit_batch(ds), card_net.fit_batch(ds)
         assert abs(float(lc) - float(lg)) <= 1e-4
     torch.cuda.synchronize()
-    steps = 2 * 2 * 30                  # calls x layers x time steps
-    want = (steps, steps) if fused == "1" else (0, 0)
-    assert (tlk.lstm_cell_fwd_cuda.launches - before[0],
+    # K5a once per call x layer x TBPTT chunk of 10, K5b once per time step
+    want = (2 * 2 * 3, 2 * 2 * 30) if fused == "1" else (0, 0)
+    assert (tlk.lstm_seq_fwd_cuda.launches - before[0],
             tlk.lstm_cell_bwd_cuda.launches - before[1]) == want
     assert cpu_net.iteration == card_net.iteration == 6
     for pc, pg in zip(params_to_numpy(cpu_net.params), params_to_numpy(card_net.params)):

@@ -238,10 +238,18 @@ def _id_batches(n, t, seed, mb=4):
             for _ in range(n)]
 
 
-# "switch_on" cases send the port's standard cell through LSTMCell, the
-# route CUDA tensors take (K5a/K5b; their plain versions on the CPU); the
-# others take the plain cell under autograd, the CPU's route.  The JAX
-# side runs its default, the plain cell.
+def _sequence_route(zx, RW, b, h0, c0, mask=None, reverse=False):
+    """The route CUDA tensors take, ``LSTMSequence`` (K5a forward, K5b
+    backward), on CPU tensors, whose kernels' dispatchers run the plain
+    versions."""
+    hs, h, c = tk.LSTMSequence.apply(zx, RW, b, h0, c0, mask, reverse)
+    return hs, (h, c)
+
+
+# "switch_on" cases send the port's standard cell through LSTMSequence,
+# the route CUDA tensors take; the others take the plain per-step loop
+# under autograd, the CPU's route.  The JAX side runs its default, the
+# plain cell.
 _TBPTT_CASES = {
     # name: (layers, updater, clip, T, switch)
     "adam_ids": (lambda: [jr.LSTM(n_out=8), jr.LSTM(n_out=8)], jupd.Adam(lr=1e-2), None, 20, "0"),
@@ -264,7 +272,7 @@ _TBPTT_CASES = {
 def test_tbptt_trajectory_matches_jax(monkeypatch, case):
     layers, updater, clip, t_len, switch = _TBPTT_CASES[case]
     if switch == "1":
-        monkeypatch.setattr(tr, "fused_lstm_cell", tk.LSTMCell.apply)
+        monkeypatch.setattr(tr, "lstm_sequence", _sequence_route)
     jn, net = _pair(layers(), updater, clip=clip)
     chunks = -(-t_len // 5)
     for i, (x, y) in enumerate(_id_batches(2, t_len, seed=len(case))):
@@ -288,6 +296,45 @@ def test_tbptt_with_dense_inputs_and_masks_matches_jax():
         np.testing.assert_allclose(float(lt), float(lj), **TOL)
     assert net.iteration == jn.iteration == 6
     _assert_trees_close(net.params, jn.params, **TOL)
+
+
+def test_tbptt_with_dense_inputs_and_masks_through_the_sequence_function(monkeypatch):
+    # the card's route (masked K5a forward, the hold's split in the
+    # backward) on the CPU, against the reference's TBPTT
+    monkeypatch.setattr(tr, "lstm_sequence", _sequence_route)
+    jn, net = _pair([jr.LSTM(n_out=6), jr.LSTM(n_out=5)], jupd.Adam(lr=1e-2), tbptt=4, n_in=5)
+    rng = np.random.default_rng(9)
+    for _ in range(2):
+        x = rng.standard_normal((3, 10, 5)).astype(np.float32)
+        y = np.eye(VOCAB, dtype=np.float32)[rng.integers(0, VOCAB, (3, 10))]
+        m = (rng.random((3, 10)) > 0.2).astype(np.float32)
+        lj = jn.fit_batch(JDataSet(x, y, m, m))
+        lt = net.fit_batch(DataSet(x, y, m, m))
+        np.testing.assert_allclose(float(lt), float(lj), **TOL)
+    assert net.iteration == jn.iteration == 6
+    _assert_trees_close(net.params, jn.params, **TOL)
+
+
+@pytest.mark.parametrize("case", ["lstm_masked_carry", "bidirectional_concat",
+                                  "graves_bidirectional_standard_cell", "last_time_step"])
+def test_layers_through_the_sequence_function_match_jax(monkeypatch, case):
+    # every layer that reaches the standard cell, reverse included
+    # (GravesBidirectionalLSTM with peephole=False walks its second
+    # direction backwards), through the card's route on the CPU
+    monkeypatch.setattr(tr, "lstm_sequence", _sequence_route)
+    x, mask, carry = _data(10, ids=False)
+    if case == "lstm_masked_carry":
+        jl, tl = _layers("LSTM", n_in=N_IN, n_out=N_OUT)
+        jo, to = _forward_both(jl, tl, x, mask, carry)
+        for a, b in zip(to.carry, jo.carry):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    elif case == "bidirectional_concat":
+        _forward_both(*_wrapped("Bidirectional", "LSTM", mode="concat"), x, mask)
+    elif case == "graves_bidirectional_standard_cell":
+        jl, tl = _layers("GravesBidirectionalLSTM", n_in=N_IN, n_out=N_OUT, peephole=False)
+        _forward_both(jl, tl, x, mask)
+    else:
+        _forward_both(*_wrapped("LastTimeStep", "LSTM"), x, mask)
 
 
 def test_tbptt_refuses_inputs_without_a_time_axis():
