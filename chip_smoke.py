@@ -19,8 +19,11 @@ and the recurrent path's training and streaming:
           K2/K3 (flash backward dK/dV and dQ, at the train phase's
           [8, 12, 1024, 64] and more cases at B = 4) and D1 (decode
           attention, on the decode program's strided and paged K/V
-          views; its split-key launch at the step, its tiled launch at
-          the prefill and the re-encode) run first; K1's, K2's, K3's and
+          views; its split-key launch at the step and at speculative
+          verify's 5 rows a slot, its tiled launch at the prefill, at a
+          128-row chunk at offset 256 and at the re-encode; a row of the
+          two new shapes launched alone must be bitwise the same row) run
+          first; K1's, K2's, K3's and
           D1's times and their yardsticks' (SDPA; autograd of SDPA for
           K2/K3) are device times (``device_ms``) beside the same calls
           timed alone with CUDA events (``cuda_ms``, the wrapper's host
@@ -32,12 +35,31 @@ and the recurrent path's training and streaming:
           port run on the CPU at a smaller cut ([1, 256]);
   serve   ``DecodeEngine(max_slots=4, page_size=16, max_len=1024)`` answers
           8 concurrent requests (prompts of 16-512 tokens, 32 new tokens,
-          half greedy, half seeded at temperature 0.8 / top_k 50); every
-          future resolves, the pool drains to 0 pages, D1 launched, greedy
-          tokens equal the argmax of the re-encode logits, every decode
-          logit is bitwise the re-encode logit, and the decode
+          half greedy, half seeded at temperature 0.8 / top_k 50, echoed
+          logits) in arms, one engine each, each shut down before the next,
+          D1's count set to 0 before each and read after.  (a) the plain
+          engine: every future resolves, the pool drains to 0 pages, D1
+          launched, greedy tokens equal the argmax of the re-encode logits,
+          every decode logit is bitwise the re-encode logit, and the decode
           log-probabilities agree with ``output()`` (K1, which shares
-          neither D1 nor the 64-row chunks) within 1e-4;
+          neither D1 nor the 64-row chunks) within 1e-4.  (b) the fused
+          horizon H = 2, 4, 8, one CUDA-graph replay of ``step_multi`` a
+          dispatch: tokens equal (a)'s, echoed logits bitwise (a)'s, replays
+          = fused dispatches, D1 launches = 12 per prefill + 12·H per replay.
+          (c) chunked prefill of 128: bitwise (a)'s, chunks as the prompts
+          imply.  (d) prefix cache: 8 prompts sharing a 256-token prefix
+          (suffixes 16-256), the first sent alone: >= 7 hits, logits
+          bitwise the re-encode, every page free or held by the trie.  (e)
+          int8 pages: >= 2x fewer pool bytes than (a)'s, greedy tokens the
+          f32 re-encode's argmax on >= 80% of positions.  (f) speculation,
+          k = 4, with the target as its own draft (every proposal accepted)
+          and with a 2-layer draft of the same vocabulary, width and
+          max_len: greedy tokens equal (a)'s, seeded requests repeat
+          exactly.  (g) a crash set mid-serve at H = 4: every request ends
+          with (a)'s tokens after a retry; with ``max_retries=0`` the
+          requests in flight fail with ``ReplicaCrashError`` and the queued
+          ones are served after it.  Each arm prints TTFT and TPOT p50/p99,
+          tokens/s and wall per token beside (a)'s;
   train   ``fit_batch`` 5 times on one fixed [8, 1024] batch with Adam
           (lr 3e-4, per-layer L2 clipping 1.0) and ``DL4J_TPU_FUSED_UPDATE=1``:
           the loss is finite and falls on every step, each step launches
@@ -329,14 +351,16 @@ def flash_bwd_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL /
     return rec
 
 
-def det_case(name, B, Tq, L, q_pos, paged, H=HEADS, d=D_MODEL // HEADS, page=16):
+def det_case(name, B, Tq, L, q_pos, paged, H=HEADS, d=D_MODEL // HEADS, page=16,
+             alone_rows=()):
     """D1 against its plain version, with K/V laid out as the decode
     program hands them over: [B, L, H, d] rows seen as [B, H, L, d]
     strided views, gathered from a page pool through a shuffled page table
     when ``paged`` (prefill and step), else one projection's output
     (re-encode).  Query row i of batch b sits at position ``q_pos[b][i]``
     and sees keys 0..q_pos; a one-row case takes the step's [B, 1, 1, L]
-    bias.  Returns its record."""
+    bias.  Each query row in ``alone_rows`` is launched alone too and must
+    be bitwise the same row of the whole launch.  Returns its record."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -361,6 +385,9 @@ def det_case(name, B, Tq, L, q_pos, paged, H=HEADS, d=D_MODEL // HEADS, page=16)
     out = kvc.det_attention_cuda(q, k, v, bias)
     torch.cuda.synchronize()
     err = float((out - kvc.det_attention_plain(q, k, v, bias)).abs().max())
+    alone = all(torch.equal(kvc.det_attention_cuda(q[:, :, r:r + 1], k, v,
+                                                   bias[:, :, r:r + 1]), out[:, :, r:r + 1])
+                for r in alone_rows)
     plain_ms = cuda_ms(lambda: kvc.det_attention_plain(q, k, v, bias), 5)
     times = timed(lambda: kvc.det_attention_cuda(q, k, v, bias),
                   lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
@@ -374,6 +401,7 @@ def det_case(name, B, Tq, L, q_pos, paged, H=HEADS, d=D_MODEL // HEADS, page=16)
     rec = {"phase": "kernel", "case": "det_" + name, "shape": [B, H, Tq, L, d],
            "kv_layout": "paged" if paged else "strided", "bias_shape": list(bias.shape),
            "max_abs_err": err, "launch": "split-key" if Tq <= kvc.SPLIT_ROWS else "tiled",
+           "rows_alone_bitwise": alone, "rows_alone": list(alone_rows),
            **times, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
     emit(rec)
     return rec
@@ -409,10 +437,18 @@ def phase_kernel():
     # decode attention at the serve phase's shapes and layouts: a 4-slot
     # step at positions spread over the cache, a 512-token prefill into
     # L = 1024, and a re-encode of 544 tokens (512 + 32)
+    # and the shapes of speculative verify (k + 1 = 5 rows a slot, split-key)
+    # and of a 128-token prefill chunk at offset 256 (tiled)
     det = [det_case("step", 4, 1, MAX_LEN, [[15], [300], [700], [MAX_LEN - 1]], True),
            det_case("prefill", 1, 512, MAX_LEN, [list(range(512))], True),
-           det_case("reencode", 1, 544, 544, [list(range(544))], False)]
-    bad += [r["case"] for r in det if not r["max_abs_err"] <= 2e-5]
+           det_case("reencode", 1, 544, 544, [list(range(544))], False),
+           det_case("spec_verify", 4, 5, MAX_LEN,
+                    [[p + i for i in range(5)] for p in (15, 300, 700, MAX_LEN - 5)], True,
+                    alone_rows=range(5)),
+           det_case("chunk_at_256", 1, 128, MAX_LEN, [list(range(256, 384))], True,
+                    alone_rows=(0, 31, 64, 127))]
+    bad += [r["case"] for r in det if not (r["max_abs_err"] <= 2e-5
+                                           and r["rows_alone_bitwise"])]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     return recs[0], bwd[0], det[0]
@@ -966,39 +1002,143 @@ def phase_score(net):
 
 # -- serve phase ----------------------------------------------------------------------
 
+SERVE_LENS = [16, 48, 96, 160, 256, 352, 448, 512]
+SERVE_NEW = 32
+#: the prefix arm's prompts: one 256-token prefix, suffixes of 16-256 tokens
+PREFIX_LEN, PREFIX_SUFFIXES = 256, [16, 48, 80, 112, 144, 176, 208, 256]
+
+
+def serve_requests():
+    """The serve phase's 8 requests: prompts of 16-512 tokens, half greedy,
+    half seeded at temperature 0.8 / top_k 50."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, VOCAB, n).tolist() for n in SERVE_LENS]
+    kws = [dict(temperature=0.0) if i % 2 == 0 else
+           dict(temperature=0.8, top_k=50, seed=1000 + i) for i in range(len(SERVE_LENS))]
+    return prompts, kws
+
+
+def traced_replay_d1(graph) -> int:
+    """D1 calls in one replay of ``graph`` (a ``StepMultiGraph``), counted
+    from a torch.profiler trace of the card: each call runs one
+    ``det_attention_split`` or ``det_attention_tiled`` kernel (a split
+    also its combine).  The replay runs with no slot active, so it writes
+    only the scratch page, and it adds to no launch count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        graph.inputs["active"].zero_()
+        graph.inputs["page_table"].zero_()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            graph.graph.replay()
+            torch.cuda.synchronize()
+    return sum("det_attention_split" in e.name or "det_attention_tiled" in e.name
+               for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def serve_run(adapter, prompts, kws, *, crash_after=None, first_alone=False,
+              **engine_kw):
+    """One engine (``max_slots=4``, ``page_size=16``, ``max_len=1024``,
+    ``engine_kw`` on top) answers ``prompts`` concurrently with
+    ``echo_logits``, then shuts down.  D1's launch count is set to 0 just
+    before the requests and read just after.  ``crash_after``: once that
+    many decode dispatches have run, set the engine's crash hook.
+    ``first_alone``: the first request is served before the others are
+    sent.  Futures that fail keep their exception in ``outcomes``.  With a
+    fused horizon, one more replay of its graph is traced after the
+    requests (``d1_traced_per_replay``)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import kv_cache as kvc
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    eng = DecodeEngine(adapter, max_slots=4, page_size=16, max_len=MAX_LEN, device="cuda",
+                       **engine_kw).load()
+    try:
+        kvc.det_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        send = lambda p, kw: eng.generate_async(p, max_new_tokens=SERVE_NEW, echo_logits=True,
+                                                **kw)
+        futs = []
+        if first_alone:
+            futs.append(send(prompts[0], kws[0]))
+            futs[0].exception(timeout=600)
+        futs += [send(p, kw) for p, kw in list(zip(prompts, kws))[len(futs):]]
+        if crash_after is not None:
+            deadline = time.monotonic() + 300
+            while (eng.metrics.counter("decode_steps") < crash_after
+                   and time.monotonic() < deadline):
+                time.sleep(0.002)
+            with eng._lock:
+                eng._crash_next = True
+        outcomes = [f.exception(timeout=600) or f.result() for f in futs]
+        wall = time.perf_counter() - t0
+        launches = {"det_attention": kvc.det_attention_cuda.launches}
+        deadline = time.monotonic() + 5
+        while (eng.metrics.gauge("pages_in_use") > eng.metrics.gauge("shared_pages")
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        snap = eng.metrics_snapshot()
+        pages = eng._debug_page_state()
+        pool_bytes = kvc.pool_nbytes(eng._cache)
+        graph = eng.step_multi_graph
+        replays = None if graph is None else graph.replays
+        per_replay = None if graph is None else graph.launches["det_attention"]
+        traced = None if graph is None else traced_replay_d1(graph)
+    finally:
+        eng.shutdown()
+        torch.cuda.empty_cache()
+    ok = [o for o in outcomes if not isinstance(o, BaseException)]
+    n_tok = sum(len(r.tokens) for r in ok)
+    return {"engine": eng, "outcomes": outcomes, "snap": snap, "wall": wall,
+            "launches": launches, "pages": pages, "pool_bytes": pool_bytes,
+            "replays": replays, "d1_per_replay": per_replay, "d1_traced_per_replay": traced,
+            "metrics": {"ttft_p50_ms": snap["ttft_ms"]["p50_ms"],
+                        "ttft_p99_ms": snap["ttft_ms"]["p99_ms"],
+                        "tpot_p50_ms": snap["tpot_ms"]["p50_ms"],
+                        "tpot_p99_ms": snap["tpot_ms"]["p99_ms"],
+                        "tokens_per_s": n_tok / wall,
+                        "wall_ms_per_token": wall * 1e3 / max(n_tok, 1),
+                        "wall_s": wall, "tokens": n_tok}}
+
+
+def reencode_rows(eng, prompt, tokens):
+    """The re-encode logits of ``prompt + tokens[:-1]`` from the prompt's
+    last row on, on the host."""
+    import torch
+    with torch.inference_mode():
+        seq = torch.tensor([prompt + tokens[:-1]], device=eng.device)
+        return eng.program.reencode(eng.params, seq)[0, len(prompt) - 1:].float().cpu().numpy()
+
+
+def same_as(results, base):
+    """(tokens equal, echoed logits bitwise) of ``results`` against ``base``."""
+    import numpy as np
+    toks = all(r.tokens == b.tokens for r, b in zip(results, base))
+    bits = all(np.array_equal(r.logits, b.logits) for r, b in zip(results, base))
+    return toks, bits
+
 
 def phase_serve(net):
     import numpy as np
     import torch
 
-    from deeplearning4j_tpu_torch.models.transformer import TransformerDecodeAdapter
-    from deeplearning4j_tpu_torch.serving import DecodeEngine
-
-    from deeplearning4j_tpu_torch.ops import kv_cache as kvc
+    from deeplearning4j_tpu_torch.models.transformer import (TransformerDecodeAdapter,
+                                                             TransformerLM)
+    from deeplearning4j_tpu_torch.serving import ReplicaCrashError
 
     adapter = TransformerDecodeAdapter(net)
-    eng = DecodeEngine(adapter, max_slots=4, page_size=16, max_len=MAX_LEN,
-                       device="cuda").load()
-    rng = np.random.default_rng(SEED + 2)
-    lens = [16, 48, 96, 160, 256, 352, 448, 512]
-    prompts = [rng.integers(0, VOCAB, n).tolist() for n in lens]
-    kws = [dict(temperature=0.0) if i % 2 == 0 else
-           dict(temperature=0.8, top_k=50, seed=1000 + i) for i in range(len(lens))]
-    try:
-        kvc.det_attention_cuda.launches = 0
-        t0 = time.perf_counter()
-        futs = [eng.generate_async(p, max_new_tokens=32, echo_logits=True, **kw)
-                for p, kw in zip(prompts, kws)]
-        results = [f.result(timeout=600) for f in futs]
-        wall = time.perf_counter() - t0
-        launches = {"det_attention": kvc.det_attention_cuda.launches}
-        deadline = time.monotonic() + 5
-        while eng.metrics.gauge("pages_in_use") and time.monotonic() < deadline:
-            time.sleep(0.01)
-        snap = eng.metrics_snapshot()
-    finally:
-        eng.shutdown()
+    prompts, kws = serve_requests()
 
+    # (a) the plain engine
+    run = serve_run(adapter, prompts, kws)
+    eng, results, snap, wall = run["engine"], run["outcomes"], run["snap"], run["wall"]
+    launches = run["launches"]
+    if any(isinstance(r, BaseException) for r in results):
+        raise AssertionError(f"serve arm (a): a request failed: {results}")
     prog = eng.program
     greedy_ok, max_diff, bitwise, k1_dlogp = True, 0.0, True, 0.0
     with torch.inference_mode():
@@ -1015,8 +1155,8 @@ def phase_serve(net):
             k1 = net.output(seq)[0, len(p) - 1:].cpu().clamp_min(1e-30).log()
             k1_dlogp = max(k1_dlogp, float((logp - k1).abs().max()))
     n_tok = sum(len(r.tokens) for r in results)
-    rec = {"phase": "serve", "requests": len(results), "prompt_lens": lens,
-           "launches": launches,
+    rec = {"phase": "serve", "arm": "a_plain", "requests": len(results),
+           "prompt_lens": SERVE_LENS, "launches": launches,
            "tokens": n_tok, "finish": sorted({r.finish_reason for r in results}),
            "pages_in_use_after": snap["pages_in_use"],
            "greedy_equals_reencode_argmax": greedy_ok,
@@ -1024,12 +1164,9 @@ def phase_serve(net):
            "decode_vs_reencode_bitwise": bitwise,
            "decode_vs_output_max_abs_logprob_diff": k1_dlogp,
            "tolerance_output_logprob": 1e-4,
-           "ttft_p50_ms": snap["ttft_ms"]["p50_ms"],
-           "ttft_p99_ms": snap["ttft_ms"]["p99_ms"],
-           "tpot_p50_ms": snap["tpot_ms"]["p50_ms"],
-           "tpot_p99_ms": snap["tpot_ms"]["p99_ms"],
+           **run["metrics"],
            "decode_step_p50_ms": snap["decode_step_ms"]["p50_ms"],
-           "wall_s": wall, "tokens_per_s": n_tok / wall}
+           "pool_bytes": run["pool_bytes"]}
     emit(rec)
     # the reference's contract: decode logits are bitwise the re-encode's;
     # and both agree with output() as f32 sums in another order do (the
@@ -1039,7 +1176,125 @@ def phase_serve(net):
             and launches["det_attention"] > 0
             and all(len(r.tokens) == 32 for r in results)):
         raise AssertionError("serve phase failed")
-    return rec
+    base, arms, bad = results, {"a_plain": rec}, []
+
+    def arm(name, run, gates, **extra):
+        r = {"phase": "serve", "arm": name, **run["metrics"], "launches": run["launches"],
+             "vs_a": {k: run["metrics"][k] / rec[k] if rec[k] else None
+                      for k in ("tpot_p50_ms", "wall_ms_per_token", "tokens_per_s")},
+             "gates": gates, **extra}
+        emit(r)
+        arms[name] = r
+        bad.extend(f"{name}:{g}" for g, ok in gates.items() if not ok)
+
+    # (b) fused horizons: one graph replay per dispatch, D1 counted through
+    # them at LAYERS calls a step, as a traced replay shows
+    for H in (2, 4, 8):
+        run = serve_run(adapter, prompts, kws, decode_horizon=H)
+        c = run["snap"]["counters"]
+        toks, bits = same_as(run["outcomes"], base)
+        want_d1 = LAYERS * (len(prompts) + run["replays"] * H)
+        arm(f"b_fused_h{H}", run, {
+            "tokens_equal_a": toks, "logits_bitwise_a": bits,
+            "one_replay_per_dispatch": c["fused_dispatches"] == run["replays"] > 0,
+            "d1_launches_through_replays": run["launches"]["det_attention"] == want_d1,
+            "d1_traced_replay": run["d1_traced_per_replay"] == run["d1_per_replay"] == LAYERS * H,
+            "pool_drained": run["snap"]["pages_in_use"] == 0},
+            fused_dispatches=c["fused_dispatches"], graph_replays=run["replays"],
+            d1_per_replay=run["d1_per_replay"],
+            d1_traced_per_replay=run["d1_traced_per_replay"],
+            tokens_per_dispatch=c["tokens_per_dispatch"] / max(c["fused_dispatches"], 1))
+
+    # (c) chunked prefill
+    run = serve_run(adapter, prompts, kws, prefill_chunk=128)
+    c = run["snap"]["counters"]
+    toks, bits = same_as(run["outcomes"], base)
+    arm("c_chunked_128", run, {
+        "tokens_equal_a": toks, "logits_bitwise_a": bits,
+        "prefill_chunks": c["prefill_chunks"] == sum(-(-n // 128) for n in SERVE_LENS),
+        "chunked_prefills": c["chunked_prefills"] == sum(n > 128 for n in SERVE_LENS),
+        "pool_drained": run["snap"]["pages_in_use"] == 0},
+        prefill_chunks=c["prefill_chunks"], chunked_prefills=c["chunked_prefills"])
+
+    # (d) prefix cache: a shared 256-token prefix, the first request alone
+    rng = np.random.default_rng(SEED + 4)
+    prefix = rng.integers(0, VOCAB, PREFIX_LEN).tolist()
+    pprompts = [prefix + rng.integers(0, VOCAB, n).tolist() for n in PREFIX_SUFFIXES]
+    run = serve_run(adapter, pprompts, kws, prefix_cache=True, first_alone=True)
+    c, pages = run["snap"]["counters"], run["pages"]
+    outs = run["outcomes"]
+    hit_bits = all(np.array_equal(reencode_rows(run["engine"], p, r.tokens), r.logits)
+                   for p, r in zip(pprompts, outs))
+    ids = sorted(pages["free"] + pages["private"] + pages["trie"])
+    arm("d_prefix", run, {
+        "hits_ge_7": c["prefix_hits"] >= 7, "logits_bitwise_reencode": hit_bits,
+        "partition_clean": (not pages["private"] and ids == list(range(1, run["engine"].total_pages))
+                            and run["snap"]["shared_pages"] == len(pages["trie"]))},
+        prefix_hits=c["prefix_hits"], prefix_hit_tokens=c["prefix_hit_tokens"],
+        trie_pages=len(pages["trie"]), ttft_miss_ms=outs[0].ttft_ms,
+        ttft_hits_ms=[r.ttft_ms for r in outs[1:]],
+        suffix_lens=PREFIX_SUFFIXES)
+
+    # (e) int8 pages: an envelope against the f32 re-encode, not identity
+    run = serve_run(adapter, prompts, kws, kv_dtype="int8")
+    agree = total = 0
+    for p, kw, r in zip(prompts, kws, run["outcomes"]):
+        if kw["temperature"] == 0.0:
+            ref = reencode_rows(eng, p, r.tokens).argmax(-1)
+            agree += int((ref == np.asarray(r.tokens)).sum())
+            total += len(r.tokens)
+    ratio = rec["pool_bytes"] / run["pool_bytes"]
+    arm("e_int8", run, {"pool_bytes_halved": ratio >= 2.0, "greedy_agree_ge_80pct":
+                        agree / total >= 0.80},
+        pool_bytes=run["pool_bytes"], pool_bytes_ratio=ratio, greedy_agreement=agree / total)
+
+    # (f) speculative decoding, k = 4: the target as its own draft, and a
+    # 2-layer draft of the same vocabulary, width and max_len
+    small = TransformerLM(vocab_size=VOCAB, n_layers=2, d_model=D_MODEL, n_heads=HEADS,
+                          d_ff=D_FF, max_len=MAX_LEN, seed=SEED + 5, device="cuda")
+    for name, draft in (("f_spec_self", adapter), ("f_spec_2layer",
+                                                   TransformerDecodeAdapter(small))):
+        run = serve_run(adapter, prompts, kws, draft_model=draft, speculate_k=4)
+        again = serve_run(adapter, prompts[1::2], kws[1::2], draft_model=draft,
+                          speculate_k=4)
+        c = run["snap"]["counters"]
+        outs = run["outcomes"]
+        greedy = all(r.tokens == b.tokens for r, b, kw in zip(outs, base, kws)
+                     if kw["temperature"] == 0.0)
+        repeat = [r.tokens for r in outs[1::2]] == [r.tokens for r in again["outcomes"]]
+        gates = {"greedy_tokens_equal_a": greedy, "seeded_runs_repeat": repeat,
+                 "pool_drained": run["snap"]["pages_in_use"] == 0}
+        if draft is adapter:
+            gates["self_draft_accepts_all"] = c["spec_accepted"] == c["spec_proposed"] > 0
+        arm(name, run, gates, spec_steps=c["spec_steps"], spec_proposed=c["spec_proposed"],
+            spec_accepted=c["spec_accepted"], spec_committed=c["spec_committed"],
+            acceptance=c["spec_accepted"] / max(c["spec_proposed"], 1),
+            accepted_tokens_per_step=run["snap"]["accepted_tokens_per_step"])
+    del small
+
+    # (g) a crash in the middle of arm (b) at H = 4: retried to (a)'s tokens;
+    # then with no retries the requests in flight (at most 4 slots) fail and
+    # the engine serves the queued ones after the crash
+    run = serve_run(adapter, prompts, kws, decode_horizon=4, crash_after=2)
+    c = run["snap"]["counters"]
+    retried = [r for r in run["outcomes"] if not isinstance(r, BaseException)]
+    toks = len(retried) == 8 and same_as(retried, base)[0]
+    run0 = serve_run(adapter, prompts, kws, decode_horizon=4, crash_after=2, max_retries=0)
+    failed = [i for i, r in enumerate(run0["outcomes"]) if isinstance(r, ReplicaCrashError)]
+    served = [i for i in range(8) if i not in failed]
+    arm("g_crash_h4", run, {
+        "retried_tokens_equal_a": toks, "retries_gt_0": c["retries"] > 0,
+        "no_retry_in_flight_fail": 1 <= len(failed) <= 4 and run0["snap"]["counters"][
+            "errors"] == len(failed),
+        "no_retry_next_requests_served": len(served) >= 4 and all(
+            run0["outcomes"][i].tokens == base[i].tokens for i in served)},
+        retries=c["retries"], replica_crashes=c["replica_crashes"],
+        no_retry_failed=failed)
+
+    total = sum(a["launches"]["det_attention"] for a in arms.values())
+    if bad:
+        raise AssertionError(f"serve arms failed their gates: {bad}")
+    return {"launches": {"det_attention": total}, "arms": arms}
 
 
 # -- train phase -------------------------------------------------------------------

@@ -5,6 +5,7 @@ Runs on ``cuda`` unless ``--device cpu`` is given.
 
     python -m deeplearning4j_tpu_torch predict --model m.zip --input x.npz --output y.npz
     python -m deeplearning4j_tpu_torch generate --model m.zip --prompt "hello"
+        [--prefix-cache] [--speculate DRAFT_CKPT[,k]] [--kv-dtype {float32,int8}]
 """
 
 from __future__ import annotations
@@ -45,6 +46,39 @@ def _sample_probs(probs: np.ndarray, temperature: float, top_k: int,
     return int(rng.choice(p.shape[0], p=p))
 
 
+def _parse_speculate(spec):
+    """'DRAFT_CKPT[,k]' → (path, k), k 4 by default, with a clean CLI
+    error for a bad k."""
+    if spec is None:
+        return None, 4
+    path, sep, ks = spec.rpartition(",")
+    if sep and path:
+        try:
+            k = int(ks)
+            if k < 1:
+                raise ValueError
+        except ValueError:
+            raise SystemExit(f"bad --speculate {spec!r}: expected "
+                             "DRAFT_CKPT[,k] with k >= 1")
+        return path, k
+    return spec, 4
+
+
+def _decode_opts(args) -> dict:
+    """``DecodeEngine`` arguments for the decode flags of ``generate``:
+    --prefix-cache, --speculate DRAFT_CKPT[,k], --kv-dtype."""
+    from .models.transformer import TransformerDecodeAdapter
+    from .utils.serializer import load_model
+
+    draft_path, k = _parse_speculate(args.speculate)
+    draft = None
+    if draft_path:
+        draft = TransformerDecodeAdapter(load_model(draft_path, device=args.device))
+    return {"prefix_cache": bool(args.prefix_cache), "draft_model": draft,
+            "speculate_k": k,
+            "kv_dtype": None if args.kv_dtype in (None, "float32") else args.kv_dtype}
+
+
 def cmd_generate(args) -> int:
     """Text generation.  Text <-> token ids is byte-valued (ord/chr
     clamped to the model's vocab).  Two model families:
@@ -75,8 +109,8 @@ def _generate_decode_engine(net, args) -> int:
     if not prompt_ids:
         raise SystemExit("--prompt must be non-empty")
     eng = DecodeEngine(adapter, max_slots=1, page_size=page,
-                       default_max_new=args.max_tokens,
-                       device=args.device).load()
+                       default_max_new=args.max_tokens, device=args.device,
+                       **_decode_opts(args)).load()
     try:
         if len(prompt_ids) > eng.max_prompt:
             raise SystemExit(f"prompt longer than the largest bucket "
@@ -113,6 +147,10 @@ def generate_recurrent(net, prompt_ids, max_tokens: int, temperature: float = 0.
 
 
 def _generate_recurrent(net, args) -> int:
+    if args.prefix_cache or args.speculate or args.kv_dtype not in (None, "float32"):
+        raise SystemExit(
+            "--prefix-cache/--speculate/--kv-dtype need a transformer LM "
+            "checkpoint (they live in the paged decode engine)")
     out_layer = net.conf.layers[-1]
     vocab = int(getattr(out_layer, "n_out", 256) or 256)
     prompt_ids = [min(ord(c), vocab - 1) for c in args.prompt]
@@ -158,6 +196,16 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--page-size", type=int, default=16,
                    help="KV-cache page size in tokens (auto-shrunk for "
                    "short position tables)")
+    g.add_argument("--prefix-cache", action="store_true",
+                   help="radix prefix cache over the paged KV pool "
+                   "(transformer path)")
+    g.add_argument("--speculate", metavar="DRAFT_CKPT[,k]",
+                   help="speculative decoding: DRAFT_CKPT proposes k tokens "
+                   "per step (default k=4); temperature-0 output is the "
+                   "plain decode's")
+    g.add_argument("--kv-dtype", choices=("float32", "int8"), default="float32",
+                   help="KV page storage; int8 quantizes pages per row "
+                   "(about 4x less pool memory)")
     g.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' to run on the CPU)")
     g.set_defaults(fn=cmd_generate)

@@ -251,7 +251,9 @@ class TransformerDecodeAdapter:
 
     def decode_program(self, page_size: int = 16, max_len: Optional[int] = None):
         from ..ops.kv_cache import (NEG_INF, DecodeProgram, det_attention,
-                                    gather_layer, write_prefill, write_step)
+                                    gather_layer, write_prefill, write_step,
+                                    write_tokens)
+        from ..ops.sampling import sample_tokens_device
 
         pos_rows = int(self.params["pos"]["P"].shape[0])
         if max_len is None:
@@ -263,11 +265,17 @@ class TransformerDecodeAdapter:
                 f"({pos_rows})")
         L = int(max_len)
         n_heads = self.n_heads
+        vocab = self.vocab_size
         embed_lay, out_lay = self._embed_lay, self._out_lay
         d_model = int(self.params["embed"]["W"].shape[1])
 
         def tok_embed(params, idx):
             return embed_lay._lookup(params["embed"], idx)
+
+        def pos_embed(params, pos):
+            # positions past the table read its last row, as the
+            # reference clips them
+            return params["pos"]["P"][pos.clamp(0, pos_rows - 1)]
 
         def head(params, h):
             # pre-softmax logits, row by row
@@ -286,33 +294,85 @@ class TransformerDecodeAdapter:
             keys = torch.arange(n_keys, device=q_pos.device)
             return torch.where(keys <= q_pos[..., None], 0.0, NEG_INF).float()
 
-        def prefill(params, k_pages, v_pages, page_table_row, tokens, n_real):
-            tb = tokens.shape[0]
-            h = (tok_embed(params, tokens) + params["pos"]["P"][:tb])[None]
-            bias = visible(torch.arange(tb, device=h.device), L)[None, None]
-            pt = page_table_row[None]
+        def blocks(params, k_pages, v_pages, h, bias, pt, write):
+            """Every block over ``h`` [S, T, D]: project, ``write(pages,
+            layer, kv [S, H, T, d])`` the new rows, attend over the
+            slots' pages ``pt`` with D1."""
             for i, bp in enumerate(params["blocks"]):
                 q, k, v = kv_project(bp, h)
-                write_prefill(k_pages, i, page_table_row, k.transpose(1, 2)[0])
-                write_prefill(v_pages, i, page_table_row, v.transpose(1, 2)[0])
+                write(k_pages, i, k)
+                write(v_pages, i, v)
                 k_all = gather_layer(k_pages, i, pt).transpose(1, 2)
                 v_all = gather_layer(v_pages, i, pt).transpose(1, 2)
                 h = finish(bp, h, det_attention(q, k_all, v_all, bias))
+            return h
+
+        def prefill_at(params, k_pages, v_pages, page_table_row, tokens, n_real,
+                       offset=0):
+            tb = tokens.shape[0]
+            pos = offset + torch.arange(tb, device=tokens.device)
+            h = (tok_embed(params, tokens) + pos_embed(params, pos))[None]
+            bias = visible(pos, L)[None, None]
+            write = lambda pages, i, kv: write_prefill(
+                pages, i, page_table_row, kv.transpose(1, 2)[0], offset)
+            h = blocks(params, k_pages, v_pages, h, bias, page_table_row[None], write)
             return k_pages, v_pages, head(params, h[0, n_real - 1])
 
+        def prefill(params, k_pages, v_pages, page_table_row, tokens, n_real):
+            return prefill_at(params, k_pages, v_pages, page_table_row, tokens,
+                              n_real, 0)
+
         def step(params, k_pages, v_pages, page_table, tokens, positions, active):
-            h = (tok_embed(params, tokens) + params["pos"]["P"][positions])[:, None]
+            h = (tok_embed(params, tokens) + pos_embed(params, positions))[:, None]
             bias = visible(positions, L)[:, None, None, :]
             pt = torch.where(active[:, None], page_table,
                              torch.zeros_like(page_table))
-            for i, bp in enumerate(params["blocks"]):
-                q, k, v = kv_project(bp, h)
-                write_step(k_pages, i, pt, positions, k[:, :, 0])
-                write_step(v_pages, i, pt, positions, v[:, :, 0])
-                k_all = gather_layer(k_pages, i, pt).transpose(1, 2)
-                v_all = gather_layer(v_pages, i, pt).transpose(1, 2)
-                h = finish(bp, h, det_attention(q, k_all, v_all, bias))
+            write = lambda pages, i, kv: write_step(pages, i, pt, positions, kv[:, :, 0])
+            h = blocks(params, k_pages, v_pages, h, bias, pt, write)
             return k_pages, v_pages, head(params, h)[:, 0]
+
+        def spec_step(params, k_pages, v_pages, page_table, tokens, positions,
+                      active):
+            # T tokens per slot at positions[s]..positions[s]+T-1 in one
+            # call; rows past a slot's capacity write the scratch page
+            t_n = tokens.shape[1]
+            pos = positions[:, None] + torch.arange(t_n, device=tokens.device)
+            h = tok_embed(params, tokens) + pos_embed(params, pos)
+            bias = visible(pos, L)[:, None]
+            pt = torch.where(active[:, None], page_table,
+                             torch.zeros_like(page_table))
+            write = lambda pages, i, kv: write_tokens(pages, i, pt, positions,
+                                                      kv.transpose(1, 2))
+            h = blocks(params, k_pages, v_pages, h, bias, pt, write)
+            return k_pages, v_pages, head(params, h)
+
+        def step_multi(params, k_pages, v_pages, page_table, tokens, positions,
+                       active, temps, top_ks, top_ps, seeds, steps, budgets,
+                       eos_id, horizon):
+            # ``horizon`` steps of ``step``'s body, sampling on the device;
+            # a slot that stops drops out of ``alive`` and its table row
+            # zeroes, so its later writes go to the scratch page
+            toks, fins, lgs_all = [], [], []
+            tok, alive = tokens, active
+            for j in range(int(horizon)):
+                pos_j = positions + j
+                pt = torch.where(alive[:, None], page_table,
+                                 torch.zeros_like(page_table))
+                h = (tok_embed(params, tok) + pos_embed(params, pos_j))[:, None]
+                bias = visible(pos_j, L)[:, None, None, :]
+                write = lambda pages, i, kv, pt=pt, pos_j=pos_j: write_step(
+                    pages, i, pt, pos_j, kv[:, :, 0])
+                lgs = head(params, blocks(params, k_pages, v_pages, h, bias, pt,
+                                          write))[:, 0]
+                nxt, fin = sample_tokens_device(lgs, temps, top_ks, top_ps, seeds,
+                                                steps + j, vocab)
+                alive = alive & fin & (nxt != eos_id) & (j + 1 < budgets)
+                tok = nxt
+                toks.append(nxt)
+                fins.append(fin)
+                lgs_all.append(lgs)
+            return (k_pages, v_pages, torch.stack(toks), torch.stack(fins),
+                    torch.stack(lgs_all))
 
         def reencode(params, tokens):
             b, t = tokens.shape
@@ -326,5 +386,6 @@ class TransformerDecodeAdapter:
         return DecodeProgram(
             prefill=prefill, step=step, reencode=reencode,
             n_layers=self._n_blocks, n_heads=n_heads,
-            d_head=d_model // n_heads, vocab_size=self.vocab_size,
-            max_len=L, page_size=page_size, pages_per_slot=L // page_size)
+            d_head=d_model // n_heads, vocab_size=vocab,
+            max_len=L, page_size=page_size, pages_per_slot=L // page_size,
+            prefill_at=prefill_at, spec_step=spec_step, step_multi=step_multi)

@@ -13,6 +13,13 @@ polynomial, with one fused multiply-add that the backend emits) — a
 correctly rounded log differs from it in the last bit of ~14% of
 inputs.  All 32-bit integer arithmetic runs on int64 masked with
 ``0xFFFFFFFF``, since torch's uint32 support is thin.
+
+``sample_tokens_device`` is the batch sampler with every argument a
+tensor on the logits' device and no read back to the host, so the fused
+multi-step decode (``DecodeProgram.step_multi``) can run inside a CUDA
+graph; ``sample_tokens`` takes host lists and gives the same bits.
+``uniform`` and ``gumbel_from_key`` draw from any key, for speculative
+decoding's own streams.
 """
 
 from __future__ import annotations
@@ -120,32 +127,38 @@ def xla_cpu_log(x: Tensor) -> Tensor:
     return t + e * _LOG_Q2
 
 
-def gumbel(seeds: Tensor, steps: Tensor, n: int) -> Tensor:
-    """[S, n] float32 gumbel noise, row i keyed
-    ``fold_in(PRNGKey(seeds[i]), steps[i])`` — bitwise equal to
-    ``jax.random.gumbel(fold_in(PRNGKey(seed), step), (n,))`` on the CPU."""
-    key = fold_in(prng_key(seeds), steps)
+def uniform(key: Tuple[Tensor, Tensor]) -> Tensor:
+    """``jax.random.uniform(key)``, one float32 draw over [0, 1) per key,
+    bitwise; the key words share any shape, which the result takes."""
+    bits = random_bits((key[0].reshape(-1, 1), key[1].reshape(-1, 1)), 1)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return f.reshape(key[0].shape)
+
+
+def gumbel_from_key(key: Tuple[Tensor, Tensor], n: int) -> Tensor:
+    """[S, n] float32 gumbel noise, row i drawn from key i — bitwise
+    ``jax.random.gumbel(key, (n,))`` on the CPU."""
     key = (key[0].reshape(-1, 1), key[1].reshape(-1, 1))
     u = uniform_tiny_one(random_bits(key, n))
     return -xla_cpu_log(-xla_cpu_log(u))
 
 
-def sample_tokens(lgs: Tensor, temps: Tensor, top_ks: Tensor, top_ps: Tensor,
-                  seeds: Tensor, steps: Tensor,
-                  vocab_size: int) -> Tuple[Tensor, Tensor]:
-    """Sample one token per logits row ``lgs`` [S, V] — the reference's
-    ``sample_token`` over a batch.  Temperature <= 0 is greedy; top_k 0
-    and top_p >= 1 disable those filters.  Returns (tokens int64 [S],
-    finite bool [S]), ``finite`` being the poison flag."""
-    dev = lgs.device
-    lgs = lgs.float()
-    t = torch.as_tensor(temps, dtype=torch.float32, device=dev).reshape(-1, 1)
-    k = torch.as_tensor(top_ks, dtype=torch.int64, device=dev).reshape(-1, 1)
-    p = torch.as_tensor(top_ps, dtype=torch.float32, device=dev).reshape(-1, 1)
-    finite = torch.isfinite(lgs).all(dim=-1)
-    greedy = torch.argmax(lgs, dim=-1)
-    if not bool((t > 0).any()):
-        return greedy, finite
+def gumbel(seeds: Tensor, steps: Tensor, n: int) -> Tensor:
+    """[S, n] float32 gumbel noise, row i keyed
+    ``fold_in(PRNGKey(seeds[i]), steps[i])`` — bitwise equal to
+    ``jax.random.gumbel(fold_in(PRNGKey(seed), step), (n,))`` on the CPU."""
+    return gumbel_from_key(fold_in(prng_key(seeds), steps), n)
+
+
+def filtered_logits(lgs: Tensor, temps: Tensor, top_ks: Tensor, top_ps: Tensor,
+                    vocab_size: int) -> Tensor:
+    """[S, V] logits scaled by each row's temperature, with -inf outside
+    its top-k and top-p sets (top_k 0 and top_p >= 1 keep every token;
+    the top token always stays) — the reference sampler's filter, which
+    speculative decoding's warped distribution shares."""
+    t = temps.float().reshape(-1, 1)
+    k = top_ks.long().reshape(-1, 1)
+    p = top_ps.float().reshape(-1, 1)
     scaled = lgs / torch.clamp(t, min=1e-6)
     srt = torch.sort(scaled, dim=-1, descending=True).values
     kk = torch.clamp(torch.where(k > 0, k, torch.full_like(k, vocab_size)),
@@ -157,12 +170,43 @@ def sample_tokens(lgs: Tensor, temps: Tensor, top_ks: Tensor, top_ps: Tensor,
     inf = torch.full_like(srt, float("inf"))
     thr_p = torch.where(keep, srt, inf).amin(dim=-1, keepdim=True)
     thr = torch.maximum(thr_k, thr_p)
-    masked = torch.where(scaled >= thr, scaled, -inf)
-    g = gumbel(torch.as_tensor(seeds, dtype=torch.int64).reshape(-1).to(dev),
-               torch.as_tensor(steps, dtype=torch.int64).reshape(-1).to(dev),
-               lgs.shape[-1])
+    return torch.where(scaled >= thr, scaled, -inf)
+
+
+def sample_tokens_device(lgs: Tensor, temps: Tensor, top_ks: Tensor, top_ps: Tensor,
+                         seeds: Tensor, steps: Tensor,
+                         vocab_size: int) -> Tuple[Tensor, Tensor]:
+    """The batch sampler with no host sync: every argument a tensor [S]
+    on ``lgs``'s device.  Each row gets its greedy and its sampled token
+    and ``where`` picks one, so a CUDA graph can hold it.  Temperature
+    <= 0 is greedy; top_k 0 and top_p >= 1 disable those filters.
+    Returns (tokens int64 [S], finite bool [S])."""
+    lgs = lgs.float()
+    finite = torch.isfinite(lgs).all(dim=-1)
+    greedy = torch.argmax(lgs, dim=-1)
+    masked = filtered_logits(lgs, temps, top_ks, top_ps, vocab_size)
+    g = gumbel(seeds.long().reshape(-1), steps.long().reshape(-1), lgs.shape[-1])
     sampled = torch.argmax(masked + g, dim=-1)
-    return torch.where(t[:, 0] <= 0.0, greedy, sampled), finite
+    return torch.where(temps.reshape(-1) <= 0.0, greedy, sampled), finite
+
+
+def sample_tokens(lgs: Tensor, temps, top_ks, top_ps, seeds, steps,
+                  vocab_size: int) -> Tuple[Tensor, Tensor]:
+    """Sample one token per logits row ``lgs`` [S, V] — the reference's
+    ``sample_token`` over a batch, with the sampling arguments as host
+    sequences.  An all-greedy batch skips the sampled branch; otherwise
+    it is ``sample_tokens_device``.  Returns (tokens int64 [S], finite
+    bool [S]), ``finite`` being the poison flag."""
+    dev = lgs.device
+    t = torch.as_tensor(temps, dtype=torch.float32).reshape(-1)
+    if not bool((t > 0).any()):
+        lgs = lgs.float()
+        return torch.argmax(lgs, dim=-1), torch.isfinite(lgs).all(dim=-1)
+    as_dev = lambda xs, dtype: torch.as_tensor(xs, dtype=dtype).reshape(-1).to(dev)
+    return sample_tokens_device(lgs, t.to(dev), as_dev(top_ks, torch.int64),
+                                as_dev(top_ps, torch.float32),
+                                as_dev(seeds, torch.int64), as_dev(steps, torch.int64),
+                                vocab_size)
 
 
 def sample_token(lg: Tensor, t: float, k: int, p: float, seed: int,

@@ -4,7 +4,8 @@ surface the plain ``DecodeEngine`` uses, plus ``pow2_buckets`` and the
 admission errors).
 
 One FIFO lane: per-tenant fair-share lanes, quotas and model routing
-are later work.  The queue is bounded (``max_queue``) with a ``block``
+are later work.  ``admit`` takes the reference's chunked-prefill token
+budget.  The queue is bounded (``max_queue``) with a ``block``
 (backpressure the caller) or ``shed`` (raise ``OverloadedError``)
 policy, and a request whose deadline passes while still queued fails
 fast with ``DeadlineExceededError``.  ``clock`` is injectable.
@@ -30,7 +31,7 @@ class OverloadedError(RuntimeError):
 
 
 class _Request:
-    __slots__ = ("payload", "future", "t_submit", "deadline")
+    __slots__ = ("payload", "future", "t_submit", "deadline", "retries")
 
     def __init__(self, payload: Any, future: Future, t_submit: float,
                  deadline: float):
@@ -38,6 +39,7 @@ class _Request:
         self.future = future
         self.t_submit = t_submit
         self.deadline = deadline
+        self.retries = 0        # crash-retries so far (the decode engine)
 
 
 def pow2_buckets(max_batch: int) -> List[int]:
@@ -123,20 +125,42 @@ class ContinuousBatcher:
         self._q = keep
         self._space.notify_all()
 
-    def admit(self, limit: int) -> List[_Request]:
-        """Pop up to ``limit`` queued requests (none when idle)."""
+    def admit(self, limit: int,
+              token_budget: Optional[int] = None) -> List[_Request]:
+        """Pop up to ``limit`` queued requests (none when idle).
+
+        ``token_budget`` is the chunked-prefill admission rule: stop
+        before the popped payloads' prompt tokens (``len(payload.prompt)``
+        where a payload has one) would pass the budget, so one round never
+        takes in more prefill work than the engine interleaves per step.
+        The head request is always admitted, even when it alone passes
+        the budget (the engine chunks its prefill), so nothing starves."""
         if limit <= 0:
             return []
+
+        def cost(r: _Request) -> int:
+            p = getattr(r.payload, "prompt", None)
+            return 0 if p is None else len(p)
+
         with self._lock:
             self._expire_locked(self.clock())
-            out = [self._q.popleft() for _ in range(min(limit, len(self._q)))]
+            out: List[_Request] = []
+            spent = 0
+            while self._q and len(out) < limit:
+                if (token_budget is not None and out
+                        and spent + cost(self._q[0]) > token_budget):
+                    break
+                r = self._q.popleft()
+                spent += cost(r)
+                out.append(r)
             if out:
                 self._space.notify_all()
             return out
 
     def requeue_front(self, r: _Request) -> None:
         """Put a request back at the head — admission raced ahead of
-        capacity (no free pages or slot yet)."""
+        capacity (no free pages or slot yet), or its batch crashed and it
+        has retries left."""
         with self._lock:
             if self._closed:
                 if not r.future.done():

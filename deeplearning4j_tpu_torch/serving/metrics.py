@@ -16,11 +16,19 @@ from typing import Dict
 
 import numpy as np
 
+# every counter a fresh decode engine reports, at zero: the feature
+# counters (prefix cache, speculation, fused horizon, chunked prefill)
+# stay registered when their feature is off, so no key appears mid-flight
 _DECODE_COUNTER_KEYS = (
     "requests", "tokens_out", "prefills", "decode_steps",
     "eos_stops", "max_token_stops", "deadline_stops",
-    "shed", "deadline_missed", "errors", "poison_isolated",
-    "replica_crashes",
+    "shed", "deadline_missed", "errors", "retries", "poison_isolated",
+    "replica_crashes", "replica_respawns",
+    "prefix_hits", "prefix_misses", "prefix_inserts",
+    "prefix_evictions", "prefix_hit_tokens",
+    "spec_steps", "spec_proposed", "spec_accepted", "spec_committed",
+    "fused_dispatches", "tokens_per_dispatch",
+    "chunked_prefills", "prefill_chunks",
 )
 
 
@@ -63,7 +71,8 @@ class DecodeMetrics:
         self._lock = threading.Lock()
         self._counters: Dict[str, float] = {k: 0 for k in _DECODE_COUNTER_KEYS}
         self._gauges: Dict[str, int] = {"active_slots": 0, "pages_in_use": 0,
-                                        "free_pages": 0, "free_slots": 0}
+                                        "shared_pages": 0, "free_pages": 0,
+                                        "free_slots": 0}
         self._t0 = time.monotonic()
 
     def inc(self, key: str, n: float = 1) -> None:
@@ -73,6 +82,10 @@ class DecodeMetrics:
     def set_gauge(self, key: str, value: int) -> None:
         with self._lock:
             self._gauges[key] = int(value)
+
+    def counter(self, key: str) -> float:
+        with self._lock:
+            return self._counters.get(key, 0)
 
     def gauge(self, key: str) -> int:
         with self._lock:
@@ -86,6 +99,8 @@ class DecodeMetrics:
         return {
             "counters": c,
             **g,
+            "accepted_tokens_per_step": (c["spec_committed"] / c["spec_steps"]
+                                         if c["spec_steps"] else None),
             "tokens_per_sec": c["tokens_out"] / elapsed if elapsed > 0 else None,
             "uptime_sec": elapsed,
             "ttft_ms": self.ttft.snapshot(),

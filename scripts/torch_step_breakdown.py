@@ -15,6 +15,12 @@ same numpy seed), then its char-RNN, and traces these pieces of work with
   step     8 decode steps over 4 active slots near position 300, each
            with its sampling (two greedy slots, two at temperature 0.8 /
            top_k 50), as the engine runs them (kernel D1)
+  step_multi_eager  the same 8 steps as one eager ``step_multi`` (H = 8,
+           sampling on the device), as the engine's fused horizon runs on
+           the CPU
+  step_multi_graph  the same as one replay of ``step_multi`` captured as a
+           CUDA graph (``serving.cuda_graphs.StepMultiGraph``), as the
+           engine's fused horizon runs on the card
   train    one ``fit_batch`` on [8, 1024] tokens, Adam with
            ``DL4J_TPU_FUSED_UPDATE=1`` (kernels K1-K4)
   train_per_leaf  the same with the switch at 0: the per-leaf Adam step
@@ -38,9 +44,10 @@ same numpy seed), then its char-RNN, and traces these pieces of work with
            own kernels, so "busy" is rank 0's and "idle" counts the other
            rank's kernels as idle
 
-``--decode-rows`` measures prefill and step once for each chunk size of
-the decode program's per-position ops (``models.transformer.DECODE_ROWS``,
-64 by default); rows past the first are named ``prefill@R``/``step@R``.
+``--decode-rows`` measures prefill, step and the two step_multi rows once
+for each chunk size of the decode program's per-position ops
+(``models.transformer.DECODE_ROWS``, 64 by default; the graph is captured
+anew at each size); rows past the first are named ``prefill@R`` and so on.
 
 For each it prints one JSON line: the median wall time of 3 untraced
 repeats after warm-up calls (2; 3 for a training step), each on the host
@@ -203,6 +210,7 @@ def main() -> int:
     from deeplearning4j_tpu_torch.models.transformer import TransformerDecodeAdapter
     from deeplearning4j_tpu_torch.ops.kv_cache import alloc_cache
     from deeplearning4j_tpu_torch.ops.sampling import sample_tokens
+    from deeplearning4j_tpu_torch.serving.cuda_graphs import INPUTS, StepMultiGraph
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(json.dumps({"card": cs.card_line(), "torch": torch.__version__}), flush=True)
@@ -232,6 +240,18 @@ def main() -> int:
             sample_tokens(lgs, [0.0, 0.8, 0.0, 0.8], [0, 50, 0, 50],
                           [1.0] * 4, [1, 2, 3, 4], [j] * 4, prog.vocab_size)
 
+    # the same 8 steps as one fused horizon: inputs as the engine passes them
+    fused = {"page_table": table.cpu().numpy(), "tokens": toks.cpu().numpy(),
+             "positions": pos.cpu().numpy(), "active": act.cpu().numpy(),
+             "temps": np.array([0.0, 0.8, 0.0, 0.8], np.float32),
+             "top_ks": np.array([0, 50, 0, 50]), "top_ps": np.ones(4, np.float32),
+             "seeds": np.array([1, 2, 3, 4]), "steps": np.zeros(4, np.int64),
+             "budgets": np.full(4, 9), "eos": np.asarray(-1)}
+    fused_dev = [torch.from_numpy(np.asarray(fused[k])).to(dev) for k, _ in INPUTS]
+
+    def multi_eager():
+        prog.step_multi(params, kp, vp, *fused_dev, 8)
+
     with torch.inference_mode():
         for i in range(4):                 # fill each slot's first 512 rows
             prog.prefill(params, kp, vp, table[i], prompt, 512)
@@ -242,6 +262,12 @@ def main() -> int:
                     lambda: prog.prefill(params, kp, vp, table[0], prompt, 512),
                     args.trace_dir)
             measure("step" + tag, steps, args.trace_dir)
+            measure("step_multi_eager" + tag, multi_eager, args.trace_dir)
+            graph = StepMultiGraph(prog, params, (kp, vp), 4, 8, dev)
+            measure("step_multi_graph" + tag, lambda: graph(**fused), args.trace_dir)
+            graph.release()
+            del graph
+            torch.cuda.empty_cache()
         transformer.DECODE_ROWS = decode_rows[0]
 
     from deeplearning4j_tpu_torch.datasets import DataSet

@@ -27,7 +27,11 @@ sequence's gradients on the card 1e-5 from the CPU's; whole-model probabilities 
 losses 1e-5; decode logits bitwise the re-encode logits; a recurrent
 ``fit_batch`` on the card against the CPU 1e-4; K6 bitwise its plain
 version (integer output); a compressed trainer step on the card against
-the CPU 1e-5.
+the CPU 1e-5; the fused decode horizon replayed as a CUDA graph bitwise
+the eager ``step_multi`` on the live slots' rows, with device memory flat
+over 100 replays, and the decode engine's fused, chunked, prefix-cache and
+temperature-0 speculative paths bitwise its plain path (int8 pages: greedy
+tokens within the 80% envelope of the f32 re-encode's argmax).
 """
 
 import importlib.util
@@ -188,6 +192,156 @@ def test_decode_engine_on_card(cuda_dev):
         np.testing.assert_array_equal(r.logits, ref)
         if not kw:
             assert ref.argmax(-1).tolist() == r.tokens
+
+
+def _small_program_with_slots(cuda_dev, lens, page=8, kv_dtype=None, pools=1):
+    """The small LM's decode program on the card, with ``pools`` pools of
+    identical contents: slot s holds a prefilled prompt of ``lens[s]``
+    random tokens."""
+    from deeplearning4j_tpu_torch.models.transformer import TransformerDecodeAdapter
+    adapter = TransformerDecodeAdapter(_small_lm(cuda_dev))
+    prog = adapter.decode_program(page_size=page)
+    pps = prog.pages_per_slot
+    table = torch.arange(1, 1 + len(lens) * pps, device=cuda_dev).reshape(len(lens), pps)
+    rng = np.random.default_rng(21)
+    caches = [tkv.alloc_cache(prog.n_layers, 1 + len(lens) * pps, page, prog.n_heads,
+                              prog.d_head, device=cuda_dev, kv_dtype=kv_dtype)
+              for _ in range(pools)]
+    with torch.inference_mode():
+        for s, n in enumerate(lens):
+            toks = torch.zeros(32, dtype=torch.long, device=cuda_dev)
+            toks[:n] = torch.from_numpy(rng.integers(0, SIZE["vocab_size"], n)).to(cuda_dev)
+            for kp, vp in caches:
+                prog.prefill(adapter.params, kp, vp, table[s], toks, n)
+    return prog, adapter.params, table, caches
+
+
+def _fused_inputs(rng, table, positions, steps, n_slots):
+    return {"page_table": table.cpu().numpy(),
+            "tokens": rng.integers(0, SIZE["vocab_size"], n_slots),
+            "positions": np.asarray(positions), "active": np.array([1, 1, 1, 0], bool)[:n_slots],
+            "temps": np.array([0.0, 0.8, 1.1, 0.0], np.float32)[:n_slots],
+            "top_ks": np.array([0, 8, 0, 0])[:n_slots],
+            "top_ps": np.array([1.0, 1.0, 0.9, 1.0], np.float32)[:n_slots],
+            "seeds": np.array([1, 2, 3, 4])[:n_slots], "steps": np.asarray(steps),
+            "budgets": np.array([9, 3, 6, 1])[:n_slots], "eos": np.asarray(-1)}
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_step_multi_graph_replays_are_bitwise_the_eager_step_multi(cuda_dev, kv_dtype):
+    from deeplearning4j_tpu_torch.serving.cuda_graphs import INPUTS, StepMultiGraph
+    prog, params, table, (graph_cache, eager_cache) = _small_program_with_slots(
+        cuda_dev, (5, 12, 20, 3), kv_dtype=kv_dtype, pools=2)
+    H = 4
+    graph = StepMultiGraph(prog, params, graph_cache, 4, H, cuda_dev)
+    assert graph.launches["det_attention"] == H * SIZE["n_layers"]
+    rng = np.random.default_rng(22)
+    positions, steps = np.array([5, 12, 20, 0]), np.array([1, 1, 1, 0])
+    for rnd in range(4):                       # inputs change every replay
+        a = _fused_inputs(rng, table, positions, steps, 4)
+        before = tkv.det_attention_cuda.launches
+        toks, fins, lgs = (t.clone() for t in graph(**a))
+        assert tkv.det_attention_cuda.launches == before + H * SIZE["n_layers"]
+        d = {k: torch.from_numpy(np.asarray(v)).to(cuda_dev) for k, v in a.items()}
+        with torch.inference_mode():
+            _, _, et, ef, el = prog.step_multi(params, *eager_cache,
+                                               *(d[k] for k, _ in INPUTS), H)
+        # the rows of live slots (a stopped slot reads the scratch page,
+        # whose rows two stopped slots may write in either order)
+        live, alive = [], torch.from_numpy(a["active"]).to(cuda_dev)
+        budgets = torch.from_numpy(a["budgets"]).to(cuda_dev)
+        for j in range(H):
+            live.append(alive)
+            alive = alive & ef[j] & (j + 1 < budgets)
+        live = torch.stack(live)
+        assert live[0, :3].all() and live.sum() > 3
+        assert torch.equal(toks[live], et[live]) and torch.equal(fins[live], ef[live]), rnd
+        assert torch.equal(lgs[live], el[live]), rnd
+        for g, e in zip(graph_cache, eager_cache):
+            for x, y in zip(tkv._leaves(g), tkv._leaves(e)):
+                assert torch.equal(x[:, 1:], y[:, 1:]), rnd     # the scratch page aside
+        positions, steps = positions + H, steps + H
+    assert graph.replays == 4
+
+
+def test_step_multi_graph_memory_is_flat_over_replays(cuda_dev):
+    from deeplearning4j_tpu_torch.serving.cuda_graphs import StepMultiGraph
+    prog, params, table, (cache,) = _small_program_with_slots(cuda_dev, (5, 9, 14, 2))
+    graph = StepMultiGraph(prog, params, cache, 4, 8, cuda_dev)
+    rng = np.random.default_rng(23)
+    a = _fused_inputs(rng, table, [5, 9, 14, 0], [1, 1, 1, 0], 4)
+    graph(**a)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_dev)
+    for _ in range(100):
+        graph(**a)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda_dev) == before and graph.replays == 101
+
+
+@pytest.mark.parametrize("kw", [dict(decode_horizon=4), dict(prefill_chunk=12),
+                                dict(prefix_cache=True), dict(draft_model="self", speculate_k=3)],
+                         ids=["fused", "chunked", "prefix", "spec_temp0"])
+def test_decode_features_on_card_are_bitwise_the_plain_engine(cuda_dev, kw):
+    from deeplearning4j_tpu_torch.models.transformer import TransformerDecodeAdapter
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    adapter = TransformerDecodeAdapter(_small_lm(cuda_dev))
+    kw = {k: adapter if v == "self" else v for k, v in kw.items()}
+    rng = np.random.default_rng(24)
+    shared = rng.integers(0, SIZE["vocab_size"], 16).tolist()
+    prompts = [shared + rng.integers(0, SIZE["vocab_size"], n).tolist() for n in (1, 7, 20)]
+    sampled = "draft_model" not in kw
+    specs = [dict(), dict(temperature=0.8, top_k=10, seed=4) if sampled else dict(), dict()]
+
+    def serve(**extra):
+        eng = DecodeEngine(adapter, max_slots=3, page_size=8, device=cuda_dev, **extra).load()
+        try:
+            first = eng.generate(prompts[0], max_new_tokens=10, echo_logits=True)
+            rest = [f.result(timeout=120) for f in
+                    [eng.generate_async(p, max_new_tokens=10, echo_logits=True, **s)
+                     for p, s in zip(prompts[1:], specs[1:])]]
+            return [first] + rest, eng.metrics_snapshot()
+        finally:
+            eng.shutdown()
+
+    base, _ = serve()
+    got, snap = serve(**kw)
+    for b, g in zip(base, got):
+        assert g.tokens == b.tokens
+        np.testing.assert_array_equal(g.logits, b.logits)
+    c = snap["counters"]
+    assert snap["pages_in_use"] == snap["shared_pages"]     # only the trie holds pages
+    if "decode_horizon" in kw:
+        assert c["fused_dispatches"] > 0
+    if kw.get("prefix_cache"):
+        assert c["prefix_hits"] == 2
+    if "draft_model" in kw:
+        assert c["spec_accepted"] == c["spec_proposed"] > 0
+
+
+def test_int8_engine_on_card_inside_the_envelope(cuda_dev):
+    from deeplearning4j_tpu_torch.models.transformer import TransformerDecodeAdapter
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    adapter = TransformerDecodeAdapter(_small_lm(cuda_dev))
+    eng = DecodeEngine(adapter, max_slots=3, page_size=8, kv_dtype="int8",
+                       device=cuda_dev).load()
+    rng = np.random.default_rng(25)
+    agree = total = 0
+    try:
+        for n in (3, 12, 30):
+            p = rng.integers(0, SIZE["vocab_size"], n).tolist()
+            r = eng.generate(p, max_new_tokens=10)
+            with torch.inference_mode():
+                ref = eng.program.reencode(eng.params, torch.tensor(
+                    [p + r.tokens[:-1]], device=cuda_dev))[0, n - 1:].argmax(-1).tolist()
+            agree += sum(a == b for a, b in zip(ref, r.tokens))
+            total += len(r.tokens)
+    finally:
+        eng.shutdown()
+    assert agree / total >= 0.80
+    assert isinstance(eng._cache.k_pages, tkv.QuantPages)
 
 
 def test_kernel_library_builds_once(cuda_dev):
@@ -380,6 +534,37 @@ def test_det_attention_rows_are_bitwise_the_same_in_every_launch(cuda_dev):
         want = tkv.det_attention_plain(q[:, :, :rows], k, v, bias)
         assert float((got - want).abs().max()) <= 2e-5
         assert torch.equal(got[:, :, 1:], full[:, :, 1:rows])
+
+
+@pytest.mark.parametrize("case", ["spec_verify", "chunk_at_offset"])
+def test_det_attention_kernel_at_the_spec_and_chunk_shapes(cuda_dev, case):
+    """D1 at the shapes speculative verify and chunked prefill give it (H
+    12, d 64, L 1024, paged K/V): 4 slots x 5 rows at scattered positions
+    (split-key), and 128 rows at positions 256..383 (tiled); within 2e-5
+    of the plain version, and every row bitwise the same row launched
+    alone."""
+    h, d, L, page = 12, 64, 1024, 16
+    if case == "spec_verify":
+        pos = [[p + i for i in range(5)] for p in (15, 300, 700, L - 5)]
+    else:
+        pos = [list(range(256, 384))]
+    B, tq = len(pos), len(pos[0])
+    rng = np.random.default_rng(26)
+    pps = L // page
+    table = torch.from_numpy(1 + rng.permutation(B * pps).reshape(B, pps)).to(cuda_dev)
+    k, v = (tkv.gather_layer(torch.from_numpy(rng.standard_normal(
+        (1, 1 + B * pps, page, h, d), dtype=np.float32)).to(cuda_dev), 0, table).transpose(1, 2)
+        for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((B, h, tq, d), dtype=np.float32)).to(cuda_dev)
+    keys = torch.arange(L, device=cuda_dev)
+    bias = torch.where(keys <= torch.tensor(pos, device=cuda_dev)[..., None], 0.0,
+                       tkv.NEG_INF).float()[:, None]
+    out = tkv.det_attention(q, k, v, bias)
+    want = tkv.det_attention_plain(q, k.contiguous(), v.contiguous(), bias)
+    assert float((out - want).abs().max()) <= 2e-5
+    for r in range(0, tq, 1 if tq <= 5 else 17):
+        alone = tkv.det_attention(q[:, :, r:r + 1], k, v, bias[:, :, r:r + 1])
+        assert torch.equal(alone[:, :, 0], out[:, :, r]), r
 
 
 @pytest.mark.parametrize("fused", ["0", "1"], ids=["per_leaf", "fused"])

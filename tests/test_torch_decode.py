@@ -232,11 +232,18 @@ def test_decode_program_ops_are_row_count_invariant():
                                                bias[..., :12]))
 
 
-def test_alloc_cache_is_f32_only():
+def test_alloc_cache_dtypes():
     c = tkv.alloc_cache(2, 3, 4, 2, 8)
-    assert c.k_pages.shape == (2, 3, 4, 2, 8) and not bool(c.v_pages.any())
-    with pytest.raises(NotImplementedError):
-        tkv.alloc_cache(2, 3, 4, 2, 8, dtype=torch.int8)
+    assert c.k_pages.shape == (2, 3, 4, 2, 8) and c.k_pages.dtype == torch.float32
+    assert not bool(c.v_pages.any())
+    q = tkv.alloc_cache(2, 3, 4, 2, 8, kv_dtype="int8")
+    for pool in q:
+        assert isinstance(pool, tkv.QuantPages)
+        assert pool.q.shape == (2, 3, 4, 2, 8) and pool.q.dtype == torch.int8
+        assert pool.scale.shape == (2, 3, 4) and pool.scale.dtype == torch.float32
+        assert not bool(pool.q.any()) and not bool(pool.scale.any())
+    with pytest.raises(ValueError, match="kv_dtype"):
+        tkv.alloc_cache(2, 3, 4, 2, 8, kv_dtype="fp8")
 
 
 # -- admission queue ------------------------------------------------------------------
