@@ -60,6 +60,32 @@ and the recurrent path's training and streaming:
           requests in flight fail with ``ReplicaCrashError`` and the queued
           ones are served after it.  Each arm prints TTFT and TPOT p50/p99,
           tokens/s and wall per token beside (a)'s;
+  predict the replicated predict ``Engine`` over the same network
+          (``max_batch=4``, 2 replicas on cuda:0, buckets 1, 2, 4, each pair
+          captured as a CUDA graph per replica at ``load()``) answers 16
+          requests of 1-3 rows of float32 token ids [rows, 1024] from 4
+          client threads: every future completes, every request's rows are
+          bitwise the eager forward of the padded bucket it was served in
+          and within 1e-4 in log-probability of ``output()`` on its rows
+          alone, no batch runs unwarmed, the graph count is 6 before and
+          after, and K1 launches 12 per graph replay, by its counter and in a
+          torch.profiler trace of one replay per bucket.  Prints requests/s, e2e p50/p99,
+          and per bucket a replay's and the eager forward's time (CUDA
+          events, one call) and the rows' copy to the host;
+  http    ``UIServer`` on 127.0.0.1 at an ephemeral port with an ``Engine``
+          over the repository's Iris MLP checkpoint and a ``DecodeEngine``
+          over the TransformerLM: POST /predict bitwise the engine's direct
+          ``output``; a NaN row among four concurrent requests answers 422
+          ``poison_input`` alone while the others answer 200, its batch
+          holding at least one of them (so bisection ran); malformed JSON
+          400; POST /generate (greedy, a 32-token prompt) the tokens of a
+          direct ``generate``; GET /healthz 200 with both engines ready; GET
+          /metrics both engines' counters; ``serve --smoke 8`` on the Iris
+          checkpoint exits 0.  Then the Iris MLP with float32 parameters
+          computed in bfloat16 takes 20 steps of its Adam (K4 on) on the card
+          and on the CPU from the same weights: the loss falls, parameters
+          stay float32, losses within two bfloat16 spacings and parameters
+          within 1e-2 of their norm of the CPU's;
   train   ``fit_batch`` 5 times on one fixed [8, 1024] batch with Adam
           (lr 3e-4, per-layer L2 clipping 1.0) and ``DL4J_TPU_FUSED_UPDATE=1``:
           the loss is finite and falls on every step, each step launches
@@ -84,7 +110,11 @@ and the recurrent path's training and streaming:
           through the CLI's recurrent ``generate`` path: K5a launches twice
           for the prompt and twice per token, and every streamed
           distribution equals ``output()`` over the whole sequence within
-          1e-5, through K5a and with the plain loop.
+          1e-5, through K5a and with the plain loop.  The mixed arm: the
+          LSTM(256) char-RNN with float32 parameters computed in bfloat16
+          (integer ids, so K5a/K5b run in bfloat16) takes 5 ``fit_batch``
+          calls on the card and on the CPU from the same weights, with the
+          Iris arm's gates; each arm prints its kernels' launches and dtypes.
           K5a (one launch per layer and sequence) is held to the plain loop
           (evaluated in f32) at the chunk's [64, 50, 256], [64, 100, 512],
           [7, 13, 256], the stream's [1, 1, 256], n % 4 != 0, a mask,
@@ -1019,6 +1049,21 @@ def serve_requests():
     return prompts, kws
 
 
+def traced_kernels(replay, names) -> int:
+    """Kernels on the card whose name holds one of ``names``, counted from
+    a torch.profiler trace of one call of ``replay``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            replay()
+            torch.cuda.synchronize()
+    return sum(any(n in e.name for n in names)
+               for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def traced_replay_d1(graph) -> int:
     """D1 calls in one replay of ``graph`` (a ``StepMultiGraph``), counted
     from a torch.profiler trace of the card: each call runs one
@@ -1026,17 +1071,22 @@ def traced_replay_d1(graph) -> int:
     also its combine).  The replay runs with no slot active, so it writes
     only the scratch page, and it adds to no launch count."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
     with torch.inference_mode():
         graph.inputs["active"].zero_()
         graph.inputs["page_table"].zero_()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    return traced_kernels(graph.graph.replay, ("det_attention_split", "det_attention_tiled"))
+
+
+def traced_replay_k1(graph) -> int:
+    """K1 calls in one replay of ``graph`` (a predict ``ForwardGraph``), on
+    its own stream, counted from a torch.profiler trace of the card (each
+    call runs one ``flash_fwd_kernel``).  It adds to no launch count."""
+    import torch
+
+    def replay():
+        with torch.cuda.stream(graph.stream):
             graph.graph.replay()
-            torch.cuda.synchronize()
-    return sum("det_attention_split" in e.name or "det_attention_tiled" in e.name
-               for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return traced_kernels(replay, ("flash_fwd_kernel",))
 
 
 def serve_run(adapter, prompts, kws, *, crash_after=None, first_alone=False,
@@ -1297,6 +1347,450 @@ def phase_serve(net):
     return {"launches": {"det_attention": total}, "arms": arms}
 
 
+# -- predict phase -------------------------------------------------------------------
+
+PREDICT_BUCKETS = (1, 2, 4)
+PREDICT_REQUESTS, PREDICT_CLIENTS = 16, 4
+
+
+def eager_bucket(net, x, bucket):
+    """The eager forward of ``x`` zero-padded to ``bucket`` rows, on the
+    card (all rows)."""
+    import numpy as np
+    import torch
+    pad = np.zeros((bucket - x.shape[0],) + x.shape[1:], x.dtype)
+    with torch.inference_mode():
+        xp = torch.from_numpy(np.concatenate([x, pad])).to("cuda")
+        return net._apply_layers(net.params, net.state, xp, None, train=False)[0]
+
+
+def phase_predict(net):
+    """The replicated predict ``Engine`` over the full-width TransformerLM
+    (2 replicas on cuda:0, buckets 1, 2, 4, each pair captured as a CUDA
+    graph per replica at ``load()``) answers 16 requests of 1-3 rows of
+    float32 token ids [rows, 1024] from 4 client threads."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.serving import Engine
+
+    t0 = time.perf_counter()
+    eng = Engine(net, max_batch=4, replicas=2, slo_ms=600_000, device="cuda").load(
+        input_shape=(MAX_LEN,))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    try:
+        graphs_before = eng.compile_cache_size()
+        programs = dict(eng._current.programs)
+        rng = np.random.default_rng(SEED + 6)
+        xs = [rng.integers(0, VOCAB, (1 + (5 * i) % 3, MAX_LEN)).astype(np.float32)
+              for i in range(PREDICT_REQUESTS)]
+        futs, outs, errors = [None] * len(xs), [None] * len(xs), []
+
+        def client(k):
+            for i in range(k, len(xs), PREDICT_CLIENTS):
+                futs[i] = eng.output_async(xs[i])
+                try:
+                    outs[i] = futs[i].result(timeout=600)
+                except Exception as e:   # gated below: every future completes
+                    errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+        replays0 = sum(g.replays for g in programs.values())
+        log0 = len(eng.batch_log)
+        att.flash_forward_cuda.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(PREDICT_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        k1 = att.flash_forward_cuda.launches
+        replays = sum(g.replays for g in programs.values()) - replays0
+        snap = eng.metrics_snapshot()
+        graphs_after = eng.compile_cache_size()
+        batches = eng.batch_log[log0:]
+        completed = all(f is not None and f.done() for f in futs)
+
+        # each request's rows against the eager forward of the padded
+        # bucket it was served in (bitwise), and against output() on its
+        # rows alone (1e-4 in log-probability: with 50,304 tokens a
+        # probability is ~2e-5, so an absolute limit on it says little)
+        index = {id(f): i for i, f in enumerate(futs)}
+        bitwise, max_dlogp, served_rows = True, 0.0, 0
+        per_bucket = {}
+        for b in batches:
+            members = [index[r] for r in b["request_ids"]]
+            bucket = b["rows"] + b["padded"]
+            per_bucket[bucket] = per_bucket.get(bucket, 0) + 1
+            x = np.concatenate([xs[i] for i in members])
+            y = eager_bucket(net, x, bucket)
+            ofs = 0
+            for i in members:
+                got = torch.from_numpy(outs[i]).to("cuda")
+                bitwise = bitwise and torch.equal(got, y[ofs:ofs + xs[i].shape[0]])
+                ofs += xs[i].shape[0]
+                alone = net.output(xs[i])
+                max_dlogp = max(max_dlogp, float((got.clamp_min(1e-30).log()
+                                                  - alone.clamp_min(1e-30).log()).abs().max()))
+                served_rows += xs[i].shape[0]
+            del y
+        # K1 in one replay of each bucket's graph, from a trace of the card:
+        # the witness that a replay runs the captured K1 launches
+        traced = {b: traced_replay_k1(programs[(0, b, "float32")])
+                  for b in PREDICT_BUCKETS}
+        # time per bucket, in this call: a graph replay against the eager
+        # forward of the same bucket (both by CUDA events around one call),
+        # and the served rows' copy to the host
+        timing = {}
+        for bucket in PREDICT_BUCKETS:
+            g = programs[(0, bucket, "float32")]
+            x = rng.integers(0, VOCAB, (bucket, MAX_LEN)).astype(np.float32)
+            xd = torch.from_numpy(x).to("cuda")
+            with torch.inference_mode():
+                eager = cuda_ms(lambda: net._apply_layers(net.params, net.state, xd, None,
+                                                          train=False), 3)
+                with torch.cuda.stream(g.stream):
+                    g.input.copy_(xd)
+                    replay = cuda_ms(g.graph.replay, 5)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    g.output.cpu()
+                    copy_ms = (time.perf_counter() - t1) * 1e3
+                    eq = torch.equal(g.output, eager_bucket(net, x, bucket))
+            timing[bucket] = {"replay_ms": replay, "eager_ms": eager,
+                              "host_copy_ms": copy_ms,
+                              "host_copy_bytes": g.output.numel() * 4,
+                              "replay_bitwise_eager": eq}
+        att.flash_forward_cuda.launches = k1     # the timing adds no launch to the gate
+    finally:
+        eng.shutdown()
+        torch.cuda.empty_cache()
+    rec = {"phase": "predict", "engine": {"replicas": 2, "buckets": list(PREDICT_BUCKETS),
+                                          "max_batch": 4, "device": "cuda:0"},
+           "requests": PREDICT_REQUESTS, "clients": PREDICT_CLIENTS,
+           "rows": served_rows, "batches": len(batches), "batches_by_bucket": per_bucket,
+           "load_s": load_s, "graphs_before": graphs_before, "graphs_after": graphs_after,
+           "graph_replays": replays, "launches": {"flash_fwd": k1},
+           "k1_per_replay": k1 / max(replays, 1), "k1_traced_per_replay": traced,
+           "unwarmed_serves": snap["counters"]["unwarmed_serves"],
+           "errors": errors, "all_futures_completed": completed,
+           "bitwise_eager_bucket": bitwise, "max_abs_logprob_diff_vs_output": max_dlogp,
+           "tolerance_logprob": 1e-4, "wall_s": wall, "requests_per_s": PREDICT_REQUESTS / wall,
+           "e2e_p50_ms": snap["e2e_ms"]["p50_ms"], "e2e_p99_ms": snap["e2e_ms"]["p99_ms"],
+           "queue_wait_p50_ms": snap["queue_wait_ms"]["p50_ms"],
+           "per_bucket": timing}
+    emit(rec)
+    want_graphs = len(PREDICT_BUCKETS) * 2
+    ok = (completed and not errors and bitwise and max_dlogp <= 1e-4
+          and rec["unwarmed_serves"] == 0 and graphs_before == graphs_after == want_graphs
+          and replays > 0 and k1 == LAYERS * replays
+          and all(n == LAYERS for n in traced.values())
+          and all(t["replay_bitwise_eager"] for t in timing.values()))
+    if not ok:
+        raise AssertionError("predict phase failed")
+    return rec
+
+
+# -- http phase ----------------------------------------------------------------------
+
+IRIS_ZIP = os.path.join("deeplearning4j_tpu", "models", "weights", "iris_mlp_iris.zip")
+HTTP_PROMPT, HTTP_NEW = 32, 16
+
+
+def http_call(url, payload=None, raw=None):
+    """(status, parsed JSON body) of a GET (no payload) or a POST."""
+    import urllib.error
+    import urllib.request
+    data = raw if raw is not None else (None if payload is None
+                                        else json.dumps(payload).encode())
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def iris_data(rows=150, seed=SEED + 7):
+    """Iris-shaped data from a seed: 3 classes of 4 features around the
+    Iris class means (cm), one-hot labels."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    means = np.array([[5.0, 3.4, 1.5, 0.2], [5.9, 2.8, 4.3, 1.3], [6.6, 3.0, 5.6, 2.0]],
+                     np.float32)
+    y = rng.integers(0, 3, rows)
+    x = (means[y] + 0.35 * rng.standard_normal((rows, 4))).astype(np.float32)
+    return x, np.eye(3, dtype=np.float32)[y]
+
+
+def phase_http(net):
+    """``UIServer`` on 127.0.0.1 at an ephemeral port with a predict
+    ``Engine`` over the repository's Iris MLP checkpoint and a
+    ``DecodeEngine`` over the full-width TransformerLM; then ``serve
+    --smoke 8`` on the Iris checkpoint in a process of its own."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import TransformerDecodeAdapter
+    from deeplearning4j_tpu_torch.ops import kv_cache as kvc
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, Engine
+    from deeplearning4j_tpu_torch.ui import UIServer
+    from deeplearning4j_tpu_torch.utils.serializer import load_model
+
+    iris = load_model(os.path.join(REPO, IRIS_ZIP), device="cuda")
+    eng = Engine(iris, max_batch=4, replicas=2, slo_ms=60_000, max_wait_ms=200.0,
+                 device="cuda").load()
+    dec = DecodeEngine(TransformerDecodeAdapter(net), max_slots=4, page_size=16,
+                       max_len=MAX_LEN, device="cuda").load()
+    server = UIServer(port=0, host="127.0.0.1").attach_engine(eng)
+    server.attach_decode_engine(dec).start()
+    base = f"http://127.0.0.1:{server.port}"
+    gates, codes = {}, {}
+    try:
+        x, _ = iris_data(3)
+        code, r = http_call(base + "/predict", {"inputs": x.tolist()})
+        codes["predict"] = code
+        direct = eng.output(x)
+        gates["predict_bitwise_direct"] = (code == 200 and np.array_equal(
+            np.asarray(r["outputs"], np.float32), direct))
+
+        # one NaN row among four concurrent requests: co-batched, it fails
+        # alone with 422 while the others answer 200
+        rows = [x[0], np.full(4, np.nan, np.float32), x[1], x[2]]
+        got = [None] * 4
+
+        def send(i):
+            got[i] = http_call(base + "/predict",
+                               raw=json.dumps({"inputs": [rows[i].tolist()]}).encode())
+
+        log0 = len(eng.batch_log)
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        codes["poison_batch"] = [g[0] for g in got]
+        poisoned = [b["n_requests"] for b in eng.batch_log[log0:] if b["poison"]]
+        gates["poison_422_alone"] = (codes["poison_batch"] == [200, 422, 200, 200]
+                                     and got[1][1]["error_class"] == "poison_input")
+        # the poison request's own batch held others, so bisection ran
+        gates["poison_co_batched"] = len(poisoned) == 1 and poisoned[0] >= 2
+        gates["co_batched_rows_right"] = all(
+            float(np.abs(np.asarray(got[i][1]["outputs"], np.float32)
+                         - iris.output(rows[i][None]).cpu().numpy()).max()) <= 1e-6
+            for i in (0, 2, 3) if got[i][0] == 200)
+
+        code, r = http_call(base + "/predict", raw=b"{not json")
+        codes["malformed"] = code
+        gates["malformed_400"] = code == 400 and r["error_class"] == "bad_request"
+
+        rng = np.random.default_rng(SEED + 8)
+        prompt = rng.integers(0, VOCAB, HTTP_PROMPT).tolist()
+        kvc.det_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        code, r = http_call(base + "/generate", {"prompt_ids": prompt,
+                                                 "max_tokens": HTTP_NEW})
+        gen_ms = (time.perf_counter() - t0) * 1e3
+        d1 = kvc.det_attention_cuda.launches
+        codes["generate"] = code
+        want = dec.generate(prompt, max_new_tokens=HTTP_NEW)
+        gates["generate_equals_direct"] = (code == 200 and r["tokens"] == want.tokens
+                                           and len(want.tokens) == HTTP_NEW)
+
+        code, h = http_call(base + "/healthz")
+        codes["healthz"] = code
+        gates["healthz_both_ready"] = (code == 200 and h["ready"]
+                                       and h["engines"]["predict"]["ready"]
+                                       and h["engines"]["decode"]["ready"])
+        code, m = http_call(base + "/metrics")
+        codes["metrics"] = code
+        gates["metrics_both_engines"] = (
+            code == 200 and len(m["serving"]) == 2
+            and m["serving"][0]["counters"]["poison_isolated"] == 1
+            and m["serving"][1]["counters"]["tokens_out"] >= HTTP_NEW)
+        predict_snap = eng.metrics_snapshot()
+    finally:
+        server.stop()
+        eng.shutdown()
+        dec.shutdown()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    smoke = subprocess.run([sys.executable, "-m", "deeplearning4j_tpu_torch", "serve",
+                            "--model", os.path.join(REPO, IRIS_ZIP), "--smoke", "8",
+                            "--replicas", "1", "--max-batch", "4"],
+                           cwd=REPO, capture_output=True, text=True, timeout=600)
+    smoke_s = time.perf_counter() - t0
+    smoke_snap = (json.loads(smoke.stdout.strip().splitlines()[-1])
+                  if smoke.returncode == 0 else None)
+    gates["serve_smoke_exit_0"] = (smoke.returncode == 0
+                                   and smoke_snap["counters"]["requests"] == 8
+                                   and smoke_snap["counters"]["unwarmed_serves"] == 0)
+    iris_mixed = iris_mixed_arm(iris)
+    gates.update({f"iris_mixed_{k}": v for k, v in iris_mixed["gates"].items()})
+    rec = {"phase": "http", "codes": codes, "gates": gates,
+           "launches": {"det_attention": d1}, "generate_ms": gen_ms,
+           "poison_batch_requests": poisoned,
+           "predict_counters": {k: predict_snap["counters"][k]
+                                for k in ("requests", "poison_isolated", "unwarmed_serves")},
+           "serve_smoke": {"rc": smoke.returncode, "seconds": smoke_s,
+                           "stderr_tail": smoke.stderr[-400:] if smoke.returncode else ""},
+           "iris_mixed": iris_mixed}
+    emit(rec)
+    bad = [k for k, v in gates.items() if not v]
+    if bad:
+        raise AssertionError(f"http phase failed its gates: {bad}")
+    return rec
+
+
+def iris_mixed_arm(iris):
+    """The Iris MLP with float32 parameters computed in bfloat16: 20 steps
+    of its checkpoint's Adam (lr 5e-3) on Iris-shaped data, K4 on, on the
+    card and on the CPU from the same weights."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import (MultiLayerConfiguration,
+                                                        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.ops import update_kernel as uk
+
+    os.environ[uk.ENV_SWITCH] = "1"
+    d = iris.conf.to_dict()
+    d["compute_dtype"] = "bfloat16"
+    x, y = iris_data()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        n = MultiLayerNetwork(MultiLayerConfiguration.from_dict(d), device=dev)
+        n.params = [{k: v.detach().to(dev) for k, v in p.items()} for p in iris.params]
+        n.state = [{} for _ in iris.params]
+        n.opt_state = n.init_opt_state(n.params)
+        probe = DtypeProbe()
+        uk.fused_update_cuda.launches = 0
+        with probe:
+            losses = [float(n.fit_batch(DataSet(x, y))) for _ in range(20)]
+        runs[dev] = (n, losses, uk.fused_update_cuda.launches, probe.seen)
+    (card, lc, k4, seen), (cpu, lp, _, _) = runs["cuda"], runs["cpu"]
+    rel = max(float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30))
+              for pa, pb in zip(card.params, cpu.params) for a, b in
+              ((pa[k], pb[k]) for k in pa))
+    out_dtype = str(card.output(x[:2]).dtype)
+    gates = {"loss_falls": lc[-1] < lc[0] and all(math.isfinite(v) for v in lc),
+             "params_f32": all(t.dtype == torch.float32 for p in card.params
+                               for t in p.values()),
+             "losses_match_cpu": all(bf16_close(a, b) for a, b in zip(lc, lp)),
+             "params_match_cpu": rel <= MIXED_PARAM_REL_TOL,
+             "k4_ran_f32": k4 == 20 * 3 and seen.get("fused_update") == ["torch.float32"]}
+    return {"losses": lc, "cpu_losses": lp, "param_rel_diff": rel,
+            "param_rel_tolerance": MIXED_PARAM_REL_TOL,
+            "k4_launches": k4, "kernel_dtypes": seen, "output_dtype": out_dtype,
+            "gates": gates}
+
+
+# -- mixed float32-param / bfloat16-compute arms ----------------------------------------
+
+#: card against CPU, same weights and data: a loss within two bfloat16
+#: spacings of its size (the loss is computed from bfloat16 logits), and
+#: every parameter tensor within 1e-2 of its norm (float32 parameters
+#: stepped from gradients of bfloat16 sums taken in another order)
+MIXED_LOSS_REL_TOL, MIXED_PARAM_REL_TOL = 2.0 ** -6, 1e-2
+
+
+def bf16_close(a: float, b: float) -> bool:
+    return abs(a - b) <= MIXED_LOSS_REL_TOL * max(1.0, abs(b))
+
+
+class DtypeProbe:
+    """Inside it, the entry points that launch the kernels a mixed-dtype
+    arm can reach (``lstm_seq_fwd``, ``lstm_cell_bwd``, ``fused_update``,
+    ``flash_forward``: each launches its kernel on CUDA tensors) record the
+    dtype of the first tensor each is given, by kernel name.  The kernels'
+    wrappers, and their launch counts, are not touched."""
+
+    def __enter__(self):
+        import torch
+
+        from deeplearning4j_tpu_torch.ops import attention as att
+        from deeplearning4j_tpu_torch.ops import lstm_kernel as lk
+        from deeplearning4j_tpu_torch.ops import update_kernel as uk
+        self.seen, self._saved = {}, []
+        for mod, attr, name in ((lk, "lstm_seq_fwd", "lstm_seq_fwd"),
+                                (lk, "lstm_cell_bwd", "lstm_cell_bwd"),
+                                (uk, "fused_update", "fused_update"),
+                                (att, "flash_forward", "flash_fwd")):
+            fn = getattr(mod, attr)
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                t = next(x for x in a if isinstance(x, torch.Tensor))
+                if t.is_cuda:
+                    got = self.seen.setdefault(_name, [])
+                    if str(t.dtype) not in got:
+                        got.append(str(t.dtype))
+                return _fn(*a, **kw)
+
+            setattr(mod, attr, wrapped)
+            self._saved.append((mod, attr, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+        return False
+
+
+def rnn_mixed_arm(ds_card, ds_cpu):
+    """Bench config 4's char-RNN (``LSTM(256)`` layers, so K5a/K5b run)
+    with float32 parameters computed in bfloat16: 5 ``fit_batch`` calls on
+    the card and on the CPU from the same weights.  The ids are integers,
+    so the LSTM's carry, and with it its gates, takes the compute dtype
+    (the reference's ``recurrent.py:176``): K5a and K5b run in bfloat16."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.ops import update_kernel as uk
+
+    runs = {}
+    for dev, ds in (("cuda", ds_card), ("cpu", ds_cpu)):
+        net = build_rnn(dev, dtype=("float32", "bfloat16"))
+        counters = (lk.lstm_seq_fwd_cuda, lk.lstm_cell_bwd_cuda, uk.fused_update_cuda)
+        for c in counters:
+            c.launches = 0
+        losses, secs = [], []
+        with DtypeProbe() as probe:
+            for _ in range(5):
+                t0 = time.perf_counter()
+                losses.append(float(net.fit_batch(ds)))    # reading it syncs
+                secs.append(time.perf_counter() - t0)
+        runs[dev] = (net, losses, [c.launches for c in counters], probe.seen, secs)
+    (card, lc, launches, seen, card_s), (cpu, lp, _, _, cpu_s) = runs["cuda"], runs["cpu"]
+    rel = max(float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30))
+              for pa, pb in zip(card.params, cpu.params) for a, b in
+              ((pa[k], pb[k]) for k in pa))
+    chunks = -(-RNN_T // RNN_TBPTT)
+    gates = {"loss_falls": lc[-1] < lc[0] and all(math.isfinite(v) for v in lc),
+             "params_f32": all(t.dtype == torch.float32 for p in card.params
+                               for t in p.values()),
+             "losses_match_cpu": all(bf16_close(a, b) for a, b in zip(lc, lp)),
+             "params_match_cpu": rel <= MIXED_PARAM_REL_TOL,
+             "launches": launches == [5 * 2 * chunks, 5 * 2 * RNN_T, 5 * 3 * chunks],
+             "k5_ran_bf16": (seen.get("lstm_seq_fwd") == ["torch.bfloat16"]
+                             and seen.get("lstm_cell_bwd") == ["torch.bfloat16"])}
+    return {"losses": lc, "cpu_losses": lp, "param_rel_diff": rel,
+            "param_rel_tolerance": MIXED_PARAM_REL_TOL,
+            "loss_rel_tolerance": MIXED_LOSS_REL_TOL,
+            "launches": dict(zip(("lstm_seq_fwd", "lstm_cell_bwd", "fused_update"), launches)),
+            "kernel_dtypes": seen, "fit_batch_s": card_s,
+            "median_fit_batch_ms": sorted(card_s)[2] * 1e3, "cpu_fit_batch_s": cpu_s,
+            "output_dtype": str(card.output(ds_cpu.features[:1, :4]).dtype), "gates": gates}
+
+
 # -- train phase -------------------------------------------------------------------
 
 
@@ -1378,10 +1872,11 @@ def phase_train(net):
 # -- recurrent phase -------------------------------------------------------------------
 
 
-def build_rnn(device, cell: str = "LSTM"):
+def build_rnn(device, cell: str = "LSTM", dtype=None):
     """Bench config 4's char-RNN (``bench.py``: ``TextGenerationLSTM`` at
     vocab 96 with Adam lr 1e-3) with ``cell`` layers, weights drawn from
-    the configuration's seed, so every build starts from the same ones."""
+    the configuration's seed, so every build starts from the same ones;
+    ``dtype`` a (param, compute) pair."""
     from deeplearning4j_tpu_torch.nn import layers as L
     from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
@@ -1392,6 +1887,8 @@ def build_rnn(device, cell: str = "LSTM"):
             .layer(getattr(L, cell)(n_out=RNN_HIDDEN)).layer(getattr(L, cell)(n_out=RNN_HIDDEN))
             .layer(L.RnnOutputLayer(n_out=RNN_VOCAB, activation="softmax", loss="mcxent"))
             .tbptt(RNN_TBPTT).set_input_type(InputType.recurrent(RNN_VOCAB)).build())
+    if dtype is not None:
+        conf.param_dtype, conf.compute_dtype = dtype
     net = MultiLayerNetwork(conf, device=device)
     net.init()
     return net
@@ -1511,6 +2008,8 @@ def phase_recurrent():
     stream_plain_err = float((stream - plain_loop(lambda: served.output(whole))[0]).abs().max())
     greedy = [int(streamed[k][0, -1].argmax()) if k == 0 else int(streamed[k][0].argmax())
               for k in range(64)]
+    # the mixed float32-param / bfloat16-compute arm, card against CPU
+    mixed = rnn_mixed_arm(ds, DataSet(seq[:, :-1], seq[:, 1:]))
     rec = {"phase": "recurrent", "config": {"vocab": RNN_VOCAB, "layers": [RNN_HIDDEN] * 2,
                                             "batch": [RNN_B, RNN_T], "tbptt": RNN_TBPTT,
                                             "updater": "Adam(lr=1e-3)", "clip": 1.0},
@@ -1524,12 +2023,14 @@ def phase_recurrent():
                      "token_ms_p99": gaps[min(len(gaps) - 1, int(0.99 * len(gaps)))],
                      "stream_vs_output_max_abs_diff": stream_err,
                      "stream_vs_plain_loop_output_max_abs_diff": stream_plain_err,
-                     "greedy_is_stream_argmax": greedy == toks}}
+                     "greedy_is_stream_argmax": greedy == toks},
+           "mixed": mixed}
     emit(rec)
     ok = (all(a["launches_ok"] and a["finite_and_falling"] for a in arms_rec.values())
           and arm_gap <= 1e-5 and abs(cpu_losses[0] - cpu_losses[1]) <= 1e-4 and rel <= 1e-4
           and len(toks) == 64 and k5a_serve == 2 + 2 * 64 and stream_err <= 1e-5
-          and stream_plain_err <= 1e-5 and greedy == toks)
+          and stream_plain_err <= 1e-5 and greedy == toks
+          and all(mixed["gates"].values()))
     if not ok:
         raise AssertionError("recurrent phase failed")
     return rec
@@ -1787,6 +2288,8 @@ def main() -> int:
     net = build_model()
     score = phase_score(net)
     serve = phase_serve(net)
+    predict = phase_predict(net)
+    http = phase_http(net)
     train = phase_train(net)
     k4 = fused_update_case(net)
     from deeplearning4j_tpu_torch.ops.compression import GradBucketer
@@ -1812,7 +2315,7 @@ def main() -> int:
     bwd_lib = {"library_ms": bwd["library_ms"]}
     emit({"kernels": [
         entry("flash_fwd", "flash_fwd.cu", "deeplearning4j_tpu/ops/attention.py:138",
-              score["launches"]["flash_fwd"], k1),
+              score["launches"]["flash_fwd"] + predict["launches"]["flash_fwd"], k1),
         entry("flash_bwd_dkdv", "flash_bwd.cu", "deeplearning4j_tpu/ops/attention.py:329",
               train["launches"]["flash_bwd_dkdv"], {**bwd["flash_bwd_dkdv"], **bwd_lib}),
         entry("flash_bwd_dq", "flash_bwd.cu", "deeplearning4j_tpu/ops/attention.py:366",
@@ -1821,7 +2324,7 @@ def main() -> int:
               train["launches"]["fused_update"], k4),
         entry("det_attention", "det_attention.cu",
               "deeplearning4j_tpu/ops/kv_cache.py:362",
-              serve["launches"]["det_attention"], det),
+              serve["launches"]["det_attention"] + http["launches"]["det_attention"], det),
         entry("lstm_seq_fwd", "lstm_cell.cu", "deeplearning4j_tpu/ops/lstm_kernel.py:81",
               k5_launches["lstm_seq_fwd"], k5["lstm_seq_fwd"]),
         entry("lstm_cell_bwd", "lstm_cell.cu", "deeplearning4j_tpu/ops/lstm_kernel.py:87",

@@ -1,17 +1,20 @@
 """Command-line front end of the port (mirrors ``deeplearning4j_tpu/cli.py``:
-the ``predict`` subcommand, and ``generate`` for a TransformerLM checkpoint
-through the decode engine or a recurrent one through ``rnn_time_step``).
-Runs on ``cuda`` unless ``--device cpu`` is given.
+the ``predict`` subcommand, ``generate`` for a TransformerLM checkpoint
+through the decode engine or a recurrent one through ``rnn_time_step``,
+and ``serve``).  Runs on ``cuda`` unless ``--device cpu`` is given.
 
     python -m deeplearning4j_tpu_torch predict --model m.zip --input x.npz --output y.npz
     python -m deeplearning4j_tpu_torch generate --model m.zip --prompt "hello"
         [--prefix-cache] [--speculate DRAFT_CKPT[,k]] [--kv-dtype {float32,int8}]
+    python -m deeplearning4j_tpu_torch serve --model m.zip --port 9000 [--smoke N]
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
+import time
 
 import numpy as np
 
@@ -95,16 +98,21 @@ def cmd_generate(args) -> int:
     return _generate_recurrent(net, args)
 
 
+def _page_size(adapter, page: int) -> int:
+    """``page`` halved until two pages fit in the position table."""
+    pos_rows = int(adapter.params["pos"]["P"].shape[0])
+    while page > 1 and page > pos_rows // 2:
+        page //= 2
+    return page
+
+
 def _generate_decode_engine(net, args) -> int:
     from .models.transformer import TransformerDecodeAdapter
     from .serving import DecodeEngine
 
     adapter = TransformerDecodeAdapter(net)
     vocab = adapter.vocab_size
-    pos_rows = int(adapter.params["pos"]["P"].shape[0])
-    page = args.page_size
-    while page > 1 and page > pos_rows // 2:
-        page //= 2
+    page = _page_size(adapter, args.page_size)
     prompt_ids = [min(ord(c), vocab - 1) for c in args.prompt]
     if not prompt_ids:
         raise SystemExit("--prompt must be non-empty")
@@ -163,10 +171,86 @@ def _generate_recurrent(net, args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """Serve a checkpoint: register it in a ``ModelRegistry`` (alias
+    ``prod``), warm every bucket of a predict ``Engine`` and answer POST
+    /predict, GET /metrics and GET /healthz on the HTTP server; or, with
+    ``--smoke N``, push N synthetic requests through the engine, print its
+    metrics snapshot and exit.  A TransformerLM checkpoint is served
+    decode-only: POST /generate through a ``DecodeEngine`` (the decode
+    flags as ``generate``'s), /predict answers 503.  Runs until
+    interrupted."""
+    from .models.transformer import TransformerBlock, TransformerDecodeAdapter
+    from .serving import DecodeEngine, Engine, ModelRegistry
+    from .ui import UIServer
+
+    reg = ModelRegistry(device=args.device)
+    version = reg.load(args.name, args.model, version=args.version)
+    _, net = reg.resolve(args.name, version)
+    is_lm = any(isinstance(l, TransformerBlock) for l in net.conf.layers)
+    engine = None
+    if not is_lm:
+        reg.set_alias(args.name, "prod", version)
+        engine = Engine.from_registry(
+            reg, args.name, "prod", max_batch=args.max_batch, slo_ms=args.slo_ms,
+            replicas=args.replicas, max_queue=args.queue_cap,
+            admission=args.admission, forward_timeout_s=args.forward_timeout,
+            max_retries=args.max_retries, breaker_threshold=args.breaker_threshold,
+            device=args.device).load()
+        print(f"serving {args.name} v{version} (alias 'prod'): "
+              f"max_batch={args.max_batch}, slo={args.slo_ms}ms, "
+              f"replicas={len(engine._replicas)}, admission={args.admission}, "
+              f"warmed buckets {engine.batcher.buckets}, "
+              f"programs {engine.compile_cache_size()}")
+    if args.smoke:
+        if engine is None:
+            raise SystemExit("serve --smoke needs a predict checkpoint (float "
+                             "feature inputs), not a transformer LM — use POST "
+                             "/generate instead")
+        shape = engine._example_shape
+        rng = np.random.default_rng(0)
+        futs = [engine.output_async(
+            rng.normal(size=(1 + i % 4,) + shape).astype(np.float32))
+            for i in range(args.smoke)]
+        for f in futs:
+            f.result(timeout=120)
+        print(json.dumps(engine.metrics_snapshot()))
+        engine.shutdown()
+        return 0
+    server = UIServer(port=args.port, host=args.host)
+    if engine is not None:
+        server.attach_engine(engine)
+    decode_eng = None
+    if is_lm or args.prefix_cache or args.speculate or args.kv_dtype not in (None, "float32"):
+        if not is_lm:
+            raise SystemExit("--prefix-cache/--speculate/--kv-dtype need a "
+                             "transformer LM checkpoint")
+        adapter = TransformerDecodeAdapter(net)
+        decode_eng = DecodeEngine(adapter, page_size=_page_size(adapter, 16),
+                                  device=args.device, **_decode_opts(args)).load()
+        server.attach_decode_engine(decode_eng)
+        print(f"decode engine on POST /generate: prefix_cache={args.prefix_cache}, "
+              f"speculate={args.speculate}, kv_dtype={args.kv_dtype}")
+    server.start()
+    print(f"listening on http://{args.host}:{server.port} — "
+          "POST /predict, POST /generate, GET /metrics, GET /healthz", flush=True)
+    try:
+        while True:
+            time.sleep(0.2)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+        for e in (engine, decode_eng):
+            if e is not None:
+                e.shutdown()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="deeplearning4j_tpu_torch",
-        description="PyTorch/CUDA port of deeplearning4j_tpu (inference)")
+        description="PyTorch/CUDA port of deeplearning4j_tpu (inference and serving)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     r = sub.add_parser("predict", help="run inference")
@@ -209,6 +293,49 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' to run on the CPU)")
     g.set_defaults(fn=cmd_generate)
+
+    v = sub.add_parser("serve", help="serve a saved model over HTTP")
+    v.add_argument("--model", required=True, help="checkpoint zip to serve")
+    v.add_argument("--name", default="model",
+                   help="registry name for the model (default: 'model')")
+    v.add_argument("--version", type=int, default=None,
+                   help="registry version number (default: auto-assign)")
+    v.add_argument("--max-batch", type=int, default=32,
+                   help="dynamic batcher fused-batch cap")
+    v.add_argument("--slo-ms", type=float, default=50.0,
+                   help="per-request deadline budget; queued requests past "
+                   "it fail fast with DeadlineExceededError")
+    v.add_argument("--replicas", type=int, default=-1,
+                   help="engine replicas (-1 = one per card)")
+    v.add_argument("--admission", choices=("block", "shed"), default="shed",
+                   help="overload policy: block callers or shed with "
+                   "OverloadedError (HTTP 429)")
+    v.add_argument("--queue-cap", type=int, default=256,
+                   help="admission queue bound in requests")
+    v.add_argument("--port", type=int, default=9000)
+    v.add_argument("--host", default="127.0.0.1")
+    v.add_argument("--forward-timeout", type=float, default=None, metavar="SECONDS",
+                   help="declare a replica hung (abandon, retry its batch "
+                   "elsewhere, respawn it) when one forward exceeds this "
+                   "(default: disabled)")
+    v.add_argument("--max-retries", type=int, default=1,
+                   help="per-request retry budget after a replica failure "
+                   "(deadline-aware, different replica; default 1)")
+    v.add_argument("--breaker-threshold", type=int, default=3,
+                   help="consecutive replica failures that trip its circuit "
+                   "breaker (default 3)")
+    v.add_argument("--smoke", type=int, default=0, metavar="N",
+                   help="push N synthetic requests through the engine, print "
+                   "the metrics snapshot, and exit (self-test)")
+    v.add_argument("--prefix-cache", action="store_true",
+                   help="radix prefix cache for POST /generate (transformer LM)")
+    v.add_argument("--speculate", metavar="DRAFT_CKPT[,k]",
+                   help="speculative decoding for POST /generate")
+    v.add_argument("--kv-dtype", choices=("float32", "int8"), default="float32",
+                   help="KV page storage of the decode engine")
+    v.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' to run on the CPU)")
+    v.set_defaults(fn=cmd_serve)
     return p
 
 

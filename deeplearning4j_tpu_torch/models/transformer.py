@@ -34,6 +34,7 @@ from ..nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
 from ..nn.updaters import Adam, GradientNormalization, Updater
 from ..ops.activations import gelu
 from ..ops.attention import flash_mha, merge_heads, mha, split_heads
+from ..ops.dtypes import matmul
 from ..ops.initializers import init_weight
 from ..utils.device import DeviceLike
 
@@ -67,16 +68,16 @@ def kv_rows(p: Dict[str, Tensor], x: Tensor) -> tuple:
     """First half of the block: (q, k, v) projections of LN(x), each
     [..., d_model] (heads not yet split)."""
     u = layer_norm(x, p["ln1_g"], p["ln1_b"])
-    return u @ p["Wq"], u @ p["Wk"], u @ p["Wv"]
+    return matmul(u, p["Wq"]), matmul(u, p["Wk"]), matmul(u, p["Wv"])
 
 
 def finish_rows(p: Dict[str, Tensor], x: Tensor, att: Tensor) -> Tensor:
     """Second half of the block: output projection of the merged heads
     ``att``, residual and FFN."""
-    h = x + (att @ p["Wo"] + p["bo"])
+    h = x + (matmul(att, p["Wo"]) + p["bo"])
     u = layer_norm(h, p["ln2_g"], p["ln2_b"])
-    f = gelu(u @ p["W1"] + p["b1"])
-    return h + f @ p["W2"] + p["b2"]
+    f = gelu(matmul(u, p["W1"]) + p["b1"])
+    return h + matmul(f, p["W2"]) + p["b2"]
 
 
 def block_apply(p: Dict[str, Tensor], h: Tensor, n_heads: int, *,
@@ -189,12 +190,15 @@ class PositionalEmbedding(Layer):
 def TransformerLM(vocab_size: int = 256, n_layers: int = 4, d_model: int = 256,
                   n_heads: int = 8, d_ff: int = 0, max_len: int = 512,
                   seed: int = 42, updater: Union[Updater, dict, None] = None,
-                  kernel: str = "flash",
+                  kernel: str = "flash", dtype=None,
                   device: DeviceLike = None) -> MultiLayerNetwork:
     """Decoder-only LM: EmbeddingSequence + positions + N blocks + head,
     initialized from ``seed`` on ``device`` (default ``cuda``).
     ``updater`` is an updater object or its configuration dict (default
-    ``Adam(lr=3e-4)``); gradients are clipped per layer to L2 norm 1."""
+    ``Adam(lr=3e-4)``); gradients are clipped per layer to L2 norm 1.
+    ``dtype`` is one dtype name or a (param, compute) pair, as in the
+    reference; under ``("float32", "bfloat16")`` the blocks still compute
+    in float32 (the embedding gathers float32 rows from integer ids)."""
     b = (NeuralNetConfiguration.builder()
          .seed(seed)
          .updater(updater or Adam(lr=3e-4))
@@ -206,6 +210,8 @@ def TransformerLM(vocab_size: int = 256, n_layers: int = 4, d_model: int = 256,
                                  kernel=kernel))
     b.layer(RnnOutputLayer(n_out=vocab_size, activation="softmax", loss="mcxent"))
     b.set_input_type(InputType.recurrent(vocab_size, max_len))
+    if dtype is not None:
+        b.dtype(*dtype) if isinstance(dtype, tuple) else b.dtype(dtype)
     net = MultiLayerNetwork(b.build(), device=device)
     net.init()
     return net

@@ -33,6 +33,13 @@ from .updaters import (Adam, GradientNormalization, Updater,
 
 Tensor = torch.Tensor
 
+#: (param, compute) dtype pairs the port runs.  Under float32/bfloat16 the
+#: parameters, their gradients and the updater stay float32; floating
+#: inputs are cast to bfloat16 and each layer casts a weight to its
+#: input's dtype where the reference does (see ``ops.dtypes.matmul``).
+_DTYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                (torch.float32, torch.bfloat16))
+
 
 def _detached(carry):
     """A layer's carry (a tensor, a tuple of tensors, or None) cut from the
@@ -158,11 +165,11 @@ class MultiLayerNetwork:
         if conf.preprocessors:
             raise NotImplementedError("input preprocessors are not ported yet")
         pd, cd = canonical_dtype(conf.param_dtype), canonical_dtype(conf.compute_dtype)
-        if pd != cd or pd not in (torch.float32, torch.bfloat16):
+        if (pd, cd) not in _DTYPE_PAIRS:
             raise NotImplementedError(
                 f"param/compute dtypes {conf.param_dtype}/{conf.compute_dtype}: "
                 "the port runs float32 or bfloat16 with equal param and "
-                "compute dtypes")
+                "compute dtypes, or float32 parameters computed in bfloat16")
         self.params: List[Dict[str, Tensor]] = []
         self.state: List[Dict[str, Tensor]] = []
         self.opt_state: List[Dict] = []

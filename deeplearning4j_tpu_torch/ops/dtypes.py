@@ -53,3 +53,14 @@ def leaf_to_tensor(a: np.ndarray, bf16: bool = False) -> torch.Tensor:
     if bf16:
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     return torch.from_numpy(a.copy())
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` under JAX's dtype promotion.  Where the reference
+    multiplies an activation by a weight it leaves uncast (a bfloat16
+    input against float32 parameters), JAX computes in the promoted dtype
+    (float32), while ``torch.matmul`` raises on mixed dtypes: both
+    operands go to ``torch.promote_types`` of the two.  Operands that
+    already agree are used as they are."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)

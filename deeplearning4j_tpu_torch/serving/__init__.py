@@ -1,9 +1,14 @@
-from .batcher import (ContinuousBatcher, DeadlineExceededError,
-                      OverloadedError, pow2_buckets)
+from .batcher import (ADMISSION_POLICIES, ContinuousBatcher, DeadlineExceededError,
+                      DynamicBatcher, OverloadedError, pow2_buckets)
 from .decode import DecodeEngine, GenerationResult
-from .engine import PoisonInputError, ReplicaCrashError
-from .metrics import DecodeMetrics
+from .engine import (Engine, ModelNotLoadedError, PoisonInputError, ReplicaCrashError,
+                     ReplicaHungError, ServingUnavailableError)
+from .metrics import DecodeMetrics, LatencyHistogram, ServingMetrics
+from .registry import ModelRegistry
 
-__all__ = ["ContinuousBatcher", "DeadlineExceededError", "OverloadedError",
-           "pow2_buckets", "DecodeEngine", "GenerationResult",
-           "PoisonInputError", "ReplicaCrashError", "DecodeMetrics"]
+__all__ = ["ADMISSION_POLICIES", "ContinuousBatcher", "DeadlineExceededError",
+           "DecodeEngine", "DecodeMetrics", "DynamicBatcher", "Engine",
+           "GenerationResult", "LatencyHistogram", "ModelNotLoadedError",
+           "ModelRegistry", "OverloadedError", "PoisonInputError",
+           "ReplicaCrashError", "ReplicaHungError", "ServingMetrics",
+           "ServingUnavailableError", "pow2_buckets"]

@@ -1,6 +1,13 @@
-"""The fused multi-step decode (``DecodeProgram.step_multi``) as one CUDA
-graph per engine (no reference counterpart: XLA compiles ``step_multi``
-into one executable, and a captured graph is its form on the card).
+"""CUDA graphs of the serving engines (no reference counterpart: XLA
+compiles each program into one executable ahead of time, and a captured
+graph is its form on the card).
+
+``ForwardGraph`` is the predict engine's forward for one (bucket, input
+dtype) pair of one replica; ``StepMultiGraph`` the decode engine's fused
+multi-step decode.
+
+The fused multi-step decode (``DecodeProgram.step_multi``) as one CUDA
+graph per engine.
 
 A decode step launches about 1,300 small kernels, and the host's
 enqueueing of them, not the card, sets the time per token.  The graph
@@ -23,12 +30,90 @@ count (and the capture itself, which launches nothing, adds none).
 
 from __future__ import annotations
 
-from typing import Dict
+import threading
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
-from ..ops import kv_cache
+from ..ops import attention, kv_cache, lstm_kernel
+
+#: the forward-path kernels' launch counters, by name
+FORWARD_COUNTERS = {"flash_fwd": attention.flash_forward_cuda,
+                    "lstm_seq_fwd": lstm_kernel.lstm_seq_fwd_cuda,
+                    "det_attention": kv_cache.det_attention_cuda}
+
+# replicas replay (and a swap captures) on several threads: the counters'
+# read-modify-writes of a capture's measure and of a replay's add hold it
+_COUNT_LOCK = threading.Lock()
+
+
+class ForwardGraph:
+    """``fwd(x)`` for an input of ``shape`` and ``dtype`` on ``device``,
+    captured at construction on a stream of its own, with a static input
+    buffer and the captured output buffer.  Each replica of the predict
+    engine holds its own graphs, so no two replicas share a buffer.
+
+    ``fwd`` reads everything else (the parameters) at the addresses it
+    had at capture.  The capture itself launches nothing: the forward
+    kernels' counters (``FORWARD_COUNTERS``) are taken back after it and
+    advanced by the captured counts at every replay.  A capture or replay
+    that fails raises; nothing falls back to the eager forward."""
+
+    def __init__(self, fwd: Callable[[torch.Tensor], torch.Tensor], shape,
+                 dtype: torch.dtype, device: torch.device):
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
+        self.replays = 0
+        self.stream = torch.cuda.Stream(device)
+        with torch.inference_mode():
+            self.input = torch.zeros(tuple(shape), dtype=dtype, device=device)
+            # warm up on the graph's stream: kernel libraries load and
+            # cuBLAS picks its kernels before capture
+            self.stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(self.stream):
+                for _ in range(2):
+                    fwd(self.input)
+            self.stream.synchronize()
+            with _COUNT_LOCK:
+                before = {k: c.launches for k, c in FORWARD_COUNTERS.items()}
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph, stream=self.stream,
+                                      capture_error_mode="thread_local"):
+                    self.output = fwd(self.input)
+                self.launches = {k: c.launches - before[k]
+                                 for k, c in FORWARD_COUNTERS.items()}
+                for k, c in FORWARD_COUNTERS.items():
+                    c.launches = before[k]
+
+    def __call__(self, x: np.ndarray, rows: int) -> Tuple[np.ndarray, bool]:
+        """Copy ``x`` into the static input, replay, check the first
+        ``rows`` output rows for finiteness on the device and copy them to
+        the host → (rows [rows, ...] as numpy, finite).  The output buffer
+        is overwritten by the next replay; the rows returned are a copy."""
+        with torch.inference_mode(), torch.cuda.stream(self.stream):
+            self.input.copy_(torch.from_numpy(np.ascontiguousarray(x)))
+            self.graph.replay()
+            with _COUNT_LOCK:
+                self.replays += 1
+                for k, n in self.launches.items():
+                    FORWARD_COUNTERS[k].launches += n
+            return rows_to_host(self.output, rows)
+
+    def release(self) -> None:
+        """Free the graph and its private memory pool."""
+        self.graph = None
+        self.output = None
+
+
+def rows_to_host(y: torch.Tensor, rows: int) -> Tuple[np.ndarray, bool]:
+    """(the first ``rows`` rows of ``y`` on the host, whether they are all
+    finite): the check runs where ``y`` lives, before the copy; bfloat16
+    rows widen to float32, which numpy can hold."""
+    y = y[:rows]
+    finite = bool(torch.isfinite(y).all())
+    y = y.float() if y.dtype == torch.bfloat16 else y
+    return y.cpu().numpy(), finite
 
 #: the graph's inputs in ``step_multi``'s argument order, with their dtype
 INPUTS = (("page_table", torch.int64), ("tokens", torch.int64),

@@ -96,6 +96,7 @@ class GenerationResult:
     tokens: List[int]
     n_prompt: int
     finish_reason: str
+    model_tag: str
     ttft_ms: float
     tpot_ms: Optional[float]
     logits: Optional[np.ndarray] = None
@@ -264,7 +265,7 @@ class DecodeEngine:
                  prefix_cache: bool = False, draft_model=None,
                  speculate_k: int = 4, kv_dtype: Optional[str] = None,
                  decode_horizon: int = 1, prefill_chunk: Optional[int] = None,
-                 device: DeviceLike = None):
+                 tag: str = "v0", device: DeviceLike = None):
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         if decode_horizon < 1:
@@ -352,6 +353,7 @@ class DecodeEngine:
             raise ValueError(f"no prompt bucket <= max_len {prog.max_len}: {buckets}")
         self.max_prompt = min(self.prompt_buckets[-1], prog.max_len - 1)
         self.params = _to_device(getattr(model, "params", model), self.device)
+        self._serve_tag = tag
         self._slots: List[Optional[_Slot]] = [None] * self.max_slots
         self._page_table = np.zeros((self.max_slots, prog.pages_per_slot), np.int64)
         self._free_pages = deque(range(1, self.total_pages))
@@ -1037,7 +1039,7 @@ class DecodeEngine:
             self.metrics.tpot.record(tpot)
         _set_safe(s.req.future, GenerationResult(
             tokens=list(s.tokens), n_prompt=s.n_prompt, finish_reason=reason,
-            ttft_ms=(s.t_first - s.req.t_submit) * 1e3,
+            model_tag=self._serve_tag, ttft_ms=(s.t_first - s.req.t_submit) * 1e3,
             tpot_ms=tpot,
             logits=np.stack(s.logits) if s.logits else None))
 
@@ -1087,8 +1089,14 @@ class DecodeEngine:
         self.metrics.set_gauge("pages_in_use",
                                self.total_pages - 1 - len(self._free_pages))
 
+    @property
+    def current_tag(self) -> str:
+        with self._lock:
+            return self._serve_tag
+
     def metrics_snapshot(self) -> dict:
         snap = self.metrics.snapshot()
+        snap["model"] = self.current_tag
         snap["queue_depth"] = self.batcher.qsize()
         snap["prompt_buckets"] = list(self.prompt_buckets)
         snap["max_slots"] = self.max_slots
@@ -1101,6 +1109,21 @@ class DecodeEngine:
         snap["prefill_chunk"] = self.prefill_chunk
         snap["device"] = str(self.device)
         return snap
+
+    def health_snapshot(self) -> dict:
+        """Readiness: loaded, not shut down, and the decode loop alive."""
+        with self._lock:
+            t = self._thread
+            ready = (self._loaded and not self._shutdown
+                     and t is not None and t.is_alive())
+        return {"status": "ready" if ready else "unready", "ready": ready,
+                "kind": "decode", "model": self.current_tag}
+
+    def begin_drain(self) -> None:
+        """Stop admission (new submissions shed: ``OverloadedError``, HTTP
+        429) while queued and in-flight generations complete."""
+        self.batcher.begin_drain()
+        self.metrics.inc("drains")
 
     def shutdown(self) -> None:
         """Idempotent; every queued and in-flight future resolves."""

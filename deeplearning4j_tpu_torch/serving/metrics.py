@@ -1,10 +1,12 @@
-"""Decode-engine metrics (mirrors ``DecodeMetrics`` of
-``deeplearning4j_tpu/serving/metrics.py``; a subset, self-contained).
+"""Serving metrics (mirrors ``ServingMetrics`` and ``DecodeMetrics`` of
+``deeplearning4j_tpu/serving/metrics.py``; self-contained, without the
+reference's process-wide registry, which comes with ``obs/``).
 
-TTFT and time-per-output-token are the first-class latencies; the
-histograms keep their samples (bounded), so percentiles are exact
-rather than bucket-interpolated.  Counters and the pool gauges share
-one lock.
+The predict engine's latencies are queue wait, device time and
+end-to-end; the decode engine's are TTFT and time-per-output-token.  The
+histograms keep their samples (bounded), so percentiles are exact rather
+than bucket-interpolated.  Counters and gauges share one lock per
+metric set; a counter no key list names appears when first incremented.
 """
 
 from __future__ import annotations
@@ -29,6 +31,17 @@ _DECODE_COUNTER_KEYS = (
     "spec_steps", "spec_proposed", "spec_accepted", "spec_committed",
     "fused_dispatches", "tokens_per_dispatch",
     "chunked_prefills", "prefill_chunks",
+)
+
+
+# every counter a fresh predict engine reports, at zero: batching and
+# admission, then resilience, then warm-up
+_COUNTER_KEYS = (
+    "requests", "rows", "batches", "padded_rows",
+    "shed", "deadline_missed", "errors", "swaps", "unwarmed_serves",
+    "replica_crashes", "replica_hangs", "replica_respawns",
+    "respawn_failures", "retries", "poison_isolated", "circuit_opens",
+    "warmup_seconds_total",
 )
 
 
@@ -106,4 +119,54 @@ class DecodeMetrics:
             "ttft_ms": self.ttft.snapshot(),
             "tpot_ms": self.tpot.snapshot(),
             "decode_step_ms": self.step_time.snapshot(),
+        }
+
+
+class ServingMetrics:
+    """Per-predict-engine metric set: queue-wait, device-time and
+    end-to-end latency histograms, the batching/admission/resilience
+    counters, and the largest batch seen.  Batch occupancy,
+    ``rows / (rows + padded_rows)``, is the padding waste."""
+
+    def __init__(self):
+        self.queue_wait = LatencyHistogram()
+        self.device_time = LatencyHistogram()
+        self.e2e = LatencyHistogram()
+        self._lock = threading.Lock()
+        self._counters: Dict[str, float] = {k: 0 for k in _COUNTER_KEYS}
+        self._batch_rows_max = 0
+        self._t0 = time.monotonic()
+
+    def inc(self, key: str, n: float = 1) -> None:
+        with self._lock:
+            self._counters[key] = self._counters.get(key, 0) + n
+
+    def record_batch(self, n_requests: int, rows: int, padded_rows: int,
+                     device_ms: float) -> None:
+        with self._lock:
+            c = self._counters
+            c["batches"] += 1
+            c["requests"] += n_requests
+            c["rows"] += rows
+            c["padded_rows"] += padded_rows
+            self._batch_rows_max = max(self._batch_rows_max, rows)
+        self.device_time.record(device_ms)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            c = {k: int(v) if float(v).is_integer() else v
+                 for k, v in self._counters.items()}
+            rows_max = self._batch_rows_max
+        elapsed = time.monotonic() - self._t0
+        total = c["rows"] + c["padded_rows"]
+        return {
+            "counters": c,
+            "max_batch_rows": rows_max,
+            "batch_occupancy": round(c["rows"] / total, 4) if total else None,
+            "requests_per_sec": (round(c["requests"] / elapsed, 2)
+                                 if elapsed > 0 else None),
+            "uptime_sec": round(elapsed, 3),
+            "queue_wait_ms": self.queue_wait.snapshot(),
+            "device_time_ms": self.device_time.snapshot(),
+            "e2e_ms": self.e2e.snapshot(),
         }

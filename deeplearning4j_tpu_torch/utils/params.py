@@ -14,12 +14,16 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..ops.dtypes import leaf_to_tensor
 from .device import DeviceLike, resolve_device
 
 
 def params_from_numpy(tree: Any, device: DeviceLike = None, dtype=None) -> Any:
     """A (nested) list/dict tree of arrays → the same tree of tensors on
-    ``device`` (default ``cuda``), optionally cast to ``dtype``."""
+    ``device`` (default ``cuda``), optionally cast to ``dtype``.  A
+    bfloat16 array (numpy's ``ml_dtypes`` extension type, as ``np.asarray``
+    of a JAX bfloat16 leaf gives) becomes a bfloat16 tensor of the same
+    bits."""
     dev = resolve_device(device)
 
     def conv(x):
@@ -27,7 +31,9 @@ def params_from_numpy(tree: Any, device: DeviceLike = None, dtype=None) -> Any:
             return {k: conv(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return type(x)(conv(v) for v in x)
-        t = torch.from_numpy(np.array(x, copy=True))
+        a = np.asarray(x)
+        t = (leaf_to_tensor(a.view(np.uint16), bf16=True) if a.dtype.name == "bfloat16"
+             else torch.from_numpy(np.array(a, copy=True)))
         return t.to(device=dev, dtype=dtype or t.dtype)
 
     return conv(tree)

@@ -2,7 +2,7 @@
 """Where the device time goes on the PyTorch/CUDA port's main path (one GPU).
 
     python3 scripts/torch_step_breakdown.py [--trace-dir DIR] [--decode-rows 64,128]
-                                            [--rnn-only]
+                                            [--rnn-only | --predict-only]
 
 Builds the full-width TransformerLM that ``chip_smoke.py`` drives (vocab
 50304, 12 layers, d_model 768, 12 heads, f32, random weights from the
@@ -10,6 +10,13 @@ same numpy seed), then its char-RNN, and traces these pieces of work with
 ``torch.profiler``:
 
   score    one ``MultiLayerNetwork.output`` on [4, 1024] tokens (kernel K1)
+  predict_eager@B, predict_graph@B, predict_served@B  the predict
+           engine's forward of one bucket of B = 1, 2, 4 rows of float32
+           token ids [B, 1024]: eager (``_apply_layers``), as one replay of
+           its CUDA graph (``serving.cuda_graphs.ForwardGraph``), and as a
+           replica serves a batch: the input copied in, the replay, the
+           finiteness check and the rows [B, 1024, 50304] copied to the
+           host (kernel K1)
   prefill  one decode prefill of a 512-token prompt (bucket 512, L 1024;
            kernel D1)
   step     8 decode steps over 4 active slots near position 300, each
@@ -156,6 +163,32 @@ def measure(name: str, fn, trace_dir, warm: int = 2, repeats: int = 3, report: b
     return rec
 
 
+def predict_rows(net, rng, trace_dir) -> None:
+    """The predict_* rows at the engine's buckets 1, 2 and 4."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.serving.cuda_graphs import ForwardGraph
+
+    dev = torch.device("cuda")
+
+    def fwd(x):
+        return net._apply_layers(net.params, net.state, x, None, train=False)[0]
+
+    for b in (1, 2, 4):
+        x = rng.integers(0, cs.VOCAB, (b, cs.MAX_LEN)).astype(np.float32)
+        xd = torch.from_numpy(x).to(dev)
+        with torch.inference_mode():
+            measure(f"predict_eager@{b}", lambda: fwd(xd), trace_dir)
+            graph = ForwardGraph(fwd, x.shape, torch.float32, dev)
+            measure(f"predict_graph@{b}", lambda: graph.graph.replay(), trace_dir)
+            measure(f"predict_served@{b}", lambda: graph(x, b), trace_dir)
+        graph.release()
+        del graph
+        torch.cuda.empty_cache()
+
+
 def rnn_rows(rng, trace_dir) -> None:
     """The rnn_train, rnn_train_plain_loop and rnn_stream rows."""
     import torch
@@ -193,6 +226,8 @@ def main() -> int:
                     help="also write one Chrome trace per phase here")
     ap.add_argument("--rnn-only", action="store_true",
                     help="only the char-RNN rows (rnn_train, rnn_train_plain_loop, rnn_stream)")
+    ap.add_argument("--predict-only", action="store_true",
+                    help="only the score row and the predict engine's rows")
     ap.add_argument("--decode-rows", default="64",
                     help="comma-separated chunk sizes of the decode program's "
                          "per-position ops to measure prefill and step at")
@@ -221,6 +256,9 @@ def main() -> int:
     rng = np.random.default_rng(cs.SEED + 3)
     tokens = rng.integers(0, cs.VOCAB, (4, cs.MAX_LEN))
     measure("score", lambda: net.output(tokens), args.trace_dir)
+    predict_rows(net, rng, args.trace_dir)
+    if args.predict_only:
+        return 0
 
     adapter = TransformerDecodeAdapter(net)
     prog = adapter.decode_program(page_size=16, max_len=cs.MAX_LEN)

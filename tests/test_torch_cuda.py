@@ -31,7 +31,13 @@ the CPU 1e-5; the fused decode horizon replayed as a CUDA graph bitwise
 the eager ``step_multi`` on the live slots' rows, with device memory flat
 over 100 replays, and the decode engine's fused, chunked, prefix-cache and
 temperature-0 speculative paths bitwise its plain path (int8 pages: greedy
-tokens within the 80% envelope of the f32 re-encode's argmax).
+tokens within the 80% envelope of the f32 re-encode's argmax); the
+predict engine's graph replays bitwise the eager forward of the same
+padded bucket and within 1e-5 of ``output()`` on the rows alone, also
+under concurrent load and while another replica's graphs are captured
+afresh, and a request of another per-example shape served eagerly,
+never through a graph, within 1e-5 of ``output()``; a float32-param / bfloat16-compute char-RNN's losses on the card
+within 2^-6 of the CPU's (bfloat16 sums in another order).
 """
 
 import importlib.util
@@ -1029,3 +1035,194 @@ def test_threshold_encode_step_is_deterministic(cuda_dev):
                                 for _ in range(49))]
     assert all(same)
     assert torch.equal(first, tcomp.threshold_encode_buckets_plain(g, cs.DP_BUCKET_SIZES, ks, 1e-3)[0])
+
+
+# -- the predict engine's CUDA graphs and mixed dtypes on the card ----------------------------
+
+
+def _eager_bucket(net, x, bucket):
+    """The eager forward of ``x`` zero-padded to ``bucket`` rows, the
+    rows of ``x`` on the host."""
+    pad = np.zeros((bucket - x.shape[0],) + x.shape[1:], x.dtype)
+    xp = torch.from_numpy(np.concatenate([x, pad])).to(net.device)
+    with torch.inference_mode():
+        y = net._apply_layers(net.params, net.state, xp, None, train=False)[0]
+    return y[:x.shape[0]].cpu().numpy()
+
+
+def _engine_lm(cuda_dev, replicas=2):
+    from deeplearning4j_tpu_torch.serving import Engine
+    net = _small_lm(cuda_dev)
+    eng = Engine(net, max_batch=4, replicas=replicas, slo_ms=60_000,
+                 device=cuda_dev).load(input_shape=(SIZE["max_len"],))
+    return net, eng
+
+
+def test_engine_graph_replay_is_bitwise_eager_at_each_bucket(cuda_dev):
+    """Every (bucket, replica) graph replays bitwise the eager forward of
+    the same padded bucket, within 1e-5 of ``output()`` on the rows
+    alone; K1 launches n_layers per replay; nothing is captured or run
+    unwarmed while serving."""
+    net, eng = _engine_lm(cuda_dev)
+    try:
+        assert eng.compile_cache_size() == 3 * 2
+        rng = np.random.default_rng(30)
+        for rows, bucket in ((1, 1), (2, 2), (3, 4), (4, 4)):
+            x = rng.integers(0, SIZE["vocab_size"], (rows, SIZE["max_len"])).astype(np.float32)
+            for idx in range(2):
+                before = tatt.flash_forward_cuda.launches
+                g = eng._current.programs[(idx, bucket, "float32")]
+                out, finite = g(np.concatenate(
+                    [x, np.zeros((bucket - rows, SIZE["max_len"]), np.float32)]), rows)
+                assert finite and tatt.flash_forward_cuda.launches - before == SIZE["n_layers"]
+                np.testing.assert_array_equal(out, _eager_bucket(net, x, bucket))
+            served = eng.output(x)
+            np.testing.assert_array_equal(served, _eager_bucket(net, x, bucket))
+            assert float(np.abs(served - net.output(x).cpu().numpy()).max()) <= 1e-5
+        assert eng.compile_cache_size() == 3 * 2
+        assert eng.metrics_snapshot()["counters"]["unwarmed_serves"] == 0
+    finally:
+        eng.shutdown()
+
+
+def test_engine_replicas_keep_their_own_buffers_under_concurrent_load(cuda_dev):
+    import threading
+
+    net, eng = _engine_lm(cuda_dev)
+    try:
+        ptrs = {g.input.data_ptr() for g in eng._current.programs.values()}
+        assert len(ptrs) == 6                      # no two graphs share an input
+        rng = np.random.default_rng(31)
+        xs = [rng.integers(0, SIZE["vocab_size"], (1 + i % 3, SIZE["max_len"]))
+              .astype(np.float32) for i in range(40)]
+        outs = [None] * len(xs)
+
+        def client(k):
+            for i in range(k, len(xs), 4):
+                outs[i] = eng.output(xs[i])
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        for x, out in zip(xs, outs):
+            assert float(np.abs(out - net.output(x).cpu().numpy()).max()) <= 1e-5
+        assert all(r.processed > 0 for r in eng._replicas)
+        assert eng.compile_cache_size() == 6
+        assert eng.metrics_snapshot()["counters"]["unwarmed_serves"] == 0
+    finally:
+        eng.shutdown()
+
+
+def test_engine_rewarm_captures_while_another_replica_serves(cuda_dev):
+    """Replica 1's graphs are captured afresh (thread-local capture mode)
+    while traffic flows; every result stays right and the program count
+    does not change."""
+    import threading
+
+    net, eng = _engine_lm(cuda_dev)
+    try:
+        old = {k: g for k, g in eng._current.programs.items() if k[0] == 1}
+        rng = np.random.default_rng(32)
+        xs = [rng.integers(0, SIZE["vocab_size"], (1 + i % 3, SIZE["max_len"]))
+              .astype(np.float32) for i in range(24)]
+        outs, stop = [], threading.Event()
+
+        def traffic():
+            i = 0
+            while not stop.is_set():
+                x = xs[i % len(xs)]
+                outs.append((x, eng.output(x)))
+                i += 1
+
+        t = threading.Thread(target=traffic)
+        t.start()
+        for _ in range(3):
+            eng._rewarm_replica(1)
+        stop.set()
+        t.join(timeout=300)
+        new = {k: g for k, g in eng._current.programs.items() if k[0] == 1}
+        assert set(new) == set(old) and all(new[k] is not old[k] for k in old)
+        assert eng.compile_cache_size() == 6 and len(outs) > 0
+        for x, out in outs:
+            assert float(np.abs(out - net.output(x).cpu().numpy()).max()) <= 1e-5
+    finally:
+        eng.shutdown()
+
+
+def test_engine_other_feature_shape_never_replays_a_graph(cuda_dev):
+    """A request whose per-example shape is not the warmed one runs
+    eagerly, never broadcast into a graph's input: an Iris [2, 1] fails
+    (no 200 on /predict), and a TransformerLM row of 32 ids, warmed at
+    64, is ``output()``'s within 1e-5, counted as unwarmed."""
+    import json
+    import os
+    import urllib.error
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.serving import Engine
+    from deeplearning4j_tpu_torch.ui import UIServer
+    from deeplearning4j_tpu_torch.utils.serializer import load_model
+
+    iris = load_model(os.path.join(os.path.dirname(__file__), "..", "deeplearning4j_tpu",
+                                   "models", "weights", "iris_mlp_iris.zip"), device=cuda_dev)
+    eng = Engine(iris, max_batch=4, replicas=2, slo_ms=60_000, device=cuda_dev).load()
+    server = UIServer(port=0, host="127.0.0.1").attach_engine(eng).start()
+    try:
+        with pytest.raises(Exception):
+            eng.output(np.ones((2, 1), np.float32))
+        req = urllib.request.Request(f"http://127.0.0.1:{server.port}/predict",
+                                     data=json.dumps({"inputs": [[1.0], [2.0]]}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                code = r.status
+        except urllib.error.HTTPError as e:
+            code = e.code
+        assert code != 200
+    finally:
+        server.stop()
+        eng.shutdown()
+
+    net, eng = _engine_lm(cuda_dev, replicas=1)
+    try:
+        x = np.random.default_rng(33).integers(0, SIZE["vocab_size"], (2, 32)).astype(np.float32)
+        replays = sum(g.replays for g in eng._current.programs.values())
+        out = eng.output(x)
+        assert out.shape == (2, 32, SIZE["vocab_size"])
+        assert float(np.abs(out - net.output(x).cpu().numpy()).max()) <= 1e-5
+        assert sum(g.replays for g in eng._current.programs.values()) == replays
+        assert eng.metrics_snapshot()["counters"]["unwarmed_serves"] == 1
+    finally:
+        eng.shutdown()
+
+
+def test_mixed_dtype_char_rnn_on_card_matches_cpu(cuda_dev):
+    """float32 parameters computed in bfloat16: the index-input LSTM runs
+    K5a/K5b in bfloat16 on the card; three TBPTT ``fit_batch`` calls
+    agree with the CPU within 2^-6 in the loss and keep float32
+    parameters."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerConfiguration, MultiLayerNetwork
+
+    base = _small_rnn("cpu")
+    d = base.conf.to_dict()
+    d["compute_dtype"] = "bfloat16"
+    nets = []
+    for dev in ("cpu", cuda_dev):
+        n = MultiLayerNetwork(MultiLayerConfiguration.from_dict(d), device=dev)
+        n.params = [{k: v.to(dev) for k, v in p.items()} for p in base.params]
+        n.state = [{} for _ in base.params]
+        n.opt_state = n.init_opt_state(n.params)
+        nets.append(n)
+    x = np.random.default_rng(33).integers(0, 20, (4, 21)).astype(np.int32)
+    ds = DataSet(x[:, :-1], x[:, 1:])
+    before = tlk.lstm_seq_fwd_cuda.launches
+    for _ in range(3):
+        lc, lg = (float(n.fit_batch(ds)) for n in nets)
+        assert abs(lc - lg) <= 2.0 ** -6
+    assert tlk.lstm_seq_fwd_cuda.launches - before == 3 * 2 * 2
+    assert all(t.dtype == torch.float32 for p in nets[1].params for t in p.values())
+    y = nets[1].output(x)
+    assert y.dtype == torch.bfloat16
