@@ -91,7 +91,13 @@ and the recurrent path's training and streaming:
           the loss is finite and falls on every step, each step launches
           K1 12, K2 12, K3 12 and K4 15 times, and one step's loss and
           per-layer clipped gradients agree with the port on the CPU with
-          the same weights at a cut ([1, 128] tokens);
+          the same weights at a cut ([1, 128] tokens).  Then
+          ``fit_batches(2)`` on two [8, 1024] batches, captured as one CUDA
+          graph of both steps, against 2 ``fit_batch`` calls from the same
+          parameters, Adam moments and iteration: losses and parameters
+          bitwise, the graph count 1 after a second call, and in a
+          torch.profiler trace of one replay K1, K2 and K3 24 times and K4
+          30 times; prints ms per step eager and replayed and peak memory;
   recurrent  the char-RNN that bench config 4 trains, at its full width
           (vocab 96, 2 x 256 units, softmax/mcxent head, Adam lr 1e-3,
           elementwise clipping 1.0, TBPTT 50, one fixed [64, 100] batch of
@@ -126,6 +132,40 @@ and the recurrent path's training and streaming:
           the plain cell (2e-6) at the old cell shapes; K5b against its
           plain version at [64, 256], [64, 512], [7, 256], [1, 256],
           [64, 255], [3, 3] and [4096, 256], in f32 and bf16.
+  mlp     bench config 1 at full width: Dense 512 relu → Dense 256 relu →
+          OutputLayer 10 softmax mcxent on 784 inputs, Nesterovs(0.1, 0.9),
+          batch 512, on [4096, 784] MNIST-shaped data from a numpy seed
+          (the reference's synthetic MNIST surrogate).  (a) the CLI's
+          ``train`` (one epoch, to a zip), ``evaluate`` and ``summary``, each
+          its own process: every command exits 0, the trained zip's loss
+          is below the fresh network's, and its output on 512 rows is
+          within 1e-5 of the same training run in this process.  (b)
+          ``fit_batches(8)`` as one CUDA graph against 8 ``fit_batch`` calls
+          from the same start: losses, parameters and momenta bitwise, one
+          graph after a second call; prints ms per step and images/s eager
+          and replayed (eager, graph, graph, eager), and each one's device
+          busy time, idle share and kernels per step from a trace.  (c) the
+          nan guard, budget 2, on a batch holding one NaN: each skipped
+          step leaves parameters and momenta bitwise, the third bad step
+          raises ``DivergenceError``, a good step resets the count.  (d)
+          dropout 0.5 on both hidden layers and DropConnect(0.9) (on the
+          output layer, where the reference's training leaves it inert, and
+          on the second hidden layer): 20 steps eagerly and 20 as
+          fit_batches(4) replays, each twice from one seed: losses fall,
+          repeat bitwise, and the kept share of the first layer's input in
+          an eager step is within 0.01 of 0.5.  (e) float64 on the card
+          against the port on the CPU, 5 steps: losses and the first
+          step's gradients within 1e-10, parameters within one float32
+          spacing (the updaters compute in float32, as the reference's do);
+  attention  ``EmbeddingSequence(50304, 768)`` → ``SelfAttention(12 heads,
+          causal)`` → ``LayerNorm`` → ``RnnOutputLayer`` on [4, 1024] ids with
+          a 25% key mask: 2 ``fit_batch`` steps and an ``output`` launch K1 3
+          times and K2/K3 twice, with the mask; the attention layer's rows
+          where the mask is 0 are exactly zero; the same 2 steps at a cut
+          ([2, 256]) on the card and on the CPU from the same weights agree
+          within 1e-4 (losses, outputs, parameters);
+          ``LearnedSelfAttention(n_queries=3)`` forward on [4, 1024, 768]
+          through K1 (3 queries against 1024 keys) within 2e-5 of ``mha``.
   compressed  data-parallel training of the TransformerLM through
           ``parallel.ShardedTrainer`` over ``torch.distributed``: two rank
           processes on cuda:0 (gloo; mesh dcn=2, data=1), each taking
@@ -1866,6 +1906,493 @@ def phase_train(net):
     if not (finite and falling and per_step == want and abs(l_gpu - l_cpu) <= 1e-4
             and grad_rel <= 1e-4):
         raise AssertionError("train phase failed")
+    rec["fit_batches"] = lm_fit_batches_arm(net, ds, rng, med)
+    return rec
+
+
+def clone_trees(trees):
+    return [{k: (clone_trees([v])[0] if isinstance(v, dict) else v.clone())
+             for k, v in t.items()} for t in trees]
+
+
+def trees_equal(a, b) -> bool:
+    """Two lists of per-layer trees, leaf for leaf, bitwise."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    return all(torch.equal(x, y) for p, q in zip(a, b)
+               for x, y in zip(tree_leaves(p), tree_leaves(q)))
+
+
+def busy_ms(spans) -> float:
+    """Device-busy milliseconds: the union of kernel intervals (us)."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total, end = total + b - a, b
+        elif b > end:
+            total, end = total + b - end, b
+    return total / 1e3
+
+
+def device_profile(fn, names=()) -> dict:
+    """One traced call of ``fn`` (ending in a synchronize): its wall time,
+    the device's busy time and idle share, its kernel count, and the
+    count of kernels whose name holds each of ``names``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_ms([(a, b) for _, a, b in spans])
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall if wall else None,
+            "kernels": len(spans),
+            "named": {n: sum(n in k for k, _, _ in spans) for n in names}}
+
+
+LM_TRAIN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                    "fused_update_kernel")
+
+
+def lm_fit_batches_arm(net, ds, rng, eager_step_s):
+    """``fit_batches(2)`` as one CUDA graph against 2 ``fit_batch`` calls
+    from the same state (parameters, Adam moments, iteration): losses and
+    every parameter bitwise; K1-K3 24 and K4 30 per replay by a trace; the
+    graph count 1 after a second call; ms per step eager and replayed."""
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.ops import update_kernel as uk
+
+    seq = rng.integers(0, VOCAB, (8, MAX_LEN + 1))
+    dev = torch.device("cuda")
+    batches = [ds, DataSet(torch.from_numpy(seq[:, :-1]).to(dev),
+                           torch.from_numpy(seq[:, 1:]).to(dev))]
+    start = (clone_trees(net.params), clone_trees(net.opt_state), net.iteration)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = [float(net.fit_batch(b)) for b in batches]
+    eager_s = (time.perf_counter() - t0) / 2
+    after_eager = clone_trees(net.params)
+    net.params, net.opt_state, net.iteration = start
+    counters = dict(zip(LM_TRAIN_KERNELS, (att.flash_forward_cuda, att.flash_bwd_dkdv_cuda,
+                                           att.flash_bwd_dq_cuda, uk.fused_update_cuda)))
+    counted = {n: c.launches for n, c in counters.items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graphed = [float(x) for x in net.fit_batches(batches)]
+    capture_s = time.perf_counter() - t0
+    bitwise = eager == graphed and trees_equal(after_eager, net.params)
+    del start, after_eager
+    count_first = net.fit_graph_count
+    replays = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit_batches(batches)
+        torch.cuda.synchronize()
+        replays.append((time.perf_counter() - t0) / 2)
+    prof = device_profile(lambda: net.fit_batches(batches), LM_TRAIN_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    counted = {n: c.launches - counted[n] for n, c in counters.items()}
+    per_replay = prof["named"]
+    want = {"flash_fwd_kernel": 2 * LAYERS, "flash_bwd_dkdv_kernel": 2 * LAYERS,
+            "flash_bwd_dq_kernel": 2 * LAYERS,
+            "fused_update_kernel": 2 * sum(1 for p in net.params if p)}
+    replay_s = sorted(replays)[1]
+    rec = {"arm": "lm_fit_batches", "k": 2, "batch": [8, MAX_LEN], "losses_eager": eager,
+           "losses_graph": graphed, "bitwise": bitwise, "graphs_after_first": count_first,
+           "graphs_after_repeat": net.fit_graph_count, "capture_s": capture_s,
+           "eager_ms_per_step_here": eager_s * 1e3,
+           "eager_ms_per_step_median_of_5": eager_step_s * 1e3,
+           "replay_ms_per_step": [r * 1e3 for r in replays],
+           "replay_ms_per_step_median": replay_s * 1e3,
+           "traced_replay": prof, "kernels_per_replay_expected": want,
+           "launches": counted,
+           "peak_memory_gib": peak / 2 ** 30}
+    emit({"phase": "train", **rec})
+    if not (bitwise and count_first == net.fit_graph_count == 1 and per_replay == want):
+        raise AssertionError("train phase: the fit_batches graph arm failed")
+    return rec
+
+
+# -- mlp phase (bench config 1) ----------------------------------------------------
+
+MLP_IN, MLP_CLASSES, MLP_BATCH, MLP_ROWS = 784, 10, 512, 4096
+
+
+def mlp_conf(dropout=0.0, noise=False, dtype="float32"):
+    """Bench config 1 (``bench.py:448-474``): Dense 512 relu → Dense 256
+    relu → OutputLayer 10 softmax mcxent on 784 inputs, Nesterovs(0.1,
+    0.9).  ``noise`` adds DropConnect(0.9) to the output layer, as arm (d)
+    asks, and to the second hidden layer: in training the output layer's
+    weight noise is inert (the reference's ``_loss`` applies weight noise
+    to the layers before the head only), so the hidden layer carries it."""
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.regularizers import DropConnect
+    from deeplearning4j_tpu_torch.nn.layers import Dense, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+
+    wn = DropConnect(0.9) if noise else None
+    return (NeuralNetConfiguration.builder().seed(SEED + 11)
+            .updater(Nesterovs(lr=0.1, momentum=0.9))
+            .layer(Dense(n_out=512, activation="relu", dropout=dropout))
+            .layer(Dense(n_out=256, activation="relu", dropout=dropout, weight_noise=wn))
+            .layer(OutputLayer(n_out=MLP_CLASSES, activation="softmax", loss="mcxent",
+                               weight_noise=wn))
+            .set_input_type(InputType.feed_forward(MLP_IN)).dtype(dtype, dtype).build())
+
+
+def mlp_net(device, **kw):
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    net = MultiLayerNetwork(mlp_conf(**kw), device=device)
+    net.init()
+    return net
+
+
+def mlp_data():
+    """MNIST-shaped data from a numpy seed: the reference's synthetic MNIST
+    surrogate (a class-dependent cell pattern plus noise, 28x28), flattened,
+    with integer labels."""
+    from deeplearning4j_tpu_torch.datasets import fetchers
+    xs, ys = fetchers._synthetic_images(MLP_ROWS, 28, 28, 1, MLP_CLASSES, seed=SEED + 12)
+    return xs.reshape(MLP_ROWS, MLP_IN), ys
+
+
+def run_cli(args, tmp):
+    """One ``python -m deeplearning4j_tpu_torch`` command → (rc, stdout)."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               DL4J_TPU_DATA_DIR=tmp)
+    out = subprocess.run([sys.executable, "-m", "deeplearning4j_tpu_torch", *args],
+                         capture_output=True, text=True, cwd=tmp, env=env, timeout=300)
+    if out.returncode:
+        print(out.stderr[-3000:], file=sys.stderr, flush=True)
+    return out.returncode, out.stdout
+
+
+def mlp_cli_arm(xs, ys):
+    """(a) ``train``, ``evaluate`` and ``summary`` from the CLI; the same
+    training in this process gives the trained network to hold the zip
+    against."""
+    import json as _json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.utils.serializer import load_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        conf_path, data_path = os.path.join(tmp, "mlp.json"), os.path.join(tmp, "mnist.npz")
+        out_zip = os.path.join(tmp, "mlp.zip")
+        with open(conf_path, "w") as f:
+            _json.dump(mlp_conf().to_dict(), f)
+        np.savez(data_path, x=xs, y=ys)
+        cmds = {"train": ["train", "--config", conf_path, "--data", data_path,
+                          "--batch-size", str(MLP_BATCH), "--epochs", "1", "--seed", "7",
+                          "--output", out_zip, "--device", "cuda"],
+                "evaluate": ["evaluate", "--model", out_zip, "--data", data_path,
+                             "--device", "cuda"],
+                "summary": ["summary", "--model", out_zip, "--device", "cuda"]}
+        rcs, outs, secs = {}, {}, {}
+        for name, args in cmds.items():
+            t0 = time.perf_counter()
+            rcs[name], outs[name] = run_cli(args, tmp)
+            secs[name] = time.perf_counter() - t0
+        saved = load_model(out_zip, device="cuda") if rcs["train"] == 0 else None
+    # the CLI's training again, in this process: same config, seed and batches
+    net = mlp_net("cuda")
+    fresh = net.score(DataSet(xs, np.eye(MLP_CLASSES, dtype=np.float32)[ys]))
+    cli_batches = DataSet(xs, np.eye(MLP_CLASSES, dtype=np.float32)[ys]).shuffle(7).batch_by(
+        MLP_BATCH)
+    net.fit(ListDataSetIterator(cli_batches))
+    rows = torch.from_numpy(xs[:512]).cuda()
+    diff = (float((saved.output(rows) - net.output(rows)).abs().max())
+            if saved is not None else None)
+    trained = saved.score(DataSet(xs, np.eye(MLP_CLASSES, dtype=np.float32)[ys])) \
+        if saved is not None else None
+    rec = {"arm": "cli", "rcs": rcs, "seconds": secs, "loss_fresh": fresh,
+           "loss_trained": trained, "zip_output_max_abs_diff": diff, "tolerance": 1e-5,
+           "evaluate": outs["evaluate"].strip().splitlines()[2:4],
+           "summary": outs["summary"].strip().splitlines()[:1]}
+    emit({"phase": "mlp", **rec})
+    if not (all(v == 0 for v in rcs.values()) and trained < fresh and diff <= 1e-5):
+        raise AssertionError("mlp phase (a): the CLI arm failed")
+    return rec
+
+
+def mlp_graph_arm(batches):
+    """(b) ``fit_batches(8)`` as one graph against 8 ``fit_batch`` calls
+    from the same start, then the two timed and traced."""
+    import torch
+
+    eager, graphed = mlp_net("cuda"), mlp_net("cuda")
+    le = [float(eager.fit_batch(b)) for b in batches]
+    lg = [float(x) for x in graphed.fit_batches(batches)]
+    bitwise = le == lg and trees_equal(eager.params, graphed.params) and trees_equal(
+        eager.opt_state, graphed.opt_state) and eager.iteration == graphed.iteration
+    count_first = graphed.fit_graph_count
+    graphed.fit_batches(batches)
+    count_repeat = graphed.fit_graph_count
+
+    def eager_round():
+        for b in batches:
+            eager.fit_batch(b)
+
+    def graph_round():
+        graphed.fit_batches(batches)
+    times = {}
+    for name, fn in (("eager", eager_round), ("graph", graph_round),
+                     ("graph2", graph_round), ("eager2", eager_round)):
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / len(batches))
+        times[name] = sorted(walls)[2]
+    prof = {"eager": device_profile(eager_round), "graph": device_profile(graph_round)}
+    k = len(batches)
+    rec = {"arm": "fit_batches_graph", "k": k, "batch": MLP_BATCH, "bitwise": bitwise,
+           "graphs_after_first": count_first, "graphs_after_repeat": count_repeat,
+           "ms_per_step": times,
+           "images_per_s": {n: MLP_BATCH / t * 1e3 for n, t in times.items()},
+           "eager_busy_ms_per_step": prof["eager"]["busy_ms"] / k,
+           "eager_idle_share": prof["eager"]["idle_share"],
+           "eager_kernels_per_step": prof["eager"]["kernels"] / k,
+           "graph_busy_ms_per_step": prof["graph"]["busy_ms"] / k,
+           "graph_idle_share": prof["graph"]["idle_share"],
+           "graph_kernels_per_step": prof["graph"]["kernels"] / k}
+    emit({"phase": "mlp", **rec})
+    if not (bitwise and count_first == count_repeat == 1):
+        raise AssertionError("mlp phase (b): the fit_batches graph arm failed")
+    return rec
+
+
+def mlp_guard_arm(batches):
+    """(c) The nan guard with a budget of 2 and a batch holding one NaN."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import DivergenceError
+
+    net = mlp_net("cuda")
+    net.set_nan_guard(2)
+    good = batches[0]
+    x = good.features.copy()
+    x[17, 300] = float("nan")
+    bad = DataSet(x, good.labels)
+    net.fit_batch(good)
+    unchanged = []
+    for _ in range(2):
+        p, o = clone_trees(net.params), clone_trees(net.opt_state)
+        net.fit_batch(bad)
+        unchanged.append(trees_equal(p, net.params) and trees_equal(o, net.opt_state))
+    raised = False
+    try:
+        net.fit_batch(bad)
+    except DivergenceError:
+        raised = True
+    net.fit_batch(bad)                       # a fresh budget after the raise
+    before = net._bad_steps
+    p = clone_trees(net.params)
+    net.fit_batch(good)
+    reset = before == 1 and net._bad_steps == 0 and not trees_equal(p, net.params)
+    rec = {"arm": "nan_guard", "budget": 2, "skipped_bitwise": unchanged,
+           "third_bad_raised": raised, "good_step_resets": reset}
+    emit({"phase": "mlp", **rec})
+    if not (all(unchanged) and raised and reset):
+        raise AssertionError("mlp phase (c): the nan guard arm failed")
+    return rec
+
+
+def mlp_dropout_arm(batches):
+    """(d) dropout 0.5 on both hidden layers and DropConnect(0.9): 20 steps
+    eagerly and 20 through fit_batches(4), each twice from one seed."""
+    kept = []
+
+    def run(graph):
+        net = mlp_net("cuda", dropout=0.5, noise=True)
+        layer = net.conf.layers[0]
+        plain = layer._maybe_dropout
+
+        def spy(x, train, generator):
+            y = plain(x, train, generator)
+            if train and not graph and not kept:
+                live = x != 0
+                kept.append(float((y[live] != 0).float().mean()))
+            return y
+        layer._maybe_dropout = spy
+        order = [batches[i % len(batches)] for i in range(20)]
+        if graph:
+            return [float(v) for i in range(0, 20, 4) for v in net.fit_batches(order[i:i + 4])]
+        return [float(net.fit_batch(b)) for b in order]
+    runs = {"eager": [run(False), run(False)], "graph": [run(True), run(True)]}
+    rec = {"arm": "dropout", "losses": {k: v[0] for k, v in runs.items()},
+           "repeat_bitwise": {k: v[0] == v[1] for k, v in runs.items()},
+           "kept_fraction_layer0": kept[0] if kept else None}
+    falling = all(sum(v[0][:4]) > sum(v[0][-4:]) for v in runs.values())
+    emit({"phase": "mlp", **rec})
+    if not (falling and all(rec["repeat_bitwise"].values()) and kept
+            and abs(kept[0] - 0.5) <= 0.01):
+        raise AssertionError("mlp phase (d): the dropout arm failed")
+    return rec
+
+
+def mlp_f64_arm(batches):
+    """(e) The network in float64 on the card against the port on the CPU,
+    5 steps from the same weights: float64 losses within 1e-10 and the
+    first step's gradients within 1e-10; the parameters after the steps
+    within 2^-23 of max(1, |w|), one float32 spacing (the updaters compute
+    in float32, as the reference's do), with the largest difference
+    printed."""
+    nets = [mlp_net(d, dtype="float64") for d in ("cuda", "cpu")]
+    (l0, g0, _), (l1, g1, _) = (n._loss_and_grads(batches[0]) for n in nets)
+    grad_diff = max(float((a[k].cpu() - b[k]).abs().max()) for a, b in zip(g0, g1) for k in a)
+    losses = [[float(n.fit_batch(b)) for b in batches[:5]] for n in nets]
+    loss_diff = max(abs(a - b) for a, b in zip(*losses))
+    param_diff, beyond = 0.0, 0
+    for p, q in zip(nets[0].params, nets[1].params):
+        for k in p:
+            d = (p[k].cpu() - q[k]).abs()
+            param_diff = max(param_diff, float(d.max()))
+            beyond += int((d > 2.0 ** -23 * q[k].abs().clamp_min(1.0)).sum())
+    dtypes = sorted({str(t.dtype) for p in nets[0].params for t in p.values()})
+    rec = {"arm": "float64", "steps": 5, "dtypes": dtypes, "loss_max_abs_diff": loss_diff,
+           "first_grad_max_abs_diff": grad_diff, "param_max_abs_diff": param_diff,
+           "params_beyond_one_f32_spacing": beyond, "tolerance_loss_grad": 1e-10}
+    emit({"phase": "mlp", **rec})
+    if not (dtypes == ["torch.float64"] and abs(float(l0) - float(l1)) <= 1e-10
+            and grad_diff <= 1e-10 and loss_diff <= 1e-10 and beyond == 0):
+        raise AssertionError("mlp phase (e): the float64 arm failed")
+    return rec
+
+
+def phase_mlp():
+    """Bench config 1 at full width: the CLI, the fit_batches graph, the
+    nan guard, dropout and weight noise, and float64."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    xs, ys = mlp_data()
+    onehot = np.eye(MLP_CLASSES, dtype=np.float32)[ys]
+    batches = DataSet(xs, onehot).batch_by(MLP_BATCH)
+    t0 = time.perf_counter()
+    rec = {"cli": mlp_cli_arm(xs, ys), "graph": mlp_graph_arm(batches),
+           "guard": mlp_guard_arm(batches), "dropout": mlp_dropout_arm(batches),
+           "float64": mlp_f64_arm(batches)}
+    rec["seconds"] = time.perf_counter() - t0
+    emit({"phase": "mlp", "params": sum(int(t.numel()) for p in mlp_net("cpu").params
+                                          for t in p.values()),
+          "seconds": rec["seconds"]})
+    return rec
+
+
+# -- attention-layer arm -------------------------------------------------------------
+
+
+def attention_conf():
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (EmbeddingSequence, LayerNorm,
+                                                    RnnOutputLayer, SelfAttention)
+    from deeplearning4j_tpu_torch.nn.multilayer import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    return (NeuralNetConfiguration.builder().seed(SEED + 13).updater(Adam(lr=3e-4))
+            .layer(EmbeddingSequence(n_in=VOCAB, n_out=D_MODEL))
+            .layer(SelfAttention(n_heads=HEADS, causal=True))
+            .layer(LayerNorm())
+            .layer(RnnOutputLayer(n_out=VOCAB, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.recurrent(VOCAB, MAX_LEN)).build())
+
+
+def phase_attention_layers():
+    """``SelfAttention`` as a layer at GPT-2-small's attention widths, with
+    a 25% key mask, through K1-K3: 2 ``fit_batch`` steps and an ``output``
+    on [4, 1024] (K1-K3 launched; the attention layer's rows where the
+    mask is 0 exactly zero); the same 2 steps at a cut ([2, 256]) on the
+    card and on the CPU from the same weights (outputs and parameters
+    within 1e-4); ``LearnedSelfAttention(n_queries=3)`` forward on
+    [4, 1024, 768] through K1 against its plain version (2e-5)."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.layers import LearnedSelfAttention
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import attention as att
+
+    rng = np.random.default_rng(SEED + 14)
+
+    def batch(b, t):
+        ids = rng.integers(0, VOCAB, (b, t + 1))
+        m = (rng.random((b, t)) >= 0.25).astype(np.float32)
+        m[:, 0] = 1.0
+        return DataSet(ids[:, :-1], ids[:, 1:], m, m)
+    counters = (att.flash_forward_cuda, att.flash_bwd_dkdv_cuda, att.flash_bwd_dq_cuda)
+    net = MultiLayerNetwork(attention_conf(), device="cuda")
+    net.init()
+    ds = batch(4, MAX_LEN)
+    for c in counters:
+        c.launches = 0
+    losses = [float(net.fit_batch(ds)) for _ in range(2)]
+    y = net.output(ds.features, ds.features_mask)
+    launches = dict(zip(("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"),
+                        (c.launches for c in counters)))
+    with torch.no_grad():
+        m = torch.from_numpy(ds.features_mask).cuda()
+        h = net._apply_layers(net.params, net.state, torch.from_numpy(ds.features).cuda(), m,
+                              upto=2)[0]
+    masked_rows_zero = bool((h[m == 0] == 0).all())
+    finite = bool(torch.isfinite(y).all())
+    del net, h, y
+    # the same steps at a cut, card against CPU
+    cut = batch(2, 256)
+    pair = []
+    for dev in ("cuda", "cpu"):
+        n = MultiLayerNetwork(attention_conf(), device=dev)
+        n.init()
+        ls = [float(n.fit_batch(cut)) for _ in range(2)]
+        pair.append((n, ls, n.output(cut.features, cut.features_mask).cpu()))
+    (gn, gl, gy), (cn, cl, cy) = pair
+    out_diff = float((gy - cy).abs().max())
+    param_diff = max(float((p[k].cpu() - q[k]).abs().max())
+                     for p, q in zip(gn.params, cn.params) for k in p)
+    loss_diff = max(abs(a - b) for a, b in zip(gl, cl))
+    del pair, gn, cn
+    # LearnedSelfAttention: three learned queries over 1024 keys through K1
+    layer = LearnedSelfAttention(n_in=D_MODEL, n_out=D_MODEL, n_heads=HEADS, n_queries=3)
+    params = {k: v.cuda() for k, v in layer.init_params(
+        torch.Generator().manual_seed(SEED + 15), None).items()}
+    x = torch.from_numpy(rng.standard_normal((4, MAX_LEN, D_MODEL), dtype=np.float32)).cuda()
+    before = att.flash_forward_cuda.launches
+    with torch.no_grad():
+        yk = layer.forward(params, {}, x).y
+        learned_k1 = att.flash_forward_cuda.launches - before
+        layer.kernel = "xla"
+        yp = layer.forward(params, {}, x).y
+    learned_diff = float((yk - yp).abs().max())
+    rec = {"phase": "attention_layers", "batch": [4, MAX_LEN], "key_mask_drop": 0.25,
+           "losses": losses, "launches": launches, "masked_rows_zero": masked_rows_zero,
+           "output_finite": finite, "cpu_cut": [2, 256], "cpu_loss_max_abs_diff": loss_diff,
+           "cpu_output_max_abs_diff": out_diff, "cpu_param_max_abs_diff": param_diff,
+           "tolerance": 1e-4, "learned_shape": list(yk.shape), "learned_k1": learned_k1,
+           "learned_max_abs_err": learned_diff, "learned_tolerance": 2e-5}
+    emit(rec)
+    want = {"flash_fwd": 3, "flash_bwd_dkdv": 2, "flash_bwd_dq": 2}
+    if not (launches == want and masked_rows_zero and finite and loss_diff <= 1e-4
+            and out_diff <= 1e-4 and param_diff <= 1e-4 and learned_k1 == 1
+            and list(yk.shape) == [4, 3, D_MODEL] and learned_diff <= 2e-5):
+        raise AssertionError("attention-layer arm failed")
     return rec
 
 
@@ -2299,6 +2826,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     rnn = phase_recurrent()
     k5_launches = rnn["arms"]["k5"]["launches_per_call"][0]
+    phase_mlp()
+    attn = phase_attention_layers()
     _, k6 = phase_kernel_encode(DP_BUCKET_SIZES)
     compressed = phase_compressed()
 
@@ -2313,15 +2842,23 @@ def main() -> int:
     # plain XLA det_attention.  K2 and K3 share one library yardstick, the
     # whole attention backward.
     bwd_lib = {"library_ms": bwd["library_ms"]}
+    # the training launches: the eager train steps, the fit_batches graph
+    # arm (its capture's warm-up and every replay) and the attention arm
+    graph_n = train["fit_batches"]["launches"]
+
+    def trained(name, kernel):
+        return train["launches"][name] + graph_n[kernel] + attn["launches"].get(name, 0)
     emit({"kernels": [
         entry("flash_fwd", "flash_fwd.cu", "deeplearning4j_tpu/ops/attention.py:138",
-              score["launches"]["flash_fwd"] + predict["launches"]["flash_fwd"], k1),
+              score["launches"]["flash_fwd"] + predict["launches"]["flash_fwd"]
+              + graph_n["flash_fwd_kernel"] + attn["launches"]["flash_fwd"], k1),
         entry("flash_bwd_dkdv", "flash_bwd.cu", "deeplearning4j_tpu/ops/attention.py:329",
-              train["launches"]["flash_bwd_dkdv"], {**bwd["flash_bwd_dkdv"], **bwd_lib}),
+              trained("flash_bwd_dkdv", "flash_bwd_dkdv_kernel"),
+              {**bwd["flash_bwd_dkdv"], **bwd_lib}),
         entry("flash_bwd_dq", "flash_bwd.cu", "deeplearning4j_tpu/ops/attention.py:366",
-              train["launches"]["flash_bwd_dq"], {**bwd["flash_bwd_dq"], **bwd_lib}),
+              trained("flash_bwd_dq", "flash_bwd_dq_kernel"), {**bwd["flash_bwd_dq"], **bwd_lib}),
         entry("fused_update", "fused_update.cu", "deeplearning4j_tpu/ops/update_kernel.py:84",
-              train["launches"]["fused_update"], k4),
+              trained("fused_update", "fused_update_kernel"), k4),
         entry("det_attention", "det_attention.cu",
               "deeplearning4j_tpu/ops/kv_cache.py:362",
               serve["launches"]["det_attention"] + http["launches"]["det_attention"], det),

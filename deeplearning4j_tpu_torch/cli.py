@@ -1,8 +1,12 @@
 """Command-line front end of the port (mirrors ``deeplearning4j_tpu/cli.py``:
-the ``predict`` subcommand, ``generate`` for a TransformerLM checkpoint
-through the decode engine or a recurrent one through ``rnn_time_step``,
-and ``serve``).  Runs on ``cuda`` unless ``--device cpu`` is given.
+``train``, ``evaluate``, ``summary``, ``predict``, ``generate`` for a
+TransformerLM checkpoint through the decode engine or a recurrent one
+through ``rnn_time_step``, and ``serve``).  Runs on ``cuda`` unless
+``--device cpu`` is given.
 
+    python -m deeplearning4j_tpu_torch train --config mlp.json --data iris --output m.zip
+    python -m deeplearning4j_tpu_torch evaluate --model m.zip --data iris
+    python -m deeplearning4j_tpu_torch summary --model m.zip
     python -m deeplearning4j_tpu_torch predict --model m.zip --input x.npz --output y.npz
     python -m deeplearning4j_tpu_torch generate --model m.zip --prompt "hello"
         [--prefix-cache] [--speculate DRAFT_CKPT[,k]] [--kv-dtype {float32,int8}]
@@ -15,8 +19,126 @@ import argparse
 import json
 import sys
 import time
+from typing import Optional, Tuple
 
 import numpy as np
+
+
+#: zoo entries the port has, by the reference's ZOO names
+ZOO_NAMES = ("transformerlm", "textgenerationlstm")
+
+#: train flags that wait for later ports, with the ROADMAP item that ports them
+LATER_FLAGS = {
+    "mesh": "queue 1 item 7.5 (the CLI's train --mesh)",
+    "prefetch": "queue 1 item 9 (datasets/device_prefetch)",
+    "elastic_dir": "queue 1 item 7.4 (the elastic runtime)",
+    "chaos": "queue 1 item 7.4 (the elastic runtime)",
+    "checkpoint_every": "queue 1 item 7.4 (the elastic runtime)",
+    "step_timeout": "queue 1 item 7.4 (the elastic runtime)",
+    "grace": "queue 1 item 7.4 (the elastic runtime)",
+    "trace": "queue 1 item 9 (obs/)",
+    "compile_cache": "queue 1 item 8 (serving/warmcache)",
+    "dashboard": "queue 1 item 9 (ui/)",
+}
+
+
+def _num_classes_of(net) -> Optional[int]:
+    """The model's output width, so index labels one-hot to the right width
+    even when a split lacks the highest class."""
+    layers = getattr(net.conf, "layers", None)
+    if layers:
+        return getattr(layers[-1], "n_out", None) or None
+    return None
+
+
+def _load_data(spec: str, train: bool = True,
+               num_classes: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """``iris``, ``mnist`` or an ``.npz`` holding ``x`` and ``y`` → (x, y)
+    float32, index labels one-hot (the reference's rules)."""
+    from .datasets import fetchers
+
+    builtin = {"mnist": lambda: fetchers.load_mnist(train=train),
+               "iris": fetchers.load_iris}
+    if spec in builtin:
+        xs, ys = builtin[spec]()
+    else:
+        data = np.load(spec)
+        if "x" not in data or "y" not in data:
+            raise SystemExit(f"{spec}: .npz must contain arrays 'x' and 'y'")
+        xs, ys = data["x"], data["y"]
+    if ys.ndim == 1:  # class indices → one-hot
+        width = num_classes or int(ys.max()) + 1
+        if int(ys.max()) >= width:
+            raise SystemExit(f"label {int(ys.max())} out of range for "
+                             f"{width} classes")
+        ys = np.eye(width, dtype=np.float32)[ys.astype(np.int64)]
+    return np.asarray(xs, np.float32), np.asarray(ys, np.float32)
+
+
+def _build_model(args):
+    if args.zoo:
+        from .models import TextGenerationLSTM, TransformerLM
+
+        name = args.zoo.lower()
+        if name not in ZOO_NAMES:
+            raise SystemExit(f"unknown zoo model '{args.zoo}' — the port has "
+                             f"{sorted(ZOO_NAMES)}")
+        kw = json.loads(args.zoo_args) if args.zoo_args else {}
+        ctor = TransformerLM if name == "transformerlm" else TextGenerationLSTM
+        return ctor(**kw, device=args.device)
+    if args.config:
+        from .nn.multilayer import MultiLayerConfiguration, MultiLayerNetwork
+
+        with open(args.config) as f:
+            conf = MultiLayerConfiguration.from_dict(json.load(f))
+        net = MultiLayerNetwork(conf, device=args.device)
+        net.init()
+        return net
+    raise SystemExit("pass --zoo NAME or --config conf.json")
+
+
+def cmd_train(args) -> int:
+    from .datasets import DataSet, ListDataSetIterator
+    from .optimize.listeners import ScoreIterationListener
+
+    for flag, item in LATER_FLAGS.items():
+        if getattr(args, flag) is not None:
+            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
+                             f"(ROADMAP {item})")
+    net = _build_model(args)
+    xs, ys = _load_data(args.data, train=True, num_classes=_num_classes_of(net))
+    batches = DataSet(xs, ys).shuffle(args.seed).batch_by(args.batch_size)
+    net.set_listeners(ScoreIterationListener(args.print_every))
+    if args.nan_guard is not None:
+        net.set_nan_guard(args.nan_guard)
+        print(f"nan guard armed (budget {args.nan_guard})")
+    losses = net.fit(ListDataSetIterator(batches), epochs=args.epochs)
+    print(f"trained {args.epochs} epoch(s), {len(losses)} iterations, "
+          f"final loss {losses[-1]:.5f}")
+    if args.output:
+        net.save(args.output)
+        print(f"saved: {args.output}")
+    return 0
+
+
+def cmd_evaluate(args) -> int:
+    from .utils.serializer import load_model
+
+    net = load_model(args.model, device=args.device)
+    xs, ys = _load_data(args.data, train=False, num_classes=_num_classes_of(net))
+    ev = net.evaluate((xs, ys))
+    print(ev.stats())
+    return 0
+
+
+def cmd_summary(args) -> int:
+    from .nn.conf.memory import memory_report
+    from .utils.serializer import load_model
+
+    net = load_model(args.model, device=args.device)
+    print(f"model: {type(net).__name__}, {net.num_params():,} params")
+    print(memory_report(net, minibatch=args.batch_size))
+    return 0
 
 
 def cmd_predict(args) -> int:
@@ -250,8 +372,44 @@ def cmd_serve(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="deeplearning4j_tpu_torch",
-        description="PyTorch/CUDA port of deeplearning4j_tpu (inference and serving)")
+        description="PyTorch/CUDA port of deeplearning4j_tpu")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train", help="train a model")
+    t.add_argument("--zoo", help=f"zoo model name ({', '.join(ZOO_NAMES)})")
+    t.add_argument("--zoo-args", help="JSON kwargs for the zoo constructor")
+    t.add_argument("--config", help="MultiLayerConfiguration JSON file")
+    t.add_argument("--data", required=True, help="builtin name (iris/mnist) or .npz "
+                   "with arrays 'x' and 'y'")
+    t.add_argument("--epochs", type=int, default=1)
+    t.add_argument("--batch-size", type=int, default=128)
+    t.add_argument("--seed", type=int, default=12345)
+    t.add_argument("--print-every", type=int, default=10)
+    t.add_argument("--output", help="checkpoint zip to write")
+    t.add_argument("--nan-guard", type=int, default=None, metavar="BUDGET",
+                   help="arm the divergence guard: steps with non-finite "
+                   "gradients apply no update; more than BUDGET consecutive "
+                   "bad steps raise")
+    for flag in LATER_FLAGS:
+        t.add_argument("--" + flag.replace("_", "-"), default=None,
+                       help=f"not ported yet (ROADMAP {LATER_FLAGS[flag]})")
+    t.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' to run on the CPU)")
+    t.set_defaults(fn=cmd_train)
+
+    e = sub.add_parser("evaluate", help="evaluate a saved model")
+    e.add_argument("--model", required=True)
+    e.add_argument("--data", required=True)
+    e.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' to run on the CPU)")
+    e.set_defaults(fn=cmd_evaluate)
+
+    s = sub.add_parser("summary", help="model + memory summary")
+    s.add_argument("--model", required=True)
+    s.add_argument("--batch-size", type=int, default=32)
+    s.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' to run on the CPU)")
+    s.set_defaults(fn=cmd_summary)
 
     r = sub.add_parser("predict", help="run inference")
     r.add_argument("--model", required=True)

@@ -145,8 +145,9 @@ class TransformerBlock(Layer):
         return block_params(generator, self.d_model, self.n_heads,
                             self.d_ff or 4 * self.d_model, dtype, self._winit())
 
-    def forward(self, params, state, x, *, train=False, mask=None) -> ForwardOut:
-        self._check_train(train)
+    def forward(self, params, state, x, *, train=False, generator=None,
+                mask=None) -> ForwardOut:
+        x = self._maybe_dropout(x, train, generator)
         # a layer mask, or kernel="xla", takes the plain mha path (as in
         # the reference); otherwise attention runs through flash_mha
         # (K1 forward, K2/K3 backward on the card)
@@ -181,8 +182,8 @@ class PositionalEmbedding(Layer):
         return {"P": (0.02 * torch.randn((self.max_len, self.d_model),
                                          generator=generator)).to(dtype)}
 
-    def forward(self, params, state, x, *, train=False, mask=None) -> ForwardOut:
-        self._check_train(train)
+    def forward(self, params, state, x, *, train=False, generator=None,
+                mask=None) -> ForwardOut:
         t = x.shape[1]
         return ForwardOut(x + params["P"][:t].to(x.dtype), state, mask)
 

@@ -1,16 +1,24 @@
 from .base import (CONFIG_REGISTRY, ForwardOut, Layer, config_from_dict,
                    config_to_dict, layer_from_dict, layer_to_dict,
                    register_config, register_layer)
-from .feedforward import Dense, Embedding, EmbeddingSequence, LossLayer, OutputLayer
-from .normalization import layer_norm
+from .feedforward import (RBM, ActivationLayer, AutoEncoder, Dense, DropoutLayer,
+                          ElementWiseMultiplication, Embedding, EmbeddingSequence,
+                          LossLayer, OutputLayer)
+from .normalization import LayerNorm, layer_norm
 from .recurrent import (LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM,
                         LastTimeStep, RnnOutputLayer, SimpleRnn)
+from .attention import LearnedSelfAttention, SelfAttention
+# the dropout, weight-noise, constraint and preprocessor configs register
+# here, so a layer's JSON that names one parses
+from ..conf import preprocessors, regularizers  # noqa: E402,F401
 
 __all__ = [
     "CONFIG_REGISTRY", "ForwardOut", "Layer", "config_from_dict",
     "config_to_dict", "layer_from_dict", "layer_to_dict", "register_config",
-    "register_layer", "Dense", "Embedding", "EmbeddingSequence", "LossLayer",
-    "OutputLayer", "layer_norm",
+    "register_layer", "ActivationLayer", "AutoEncoder", "Dense", "DropoutLayer",
+    "ElementWiseMultiplication", "Embedding", "EmbeddingSequence", "LayerNorm",
+    "LearnedSelfAttention", "LossLayer", "OutputLayer", "RBM", "SelfAttention",
+    "layer_norm",
     "LSTM", "Bidirectional", "GravesBidirectionalLSTM", "GravesLSTM",
     "LastTimeStep", "RnnOutputLayer", "SimpleRnn",
 ]

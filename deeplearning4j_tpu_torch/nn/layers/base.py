@@ -4,14 +4,15 @@
 Each layer is a dataclass whose fields are the JSON hyperparameters; the
 serde registry round-trips ``{"type": ClsName, ...}`` dicts exactly as
 the reference writes them, so a reference ``configuration.json`` parses
-unchanged.  Config types the port has not registered (updaters, dropout
-and constraint configs) stay plain dicts and are written back as read.
+unchanged.  Config types the port has not registered stay plain dicts and
+are written back as read.
 
 Parameters are per-layer dicts of tensors keyed as in the JAX trees
-(``W``, ``b``, ``P``, ``ln1_g``, ...).  ``forward`` takes ``train``;
-there is no ``rng`` argument, because the stochastic training settings
-(dropout, weight noise) are not ported: a layer that has one raises in
-training (``_check_train``).
+(``W``, ``b``, ``P``, ``ln1_g``, ...).  ``forward`` takes ``train`` and
+``generator``, the network's ``torch.Generator`` in training (None
+otherwise), where the reference takes ``rng``: a layer's input dropout
+(``_maybe_dropout``) draws from it, and the container applies a layer's
+weight noise (``nn/conf/regularizers.py``) before calling ``forward``.
 """
 
 from __future__ import annotations
@@ -108,8 +109,10 @@ class Layer:
     """Base hyperparameters shared by all layers — the reference's field
     set, so configurations round-trip.  ``l1``/``l2`` enter the training
     loss (``regularization_score``) and ``updater`` overrides the
-    network's; ``dropout``, ``weight_noise`` and ``constraints`` are
-    parsed and written back, and training a layer that sets one raises."""
+    network's.  ``dropout`` is INPUT dropout in training: a float is the
+    drop probability of classic inverted dropout, or a dropout config;
+    ``weight_noise`` perturbs the weights in training; ``constraints``
+    are applied after every update (``nn/conf/regularizers.py``)."""
 
     name: Optional[str] = None
     activation: Optional[str] = None
@@ -148,24 +151,23 @@ class Layer:
 
     def forward(self, params: Dict[str, Tensor], state: Dict[str, Tensor],
                 x: Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None,
                 mask: Optional[Tensor] = None) -> ForwardOut:
         raise NotImplementedError
 
-    def _check_train(self, train: bool) -> None:
-        """Raise for a training setting the port does not apply: dropout
-        and weight noise draw random numbers the reference draws from its
-        own generator, so they wait."""
-        if not train:
-            return
+    def has_params(self) -> bool:
+        return True
+
+    def _maybe_dropout(self, x: Tensor, train: bool,
+                       generator: Optional[torch.Generator]) -> Tensor:
+        """The layer's input dropout in training, drawn from ``generator``."""
         d = self.dropout
-        if d is not None and not (isinstance(d, (int, float)) and d <= 0.0):
-            raise NotImplementedError(
-                f"layer {self.name or type(self).__name__}: dropout in training "
-                "is not ported yet")
-        if self.weight_noise is not None:
-            raise NotImplementedError(
-                f"layer {self.name or type(self).__name__}: weight noise in "
-                "training is not ported yet")
+        if not train or d is None or (isinstance(d, (int, float)) and d <= 0.0):
+            return x
+        if generator is None:
+            raise ValueError(f"layer {self.name}: dropout requires a generator in training")
+        from ..conf.regularizers import apply_dropout
+        return apply_dropout(d, generator, x, train)
 
     def regularization_score(self, params: Dict[str, Tensor]) -> Tensor:
         """l1*|W| + 0.5*l2*W² over weight-class params (biases and

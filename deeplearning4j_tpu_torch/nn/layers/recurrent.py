@@ -101,11 +101,10 @@ def _compute_dtype(layer, params, key: str, x: Tensor) -> torch.dtype:
     return canonical_dtype(getattr(layer, "_compute_dtype", None) or params[key].dtype)
 
 
-def _check_train_input(layer: Layer, train: bool, x: Tensor) -> None:
-    """Dropout applies to dense inputs only: the reference skips it on
-    raw ids.  Weight noise applies either way."""
-    if x.is_floating_point() or (train and layer.weight_noise is not None):
-        layer._check_train(train)
+def _dropout_dense(layer: Layer, x: Tensor, train: bool, generator) -> Tensor:
+    """Input dropout on dense inputs only: the reference skips it on raw
+    ids."""
+    return layer._maybe_dropout(x, train, generator) if x.is_floating_point() else x
 
 
 @register_layer
@@ -151,8 +150,9 @@ class LSTM(Layer):
         return (torch.zeros((mb, self.n_out), dtype=dtype, device=device),
                 torch.zeros((mb, self.n_out), dtype=dtype, device=device))
 
-    def forward(self, params, state, x, *, train=False, mask=None, carry=None) -> ForwardOut:
-        _check_train_input(self, train, x)
+    def forward(self, params, state, x, *, train=False, generator=None, mask=None,
+                carry=None) -> ForwardOut:
+        x = _dropout_dense(self, x, train, generator)
         cdt = _compute_dtype(self, params, "W", x)
         h0, c0 = carry if carry is not None else self.init_carry(x.shape[0], cdt, x.device)
         ys, final = _scan_lstm(self, params, x, mask, h0, c0)
@@ -182,8 +182,9 @@ class GravesBidirectionalLSTM(LSTM):
         p.update(self._init_direction(generator, dtype, suffix="B"))
         return p
 
-    def forward(self, params, state, x, *, train=False, mask=None) -> ForwardOut:
-        _check_train_input(self, train, x)
+    def forward(self, params, state, x, *, train=False, generator=None,
+                mask=None) -> ForwardOut:
+        x = _dropout_dense(self, x, train, generator)
         cdt = _compute_dtype(self, params, "WF", x)
         h0, c0 = self.init_carry(x.shape[0], cdt, x.device)
         fwd, _ = _scan_lstm(self, params, x, mask, h0, c0, reverse=False, suffix="F")
@@ -222,8 +223,9 @@ class SimpleRnn(Layer):
     def init_carry(self, mb: int, dtype=torch.float32, device=None):
         return torch.zeros((mb, self.n_out), dtype=dtype, device=device)
 
-    def forward(self, params, state, x, *, train=False, mask=None, carry=None) -> ForwardOut:
-        self._check_train(train)
+    def forward(self, params, state, x, *, train=False, generator=None, mask=None,
+                carry=None) -> ForwardOut:
+        x = self._maybe_dropout(x, train, generator)
         act = get_activation(self.activation)
         W = params["W"].to(x.dtype)
         RW = params["RW"].to(x.dtype)
@@ -259,11 +261,13 @@ class Bidirectional(Layer):
         return {"fwd": self.layer.init_params(generator, in_type, dtype),
                 "bwd": self.layer.init_params(generator, in_type, dtype)}
 
-    def forward(self, params, state, x, *, train=False, mask=None) -> ForwardOut:
-        fwd = self.layer.forward(params["fwd"], {}, x, train=train, mask=mask).y
+    def forward(self, params, state, x, *, train=False, generator=None,
+                mask=None) -> ForwardOut:
+        fwd = self.layer.forward(params["fwd"], {}, x, train=train, generator=generator,
+                                 mask=mask).y
         mrev = None if mask is None else torch.flip(mask, dims=(1,))
         bwd = self.layer.forward(params["bwd"], {}, torch.flip(x, dims=(1,)),
-                                 train=train, mask=mrev).y
+                                 train=train, generator=generator, mask=mrev).y
         bwd = torch.flip(bwd, dims=(1,))
         if self.mode == "concat":
             y = torch.cat([fwd, bwd], dim=-1)
@@ -311,8 +315,9 @@ class RnnOutputLayer(Layer):
             y = y + params["b"].to(x.dtype)
         return y
 
-    def forward(self, params, state, x, *, train=False, mask=None) -> ForwardOut:
-        self._check_train(train)
+    def forward(self, params, state, x, *, train=False, generator=None,
+                mask=None) -> ForwardOut:
+        x = self._maybe_dropout(x, train, generator)
         return ForwardOut(self._act(self._pre(params, x)), state, mask)
 
     def score(self, params, state, x, labels, *,
@@ -346,8 +351,10 @@ class LastTimeStep(Layer):
     def init_params(self, generator, in_type, dtype=torch.float32) -> Dict[str, Tensor]:
         return self.layer.init_params(generator, in_type, dtype)
 
-    def forward(self, params, state, x, *, train=False, mask=None) -> ForwardOut:
-        out = self.layer.forward(params, state, x, train=train, mask=mask)
+    def forward(self, params, state, x, *, train=False, generator=None,
+                mask=None) -> ForwardOut:
+        out = self.layer.forward(params, state, x, train=train, generator=generator,
+                                 mask=mask)
         ys = out.y  # [mb, t, f]
         if mask is not None:
             idx = torch.clamp(mask.to(torch.int32).sum(dim=1) - 1, min=0).long()

@@ -1,17 +1,23 @@
 """MultiLayerNetwork — the sequential-stack model container (mirrors
-``deeplearning4j_tpu/nn/multilayer.py``: configuration, ``init``,
-``output``, ``score``, training through ``fit_batch`` / ``fit`` with
-standard backprop or TBPTT, and streaming through ``rnn_time_step``).
+``deeplearning4j_tpu/nn/multilayer.py``: configuration and input
+preprocessors, ``init``, ``output``, ``feed_forward``, ``score``,
+``score_examples``, ``evaluate``, training through ``fit_batch`` / ``fit``
+/ ``fit_batches`` with standard backprop or TBPTT, the opt-in nan guard,
+layerwise pretraining, listeners, and streaming through
+``rnn_time_step``).
 
 Parameters are a list of per-layer dicts of tensors keyed as in the JAX
 trees; ``opt_state`` is the list of per-layer updater states (``{}`` for
 a layer without parameters).  One training step is the reference's:
 loss (output layer + L1/L2) → gradients by autograd → per-layer gradient
-normalization → per-layer updater ``apply``.  The update builds new
-tensors rather than writing in place, as the reference's pure step does.
-Recurrent layers thread a carry (``carries``, one entry per layer) through
-TBPTT chunks and streaming calls.  Not ported yet: the nan guard,
-``fit_batches`` and the stochastic layer settings (dropout, weight noise).
+normalization → per-layer updater ``apply`` → the layer's constraints.
+The update builds new tensors rather than writing in place, as the
+reference's pure step does.  Dropout, weight noise and stochastic
+preprocessors draw from the network's ``torch.Generator`` (on its
+device, seeded with ``conf.seed``).  Recurrent layers thread a carry
+(``carries``, one entry per layer) through TBPTT chunks and streaming
+calls.  On the card ``fit_batches`` is one CUDA graph of its k steps
+(``nn/train_graph.py``).
 """
 
 from __future__ import annotations
@@ -22,23 +28,47 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+import logging
+
 from ..datasets.dataset import DataSet
+from ..datasets.iterators import DataSetIterator, ListDataSetIterator
 from ..ops.dtypes import canonical_dtype
 from ..optimize.score import LazyScore, materialize_scores
 from ..utils.device import DeviceLike, resolve_device
 from .conf.inputs import InputType
+from .conf.preprocessors import (CnnToFeedForward, CnnToRnn, FeedForwardToCnn,
+                                 Preprocessor)
+from .conf.regularizers import apply_constraints, maybe_weight_noise
 from .layers.base import Layer, config_from_dict, config_to_dict
 from .updaters import (Adam, GradientNormalization, Updater,
                        normalize_gradients, tree_leaves, tree_unflatten)
 
 Tensor = torch.Tensor
 
-#: (param, compute) dtype pairs the port runs.  Under float32/bfloat16 the
-#: parameters, their gradients and the updater stay float32; floating
-#: inputs are cast to bfloat16 and each layer casts a weight to its
-#: input's dtype where the reference does (see ``ops.dtypes.matmul``).
-_DTYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-                (torch.float32, torch.bfloat16))
+
+class DivergenceError(RuntimeError):
+    """The opt-in nan guard spent its budget: more consecutive steps than
+    the budget produced a non-finite loss or gradient, so skipping updates
+    no longer masks a transient but a diverged run.  The message carries
+    the "non-finite gradient" marker the reference's elastic trainer
+    recognizes."""
+
+    def __init__(self, bad_steps: int, budget: int):
+        super().__init__(
+            f"non-finite gradients for {bad_steps} consecutive steps "
+            f"(budget {budget}) — updates were skipped but the run is "
+            "diverging; restore a checkpoint (ElasticTrainer recovers this "
+            "automatically) or lower the learning rate")
+        self.bad_steps = bad_steps
+        self.budget = budget
+
+
+def _host(a):
+    """A tensor or array as a numpy array (bfloat16 widened to float32)."""
+    if isinstance(a, Tensor):
+        a = a.detach().cpu()
+        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+    return np.asarray(a)
 
 
 def _detached(carry):
@@ -56,7 +86,7 @@ class MultiLayerConfiguration:
 
     layers: List[Layer] = dataclasses.field(default_factory=list)
     input_type: Optional[InputType] = None
-    preprocessors: Dict[int, Any] = dataclasses.field(default_factory=dict)
+    preprocessors: Dict[int, Preprocessor] = dataclasses.field(default_factory=dict)
     updater: Any = dataclasses.field(default_factory=Adam)
     gradient_normalization: str = "none"
     gradient_normalization_threshold: float = 1.0
@@ -123,6 +153,10 @@ class ListBuilder:
         self._conf.layers.append(layer)
         return self
 
+    def preprocessor(self, index: int, pre: Preprocessor) -> "ListBuilder":
+        self._conf.preprocessors[index] = pre
+        return self
+
     def set_input_type(self, t: InputType) -> "ListBuilder":
         self._conf.input_type = t
         return self
@@ -151,7 +185,7 @@ class NeuralNetConfiguration:
 
 class MultiLayerNetwork:
     """Sequential model on one device: ``init`` / ``output`` / ``score``
-    / ``fit_batch`` / ``fit`` / ``save``.
+    / ``fit_batch`` / ``fit`` / ``fit_batches`` / ``evaluate`` / ``save``.
 
     ``device`` defaults to ``cuda`` and raises without a card unless
     ``device="cpu"`` is passed.  ``grad_residual`` holds a checkpoint's
@@ -162,14 +196,8 @@ class MultiLayerNetwork:
     def __init__(self, conf: MultiLayerConfiguration, device: DeviceLike = None):
         self.conf = conf
         self.device = resolve_device(device)
-        if conf.preprocessors:
-            raise NotImplementedError("input preprocessors are not ported yet")
-        pd, cd = canonical_dtype(conf.param_dtype), canonical_dtype(conf.compute_dtype)
-        if (pd, cd) not in _DTYPE_PAIRS:
-            raise NotImplementedError(
-                f"param/compute dtypes {conf.param_dtype}/{conf.compute_dtype}: "
-                "the port runs float32 or bfloat16 with equal param and "
-                "compute dtypes, or float32 parameters computed in bfloat16")
+        for name in (conf.param_dtype, conf.compute_dtype):
+            canonical_dtype(name)   # an unknown dtype name raises here
         self.params: List[Dict[str, Tensor]] = []
         self.state: List[Dict[str, Tensor]] = []
         self.opt_state: List[Dict] = []
@@ -177,23 +205,46 @@ class MultiLayerNetwork:
         self._it_dev: Optional[Tensor] = None   # iteration as an f32 on the device
         self._it_dev_val = -1                   # the value _it_dev holds
         self.epoch = 0
+        self.listeners: List[Any] = []
         self.grad_residual: Optional[List[Dict[str, Tensor]]] = None
         self._stream_carries: Optional[List[Any]] = None   # rnn_time_step state
+        self._nan_guard_budget: Optional[int] = None
+        self._bad_steps = 0
+        #: captured fit_batches graphs, by (k, batch shapes and dtypes)
+        self._fit_graphs: Dict[tuple, Any] = {}
+        #: dropout, weight noise and stochastic preprocessors draw from this
+        self._gen = torch.Generator(device=self.device).manual_seed(int(conf.seed))
         self.input_types: List[InputType] = []
         self._infer_types()
 
+    def _compute_dtype(self) -> torch.dtype:
+        return canonical_dtype(self.conf.compute_dtype)
+
     def _infer_types(self) -> None:
-        """Propagate InputType through the layers, filling n_in fields."""
+        """Propagate InputType through preprocessors and layers, inserting
+        the shape adapter a layer's expected kind needs (the reference's
+        pass).  The convolutional adapters raise until the conv path is
+        ported (ROADMAP queue 5)."""
         self.input_types = []
         t = self.conf.input_type
         if t is None:
             return
-        for layer in self.conf.layers:
-            if layer.wants is not None and t.kind != layer.wants and not (
-                    t.kind == "rnn" and layer.wants == "ff"):
-                raise NotImplementedError(
-                    f"{type(layer).__name__} wants {layer.wants} input, got "
-                    f"{t.kind}: shape-adapting preprocessors are not ported yet")
+        for i, layer in enumerate(self.conf.layers):
+            if i in self.conf.preprocessors:
+                t = self.conf.preprocessors[i].output_type(t)
+            elif layer.wants is not None and t.kind != layer.wants:
+                pre = None
+                if t.kind == "cnn" and layer.wants == "ff":
+                    pre = CnnToFeedForward()
+                elif t.kind == "cnn_flat" and layer.wants == "cnn":
+                    pre = FeedForwardToCnn(t.height, t.width, t.channels)
+                elif t.kind == "cnn_flat" and layer.wants == "ff":
+                    t = InputType.feed_forward(t.flat_size())
+                elif t.kind == "cnn" and layer.wants == "rnn":
+                    pre = CnnToRnn()
+                if pre is not None:
+                    self.conf.preprocessors[i] = pre
+                    t = pre.output_type(t)
             self.input_types.append(t)
             layer.infer_nin(t)
             t = layer.output_type(t)
@@ -236,54 +287,115 @@ class MultiLayerNetwork:
         with torch.device("meta"):
             return self._draw(torch.Generator())
 
+    def num_params(self) -> int:
+        return sum(int(np.prod(x.shape)) for p in self.params for x in tree_leaves(p))
+
+    def summary(self) -> str:
+        """Layer table: index, layer, output type, parameter count."""
+        if not self.params:
+            raise ValueError("call init() before summary()")
+        rows = [("idx", "layer", "out", "params")]
+        for i, (layer, p) in enumerate(zip(self.conf.layers, self.params)):
+            n = sum(int(np.prod(x.shape)) for x in tree_leaves(p))
+            out = layer.output_type(self.input_types[i])
+            rows.append((str(i), type(layer).__name__, str(out), f"{n:,}"))
+        widths = [max(len(r[c]) for r in rows) for c in range(4)]
+        lines = ["  ".join(v.ljust(w) for v, w in zip(r, widths)) for r in rows]
+        lines.insert(1, "-" * len(lines[0]))
+        lines.append(f"total params: {self.num_params():,}")
+        return "\n".join(lines)
+
+    # ------------------------------------------------------------------
+    # forward / loss
+    # ------------------------------------------------------------------
+
+    def _preprocess(self, i: int, x: Tensor, generator) -> Tensor:
+        pre = self.conf.preprocessors.get(i)
+        if pre is None:
+            return x
+        if pre.wants_rng and generator is not None:
+            return pre.apply(x, generator)
+        return pre.apply(x)
+
     def _apply_layers(self, params, state, x: Tensor, mask: Optional[Tensor], *,
-                      train: bool = False, upto: Optional[int] = None, carries=None):
+                      train: bool = False, generator: Optional[torch.Generator] = None,
+                      upto: Optional[int] = None, carries=None,
+                      acts: Optional[list] = None):
         """Forward through layers [0, upto) (all by default) → (y, mask,
-        new_carries).  ``carries`` (one entry per layer, or None for zero
-        state) threads recurrent hidden state for TBPTT and streaming."""
+        new_carries).  In training, ``generator`` feeds each layer's weight
+        noise (applied here, before its forward), its input dropout and
+        stochastic preprocessors, in the reference's order.  ``carries``
+        (one entry per layer, or None for zero state) threads recurrent
+        hidden state for TBPTT and streaming; ``acts`` collects each
+        layer's output."""
         # layers that need the compute dtype apart from their input's
         # (integer-id LSTM inputs) read it from this attribute
         for layer in self.conf.layers:
             layer._compute_dtype = self.conf.compute_dtype
         if x.is_floating_point():
-            x = x.to(canonical_dtype(self.conf.compute_dtype))
+            x = x.to(self._compute_dtype())
         n = len(self.conf.layers) if upto is None else upto
         new_carries = list(carries) if carries is not None else [None] * len(self.conf.layers)
         for i in range(n):
             layer = self.conf.layers[i]
+            x = self._preprocess(i, x, generator)
             kwargs = {"carry": carries[i]} if layer.recurrent and carries is not None else {}
-            out = layer.forward(params[i], state[i], x, train=train, mask=mask, **kwargs)
+            p_i = maybe_weight_noise(layer, params[i], train, generator)
+            out = layer.forward(p_i, state[i], x, train=train, generator=generator,
+                                mask=mask, **kwargs)
             x, mask = out.y, out.mask
             new_carries[i] = out.carry
+            if acts is not None:
+                acts.append(x)
         return x, mask, new_carries
 
-    def _loss(self, params, state, x, labels, *, train: bool,
-              mask=None, label_mask=None, carries=None):
-        """Full score: the output layer's loss plus every layer's L1/L2
-        → (loss, new_carries)."""
+    def _head_input(self, params, state, x, mask, *, train, generator, carries=None):
+        """The output layer's input: layers [0, n-1), its preprocessor and,
+        in training, its input dropout → (h, mask, new_carries)."""
         n = len(self.conf.layers)
         h, mask_out, new_carries = self._apply_layers(
-            params, state, x, mask, train=train, upto=n - 1, carries=carries)
+            params, state, x, mask, train=train, generator=generator, upto=n - 1,
+            carries=carries)
+        h = self._preprocess(n - 1, h, generator)
+        if train and generator is not None:
+            # output layers honor input dropout too (no-op without one)
+            h = self.conf.layers[n - 1]._maybe_dropout(h, train, generator)
+        return h, mask_out, new_carries
+
+    def _reg_score(self, params, acc: torch.dtype) -> Tensor:
+        reg = torch.zeros((), dtype=acc, device=self.device)
+        for layer, p in zip(self.conf.layers, params):
+            if p:
+                reg = reg + layer.regularization_score(p).to(acc)
+        return reg
+
+    def _loss(self, params, state, x, labels, *, train: bool,
+              generator: Optional[torch.Generator] = None,
+              mask=None, label_mask=None, carries=None):
+        """Full score: the output layer's loss plus every layer's L1/L2
+        (accumulated in float64 when computing in float64, else float32)
+        → (loss, new_carries)."""
+        n = len(self.conf.layers)
+        h, mask_out, new_carries = self._head_input(
+            params, state, x, mask, train=train, generator=generator, carries=carries)
         last = self.conf.layers[n - 1]
-        last._check_train(train)
         lm = label_mask if label_mask is not None else (
             mask_out if labels is not None and labels.ndim == 3 else None)
         if not hasattr(last, "score"):
             raise ValueError(f"last layer {type(last).__name__} has no score(); "
                              "use an output layer")
         loss = last.score(params[n - 1], state[n - 1], h, labels, mask=lm)
-        acc = (torch.float64 if canonical_dtype(self.conf.compute_dtype) == torch.float64
-               else torch.float32)
-        reg = torch.zeros((), dtype=acc, device=loss.device)
-        for layer, p in zip(self.conf.layers, params):
-            if p:
-                reg = reg + layer.regularization_score(p).to(acc)
-        return loss.to(acc) + reg, new_carries
+        acc = torch.float64 if self._compute_dtype() == torch.float64 else torch.float32
+        return loss.to(acc) + self._reg_score(params, acc), new_carries
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
 
     def _apply_updates(self, grads, params, opt_state, it: Tensor):
-        """Per layer: gradient normalization, then the updater's ``apply``
+        """Per layer: gradient normalization, the updater's ``apply``
         (updater math + param step; Adam/Nadam take the fused kernel K4
-        when ``DL4J_TPU_FUSED_UPDATE=1``)."""
+        when ``DL4J_TPU_FUSED_UPDATE=1``), then the layer's constraints."""
         conf = self.conf
         new_params, new_opt = [], []
         for layer, g, p, os_ in zip(conf.layers, grads, params, opt_state):
@@ -291,14 +403,12 @@ class MultiLayerNetwork:
                 new_params.append(p)
                 new_opt.append(os_)
                 continue
-            if layer.constraints:
-                raise NotImplementedError(
-                    f"layer {layer.name or type(layer).__name__}: parameter "
-                    "constraints are not ported yet")
             if conf.gradient_normalization != GradientNormalization.NONE:
                 g = normalize_gradients(g, conf.gradient_normalization,
                                         conf.gradient_normalization_threshold)
             p2, os2 = self._updater_for(layer).apply(p, g, os_, it)
+            if layer.constraints:
+                p2 = apply_constraints(layer.constraints, p2)
             new_params.append(p2)
             new_opt.append(os2)
         return new_params, new_opt
@@ -321,7 +431,8 @@ class MultiLayerNetwork:
                                device=self.device)
 
     def _loss_and_grads(self, ds: DataSet, carries=None):
-        """The training loss on ``ds``, its gradient with respect to every
+        """The training loss on ``ds`` (dropout and weight noise drawn from
+        the network's generator), its gradient with respect to every
         parameter (per-layer dicts shaped like ``params``) and the
         recurrent carries after it, detached: the next TBPTT chunk takes
         them as constants, as the reference differentiates each chunk on
@@ -331,7 +442,8 @@ class MultiLayerNetwork:
                 for p in self.params]
         params = [tree_unflatten(p, ls) for p, ls in zip(self.params, live)]
         with torch.enable_grad():
-            loss, new_carries = self._loss(params, self.state, x, y, train=True, mask=m,
+            loss, new_carries = self._loss(params, self.state, x, y, train=True,
+                                           generator=self._gen, mask=m,
                                            label_mask=lm, carries=carries)
             flat = [t for ls in live for t in ls]
             gflat = torch.autograd.grad(loss, flat) if flat else []
@@ -341,30 +453,158 @@ class MultiLayerNetwork:
             off += len(ls)
         return loss.detach(), grads, [_detached(c) for c in new_carries]
 
-    def _step(self, ds: DataSet, carries=None):
+    @staticmethod
+    def _grads_finite(loss: Tensor, grads) -> Tensor:
+        """0-dim bool on the device: the loss and every gradient are finite."""
+        ok = torch.isfinite(loss)
+        for g in (t for layer in grads for t in tree_leaves(layer)):
+            ok = ok & torch.isfinite(g).all()
+        return ok
+
+    @staticmethod
+    def _select_tree(ok: Tensor, new, old):
+        """``where(ok, new, old)`` leafwise: a skipped step keeps the OLD
+        bits exactly (the NaNs of the rejected branch do not leak)."""
+        out = [torch.where(ok, a, b) for a, b in zip(tree_leaves(new), tree_leaves(old))]
+        return tree_unflatten(old, out)
+
+    def _step(self, ds: DataSet, carries=None, guarded: bool = False):
         """One optimizer step on ``ds`` at the current iteration, which it
-        advances → (loss, carries after it)."""
+        advances → (loss, carries after it[, ok]).  ``guarded`` selects
+        the old parameters and updater state where the loss or a gradient
+        is not finite, and also returns that flag (on the device)."""
         loss, grads, carries = self._loss_and_grads(ds, carries)
         it = self._iter_tensor()
         with torch.no_grad():
-            self.params, self.opt_state = self._apply_updates(
-                grads, self.params, self.opt_state, it)
+            new_p, new_o = self._apply_updates(grads, self.params, self.opt_state, it)
+            if guarded:
+                ok = self._grads_finite(loss, grads)
+                new_p = [self._select_tree(ok, n, o) for n, o in zip(new_p, self.params)]
+                new_o = [self._select_tree(ok, n, o) for n, o in zip(new_o, self.opt_state)]
+            self.params, self.opt_state = new_p, new_o
             self._it_dev = it + 1
         self.iteration += 1
         self._it_dev_val = self.iteration
-        return loss, carries
+        return (loss, carries, ok) if guarded else (loss, carries)
+
+    def set_nan_guard(self, budget: Optional[int] = 3) -> None:
+        """Opt-in divergence guard: every step checks its loss and gradients
+        for NaN/Inf on the device; a non-finite step applies NO update
+        (parameters, updater state and layer state stay bitwise as they
+        were) and spends one unit of ``budget``; a good step refills it.
+        More than ``budget`` consecutive bad steps raise
+        :class:`DivergenceError`.  ``budget=None`` switches it off (the
+        default), and the step is then exactly the unguarded one.
+
+        Cost when on: the step's flag is read on the host, one device sync
+        per step."""
+        if budget is not None and budget < 1:
+            raise ValueError(f"nan guard budget must be >= 1, got {budget}")
+        self._nan_guard_budget = budget
+        self._bad_steps = 0
+
+    def _note_guarded_step(self, ok: bool) -> None:
+        """Host-side budget accounting of a guarded step: reset on a good
+        step, raise past the budget (and start a fresh budget)."""
+        if ok:
+            self._bad_steps = 0
+            return
+        self._bad_steps += 1
+        logging.getLogger("deeplearning4j_tpu_torch").warning(
+            "non-finite gradients at iteration %d — update skipped "
+            "(%d/%d bad steps)", self.iteration, self._bad_steps,
+            self._nan_guard_budget)
+        if self._bad_steps > self._nan_guard_budget:
+            bad, self._bad_steps = self._bad_steps, 0
+            raise DivergenceError(bad, self._nan_guard_budget)
+
+    def _fire(self, iteration: int, score) -> None:
+        for lst in self.listeners:
+            lst.iteration_done(self, iteration, score)
 
     def fit_batch(self, ds: DataSet) -> LazyScore:
         """One optimization step on one minibatch (one per chunk under
         TBPTT).  Returns the loss as a :class:`LazyScore`: reading it
         syncs with the device, and a loop that only chains steps never
-        does."""
+        does (unless the nan guard is on)."""
         if self.conf.backprop_type == "tbptt":
+            if self._nan_guard_budget is not None:
+                raise NotImplementedError(
+                    "the nan guard does not compose with TBPTT yet — chunk "
+                    "steps apply updates inside a scan; run with "
+                    "set_nan_guard(None)")
             return self._fit_batch_tbptt(ds)
-        return LazyScore(self._step(ds)[0])
+        if self._nan_guard_budget is not None:
+            loss, _, ok = self._step(ds, guarded=True)
+            self._note_guarded_step(bool(ok))
+        else:
+            loss, _ = self._step(ds)
+        score = LazyScore(loss)
+        self._fire(self.iteration, score)
+        return score
+
+    def _stacked(self, batches: List[DataSet]) -> Dict[str, Optional[Tensor]]:
+        """Each DataSet field of ``batches`` stacked on a new leading axis on
+        the device (None where every batch has None)."""
+        out = {}
+        for f in dataclasses.fields(DataSet):
+            name = f.name
+            vals = [getattr(ds, name) for ds in batches]
+            if any(v is None for v in vals):
+                if not all(v is None for v in vals):
+                    raise ValueError("fit_batches needs uniform masks: "
+                                     "all batches or none")
+                out[name] = None
+                continue
+            out[name] = torch.stack([self._as_tensor(v) for v in vals])
+        return out
+
+    @property
+    def fit_graph_count(self) -> int:
+        """How many ``fit_batches`` CUDA graphs this network holds."""
+        return len(self._fit_graphs)
+
+    def fit_batches(self, batches) -> List[LazyScore]:
+        """k optimizer steps over a list of same-shaped DataSets, in one
+        dispatch: on the card one CUDA graph of the k steps, captured at
+        the first call for a given (k, shapes, dtypes) and replayed after;
+        on the CPU the k steps eagerly.  Listeners fire after the k steps
+        with each step's loss.  TBPTT configurations and listeners with
+        ``requires_model_state`` take one ``fit_batch`` per batch, as in
+        the reference; the nan guard is not consulted, as in the
+        reference.  Without dropout or weight noise the losses, parameters
+        and iteration match k ``fit_batch`` calls bitwise; with them the
+        random stream differs from k calls' and repeats from a seed."""
+        batches = list(batches)
+        if not batches:
+            return []
+        if self.conf.backprop_type == "tbptt" or any(
+                getattr(l, "requires_model_state", False) for l in self.listeners):
+            return [self.fit_batch(ds) for ds in batches]
+        n = len(batches)
+        stacked = self._stacked(batches)
+        if self.device.type == "cuda":
+            from ..ops import update_kernel
+            from .train_graph import TrainStepsGraph
+            key = (n, update_kernel.enabled()) + tuple(
+                None if t is None else (tuple(t.shape), t.dtype) for t in stacked.values())
+            graph = self._fit_graphs.get(key)
+            if graph is None:
+                graph = self._fit_graphs[key] = TrainStepsGraph(self, stacked, n)
+            losses = graph(self, stacked)
+            self.iteration += n
+            self._it_dev, self._it_dev_val = graph.it, self.iteration
+        else:
+            losses = torch.stack([self._step(DataSet(*(
+                None if t is None else t[i] for t in stacked.values())))[0]
+                for i in range(n)])
+        scores = [LazyScore(losses[i]) for i in range(n)]
+        for i, score in enumerate(scores):
+            self._fire(self.iteration - n + i + 1, score)
+        return scores
 
     def _init_carries(self, mb: int):
-        dtype = canonical_dtype(self.conf.compute_dtype)
+        dtype = self._compute_dtype()
         return [l.init_carry(mb, dtype, self.device) if l.recurrent else None
                 for l in self.conf.layers]
 
@@ -373,7 +613,8 @@ class MultiLayerNetwork:
         optimizer step per chunk (at iterations ``iteration``,
         ``iteration + 1``, ...), recurrent state carried from chunk to
         chunk.  The score is the mean of the full chunks' losses, folded
-        with a ragged tail chunk as (mean·n + tail) / (n + 1)."""
+        with a ragged tail chunk as (mean·n + tail) / (n + 1).  Listeners
+        fire after each chunk's step."""
         x, y, m, lm = self._batch(ds)
 
         def rank_ok(a):
@@ -394,6 +635,7 @@ class MultiLayerNetwork:
             loss, carries = self._step(DataSet(cut(x, s), cut(y, s), cut(m, s), cut(lm, s)),
                                        carries)
             losses.append(loss)
+            self._fire(self.iteration, LazyScore(loss))
         mean = torch.stack(losses[:n]).mean() if n else None
         if tail:
             mean = losses[-1] if mean is None else (mean * n + losses[-1]) / (n + 1)
@@ -427,26 +669,117 @@ class MultiLayerNetwork:
         from zeros."""
         self._stream_carries = None
 
-    def fit(self, data, epochs: int = 1) -> List[LazyScore]:
-        """Train on a DataSet, an ``(x, y)`` pair or a list / iterable of
-        DataSets for ``epochs`` passes; each epoch's scores are read in
-        one device copy at its end.  More than one epoch needs data that
-        can be iterated again (not a one-shot iterator)."""
+    @staticmethod
+    def _as_iterator(data):
+        """A DataSetIterator, a DataSet or an ``(x, y)`` pair as an iterator;
+        any other iterable of DataSets (a list) passes through."""
+        if isinstance(data, DataSetIterator):
+            return data
         if isinstance(data, DataSet):
-            data = [data]
-        elif isinstance(data, tuple) and len(data) == 2:
-            data = [DataSet(data[0], data[1])]
-        if epochs > 1 and iter(data) is data:
+            return ListDataSetIterator([data])
+        if isinstance(data, tuple) and len(data) == 2:
+            return ListDataSetIterator([DataSet(data[0], data[1])])
+        if isinstance(data, (str, bytes)) or not hasattr(data, "__iter__"):
+            raise TypeError(f"cannot iterate {type(data)}")
+        return data
+
+    def fit(self, data, epochs: int = 1) -> List[LazyScore]:
+        """Train on a DataSetIterator, a DataSet, an ``(x, y)`` pair or a
+        list / iterable of DataSets for ``epochs`` passes; listeners fire
+        per iteration, and each epoch's scores are read in one device copy
+        at its end.  More than one epoch needs data that can be iterated
+        again (not a one-shot iterator)."""
+        it = self._as_iterator(data)
+        if epochs > 1 and iter(it) is it:
             raise ValueError("fit(epochs > 1) needs data it can iterate again, "
                              "e.g. a list of DataSets, not a one-shot iterator")
         losses: List[LazyScore] = []
+        synced = 0
         for _ in range(epochs):
-            start = len(losses)
-            for ds in data:
+            for ds in it:
                 losses.append(self.fit_batch(ds))
-            materialize_scores(losses[start:])
-            self.epoch += 1
+            synced = self._end_epoch(losses, synced)
         return losses
+
+    def _end_epoch(self, losses, synced: int) -> int:
+        """Epoch epilogue shared by ``fit`` and ``ShardedTrainer.fit``: read
+        the epoch's scores in one copy, count the epoch, fire
+        ``epoch_done``."""
+        materialize_scores(losses[synced:])
+        self.epoch += 1
+        for lst in self.listeners:
+            if hasattr(lst, "epoch_done"):
+                lst.epoch_done(self, self.epoch)
+        return len(losses)
+
+    # ------------------------------------------------------------------
+    # layerwise unsupervised pretraining
+    # ------------------------------------------------------------------
+
+    def pretrainable_layers(self) -> List[int]:
+        """Indices of layers with an unsupervised objective (RBM,
+        AutoEncoder)."""
+        return [i for i, l in enumerate(self.conf.layers)
+                if hasattr(l, "contrastive_divergence")
+                or hasattr(l, "reconstruction_score")]
+
+    def pretrain(self, data, epochs: int = 1) -> Dict[int, List[LazyScore]]:
+        """Greedy layerwise pretraining: each pretrainable layer in order,
+        on the features of the (already pretrained) layers below it;
+        labels are ignored.  Returns {layer index: losses}."""
+        return {i: self.pretrain_layer(i, data, epochs)
+                for i in self.pretrainable_layers()}
+
+    def pretrain_layer(self, i: int, data, epochs: int = 1) -> List[LazyScore]:
+        """Unsupervised pretraining of layer ``i``: inputs featurized
+        through layers [0, i) in inference mode, then the layer's
+        objective (CD-k for an RBM, the reconstruction loss for an
+        AutoEncoder) through the layer's own updater, with its own step
+        counter from 0, gradient normalization and constraints."""
+        layer = self.conf.layers[i]
+        is_rbm = hasattr(layer, "cd_gradients")
+        if not is_rbm and not hasattr(layer, "reconstruction_score"):
+            raise ValueError(
+                f"layer {i} ({type(layer).__name__}) has no unsupervised "
+                "objective — pretrainable layers: RBM (contrastive "
+                "divergence), AutoEncoder (reconstruction)")
+        updater = self._updater_for(layer)
+        losses: List[LazyScore] = []
+        it = 0
+        for _ in range(epochs):
+            for ds in self._as_iterator(data):
+                x = self._as_tensor(ds.features)
+                with torch.no_grad():
+                    feat = self._apply_layers(self.params, self.state, x, None,
+                                              upto=i)[0]
+                    feat = self._preprocess(i, feat, self._gen)
+                p = self.params[i]
+                if is_rbm:
+                    with torch.no_grad():
+                        g, loss = layer.cd_gradients(p, feat, self._gen)
+                else:
+                    live = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+                    with torch.enable_grad():
+                        loss = layer.reconstruction_score(live, feat, generator=self._gen,
+                                                          train=True)
+                        gl = torch.autograd.grad(loss, [live[k] for k in sorted(live)])
+                    g = dict(zip(sorted(live), gl))
+                    loss = loss.detach()
+                with torch.no_grad():
+                    if self.conf.gradient_normalization != GradientNormalization.NONE:
+                        g = normalize_gradients(g, self.conf.gradient_normalization,
+                                                self.conf.gradient_normalization_threshold)
+                    itf = torch.full((), float(it), dtype=torch.float32, device=self.device)
+                    p2, self.opt_state[i] = updater.apply(p, g, self.opt_state[i], itf)
+                    self.params[i] = apply_constraints(layer.constraints, p2)
+                it += 1
+                losses.append(LazyScore(loss))
+        materialize_scores(losses)
+        return losses
+
+    # ------------------------------------------------------------------
+    # inference / scoring
+    # ------------------------------------------------------------------
 
     def score(self, ds: DataSet) -> float:
         """Loss on a DataSet (regularization included) without updating."""
@@ -455,6 +788,28 @@ class MultiLayerNetwork:
             loss, _ = self._loss(self.params, self.state, x, y, train=False, mask=m,
                                  label_mask=lm)
         return float(loss)
+
+    def score_examples(self, ds: DataSet, add_regularization_terms: bool = True) -> Tensor:
+        """Per-example scores [N] without the batch reduction, a tensor on
+        the device; with ``add_regularization_terms`` the network's L1/L2
+        score is added to every example (the reference's semantics)."""
+        x, y, m, lm = self._batch(ds)
+        n = len(self.conf.layers)
+        last = self.conf.layers[n - 1]
+        if not hasattr(last, "score_examples"):
+            raise ValueError(
+                f"last layer {type(last).__name__} has no score_examples(); "
+                "supported: OutputLayer, LossLayer, RnnOutputLayer")
+        with torch.no_grad():
+            h, mask_out, _ = self._head_input(self.params, self.state, x, m,
+                                              train=False, generator=None)
+            lmask = lm if lm is not None else (
+                mask_out if y is not None and y.ndim == 3 else None)
+            pe = last.score_examples(self.params[n - 1], self.state[n - 1], h, y,
+                                     mask=lmask)
+            if add_regularization_terms:
+                pe = pe + self._reg_score(self.params, pe.dtype)
+        return pe
 
     def output(self, x, mask=None) -> Tensor:
         """Inference activations of the last layer, a tensor on the
@@ -465,6 +820,42 @@ class MultiLayerNetwork:
         with torch.inference_mode():
             y, _, _ = self._apply_layers(self.params, self.state, x, m)
         return y
+
+    def feed_forward(self, x, train: bool = False) -> List[Tensor]:
+        """Every layer's activations, tensors on the device.  ``train``
+        applies dropout and weight noise from the network's generator."""
+        acts: List[Tensor] = []
+        with torch.no_grad():
+            self._apply_layers(self.params, self.state, self._as_tensor(x), None,
+                               train=train, generator=self._gen if train else None,
+                               acts=acts)
+        return acts
+
+    def evaluate(self, data, evaluation=None):
+        """Classification metrics over ``data`` (an iterator, a DataSet or
+        an ``(x, y)`` pair) in an ``Evaluation``."""
+        from ..evaluation.evaluation import Evaluation
+        ev = evaluation if evaluation is not None else Evaluation()
+        for ds in self._as_iterator(data):
+            out = self.output(ds.features, mask=ds.features_mask)
+            ev.eval(_host(ds.labels), _host(out),
+                    mask=None if ds.labels_mask is None else _host(ds.labels_mask))
+        return ev
+
+    # ------------------------------------------------------------------
+    # listeners / serde
+    # ------------------------------------------------------------------
+
+    def set_listeners(self, *listeners) -> None:
+        self.listeners = list(listeners)
+
+    def add_listener(self, listener) -> None:
+        self.listeners.append(listener)
+
+    def clone_params(self):
+        """A copy of the parameter trees, tensors cloned (a ``fit_batches``
+        graph replay writes the network's tensors in place)."""
+        return [tree_unflatten(p, [t.clone() for t in tree_leaves(p)]) for p in self.params]
 
     def save(self, path: str, save_updater: bool = True) -> None:
         from ..utils.serializer import save_model

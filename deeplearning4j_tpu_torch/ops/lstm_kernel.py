@@ -16,14 +16,15 @@ tensors, and only then, they run the plain versions
 ``lstm_seq_fwd_plain`` / ``lstm_cell_bwd_plain`` (copies of the
 reference's ``_plain_cell`` / ``_bwd_math`` around the plain step).
 
-Dispatch (``lstm_sequence``), by the tensor's device alone:
-  - a CPU tensor, of any dtype: ``lstm_sequence_plain``, the per-step loop
-    differentiated by autograd (the reference's default, and its exact
-    float64 path);
-  - a CUDA tensor: ``LSTMSequence``, whose forward is K5a and whose
-    backward is one reverse loop of K5b and the dz·RWᵀ product per step,
-    then dRW, db and dzx each in one call over all steps.  float32 and
-    bfloat16 reach the kernels; anything they do not take raises.
+Dispatch (``lstm_sequence``), by the tensor's device and dtype:
+  - a CPU tensor, of any dtype, or a float64 one on any device:
+    ``lstm_sequence_plain``, the per-step loop differentiated by autograd
+    (the reference's default, and its exact float64 path: its
+    ``_use_pallas`` never sends float64 to the kernel either);
+  - a float32 or bfloat16 CUDA tensor: ``LSTMSequence``, whose forward is
+    K5a and whose backward is one reverse loop of K5b and the dz·RWᵀ
+    product per step, then dRW, db and dzx each in one call over all
+    steps.  Anything else the kernels do not take raises.
 The reference keeps its kernel opt-in (``DL4J_TPU_FUSED_LSTM``) because
 XLA's fusion beat it on the TPU; on the card K5a replaces four launches a
 step, so it has no switch here.
@@ -305,8 +306,10 @@ def lstm_sequence(zx: Tensor, RW: Tensor, b: Tensor, h0: Tensor, c0: Tensor,
                   reverse: bool = False) -> Tuple[Tensor, Carry]:
     """The standard cell over a sequence: zx [mb, T, 4n] (gates
     ``[i|f|o|g]``) → (hs [mb, T, n], (h_T, c_T)); the plain loop for CPU
-    tensors, else K5a/K5b."""
-    if zx.device.type == "cpu":
+    tensors and for float64 (the kernels have no float64 form, and the
+    reference's ``_use_pallas`` sends float64 to its plain cell too), else
+    K5a/K5b."""
+    if zx.device.type == "cpu" or zx.dtype == torch.float64:
         return lstm_sequence_plain(zx, RW, b, h0, c0, mask, reverse)
     args = [t.contiguous() for t in (zx, RW, b, h0, c0)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):

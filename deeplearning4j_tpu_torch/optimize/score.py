@@ -20,7 +20,7 @@ def materialize_scores(scores) -> None:
     lazy = [s for s in scores if isinstance(s, LazyScore) and not s.materialized]
     if not lazy:
         return
-    vals = torch.stack([s._dev.detach().reshape(()).float() for s in lazy]).cpu().tolist()
+    vals = torch.stack([s._dev.detach().reshape(()).double() for s in lazy]).cpu().tolist()
     for s, v in zip(lazy, vals):
         s._val = float(v)
         s._dev = None

@@ -31,9 +31,16 @@ into the checkpoint's ``grad_residual.npz`` (leading axis = slice
 count, the reference's layout); a trainer built on a network loaded
 from such a checkpoint adopts its slice when the slice count matches.
 
-Not ported (ROADMAP queue 9 and queue 1 item 4): the ``model`` (TP),
-``seq`` and ``pipe`` axes, pipeline schedules, ``nan_guard``, TBPTT
-under data parallelism, and the elastic residual snapshot.
+``nan_guard=budget`` arms the network's divergence guard on every rank:
+a step whose loss or gradient is not finite on ANY rank (one MIN
+all-reduce of each rank's flag) applies no update on every rank, and on
+the compressed path leaves the residual as it was too, so the replicas
+stay equal and the poisoned gradient is not carried into the next step.
+The budget is the network's (``set_nan_guard``, ``DivergenceError``).
+
+Not ported (ROADMAP queue 1 item 7): the ``model`` (TP), ``seq`` and
+``pipe`` axes, pipeline schedules, TBPTT under data parallelism, and the
+elastic residual snapshot.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ import torch
 
 from ..datasets.dataset import DataSet
 from ..ops import compression as C
-from ..optimize.score import LazyScore, materialize_scores
+from ..optimize.score import LazyScore
 from .distributed import detect_num_slices, process_count
 from .mesh import DATA_AXIS, DCN_AXIS, RankMesh, build_mesh, build_two_tier_mesh
 
@@ -113,9 +120,6 @@ class ShardedTrainer:
         if pipeline_schedule != "gpipe":
             raise NotImplementedError(
                 "pipeline schedules are not ported yet (ROADMAP queue 9)")
-        if nan_guard is not None:
-            raise NotImplementedError(
-                "nan_guard is not ported yet (ROADMAP queue 1 item 4)")
         if self.mesh.size != process_count():
             raise RuntimeError(
                 f"the mesh spans {self.mesh.size} ranks but the process group has "
@@ -126,6 +130,11 @@ class ShardedTrainer:
         self.dp_size = self.n_data * self.n_dcn
         self.dp_index = (self.mesh.coords.get(dcn_axis, 0) * self.n_data
                          + self.mesh.coords.get(data_axis, 0))
+        self.nan_guard = nan_guard
+        if nan_guard is not None:
+            if nan_guard < 1:
+                raise ValueError(f"nan_guard budget must be >= 1, got {nan_guard}")
+            net.set_nan_guard(nan_guard)
         self.bucketer = C.GradBucketer(net.params, self.compression_bucket_bytes)
         #: bytes this rank received from the other slices in the last step's
         #: tier-2 gather (the compressed path's wire)
@@ -253,12 +262,23 @@ class ShardedTrainer:
             raise NotImplementedError(
                 "TBPTT under data parallelism is not ported yet (ROADMAP "
                 "queue 9); run the network's own fit_batch")
+        guard = self.nan_guard is not None
         loss, grads, _ = net._loss_and_grads(self._local(ds))
         with torch.no_grad():
-            mean = self._exchange(self.bucketer.flat(grads))
+            flat = self.bucketer.flat(grads)
+            if guard:
+                ok = self._all_finite(loss, flat)
+                residual = self._residual
+            mean = self._exchange(flat)
             it = net._iter_tensor()
-            net.params, net.opt_state = net._apply_updates(
+            new_p, new_o = net._apply_updates(
                 self.bucketer.unflat(mean), net.params, net.opt_state, it)
+            if guard:
+                new_p = [net._select_tree(ok, n, o) for n, o in zip(new_p, net.params)]
+                new_o = [net._select_tree(ok, n, o) for n, o in zip(new_o, net.opt_state)]
+                if residual is not None:
+                    self._residual = torch.where(ok, self._residual, residual)
+            net.params, net.opt_state = new_p, new_o
             net._it_dev = it + 1
             if self.grad_compression is None:
                 loss = self._all_reduce_mean(loss.reshape(1), None)
@@ -267,7 +287,21 @@ class ShardedTrainer:
                     loss.reshape(1), self.data_axis), self.dcn_axis)
         net.iteration += 1
         net._it_dev_val = net.iteration
-        return LazyScore(loss.reshape(()))
+        if guard:
+            net._note_guarded_step(bool(ok))
+        score = LazyScore(loss.reshape(()))
+        net._fire(net.iteration, score)
+        return score
+
+    def _all_finite(self, loss: Tensor, flat: Tensor) -> Tensor:
+        """0-dim bool: this step's loss and gradient are finite on every
+        rank (a MIN all-reduce of each rank's flag)."""
+        import torch.distributed as dist
+
+        ok = (torch.isfinite(loss) & torch.isfinite(flat).all()).to(torch.int32).reshape(1)
+        if self.mesh.size > 1:
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+        return ok[0] > 0
 
     def fit_batches(self, batches) -> List[LazyScore]:
         """One ``fit_batch`` per batch (the residual threads through every
@@ -276,7 +310,8 @@ class ShardedTrainer:
 
     def fit(self, data, epochs: int = 1) -> List[LazyScore]:
         """Train on a DataSet, an ``(x, y)`` pair or a list of DataSets for
-        ``epochs`` passes, as ``MultiLayerNetwork.fit`` does."""
+        ``epochs`` passes, as ``MultiLayerNetwork.fit`` does (the network's
+        listeners fire per step and per epoch)."""
         if isinstance(data, DataSet):
             data = [data]
         elif isinstance(data, tuple) and len(data) == 2:
@@ -285,12 +320,11 @@ class ShardedTrainer:
             raise ValueError("fit(epochs > 1) needs data it can iterate again, "
                              "e.g. a list of DataSets, not a one-shot iterator")
         losses: List[LazyScore] = []
+        synced = 0
         for _ in range(epochs):
-            start = len(losses)
             for ds in data:
                 losses.append(self.fit_batch(ds))
-            materialize_scores(losses[start:])
-            self.net.epoch += 1
+            synced = self.net._end_epoch(losses, synced)
         return losses
 
     def output(self, x, **kw) -> Tensor:

@@ -1,0 +1,127 @@
+"""The port's CLI ``train``, ``evaluate`` and ``summary`` against the JAX
+package's on the CPU (``--device cpu``), on the embedded Iris data and on
+a seeded ``.npz``.
+
+The port's ``train`` draws its initial weights from torch's generator, so
+its trained weights are its own; what is held to the reference is the
+rest: the zip it writes loads in the reference with the same outputs
+(1e-6), and the reference's ``evaluate`` and ``summary`` print, on that
+zip, exactly the text the port's print.
+"""
+
+import json
+
+import numpy as np
+import pytest
+
+from deeplearning4j_tpu import cli as jcli
+from deeplearning4j_tpu.nn.conf.inputs import InputType as JInputType
+from deeplearning4j_tpu.nn.layers import feedforward as jff
+from deeplearning4j_tpu.nn.multilayer import NeuralNetConfiguration as JBuilder
+from deeplearning4j_tpu.nn.updaters import Nesterovs as JNesterovs
+from deeplearning4j_tpu.utils.serializer import load_model as j_load
+from deeplearning4j_tpu_torch import cli
+from deeplearning4j_tpu_torch.utils.serializer import load_model
+
+
+def _conf(tmp_path, n_in, n_out, seed=1):
+    conf = (JBuilder.builder().seed(seed).updater(JNesterovs(lr=0.05, momentum=0.9))
+            .layer(jff.Dense(n_out=16, activation="relu"))
+            .layer(jff.OutputLayer(n_out=n_out, activation="softmax", loss="mcxent"))
+            .set_input_type(JInputType.feed_forward(n_in)).build())
+    path = tmp_path / "conf.json"
+    path.write_text(json.dumps(conf.to_dict()))
+    return str(path)
+
+
+def _npz(tmp_path, n=96, n_in=10, classes=4, seed=3):
+    rng = np.random.default_rng(seed)
+    ys = rng.integers(0, classes, n)
+    xs = rng.normal(size=(n, n_in)).astype(np.float32) + 2.0 * np.eye(classes, n_in)[ys]
+    path = tmp_path / "data.npz"
+    np.savez(path, x=xs, y=ys)
+    return str(path), xs
+
+
+def _run(main, argv, capsys):
+    rc = main(argv)
+    out = capsys.readouterr().out
+    return rc, out
+
+
+@pytest.mark.parametrize("data", ["iris", "npz"])
+def test_train_evaluate_summary_match_the_reference(tmp_path, capsys, data):
+    if data == "iris":
+        from deeplearning4j_tpu_torch.datasets.fetchers import load_iris
+        spec, xs = "iris", load_iris()[0]
+        conf = _conf(tmp_path, 4, 3)
+    else:
+        spec, xs = _npz(tmp_path)
+        conf = _conf(tmp_path, 10, 4)
+    out_zip = str(tmp_path / "m.zip")
+    rc, out = _run(cli.main, ["train", "--config", conf, "--data", spec, "--epochs", "3",
+                              "--batch-size", "32", "--seed", "7", "--output", out_zip,
+                              "--device", "cpu"], capsys)
+    assert rc == 0 and f"saved: {out_zip}" in out and "trained 3 epoch(s)" in out
+    final = float(out.split("final loss ")[1].split()[0])
+    net = load_model(out_zip, device="cpu")
+    assert net.iteration == 3 * -(-len(xs) // 32) and net.epoch == 3
+    # the loss fell from the freshly initialized network's
+    fresh = cli._build_model(cli.build_parser().parse_args(
+        ["train", "--config", conf, "--data", spec, "--device", "cpu"]))
+    x, y = cli._load_data(spec, num_classes=cli._num_classes_of(fresh))
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    assert final < fresh.score(DataSet(x, y))
+    # the reference loads the port's zip and computes the same outputs
+    jnet = j_load(out_zip)
+    np.testing.assert_allclose(np.asarray(jnet.output(xs)), net.output(xs).numpy(),
+                               rtol=0, atol=1e-6)
+    for argv in (["evaluate", "--model", out_zip, "--data", spec],
+                 ["summary", "--model", out_zip, "--batch-size", "16"]):
+        rc, port_out = _run(cli.main, argv + ["--device", "cpu"], capsys)
+        jrc, ref_out = _run(jcli.main, argv, capsys)
+        assert rc == jrc == 0 and port_out == ref_out
+
+
+def test_train_with_the_nan_guard_and_a_zoo_model(tmp_path, capsys):
+    spec, _ = _npz(tmp_path)
+    rc, out = _run(cli.main, ["train", "--config", _conf(tmp_path, 10, 4), "--data", spec,
+                              "--nan-guard", "2", "--device", "cpu"], capsys)
+    assert rc == 0 and "nan guard armed (budget 2)" in out
+    # the CLI's data are float32 (the reference's rule): token ids as x,
+    # one-hot next tokens as y
+    ids = np.random.default_rng(4).integers(0, 16, (8, 9))
+    np.savez(tmp_path / "lm.npz", x=ids[:, :-1], y=np.eye(16)[ids[:, 1:]])
+    rc, out = _run(cli.main, ["train", "--zoo", "transformerlm", "--zoo-args",
+                              json.dumps(dict(vocab_size=16, n_layers=1, d_model=16,
+                                              n_heads=2, max_len=8)),
+                              "--data", str(tmp_path / "lm.npz"), "--batch-size", "4",
+                              "--device", "cpu"], capsys)
+    assert rc == 0 and "2 iterations" in out
+    with pytest.raises(SystemExit, match="unknown zoo model 'lenet'"):
+        cli.main(["train", "--zoo", "lenet", "--data", spec, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag,value,queue", [
+    ("--mesh", "data=2", "queue 1 item 7.5"), ("--prefetch", "2", "queue 1 item 9"),
+    ("--elastic-dir", "ck", "queue 1 item 7.4"), ("--chaos", "x", "queue 1 item 7.4"),
+    ("--checkpoint-every", "5", "queue 1 item 7.4"), ("--step-timeout", "3", "queue 1 item 7.4"),
+    ("--grace", "1", "queue 1 item 7.4"), ("--trace", "t.json", "queue 1 item 9"),
+    ("--compile-cache", "c", "queue 1 item 8"), ("--dashboard", "d.html", "queue 1 item 9")])
+def test_flags_that_wait_for_later_queues_name_them(tmp_path, flag, value, queue):
+    spec, _ = _npz(tmp_path)
+    with pytest.raises(SystemExit, match=f"not ported yet \\(ROADMAP {queue}"):
+        cli.main(["train", "--config", _conf(tmp_path, 10, 4), "--data", spec, flag, value,
+                  "--device", "cpu"])
+
+
+def test_data_errors_are_clean_cli_errors(tmp_path):
+    bad = tmp_path / "bad.npz"
+    np.savez(bad, features=np.zeros((2, 2)))
+    with pytest.raises(SystemExit, match="must contain arrays 'x' and 'y'"):
+        cli._load_data(str(bad))
+    with pytest.raises(SystemExit, match="out of range"):
+        np.savez(tmp_path / "r.npz", x=np.zeros((2, 3)), y=np.array([0, 5]))
+        cli._load_data(str(tmp_path / "r.npz"), num_classes=3)
+    with pytest.raises(SystemExit, match="--zoo NAME or --config"):
+        cli.main(["train", "--data", "iris", "--device", "cpu"])

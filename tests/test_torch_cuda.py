@@ -37,7 +37,14 @@ padded bucket and within 1e-5 of ``output()`` on the rows alone, also
 under concurrent load and while another replica's graphs are captured
 afresh, and a request of another per-example shape served eagerly,
 never through a graph, within 1e-5 of ``output()``; a float32-param / bfloat16-compute char-RNN's losses on the card
-within 2^-6 of the CPU's (bfloat16 sums in another order).
+within 2^-6 of the CPU's (bfloat16 sums in another order); ``fit_batches``
+as one CUDA graph bitwise k ``fit_batch`` calls (an MLP, a TransformerLM
+with K4), a dropout graph repeating from a seed bitwise, a nan-guarded
+skip bitwise; ``SelfAttention`` / ``LearnedSelfAttention`` through K1-K3
+against ``kernel="xla"`` within 2e-5 (gradients plus 1e-5 of their size);
+a float64 LSTM on the card (the plain loop, no K5 launch) against the
+CPU: loss and gradients 1e-12, parameters after updates 1e-7 (the
+updaters compute in float32).
 """
 
 import importlib.util
@@ -1226,3 +1233,218 @@ def test_mixed_dtype_char_rnn_on_card_matches_cpu(cuda_dev):
     assert all(t.dtype == torch.float32 for p in nets[1].params for t in p.values())
     y = nets[1].output(x)
     assert y.dtype == torch.bfloat16
+
+
+# -- the MLP fit path: fit_batches as one CUDA graph, dropout, attention layers, f64 --
+
+
+def _mlp(device, dropout=0.0, noise=None, dtype="float32", seed=3):
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import Dense, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+
+    conf = (NeuralNetConfiguration.builder().seed(seed)
+            .updater(Nesterovs(lr=0.1, momentum=0.9))
+            .layer(Dense(n_out=32, activation="relu", dropout=dropout))
+            .layer(Dense(n_out=16, activation="relu", dropout=dropout, weight_noise=noise))
+            .layer(OutputLayer(n_out=5, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(12)).dtype(dtype, dtype).build())
+    net = MultiLayerNetwork(conf, device=device)
+    net.init()
+    return net
+
+
+def _mlp_batches(k, seed=0, mb=16):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    rng = np.random.default_rng(seed)
+    return [DataSet(rng.standard_normal((mb, 12), dtype=np.float32),
+                    np.eye(5, dtype=np.float32)[rng.integers(0, 5, mb)]) for _ in range(k)]
+
+
+def _differing(a_params, b_params):
+    """[(layer, name, max abs difference)] of the leaves that differ."""
+    return [(i, k, float((p[k] - q[k]).abs().max()))
+            for i, (p, q) in enumerate(zip(a_params, b_params)) for k in p
+            if not torch.equal(p[k], q[k])]
+
+
+def _bitwise(a_params, b_params):
+    return not _differing(a_params, b_params)
+
+
+def test_fit_batches_graph_is_bitwise_eager_on_an_mlp(cuda_dev):
+    batches = _mlp_batches(4)
+    eager, graphed = _mlp(cuda_dev), _mlp(cuda_dev)
+    le = [float(eager.fit_batch(ds)) for ds in batches]
+    lg = [float(x) for x in graphed.fit_batches(batches)]
+    assert le == lg and _bitwise(eager.params, graphed.params)
+    assert graphed.fit_graph_count == 1 and graphed.iteration == 4
+    # again from the graph's state, after an eager step in between
+    more = _mlp_batches(4, seed=1)
+    eager.fit_batch(more[0])
+    graphed.fit_batch(more[0])
+    le = [float(eager.fit_batch(ds)) for ds in more]
+    lg = [float(x) for x in graphed.fit_batches(more)]
+    assert le == lg and _bitwise(eager.params, graphed.params)
+    assert _bitwise([o["v"] for o in eager.opt_state if o],
+                    [o["v"] for o in graphed.opt_state if o])
+    assert graphed.fit_graph_count == 1 and graphed.iteration == eager.iteration == 9
+
+
+def test_fit_batches_graph_is_bitwise_eager_on_a_transformer_with_k4(cuda_dev, monkeypatch):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+
+    monkeypatch.setenv(tuk.ENV_SWITCH, "1")
+    rng = np.random.default_rng(5)
+    seqs = [rng.integers(0, SIZE["vocab_size"], (4, SIZE["max_len"] + 1)) for _ in range(2)]
+    batches = [DataSet(s[:, :-1], s[:, 1:]) for s in seqs]
+    eager, graphed = TransformerLM(**SIZE, device=cuda_dev), TransformerLM(**SIZE, device=cuda_dev)
+    le = [float(eager.fit_batch(ds)) for ds in batches]
+    lg = [float(x) for x in graphed.fit_batches(batches)]
+    assert le == lg and _differing(eager.params, graphed.params) == []
+    # a replay adds the captured launches: one K4 per layer with parameters
+    # and step, K1-K3 one per block and step
+    before = [c.launches for c in (tuk.fused_update_cuda, tatt.flash_forward_cuda,
+                                   tatt.flash_bwd_dkdv_cuda, tatt.flash_bwd_dq_cuda)]
+    le = [float(eager.fit_batch(ds)) for ds in batches]
+    n_eager = [c.launches for c in (tuk.fused_update_cuda, tatt.flash_forward_cuda,
+                                    tatt.flash_bwd_dkdv_cuda, tatt.flash_bwd_dq_cuda)]
+    lg = [float(x) for x in graphed.fit_batches(batches)]
+    after = [c.launches for c in (tuk.fused_update_cuda, tatt.flash_forward_cuda,
+                                  tatt.flash_bwd_dkdv_cuda, tatt.flash_bwd_dq_cuda)]
+    assert le == lg and _bitwise(eager.params, graphed.params)
+    n_layers = sum(1 for p in graphed.params if p)
+    want = [2 * n_layers] + [2 * SIZE["n_layers"]] * 3
+    assert [b - a for a, b in zip(before, n_eager)] == want
+    assert [b - a for a, b in zip(n_eager, after)] == want
+    assert graphed.fit_graph_count == 1
+
+
+def test_fit_batches_graph_with_dropout_repeats_from_a_seed(cuda_dev):
+    from deeplearning4j_tpu_torch.nn.conf.regularizers import DropConnect
+
+    batches = _mlp_batches(4, seed=2)
+    runs = []
+    for _ in range(2):
+        net = _mlp(cuda_dev, dropout=0.5, noise=DropConnect(0.9))
+        losses = [float(x) for x in net.fit_batches(batches)]
+        losses += [float(x) for x in net.fit_batches(batches)]
+        runs.append((losses, net.params))
+    assert runs[0][0] == runs[1][0] and _bitwise(runs[0][1], runs[1][1])
+    # each replay draws fresh numbers: the same batches give other losses
+    assert runs[0][0][:4] != runs[0][0][4:]
+
+
+def test_nan_guard_on_card_skips_bitwise(cuda_dev):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import DivergenceError
+
+    net = _mlp(cuda_dev)
+    net.set_nan_guard(2)
+    good = _mlp_batches(1)[0]
+    bad = DataSet(good.features.copy(), good.labels)
+    bad.features[0, 0] = np.nan
+    net.fit_batch(good)
+    snap = [{k: v.clone() for k, v in p.items()} for p in net.params]
+    opt = [{k: {n: t.clone() for n, t in d.items()} for k, d in o.items()} for o in net.opt_state]
+    net.fit_batch(bad)
+    assert _bitwise(snap, net.params)
+    assert all(torch.equal(a, b) for o1, o2 in zip(opt, net.opt_state) for k in o1
+               for a, b in zip(o1[k].values(), o2[k].values()))
+    net.fit_batch(bad)
+    with pytest.raises(DivergenceError):
+        net.fit_batch(bad)
+
+
+@pytest.mark.parametrize("causal,masked,t", [(True, True, 64), (False, True, 37),
+                                             (True, False, 40)])
+def test_self_attention_layer_runs_k1_k3_and_matches_plain(cuda_dev, causal, masked, t):
+    from deeplearning4j_tpu_torch.nn.layers import SelfAttention
+
+    layer = SelfAttention(n_in=32, n_out=32, n_heads=4, causal=causal)
+    gen = torch.Generator().manual_seed(0)
+    params = {k: v.to(cuda_dev).requires_grad_(True)
+              for k, v in layer.init_params(gen, None).items()}
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((3, t, 32), dtype=np.float32)).to(cuda_dev)
+    mask = None
+    if masked:
+        m = (rng.random((3, t)) > 0.25).astype(np.float32)
+        m[2] = 0.0                     # a fully masked row
+        mask = torch.from_numpy(m).to(cuda_dev)
+    outs, grads = [], []
+    for kernel in ("flash", "xla"):
+        layer.kernel = kernel
+        before = [c.launches for c in (tatt.flash_forward_cuda, tatt.flash_bwd_dkdv_cuda,
+                                        tatt.flash_bwd_dq_cuda)]
+        y = layer.forward(params, {}, x, mask=mask).y
+        g = torch.autograd.grad((y * y).sum(), list(params.values()))
+        after = [c.launches for c in (tatt.flash_forward_cuda, tatt.flash_bwd_dkdv_cuda,
+                                      tatt.flash_bwd_dq_cuda)]
+        launched = [a - b for a, b in zip(after, before)]
+        assert launched == ([1, 1, 1] if kernel == "flash" else [0, 0, 0])
+        outs.append(y.detach())
+        grads.append(g)
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=2e-5)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-5)
+
+
+def test_learned_self_attention_runs_k1_with_three_queries(cuda_dev):
+    from deeplearning4j_tpu_torch.nn.layers import LearnedSelfAttention
+
+    layer = LearnedSelfAttention(n_in=48, n_out=48, n_heads=4, n_queries=3)
+    params = {k: v.to(cuda_dev).requires_grad_(True)
+              for k, v in layer.init_params(torch.Generator().manual_seed(2), None).items()}
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 70, 48), dtype=np.float32)).to(cuda_dev)
+    outs, grads = [], []
+    for kernel in ("flash", "xla"):
+        layer.kernel = kernel
+        before = tatt.flash_forward_cuda.launches
+        y = layer.forward(params, {}, x).y
+        assert tatt.flash_forward_cuda.launches - before == (kernel == "flash")
+        outs.append(y.detach())
+        grads.append(torch.autograd.grad(y.sum(), list(params.values())))
+    assert outs[0].shape == (2, 3, 48)
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=2e-5)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+
+
+def test_float64_lstm_on_card_takes_the_plain_loop(cuda_dev):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import LSTM, RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+
+    conf = (NeuralNetConfiguration.builder().seed(4)
+            .layer(LSTM(n_out=16)).layer(RnnOutputLayer(n_out=6, activation="softmax"))
+            .set_input_type(InputType.recurrent(6)).dtype("float64", "float64").build())
+    rng = np.random.default_rng(6)
+    ds = DataSet(rng.standard_normal((4, 9, 6)), np.eye(6)[rng.integers(0, 6, (4, 9))])
+    nets = []
+    for dev in (cuda_dev, "cpu"):
+        net = MultiLayerNetwork(conf, device=dev)
+        net.init()
+        nets.append(net)
+    before = (tlk.lstm_seq_fwd_cuda.launches, tlk.lstm_cell_bwd_cuda.launches)
+    # the float64 loss and gradients: 1e-12
+    (l0, g0, _), (l1, g1, _) = (n._loss_and_grads(ds) for n in nets)
+    assert abs(float(l0) - float(l1)) <= 1e-12
+    for a, b in zip(g0, g1):
+        for k in a:
+            np.testing.assert_allclose(a[k].cpu().numpy(), b[k].numpy(), rtol=0, atol=1e-12)
+    # after updates, one float32 spacing: the updaters compute in float32
+    # (as the reference's do), so a last-bit difference of a float64
+    # gradient can round a parameter to the next float32
+    losses = [[float(n.fit_batch(ds)) for _ in range(3)] for n in nets]
+    assert (tlk.lstm_seq_fwd_cuda.launches, tlk.lstm_cell_bwd_cuda.launches) == before
+    np.testing.assert_allclose(losses[0], losses[1], rtol=0, atol=1e-7)
+    for p, q in zip(*(n.params for n in nets)):
+        for k in p:
+            assert p[k].dtype == torch.float64
+            np.testing.assert_allclose(p[k].cpu().numpy(), q[k].numpy(), rtol=0, atol=1e-7)

@@ -332,7 +332,7 @@ _INVALID = {
                 NotImplementedError),
     "pipeline schedules": (lambda m: m.build_mesh(), {"pipeline_schedule": "1f1b"},
                            NotImplementedError),
-    "nan_guard": (lambda m: m.build_mesh(), {"nan_guard": 3}, NotImplementedError),
+    "nan_guard": (lambda m: m.build_mesh(), {"nan_guard": 0}, ValueError),
     "initialize": (lambda m: m.build_two_tier_mesh(2, world_size=2), {}, RuntimeError),
 }
 
@@ -340,7 +340,9 @@ _INVALID = {
 @pytest.mark.parametrize("match", list(_INVALID))
 def test_trainer_validation_errors(match):
     """The reference's errors (tests/test_compression.py), plus what the
-    port does not run yet and a mesh wider than the process group."""
+    port does not run yet, a nan guard budget below 1 (the guard itself is
+    ported: tests/test_torch_multilayer_surface.py) and a mesh wider than
+    the process group."""
     from deeplearning4j_tpu_torch.parallel import ShardedTrainer, mesh
 
     make_mesh, kw, err = _INVALID[match]

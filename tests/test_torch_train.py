@@ -34,7 +34,9 @@ from deeplearning4j_tpu.ops import update_kernel as juk
 from deeplearning4j_tpu.utils.serializer import load_model as j_load
 from deeplearning4j_tpu.utils.serializer import save_model as j_save
 from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.models.textgen_lstm import TextGenerationLSTM
 from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+from deeplearning4j_tpu_torch.nn.layers.base import config_from_dict
 from deeplearning4j_tpu_torch.nn import updaters as tupd
 from deeplearning4j_tpu_torch.ops import losses as tlosses
 from deeplearning4j_tpu_torch.ops import update_kernel as tuk
@@ -359,16 +361,21 @@ def test_l2_regularization_enters_the_loss_as_in_jax():
 
 
 def test_training_refuses_what_is_not_ported():
+    """Dropout and weight noise train now (drawn from the network's
+    generator; tests/test_torch_regularizers.py holds them to the
+    reference); inference ignores them.  The nan guard under TBPTT is
+    still refused, as in the reference."""
     net = TransformerLM(**SIZE, device="cpu")
     x, y = _batches(1)[0]
+    before = net.output(x).clone()
     net.conf.layers[2].dropout = 0.1
-    with pytest.raises(NotImplementedError, match="dropout"):
-        net.fit_batch(DataSet(x, y))
-    net.output(x)                      # inference ignores training settings
-    net.conf.layers[2].dropout = 0.0
-    net.conf.layers[2].weight_noise = {"type": "WeightNoise", "stddev": 0.1}
-    with pytest.raises(NotImplementedError, match="weight noise"):
-        net.fit_batch(DataSet(x, y))
+    net.conf.layers[3].weight_noise = config_from_dict({"type": "WeightNoise", "stddev": 0.1})
+    torch.testing.assert_close(net.output(x), before, rtol=0, atol=0)
+    assert np.isfinite(float(net.fit_batch(DataSet(x, y))))
+    rnn = TextGenerationLSTM(vocab_size=8, hidden=4, tbptt_length=2, device="cpu")
+    rnn.set_nan_guard(2)
+    with pytest.raises(NotImplementedError, match="TBPTT"):
+        rnn.fit_batch(DataSet(np.zeros((2, 4), np.int64), np.zeros((2, 4), np.int64)))
 
 
 # -- optimizer state in the checkpoint ------------------------------------------------------
