@@ -166,6 +166,45 @@ and the recurrent path's training and streaming:
           within 1e-4 (losses, outputs, parameters);
           ``LearnedSelfAttention(n_queries=3)`` forward on [4, 1024, 768]
           through K1 (3 queries against 1024 keys) within 2e-5 of ``mha``.
+  conv    the conv path and ComputationGraph.  ResNet-50 as bench config
+          3 trains it (``ComputationGraph`` from the zoo, 224x224x3, 1000
+          classes, Nesterovs(0.1, 0.9), one fixed [128, 224, 224, 3] batch
+          of seeded images): (a) f32 ``fit_batch``, 8 warm-up steps (the
+          bench's lr makes the first steps' loss rise) then 5 timed, (b) the
+          same net with ``compute_dtype = "bfloat16"``, 2 warm-up and 5
+          timed; each prints ms per step (median of 5), images/s, peak
+          memory, and from one traced step the idle share, kernels and the
+          top kernels by device time; the loss is finite and falls over the
+          5 steps.  The conv weights' copy to cuDNN's channels-last layout
+          is timed alone.  (c) f32 ``output()`` on the batch: images/s, rows
+          are distributions.  (d) ``fit_batches(2)`` on two [32, 224, 224,
+          3] batches as one CUDA graph against 2 ``fit_batch`` calls from
+          the same start under deterministic cuDNN: losses, parameters,
+          momenta and BatchNorm statistics bitwise, one graph after a
+          repeat call; the eager steps also run once under
+          ``torch.use_deterministic_algorithms(warn_only)``, and the ops
+          that warn are printed.  (e) ResNet-50 at 32x32 (10 classes) on
+          the card against the port on the CPU from the same weights:
+          f32 ``output()`` on 4 images within 1e-4, and one training step
+          in float64 at batch 8 within 1e-4 (loss, output, parameters,
+          momenta, statistics); the f32 step at batch 4 is printed, not
+          gated (train-mode BatchNorm over stage 4's 1x1 activations
+          amplifies rounding by up to 1/sqrt(eps) a layer).  (f) the
+          checkpoint zip saved, loaded on the card: ``output()`` bitwise.
+          (g) LeNet as bench config 2 (32x32x3, 10 classes, Nesterovs(0.01,
+          0.9), [256, 32, 32, 3]): eager ``fit_batch`` and ``fit_batches(8)``
+          replays, ms per step and idle share; ``train --zoo lenet``
+          through the CLI exits 0; an ``Engine`` over it (buckets 1, 2, 4)
+          serves 12 requests of 1-3 rows bitwise the eager forward of their
+          padded bucket, 0 unwarmed serves, 3 graphs before and after.  (h)
+          a recurrent ComputationGraph (2 x LSTM(256), vocab 96, outputs at
+          every step and through ``LastTimeStepVertex`` →
+          ``DuplicateToTimeSeriesVertex``, Adam lr 1e-3 with K4, TBPTT 50,
+          one-hot [64, 100] inputs): 5 ``fit_batch`` calls launch K5a 20,
+          K5b 1000 and K4 40 times, the loss falls; 64 steps streamed with
+          ``rnn_time_step`` launch K5a 128 times and agree with
+          ``output()`` within 1e-5; one call at [4, 100] on the card
+          against the CPU within 1e-4 (loss, parameters, output).
   compressed  data-parallel training of the TransformerLM through
           ``parallel.ShardedTrainer`` over ``torch.distributed``: two rank
           processes on cuda:0 (gloo; mesh dcn=2, data=1), each taking
@@ -1935,10 +1974,11 @@ def busy_ms(spans) -> float:
     return total / 1e3
 
 
-def device_profile(fn, names=()) -> dict:
+def device_profile(fn, names=(), top: int = 0) -> dict:
     """One traced call of ``fn`` (ending in a synchronize): its wall time,
-    the device's busy time and idle share, its kernel count, and the
-    count of kernels whose name holds each of ``names``."""
+    the device's busy time and idle share, its kernel count, the count
+    and device ms of kernels whose name holds each of ``names``, and the
+    ``top`` kernel names by device time (name cut to 90 characters)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1953,7 +1993,18 @@ def device_profile(fn, names=()) -> dict:
     busy = busy_ms([(a, b) for _, a, b in spans])
     return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall if wall else None,
             "kernels": len(spans),
-            "named": {n: sum(n in k for k, _, _ in spans) for n in names}}
+            "named": {n: sum(n in k for k, _, _ in spans) for n in names},
+            "named_ms": {n: sum(b - a for k, a, b in spans if n in k) / 1e3 for n in names},
+            "top_ms": _top_kernels(spans, top)}
+
+
+def _top_kernels(spans, top: int) -> list:
+    """[name, launches, device ms] of the ``top`` kernels by device time."""
+    by = {}
+    for k, a, b in spans:
+        n, ms = by.get(k[:90], (0, 0.0))
+        by[k[:90]] = (n + 1, ms + (b - a) / 1e3)
+    return [[k, n, ms] for k, (n, ms) in sorted(by.items(), key=lambda kv: -kv[1][1])[:top]]
 
 
 LM_TRAIN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
@@ -2563,6 +2614,484 @@ def phase_recurrent():
     return rec
 
 
+# -- conv phase (bench configs 3 and 2, and a recurrent ComputationGraph) ----------
+
+CNN_B, CNN_HW, CNN_CLASSES = 128, 224, 1000
+LENET_B, LENET_HW, LENET_CLASSES = 256, 32, 10
+
+
+def graph_layers(trees):
+    """A container's per-layer trees as a list (a graph's by vertex name)."""
+    return list(trees.values()) if isinstance(trees, dict) else list(trees)
+
+
+def snapshot(net):
+    """Clones of a network's parameters, layer state, updater state and
+    iteration, for ``restore``."""
+    opt = graph_layers(net.opt_state)
+    opt = clone_trees(opt)
+    if isinstance(net.opt_state, dict):
+        opt = dict(zip(net.opt_state, opt))
+    return net.clone_params(), net.clone_state(), opt, net.iteration
+
+
+def restore(net, snap):
+    net.params, net.state, net.opt_state, net.iteration = snap[0], snap[1], snap[2], snap[3]
+
+
+def same_trees(a, b) -> bool:
+    return trees_equal(graph_layers(a), graph_layers(b))
+
+
+def max_tree_diff(a, b) -> float:
+    """Largest absolute difference, leaf for leaf, of two containers' trees
+    (on any devices)."""
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    return max((float((x.detach().cpu().double() - y.detach().cpu().double()).abs().max())
+                for p, q in zip(graph_layers(a), graph_layers(b))
+                for x, y in zip(tree_leaves(p), tree_leaves(q))), default=0.0)
+
+
+def resnet(device, hw=CNN_HW, classes=CNN_CLASSES, dtype="float32"):
+    """Bench config 3 (``bench.py:496-543``): the zoo's ResNet-50 with
+    Nesterovs(lr 0.1, momentum 0.9), weights from its seed."""
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+
+    net = ResNet50(hw, hw, 3, classes, updater=Nesterovs(lr=0.1, momentum=0.9), device=device)
+    if dtype != "float32":
+        net.conf.param_dtype = net.conf.compute_dtype = dtype
+        net.init()
+    return net
+
+
+def images(n, hw, classes, seed, device="cuda"):
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((n, hw, hw, 3), dtype=np.float32))
+    y = torch.from_numpy(np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n)])
+    return DataSet(x.to(device), y.to(device))
+
+
+def timed_steps(net, ds, n=5):
+    """``n`` fit_batch calls on one batch, each synced → (losses, walls ms)."""
+    import torch
+    losses, walls = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(net.fit_batch(ds)))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return losses, walls
+
+
+def resnet_train_arm(net, ds, compute, warmup):
+    """(a)/(b): 5 fit_batch steps on one fixed batch after ``warmup`` ones,
+    median ms and images/s, peak memory, and one traced step."""
+    import torch
+
+    net.conf.compute_dtype = compute
+    # warm-up: cuDNN plans and the allocator, and past the rise of the
+    # first steps that the bench's lr 0.1 with momentum 0.9 makes from
+    # the initial weights
+    warm = [float(net.fit_batch(ds)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = timed_steps(net, ds)
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(lambda: net.fit_batch(ds), ("gemm", "conv", "elementwise",
+                                                      "reduce", "pool", "bn"), top=12)
+    med = sorted(walls)[2]
+    rec = {"arm": f"resnet50_train_{compute}", "batch": [CNN_B, CNN_HW, CNN_HW, 3],
+           "warmup_losses": warm,
+           "losses": losses, "ms_per_step": walls, "median_ms_per_step": med,
+           "images_per_s": CNN_B / med * 1e3, "peak_memory_gib": peak / 2 ** 30,
+           "traced_step": prof,
+           "finite_and_falling": all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]}
+    emit({"phase": "conv", **rec})
+    return rec
+
+
+def resnet_graph_arm(net):
+    """(d): fit_batches(2) as one CUDA graph against 2 fit_batch calls from
+    the same start under deterministic cuDNN: losses, parameters, momenta
+    and BatchNorm statistics bitwise; a second call captures nothing new.
+    The eager steps run once under torch.use_deterministic_algorithms
+    (warn_only) to record the ops that have no deterministic algorithm."""
+    import warnings
+
+    import torch
+
+    b = 32
+    batches = [images(b, CNN_HW, CNN_CLASSES, SEED + 80 + i) for i in range(2)]
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        net.conf.compute_dtype = "float32"
+        start = snapshot(net)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                for d in batches:
+                    net.fit_batch(d)
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        refusing = sorted({str(w.message).split(" does not have a deterministic")[0]
+                           .split("\n")[0][:160] for w in caught
+                           if "determinis" in str(w.message)})
+        restore(net, start)
+        start = snapshot(net)
+        eager = [float(net.fit_batch(d)) for d in batches]
+        after = snapshot(net)
+        restore(net, start)
+        t0 = time.perf_counter()
+        graphed = [float(v) for v in net.fit_batches(batches)]
+        capture_s = time.perf_counter() - t0
+        bitwise = {"losses": eager == graphed,
+                   "params": same_trees(after[0], net.params),
+                   "state": same_trees(after[1], net.state),
+                   "momenta": same_trees(after[2], net.opt_state),
+                   "iteration": after[3] == net.iteration}
+        diffs = {"params": max_tree_diff(after[0], net.params),
+                 "state": max_tree_diff(after[1], net.state),
+                 "momenta": max_tree_diff(after[2], net.opt_state)}
+        count_first = net.fit_graph_count
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            net.fit_batches(batches)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3 / 2)
+        count_repeat = net.fit_graph_count
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    net._fit_graphs.clear()
+    rec = {"arm": "resnet50_fit_batches_graph", "k": 2, "batch": [b, CNN_HW, CNN_HW, 3],
+           "losses_eager": eager, "losses_graph": graphed, "bitwise": bitwise,
+           "max_abs_diff": diffs, "graphs_after_first": count_first,
+           "graphs_after_repeat": count_repeat, "capture_s": capture_s,
+           "replay_ms_per_step": walls, "images_per_s_replay": b / sorted(walls)[1] * 1e3,
+           "deterministic_refusals": refusing}
+    emit({"phase": "conv", **rec})
+    return rec
+
+
+def resnet_cpu_arm():
+    """(e): ResNet-50 at 32x32 on the card against the port on the CPU from
+    the same weights.  float32: output() within 1e-4.  The training step
+    in float64 at batch 8: at batch 4 in float32 train-mode BatchNorm over
+    stage 4's 1x1 activations (4 values a channel) multiplies rounding by
+    up to 1/sqrt(eps) a layer, and cuDNN and the CPU round differently, so
+    the gate reads the step where rounding is 1e-16."""
+    import torch
+
+    out = {}
+    nets = [resnet(d, 32, 10) for d in ("cuda", "cpu")]
+    x = images(4, 32, 10, SEED + 90, "cpu").features
+    o = [n.output(x)[0].cpu() for n in nets]
+    out["output_f32_max_abs_diff"] = float((o[0] - o[1]).abs().max())
+    ds = images(4, 32, 10, SEED + 91, "cpu")
+    lf = [float(n.fit_batch(ds)) for n in nets]
+    out["step_f32_batch4"] = {"loss_abs_diff": abs(lf[0] - lf[1]),
+                              "params_max_abs_diff": max_tree_diff(nets[0].params,
+                                                                   nets[1].params),
+                              "bn_state_max_abs_diff": max_tree_diff(nets[0].state,
+                                                                     nets[1].state)}
+    nets = [resnet(d, 32, 10, "float64") for d in ("cuda", "cpu")]
+    ds = images(8, 32, 10, SEED + 92, "cpu")
+    lf = [float(n.fit_batch(ds)) for n in nets]
+    o = [n.output(ds.features)[0].cpu() for n in nets]
+    out["step_f64_batch8"] = {"loss_abs_diff": abs(lf[0] - lf[1]),
+                              "output_max_abs_diff": float((o[0] - o[1]).abs().max()),
+                              "params_max_abs_diff": max_tree_diff(nets[0].params,
+                                                                   nets[1].params),
+                              "momenta_max_abs_diff": max_tree_diff(nets[0].opt_state,
+                                                                    nets[1].opt_state),
+                              "bn_state_max_abs_diff": max_tree_diff(nets[0].state,
+                                                                     nets[1].state)}
+    g = out["step_f64_batch8"]
+    out["ok"] = (out["output_f32_max_abs_diff"] <= 1e-4
+                 and all(v <= 1e-4 for v in g.values()))
+    emit({"phase": "conv", "arm": "resnet50_card_vs_cpu", "tolerance": 1e-4, **out})
+    return out
+
+
+def lenet_arm():
+    """(g): bench config 2, LeNet on [256, 32, 32, 3] with Nesterovs(0.01,
+    0.9): eager fit_batch and fit_batches(8) as one graph, timed and
+    traced; ``train --zoo lenet`` through the CLI; a predict Engine over it
+    with buckets 1, 2, 4."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.serving import Engine
+
+    net = LeNet(LENET_HW, LENET_HW, 3, LENET_CLASSES, updater=Nesterovs(lr=0.01, momentum=0.9),
+                device="cuda")
+    batches = [images(LENET_B, LENET_HW, LENET_CLASSES, SEED + 100 + i) for i in range(8)]
+    net.fit_batch(batches[0])                       # warm-up
+    losses_eager, walls = [], []
+    for d in batches[:5]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses_eager.append(float(net.fit_batch(d)))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    net.fit_batches(batches)                        # capture
+    replays = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit_batches(batches)
+        torch.cuda.synchronize()
+        replays.append((time.perf_counter() - t0) * 1e3 / 8)
+
+    def eager_round():
+        for d in batches:
+            net.fit_batch(d)
+    prof = {"eager": device_profile(eager_round),
+            "graph": device_profile(lambda: net.fit_batches(batches))}
+    eager_ms, replay_ms = sorted(walls)[2], sorted(replays)[2]
+    # the CLI, in a process of its own
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(SEED + 110)
+        np.savez(os.path.join(tmp, "img.npz"),
+                 x=rng.standard_normal((1024, LENET_HW, LENET_HW, 3), dtype=np.float32),
+                 y=rng.integers(0, LENET_CLASSES, 1024))
+        kw = json.dumps(dict(height=LENET_HW, width=LENET_HW, channels=3,
+                             num_classes=LENET_CLASSES))
+        cli_rc, cli_out = run_cli(["train", "--zoo", "lenet", "--zoo-args", kw, "--data",
+                                   "img.npz", "--batch-size", str(LENET_B), "--output",
+                                   "lenet.zip"], tmp)
+    # serving: every result bitwise the eager forward of its padded bucket
+    eng = Engine(net, max_batch=4, replicas=1, slo_ms=600_000, device="cuda").load()
+    try:
+        graphs_before = eng.compile_cache_size()
+        rng = np.random.default_rng(SEED + 111)
+        xs = [rng.standard_normal((1 + i % 3, LENET_HW, LENET_HW, 3), dtype=np.float32)
+              for i in range(12)]
+        log0 = len(eng.batch_log)
+        futs = [eng.output_async(x) for x in xs]
+        outs = [f.result(timeout=300) for f in futs]
+        index = {id(f): i for i, f in enumerate(futs)}
+        bitwise = True
+        for b in eng.batch_log[log0:]:
+            members = [index[r] for r in b["request_ids"]]
+            bucket = b["rows"] + b["padded"]
+            x = np.concatenate([xs[i] for i in members])
+            y = eager_bucket(net, x, bucket)
+            ofs = 0
+            for i in members:
+                got = torch.from_numpy(outs[i]).to("cuda")
+                bitwise = bitwise and torch.equal(got, y[ofs:ofs + xs[i].shape[0]])
+                ofs += xs[i].shape[0]
+        snap = eng.metrics_snapshot()
+        graphs_after = eng.compile_cache_size()
+    finally:
+        eng.shutdown()
+    rec = {"arm": "lenet", "batch": [LENET_B, LENET_HW, LENET_HW, 3],
+           "losses_eager": losses_eager, "eager_ms_per_step": walls,
+           "eager_median_ms": eager_ms, "eager_images_per_s": LENET_B / eager_ms * 1e3,
+           "replay_ms_per_step": replays, "replay_median_ms": replay_ms,
+           "replay_images_per_s": LENET_B / replay_ms * 1e3,
+           "graphs": net.fit_graph_count,
+           "eager_idle_share": prof["eager"]["idle_share"],
+           "eager_kernels_per_step": prof["eager"]["kernels"] / 8,
+           "graph_idle_share": prof["graph"]["idle_share"],
+           "graph_kernels_per_step": prof["graph"]["kernels"] / 8,
+           "cli_rc": cli_rc, "cli_tail": cli_out.strip().splitlines()[-2:],
+           "serve": {"requests": len(xs), "bitwise_eager_bucket": bitwise,
+                     "unwarmed_serves": snap["counters"]["unwarmed_serves"],
+                     "graphs_before": graphs_before, "graphs_after": graphs_after}}
+    rec["ok"] = (all(math.isfinite(v) for v in losses_eager) and net.fit_graph_count == 1
+                 and cli_rc == 0 and bitwise and rec["serve"]["unwarmed_serves"] == 0
+                 and graphs_before == graphs_after == 3)
+    emit({"phase": "conv", **rec})
+    return rec
+
+
+def rnn_graph(device):
+    """The recurrent ComputationGraph of arm (h): 2 x LSTM(256) in a
+    GraphBuilder graph at the char-RNN's width (vocab 96), one softmax
+    output per step and a second through LastTimeStepVertex →
+    DuplicateToTimeSeriesVertex, Adam lr 1e-3, TBPTT 50."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.graph import (ComputationGraph,
+                                                   DuplicateToTimeSeriesVertex, GraphBuilder,
+                                                   LastTimeStepVertex)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    conf = (GraphBuilder().seed(SEED).updater(Adam(lr=1e-3))
+            .add_inputs("x").set_input_types(x=InputType.recurrent(RNN_VOCAB))
+            .add_layer("lstm1", L.LSTM(n_out=RNN_HIDDEN), "x")
+            .add_layer("lstm2", L.LSTM(n_out=RNN_HIDDEN), "lstm1")
+            .add_layer("out", L.RnnOutputLayer(n_out=RNN_VOCAB, activation="softmax",
+                                               loss="mcxent"), "lstm2")
+            .add_vertex("last", LastTimeStepVertex(), "lstm2")
+            .add_vertex("dup", DuplicateToTimeSeriesVertex(), "last", "lstm2")
+            .add_layer("out2", L.RnnOutputLayer(n_out=RNN_VOCAB, activation="softmax",
+                                                loss="mcxent"), "dup")
+            .set_outputs("out", "out2").tbptt(RNN_TBPTT).build())
+    net = ComputationGraph(conf, device=device)
+    net.init()
+    return net
+
+
+def rnn_graph_arm():
+    """(h): 5 TBPTT fit_batch calls of the recurrent graph with Adam and the
+    fused update on (K5a, K5b, K4 counted from 0 over the calls), 64
+    streamed steps through rnn_time_step (K5a counted), and one call at a
+    [4, 100] cut on the card against the CPU from the same weights."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    from deeplearning4j_tpu_torch.ops import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.ops import update_kernel as uk
+
+    os.environ[uk.ENV_SWITCH] = "1"
+    rng = np.random.default_rng(SEED + 120)
+    ids = rng.integers(0, RNN_VOCAB, (RNN_B, RNN_T + 1))
+    eye = np.eye(RNN_VOCAB, dtype=np.float32)
+    x, y = eye[ids[:, :-1]], eye[ids[:, 1:]]
+    dev = torch.device("cuda")
+    mds = MultiDataSet([torch.from_numpy(x).to(dev)],
+                       [torch.from_numpy(y).to(dev), torch.from_numpy(y).to(dev)])
+    counters = {"lstm_seq_fwd": lk.lstm_seq_fwd_cuda, "lstm_cell_bwd": lk.lstm_cell_bwd_cuda,
+                "fused_update": uk.fused_update_cuda}
+    net = rnn_graph("cuda")
+    for c in counters.values():
+        c.launches = 0
+    losses, walls = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(net.fit_batch(mds)))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: c.launches for k, c in counters.items()}
+    chunks = -(-RNN_T // RNN_TBPTT)
+    want = {"lstm_seq_fwd": 5 * 2 * chunks, "lstm_cell_bwd": 5 * 2 * RNN_T,
+            "fused_update": 5 * 4 * chunks}
+    # streaming: one step a call, both outputs, K5a once per layer a step
+    net.rnn_clear_previous_state()
+    k5a0 = lk.lstm_seq_fwd_cuda.launches
+    streamed = [net.rnn_time_step(x[:2, t])[0] for t in range(64)]
+    stream_launches = lk.lstm_seq_fwd_cuda.launches - k5a0
+    launches["lstm_seq_fwd"] += stream_launches
+    full = net.output(x[:2, :64])[0]
+    stream_err = float((torch.stack(streamed, 1) - full).abs().max())
+    # card against CPU at [4, 100], same weights
+    pair = [rnn_graph("cuda"), rnn_graph("cpu")]
+    small = MultiDataSet([x[:4]], [y[:4], y[:4]])
+    cl = [float(n.fit_batch(small)) for n in pair]
+    cpu = {"loss_abs_diff": abs(cl[0] - cl[1]),
+           "params_max_abs_diff": max_tree_diff(pair[0].params, pair[1].params),
+           "output_max_abs_diff": float((pair[0].output(x[:4])[0].cpu()
+                                         - pair[1].output(x[:4])[0]).abs().max())}
+    rec = {"arm": "recurrent_graph", "config": {"vocab": RNN_VOCAB, "layers": [RNN_HIDDEN] * 2,
+                                                "batch": [RNN_B, RNN_T], "tbptt": RNN_TBPTT,
+                                                "outputs": ["out", "out2 (last step dup)"],
+                                                "updater": "Adam(lr=1e-3), K4 on"},
+           "losses": losses, "fit_batch_ms": walls,
+           "chars_per_s": RNN_B * RNN_T / sorted(walls)[2] * 1e3,
+           "launches_fit": {k: launches[k] - (stream_launches if k == "lstm_seq_fwd" else 0)
+                            for k in launches}, "launches_expected_fit": want,
+           "stream_steps": 64, "stream_k5a": stream_launches,
+           "stream_vs_output_max_abs_diff": stream_err, "card_vs_cpu": cpu,
+           "tolerance": 1e-4}
+    rec["ok"] = (rec["launches_fit"] == want and stream_launches == 2 * 64
+                 and stream_err <= 1e-5 and all(v <= 1e-4 for v in cpu.values())
+                 and all(math.isfinite(v) for v in losses) and losses[-1] < losses[0])
+    emit({"phase": "conv", **rec})
+    return rec, launches
+
+
+def phase_conv():
+    """The conv path and ComputationGraph: ResNet-50 (bench config 3) at
+    full width trained in f32 and bf16 compute, inferred, as one
+    fit_batches graph, card against CPU and through a checkpoint; LeNet
+    (bench config 2) trained, through the CLI and served; a recurrent
+    ComputationGraph through K5a/K5b/K4."""
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.utils.serializer import load_model
+
+    t0 = time.perf_counter()
+    net = resnet("cuda")
+    ds = images(CNN_B, CNN_HW, CNN_CLASSES, SEED + 70)
+    f32 = resnet_train_arm(net, ds, "float32", 8)
+    bf16 = resnet_train_arm(net, ds, "bfloat16", 2)
+    net.conf.compute_dtype = "float32"
+    # the layout's price: every conv's HWIO weight copied to the
+    # channels-last [O, I, kh, kw] that cuDNN takes, once a forward
+    ws = [p["W"] for p in net.params.values() if p.get("W") is not None and p["W"].ndim == 4]
+    wcopy = {"arm": "resnet50_weight_layout_copies", "weights": len(ws),
+             "bytes": sum(w.numel() * w.element_size() for w in ws),
+             "ms_all_weights": cuda_ms(lambda: [w.permute(3, 2, 0, 1).contiguous(
+                 memory_format=torch.channels_last) for w in ws], 10)}
+    emit({"phase": "conv", **wcopy})
+    # (c) inference on the same batch: rows are distributions
+    x = ds.features
+    net.output(x)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        probs = net.output(x)[0]
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    sums = probs.sum(1)
+    dist = bool(torch.isfinite(probs).all() and (probs >= 0).all()
+                and (sums - 1).abs().max() < 1e-4)
+    infer = {"arm": "resnet50_output_float32", "batch": [CNN_B, CNN_HW, CNN_HW, 3],
+             "ms": walls, "median_ms": sorted(walls)[2],
+             "images_per_s": CNN_B / sorted(walls)[2] * 1e3, "rows_are_distributions": dist}
+    emit({"phase": "conv", **infer})
+    graph = resnet_graph_arm(net)
+    # (f) the checkpoint round trip: output() bitwise
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "resnet50.zip")
+        t1 = time.perf_counter()
+        net.save(path)
+        save_s = time.perf_counter() - t1
+        loaded = load_model(path, device="cuda")
+        zip_mb = os.path.getsize(path) / 2 ** 20
+    xs = x[:16]
+    ckpt = {"arm": "resnet50_checkpoint", "zip_mib": zip_mb, "save_s": save_s,
+            "output_bitwise": bool(torch.equal(net.output(xs)[0], loaded.output(xs)[0])),
+            "iteration": [net.iteration, loaded.iteration]}
+    emit({"phase": "conv", **ckpt})
+    del net, loaded, ds, x, probs
+    torch.cuda.empty_cache()
+    cpu = resnet_cpu_arm()
+    lenet = lenet_arm()
+    rnn, rnn_launches = rnn_graph_arm()
+    rec = {"phase": "conv", "seconds": time.perf_counter() - t0,
+           "gates": {"f32_falling": f32["finite_and_falling"],
+                     "bf16_falling": bf16["finite_and_falling"],
+                     "output_distributions": dist,
+                     "graph_bitwise": all(graph["bitwise"].values()),
+                     "graph_count": graph["graphs_after_first"] == graph["graphs_after_repeat"] == 1,
+                     "card_vs_cpu": cpu["ok"], "checkpoint_bitwise": ckpt["output_bitwise"],
+                     "lenet": lenet["ok"], "recurrent_graph": rnn["ok"]}}
+    emit(rec)
+    if not all(rec["gates"].values()):
+        raise AssertionError(f"conv phase failed: {rec['gates']}")
+    return {"rnn_launches": rnn_launches, **rec}
+
+
 # -- compressed phase ----------------------------------------------------------------
 
 #: (arm, grad_compression, threshold, the top-k pack on every bucket)
@@ -2828,6 +3357,7 @@ def main() -> int:
     k5_launches = rnn["arms"]["k5"]["launches_per_call"][0]
     phase_mlp()
     attn = phase_attention_layers()
+    conv = phase_conv()
     _, k6 = phase_kernel_encode(DP_BUCKET_SIZES)
     compressed = phase_compressed()
 
@@ -2847,7 +3377,8 @@ def main() -> int:
     graph_n = train["fit_batches"]["launches"]
 
     def trained(name, kernel):
-        return train["launches"][name] + graph_n[kernel] + attn["launches"].get(name, 0)
+        return (train["launches"][name] + graph_n[kernel] + attn["launches"].get(name, 0)
+                + conv["rnn_launches"].get(name, 0))
     emit({"kernels": [
         entry("flash_fwd", "flash_fwd.cu", "deeplearning4j_tpu/ops/attention.py:138",
               score["launches"]["flash_fwd"] + predict["launches"]["flash_fwd"]
@@ -2863,9 +3394,11 @@ def main() -> int:
               "deeplearning4j_tpu/ops/kv_cache.py:362",
               serve["launches"]["det_attention"] + http["launches"]["det_attention"], det),
         entry("lstm_seq_fwd", "lstm_cell.cu", "deeplearning4j_tpu/ops/lstm_kernel.py:81",
-              k5_launches["lstm_seq_fwd"], k5["lstm_seq_fwd"]),
+              k5_launches["lstm_seq_fwd"] + conv["rnn_launches"]["lstm_seq_fwd"],
+              k5["lstm_seq_fwd"]),
         entry("lstm_cell_bwd", "lstm_cell.cu", "deeplearning4j_tpu/ops/lstm_kernel.py:87",
-              k5_launches["lstm_cell_bwd"], k5["lstm_cell_bwd"]),
+              k5_launches["lstm_cell_bwd"] + conv["rnn_launches"]["lstm_cell_bwd"],
+              k5["lstm_cell_bwd"]),
         entry("threshold_encode", "threshold_encode.cu",
               "deeplearning4j_tpu/ops/compression.py:128",
               compressed["arms"]["a_one_pass"]["k6_launches"], k6),

@@ -5,6 +5,8 @@ through ``rnn_time_step``, and ``serve``).  Runs on ``cuda`` unless
 ``--device cpu`` is given.
 
     python -m deeplearning4j_tpu_torch train --config mlp.json --data iris --output m.zip
+    python -m deeplearning4j_tpu_torch train --zoo lenet --data mnist --output lenet.zip
+    python -m deeplearning4j_tpu_torch summary --zoo resnet50
     python -m deeplearning4j_tpu_torch evaluate --model m.zip --data iris
     python -m deeplearning4j_tpu_torch summary --model m.zip
     python -m deeplearning4j_tpu_torch predict --model m.zip --input x.npz --output y.npz
@@ -24,9 +26,6 @@ from typing import Optional, Tuple
 import numpy as np
 
 
-#: zoo entries the port has, by the reference's ZOO names
-ZOO_NAMES = ("transformerlm", "textgenerationlstm")
-
 #: train flags that wait for later ports, with the ROADMAP item that ports them
 LATER_FLAGS = {
     "mesh": "queue 1 item 7.5 (the CLI's train --mesh)",
@@ -43,11 +42,15 @@ LATER_FLAGS = {
 
 
 def _num_classes_of(net) -> Optional[int]:
-    """The model's output width, so index labels one-hot to the right width
-    even when a split lacks the highest class."""
+    """The model's (first) output width, so index labels one-hot to the
+    right width even when a split lacks the highest class."""
     layers = getattr(net.conf, "layers", None)
     if layers:
         return getattr(layers[-1], "n_out", None) or None
+    outputs = getattr(net.conf, "network_outputs", None)
+    if outputs:
+        spec = next(v for v in net.conf.vertices if v.name == outputs[0])
+        return getattr(getattr(spec.vertex, "layer", None), "n_out", None) or None
     return None
 
 
@@ -77,16 +80,20 @@ def _load_data(spec: str, train: bool = True,
 
 def _build_model(args):
     if args.zoo:
-        from .models import TextGenerationLSTM, TransformerLM
+        from .models import ZOO
 
         name = args.zoo.lower()
-        if name not in ZOO_NAMES:
-            raise SystemExit(f"unknown zoo model '{args.zoo}' — the port has "
-                             f"{sorted(ZOO_NAMES)}")
+        if name not in ZOO:
+            raise SystemExit(f"unknown zoo model '{args.zoo}' — one of {sorted(ZOO)}")
         kw = json.loads(args.zoo_args) if args.zoo_args else {}
-        ctor = TransformerLM if name == "transformerlm" else TextGenerationLSTM
-        return ctor(**kw, device=args.device)
-    if args.config:
+        try:
+            net = ZOO[name](**kw, device=args.device)
+        except NotImplementedError as e:
+            raise SystemExit(str(e))
+        if not net.params:
+            net.init()
+        return net
+    if getattr(args, "config", None):
         from .nn.multilayer import MultiLayerConfiguration, MultiLayerNetwork
 
         with open(args.config) as f:
@@ -135,7 +142,9 @@ def cmd_summary(args) -> int:
     from .nn.conf.memory import memory_report
     from .utils.serializer import load_model
 
-    net = load_model(args.model, device=args.device)
+    if args.model is None and args.zoo is None:
+        raise SystemExit("pass --model ZIP or --zoo NAME")
+    net = load_model(args.model, device=args.device) if args.model else _build_model(args)
     print(f"model: {type(net).__name__}, {net.num_params():,} params")
     print(memory_report(net, minibatch=args.batch_size))
     return 0
@@ -147,7 +156,8 @@ def cmd_predict(args) -> int:
     net = load_model(args.model, device=args.device)
     data = np.load(args.input)
     x = data["x"] if "x" in data else data[data.files[0]]
-    out = net.output(np.asarray(x, np.float32)).float().cpu().numpy()
+    out = net.output(np.asarray(x, np.float32))
+    out = (out[0] if isinstance(out, list) else out).float().cpu().numpy()
     np.savez(args.output, predictions=out)
     print(f"wrote {out.shape} predictions to {args.output}")
     return 0
@@ -309,7 +319,7 @@ def cmd_serve(args) -> int:
     reg = ModelRegistry(device=args.device)
     version = reg.load(args.name, args.model, version=args.version)
     _, net = reg.resolve(args.name, version)
-    is_lm = any(isinstance(l, TransformerBlock) for l in net.conf.layers)
+    is_lm = any(isinstance(l, TransformerBlock) for l in getattr(net.conf, "layers", ()))
     engine = None
     if not is_lm:
         reg.set_alias(args.name, "prod", version)
@@ -376,7 +386,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
 
     t = sub.add_parser("train", help="train a model")
-    t.add_argument("--zoo", help=f"zoo model name ({', '.join(ZOO_NAMES)})")
+    t.add_argument("--zoo", help="zoo model name (e.g. lenet, resnet50)")
     t.add_argument("--zoo-args", help="JSON kwargs for the zoo constructor")
     t.add_argument("--config", help="MultiLayerConfiguration JSON file")
     t.add_argument("--data", required=True, help="builtin name (iris/mnist) or .npz "
@@ -405,7 +415,9 @@ def build_parser() -> argparse.ArgumentParser:
     e.set_defaults(fn=cmd_evaluate)
 
     s = sub.add_parser("summary", help="model + memory summary")
-    s.add_argument("--model", required=True)
+    s.add_argument("--model", help="checkpoint zip")
+    s.add_argument("--zoo", help="zoo model name, built afresh (instead of --model)")
+    s.add_argument("--zoo-args", help="JSON kwargs for the zoo constructor")
     s.add_argument("--batch-size", type=int, default=32)
     s.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' to run on the CPU)")

@@ -1,5 +1,6 @@
 """Memory estimation reports (a copy of ``deeplearning4j_tpu/nn/conf/memory.py``
-for a ``MultiLayerNetwork``; the CLI's ``summary`` prints one).
+for a ``MultiLayerNetwork`` or a ``ComputationGraph``; the CLI's
+``summary`` prints one).
 
 Params, optimizer state, one gradient copy and activations are the terms
 it prices, from the configuration and the parameters' shapes; it says
@@ -113,12 +114,29 @@ def _safe_elems(out_t) -> int:
 
 
 def memory_report(net, minibatch: int = 32) -> NetworkMemoryReport:
-    """Estimate memory for an initialized MultiLayerNetwork (reference
-    MultiLayerConfiguration.getMemoryReport)."""
+    """Estimate memory for an initialized MultiLayerNetwork or
+    ComputationGraph (reference getMemoryReport)."""
     conf = net.conf
     pbytes = canonical_dtype(conf.param_dtype).itemsize
     abytes = canonical_dtype(conf.compute_dtype).itemsize
     reports: List[LayerMemoryReport] = []
+    if hasattr(conf, "vertices"):   # a ComputationGraph
+        for spec in conf.vertices:
+            pcount = sum(int(np.prod(a.shape)) for a in tree_leaves(net.params.get(spec.name, {})))
+            layer = getattr(spec.vertex, "layer", None)
+            upd = (layer.updater if layer is not None and layer.updater is not None
+                   else conf.updater)
+            act_elems = _safe_elems(net.vertex_out_types.get(spec.name))
+            reports.append(LayerMemoryReport(
+                name=spec.name,
+                layer_type=type(layer if layer is not None else spec.vertex).__name__,
+                param_count=pcount,
+                param_bytes=pcount * pbytes,
+                updater_state_bytes=_updater_state_bytes(upd, pcount, pbytes),
+                activation_elements_per_example=act_elems,
+                activation_bytes_per_example=act_elems * abytes,
+            ))
+        return NetworkMemoryReport(reports, minibatch, conf.param_dtype, conf.compute_dtype)
     for i, layer in enumerate(conf.layers):
         pcount = sum(int(np.prod(a.shape)) for a in tree_leaves(
             net.params[i] if i < len(net.params) else {}))

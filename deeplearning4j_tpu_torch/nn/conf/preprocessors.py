@@ -1,12 +1,9 @@
 """Input preprocessors — shape adapters between layer families (mirrors
 ``deeplearning4j_tpu/nn/conf/preprocessors.py``).
 
-Recurrent activations are [mb, t, f].  The reshapes are tensor ops, so
-autograd reverses them.  The four preprocessors that touch convolutional
-activations (``CnnToFeedForward``, ``FeedForwardToCnn``, ``CnnToRnn``,
-``RnnToCnn``) wait for the conv path (ROADMAP queue 5), where the NHWC or
-NCHW layout is decided once for all conv code: their configs parse, so a
-checkpoint names them, and building a network with one raises.
+Convolutional activations are NHWC [mb, h, w, c] and recurrent ones
+[mb, t, f] (``nn/layers/convolution.py`` states the layout).  The
+reshapes are tensor ops, so autograd reverses them.
 """
 
 from __future__ import annotations
@@ -35,44 +32,64 @@ class Preprocessor:
         raise NotImplementedError
 
 
-class _WaitsForConv(Preprocessor):
-    """A convolutional preprocessor: parsed, and refused when a network is
-    built with it."""
+@register_config
+@dataclasses.dataclass
+class CnnToFeedForward(Preprocessor):
+    """[mb, h, w, c] → [mb, h·w·c], flattened in H, W, C order (the NHWC
+    layout's own order; a flatten of the NCHW view would feed a Dense
+    layer its inputs permuted)."""
 
-    def _refuse(self, *_):
-        raise NotImplementedError(
-            f"{type(self).__name__}: the convolutional preprocessors are not "
-            "ported yet (ROADMAP queue 5, with the conv layers and their "
-            "NHWC/NCHW layout)")
+    def apply(self, x: Tensor) -> Tensor:
+        return x.reshape(x.shape[0], -1)
 
-    apply = _refuse
-    output_type = _refuse
+    def output_type(self, in_type: InputType) -> InputType:
+        return InputType.feed_forward(in_type.flat_size())
 
 
 @register_config
 @dataclasses.dataclass
-class CnnToFeedForward(_WaitsForConv):
-    pass
+class FeedForwardToCnn(Preprocessor):
+    """[mb, h·w·c] → [mb, h, w, c]."""
 
-
-@register_config
-@dataclasses.dataclass
-class FeedForwardToCnn(_WaitsForConv):
     height: int = 0
     width: int = 0
     channels: int = 0
 
+    def apply(self, x: Tensor) -> Tensor:
+        return x.reshape(x.shape[0], self.height, self.width, self.channels)
+
+    def output_type(self, in_type: InputType) -> InputType:
+        return InputType.convolutional(self.height, self.width, self.channels)
+
 
 @register_config
 @dataclasses.dataclass
-class CnnToRnn(_WaitsForConv):
-    pass
+class CnnToRnn(Preprocessor):
+    """[mb, h, w, c] → [mb, t = h, w·c]: time is the height, the features
+    of a step are its row's width times channels."""
+
+    def apply(self, x: Tensor) -> Tensor:
+        mb, h, w, c = x.shape
+        return x.reshape(mb, h, w * c)
+
+    def output_type(self, in_type: InputType) -> InputType:
+        return InputType.recurrent(in_type.width * in_type.channels, in_type.height)
 
 
 @register_config
 @dataclasses.dataclass
-class RnnToCnn(_WaitsForConv):
+class RnnToCnn(Preprocessor):
+    """[mb, t, f] → [mb, t, f / c, c], the inverse of ``CnnToRnn``."""
+
     channels: int = 1
+
+    def apply(self, x: Tensor) -> Tensor:
+        mb, t, f = x.shape
+        return x.reshape(mb, t, f // self.channels, self.channels)
+
+    def output_type(self, in_type: InputType) -> InputType:
+        t = in_type.timesteps or 0
+        return InputType.convolutional(t, in_type.size // self.channels, self.channels)
 
 
 @register_config

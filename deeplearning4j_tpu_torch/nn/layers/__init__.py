@@ -4,7 +4,12 @@ from .base import (CONFIG_REGISTRY, ForwardOut, Layer, config_from_dict,
 from .feedforward import (RBM, ActivationLayer, AutoEncoder, Dense, DropoutLayer,
                           ElementWiseMultiplication, Embedding, EmbeddingSequence,
                           LossLayer, OutputLayer)
-from .normalization import LayerNorm, layer_norm
+from .convolution import (Convolution1D, Convolution2D, Cropping2D, Deconvolution2D,
+                          SeparableConvolution2D, Upsampling1D, Upsampling2D,
+                          ZeroPadding1D, ZeroPadding2D)
+from .pooling import GlobalPooling, Subsampling1D, Subsampling2D
+from .normalization import (BatchNormalization, LayerNorm, LocalResponseNormalization,
+                            layer_norm)
 from .recurrent import (LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM,
                         LastTimeStep, RnnOutputLayer, SimpleRnn)
 from .attention import LearnedSelfAttention, SelfAttention
@@ -19,6 +24,10 @@ __all__ = [
     "ElementWiseMultiplication", "Embedding", "EmbeddingSequence", "LayerNorm",
     "LearnedSelfAttention", "LossLayer", "OutputLayer", "RBM", "SelfAttention",
     "layer_norm",
+    "BatchNormalization", "Convolution1D", "Convolution2D", "Cropping2D",
+    "Deconvolution2D", "GlobalPooling", "LocalResponseNormalization",
+    "SeparableConvolution2D", "Subsampling1D", "Subsampling2D", "Upsampling1D",
+    "Upsampling2D", "ZeroPadding1D", "ZeroPadding2D",
     "LSTM", "Bidirectional", "GravesBidirectionalLSTM", "GravesLSTM",
     "LastTimeStep", "RnnOutputLayer", "SimpleRnn",
 ]

@@ -1,6 +1,17 @@
 """Normalization (mirrors ``deeplearning4j_tpu/nn/layers/normalization.py``:
-``layer_norm`` and the ``LayerNorm`` layer; BatchNorm and LRN wait for the
-conv path, ROADMAP queue 5)."""
+``BatchNormalization``, ``LocalResponseNormalization``, ``layer_norm`` and
+the ``LayerNorm`` layer).
+
+BatchNormalization keeps the reference's running statistics, which are
+not ``F.batch_norm``'s: the state holds the BIASED batch variance, updated
+as ``decay·old + (1 - decay)·batch`` (decay 0.9, in the state's dtype).
+In bfloat16 or float16 compute the batch variance is ``E[x²] - E[x]²``
+with float32-accumulating means (x² rounded to the compute dtype first);
+in float32 and float64 it is the two-pass variance.  The statistics are
+plain tensor ops, so the gradient flows through them as it does through
+the reference's ``jnp.mean`` / ``jnp.var``; the container detaches the
+new state and writes it back after each training step.
+"""
 
 from __future__ import annotations
 
@@ -8,11 +19,106 @@ import dataclasses
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from ..conf.inputs import InputType
 from .base import ForwardOut, Layer, register_layer
 
 Tensor = torch.Tensor
+
+
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``, as a Python float: a scalar operand, so
+    no tensor is made on the device (a CUDA graph capture refuses a host
+    to device copy)."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def _one_minus(v: float, dtype: torch.dtype) -> float:
+    """``1 - v`` with ``v`` first rounded to ``dtype``, as the reference's
+    ``1 - jnp.asarray(decay, dtype)``."""
+    return float(1 - torch.tensor(v, dtype=dtype))
+
+
+@register_layer
+@dataclasses.dataclass
+class BatchNormalization(Layer):
+    """BN over the trailing feature/channel axis: CNN [mb, h, w, c] per
+    channel, FF [mb, f] per feature.  State ``mean`` / ``var`` are the
+    running statistics (not trained by gradients)."""
+
+    n_features: int = 0
+    eps: float = 1e-5
+    decay: float = 0.9
+    lock_gamma_beta: bool = False
+
+    def infer_nin(self, in_type: InputType) -> None:
+        if self.n_features == 0:
+            self.n_features = in_type.channels if in_type.kind == "cnn" else in_type.size
+
+    def init_params(self, generator, in_type, dtype=torch.float32) -> Dict[str, Tensor]:
+        if self.lock_gamma_beta:
+            return {}
+        return {"gamma": torch.ones((self.n_features,), dtype=dtype),
+                "beta": torch.zeros((self.n_features,), dtype=dtype)}
+
+    def init_state(self, in_type, dtype=torch.float32) -> Dict[str, Tensor]:
+        return {"mean": torch.zeros((self.n_features,), dtype=dtype),
+                "var": torch.ones((self.n_features,), dtype=dtype)}
+
+    def forward(self, params, state, x, *, train=False, generator=None,
+                mask=None) -> ForwardOut:
+        axes = tuple(range(x.ndim - 1))
+        if train:
+            if x.element_size() < 4:
+                acc = torch.promote_types(x.dtype, torch.float32)
+                mean = torch.mean(x, dim=axes, dtype=acc)
+                mean2 = torch.mean(x * x, dim=axes, dtype=acc)
+                var = torch.clamp_min(mean2 - mean * mean, 0.0)
+            else:
+                mean = torch.mean(x, dim=axes)
+                var = torch.var(x, dim=axes, unbiased=False)
+            sd = state["mean"].dtype
+            d, keep = _rounded(self.decay, sd), _one_minus(self.decay, sd)
+            new_state = {"mean": d * state["mean"] + keep * mean.to(sd),
+                         "var": d * state["var"] + keep * var.to(sd)}
+        else:
+            mean, var = state["mean"].to(x.dtype), state["var"].to(x.dtype)
+            new_state = state
+        inv = torch.rsqrt(var.to(x.dtype) + _rounded(self.eps, x.dtype))
+        y = (x - mean.to(x.dtype)) * inv
+        if not self.lock_gamma_beta:
+            y = y * params["gamma"].to(x.dtype) + params["beta"].to(x.dtype)
+        return ForwardOut(self._act(y), new_state, mask)
+
+    def has_params(self) -> bool:
+        return not self.lock_gamma_beta
+
+
+@register_layer
+@dataclasses.dataclass
+class LocalResponseNormalization(Layer):
+    """Cross-channel LRN over NHWC: y = x / (k + α/n · Σ x²)^β, the sum over
+    a window of ``n`` channels centred on each (zeros past the ends)."""
+
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def has_params(self) -> bool:
+        return False
+
+    def forward(self, params, state, x, *, train=False, generator=None,
+                mask=None) -> ForwardOut:
+        c = x.shape[-1]
+        half = self.n // 2
+        padded = F.pad(x * x, (half, half))
+        window = padded[..., 0:c]
+        for i in range(1, self.n):
+            window = window + padded[..., i:i + c]
+        denom = (self.k + (self.alpha / self.n) * window) ** self.beta
+        return ForwardOut(x / denom, state, mask)
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

@@ -223,8 +223,7 @@ class MultiLayerNetwork:
     def _infer_types(self) -> None:
         """Propagate InputType through preprocessors and layers, inserting
         the shape adapter a layer's expected kind needs (the reference's
-        pass).  The convolutional adapters raise until the conv path is
-        ported (ROADMAP queue 5)."""
+        pass)."""
         self.input_types = []
         t = self.conf.input_type
         if t is None:
@@ -320,14 +319,16 @@ class MultiLayerNetwork:
     def _apply_layers(self, params, state, x: Tensor, mask: Optional[Tensor], *,
                       train: bool = False, generator: Optional[torch.Generator] = None,
                       upto: Optional[int] = None, carries=None,
-                      acts: Optional[list] = None):
+                      acts: Optional[list] = None, state_out: Optional[list] = None):
         """Forward through layers [0, upto) (all by default) → (y, mask,
         new_carries).  In training, ``generator`` feeds each layer's weight
         noise (applied here, before its forward), its input dropout and
         stochastic preprocessors, in the reference's order.  ``carries``
         (one entry per layer, or None for zero state) threads recurrent
         hidden state for TBPTT and streaming; ``acts`` collects each
-        layer's output."""
+        layer's output; ``state_out`` receives the per-layer state after
+        the pass (BatchNormalization's running statistics in training;
+        layers past ``upto`` keep theirs)."""
         # layers that need the compute dtype apart from their input's
         # (integer-id LSTM inputs) read it from this attribute
         for layer in self.conf.layers:
@@ -336,6 +337,8 @@ class MultiLayerNetwork:
             x = x.to(self._compute_dtype())
         n = len(self.conf.layers) if upto is None else upto
         new_carries = list(carries) if carries is not None else [None] * len(self.conf.layers)
+        if state_out is not None:
+            state_out[:] = list(state)
         for i in range(n):
             layer = self.conf.layers[i]
             x = self._preprocess(i, x, generator)
@@ -345,17 +348,20 @@ class MultiLayerNetwork:
                                 mask=mask, **kwargs)
             x, mask = out.y, out.mask
             new_carries[i] = out.carry
+            if state_out is not None:
+                state_out[i] = out.state
             if acts is not None:
                 acts.append(x)
         return x, mask, new_carries
 
-    def _head_input(self, params, state, x, mask, *, train, generator, carries=None):
+    def _head_input(self, params, state, x, mask, *, train, generator, carries=None,
+                    state_out=None):
         """The output layer's input: layers [0, n-1), its preprocessor and,
         in training, its input dropout → (h, mask, new_carries)."""
         n = len(self.conf.layers)
         h, mask_out, new_carries = self._apply_layers(
             params, state, x, mask, train=train, generator=generator, upto=n - 1,
-            carries=carries)
+            carries=carries, state_out=state_out)
         h = self._preprocess(n - 1, h, generator)
         if train and generator is not None:
             # output layers honor input dropout too (no-op without one)
@@ -371,13 +377,14 @@ class MultiLayerNetwork:
 
     def _loss(self, params, state, x, labels, *, train: bool,
               generator: Optional[torch.Generator] = None,
-              mask=None, label_mask=None, carries=None):
+              mask=None, label_mask=None, carries=None, state_out=None):
         """Full score: the output layer's loss plus every layer's L1/L2
         (accumulated in float64 when computing in float64, else float32)
-        → (loss, new_carries)."""
+        → (loss, new_carries); ``state_out`` as ``_apply_layers``'s."""
         n = len(self.conf.layers)
         h, mask_out, new_carries = self._head_input(
-            params, state, x, mask, train=train, generator=generator, carries=carries)
+            params, state, x, mask, train=train, generator=generator, carries=carries,
+            state_out=state_out)
         last = self.conf.layers[n - 1]
         lm = label_mask if label_mask is not None else (
             mask_out if labels is not None and labels.ndim == 3 else None)
@@ -430,13 +437,15 @@ class MultiLayerNetwork:
         return torch.as_tensor(np.asarray(a) if not isinstance(a, Tensor) else a,
                                device=self.device)
 
-    def _loss_and_grads(self, ds: DataSet, carries=None):
+    def _loss_and_grads(self, ds: DataSet, carries=None, state_out: Optional[list] = None):
         """The training loss on ``ds`` (dropout and weight noise drawn from
         the network's generator), its gradient with respect to every
         parameter (per-layer dicts shaped like ``params``) and the
         recurrent carries after it, detached: the next TBPTT chunk takes
         them as constants, as the reference differentiates each chunk on
-        its own."""
+        its own.  ``state_out`` receives the layers' state after the
+        step's forward, detached (BatchNormalization's new running
+        statistics)."""
         x, y, m, lm = self._batch(ds)
         live = [[t.detach().requires_grad_(True) for t in tree_leaves(p)]
                 for p in self.params]
@@ -444,13 +453,16 @@ class MultiLayerNetwork:
         with torch.enable_grad():
             loss, new_carries = self._loss(params, self.state, x, y, train=True,
                                            generator=self._gen, mask=m,
-                                           label_mask=lm, carries=carries)
+                                           label_mask=lm, carries=carries,
+                                           state_out=state_out)
             flat = [t for ls in live for t in ls]
             gflat = torch.autograd.grad(loss, flat) if flat else []
         grads, off = [], 0
         for p, ls in zip(self.params, live):
             grads.append(tree_unflatten(p, list(gflat[off:off + len(ls)])))
             off += len(ls)
+        if state_out is not None:
+            state_out[:] = [{k: v.detach() for k, v in s.items()} for s in state_out]
         return loss.detach(), grads, [_detached(c) for c in new_carries]
 
     @staticmethod
@@ -472,8 +484,10 @@ class MultiLayerNetwork:
         """One optimizer step on ``ds`` at the current iteration, which it
         advances → (loss, carries after it[, ok]).  ``guarded`` selects
         the old parameters and updater state where the loss or a gradient
-        is not finite, and also returns that flag (on the device)."""
-        loss, grads, carries = self._loss_and_grads(ds, carries)
+        is not finite, and also returns that flag (on the device).  The
+        layers' state (running statistics) is replaced by the step's."""
+        new_s: list = []
+        loss, grads, carries = self._loss_and_grads(ds, carries, state_out=new_s)
         it = self._iter_tensor()
         with torch.no_grad():
             new_p, new_o = self._apply_updates(grads, self.params, self.opt_state, it)
@@ -481,7 +495,8 @@ class MultiLayerNetwork:
                 ok = self._grads_finite(loss, grads)
                 new_p = [self._select_tree(ok, n, o) for n, o in zip(new_p, self.params)]
                 new_o = [self._select_tree(ok, n, o) for n, o in zip(new_o, self.opt_state)]
-            self.params, self.opt_state = new_p, new_o
+                new_s = [self._select_tree(ok, n, o) for n, o in zip(new_s, self.state)]
+            self.params, self.opt_state, self.state = new_p, new_o, new_s
             self._it_dev = it + 1
         self.iteration += 1
         self._it_dev_val = self.iteration
@@ -559,6 +574,11 @@ class MultiLayerNetwork:
             out[name] = torch.stack([self._as_tensor(v) for v in vals])
         return out
 
+    @staticmethod
+    def _batch_at(stacked: Dict[str, Optional[Tensor]], i: int) -> DataSet:
+        """Batch ``i`` of ``_stacked``'s output."""
+        return DataSet(*(None if t is None else t[i] for t in stacked.values()))
+
     @property
     def fit_graph_count(self) -> int:
         """How many ``fit_batches`` CUDA graphs this network holds."""
@@ -584,20 +604,11 @@ class MultiLayerNetwork:
         n = len(batches)
         stacked = self._stacked(batches)
         if self.device.type == "cuda":
-            from ..ops import update_kernel
-            from .train_graph import TrainStepsGraph
-            key = (n, update_kernel.enabled()) + tuple(
-                None if t is None else (tuple(t.shape), t.dtype) for t in stacked.values())
-            graph = self._fit_graphs.get(key)
-            if graph is None:
-                graph = self._fit_graphs[key] = TrainStepsGraph(self, stacked, n)
-            losses = graph(self, stacked)
-            self.iteration += n
-            self._it_dev, self._it_dev_val = graph.it, self.iteration
+            from .train_graph import replay_steps
+            losses = replay_steps(self, stacked, n)
         else:
-            losses = torch.stack([self._step(DataSet(*(
-                None if t is None else t[i] for t in stacked.values())))[0]
-                for i in range(n)])
+            losses = torch.stack([self._step(self._batch_at(stacked, i))[0]
+                                  for i in range(n)])
         scores = [LazyScore(losses[i]) for i in range(n)]
         for i, score in enumerate(scores):
             self._fire(self.iteration - n + i + 1, score)
@@ -856,6 +867,10 @@ class MultiLayerNetwork:
         """A copy of the parameter trees, tensors cloned (a ``fit_batches``
         graph replay writes the network's tensors in place)."""
         return [tree_unflatten(p, [t.clone() for t in tree_leaves(p)]) for p in self.params]
+
+    def clone_state(self):
+        """A copy of the layers' state (running statistics), cloned."""
+        return [{k: v.clone() for k, v in s.items()} for s in self.state]
 
     def save(self, path: str, save_updater: bool = True) -> None:
         from ..utils.serializer import save_model

@@ -1,16 +1,19 @@
-"""``MultiLayerNetwork.fit_batches`` on the card: k optimizer steps as one
-CUDA graph (no reference counterpart: the reference runs the k steps in
-one ``lax.scan`` dispatch, ``deeplearning4j_tpu/nn/multilayer.py:736``,
-and one captured graph is its form here).
+"""``fit_batches`` of a ``MultiLayerNetwork`` or a ``ComputationGraph`` on
+the card: k optimizer steps as one CUDA graph (no reference counterpart:
+the reference runs the k steps in one ``lax.scan`` dispatch,
+``deeplearning4j_tpu/nn/multilayer.py:736`` and ``nn/graph.py:957``, and
+one captured graph is its form here).
 
 A step is the network's own ``_loss_and_grads`` and ``_apply_updates``
 (forward, autograd backward, gradient normalization, updater, K4 where
 switched on, constraints).  The updaters are functional: they return new
-tensors.  Inside the capture each step copies its new parameters and
-updater state back into the network's own tensors, so every replay reads
-and writes the same buffers, and step i + 1 reads what step i wrote.  The
-iteration counter is a static device scalar the graph advances; the k
-losses land in a static [k] buffer.
+tensors.  Inside the capture each step copies its new parameters, layer
+state (BatchNormalization's running statistics) and updater state back
+into the network's own tensors, so every replay reads and writes the same
+buffers, and step i + 1 reads what step i wrote.  The iteration counter
+is a static device scalar the graph advances; the k losses land in a
+static [k] buffer.  The container supplies the batch of step i from the
+stacked inputs (``net._batch_at``): a ``DataSet`` or a ``MultiDataSet``.
 
 Capture warms the steps up once on a side stream (cuBLAS picks its
 kernels, the kernel libraries load), puts back the parameters, updater
@@ -24,12 +27,10 @@ captured counts at each replay (``TRAIN_COUNTERS``).
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, List, Optional
 
 import torch
 
-from ..datasets.dataset import DataSet
 from ..ops import attention, lstm_kernel, update_kernel
 from .updaters import tree_leaves
 
@@ -43,21 +44,22 @@ TRAIN_COUNTERS = {"flash_fwd": attention.flash_forward_cuda,
                   "lstm_seq_fwd": lstm_kernel.lstm_seq_fwd_cuda,
                   "lstm_cell_bwd": lstm_kernel.lstm_cell_bwd_cuda}
 
-#: the DataSet fields, in order
-FIELDS = tuple(f.name for f in dataclasses.fields(DataSet))
 
 
-def _leaves(params, opt_state) -> List[Tensor]:
-    """Every parameter tensor, then every updater-state tensor, layer by
-    layer in ``tree_leaves`` order."""
-    return [t for trees in (params, opt_state) for layer in trees for t in tree_leaves(layer)]
+def _leaves(*trees) -> List[Tensor]:
+    """Every tensor of each per-layer tree (a list of layers, or a dict of
+    them keyed by vertex name), tree by tree, layer by layer in
+    ``tree_leaves`` order."""
+    return [t for tree in trees
+            for layer in (tree.values() if isinstance(tree, dict) else tree)
+            for t in tree_leaves(layer)]
 
 
 class TrainStepsGraph:
     """``k`` training steps of ``net`` on batches shaped like ``stacked``
-    (one [k, ...] tensor per ``FIELDS`` entry, or None), captured at
-    construction over the network's current parameter and updater-state
-    tensors."""
+    (the container's ``_stacked``: one [k, ...] tensor per input, label
+    and mask, or None), captured at construction over the network's
+    current parameter, state and updater-state tensors."""
 
     def __init__(self, net, stacked: Dict[str, Optional[Tensor]], k: int):
         dev = net.device
@@ -74,8 +76,8 @@ class TrainStepsGraph:
         self.losses = torch.zeros(self.k, dtype=loss_dt, device=dev)
         self.it = torch.zeros((), dtype=torch.float32, device=dev)
         # the buffers the graph reads and writes: the network's own trees
-        self.params, self.opt_state = net.params, net.opt_state
-        self._static = _leaves(net.params, net.opt_state)
+        self.params, self.state, self.opt_state = net.params, net.state, net.opt_state
+        self._static = _leaves(net.params, net.state, net.opt_state)
 
         snapshot = [t.clone() for t in self._static]
         gen_state = net._gen.get_state()
@@ -103,13 +105,13 @@ class TrainStepsGraph:
 
     def _steps(self, net) -> None:
         for i in range(self.k):
-            ds = DataSet(*(None if self.inputs[n] is None else self.inputs[n][i]
-                           for n in FIELDS))
-            loss, grads, _ = net._loss_and_grads(ds)
+            new_s = type(net.state)()
+            loss, grads, _ = net._loss_and_grads(net._batch_at(self.inputs, i),
+                                                 state_out=new_s)
             with torch.no_grad():
                 new_p, new_o = net._apply_updates(grads, net.params, net.opt_state,
                                                   self.it)
-                for old, new in zip(self._static, _leaves(new_p, new_o)):
+                for old, new in zip(self._static, _leaves(new_p, new_s, new_o)):
                     old.copy_(new)
                 self.it.add_(1.0)
                 self.losses[i].copy_(loss)
@@ -121,11 +123,11 @@ class TrainStepsGraph:
         into the graph's buffers first, and is bound to them again.  The
         graph holds no reference to the network itself."""
         with torch.no_grad():
-            current = _leaves(net.params, net.opt_state)
+            current = _leaves(net.params, net.state, net.opt_state)
             if any(a is not b for a, b in zip(current, self._static)):
                 for t, c in zip(self._static, current):
                     t.copy_(c)
-                net.params, net.opt_state = self.params, self.opt_state
+                net.params, net.state, net.opt_state = self.params, self.state, self.opt_state
             for n, t in stacked.items():
                 if t is not None:
                     self.inputs[n].copy_(t)
@@ -134,3 +136,18 @@ class TrainStepsGraph:
         for n, c in self.launches.items():
             TRAIN_COUNTERS[n].launches += c
         return self.losses.clone()
+
+
+def replay_steps(net, stacked: Dict[str, Optional[Tensor]], k: int) -> Tensor:
+    """``net.fit_batches``' card path: the k steps of ``stacked`` through
+    the network's graph for these (k, shapes, dtypes, K4 switch), captured
+    at first use; advances the iteration → a copy of the k losses."""
+    key = (k, update_kernel.enabled()) + tuple(
+        None if t is None else (tuple(t.shape), t.dtype) for t in stacked.values())
+    graph = net._fit_graphs.get(key)
+    if graph is None:
+        graph = net._fit_graphs[key] = TrainStepsGraph(net, stacked, k)
+    losses = graph(net, stacked)
+    net.iteration += k
+    net._it_dev, net._it_dev_val = graph.it, net.iteration
+    return losses

@@ -30,7 +30,12 @@ does not grow while serving.  A batch whose pair was not warmed, or
 whose per-example shape is not the warmed one, runs eagerly and counts
 ``unwarmed_serves``.  Models without
 ``_apply_layers`` (a duck-typed ``.output``) run eagerly, unwarmed by
-graphs, as the reference's do.
+graphs, as the reference's do.  A ``ComputationGraph`` is served that
+way, the reference's: eagerly through its ``output`` (the first output
+of a one-input graph, its per-example shape inferred from its one
+InputType), warmed by one eager forward per (bucket, dtype) and
+counted as the reference counts it (a warmed pair is no unwarmed serve;
+``compile_cache_size`` is None, there being no captured program).
 
 Failure model: every submitted future completes, with a result or a typed
 error.  A replica thread that dies mid-batch, or runs one batch past
@@ -299,6 +304,9 @@ class Engine:
     def _infer_example_shape(self) -> Optional[Tuple[int, ...]]:
         conf = getattr(self._current.model, "conf", None)
         it = getattr(conf, "input_type", None)
+        types = getattr(conf, "input_types", None) or {}
+        if it is None and len(types) == 1:   # a one-input ComputationGraph
+            it = next(iter(types.values()))
         if it is None:
             return None
         try:

@@ -1,10 +1,13 @@
 """Bridges between numpy parameter trees and the port's parameters.
 
-The JAX package keeps a network's parameters, and its optimizer state,
-as lists of per-layer (nested) dicts; ``params_to_numpy`` of a port
-network's ``params`` or ``opt_state`` and ``np.asarray`` over the JAX
-tree give the same structure, so tests start both packages from
-identical weights and Adam moments with these two functions.
+The JAX package keeps a network's parameters, layer state and optimizer
+state as lists of per-layer (nested) dicts for a MultiLayerNetwork and
+as dicts of them keyed by vertex name for a ComputationGraph;
+``params_to_numpy`` of a port network's ``params``, ``state`` (BatchNorm's
+running mean and variance) or ``opt_state`` and ``np.asarray`` over the
+JAX tree give the same structure, so tests start both packages from
+identical weights, statistics and updater moments with these two
+functions.
 """
 
 from __future__ import annotations

@@ -4,7 +4,10 @@ by the port (mirrors ``deeplearning4j_tpu/utils/serializer.py``).
 The zip holds ``configuration.json``, ``meta.json`` (iteration, epoch),
 ``params.npz`` / ``state.npz`` with entries ``<layer_idx>/<param_name>``
 and ``updater.npz``, the optimizer state, with entries
-``<layer_idx>/<slot>/<param_name>`` (``net.opt_state``).  Versions 1-4
+``<layer_idx>/<slot>/<param_name>`` (``net.opt_state``).  A
+``ComputationGraph``'s entries are keyed by vertex name where a
+``MultiLayerNetwork``'s have the layer index; ``load_model`` builds the
+container that ``configuration.json``'s ``type`` names.  Versions 1-4
 load: v2 stores bfloat16 leaves as uint16 bits under ``<name>#bfloat16``,
 v4 records a sha256 per entry in ``meta.json["integrity"]``, verified on
 load.  ``grad_residual.npz`` (v3+) is the error-feedback residual of
@@ -101,8 +104,9 @@ def save_model(net, path: str, save_updater: bool = True,
                "state.npz": _npz_bytes(_flatten_tree(net.state))}
     if save_updater:
         entries["updater.npz"] = _npz_bytes(_flatten_tree(net.opt_state))
-    if net.grad_residual is not None:
-        entries["grad_residual.npz"] = _npz_bytes(_flatten_tree(net.grad_residual))
+    residual = getattr(net, "grad_residual", None)
+    if residual is not None:
+        entries["grad_residual.npz"] = _npz_bytes(_flatten_tree(residual))
     meta = {
         "format_version": FORMAT_VERSION,
         "iteration": net.iteration,
@@ -127,8 +131,10 @@ def _read_verified(zf: zipfile.ZipFile, name: str, integrity, path) -> bytes:
 
 
 def load_model(path: str, load_updater: bool = True, device: DeviceLike = None):
-    """Read a checkpoint zip into a ``MultiLayerNetwork`` on ``device``
-    (default ``cuda``)."""
+    """Read a checkpoint zip into a ``MultiLayerNetwork`` or a
+    ``ComputationGraph`` (as ``configuration.json``'s ``type`` says) on
+    ``device`` (default ``cuda``)."""
+    from ..nn.graph import ComputationGraph, ComputationGraphConfiguration
     from ..nn.multilayer import MultiLayerConfiguration, MultiLayerNetwork
 
     with zipfile.ZipFile(path, "r") as zf:
@@ -150,10 +156,13 @@ def load_model(path: str, load_updater: bool = True, device: DeviceLike = None):
             "grad_residual.npz" in names) else None
 
     if conf_d.get("type") == "ComputationGraphConfiguration":
-        raise NotImplementedError("ComputationGraph checkpoints are not ported yet")
-    net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf_d), device=device)
-    if not net.input_types:
-        raise ValueError("checkpoint configuration has no input_type")
+        net = ComputationGraph(ComputationGraphConfiguration.from_dict(conf_d), device=device)
+        typed = net.vertex_out_types
+    else:
+        net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf_d), device=device)
+        typed = net.input_types
+    if not typed:
+        raise ValueError("checkpoint configuration has no input type")
     params_t, state_t = net.param_templates()
     net.params = _unflatten_into(params_t, params_flat, net.device)
     net.state = _unflatten_into(state_t, state_flat, net.device)

@@ -98,8 +98,10 @@ def test_train_with_the_nan_guard_and_a_zoo_model(tmp_path, capsys):
                               "--data", str(tmp_path / "lm.npz"), "--batch-size", "4",
                               "--device", "cpu"], capsys)
     assert rc == 0 and "2 iterations" in out
-    with pytest.raises(SystemExit, match="unknown zoo model 'lenet'"):
-        cli.main(["train", "--zoo", "lenet", "--data", spec, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="unknown zoo model 'lenet9'"):
+        cli.main(["train", "--zoo", "lenet9", "--data", spec, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="queue 1 item 6"):
+        cli.main(["train", "--zoo", "tinyyolo", "--data", spec, "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flag,value,queue", [
@@ -125,3 +127,86 @@ def test_data_errors_are_clean_cli_errors(tmp_path):
         cli._load_data(str(tmp_path / "r.npz"), num_classes=3)
     with pytest.raises(SystemExit, match="--zoo NAME or --config"):
         cli.main(["train", "--data", "iris", "--device", "cpu"])
+
+
+def test_train_zoo_lenet_then_evaluate_predict_and_summary(tmp_path, capsys):
+    """``train --zoo lenet`` (an MLN CNN through the auto-inserted
+    CnnToFeedForward) writes a zip that loads in the reference with the
+    same outputs (1e-6), and ``evaluate`` / ``summary`` print exactly the
+    reference's text on it."""
+    rng = np.random.default_rng(6)
+    ys = rng.integers(0, 3, 48)
+    xs = (rng.normal(size=(48, 12, 12, 1)) + ys[:, None, None, None]).astype(np.float32)
+    data = tmp_path / "img.npz"
+    np.savez(data, x=xs, y=ys)
+    out_zip = str(tmp_path / "lenet.zip")
+    kw = json.dumps(dict(height=12, width=12, channels=1, num_classes=3))
+    rc, out = _run(cli.main, ["train", "--zoo", "lenet", "--zoo-args", kw, "--data", str(data),
+                              "--batch-size", "16", "--epochs", "2", "--output", out_zip,
+                              "--device", "cpu"], capsys)
+    assert rc == 0 and "6 iterations" in out
+    net, jnet = load_model(out_zip, device="cpu"), j_load(out_zip)
+    np.testing.assert_allclose(net.output(xs[:8]).numpy(), np.asarray(jnet.output(xs[:8])),
+                               rtol=0, atol=1e-6)
+    for argv in (["evaluate", "--model", out_zip, "--data", str(data)],
+                 ["summary", "--model", out_zip]):
+        rc, port_out = _run(cli.main, argv + ["--device", "cpu"], capsys)
+        jrc, ref_out = _run(jcli.main, argv, capsys)
+        assert rc == jrc == 0 and port_out == ref_out
+    np.savez(tmp_path / "in.npz", x=xs[:4])
+    rc, _ = _run(cli.main, ["predict", "--model", out_zip, "--input", str(tmp_path / "in.npz"),
+                            "--output", str(tmp_path / "pred.npz"), "--device", "cpu"], capsys)
+    assert rc == 0
+    np.testing.assert_allclose(np.load(tmp_path / "pred.npz")["predictions"],
+                               np.asarray(jnet.output(xs[:4])), rtol=0, atol=1e-6)
+
+
+def test_summary_zoo_resnet50_and_a_graph_checkpoint(tmp_path, capsys):
+    """``summary --zoo resnet50`` prints the model line and memory report
+    the reference prints for its ResNet-50 (the same configuration, so the
+    same counts); a ComputationGraph zip goes through ``evaluate`` and
+    ``predict``."""
+    from deeplearning4j_tpu.nn.conf.memory import memory_report as jmemory_report
+    from deeplearning4j_tpu.nn.graph import ComputationGraph as JGraph
+    from deeplearning4j_tpu.nn.graph import ComputationGraphConfiguration as JConf
+    from deeplearning4j_tpu_torch.models import ResNet50
+
+    rc, out = _run(cli.main, ["summary", "--zoo", "resnet50", "--device", "cpu"], capsys)
+    assert rc == 0
+    port = ResNet50(device="cpu")
+    jnet = JGraph(JConf.from_dict(port.conf.to_dict()))
+    jnet.params = {k: {n: np.zeros(v.shape, np.float32) for n, v in p.items()}
+                   for k, p in port.params.items()}
+    want = (f"model: ComputationGraph, {jnet.num_params():,} params\n"
+            f"{jmemory_report(jnet, minibatch=32)}\n")
+    assert out == want
+    with pytest.raises(SystemExit, match="--model ZIP or --zoo NAME"):
+        cli.main(["summary", "--device", "cpu"])
+    # a small conv graph's checkpoint: evaluate prints the reference's text
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph, GraphBuilder
+    from deeplearning4j_tpu_torch.nn.layers import (BatchNormalization, Convolution2D,
+                                                    GlobalPooling, OutputLayer)
+    g = ComputationGraph(
+        GraphBuilder().add_inputs("in").set_input_types(**{"in": InputType.convolutional(8, 8, 1)})
+        .add_layer("c", Convolution2D(n_out=4, kernel=(3, 3), stride=(2, 2),
+                                      convolution_mode="same"), "in")
+        .add_layer("bn", BatchNormalization(activation="relu"), "c")
+        .add_layer("gap", GlobalPooling(pooling="avg"), "bn")
+        .add_layer("out", OutputLayer(n_out=3, activation="softmax"), "gap")
+        .set_outputs("out").build(), device="cpu")
+    g.init()
+    path = str(tmp_path / "g.zip")
+    g.save(path)
+    rng = np.random.default_rng(7)
+    xs = rng.normal(size=(6, 8, 8, 1)).astype(np.float32)
+    np.savez(tmp_path / "g.npz", x=xs, y=rng.integers(0, 3, 6))
+    argv = ["evaluate", "--model", path, "--data", str(tmp_path / "g.npz")]
+    rc, port_out = _run(cli.main, argv + ["--device", "cpu"], capsys)
+    jrc, ref_out = _run(jcli.main, argv, capsys)
+    assert rc == jrc == 0 and port_out == ref_out
+    rc, _ = _run(cli.main, ["predict", "--model", path, "--input", str(tmp_path / "g.npz"),
+                            "--output", str(tmp_path / "gp.npz"), "--device", "cpu"], capsys)
+    assert rc == 0
+    np.testing.assert_allclose(np.load(tmp_path / "gp.npz")["predictions"],
+                               g.output(xs)[0].numpy(), rtol=0, atol=1e-6)

@@ -1448,3 +1448,169 @@ def test_float64_lstm_on_card_takes_the_plain_loop(cuda_dev):
         for k in p:
             assert p[k].dtype == torch.float64
             np.testing.assert_allclose(p[k].cpu().numpy(), q[k].numpy(), rtol=0, atol=1e-7)
+
+
+# -- the conv path ----------------------------------------------------------------
+
+_CONV_CASES = [
+    ("Convolution2D", dict(n_out=8, kernel=(7, 7), stride=(2, 2), convolution_mode="same",
+                           has_bias=False), (4, 20, 20, 3)),
+    ("Convolution2D", dict(n_out=6, kernel=(3, 3), dilation=(2, 2)), (2, 11, 12, 4)),
+    ("Convolution1D", dict(n_out=5, kernel=4, stride=2), (2, 13, 3)),
+    ("Deconvolution2D", dict(n_out=3, kernel=(3, 3), stride=(2, 2), convolution_mode="same"),
+     (2, 5, 6, 4)),
+    ("SeparableConvolution2D", dict(n_out=6, kernel=(3, 3), stride=(2, 2),
+                                    convolution_mode="same", depth_multiplier=2), (2, 9, 9, 3)),
+    ("Subsampling2D", dict(pooling="max", kernel=(3, 3), stride=(2, 2),
+                           convolution_mode="same"), (4, 16, 16, 8)),
+    ("Subsampling2D", dict(pooling="avg", kernel=(2, 2), stride=(2, 2),
+                           convolution_mode="same"), (2, 7, 7, 3)),
+    ("Subsampling2D", dict(pooling="pnorm", kernel=(2, 2), stride=(1, 1)), (2, 6, 6, 3)),
+    ("GlobalPooling", dict(pooling="avg"), (4, 7, 7, 16)),
+    ("LocalResponseNormalization", dict(), (2, 5, 5, 9)),
+    ("Upsampling2D", dict(size=(2, 2)), (2, 3, 4, 5)),
+]
+
+
+def _conv_layer(name, kw, shape):
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn import layers as L
+    layer = getattr(L, name)(**kw)
+    it = (InputType.recurrent(shape[-1], shape[1]) if len(shape) == 3
+          else InputType.convolutional(*shape[1:]))
+    layer.infer_nin(it)
+    return layer, layer.init_params(torch.Generator().manual_seed(3), it)
+
+
+@pytest.mark.parametrize("name,kw,shape", _CONV_CASES,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(_CONV_CASES)])
+def test_conv_path_layer_on_card_matches_cpu(cuda_dev, name, kw, shape):
+    """Forward, input and weight gradients of a conv-path layer on the card
+    (cuDNN, channels-last views of NHWC) against the CPU: 1e-5 forward,
+    1e-4 gradients (cuDNN sums in other orders)."""
+    layer, params = _conv_layer(name, kw, shape)
+    x = np.random.default_rng(4).standard_normal(shape, dtype=np.float32)
+    outs = []
+    for dev in (cuda_dev, torch.device("cpu")):
+        p = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}
+        xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+        y = layer.forward(p, {}, xt).y
+        w = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            tuple(y.shape), dtype=np.float32)).to(dev)
+        grads = torch.autograd.grad((y * w).sum(), [xt] + [p[k] for k in sorted(p)])
+        outs.append((y.detach().cpu(), [g.cpu() for g in grads]))
+    (yc, gc), (yh, gh) = outs
+    torch.testing.assert_close(yc, yh, rtol=0, atol=1e-5)
+    for a, b in zip(gc, gh):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_batchnorm_on_card_matches_cpu_with_its_running_state(cuda_dev, compute):
+    """BatchNorm training forward and 3 steps of running statistics on the
+    card against the CPU: f32 1e-5; bf16 within one bfloat16 spacing of
+    the normalized value's magnitude (the sums of E[x²] and E[x] in f32
+    run in other orders)."""
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import BatchNormalization
+    layer = BatchNormalization(activation="relu")
+    layer.infer_nin(InputType.convolutional(6, 6, 16))
+    params = layer.init_params(None, None)
+    dt = torch.bfloat16 if compute == "bfloat16" else torch.float32
+    rng = np.random.default_rng(7)
+    xs = [(2 * rng.standard_normal((8, 6, 6, 16), dtype=np.float32) + 0.5) for _ in range(3)]
+    runs = []
+    for dev in (cuda_dev, torch.device("cpu")):
+        state = {k: v.to(dev) for k, v in layer.init_state(None).items()}
+        ys = []
+        for x in xs:
+            out = layer.forward({k: v.to(dev) for k, v in params.items()}, state,
+                                torch.from_numpy(x).to(dev, dt), train=True)
+            state = out.state
+            ys.append(out.y.float().cpu())
+        runs.append((ys, {k: v.cpu() for k, v in state.items()}))
+    (yc, sc), (yh, sh) = runs
+    tol = 1e-5 if compute == "float32" else 2.0 ** -7 * 4
+    for a, b in zip(yc, yh):
+        torch.testing.assert_close(a, b, rtol=0, atol=tol)
+    for k in sc:
+        torch.testing.assert_close(sc[k], sh[k], rtol=1e-5 if compute == "float32" else 2 ** -7,
+                                   atol=1e-6)
+
+
+def test_resnet_block_train_step_on_card_matches_cpu(cuda_dev):
+    """A ResNet-50 at 32x32 (every block kind) takes one Nesterovs step on
+    the card and on the CPU from the same weights: loss, output, every
+    parameter and BatchNorm statistic within 1e-4 (batch 8, where the step
+    is well conditioned; cuDNN and the CPU sum in other orders)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+
+    nets = [ResNet50(32, 32, 3, 10, updater=Nesterovs(lr=0.1, momentum=0.9), device=d)
+            for d in (cuda_dev, "cpu")]
+    nets[0].conf.param_dtype = nets[0].conf.compute_dtype = "float64"
+    nets[1].conf.param_dtype = nets[1].conf.compute_dtype = "float64"
+    for n in nets:
+        n.init()
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((8, 32, 32, 3), dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8)]
+    losses = [float(n.fit_batch(DataSet(x, y))) for n in nets]
+    assert abs(losses[0] - losses[1]) < 1e-4
+    torch.testing.assert_close(nets[0].output(x)[0].cpu(), nets[1].output(x)[0],
+                               rtol=0, atol=1e-4)
+    for tree in ("params", "state", "opt_state"):
+        a, b = getattr(nets[0], tree), getattr(nets[1], tree)
+        for v in a:
+            for k, t in (a[v].items()):
+                u = b[v][k]
+                if isinstance(t, dict):
+                    for kk in t:
+                        torch.testing.assert_close(t[kk].cpu(), u[kk], rtol=0, atol=1e-4)
+                else:
+                    torch.testing.assert_close(t.cpu(), u, rtol=0, atol=1e-4)
+
+
+def test_fit_batches_graph_is_bitwise_eager_on_a_bn_cnn(cuda_dev):
+    """A CNN with BatchNorm (LeNet-shaped, BN after each conv):
+    fit_batches(2) as one CUDA graph against 2 fit_batch calls under
+    deterministic cuDNN: losses, parameters, momenta and running
+    statistics bitwise."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models import SimpleCNN
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        _bitwise_bn_cnn(cuda_dev)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def _bitwise_bn_cnn(cuda_dev):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models import SimpleCNN
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+
+    rng = np.random.default_rng(9)
+    batches = [DataSet(rng.standard_normal((16, 16, 16, 3), dtype=np.float32),
+                       np.eye(5, dtype=np.float32)[rng.integers(0, 5, 16)]) for _ in range(2)]
+    runs = []
+    for graphed in (False, True):
+        net = SimpleCNN(16, 16, 3, 5, updater=Nesterovs(lr=0.05, momentum=0.9), device=cuda_dev)
+        for layer in net.conf.layers:      # no dropout: the draws would differ
+            layer.dropout = 0.0
+        losses = ([float(s) for s in net.fit_batches(batches)] if graphed
+                  else [float(net.fit_batch(b)) for b in batches])
+        runs.append((losses, net.clone_params(), net.clone_state(), net.opt_state))
+    (l0, p0, s0, o0), (l1, p1, s1, o1) = runs
+    assert l0 == l1
+    for a, b in ((p0, p1), (s0, s1), (o0, o1)):
+        for u, v in zip(a, b):
+            for k in u:
+                if isinstance(u[k], dict):
+                    assert all(torch.equal(u[k][kk], v[k][kk]) for kk in u[k])
+                else:
+                    assert torch.equal(u[k], v[k])

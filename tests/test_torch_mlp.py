@@ -427,13 +427,28 @@ def test_a_network_with_preprocessors_matches_the_reference():
     (InputType.convolutional(4, 4, 2), "SimpleRnn"),
 ])
 def test_convolutional_adapters_raise_naming_queue_5(in_type, layer):
-    from deeplearning4j_tpu_torch.nn.layers import Dense, OutputLayer, SimpleRnn
-    from deeplearning4j_tpu_torch.nn.multilayer import NeuralNetConfiguration
+    """The convolutional adapters once raised, naming the queue that ported
+    them; they are ported now, so the network inserts the reference's
+    adapter and its output is the reference's (1e-6)."""
+    from deeplearning4j_tpu.nn.layers import recurrent as jrec
 
-    first = Dense(n_out=3) if layer == "Dense" else SimpleRnn(n_out=3)
-    conf = (NeuralNetConfiguration.builder().layer(first).layer(OutputLayer(n_out=2))
-            .set_input_type(in_type).build())
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        MultiLayerNetwork(conf, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        tpre.RnnToCnn(channels=2).apply(torch.zeros(1, 2, 4))
+    jfirst = jff.Dense(n_out=3) if layer == "Dense" else jrec.SimpleRnn(n_out=3)
+    jhead = (jff.OutputLayer(n_out=2) if layer == "Dense"
+             else jrec.RnnOutputLayer(n_out=2, activation="softmax"))
+    jconf = (JBuilder.builder().layer(jfirst).layer(jhead)
+             .set_input_type(JInputType.convolutional(4, 4, 2)).build())
+    jnet = JNet(jconf)
+    jnet.init()
+    net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(jconf.to_dict()), device="cpu")
+    want = tpre.CnnToFeedForward if layer == "Dense" else tpre.CnnToRnn
+    assert isinstance(net.conf.preprocessors[0], want)
+    assert type(jnet.conf.preprocessors[0]).__name__ == want.__name__
+    net.params = params_from_numpy([jax.tree_util.tree_map(np.asarray, p) for p in jnet.params],
+                                   device="cpu")
+    net.state = [{} for _ in net.params]
+    x = np.random.default_rng(17).normal(size=(3,) + in_type.batch_shape(1)[1:]).astype(np.float32)
+    np.testing.assert_allclose(net.output(x).numpy(), np.asarray(jnet.output(x)),
+                               rtol=0, atol=1e-6)
+    y = tpre.RnnToCnn(channels=2).apply(torch.arange(8.0).reshape(1, 2, 4))
+    np.testing.assert_array_equal(
+        y.numpy(), np.asarray(jpre.RnnToCnn(channels=2).apply(jnp.arange(8.0).reshape(1, 2, 4))))
