@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``deeplearning4j_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py            # every phase, on cuda:0
+    python3 chip_smoke.py                  # every phase, on cuda:0
+    python3 chip_smoke.py --trace-probe N  # serve's and predict's traced
+                                           # replays, N traces each way
 
 It builds every CUDA kernel of the port from ``deeplearning4j_tpu_torch/csrc``
 with ``nvcc`` (one process per source, started together), then drives the
@@ -205,6 +207,49 @@ and the recurrent path's training and streaming:
           ``rnn_time_step`` launch K5a 128 times and agree with
           ``output()`` within 1e-5; one call at [4, 100] on the card
           against the CPU within 1e-4 (loss, parameters, output).
+  heads   the rest of nn/ and optimize/, Adam's fused update (K4) on; the
+          K4 launches of the first step of (a), (b), (e), (f) and of (g)'s
+          supervised steps are held bitwise against K4's plain version on
+          their own buffers (odd lengths, the VAE's nested lists).  (a)
+          TinyYOLO (tiny-yolo-voc: 416x416x3, 20 classes, 5 anchors, Adam
+          1e-3) ``fit_batch`` on one fixed [64, 416, 416, 3] batch with the
+          reference's label dict (3 objects an image at random cells and
+          anchors), 2 warm-up steps then 5 timed, (b) the same net with
+          ``compute_dtype = "bfloat16"``; each prints ms per step (median of
+          5), images/s, peak memory and, from one traced step, the idle
+          share, kernels per step and top kernels; the loss is finite and
+          falls over the 5 steps (cuDNN's defaults).  (c) ``fit_batches(2)``
+          on two [32, 416, 416, 3] batches as one CUDA graph against 2
+          ``fit_batch`` calls from the same start under deterministic cuDNN:
+          losses, parameters, Adam moments and BatchNorm statistics bitwise,
+          one graph after a repeat call; ``decode_predictions`` on
+          ``output()`` gives the reference's keys and shapes, confidences in
+          [0, 1] and class rows that are distributions.  (d) card against
+          CPU: TinyYOLO at 64x64 and InceptionResNetV1 with 1/1/1 blocks at
+          15x15 (its stem's smallest input), dropout fed one numpy stream:
+          ``output()`` in f32 within 1e-4, one float64 training step within
+          1e-10 (loss, BatchNorm statistics, centres) and 1e-6
+          (parameters: the updaters compute in f32).  (e)
+          InceptionResNetV1 (5/10/5 blocks, 1000 classes, center loss) on
+          [64, 160, 160, 3]: eager ``fit_batch`` median of 5 and traced,
+          then ``fit_batches(2)`` bitwise 2 eager steps from the same
+          generator state (dropout included), centres included, the centres
+          of exactly the labelled classes moved.  (f) FaceNetNN4Small2
+          (96x96, pnorm pooling, LRN, center loss) ``fit_batch`` median of
+          5, the loss falls.  (g) a VAE (784 → 32, encoder and decoder
+          [256, 256], Bernoulli) → OutputLayer(10) on the mlp phase's MNIST
+          surrogate clipped to [0, 1], batch 512: 5 ``pretrain_layer(0)``
+          steps (the ELBO falls), ``reconstruction_log_probability`` with 5
+          samples on the card against the CPU from one noise stream within
+          1e-4, 5 supervised steps.  (h) ``TransferLearning`` on LeNet
+          (layers 0-3 frozen, n_out 5, Adam 1e-3, 5 steps: frozen parameters
+          bitwise unchanged), ``featurize`` → ``fit_featurized`` within 1e-5
+          of fine-tuning the whole network, early stopping on Iris with a
+          ``LocalFileModelSaver`` (the restored model's output bitwise the
+          best zip's), and 20 L-BFGS iterations on the Iris MLP (losses never
+          rise; the final loss within 1e-4 of the CPU's plus twice the
+          distance the CPU's own path moves when its inputs move by one
+          float32 spacing);
   compressed  data-parallel training of the TransformerLM through
           ``parallel.ShardedTrainer`` over ``torch.distributed``: two rank
           processes on cuda:0 (gloo; mesh dcn=2, data=1), each taking
@@ -228,7 +273,20 @@ and the recurrent path's training and streaming:
           bitwise the first; timed against its 0.207 ms bound and against
           ``torch.nonzero`` plus a pack of every bucket), and as one bucket
           at n = 1024, 4096, 2^20 and 2^20 + 333 with no selection, exactly
-          k selections and a 2%-hot gradient.
+          k selections and a 2%-hot gradient.  Arm (e): TinyYOLO at 416
+          with BatchNorm on the two ranks, 8 rows each, SGD 1e-3, 2 steps
+          dense and 2 compressed at ``COMPRESS_T``, then 2 dense in float64:
+          both ranks' parameters and BatchNorm statistics bitwise equal
+          after every step; the float64 dense arm against one process
+          stepping the 16-row global batch (in float32 merely reordering
+          the rows' sums moves TinyYOLO's initial gradients by up to 8%):
+          loss and statistics within 1e-4 relative after each step, every
+          parameter leaf within 1e-6 of its largest value after step 1,
+          the parameters within 1e-4 in norm after step 2; the compressed
+          arm's first statistics within 1e-6 of the mean of the two ranks'
+          local updates, its first K6 launch (TinyYOLO's 16 buckets, the
+          last ragged) bitwise K6's plain version on the same gradient;
+          K6 launches once per rank per compressed step.
 
 Each phase prints JSON lines; then one ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -238,6 +296,7 @@ without a CUDA device or outside the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -617,6 +676,52 @@ def fused_update_case(net):
     if not bitwise:
         raise AssertionError("K4 does not match its plain version bitwise")
     return rec
+
+
+@contextlib.contextmanager
+def recorded(module, name):
+    """While open, the kernel wrapper ``module.name`` also keeps a copy of
+    each call's arguments (taken before the launch) and results (after
+    it) in the list it yields; it launches and counts as before.  Callers
+    reach the wrapper through its module, so a step run under it is the
+    main path's own step.  The wrapper counts its launches through the
+    module's name, so the stand-in carries the count while the block is
+    open and hands it back when it closes."""
+    import torch
+
+    fn, calls = getattr(module, name), []
+
+    def keep(*args):
+        kept = [a.clone() if torch.is_tensor(a) else a for a in args]
+        out = fn(*args)
+        calls.append((kept, [t.clone() for t in out]))
+        return out
+    keep.launches = fn.launches
+    setattr(module, name, keep)
+    try:
+        yield calls
+    finally:
+        fn.launches = keep.launches
+        setattr(module, name, fn)
+
+
+def k4_against_plain(calls) -> dict:
+    """Every K4 call ``recorded`` in a training step held bitwise against
+    its plain version on the same buffers: the calls, their lengths and
+    how many are odd (not a whole number of the kernel's float4 vectors)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import update_kernel as uk
+
+    bitwise, err = True, 0.0
+    for args, outs in calls:
+        for x, y in zip(outs, uk.fused_update_plain(*args)):
+            bitwise = bitwise and bool(torch.equal(x, y))
+            err = max(err, float((x - y).abs().max()))
+    n = [int(args[1].numel()) for args, _ in calls]
+    return {"calls": len(calls), "elements": sum(n), "shortest": min(n, default=0),
+            "longest": max(n, default=0), "not_multiple_of_4": sum(k % 4 != 0 for k in n),
+            "bitwise": bitwise and bool(calls), "max_abs_err": err}
 
 
 # the counted operations of one (row, unit) of the LSTM cell, a
@@ -1128,17 +1233,28 @@ def serve_requests():
     return prompts, kws
 
 
-def traced_kernels(replay, names) -> int:
+#: seconds a traced replay keeps from each end of its trace: replays
+#: traced hard against the profiler's start and stop came back short of
+#: their kernels now and then, with no message from the profiler
+#: (``--trace-probe`` counts them)
+TRACE_PAUSE_S = 0.01
+
+
+def traced_kernels(replay, names, pause: float = TRACE_PAUSE_S) -> int:
     """Kernels on the card whose name holds one of ``names``, counted from
-    a torch.profiler trace of one call of ``replay``."""
+    a torch.profiler trace of one call of ``replay``, which starts
+    ``pause`` seconds into the trace and finishes ``pause`` before its
+    end."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pause)
             replay()
             torch.cuda.synchronize()
+            time.sleep(pause)
     return sum(any(n in e.name for n in names)
                for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
 
@@ -1995,7 +2111,26 @@ def device_profile(fn, names=(), top: int = 0) -> dict:
             "kernels": len(spans),
             "named": {n: sum(n in k for k, _, _ in spans) for n in names},
             "named_ms": {n: sum(b - a for k, a, b in spans if n in k) / 1e3 for n in names},
-            "top_ms": _top_kernels(spans, top)}
+            "classes_ms": kernel_class_ms(spans), "top_ms": _top_kernels(spans, top)}
+
+
+#: kernel classes by name, first match wins (cuDNN's convolutions run as
+#: implicit GEMMs, so they are matched before the GEMMs)
+KERNEL_CLASSES = (("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit")),
+                  ("layout", ("nchwtonhwc", "nhwctonchw", "transpose")),
+                  ("gemm", ("gemm", "gemv")), ("pool", ("pool",)),
+                  ("fused_update", ("fused_update",)), ("reduce", ("reduce",)),
+                  ("elementwise", ("elementwise", "vectorized")))
+
+
+def kernel_class_ms(spans) -> dict:
+    """Device ms by ``KERNEL_CLASSES`` class ("other" for the rest)."""
+    out = {}
+    for k, a, b in spans:
+        low = k.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES if any(x in low for x in keys)), "other")
+        out[cls] = out.get(cls, 0.0) + (b - a) / 1e3
+    return out
 
 
 def _top_kernels(spans, top: int) -> list:
@@ -2688,33 +2823,6 @@ def timed_steps(net, ds, n=5):
     return losses, walls
 
 
-def resnet_train_arm(net, ds, compute, warmup):
-    """(a)/(b): 5 fit_batch steps on one fixed batch after ``warmup`` ones,
-    median ms and images/s, peak memory, and one traced step."""
-    import torch
-
-    net.conf.compute_dtype = compute
-    # warm-up: cuDNN plans and the allocator, and past the rise of the
-    # first steps that the bench's lr 0.1 with momentum 0.9 makes from
-    # the initial weights
-    warm = [float(net.fit_batch(ds)) for _ in range(warmup)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, walls = timed_steps(net, ds)
-    peak = torch.cuda.max_memory_allocated()
-    prof = device_profile(lambda: net.fit_batch(ds), ("gemm", "conv", "elementwise",
-                                                      "reduce", "pool", "bn"), top=12)
-    med = sorted(walls)[2]
-    rec = {"arm": f"resnet50_train_{compute}", "batch": [CNN_B, CNN_HW, CNN_HW, 3],
-           "warmup_losses": warm,
-           "losses": losses, "ms_per_step": walls, "median_ms_per_step": med,
-           "images_per_s": CNN_B / med * 1e3, "peak_memory_gib": peak / 2 ** 30,
-           "traced_step": prof,
-           "finite_and_falling": all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]}
-    emit({"phase": "conv", **rec})
-    return rec
-
-
 def resnet_graph_arm(net):
     """(d): fit_batches(2) as one CUDA graph against 2 fit_batch calls from
     the same start under deterministic cuDNN: losses, parameters, momenta
@@ -3092,6 +3200,538 @@ def phase_conv():
     return {"rnn_launches": rnn_launches, **rec}
 
 
+# -- heads phase ----------------------------------------------------------------------
+
+YOLO_B, YOLO_HW, YOLO_CLASSES = 64, 416, 20
+IRV1_B, IRV1_HW, FACENET_B, FACENET_HW, FACE_CLASSES = 64, 160, 64, 96, 1000
+HEADS_TRACE = ("fused_update",)
+
+
+def yolo_labels(n, grid, seed, boxes=5, classes=YOLO_CLASSES, per_image=3):
+    """The reference's YOLOv2 label dict from a seed: ``per_image`` objects
+    an image at random cells and anchors, offsets in the cell, log-scale
+    sizes around the anchors."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    b = (rng.standard_normal((n, grid, grid, boxes, 4)) * 0.3).astype(np.float32)
+    b[..., :2] = rng.random((n, grid, grid, boxes, 2))
+    obj = np.zeros((n, grid, grid, boxes), np.float32)
+    cls = np.zeros((n, grid, grid, classes), np.float32)
+    for i in range(n):
+        for _ in range(per_image):
+            r, c, k = (int(v) for v in rng.integers(0, (grid, grid, boxes)))
+            obj[i, r, c, k] = 1
+            cls[i, r, c] = 0
+            cls[i, r, c, rng.integers(0, classes)] = 1
+    return {"boxes": b, "obj": obj, "cls": cls}
+
+
+def yolo_batch(n, hw, seed, device="cuda", dtype="float32"):
+    """[n, hw, hw, 3] seeded images and their label dict, on ``device``."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, hw, hw, 3)).astype(dtype)
+    y = yolo_labels(n, hw // 32, seed + 1)
+    return DataSet(torch.from_numpy(x).to(device),
+                   {k: torch.from_numpy(v.astype(dtype)).to(device) for k, v in y.items()})
+
+
+def face_batch(n, hw, classes, seed, device="cuda", dtype="float32"):
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, hw, hw, 3)).astype(dtype)
+    y = np.eye(classes, dtype=dtype)[rng.integers(0, classes, n)]
+    return DataSet(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+
+
+def train_arm(phase, arm, net, ds, compute, warmup, batch, gate_falling=True):
+    """``warmup`` fit_batch steps, then 5 timed on the same batch: median
+    ms and images/s, peak memory, and one traced step (idle share, kernels,
+    top kernels by device time).  cuDNN runs with its defaults.  The first
+    warm-up step's K4 calls, where the updater makes any, are held bitwise
+    against K4's plain version (``k4_against_plain``); a difference
+    raises."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import update_kernel as uk
+
+    net.conf.compute_dtype = compute
+    with recorded(uk, "fused_update_cuda") as calls:
+        warm = [float(net.fit_batch(ds))]
+    k4 = k4_against_plain(calls)
+    del calls
+    warm += [float(net.fit_batch(ds)) for _ in range(warmup - 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = timed_steps(net, ds)
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(lambda: net.fit_batch(ds), HEADS_TRACE, top=10)
+    med = sorted(walls)[2]
+    rec = {"arm": arm, "batch": batch, "compute_dtype": compute, "cudnn": "defaults",
+           "warmup_losses": warm, "losses": losses, "ms_per_step": walls,
+           "median_ms_per_step": med, "images_per_s": batch[0] / med * 1e3,
+           "peak_memory_gib": peak / 2 ** 30, "traced_step": prof,
+           "idle_share": prof["idle_share"], "kernels_per_step": prof["kernels"],
+           "k4_vs_plain": k4,
+           "finite_and_falling": all(math.isfinite(v) for v in losses)
+           and (losses[-1] < losses[0] or not gate_falling)}
+    emit({"phase": phase, **rec})
+    if k4["calls"] and not k4["bitwise"]:
+        raise AssertionError(f"{arm}: K4 differs from its plain version in a step")
+    return rec
+
+
+def resnet_train_arm(net, ds, compute, warmup):
+    """(a)/(b): 5 fit_batch steps on one fixed batch after ``warmup`` ones,
+    median ms and images/s, peak memory, and one traced step."""
+    return train_arm("conv", f"resnet50_train_{compute}", net, ds, compute, warmup,
+                     [CNN_B, CNN_HW, CNN_HW, 3])
+
+
+def deterministic(fn):
+    """``fn()`` under deterministic cuDNN (no benchmark), settings put back."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def graph_vs_eager(net, batches):
+    """fit_batches(k) as one CUDA graph against k fit_batch calls from the
+    same parameters, state, updater state, iteration and generator state:
+    bitwise flags and largest differences; then 3 timed repeat calls (no
+    new graph) and one traced replay.  Runs under deterministic cuDNN."""
+    import torch
+
+    def run():
+        start, gen = snapshot(net), net._gen.get_state()
+        eager = [float(net.fit_batch(d)) for d in batches]
+        after = snapshot(net)
+        restore(net, start)
+        net._gen.set_state(gen)
+        t0 = time.perf_counter()
+        graphed = [float(v) for v in net.fit_batches(batches)]
+        capture_s = time.perf_counter() - t0
+        bitwise = {"losses": eager == graphed, "params": same_trees(after[0], net.params),
+                   "state": same_trees(after[1], net.state),
+                   "updater_state": same_trees(after[2], net.opt_state),
+                   "iteration": after[3] == net.iteration}
+        diffs = {"params": max_tree_diff(after[0], net.params),
+                 "state": max_tree_diff(after[1], net.state)}
+        count_first = net.fit_graph_count
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            net.fit_batches(batches)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3 / len(batches))
+        prof = device_profile(lambda: net.fit_batches(batches))
+        return {"k": len(batches), "losses_eager": eager, "losses_graph": graphed,
+                "bitwise": bitwise, "max_abs_diff": diffs, "capture_s": capture_s,
+                "graphs_after_first": count_first, "graphs_after_repeat": net.fit_graph_count,
+                "replay_ms_per_step": walls,
+                "replay_images_per_s": batches[0].num_examples() / sorted(walls)[1] * 1e3,
+                "replay_idle_share": prof["idle_share"],
+                "replay_kernels_per_step": prof["kernels"] / len(batches),
+                "ok": all(bitwise.values()) and count_first == net.fit_graph_count == 1}
+    rec = deterministic(run)
+    net._fit_graphs.clear()
+    return rec
+
+
+def yolo_decode_check(net, x):
+    """decode_predictions on output(): the reference's keys and shapes,
+    confidences in [0, 1], class rows that are distributions."""
+    import torch
+
+    head = net.conf.layers[-1]
+    d = head.decode_predictions(net.output(x))
+    n, g, b = x.shape[0], YOLO_HW // 32, head.n_boxes
+    shapes = {k: list(v.shape) for k, v in d.items()}
+    want = {k: [n, g, g, b] for k in ("cx", "cy", "w", "h", "conf", "detect")}
+    want["class_probs"] = [n, g, g, b, head.n_classes]
+    sums = d["class_probs"].sum(-1)
+    return {"shapes": shapes, "shapes_ok": shapes == want,
+            "conf_in_0_1": bool(((d["conf"] >= 0) & (d["conf"] <= 1)).all()),
+            "class_rows_are_distributions": bool((d["class_probs"] >= 0).all()
+                                                 and (sums - 1).abs().max() < 1e-5),
+            "detections": int(d["detect"].sum()), "finite": all(
+                bool(torch.isfinite(v.float()).all()) for v in d.values())}
+
+
+class NumpyDraws:
+    """One numpy stream standing in for ``regularizers.bernoulli`` /
+    ``.normal`` of every network it is armed for (tensors on the
+    generator's device, or ``device``), so the card and the CPU draw the
+    same dropout masks and VAE noise."""
+
+    def __init__(self, seed, device=None):
+        import numpy as np
+        self.rng, self.device = np.random.default_rng(seed), device
+
+    def _dev(self, gen):
+        return self.device if gen is None else gen.device
+
+    def bernoulli(self, gen, p, shape):
+        import torch
+        return torch.from_numpy(self.rng.random(tuple(shape)) < p).to(self._dev(gen))
+
+    def normal(self, gen, shape):
+        import numpy as np
+        import torch
+        return torch.from_numpy(self.rng.standard_normal(tuple(shape)).astype(np.float32)).to(
+            self._dev(gen))
+
+
+def with_draws(draws, fn):
+    """``fn()`` with the port's two draw functions taken from ``draws``."""
+    from deeplearning4j_tpu_torch.nn.conf import regularizers as R
+
+    saved = R.bernoulli, R.normal
+    R.bernoulli, R.normal = draws.bernoulli, draws.normal
+    try:
+        return fn()
+    finally:
+        R.bernoulli, R.normal = saved
+
+
+def card_vs_cpu(make, data, seed):
+    """A network built on the card and on the CPU from the same seed:
+    ``output()`` in float32 (4 rows), then one training step in float64
+    (8 rows), each device drawing from its own copy of one numpy stream.
+    → largest differences (the centres and BatchNorm statistics are the
+    state)."""
+    out = {}
+    nets = [make(d, "float32") for d in ("cuda", "cpu")]
+    x, _ = data(4, "float32")
+    o = []
+    for n in nets:
+        y = n.output(x)
+        o.append((y[0] if isinstance(y, list) else y).cpu())
+    out["output_f32_max_abs_diff"] = float((o[0] - o[1]).abs().max())
+    nets = [make(d, "float64") for d in ("cuda", "cpu")]
+    x, y = data(8, "float64")
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    losses = [with_draws(NumpyDraws(seed), lambda n=n: float(n.fit_batch(DataSet(x, y))))
+              for n in nets]
+    out["step_f64"] = {"loss_abs_diff": abs(losses[0] - losses[1]),
+                       "state_max_abs_diff": max_tree_diff(nets[0].state, nets[1].state),
+                       "params_max_abs_diff": max_tree_diff(nets[0].params, nets[1].params)}
+    out["ok"] = (out["output_f32_max_abs_diff"] <= 1e-4
+                 and out["step_f64"]["loss_abs_diff"] <= 1e-10
+                 and out["step_f64"]["state_max_abs_diff"] <= 1e-10
+                 and out["step_f64"]["params_max_abs_diff"] <= 1e-6)
+    return out
+
+
+def heads_cuts():
+    """(d): TinyYOLO at 64x64 and InceptionResNetV1 with 1/1/1 blocks at
+    15x15 (the smallest input its stem takes), card against CPU."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import InceptionResNetV1, TinyYOLO
+
+    def yolo(device, dtype):
+        net = TinyYOLO(64, 64, 3, YOLO_CLASSES, device=device)
+        if dtype != "float32":
+            net.conf.param_dtype = net.conf.compute_dtype = dtype
+            net.init()
+        return net
+
+    def yolo_data(n, dtype):
+        rng = np.random.default_rng(SEED + 131)
+        y = yolo_labels(n, 2, SEED + 132)
+        return (rng.standard_normal((n, 64, 64, 3)).astype(dtype),
+                {k: v.astype(dtype) for k, v in y.items()})
+
+    def irv1(device, dtype):
+        net = InceptionResNetV1(15, 15, 3, 10, a_blocks=1, b_blocks=1, c_blocks=1,
+                                device=device)
+        net.conf.param_dtype = net.conf.compute_dtype = dtype
+        net.init()
+        return net
+
+    def irv1_data(n, dtype):
+        rng = np.random.default_rng(SEED + 133)
+        return (rng.standard_normal((n, 15, 15, 3)).astype(dtype),
+                np.eye(10, dtype=dtype)[rng.integers(0, 10, n)])
+
+    rec = {"arm": "heads_card_vs_cpu", "tolerance": {"output_f32": 1e-4, "loss_f64": 1e-10,
+                                                     "state_f64": 1e-10, "params_f64": 1e-6},
+           "tinyyolo_64": card_vs_cpu(yolo, yolo_data, SEED + 134),
+           "inception_resnet_v1_111_15": card_vs_cpu(irv1, irv1_data, SEED + 135)}
+    rec["ok"] = rec["tinyyolo_64"]["ok"] and rec["inception_resnet_v1_111_15"]["ok"]
+    emit({"phase": "heads", **rec})
+    return rec
+
+
+def irv1_arm():
+    """(e): InceptionResNetV1 at full depth on [64, 160, 160, 3]: eager
+    fit_batch (median of 5, traced), then fit_batches(2) bitwise two eager
+    steps (dropout from the same generator state), centres of the labelled
+    classes moved, the rest still zero."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import InceptionResNetV1
+
+    net = InceptionResNetV1(IRV1_HW, IRV1_HW, 3, FACE_CLASSES, device="cuda")
+    net.init()
+    ds = face_batch(IRV1_B, IRV1_HW, FACE_CLASSES, SEED + 140)
+    eager = train_arm("heads", "inception_resnet_v1_train", net, ds, "float32", 1,
+                      [IRV1_B, IRV1_HW, IRV1_HW, 3])
+    batches = [face_batch(IRV1_B, IRV1_HW, FACE_CLASSES, SEED + 141 + i) for i in range(2)]
+    graph = graph_vs_eager(net, batches)
+    seen = torch.zeros(FACE_CLASSES, dtype=torch.bool, device="cuda")
+    for d in [ds] + batches:
+        seen |= d.labels.sum(0) > 0
+    moved = net.state["out"]["centers"].abs().sum(1) > 0
+    graph["centres_of_labelled_classes_moved"] = bool(torch.equal(moved, seen))
+    graph["ok"] = graph["ok"] and graph["centres_of_labelled_classes_moved"]
+    emit({"phase": "heads", "arm": "inception_resnet_v1_fit_batches_graph", **graph})
+    return eager, graph
+
+
+def vae_arm():
+    """(g): VAE(784 → 32, encoder and decoder [256, 256], Bernoulli) →
+    OutputLayer(10) on the MNIST surrogate (clipped to [0, 1], the
+    Bernoulli targets' range) at batch 512: 5 pretrain_layer(0) steps with
+    Adam (the ELBO falls), the IWAE log-probability with 5 samples on the
+    card against the CPU from one noise stream, then 5 supervised steps
+    (finite; they start from the pretraining's Adam moments, as the
+    reference's do, so the first may rise), the first one's K4 calls held
+    bitwise against K4's plain version."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import OutputLayer, VariationalAutoencoder
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.ops import update_kernel as uk
+    from deeplearning4j_tpu_torch.utils.params import params_from_numpy, params_to_numpy
+
+    def build(device):
+        conf = (NeuralNetConfiguration.builder().seed(SEED + 150).updater(Adam(lr=1e-3))
+                .layer(VariationalAutoencoder(n_out=32, encoder_layer_sizes=[256, 256],
+                                              decoder_layer_sizes=[256, 256],
+                                              reconstruction="bernoulli"))
+                .layer(OutputLayer(n_out=MLP_CLASSES, activation="softmax", loss="mcxent"))
+                .set_input_type(InputType.feed_forward(MLP_IN)).build())
+        net = MultiLayerNetwork(conf, device=device)
+        net.init()
+        return net
+
+    xs, ys = mlp_data()
+    xs = np.clip(xs[:MLP_BATCH], 0.0, 1.0)
+    ds = DataSet(torch.from_numpy(xs).cuda(),
+                 torch.from_numpy(np.eye(MLP_CLASSES, dtype=np.float32)[ys[:MLP_BATCH]]).cuda())
+    net = build("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    elbo = [float(v) for v in net.pretrain_layer(0, [ds] * 5)]
+    pre_ms = (time.perf_counter() - t0) * 1e3 / 5
+    cpu = build("cpu")
+    cpu.params = params_from_numpy(params_to_numpy(net.params), device="cpu")
+    lps = [with_draws(NumpyDraws(SEED + 151, n.device),
+                      lambda n=n: n.reconstruction_log_probability(xs[:64], num_samples=5).cpu())
+           for n in (net, cpu)]
+    lp_diff = float((lps[0] - lps[1]).abs().max())
+    with recorded(uk, "fused_update_cuda") as calls:
+        sup = [float(net.fit_batch(ds))]
+    k4 = k4_against_plain(calls)
+    del calls
+    sup += [float(net.fit_batch(ds)) for _ in range(4)]
+    rec = {"arm": "vae", "config": {"n_in": MLP_IN, "latent": 32, "encoder": [256, 256],
+                                    "decoder": [256, 256], "reconstruction": "bernoulli",
+                                    "batch": MLP_BATCH, "updater": "Adam(lr=1e-3), K4 on"},
+           "pretrain_elbo": elbo, "pretrain_ms_per_step": pre_ms,
+           "iwae_log_prob_5_samples_card_vs_cpu_max_abs_diff": lp_diff,
+           "iwae_mean_log_prob": float(lps[0].mean()), "supervised_losses": sup,
+           "tolerance": 1e-4, "k4_vs_plain": k4}
+    rec["ok"] = (all(math.isfinite(v) for v in elbo + sup) and elbo[-1] < elbo[0]
+                 and lp_diff <= 1e-4 and k4["bitwise"])
+    emit({"phase": "heads", **rec})
+    return rec
+
+
+def iris_mlp(device, lr=0.1):
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import Dense, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+
+    conf = (NeuralNetConfiguration.builder().seed(SEED + 160).updater(Sgd(lr=lr))
+            .layer(Dense(n_out=16, activation="tanh"))
+            .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(4)).build())
+    net = MultiLayerNetwork(conf, device=device)
+    net.init()
+    return net
+
+
+def transfer_arm():
+    """(h): transfer learning on LeNet, featurize against fine-tuning, early
+    stopping with a LocalFileModelSaver, and L-BFGS on the Iris MLP."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.fetchers import load_iris
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.nn.transferlearning import (TransferLearning,
+                                                              TransferLearningHelper)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.optimize.solvers import fit_solver
+
+    rng = np.random.default_rng(SEED + 170)
+    batches = [DataSet(torch.from_numpy(rng.standard_normal((64, 28, 28, 1), dtype=np.float32)
+                                        ).cuda(),
+                       torch.from_numpy(np.eye(5, dtype=np.float32)[rng.integers(0, 5, 64)]
+                                        ).cuda()) for _ in range(5)]
+
+    def transferred():
+        src = LeNet(device="cuda")
+        return (TransferLearning(src).fine_tune_configuration(updater=Adam(lr=1e-3))
+                .set_feature_extractor(3).n_out_replace(5, 5).build())
+    net = transferred()
+    frozen = [{k: v.clone() for k, v in net.params[i].items()} for i in (0, 2)]
+    tl_losses = [float(net.fit_batch(d)) for d in batches]
+    frozen_same = all(torch.equal(net.params[i][k], v)
+                      for i, f in zip((0, 2), frozen) for k, v in f.items())
+    a, b = transferred(), transferred()
+    helper = TransferLearningHelper(a, 3)
+    for d in batches[:3]:
+        helper.fit_featurized(helper.featurize(d))
+        b.fit_batch(d)
+    feat_diff = max_tree_diff(a.params, b.params)
+    # early stopping on Iris, best model restored from disk
+    xs, ys = load_iris()
+    x = ((xs - xs.mean(0)) / xs.std(0)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[ys]
+    order = np.random.default_rng(SEED + 171).permutation(150)
+    train, val = order[:100], order[100:]
+    es_net = iris_mlp("cuda", lr=3.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        saver = es.LocalFileModelSaver(tmp)
+        cfg = es.EarlyStoppingConfiguration(
+            score_calculator=es.DataSetLossCalculator(DataSet(x[val], y[val])),
+            epoch_terminations=[es.MaxEpochsTerminationCondition(12),
+                                es.ScoreImprovementEpochTerminationCondition(1)],
+            iteration_terminations=[es.InvalidScoreIterationTerminationCondition()],
+            model_saver=saver)
+        res = es.EarlyStoppingTrainer(cfg, es_net, [DataSet(x[train[i:i + 25]], y[train[i:i + 25]])
+                                                    for i in range(0, 100, 25)]).fit()
+        best = type(es_net).load(saver.best_path, device="cuda")
+        restored_bitwise = bool(torch.equal(best.output(x), es_net.output(x)))
+    restored_score = es.DataSetLossCalculator(DataSet(x[val], y[val])).calculate_score(es_net)
+    # L-BFGS, card against the CPU; the CPU again with inputs one float32
+    # spacing up measures how far rounding alone moves the path
+    runs = {}
+    for name, dev, xx in (("card", "cuda", x), ("cpu", "cpu", x),
+                          ("cpu_nudged", "cpu", np.nextafter(x, np.float32(np.inf)))):
+        runs[name] = fit_solver(iris_mlp(dev), DataSet(xx, y), method="lbfgs",
+                                max_iterations=20).losses
+    wobble = abs(runs["cpu"][-1] - runs["cpu_nudged"][-1])
+    final_diff = abs(runs["card"][-1] - runs["cpu"][-1])
+    rec = {"arm": "transfer_earlystopping_lbfgs",
+           "transfer": {"losses": tl_losses, "frozen_params_bitwise": frozen_same,
+                        "featurized_vs_fine_tuned_max_abs_diff": feat_diff},
+           "early_stopping": {"scores": res.score_vs_epoch, "best_epoch": res.best_model_epoch,
+                              "total_epochs": res.total_epochs,
+                              "reason": res.termination_reason,
+                              "details": res.termination_details,
+                              "restored_output_bitwise_best_zip": restored_bitwise,
+                              "restored_score_minus_best": restored_score - res.best_model_score},
+           "lbfgs": {"losses_card": runs["card"], "final_cpu": runs["cpu"][-1],
+                     "final_abs_diff": final_diff, "cpu_rounding_wobble": wobble,
+                     "bound": 1e-4 + 2 * wobble}}
+    rec["ok"] = (frozen_same and feat_diff <= 1e-5 and all(math.isfinite(v) for v in tl_losses)
+                 and restored_bitwise and abs(rec["early_stopping"]["restored_score_minus_best"])
+                 <= 1e-6 and all(b2 <= a2 for a2, b2 in zip(runs["card"], runs["card"][1:]))
+                 and final_diff <= 1e-4 + 2 * wobble)
+    emit({"phase": "heads", **rec})
+    return rec
+
+
+def phase_heads():
+    """TinyYOLO, InceptionResNetV1, FaceNetNN4Small2, the VAE, transfer
+    learning, early stopping and L-BFGS on the card, with Adam's fused
+    update (K4) switched on."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import FaceNetNN4Small2, TinyYOLO
+    from deeplearning4j_tpu_torch.ops import update_kernel as uk
+
+    t0 = time.perf_counter()
+    os.environ[uk.ENV_SWITCH] = "1"
+    uk.fused_update_cuda.launches = 0
+    net = TinyYOLO(YOLO_HW, YOLO_HW, 3, YOLO_CLASSES, device="cuda")
+    ds = yolo_batch(YOLO_B, YOLO_HW, SEED + 120)
+    f32 = train_arm("heads", "tinyyolo_train_float32", net, ds, "float32", 2,
+                    [YOLO_B, YOLO_HW, YOLO_HW, 3])
+    bf16 = train_arm("heads", "tinyyolo_train_bfloat16", net, ds, "bfloat16", 1,
+                     [YOLO_B, YOLO_HW, YOLO_HW, 3])
+    net.conf.compute_dtype = "float32"
+    graph = graph_vs_eager(net, [yolo_batch(32, YOLO_HW, SEED + 121 + i) for i in range(2)])
+    graph["decode"] = yolo_decode_check(net, ds.features[:8])
+    graph["ok"] = graph["ok"] and graph["decode"]["shapes_ok"] and \
+        graph["decode"]["conf_in_0_1"] and graph["decode"]["class_rows_are_distributions"]
+    emit({"phase": "heads", "arm": "tinyyolo_fit_batches_graph", **graph})
+    del net, ds
+    torch.cuda.empty_cache()
+    cuts = heads_cuts()
+    irv1, irv1_graph = irv1_arm()
+    torch.cuda.empty_cache()
+    face = FaceNetNN4Small2(FACENET_HW, FACENET_HW, 3, FACE_CLASSES, device="cuda")
+    face.init()
+    facenet = train_arm("heads", "facenet_nn4_small2_train", face,
+                        face_batch(FACENET_B, FACENET_HW, FACE_CLASSES, SEED + 145), "float32",
+                        1, [FACENET_B, FACENET_HW, FACENET_HW, 3])
+    face_out = face.output(face_batch(8, FACENET_HW, FACE_CLASSES, SEED + 146).features)[0]
+    facenet["output_rows_are_distributions"] = bool(
+        (face_out.sum(1) - 1).abs().max() < 1e-4 and torch.isfinite(face_out).all())
+    del face
+    torch.cuda.empty_cache()
+    vae = vae_arm()
+    transfer = transfer_arm()
+    k4 = uk.fused_update_cuda.launches
+    rec = {"phase": "heads", "seconds": time.perf_counter() - t0,
+           "launches": {"fused_update": k4},
+           "gates": {"tinyyolo_f32_falling": f32["finite_and_falling"],
+                     "tinyyolo_bf16_falling": bf16["finite_and_falling"],
+                     "tinyyolo_graph_bitwise_and_decode": graph["ok"],
+                     "card_vs_cpu_cuts": cuts["ok"],
+                     "inception_resnet_v1_falling": irv1["finite_and_falling"],
+                     "inception_resnet_v1_graph_bitwise": irv1_graph["ok"],
+                     "facenet_falling": facenet["finite_and_falling"]
+                     and facenet["output_rows_are_distributions"],
+                     "vae": vae["ok"], "transfer_earlystopping_lbfgs": transfer["ok"],
+                     "k4_launched": k4 > 0,
+                     # train_arm raises on a difference; these say K4 ran
+                     "k4_vs_plain_tinyyolo_irv1_facenet": all(
+                         r["k4_vs_plain"]["bitwise"] for r in (f32, bf16, irv1, facenet))}}
+    emit(rec)
+    if not all(rec["gates"].values()):
+        raise AssertionError(f"heads phase failed: {rec['gates']}")
+    return rec
+
+
 # -- compressed phase ----------------------------------------------------------------
 
 #: (arm, grad_compression, threshold, the top-k pack on every bucket)
@@ -3145,6 +3785,134 @@ def fingerprint(params):
     bits = flat.view(torch.int32).to(torch.int64)
     pos = torch.arange(1, bits.numel() + 1, device=bits.device, dtype=torch.int64)
     return [int(bits.sum()), int((bits * pos).sum())]
+
+
+YOLO_DP_ROWS, YOLO_DP_STEPS = 8, 2
+
+
+def yolo_dp_net(device, dtype="float32"):
+    """TinyYOLO at 416 with SGD, the data-parallel arm's network."""
+    from deeplearning4j_tpu_torch.models import TinyYOLO
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    net = TinyYOLO(YOLO_HW, YOLO_HW, 3, YOLO_CLASSES, updater=Sgd(lr=1e-3), device=device)
+    if dtype != "float32":
+        net.conf.param_dtype = net.conf.compute_dtype = dtype
+        net.init()
+    return net
+
+
+def max_rel_tree_diff(a, b) -> float:
+    """Largest |a − b| over each leaf's largest |b|, leaf for leaf."""
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    out = 0.0
+    for p, q in zip(graph_layers(a), graph_layers(b)):
+        for x, y in zip(tree_leaves(p), tree_leaves(q)):
+            x, y = x.detach().cpu().double(), y.detach().cpu().double()
+            out = max(out, float((x - y).abs().max() / y.abs().max().clamp_min(1e-30)))
+    return out
+
+
+def norm_rel_tree_diff(a, b) -> float:
+    """‖a − b‖ / ‖b‖ over every leaf of two containers' trees together."""
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    num = den = 0.0
+    for p, q in zip(graph_layers(a), graph_layers(b)):
+        for x, y in zip(tree_leaves(p), tree_leaves(q)):
+            x, y = x.detach().cpu().double(), y.detach().cpu().double()
+            num += float(((x - y) ** 2).sum())
+            den += float((y ** 2).sum())
+    return (num / den) ** 0.5 if den else 0.0
+
+
+def local_state_mean(net, ds, ranks):
+    """The mean over ``ranks`` of the layers' new state after a
+    training-mode forward of each rank's rows alone (each rank's own
+    BatchNorm moments), from the network's current parameters and state."""
+    import torch
+
+    per, states = ds.features.shape[0] // ranks, []
+    for r in range(ranks):
+        rows = slice(r * per, (r + 1) * per)
+        so: list = []
+        with torch.no_grad():
+            net._loss(net.params, net.state, ds.features[rows],
+                      {k: v[rows] for k, v in ds.labels.items()}, train=True,
+                      generator=net._gen, state_out=so)
+        states.append(so)
+    return [{k: sum(s[i][k] for s in states) / ranks for k in states[0][i]}
+            for i in range(len(states[0]))]
+
+
+def k6_against_plain(comp, calls) -> dict:
+    """Every K6 launch ``recorded`` in a step held bitwise against its
+    plain version on the same gradient: messages and counts."""
+    import torch
+
+    bitwise, sizes = bool(calls), []
+    for (g, sizes, ks, t, *_), (out, counts) in calls:
+        want, want_counts = comp.threshold_encode_buckets_plain(g, sizes, ks, t)
+        bitwise = (bitwise and bool(torch.equal(out[:sum(ks)], want))
+                   and bool(torch.equal(counts, want_counts)))
+    return {"calls": len(calls), "buckets": len(sizes), "bucket_sizes": sorted(set(sizes)),
+            "bitwise": bitwise}
+
+
+def yolo_dp_arm(rank: int, trainer_cls, mesh_fn, comp) -> dict:
+    """Compressed-phase arm (e): TinyYOLO at 416 on two ranks, 8 rows each,
+    SGD, 2 steps dense and 2 two-tier compressed at ``COMPRESS_T``: per step
+    the loss, fingerprints of the parameters and of the BatchNorm
+    statistics, and K6's launches; the compressed arm's first statistics
+    against the mean of the two ranks' local updates, and its first K6
+    launch (every bucket of the step, the last one ragged) against K6's
+    plain version on the same gradient.  Then the dense arm again in
+    float64, which rank 0 holds against one process stepping the 16-row
+    global batch: at its initial weights TinyYOLO's float32 gradients move
+    by up to 8% of a leaf's size when the same 16 rows are merely summed
+    in another order (measured on the CPU; 6e-13 in float64), so only
+    float64 can show that the two are the same step.  Each step's loss,
+    BatchNorm statistics and parameters are read as the largest
+    difference over a leaf's largest value, and the parameters also as
+    ‖a − b‖ / ‖b‖ over all of them (the gates are in
+    ``phase_compressed``)."""
+    out = {}
+    for name, dtype, kw in (("dense", "float32", {}),
+                            ("compressed", "float32", {"grad_compression": "threshold",
+                                                       "compression_threshold": COMPRESS_T}),
+                            ("dense_f64", "float64", {})):
+        ds = yolo_batch(2 * YOLO_DP_ROWS, YOLO_HW, SEED + 180, dtype=dtype)
+        net = yolo_dp_net("cuda", dtype)
+        trainer = trainer_cls(net, mesh_fn(), **kw)
+        single = yolo_dp_net("cuda", dtype) if name == "dense_f64" and rank == 0 else None
+        steps, against = [], []
+        for i in range(YOLO_DP_STEPS):
+            expect = local_state_mean(net, ds, 2) if name == "compressed" and i == 0 else None
+            k6 = comp.threshold_encode_buckets_cuda.launches
+            hold = name == "compressed" and i == 0
+            with (recorded(comp, "threshold_encode_buckets_cuda") if hold
+                  else contextlib.nullcontext([])) as calls:
+                loss = float(trainer.fit_batch(ds))
+            if hold:
+                out["compressed_k6_vs_plain"] = k6_against_plain(comp, calls)
+            del calls
+            steps.append({"loss": loss, "params": fingerprint(net.params),
+                          "state": fingerprint(net.state),
+                          "k6": comp.threshold_encode_buckets_cuda.launches - k6})
+            if expect is not None:
+                out["compressed_state_vs_local_mean_max_abs_diff"] = max_tree_diff(
+                    net.state, expect)
+            if single is not None:
+                ls = float(single.fit_batch(ds))
+                against.append({"loss_rel_diff": abs(ls - loss) / abs(ls),
+                                "params_norm_rel_diff": norm_rel_tree_diff(net.params,
+                                                                           single.params),
+                                "state_max_rel_diff": max_rel_tree_diff(net.state, single.state),
+                                "params_leaf_max_rel_diff": max_rel_tree_diff(net.params,
+                                                                              single.params)})
+        out[name] = {"steps": steps, "n_buckets": trainer.bucketer.n_buckets}
+        if single is not None:
+            out["dense_vs_one_process_f64"] = against
+        del trainer, net, single
+    return out
 
 
 def compressed_rank(rank: int, work: str) -> None:
@@ -3216,6 +3984,8 @@ def compressed_rank(rank: int, work: str) -> None:
         gc.collect()
         torch.cuda.empty_cache()
     comp.one_pass_pack = one_pass
+    out["yolo"] = yolo_dp_arm(rank, ShardedTrainer,
+                              lambda: build_two_tier_mesh(2, {"data": 1}), comp)
     shutdown()
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -3300,6 +4070,50 @@ def phase_compressed():
                  for x, y in zip(a0["a_one_pass"]["steps"], a0["b_top_k"]["steps"]))
     if not a_is_b:
         bad.append("arms (a) and (b) differ")
+    # arm (e): TinyYOLO with BatchNorm on the two ranks
+    y0, y1 = ranks[0]["yolo"], ranks[1]["yolo"]
+    yolo = {"model": "TinyYOLO 416x416, 20 classes", "rows_per_rank": YOLO_DP_ROWS,
+            "updater": "Sgd(lr=1e-3)", "steps": YOLO_DP_STEPS,
+            "dense_losses": [s["loss"] for s in y0["dense"]["steps"]],
+            "compressed_losses": [s["loss"] for s in y0["compressed"]["steps"]],
+            "ranks_bitwise_equal": {a: all(p["params"] == q["params"] and p["state"] == q["state"]
+                                           and p["loss"] == q["loss"]
+                                           for p, q in zip(y0[a]["steps"], y1[a]["steps"]))
+                                    for a in ("dense", "compressed", "dense_f64")},
+            "dense_f64_losses": [s["loss"] for s in y0["dense_f64"]["steps"]],
+            "dense_vs_one_process_f64": y0["dense_vs_one_process_f64"],
+            "compressed_state_vs_local_mean_max_abs_diff":
+                [y["compressed_state_vs_local_mean_max_abs_diff"] for y in (y0, y1)],
+            "k6_launches_per_step": [[s["k6"] for s in y["compressed"]["steps"]]
+                                     for y in (y0, y1)],
+            "dense_k6_launches": sum(s["k6"] for y in (y0, y1) for a in ("dense", "dense_f64")
+                                     for s in y[a]["steps"]),
+            "n_buckets": y0["compressed"]["n_buckets"]}
+    if not all(yolo["ranks_bitwise_equal"].values()):
+        bad.append("e_yolo: ranks differ")
+    # step 1 holds every parameter leaf tightly: a wrong backward of the
+    # moments' all-reduce moves gradients by O(1).  Step 2 starts from
+    # parameters the f32 updater has rounded, and its gradient at these
+    # initial weights amplifies a flipped last bit in small leaves, so it
+    # holds the norm over all of them.
+    first, *later = yolo["dense_vs_one_process_f64"]
+    if (any(step[k] > 1e-4 for step in [first] + later
+            for k in ("loss_rel_diff", "state_max_rel_diff"))
+            or first["params_leaf_max_rel_diff"] > 1e-6
+            or any(step["params_norm_rel_diff"] > 1e-4 for step in later)):
+        bad.append("e_yolo: dense arm against one process")
+    yolo["compressed_k6_vs_plain"] = [y["compressed_k6_vs_plain"] for y in (y0, y1)]
+    if not all(k["bitwise"] and k["buckets"] == yolo["n_buckets"]
+               for k in yolo["compressed_k6_vs_plain"]):
+        bad.append("e_yolo: K6 against its plain version")
+    if any(v > 1e-6 for v in yolo["compressed_state_vs_local_mean_max_abs_diff"]):
+        bad.append("e_yolo: compressed statistics against the local mean")
+    if any(k != 1 for ks in yolo["k6_launches_per_step"] for k in ks) \
+            or yolo["dense_k6_launches"]:
+        bad.append("e_yolo: K6 launches")
+    if not all(math.isfinite(v) for v in yolo["dense_losses"] + yolo["compressed_losses"]):
+        bad.append("e_yolo: loss")
+    arms["e_tinyyolo_batchnorm"] = yolo
     rec = {"phase": "compressed", "ranks": 2, "mesh": {"dcn": 2, "data": 1},
            "backend": "gloo", "device": "cuda:0 (both ranks)",
            # the trainer hands gloo the CUDA tensors (a refusal would have
@@ -3317,6 +4131,30 @@ def phase_compressed():
     return rec
 
 
+def trace_probe(n: int) -> None:
+    """``--trace-probe N``: the serve and predict phases, each traced
+    replay taken N times hard against the trace's ends (pause 0) and N
+    times with ``TRACE_PAUSE_S``; prints each replay's kernel counts."""
+    import collections
+
+    from deeplearning4j_tpu_torch.utils import cuda_build
+
+    cuda_build.build(cuda_build.sources())
+    net = build_model()
+    real = traced_kernels
+
+    def probe(replay, names, pause=TRACE_PAUSE_S):
+        counts = {f"pause_{p}": collections.Counter(real(replay, names, p) for _ in range(n))
+                  for p in (0.0, pause)}
+        emit({"phase": "trace_probe", "names": list(names), "traces_each": n,
+              "counts": {k: dict(c) for k, c in counts.items()}})
+        return real(replay, names, pause)
+    globals()["traced_kernels"] = probe
+    phase_serve(net)
+    phase_predict(net)
+    print(card_line(), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3330,6 +4168,9 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--trace-probe"]:
+        trace_probe(int(sys.argv[2]))
+        return 0
     card = card_line()
     emit({"torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "card": card})
@@ -3358,6 +4199,7 @@ def main() -> int:
     phase_mlp()
     attn = phase_attention_layers()
     conv = phase_conv()
+    heads = phase_heads()
     _, k6 = phase_kernel_encode(DP_BUCKET_SIZES)
     compressed = phase_compressed()
 
@@ -3378,7 +4220,7 @@ def main() -> int:
 
     def trained(name, kernel):
         return (train["launches"][name] + graph_n[kernel] + attn["launches"].get(name, 0)
-                + conv["rnn_launches"].get(name, 0))
+                + conv["rnn_launches"].get(name, 0) + heads["launches"].get(name, 0))
     emit({"kernels": [
         entry("flash_fwd", "flash_fwd.cu", "deeplearning4j_tpu/ops/attention.py:138",
               score["launches"]["flash_fwd"] + predict["launches"]["flash_fwd"]
@@ -3401,7 +4243,8 @@ def main() -> int:
               k5["lstm_cell_bwd"]),
         entry("threshold_encode", "threshold_encode.cu",
               "deeplearning4j_tpu/ops/compression.py:128",
-              compressed["arms"]["a_one_pass"]["k6_launches"], k6),
+              compressed["arms"]["a_one_pass"]["k6_launches"]
+              + sum(compressed["arms"]["e_tinyyolo_batchnorm"]["k6_launches_per_step"][0]), k6),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

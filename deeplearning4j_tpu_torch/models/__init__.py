@@ -1,30 +1,24 @@
 """The model zoo of the port (mirrors ``deeplearning4j_tpu/models``).  Each
 entry of ``ZOO`` is a function that builds a network on ``device``
-(default ``cuda``) by the reference's ZOO name.  The entries whose layers
-are not ported yet raise, naming the ROADMAP item that ports them;
-``pretrained.py`` waits with them (the repository ships no CNN weights).
+(default ``cuda``) by the reference's ZOO name; ``pretrained.py`` loads
+weights through the reference's checksum-verified cache.
 """
 
 from .alexnet import AlexNet
 from .darknet19 import Darknet19
+from .facenet_nn4 import FaceNetNN4Small2
 from .googlenet import GoogLeNet
+from .inception_resnet_v1 import InceptionResNetV1
 from .lenet import LeNet
+from .pretrained import (PretrainedType, cached_path, checksum, init_pretrained,
+                         init_pretrained_int8, install_weights)
 from .resnet50 import ResNet50
 from .simplecnn import SimpleCNN
 from .textgen_lstm import TextGenerationLSTM
+from .tinyyolo import TinyYOLO
 from .transformer import (PositionalEmbedding, TransformerBlock,
                           TransformerDecodeAdapter, TransformerLM)
 from .vgg import VGG16, VGG19
-
-
-def _waits(name: str, needs: str):
-    def build(*_, **__):
-        raise NotImplementedError(
-            f"zoo model {name!r} is not ported yet: it needs {needs} "
-            "(ROADMAP queue 1 item 6)")
-    build.__name__ = name
-    return build
-
 
 ZOO = {
     "lenet": LeNet,
@@ -34,16 +28,16 @@ ZOO = {
     "vgg19": VGG19,
     "resnet50": ResNet50,
     "darknet19": Darknet19,
-    "tinyyolo": _waits("TinyYOLO", "Yolo2OutputLayer (nn/layers/objdetect.py)"),
+    "tinyyolo": TinyYOLO,
     "textgenerationlstm": TextGenerationLSTM,
     "transformerlm": TransformerLM,
     "googlenet": GoogLeNet,
-    "inceptionresnetv1": _waits("InceptionResNetV1",
-                                "CenterLossOutputLayer (nn/layers/special.py)"),
-    "facenetnn4small2": _waits("FaceNetNN4Small2",
-                               "CenterLossOutputLayer (nn/layers/special.py)"),
+    "inceptionresnetv1": InceptionResNetV1,
+    "facenetnn4small2": FaceNetNN4Small2,
 }
 
-__all__ = ["AlexNet", "Darknet19", "GoogLeNet", "LeNet", "PositionalEmbedding",
-           "ResNet50", "SimpleCNN", "TextGenerationLSTM", "TransformerBlock",
-           "TransformerDecodeAdapter", "TransformerLM", "VGG16", "VGG19", "ZOO"]
+__all__ = ["AlexNet", "Darknet19", "FaceNetNN4Small2", "GoogLeNet", "InceptionResNetV1",
+           "LeNet", "PositionalEmbedding", "PretrainedType", "ResNet50", "SimpleCNN",
+           "TextGenerationLSTM", "TinyYOLO", "TransformerBlock", "TransformerDecodeAdapter",
+           "TransformerLM", "VGG16", "VGG19", "ZOO", "cached_path", "checksum",
+           "init_pretrained", "init_pretrained_int8", "install_weights"]

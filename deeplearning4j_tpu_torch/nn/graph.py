@@ -36,8 +36,10 @@ from ..optimize.score import LazyScore, materialize_scores
 from ..utils.device import DeviceLike, resolve_device
 from .conf.inputs import InputType
 from .conf.regularizers import apply_constraints, maybe_weight_noise
-from .layers.base import Layer, config_from_dict, config_to_dict, register_config
-from .multilayer import MultiLayerNetwork, _detached, _host
+from .layers.base import (AUX_LOSS_KEY, Layer, config_from_dict, config_to_dict,
+                          register_config, tree_apply)
+from .multilayer import (MultiLayerNetwork, _detached, _field_at, _host, _objective_and_grads,
+                         _stack_field)
 from .updaters import (Adam, GradientNormalization, Updater, normalize_gradients,
                        tree_leaves, tree_unflatten)
 
@@ -551,8 +553,8 @@ class ComputationGraph:
         if generator is None:
             generator = torch.Generator().manual_seed(int(self.conf.seed))
         params, state = self._draw(generator)
-        self.params = {n: {k: v.to(self.device) for k, v in p.items()} for n, p in params.items()}
-        self.state = {n: {k: v.to(self.device) for k, v in s.items()} for n, s in state.items()}
+        self.params = {n: tree_apply(lambda v: v.to(self.device), p) for n, p in params.items()}
+        self.state = {n: tree_apply(lambda v: v.to(self.device), s) for n, s in state.items()}
         self.opt_state = self.init_opt_state(self.params)
         self.iteration = 0
 
@@ -650,7 +652,9 @@ class ComputationGraph:
               label_masks=None, carries=None):
         """The output layers' losses plus every layer's L1/L2 (in float64
         when computing in float64, else float32) → (loss, new_state,
-        new_carries)."""
+        new_carries).  In training a center-loss output's
+        ``update_centers`` writes its new state, and the ``AUX_LOSS_KEY``
+        term of any vertex's new state joins the loss."""
         acts, new_state, _, new_carries = self._apply(
             params, state, inputs, train=train, generator=generator, masks=masks,
             stop_before_output_score=True, carries=carries)
@@ -667,7 +671,15 @@ class ComputationGraph:
             lm = (label_masks or {}).get(out_name)
             total = total + layer.score(params[out_name], state[out_name], h,
                                         labels[out_name], mask=lm).to(acc)
-        return total + self._reg_score(params, acc), new_state, new_carries
+            if train and hasattr(layer, "update_centers"):
+                new_state[out_name] = layer.update_centers(
+                    state[out_name], h.detach(), tree_apply(Tensor.detach, labels[out_name]))
+        total = total + self._reg_score(params, acc)
+        if train:
+            for s in new_state.values():
+                if AUX_LOSS_KEY in s:
+                    total = total + s[AUX_LOSS_KEY].to(acc)
+        return total, new_state, new_carries
 
     # -- batches -----------------------------------------------------------
 
@@ -694,29 +706,25 @@ class ComputationGraph:
     def _stacked(self, mdss: List[MultiDataSet]) -> Dict[str, Optional[Tensor]]:
         """Every input, label and mask of ``mdss`` stacked on a new leading
         axis on the device, keyed ``<field>/<name>`` (None where every
-        batch has None)."""
+        batch has None); dict labels stack entry by entry, under
+        ``labels/<name>/<entry>``."""
         ins, outs = self.conf.network_inputs, self.conf.network_outputs
-        out = {}
+        out: Dict[str, Optional[Tensor]] = {}
         for field, names, get in (
                 ("features", ins, lambda m: m.features),
                 ("labels", outs, lambda m: m.labels),
                 ("features_masks", ins, lambda m: m.features_masks),
                 ("labels_masks", outs, lambda m: m.labels_masks)):
             for i, name in enumerate(names):
-                vals = [(get(m) or [None] * len(names))[i] for m in mdss]
-                if any(v is None for v in vals):
-                    if not all(v is None for v in vals):
-                        raise ValueError("fit_batches needs uniform masks: all batches or none")
-                    out[f"{field}/{name}"] = None
-                else:
-                    out[f"{field}/{name}"] = torch.stack([self._as_tensor(v) for v in vals])
+                _stack_field(out, f"{field}/{name}",
+                             [(get(m) or [None] * len(names))[i] for m in mdss],
+                             self._as_tensor)
         return out
 
     def _batch_at(self, stacked: Dict[str, Optional[Tensor]], i: int) -> MultiDataSet:
         """Batch ``i`` of ``_stacked``'s output."""
         def pick(field, names):
-            return [None if stacked[f"{field}/{n}"] is None else stacked[f"{field}/{n}"][i]
-                    for n in names]
+            return [_field_at(stacked, f"{field}/{n}", i) for n in names]
         ins, outs = self.conf.network_inputs, self.conf.network_outputs
         return MultiDataSet(pick("features", ins), pick("labels", outs),
                             pick("features_masks", ins), pick("labels_masks", outs))
@@ -758,7 +766,8 @@ class ComputationGraph:
                 params, self.state, inputs, labels, train=True, generator=self._gen,
                 masks=masks, label_masks=lmasks, carries=carries)
             flat = [t for ls in live.values() for t in ls]
-            gflat = torch.autograd.grad(loss, flat) if flat else []
+            gflat = torch.autograd.grad(loss, flat, allow_unused=True,
+                                        materialize_grads=True) if flat else []
         grads, off = {}, 0
         for n, p in self.params.items():
             grads[n] = tree_unflatten(p, list(gflat[off:off + len(live[n])]))
@@ -923,7 +932,8 @@ class ComputationGraph:
     def pretrain_layer(self, name: str, data, epochs: int = 1) -> List[LazyScore]:
         """Unsupervised pretraining of one layer vertex on its input from
         an inference pass of the DAG: CD-k for an RBM, the reconstruction
-        loss for an AutoEncoder, through the layer's own updater with its
+        loss for an AutoEncoder, the negative ELBO for a
+        VariationalAutoencoder, through the layer's own updater with its
         own step counter from 0, gradient normalization and constraints."""
         spec = self._spec_by_name.get(name)
         if spec is None or _layer_of(spec) is None:
@@ -932,7 +942,8 @@ class ComputationGraph:
         is_rbm = hasattr(layer, "cd_gradients")
         if not is_rbm and not hasattr(layer, "reconstruction_score"):
             raise ValueError(f"vertex '{name}' ({type(layer).__name__}) has no "
-                             "unsupervised objective (RBM / AutoEncoder)")
+                             "unsupervised objective (RBM / AutoEncoder / "
+                             "VariationalAutoencoder)")
         updater = self._updater_for(layer)
         losses: List[LazyScore] = []
         it = 0
@@ -949,13 +960,7 @@ class ComputationGraph:
                     with torch.no_grad():
                         g, loss = layer.cd_gradients(p, feat, self._gen)
                 else:
-                    live = {k: v.detach().requires_grad_(True) for k, v in p.items()}
-                    with torch.enable_grad():
-                        loss = layer.reconstruction_score(live, feat, generator=self._gen,
-                                                          train=True)
-                        gl = torch.autograd.grad(loss, [live[k] for k in sorted(live)])
-                    g = dict(zip(sorted(live), gl))
-                    loss = loss.detach()
+                    loss, g = _objective_and_grads(layer, p, feat, self._gen)
                 with torch.no_grad():
                     if self.conf.gradient_normalization != GradientNormalization.NONE:
                         g = normalize_gradients(g, self.conf.gradient_normalization,

@@ -1,4 +1,4 @@
-from .base import (CONFIG_REGISTRY, ForwardOut, Layer, config_from_dict,
+from .base import (AUX_LOSS_KEY, CONFIG_REGISTRY, ForwardOut, Layer, config_from_dict,
                    config_to_dict, layer_from_dict, layer_to_dict,
                    register_config, register_layer)
 from .feedforward import (RBM, ActivationLayer, AutoEncoder, Dense, DropoutLayer,
@@ -13,12 +13,15 @@ from .normalization import (BatchNormalization, LayerNorm, LocalResponseNormaliz
 from .recurrent import (LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM,
                         LastTimeStep, RnnOutputLayer, SimpleRnn)
 from .attention import LearnedSelfAttention, SelfAttention
+from .special import CenterLossOutputLayer, FrozenLayer
+from .objdetect import Yolo2OutputLayer
+from .variational import VariationalAutoencoder
 # the dropout, weight-noise, constraint and preprocessor configs register
 # here, so a layer's JSON that names one parses
 from ..conf import preprocessors, regularizers  # noqa: E402,F401
 
 __all__ = [
-    "CONFIG_REGISTRY", "ForwardOut", "Layer", "config_from_dict",
+    "AUX_LOSS_KEY", "CONFIG_REGISTRY", "ForwardOut", "Layer", "config_from_dict",
     "config_to_dict", "layer_from_dict", "layer_to_dict", "register_config",
     "register_layer", "ActivationLayer", "AutoEncoder", "Dense", "DropoutLayer",
     "ElementWiseMultiplication", "Embedding", "EmbeddingSequence", "LayerNorm",
@@ -30,4 +33,5 @@ __all__ = [
     "Upsampling2D", "ZeroPadding1D", "ZeroPadding2D",
     "LSTM", "Bidirectional", "GravesBidirectionalLSTM", "GravesLSTM",
     "LastTimeStep", "RnnOutputLayer", "SimpleRnn",
+    "CenterLossOutputLayer", "FrozenLayer", "VariationalAutoencoder", "Yolo2OutputLayer",
 ]

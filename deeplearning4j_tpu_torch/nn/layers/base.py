@@ -30,6 +30,10 @@ Tensor = torch.Tensor
 
 CONFIG_REGISTRY: Dict[str, type] = {}
 
+#: a layer's state entry under this key is an auxiliary loss term: the
+#: containers add it to the training loss (the reference's key)
+AUX_LOSS_KEY = "__aux_loss__"
+
 
 def register_config(cls):
     """Class decorator: make a dataclass JSON round-trippable by type name."""
@@ -104,6 +108,29 @@ class ForwardOut(NamedTuple):
     carry: Any = None
 
 
+def tree_apply(fn, tree):
+    """``fn`` over every tensor of a nested dict / list tree, keys kept in
+    their order."""
+    if isinstance(tree, dict):
+        return {k: tree_apply(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_apply(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _any_device(tree) -> Optional[torch.device]:
+    """The device of the first tensor of a nested dict / list tree."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            dev = _any_device(v)
+            if dev is not None:
+                return dev
+        return None
+    return tree.device
+
+
 @dataclasses.dataclass
 class Layer:
     """Base hyperparameters shared by all layers — the reference's field
@@ -175,8 +202,7 @@ class Layer:
         leaves = [v for k, v in params.items()
                   if k not in ("b", "beta", "gamma", "mean", "var")]
         if (self.l1 == 0.0 and self.l2 == 0.0) or not leaves:
-            dev = next(iter(params.values())).device if params else None
-            return torch.zeros((), dtype=torch.float32, device=dev)
+            return torch.zeros((), dtype=torch.float32, device=_any_device(params))
         acc = torch.promote_types(torch.float32, leaves[0].dtype)
         score = torch.zeros((), dtype=acc, device=leaves[0].device)
         for v in leaves:

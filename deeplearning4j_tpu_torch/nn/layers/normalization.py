@@ -11,12 +11,25 @@ in float32 and float64 it is the two-pass variance.  The statistics are
 plain tensor ops, so the gradient flows through them as it does through
 the reference's ``jnp.mean`` / ``jnp.var``; the container detaches the
 new state and writes it back after each training step.
+
+A data-parallel trainer's dense path takes the training-mode moments over
+the GLOBAL batch, as the reference's one program over a sharded batch
+does.  It sets the hook ``global_batch(sum_fn, ranks)`` for the length of
+its step: ``batch_sum`` then sums a per-rank partial over every rank
+(``sum_fn``, an all-reduce whose backward all-reduces the gradient), and
+the moments are those sums over ``ranks`` times the local row count.  The
+math stays the layer's own (two passes in float32 and float64, E[x²] −
+E[x]² with float32 means in bfloat16).  Without the hook ``batch_sum`` is
+the identity and the moments are the local ``torch.mean`` / ``torch.var``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Dict
+import math
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +38,52 @@ from ..conf.inputs import InputType
 from .base import ForwardOut, Layer, register_layer
 
 Tensor = torch.Tensor
+
+
+#: (sum over every data-parallel rank, rank count) while a trainer's
+#: dense step runs in this thread; None otherwise
+_GLOBAL_BATCH: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
+    "global_batch", default=None)
+
+
+@contextlib.contextmanager
+def global_batch(sum_fn: Callable[[Tensor], Tensor], ranks: int):
+    """Within the block, batch statistics (BatchNormalization's moments, a
+    center-loss head's class sums) are taken over every rank's rows:
+    ``sum_fn`` sums a tensor over the ranks, differentiably."""
+    token = _GLOBAL_BATCH.set((sum_fn, int(ranks)))
+    try:
+        yield
+    finally:
+        _GLOBAL_BATCH.reset(token)
+
+
+def batch_sum(t: Tensor) -> Tensor:
+    """A per-rank partial sum over the batch, summed over every rank under
+    ``global_batch`` (the identity otherwise)."""
+    hook = _GLOBAL_BATCH.get()
+    return t if hook is None else hook[0](t)
+
+
+def _moments(x: Tensor, axes) -> tuple:
+    """Training-mode batch mean and biased variance over ``axes``."""
+    low = x.element_size() < 4
+    acc = torch.promote_types(x.dtype, torch.float32)
+    hook = _GLOBAL_BATCH.get()
+    if hook is None:
+        if low:
+            mean = torch.mean(x, dim=axes, dtype=acc)
+            mean2 = torch.mean(x * x, dim=axes, dtype=acc)
+            return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
+        return torch.mean(x, dim=axes), torch.var(x, dim=axes, unbiased=False)
+    n = math.prod(x.shape[a] for a in axes) * hook[1]
+    if low:
+        sums = batch_sum(torch.stack([torch.sum(x, dim=axes, dtype=acc),
+                                      torch.sum(x * x, dim=axes, dtype=acc)]))
+        mean, mean2 = sums[0] / n, sums[1] / n
+        return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
+    mean = batch_sum(torch.sum(x, dim=axes)) / n
+    return mean, batch_sum(torch.sum((x - mean) ** 2, dim=axes)) / n
 
 
 def _rounded(v: float, dtype: torch.dtype) -> float:
@@ -70,14 +129,7 @@ class BatchNormalization(Layer):
                 mask=None) -> ForwardOut:
         axes = tuple(range(x.ndim - 1))
         if train:
-            if x.element_size() < 4:
-                acc = torch.promote_types(x.dtype, torch.float32)
-                mean = torch.mean(x, dim=axes, dtype=acc)
-                mean2 = torch.mean(x * x, dim=axes, dtype=acc)
-                var = torch.clamp_min(mean2 - mean * mean, 0.0)
-            else:
-                mean = torch.mean(x, dim=axes)
-                var = torch.var(x, dim=axes, unbiased=False)
+            mean, var = _moments(x, axes)
             sd = state["mean"].dtype
             d, keep = _rounded(self.decay, sd), _one_minus(self.decay, sd)
             new_state = {"mean": d * state["mean"] + keep * mean.to(sd),

@@ -39,7 +39,7 @@ from .conf.inputs import InputType
 from .conf.preprocessors import (CnnToFeedForward, CnnToRnn, FeedForwardToCnn,
                                  Preprocessor)
 from .conf.regularizers import apply_constraints, maybe_weight_noise
-from .layers.base import Layer, config_from_dict, config_to_dict
+from .layers.base import AUX_LOSS_KEY, Layer, config_from_dict, config_to_dict, tree_apply
 from .updaters import (Adam, GradientNormalization, Updater,
                        normalize_gradients, tree_leaves, tree_unflatten)
 
@@ -69,6 +69,47 @@ def _host(a):
         a = a.detach().cpu()
         return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
     return np.asarray(a)
+
+
+def _ndim(labels) -> int:
+    """The rank of a label array; 0 for a dict of label arrays (the
+    ``Yolo2OutputLayer`` targets)."""
+    return getattr(labels, "ndim", 0)
+
+
+def _stack_field(out: dict, key: str, vals: list, as_tensor) -> None:
+    """``vals`` (one entry per batch: an array, a dict of arrays, or None)
+    stacked on a new leading axis into ``out``: under ``key``, or under
+    ``key/<name>`` for each entry of a dict (one static buffer per label
+    leaf in a ``fit_batches`` graph)."""
+    if any(v is None for v in vals):
+        if not all(v is None for v in vals):
+            raise ValueError("fit_batches needs uniform masks: all batches or none")
+        out[key] = None
+    elif isinstance(vals[0], dict):
+        for k in sorted(vals[0]):
+            out[f"{key}/{k}"] = torch.stack([as_tensor(v[k]) for v in vals])
+    else:
+        out[key] = torch.stack([as_tensor(v) for v in vals])
+
+
+def _field_at(stacked: dict, key: str, i: int):
+    """Batch ``i`` of the field ``_stack_field`` stored under ``key``."""
+    if key in stacked:
+        return None if stacked[key] is None else stacked[key][i]
+    pre = key + "/"
+    return {n[len(pre):]: t[i] for n, t in stacked.items() if n.startswith(pre)}
+
+
+def _objective_and_grads(layer, params, feat: Tensor, generator):
+    """A pretrainable layer's reconstruction objective on ``feat`` and its
+    gradient (a tree shaped like ``params``), both detached."""
+    live = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = layer.reconstruction_score(tree_unflatten(params, live), feat,
+                                          generator=generator, train=True)
+        grads = torch.autograd.grad(loss, live)
+    return loss.detach(), tree_unflatten(params, list(grads))
 
 
 def _detached(carry):
@@ -258,8 +299,8 @@ class MultiLayerNetwork:
         if generator is None:
             generator = torch.Generator().manual_seed(int(self.conf.seed))
         params, state = self._draw(generator)
-        self.params = [{k: v.to(self.device) for k, v in p.items()} for p in params]
-        self.state = [{k: v.to(self.device) for k, v in s.items()} for s in state]
+        self.params = [tree_apply(lambda v: v.to(self.device), p) for p in params]
+        self.state = [tree_apply(lambda v: v.to(self.device), s) for s in state]
         self.opt_state = self.init_opt_state(self.params)
         self.iteration = 0
 
@@ -380,20 +421,33 @@ class MultiLayerNetwork:
               mask=None, label_mask=None, carries=None, state_out=None):
         """Full score: the output layer's loss plus every layer's L1/L2
         (accumulated in float64 when computing in float64, else float32)
-        → (loss, new_carries); ``state_out`` as ``_apply_layers``'s."""
+        → (loss, new_carries); ``state_out`` as ``_apply_layers``'s.  In
+        training a center-loss head's ``update_centers`` (on its detached
+        input and labels) writes its new state, and the ``AUX_LOSS_KEY``
+        term of any layer's new state joins the loss, as in the
+        reference."""
         n = len(self.conf.layers)
+        new_state = state_out if state_out is not None else []
         h, mask_out, new_carries = self._head_input(
             params, state, x, mask, train=train, generator=generator, carries=carries,
-            state_out=state_out)
+            state_out=new_state)
         last = self.conf.layers[n - 1]
         lm = label_mask if label_mask is not None else (
-            mask_out if labels is not None and labels.ndim == 3 else None)
+            mask_out if labels is not None and _ndim(labels) == 3 else None)
         if not hasattr(last, "score"):
             raise ValueError(f"last layer {type(last).__name__} has no score(); "
                              "use an output layer")
         loss = last.score(params[n - 1], state[n - 1], h, labels, mask=lm)
+        if train and hasattr(last, "update_centers"):
+            new_state[n - 1] = last.update_centers(state[n - 1], h.detach(),
+                                                   tree_apply(Tensor.detach, labels))
         acc = torch.float64 if self._compute_dtype() == torch.float64 else torch.float32
-        return loss.to(acc) + self._reg_score(params, acc), new_carries
+        total = loss.to(acc) + self._reg_score(params, acc)
+        if train:
+            for s in new_state:
+                if AUX_LOSS_KEY in s:
+                    total = total + s[AUX_LOSS_KEY].to(acc)
+        return total, new_carries
 
     # ------------------------------------------------------------------
     # training
@@ -433,7 +487,11 @@ class MultiLayerNetwork:
         return tuple(None if a is None else self._as_tensor(a)
                      for a in (ds.features, ds.labels, ds.features_mask, ds.labels_mask))
 
-    def _as_tensor(self, a) -> Tensor:
+    def _as_tensor(self, a):
+        """An array or tensor on the network's device (a dict of them, as
+        ``Yolo2OutputLayer``'s labels, entry by entry)."""
+        if isinstance(a, dict):
+            return {k: self._as_tensor(v) for k, v in a.items()}
         return torch.as_tensor(np.asarray(a) if not isinstance(a, Tensor) else a,
                                device=self.device)
 
@@ -456,7 +514,10 @@ class MultiLayerNetwork:
                                            label_mask=lm, carries=carries,
                                            state_out=state_out)
             flat = [t for ls in live for t in ls]
-            gflat = torch.autograd.grad(loss, flat) if flat else []
+            # a FrozenLayer's parameters take no part: their gradient is
+            # zero, and they pass through the updater as the reference's do
+            gflat = torch.autograd.grad(loss, flat, allow_unused=True,
+                                        materialize_grads=True) if flat else []
         grads, off = [], 0
         for p, ls in zip(self.params, live):
             grads.append(tree_unflatten(p, list(gflat[off:off + len(ls)])))
@@ -488,11 +549,19 @@ class MultiLayerNetwork:
         layers' state (running statistics) is replaced by the step's."""
         new_s: list = []
         loss, grads, carries = self._loss_and_grads(ds, carries, state_out=new_s)
+        ok = self._grads_finite(loss, grads) if guarded else None
+        self._commit_step(grads, new_s, ok)
+        return (loss, carries, ok) if guarded else (loss, carries)
+
+    def _commit_step(self, grads, new_s: list, ok: Optional[Tensor] = None) -> None:
+        """Apply ``grads`` at the current iteration, install the new
+        parameters, updater state and layer state ``new_s``, and advance
+        the iteration.  Where the device flag ``ok`` is false the old
+        parameters and states are kept bitwise."""
         it = self._iter_tensor()
         with torch.no_grad():
             new_p, new_o = self._apply_updates(grads, self.params, self.opt_state, it)
-            if guarded:
-                ok = self._grads_finite(loss, grads)
+            if ok is not None:
                 new_p = [self._select_tree(ok, n, o) for n, o in zip(new_p, self.params)]
                 new_o = [self._select_tree(ok, n, o) for n, o in zip(new_o, self.opt_state)]
                 new_s = [self._select_tree(ok, n, o) for n, o in zip(new_s, self.state)]
@@ -500,7 +569,6 @@ class MultiLayerNetwork:
             self._it_dev = it + 1
         self.iteration += 1
         self._it_dev_val = self.iteration
-        return (loss, carries, ok) if guarded else (loss, carries)
 
     def set_nan_guard(self, budget: Optional[int] = 3) -> None:
         """Opt-in divergence guard: every step checks its loss and gradients
@@ -560,24 +628,18 @@ class MultiLayerNetwork:
 
     def _stacked(self, batches: List[DataSet]) -> Dict[str, Optional[Tensor]]:
         """Each DataSet field of ``batches`` stacked on a new leading axis on
-        the device (None where every batch has None)."""
-        out = {}
+        the device (None where every batch has None); dict labels stack
+        entry by entry, under ``labels/<name>``."""
+        out: Dict[str, Optional[Tensor]] = {}
         for f in dataclasses.fields(DataSet):
-            name = f.name
-            vals = [getattr(ds, name) for ds in batches]
-            if any(v is None for v in vals):
-                if not all(v is None for v in vals):
-                    raise ValueError("fit_batches needs uniform masks: "
-                                     "all batches or none")
-                out[name] = None
-                continue
-            out[name] = torch.stack([self._as_tensor(v) for v in vals])
+            _stack_field(out, f.name, [getattr(ds, f.name) for ds in batches],
+                         self._as_tensor)
         return out
 
     @staticmethod
     def _batch_at(stacked: Dict[str, Optional[Tensor]], i: int) -> DataSet:
         """Batch ``i`` of ``_stacked``'s output."""
-        return DataSet(*(None if t is None else t[i] for t in stacked.values()))
+        return DataSet(*(_field_at(stacked, f.name, i) for f in dataclasses.fields(DataSet)))
 
     @property
     def fit_graph_count(self) -> int:
@@ -619,13 +681,16 @@ class MultiLayerNetwork:
         return [l.init_carry(mb, dtype, self.device) if l.recurrent else None
                 for l in self.conf.layers]
 
-    def _fit_batch_tbptt(self, ds: DataSet) -> LazyScore:
+    def _fit_batch_tbptt(self, ds: DataSet, step=None) -> LazyScore:
         """Truncated BPTT: the time axis in ``tbptt_length`` chunks, one
         optimizer step per chunk (at iterations ``iteration``,
         ``iteration + 1``, ...), recurrent state carried from chunk to
         chunk.  The score is the mean of the full chunks' losses, folded
         with a ragged tail chunk as (mean·n + tail) / (n + 1).  Listeners
-        fire after each chunk's step."""
+        fire after each chunk's step.  ``step(chunk, carries)`` → (loss,
+        carries, ...) takes each chunk's step; ``_step`` by default (the
+        data-parallel trainer passes its own)."""
+        step = step or self._step
         x, y, m, lm = self._batch(ds)
 
         def rank_ok(a):
@@ -643,8 +708,8 @@ class MultiLayerNetwork:
             return None if a is None else a[:, s:s + L]
         losses = []
         for s in range(0, T, L):
-            loss, carries = self._step(DataSet(cut(x, s), cut(y, s), cut(m, s), cut(lm, s)),
-                                       carries)
+            loss, carries = step(DataSet(cut(x, s), cut(y, s), cut(m, s), cut(lm, s)),
+                                 carries)[:2]
             losses.append(loss)
             self._fire(self.iteration, LazyScore(loss))
         mean = torch.stack(losses[:n]).mean() if n else None
@@ -729,7 +794,7 @@ class MultiLayerNetwork:
 
     def pretrainable_layers(self) -> List[int]:
         """Indices of layers with an unsupervised objective (RBM,
-        AutoEncoder)."""
+        AutoEncoder, VariationalAutoencoder)."""
         return [i for i, l in enumerate(self.conf.layers)
                 if hasattr(l, "contrastive_divergence")
                 or hasattr(l, "reconstruction_score")]
@@ -745,15 +810,18 @@ class MultiLayerNetwork:
         """Unsupervised pretraining of layer ``i``: inputs featurized
         through layers [0, i) in inference mode, then the layer's
         objective (CD-k for an RBM, the reconstruction loss for an
-        AutoEncoder) through the layer's own updater, with its own step
-        counter from 0, gradient normalization and constraints."""
+        AutoEncoder, the negative ELBO for a VariationalAutoencoder, its
+        noise from the network's generator) through the layer's own
+        updater, with its own step counter from 0, gradient normalization
+        and constraints."""
         layer = self.conf.layers[i]
         is_rbm = hasattr(layer, "cd_gradients")
         if not is_rbm and not hasattr(layer, "reconstruction_score"):
             raise ValueError(
                 f"layer {i} ({type(layer).__name__}) has no unsupervised "
                 "objective — pretrainable layers: RBM (contrastive "
-                "divergence), AutoEncoder (reconstruction)")
+                "divergence), AutoEncoder / VariationalAutoencoder "
+                "(reconstruction/ELBO)")
         updater = self._updater_for(layer)
         losses: List[LazyScore] = []
         it = 0
@@ -769,13 +837,7 @@ class MultiLayerNetwork:
                     with torch.no_grad():
                         g, loss = layer.cd_gradients(p, feat, self._gen)
                 else:
-                    live = {k: v.detach().requires_grad_(True) for k, v in p.items()}
-                    with torch.enable_grad():
-                        loss = layer.reconstruction_score(live, feat, generator=self._gen,
-                                                          train=True)
-                        gl = torch.autograd.grad(loss, [live[k] for k in sorted(live)])
-                    g = dict(zip(sorted(live), gl))
-                    loss = loss.detach()
+                    loss, g = _objective_and_grads(layer, p, feat, self._gen)
                 with torch.no_grad():
                     if self.conf.gradient_normalization != GradientNormalization.NONE:
                         g = normalize_gradients(g, self.conf.gradient_normalization,
@@ -787,6 +849,35 @@ class MultiLayerNetwork:
                 losses.append(LazyScore(loss))
         materialize_scores(losses)
         return losses
+
+    def reconstruction_log_probability(self, x, layer_index: Optional[int] = None,
+                                       num_samples: int = 5) -> Tensor:
+        """Importance-weighted log p(x) per example [N] from a
+        VariationalAutoencoder layer (the first one when ``layer_index`` is
+        None): ``x`` featurized through the layers below it in inference
+        mode, then the layer's IWAE estimate with ``num_samples`` samples
+        drawn from the network's generator.  A tensor on the device."""
+        if layer_index is None:
+            layer_index = next((i for i, l in enumerate(self.conf.layers)
+                                if hasattr(l, "reconstruction_log_probability")), None)
+            if layer_index is None:
+                raise ValueError("no VariationalAutoencoder layer in this network")
+        layer = self.conf.layers[layer_index]
+        if not hasattr(layer, "reconstruction_log_probability"):
+            raise ValueError(f"layer {layer_index} ({type(layer).__name__}) "
+                             "is not a VariationalAutoencoder")
+        with torch.no_grad():
+            feat = self._apply_layers(self.params, self.state, self._as_tensor(x), None,
+                                      upto=layer_index)[0]
+            feat = self._preprocess(layer_index, feat, None)
+            return layer.reconstruction_log_probability(
+                self.params[layer_index], feat, generator=self._gen, num_samples=num_samples)
+
+    def reconstruction_probability(self, x, layer_index: Optional[int] = None,
+                                   num_samples: int = 5) -> Tensor:
+        """exp(``reconstruction_log_probability``); prefer the log form for
+        high-dimensional data."""
+        return torch.exp(self.reconstruction_log_probability(x, layer_index, num_samples))
 
     # ------------------------------------------------------------------
     # inference / scoring
@@ -815,7 +906,7 @@ class MultiLayerNetwork:
             h, mask_out, _ = self._head_input(self.params, self.state, x, m,
                                               train=False, generator=None)
             lmask = lm if lm is not None else (
-                mask_out if y is not None and y.ndim == 3 else None)
+                mask_out if y is not None and _ndim(y) == 3 else None)
             pe = last.score_examples(self.params[n - 1], self.state[n - 1], h, y,
                                      mask=lmask)
             if add_regularization_terms:

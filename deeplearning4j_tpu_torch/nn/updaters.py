@@ -8,7 +8,8 @@ this step as a 0-dim f32 tensor on the params' device, so the learning
 rate and the bias corrections are f32 tensor math there, as
 ``jnp.power`` in f32 is in the reference, and a step needs no host sync.
 
-Trees are the per-layer ``{name: tensor}`` dicts (nested dicts work too);
+Trees are the per-layer ``{name: tensor}`` dicts (nested dicts and lists
+work too, as the VAE's encoder and decoder lists);
 leaves are taken in sorted key order, as ``jax.tree_util`` flattens a
 dict, so a norm over a layer sums its leaves in the reference's order and
 the state dicts come out with the reference's key order.
@@ -32,9 +33,12 @@ Tensor = torch.Tensor
 
 
 def tree_leaves(tree) -> List[Tensor]:
-    """Leaves of a nested dict in sorted key order."""
+    """Leaves of a nested dict (sorted key order) or list (list order), as
+    ``jax.tree_util`` flattens them."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
@@ -45,6 +49,8 @@ def tree_unflatten(template, leaves: List[Tensor]):
     def build(t):
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
         return next(it)
 
     return build(template)

@@ -18,7 +18,26 @@ One process per rank, each holding a replica of the network.  A step:
      all-gathers the ENCODED buffers over the ``dcn`` group in one call,
      decode-sums them in rank order and divides by the slice count; the
      part of the sum this slice did not send is its next residual;
-  3. the network's own ``_apply_updates`` (normalization, updater, K4).
+  3. the network's own ``_apply_updates`` (normalization, updater, K4),
+     and the layers' new state (BatchNormalization's running statistics,
+     a center-loss head's centres) replaces the old.
+
+Batch statistics follow the reference's two programs.  The dense path
+takes them over the GLOBAL batch, as the reference's one program over a
+sharded batch does: for the length of the step the trainer sets
+``normalization.global_batch``, so BatchNormalization's moments and the
+centres' class sums are all-reduced across the ranks in the forward (an
+autograd function whose backward all-reduces the gradient, so each
+rank's gradient carries the other ranks' share of the moments).  The
+compressed path normalizes each rank's rows by their own moments and
+then averages every float leaf of the new state over all ranks, as the
+reference's ``pmean`` over both data axes does.  Each rank draws its own
+dropout and weight noise: a rank's generator is seeded from the
+configuration's seed and its data-parallel index (rank 0 keeps the
+seed), where the reference folds the device index into its key.  TBPTT
+runs on the dense path chunk by chunk, each chunk's gradient exchanged
+and applied; it raises with ``grad_compression``, as the reference's
+does.
 
 Every rank decodes the same gathered bytes in the same order, so the
 replicas stay bitwise equal.  The backend: NCCL when each rank has a
@@ -39,17 +58,18 @@ stay equal and the poisoned gradient is not carried into the next step.
 The budget is the network's (``set_nan_guard``, ``DivergenceError``).
 
 Not ported (ROADMAP queue 1 item 7): the ``model`` (TP), ``seq`` and
-``pipe`` axes, pipeline schedules, TBPTT under data parallelism, and the
-elastic residual snapshot.
+``pipe`` axes, pipeline schedules, and the elastic residual snapshot.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional
 
 import torch
 
 from ..datasets.dataset import DataSet
+from ..nn.layers import normalization
 from ..ops import compression as C
 from ..optimize.score import LazyScore
 from .distributed import detect_num_slices, process_count
@@ -58,6 +78,34 @@ from .mesh import DATA_AXIS, DCN_AXIS, RankMesh, build_mesh, build_two_tier_mesh
 Tensor = torch.Tensor
 
 _SCHEDULES = ("gpipe", "1f1b")
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """All-reduce (sum) of a tensor over every rank, in autograd: the
+    backward all-reduces the incoming gradient, since every rank's loss
+    depends on every rank's share of the sum."""
+
+    @staticmethod
+    def forward(ctx, t: Tensor) -> Tensor:
+        import torch.distributed as dist
+
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: Tensor) -> Tensor:
+        import torch.distributed as dist
+
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g)
+        return g
+
+
+def _rank_seed(seed: int, dp_index: int) -> int:
+    """The generator seed of data-parallel rank ``dp_index`` (rank 0 keeps
+    the configuration's)."""
+    return (int(seed) + dp_index * 0x9E3779B97F4A7C15) % (1 << 63)
 
 
 class ShardedTrainer:
@@ -146,6 +194,8 @@ class ShardedTrainer:
         self._residual: Optional[Tensor] = None
         if grad_compression is not None:
             self._place_residual()
+        if self.dp_index:
+            net._gen.manual_seed(_rank_seed(net.conf.seed, self.dp_index))
 
     # -- collectives -------------------------------------------------------
 
@@ -218,10 +268,13 @@ class ShardedTrainer:
     # -- batches -----------------------------------------------------------
 
     def _local(self, ds: DataSet) -> DataSet:
-        """This rank's rows of the global batch."""
+        """This rank's rows of the global batch (of each entry of dict
+        labels)."""
         def cut(a):
             if a is None:
                 return None
+            if isinstance(a, dict):
+                return {k: cut(v) for k, v in a.items()}
             n = a.shape[0]
             if n % self.dp_size:
                 raise ValueError(
@@ -253,43 +306,76 @@ class ShardedTrainer:
         self._residual = acc - torch.cat(local)
         return torch.cat(means)
 
-    def fit_batch(self, ds: DataSet) -> LazyScore:
-        """One global step: this rank's rows, the gradient exchange, the
-        update.  Returns the global-batch loss (the mean over ranks) as a
-        ``LazyScore``."""
+    def _mean_state(self, state: list) -> list:
+        """Every float leaf of the layers' new state averaged over all the
+        ranks, in one all-reduce (the compressed path)."""
+        import torch.distributed as dist
+
+        leaves = [(i, k) for i, s in enumerate(state) for k in sorted(s)
+                  if s[k].is_floating_point()]
+        if self.mesh.size == 1 or not leaves:
+            return state
+        dt = (torch.float64 if any(state[i][k].dtype == torch.float64 for i, k in leaves)
+              else torch.float32)
+        flat = torch.cat([state[i][k].reshape(-1).to(dt) for i, k in leaves])
+        dist.all_reduce(flat)
+        flat = flat / self.mesh.size
+        out, off = [dict(s) for s in state], 0
+        for i, k in leaves:
+            t = state[i][k]
+            out[i][k] = flat[off:off + t.numel()].reshape(t.shape).to(t.dtype)
+            off += t.numel()
+        return out
+
+    def _step(self, local: DataSet, carries=None):
+        """One global step on this rank's rows → (the global-batch loss,
+        the carries after it, the guard's flag or None)."""
         net = self.net
-        if net.conf.backprop_type == "tbptt":
-            raise NotImplementedError(
-                "TBPTT under data parallelism is not ported yet (ROADMAP "
-                "queue 9); run the network's own fit_batch")
         guard = self.nan_guard is not None
-        loss, grads, _ = net._loss_and_grads(self._local(ds))
+        dense = self.grad_compression is None and self.dp_size > 1
+        new_s: list = []
+        with (normalization.global_batch(_SumOverRanks.apply, self.dp_size) if dense
+              else contextlib.nullcontext()):
+            loss, grads, carries = net._loss_and_grads(local, carries, state_out=new_s)
+        ok = None
         with torch.no_grad():
             flat = self.bucketer.flat(grads)
             if guard:
                 ok = self._all_finite(loss, flat)
                 residual = self._residual
             mean = self._exchange(flat)
-            it = net._iter_tensor()
-            new_p, new_o = net._apply_updates(
-                self.bucketer.unflat(mean), net.params, net.opt_state, it)
-            if guard:
-                new_p = [net._select_tree(ok, n, o) for n, o in zip(new_p, net.params)]
-                new_o = [net._select_tree(ok, n, o) for n, o in zip(new_o, net.opt_state)]
-                if residual is not None:
-                    self._residual = torch.where(ok, self._residual, residual)
-            net.params, net.opt_state = new_p, new_o
-            net._it_dev = it + 1
+            if self.grad_compression is not None:
+                new_s = self._mean_state(new_s)
+            net._commit_step(self.bucketer.unflat(mean), new_s, ok)
+            if guard and residual is not None:
+                self._residual = torch.where(ok, self._residual, residual)
             if self.grad_compression is None:
                 loss = self._all_reduce_mean(loss.reshape(1), None)
             else:
                 loss = self._all_reduce_mean(self._all_reduce_mean(
                     loss.reshape(1), self.data_axis), self.dcn_axis)
-        net.iteration += 1
-        net._it_dev_val = net.iteration
-        if guard:
+        return loss.reshape(()), carries, ok
+
+    def fit_batch(self, ds: DataSet) -> LazyScore:
+        """One global step: this rank's rows, the gradient exchange, the
+        update (one per chunk under TBPTT).  Returns the global-batch loss
+        (the mean over ranks) as a ``LazyScore``."""
+        net = self.net
+        if net.conf.backprop_type == "tbptt":
+            if self.grad_compression is not None:
+                raise NotImplementedError(
+                    "grad_compression does not compose with TBPTT yet — the "
+                    "chunk steps apply updates inside the step; run "
+                    "grad_compression=None")
+            if self.nan_guard is not None:
+                raise NotImplementedError(
+                    "the nan guard does not compose with TBPTT yet; run "
+                    "nan_guard=None")
+            return net._fit_batch_tbptt(self._local(ds), step=self._step)
+        loss, _, ok = self._step(self._local(ds))
+        if ok is not None:
             net._note_guarded_step(bool(ok))
-        score = LazyScore(loss.reshape(()))
+        score = LazyScore(loss)
         net._fire(net.iteration, score)
         return score
 

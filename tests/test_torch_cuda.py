@@ -44,7 +44,13 @@ skip bitwise; ``SelfAttention`` / ``LearnedSelfAttention`` through K1-K3
 against ``kernel="xla"`` within 2e-5 (gradients plus 1e-5 of their size);
 a float64 LSTM on the card (the plain loop, no K5 launch) against the
 CPU: loss and gradients 1e-12, parameters after updates 1e-7 (the
-updaters compute in float32).
+updaters compute in float32).  The heads of nn/layers/special.py,
+objdetect.py and variational.py on the card against the CPU: YOLOv2's
+score, input gradient and decoded predictions 1e-5, a center-loss step
+(loss, parameters, centres) 1e-5, the VAE's ELBO and IWAE estimate fed
+one noise stream 1e-5, a frozen layer's parameters bitwise unchanged;
+TinyYOLO's ``fit_batches(2)`` with dict labels as one CUDA graph bitwise
+two ``fit_batch`` calls under deterministic cuDNN.
 """
 
 import importlib.util
@@ -1614,3 +1620,133 @@ def _bitwise_bn_cnn(cuda_dev):
                     assert all(torch.equal(u[k][kk], v[k][kk]) for kk in u[k])
                 else:
                     assert torch.equal(u[k], v[k])
+
+
+# -- the heads of this slice: YOLOv2, center loss, VAE, FrozenLayer -------------------------
+
+
+def _yolo_batch(n, grid, seed, boxes=5, classes=20):
+    rng = np.random.default_rng(seed)
+    b = (rng.standard_normal((n, grid, grid, boxes, 4)) * 0.3).astype(np.float32)
+    b[..., :2] = rng.random((n, grid, grid, boxes, 2))
+    obj = np.zeros((n, grid, grid, boxes), np.float32)
+    cls = np.zeros((n, grid, grid, classes), np.float32)
+    for i in range(n):
+        for _ in range(3):
+            r, c, k = rng.integers(0, grid, 2).tolist() + [int(rng.integers(0, boxes))]
+            obj[i, r, c, k] = 1
+            cls[i, r, c] = 0
+            cls[i, r, c, rng.integers(0, classes)] = 1
+    return {"boxes": b, "obj": obj, "cls": cls}
+
+
+def test_yolo_head_on_card_matches_cpu(cuda_dev):
+    from deeplearning4j_tpu_torch.nn.layers import Yolo2OutputLayer
+
+    layer = Yolo2OutputLayer(anchors=[[1.08, 1.19], [3.42, 4.41], [6.63, 11.38],
+                                      [9.42, 5.11], [16.62, 10.52]], n_classes=20)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, 13, 13, 125), dtype=np.float32)
+    y = _yolo_batch(4, 13, 4)
+    out = {}
+    for dev in ("cpu", cuda_dev):
+        xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+        loss = layer.score({}, {}, xt, {k: torch.from_numpy(v).to(dev) for k, v in y.items()})
+        (g,) = torch.autograd.grad(loss, xt)
+        dec = layer.decode_predictions(xt.detach())
+        out[str(dev)] = (float(loss), g.cpu(), {k: v.cpu() for k, v in dec.items()})
+    (l0, g0, d0), (l1, g1, d1) = out.values()
+    assert abs(l0 - l1) <= 1e-5 * max(1.0, abs(l0))
+    assert float((g0 - g1).abs().max()) <= 1e-5
+    for k in d0:
+        assert torch.allclose(d0[k].double(), d1[k].double(), rtol=0, atol=1e-5), k
+
+
+def test_center_loss_step_on_card_matches_cpu(cuda_dev):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import CenterLossOutputLayer, Dense, FrozenLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((32, 12), dtype=np.float32)
+    y = np.eye(6, dtype=np.float32)[rng.integers(0, 6, 32)]
+    nets = []
+    for dev in ("cpu", cuda_dev):
+        conf = (NeuralNetConfiguration.builder().seed(3).updater(Adam(lr=1e-2))
+                .layer(FrozenLayer(layer=Dense(n_out=10, activation="tanh")))
+                .layer(Dense(n_out=8, activation="tanh"))
+                .layer(CenterLossOutputLayer(n_out=6, activation="softmax", lambda_=0.1,
+                                             alpha=0.2))
+                .set_input_type(InputType.feed_forward(12)).build())
+        net = MultiLayerNetwork(conf, device=dev)
+        net.init()
+        frozen = {k: v.clone() for k, v in net.params[0].items()}
+        losses = [float(net.fit_batch(DataSet(x, y))) for _ in range(3)]
+        assert all(torch.equal(net.params[0][k], v) for k, v in frozen.items())
+        nets.append((losses, net))
+    (l0, n0), (l1, n1) = nets
+    assert np.allclose(l0, l1, rtol=0, atol=1e-5)
+    assert float((n0.state[2]["centers"] - n1.state[2]["centers"].cpu()).abs().max()) <= 1e-5
+    assert torch.count_nonzero(n1.state[2]["centers"]) > 0
+    for p, q in zip(n0.params, n1.params):
+        for k in p:
+            assert float((p[k] - q[k].cpu()).abs().max()) <= 1e-5
+
+
+def test_vae_on_card_matches_cpu_with_one_noise_stream(cuda_dev, monkeypatch):
+    from deeplearning4j_tpu_torch.nn.conf import regularizers
+    from deeplearning4j_tpu_torch.nn.layers import VariationalAutoencoder
+    from deeplearning4j_tpu_torch.utils.params import params_from_numpy, params_to_numpy
+
+    for kind in ("bernoulli", "gaussian"):
+        layer = VariationalAutoencoder(n_in=784, n_out=32, encoder_layer_sizes=[256, 256],
+                                       decoder_layer_sizes=[256, 256], reconstruction=kind,
+                                       num_samples=2)
+        p = params_to_numpy(layer.init_params(torch.Generator().manual_seed(1), None))
+        rng = np.random.default_rng(2)
+        x = (rng.random((64, 784)) < 0.3).astype(np.float32)
+        res = []
+        for dev in ("cpu", cuda_dev):
+            stream = np.random.default_rng(7)
+            monkeypatch.setattr(regularizers, "normal", lambda gen, shape, d=dev: torch.from_numpy(
+                stream.standard_normal(tuple(shape)).astype(np.float32)).to(d))
+            pt = params_from_numpy(p, device=dev)
+            xt = torch.from_numpy(x).to(dev)
+            gen = torch.Generator(device=dev)       # unused: the stream stands in for it
+            elbo = float(layer.elbo_score(pt, xt, generator=gen))
+            lp = layer.reconstruction_log_probability(pt, xt, generator=gen, num_samples=5)
+            res.append((elbo, lp.cpu()))
+        assert abs(res[0][0] - res[1][0]) <= 1e-5 * max(1.0, abs(res[0][0]))
+        assert torch.allclose(res[0][1], res[1][1], rtol=1e-6, atol=1e-4)
+
+
+def test_tinyyolo_fit_batches_graph_with_dict_labels_is_bitwise_eager(cuda_dev):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models import TinyYOLO
+
+    rng = np.random.default_rng(11)
+    batches = [DataSet(rng.standard_normal((8, 64, 64, 3), dtype=np.float32),
+                       _yolo_batch(8, 2, 20 + i)) for i in range(2)]
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = []
+        for graphed in (False, True):
+            # a fresh network each time: in the graphed run the anchors are
+            # first made in the eager warm-up before the capture, which
+            # would refuse their copy from the host
+            net = TinyYOLO(64, 64, 3, 20, device=cuda_dev)
+            losses = ([float(s) for s in net.fit_batches(batches)] if graphed
+                      else [float(net.fit_batch(b)) for b in batches])
+            runs.append((losses, net.clone_params(), net.clone_state()))
+        net.fit_batches(batches)            # a repeat call captures nothing new
+        assert net.fit_graph_count == 1
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    (l0, p0, s0), (l1, p1, s1) = runs
+    assert l0 == l1
+    for a, b in ((p0, p1), (s0, s1)):
+        for u, v in zip(a, b):
+            assert all(torch.equal(u[k], v[k]) for k in u)

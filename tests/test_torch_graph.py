@@ -205,8 +205,8 @@ def test_configuration_json_round_trips_unchanged():
 
 def test_an_unported_vertex_layer_is_named():
     d = _jconf().to_dict()
-    d["vertices"][0]["vertex"]["layer"]["type"] = "Yolo2OutputLayer"
-    with pytest.raises(ValueError, match="Yolo2OutputLayer.*not ported"):
+    d["vertices"][0]["vertex"]["layer"]["type"] = "MoE"
+    with pytest.raises(ValueError, match="MoE.*not ported"):
         tg.ComputationGraphConfiguration.from_dict(d)
 
 

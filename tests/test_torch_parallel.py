@@ -19,6 +19,18 @@ a few float32 spacings, tests/test_torch_compression.py); every rank's
 parameters bitwise equal to every other's.  Also: the trainer's
 validation errors, and the residual checkpoint both ways.
 
+The network-state arms: a Dense → BatchNorm → Output network (SGD lr
+0.05) dense and two-tier compressed (threshold 0.05), the loss,
+parameters and BatchNorm statistics within 1e-5 of the JAX trainer's
+after every one of the 5 steps, and bitwise equal across ranks (dense:
+the moments of the global batch, all-reduced in the forward; compressed:
+each rank's own moments, the new statistics averaged over the ranks);
+an LSTM → RnnOutputLayer network with TBPTT 3 over 7 steps on the dense
+path, 3 calls, losses and parameters within 1e-5; a network with input
+dropout 0.5 whose ranks draw different masks while their parameters stay
+bitwise equal, and the MLP without dropout whose training-mode
+activations are bitwise equal across ranks.
+
 The workers import neither JAX nor the JAX package; JAX is imported
 inside the JAX-side helpers only.  Every spawn has a 120 s limit.
 """
@@ -52,6 +64,10 @@ ARMS = {
                                     "compression_threshold": 0.3}, True),
 }
 COMPRESSED = [a for a, (kw, _) in ARMS.items() if kw]
+#: the arms of a network with BatchNormalization (its state rides the step)
+BN_ARMS = {"bn_dense": {},
+           "bn_compressed": {"grad_compression": "threshold", "compression_threshold": 0.05}}
+TBPTT_CALLS = 3
 
 
 def _blobs(n=128, f=12, classes=3, seed=0):
@@ -77,6 +93,45 @@ def _jax_mlp(seed=3, lr=0.05):
     net = MultiLayerNetwork(conf)
     net.init()
     return net
+
+
+def _jax_bn_net(seed=5):
+    """Dense(16) → BatchNormalization(relu) → OutputLayer(3), SGD 0.05."""
+    from deeplearning4j_tpu.nn.conf.inputs import InputType
+    from deeplearning4j_tpu.nn.layers import BatchNormalization, Dense, OutputLayer
+    from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu.nn.updaters import Sgd
+
+    conf = (NeuralNetConfiguration.builder().seed(seed).updater(Sgd(lr=0.05))
+            .layer(Dense(n_out=16, activation="identity"))
+            .layer(BatchNormalization(activation="relu"))
+            .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(12)).build())
+    net = MultiLayerNetwork(conf)
+    net.init()
+    return net
+
+
+def _jax_tbptt_net(seed=6):
+    """LSTM(6) → RnnOutputLayer(3) with TBPTT 3, SGD 0.1."""
+    from deeplearning4j_tpu.nn.conf.inputs import InputType
+    from deeplearning4j_tpu.nn.layers import LSTM, RnnOutputLayer
+    from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu.nn.updaters import Sgd
+
+    conf = (NeuralNetConfiguration.builder().seed(seed).updater(Sgd(lr=0.1))
+            .layer(LSTM(n_out=6))
+            .layer(RnnOutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.recurrent(4)).tbptt(3).build())
+    net = MultiLayerNetwork(conf)
+    net.init()
+    return net
+
+
+def _sequences(n=8, t=7, f=4, classes=3, seed=1):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, t, f)).astype(np.float32),
+            np.eye(classes, dtype=np.float32)[rng.integers(0, classes, (n, t))])
 
 
 def _flat(tree):
@@ -107,6 +162,7 @@ def _worker(rank: int, work: str) -> None:
     from deeplearning4j_tpu_torch.datasets import DataSet
     from deeplearning4j_tpu_torch.parallel import (ShardedTrainer, build_two_tier_mesh,
                                                    initialize, shutdown)
+    from deeplearning4j_tpu_torch.utils.params import params_to_numpy
     from deeplearning4j_tpu_torch.utils.serializer import load_model
 
     initialize(init_method="file://" + os.path.join(work, "rendezvous"),
@@ -153,8 +209,36 @@ def _worker(rank: int, work: str) -> None:
             out[f"{arm}/residual"] = trainer._residual.numpy()
         if arm == "threshold_fixed_top_k":
             trainer.save(os.path.join(work, "port.zip"))
-    # a zip the JAX package wrote: every rank adopts its slice's residual
     compression.one_pass_pack = one_pass
+    # the network-state arms
+    for arm, kw in BN_ARMS.items():
+        trainer = ShardedTrainer(load_model(os.path.join(work, "bn.zip"), device="cpu"),
+                                 build_two_tier_mesh(2, {"data": 2}), **kw)
+        losses, trace = [], []
+        for _ in range(STEPS):
+            losses.append(float(trainer.fit_batch(ds)))
+            trace.append(np.concatenate([_flat(params_to_numpy(trainer.net.params)),
+                                         _flat(params_to_numpy(trainer.net.state))]))
+        out[f"{arm}/losses"] = np.asarray(losses, np.float32)
+        out[f"{arm}/trace"] = np.stack(trace)
+    xs_t, ys_t = _sequences()
+    trainer = ShardedTrainer(load_model(os.path.join(work, "tbptt.zip"), device="cpu"),
+                             build_two_tier_mesh(2, {"data": 2}))
+    out["tbptt/losses"] = np.asarray([float(trainer.fit_batch(DataSet(xs_t, ys_t)))
+                                      for _ in range(TBPTT_CALLS)], np.float32)
+    out["tbptt/params"] = _flat(params_to_numpy(trainer.net.params))
+    out["tbptt/iteration"] = np.asarray(trainer.net.iteration)
+    # dropout: each rank its own masks; without dropout, the same
+    drop = _port_net(work)
+    drop.conf.layers[0].dropout = 0.5
+    trainer = ShardedTrainer(drop, build_two_tier_mesh(2, {"data": 2}))
+    out["dropout/acts"] = trainer.net.feed_forward(xs[:8], train=True)[0].numpy()
+    for _ in range(2):
+        trainer.fit_batch(ds)
+    out["dropout/params"] = _flat(params_to_numpy(trainer.net.params))
+    trainer = ShardedTrainer(_port_net(work), build_two_tier_mesh(2, {"data": 2}))
+    out["no_dropout/acts"] = trainer.net.feed_forward(xs[:8], train=True)[0].numpy()
+    # a zip the JAX package wrote: every rank adopts its slice's residual
     net = load_model(os.path.join(work, "jax.zip"), device="cpu")
     out["adopt/loaded_shape"] = np.asarray(net.grad_residual[0]["W"].shape)
     trainer = ShardedTrainer(net, build_two_tier_mesh(2, {"data": 2}),
@@ -207,6 +291,25 @@ def runs(tmp_path_factory):
                 jax_out["jax_zip_residual"] = jax_out[arm]["residual"]
     finally:
         J.FUSED_ENCODE = fused
+    # the network-state arms
+    jbn = _jax_bn_net()
+    jbn.save(os.path.join(work, "bn.zip"))
+    for arm, kw in BN_ARMS.items():
+        trainer = JTrainer(_jax_bn_net(), j_two_tier(2, {"data": 2}, jax.devices()[:4]), **kw)
+        losses, trace = [], []
+        for _ in range(STEPS):
+            losses.append(float(trainer.fit_batch(ds)))
+            trace.append(np.concatenate([_flat(jax.tree_util.tree_map(np.asarray, t))
+                                         for t in (trainer.net.params, trainer.net.state)]))
+        jax_out[arm] = {"losses": np.asarray(losses, np.float32), "trace": np.stack(trace)}
+    _jax_tbptt_net().save(os.path.join(work, "tbptt.zip"))
+    trainer = JTrainer(_jax_tbptt_net(), j_two_tier(2, {"data": 2}, jax.devices()[:4]))
+    xs_t, ys_t = _sequences()
+    jax_out["tbptt"] = {
+        "losses": np.asarray([float(trainer.fit_batch(JDataSet(xs_t, ys_t)))
+                              for _ in range(TBPTT_CALLS)], np.float32),
+        "params": _flat(jax.tree_util.tree_map(np.asarray, trainer.net.params)),
+        "iteration": trainer.net.iteration}
 
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker",
@@ -249,6 +352,49 @@ def test_ranks_stay_bitwise_equal(runs, arm):
                                       runs["port"][0][f"{arm}/params"])
         np.testing.assert_array_equal(runs["port"][r][f"{arm}/losses"],
                                       runs["port"][0][f"{arm}/losses"])
+
+
+@pytest.mark.parametrize("arm", list(BN_ARMS))
+def test_batchnorm_state_rides_the_data_parallel_step(runs, arm):
+    """Losses, parameters and BatchNorm running statistics after every step
+    within 1e-5 of the JAX trainer's, and bitwise equal across ranks."""
+    import jax
+
+    want = runs["jax"][arm]
+    for r in range(RANKS):
+        np.testing.assert_allclose(runs["port"][r][f"{arm}/losses"], want["losses"],
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_allclose(runs["port"][r][f"{arm}/trace"], want["trace"],
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(runs["port"][r][f"{arm}/trace"],
+                                      runs["port"][0][f"{arm}/trace"])
+    # the statistics moved off their initial values (mean 0, var 1)
+    n_params = sum(int(np.prod(v.shape)) for v in jax.tree_util.tree_leaves(
+        _jax_bn_net().params))
+    stats = runs["port"][0][f"{arm}/trace"][-1, n_params:]
+    assert np.abs(stats[:16]).max() > 1e-3
+
+
+def test_tbptt_runs_on_the_dense_path_as_the_reference(runs):
+    want = runs["jax"]["tbptt"]
+    for r in range(RANKS):
+        np.testing.assert_allclose(runs["port"][r]["tbptt/losses"], want["losses"],
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_allclose(runs["port"][r]["tbptt/params"], want["params"],
+                                   rtol=0, atol=1e-5)
+        assert int(runs["port"][r]["tbptt/iteration"]) == want["iteration"] == 3 * TBPTT_CALLS
+
+
+@pytest.mark.parametrize("arm", ["dropout", "no_dropout"])
+def test_ranks_draw_their_own_dropout_masks(runs, arm):
+    acts = [runs["port"][r][f"{arm}/acts"] for r in range(RANKS)]
+    for r in range(1, RANKS):
+        if arm == "dropout":
+            assert not np.array_equal(acts[r], acts[0])
+            np.testing.assert_array_equal(runs["port"][r]["dropout/params"],
+                                          runs["port"][0]["dropout/params"])
+        else:
+            np.testing.assert_array_equal(acts[r], acts[0])
 
 
 def test_one_pass_route_runs_only_where_buckets_fit(runs):

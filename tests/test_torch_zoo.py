@@ -120,8 +120,33 @@ def test_resnet50_at_224_has_the_reference_parameter_count(monkeypatch):
 
 @pytest.mark.parametrize("name", ["tinyyolo", "inceptionresnetv1", "facenetnn4small2"])
 def test_zoo_names_that_wait_raise_naming_the_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        models.ZOO[name](device="cpu")
+    """No zoo name waits any more: the three that raised build, and no
+    entry of ``ZOO`` raises."""
+    net = models.ZOO[name](**dict(PUBLISHED)[name], device="cpu")
+    assert type(net).__name__ == ("MultiLayerNetwork" if name == "tinyyolo"
+                                  else "ComputationGraph")
+    assert sorted(models.ZOO) == sorted(jmodels.ZOO)
+
+
+# the three models of this slice at their published sizes
+PUBLISHED = [
+    ("tinyyolo", dict(height=416, width=416, channels=3, num_classes=20)),
+    ("inceptionresnetv1", dict(height=160, width=160, channels=3, num_classes=1000)),
+    ("facenetnn4small2", dict(height=96, width=96, channels=3, num_classes=1000)),
+]
+
+
+@pytest.mark.parametrize("name,kw", PUBLISHED, ids=[n for n, _ in PUBLISHED])
+def test_new_zoo_models_match_the_reference_at_their_published_sizes(name, kw, monkeypatch):
+    """Configuration JSON, every parameter shape and ``num_params``."""
+    net = models.ZOO[name](**kw, device="cpu")
+    jnet = _reference_conf(name, kw, monkeypatch)
+    assert net.conf.to_dict() == jnet.conf.to_dict()
+    shapes = _ref_shapes(jnet)
+    assert _port_shapes(net) == shapes
+    if not net.params:
+        net.init()
+    assert net.num_params() == sum(int(np.prod(s)) for s in shapes.values())
 
 
 def _reference_of(net):
@@ -268,3 +293,99 @@ def test_an_mln_through_all_four_convolutional_preprocessors():
     for _ in range(3):
         assert abs(float(net.fit_batch(DataSet(x, y))) - float(jnet.fit_batch(JDataSet(x, y)))) < 1e-5
     _assert_trees(net.params, [jax.tree_util.tree_map(np.asarray, p) for p in jnet.params], 1e-5)
+
+
+# -- TinyYOLO and InceptionResNetV1 at a cut ------------------------------------------------
+#
+# TinyYOLO at 64x64 (a 2x2 grid) and InceptionResNetV1 with one block of
+# each kind at 15x15, the smallest input its stem takes (1x1 maps from
+# stem5 on).  ``output()`` in float32 within 1e-4; one Adam step in
+# float64 at batch 8: the loss, the BatchNorm statistics and the centres
+# within 1e-10, parameters and Adam moments within 1e-6 relative and 1e-9
+# absolute (the
+# updaters compute in float32 in both packages, so a float64 network's
+# update is rounded to a float32 spacing).  InceptionResNetV1's dropout
+# draws from one numpy stream in both packages.
+
+CUTS = {"tinyyolo": dict(height=64, width=64, channels=3, num_classes=20),
+        "inceptionresnetv1": dict(height=15, width=15, channels=3, num_classes=10,
+                                  a_blocks=1, b_blocks=1, c_blocks=1)}
+
+
+def _cut_data(name, n, seed):
+    from tests.test_torch_special_layers import yolo_labels
+
+    rng = np.random.default_rng(seed)
+    kw = CUTS[name]
+    x = rng.normal(size=(n, kw["height"], kw["width"], 3))
+    if name == "tinyyolo":       # float64 labels: float32 ones would round the targets' exp
+        return x, {k: v.astype(np.float64) for k, v in yolo_labels(rng, n, 2, 2).items()}
+    return x, np.eye(10)[rng.integers(0, 10, n)]
+
+
+def _cut_net(name, dtype="float32"):
+    net = models.ZOO[name](**CUTS[name], device="cpu")
+    if dtype != "float32":
+        net.conf.param_dtype = net.conf.compute_dtype = dtype
+    net.init()
+    return net
+
+
+@pytest.fixture(scope="module")
+def cut_f32():
+    """Each cut model in float32 with its reference, built once."""
+    out = {}
+    for name in CUTS:
+        net = _cut_net(name)
+        if name == "tinyyolo":      # running statistics away from 0 / 1
+            rng = np.random.default_rng(12)
+            for s in net.state:
+                for k in s:
+                    s[k] = torch.from_numpy((rng.random(s[k].shape) + 0.5).astype(np.float32))
+        out[name] = (net, _reference_of(net))
+    return out
+
+
+@pytest.mark.parametrize("name", list(CUTS))
+def test_cut_model_output_matches_the_reference(name, cut_f32):
+    net, jnet = cut_f32[name]
+    x, _ = _cut_data(name, 4, seed=20)
+    x = x.astype(np.float32)
+    got = net.output(x)
+    want = jnet.output(x)
+    if name != "tinyyolo":
+        got, want = got[0], want[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", list(CUTS))
+def test_cut_model_float64_adam_step_matches_the_reference(name, monkeypatch):
+    from deeplearning4j_tpu.nn.conf import regularizers as jR
+    from deeplearning4j_tpu_torch.nn.conf import regularizers as tR
+
+    net = _cut_net(name, "float64")
+    x, y = _cut_data(name, 8, seed=21)
+    port_rng, ref_rng = np.random.default_rng(5), np.random.default_rng(5)
+    monkeypatch.setattr(tR, "bernoulli", lambda gen, p, shape: torch.from_numpy(
+        port_rng.random(tuple(shape)) < p))
+    monkeypatch.setattr(jR.jax.random, "bernoulli", lambda key, p=0.5, shape=None: jnp.asarray(
+        ref_rng.random(tuple(shape)) < np.asarray(p)))
+    with enable_x64(True):
+        jnet = _reference_of(net)
+        jl = float(jnet.fit_batch(JDataSet(x, y)))
+        jparams, jopt, jstate = (jax.tree_util.tree_map(np.asarray, t)
+                                 for t in (jnet.params, jnet.opt_state, jnet.state))
+    tl = float(net.fit_batch(DataSet(x, y)))
+    assert abs(tl - jl) < 1e-10
+    _assert_trees(net.state, jstate, 1e-10)
+    for port_tree, ref_tree in ((net.params, jparams), (net.opt_state, jopt)):
+        a, b = _flat(port_tree), _flat(ref_tree)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-6, atol=1e-9, err_msg=k)
+    if name == "inceptionresnetv1":
+        centers = net.state["out"]["centers"]
+        assert torch.count_nonzero(centers) > 0
+        assert port_rng.random() == ref_rng.random()     # both drew the same count
+    else:
+        assert not torch.equal(net.state[1]["mean"], torch.zeros_like(net.state[1]["mean"]))
