@@ -4,6 +4,8 @@
     python3 chip_smoke.py                  # every phase, on cuda:0
     python3 chip_smoke.py --trace-probe N  # serve's and predict's traced
                                            # replays, N traces each way
+    python3 chip_smoke.py --phase sharded  # the build and the sharded
+                                           # phase alone (no result line)
 
 It builds every CUDA kernel of the port from ``deeplearning4j_tpu_torch/csrc``
 with ``nvcc`` (one process per source, started together), then drives the
@@ -287,6 +289,43 @@ and the recurrent path's training and streaming:
           local updates, its first K6 launch (TinyYOLO's 16 buckets, the
           last ragged) bitwise K6's plain version on the same gradient;
           K6 launches once per rank per compressed step.
+  sharded ``parallel.ShardedTransformerLM`` and the parallel axes.  (a)
+          bench config 7 at full width on one rank: GPT-2-small (vocab
+          50304, 12 x 768, 12 heads, max_len 1024), bf16 compute, Adam(3e-4,
+          bf16 moments), one fixed [8, 1024] batch of seeded ids (targets
+          rolled by one), 2 warm-up and 5 timed ``fit_batch`` steps (median
+          ms, tokens/s, peak memory), one traced step (idle share, kernels,
+          device ms by class, K1-K3 12 each in bf16); the loss is finite and
+          falls.  (b) ``fit_batches(2)`` at (a)'s size as one CUDA graph:
+          losses, parameters and Adam moments bitwise two ``fit_batch``
+          calls from the same state, one graph after a repeat call.  (c) a
+          2-layer cut at GPT-2 widths in f32 on [2, 128], 2 SGD steps, on
+          the card and on the CPU: losses (relative) and parameters within
+          1e-4.  (f) K1-K3 in bf16 at [4, 6, 1024, 64] (a TP 2 x pipe 2
+          microbatch), [8, 3, 1024, 64] (Ulysses at tp 2 x sp 2) and (a)'s
+          [8, 12, 1024, 64] against their plain versions (2e-2 abs, 1e-2
+          norm-relative, a second K2/K3 launch bitwise the first), D1 at a
+          6-head shard (a step and a 512-row prefill) within 2e-5.  (e) the
+          f32 LM at GPT-2 widths, 12 layers, behind ``DecodeEngine`` with
+          the serve phase's 8 requests, one-way and tensor-parallel with
+          two head shards on cuda:0: every echoed logit bitwise the
+          program's own re-encode, the pool back to 0 pages, the snapshot's
+          ``tp``, D1 12 (one-way) and 24 (two shards) a step in a trace,
+          and one-way log-probabilities within 1e-4 of ``logits()``
+          (K1); TTFT and TPOT p50.  (g) ``ShardedTrainer`` on ``{model 2}``:
+          two gloo ranks on cuda:0 train an Iris MLP (Adam, per-layer
+          clipping, K4 on) 5 steps: losses and the gathered parameters
+          within 1e-5 of one process, each rank holding half of each split
+          leaf, the first step's K4 calls on the slices bitwise K4's plain
+          version.  (d) four gloo ranks on cuda:0, GPT-2 widths cut to 4
+          layers, a global [8, 1024] batch, 3 SGD steps a mesh from the
+          same weights: ``{model 2, seq 2}`` with ring and with Ulysses,
+          ``{model 2, pipe 2}`` with GPipe and 1F1B at M = 2 and 4, in f32,
+          and Ulysses and GPipe in bf16; the f32 losses within 1e-4
+          relative and the gathered parameters within 1e-4 of a one-rank
+          run on the card, 1F1B's first loss bitwise GPipe's at the same
+          M, the leaves a line of ranks shares bitwise equal along it;
+          step ms and peak memory of each rank.
 
 Each phase prints JSON lines; then one ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -2116,9 +2155,10 @@ def device_profile(fn, names=(), top: int = 0) -> dict:
 
 #: kernel classes by name, first match wins (cuDNN's convolutions run as
 #: implicit GEMMs, so they are matched before the GEMMs)
-KERNEL_CLASSES = (("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit")),
+KERNEL_CLASSES = (("flash", ("flash_",)),
+                  ("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit")),
                   ("layout", ("nchwtonhwc", "nhwctonchw", "transpose")),
-                  ("gemm", ("gemm", "gemv")), ("pool", ("pool",)),
+                  ("gemm", ("gemm", "gemv", "nvjet")), ("pool", ("pool",)),
                   ("fused_update", ("fused_update",)), ("reduce", ("reduce",)),
                   ("elementwise", ("elementwise", "vectorized")))
 
@@ -3998,24 +4038,7 @@ def phase_compressed():
     from deeplearning4j_tpu_torch.ops import compression as comp
 
     with tempfile.TemporaryDirectory() as work:
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                   "--compressed-rank", str(r), work]) for r in range(2)]
-        try:
-            deadline = time.monotonic() + 900
-            for p in procs:
-                p.wait(timeout=max(1.0, deadline - time.monotonic()))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        rcs = [p.returncode for p in procs]
-        if rcs != [0, 0]:
-            raise AssertionError(f"compressed phase: a rank failed (exit codes {rcs})")
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(work, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+        ranks = run_ranks("--compressed-rank", 2, work)
 
     arms, bad = {}, []
     a0 = ranks[0]["arms"]
@@ -4131,6 +4154,551 @@ def phase_compressed():
     return rec
 
 
+# -- sharded phase (bench config 7, ShardedTransformerLM) --------------------------
+
+#: arm (d)'s depth cut of GPT-2-small, and its meshes: name → (axes, LM
+#: keyword arguments, compute dtype)
+SHARDED_CUT_LAYERS, SHARDED_STEPS = 4, 3
+SHARDED_ARMS = {
+    "tp_sp_ring": ({"model": 2, "seq": 2}, {"seq_parallel": "ring"}, None),
+    "tp_sp_ulysses": ({"model": 2, "seq": 2}, {"seq_parallel": "ulysses"}, None),
+    "tp_pp_gpipe_m2": ({"model": 2, "pipe": 2}, {"schedule": "gpipe", "n_microbatches": 2}, None),
+    "tp_pp_1f1b_m2": ({"model": 2, "pipe": 2}, {"schedule": "1f1b", "n_microbatches": 2}, None),
+    "tp_pp_gpipe_m4": ({"model": 2, "pipe": 2}, {"schedule": "gpipe", "n_microbatches": 4}, None),
+    "tp_pp_1f1b_m4": ({"model": 2, "pipe": 2}, {"schedule": "1f1b", "n_microbatches": 4}, None),
+    "tp_sp_ulysses_bf16": ({"model": 2, "seq": 2}, {"seq_parallel": "ulysses"}, "bfloat16"),
+    "tp_pp_gpipe_bf16": ({"model": 2, "pipe": 2}, {"schedule": "gpipe", "n_microbatches": 2},
+                         "bfloat16"),
+}
+#: K1-K3's bf16 instantiations, by kernel name in a trace
+FLASH_BF16_KERNELS = ("flash_fwd_kernel<__nv_bfloat16", "flash_bwd_dkdv_kernel<__nv_bfloat16",
+                      "flash_bwd_dq_kernel<__nv_bfloat16")
+D1_KERNELS = ("det_attention_split", "det_attention_tiled")
+
+
+def gpt2_tree(n_layers, seed=SEED + 200):
+    """A ``ShardedTransformerLM`` parameter tree at GPT-2-small's widths
+    (the reference's layout: blocks stacked on a leading layer axis),
+    from a numpy seed with ``build_model``'s GPT-2 initialisation."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = lambda std, *shape: (std * rng.standard_normal(shape)).astype(np.float32)
+    d, f = D_MODEL, D_FF
+    res = 0.02 / math.sqrt(2 * LAYERS)
+    blocks = {"ln1_g": np.ones((n_layers, d), np.float32), "ln1_b": np.zeros((n_layers, d), np.float32),
+              "Wq": n(0.02, n_layers, d, d), "Wk": n(0.02, n_layers, d, d),
+              "Wv": n(0.02, n_layers, d, d), "Wo": n(res, n_layers, d, d),
+              "bo": np.zeros((n_layers, d), np.float32),
+              "ln2_g": np.ones((n_layers, d), np.float32), "ln2_b": np.zeros((n_layers, d), np.float32),
+              "W1": n(0.02, n_layers, d, f), "b1": np.zeros((n_layers, f), np.float32),
+              "W2": n(res, n_layers, f, d), "b2": np.zeros((n_layers, d), np.float32)}
+    return {"embed": n(0.02, VOCAB, d), "pos": n(0.01, MAX_LEN, d), "blocks": blocks,
+            "lnf_g": np.ones(d, np.float32), "lnf_b": np.zeros(d, np.float32),
+            "head": n(0.02, d, VOCAB)}
+
+
+def sharded_lm(n_layers, device, mesh=None, tree=None, **kw):
+    """A ``ShardedTransformerLM`` at GPT-2-small's widths cut to
+    ``n_layers``, with ``gpt2_tree``'s weights."""
+    from deeplearning4j_tpu_torch.parallel import ShardedTransformerLM, build_mesh
+
+    lm = ShardedTransformerLM(vocab_size=VOCAB, n_layers=n_layers, d_model=D_MODEL,
+                              n_heads=HEADS, d_ff=D_FF, max_len=MAX_LEN,
+                              mesh=mesh or build_mesh({"data": 1}), device=device, **kw)
+    lm.load_params(tree if tree is not None else gpt2_tree(n_layers))
+    return lm
+
+
+def lm_tokens(b, t, seed):
+    """[b, t] ids from a seed and the targets rolled by one."""
+    import numpy as np
+    tok = np.random.default_rng(seed).integers(0, VOCAB, (b, t))
+    return tok, np.roll(tok, -1, axis=1)
+
+
+def flash_counters():
+    from deeplearning4j_tpu_torch.ops import attention as att
+    return {"flash_fwd": att.flash_forward_cuda, "flash_bwd_dkdv": att.flash_bwd_dkdv_cuda,
+            "flash_bwd_dq": att.flash_bwd_dq_cuda}
+
+
+def sharded_config7():
+    """Arms (a) and (b): bench config 7 at full width on one card."""
+    import statistics
+
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.updaters import Adam, tree_map
+
+    lm = sharded_lm(LAYERS, "cuda", n_microbatches=1, compute_dtype=torch.bfloat16,
+                    updater=Adam(lr=3e-4, moment_dtype="bfloat16"))
+    tok, tgt = lm_tokens(8, MAX_LEN, SEED + 210)
+    counters = flash_counters()
+    for c in counters.values():
+        c.launches = 0
+    losses = [float(lm.fit_batch(tok, tgt)) for _ in range(2)]          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        losses.append(float(lm.fit_batch(tok, tgt)))
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = device_profile(lambda: float(lm.fit_batch(tok, tgt)), FLASH_BF16_KERNELS, top=8)
+    launches = {k: c.launches for k, c in counters.items()}
+    med = statistics.median(times)
+    flash_ms = sum(prof["named_ms"].values())
+    a = {"model": "bench config 7: GPT-2-small, vocab 50304, 12 x 768, 12 heads, "
+                  "bf16 compute, Adam(3e-4, bf16 moments)",
+         "batch": [8, MAX_LEN], "losses": losses, "step_ms": times, "median_step_ms": med,
+         "tokens_per_s": 8 * MAX_LEN / (med / 1e3), "peak_memory_gib": peak,
+         "traced_step": prof, "k1_k3_share_of_busy": flash_ms / prof["busy_ms"],
+         "k1_k3_traced_per_step": prof["named"], "launches": launches}
+    emit({"phase": "sharded", "arm": "a_config7", **a})
+    bad = []
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        bad.append("a: loss not finite and falling")
+    if any(v != LAYERS for v in prof["named"].values()):
+        bad.append(f"a: K1-K3 in bf16 per traced step {prof['named']}")
+
+    # (b) fit_batches(2) as one CUDA graph against 2 eager steps
+    batches = [lm_tokens(8, MAX_LEN, SEED + 211), lm_tokens(8, MAX_LEN, SEED + 212)]
+    clone = lambda t: tree_map(lambda x: x.clone(), t)
+    start = (clone(lm.params), clone(lm.opt_state), lm.iteration)
+    eager = [float(lm.fit_batch(x, y)) for x, y in batches]
+    after = (clone(lm.params), clone(lm.opt_state))
+    lm.params, lm.opt_state, lm.iteration = start
+    before = {k: c.launches for k, c in counters.items()}
+    stacked = [[x for x, _ in batches], [y for _, y in batches]]
+    import numpy as np
+    stacked = [np.stack(s) for s in stacked]
+    graphed = [float(x) for x in lm.fit_batches(*stacked)]
+    bitwise = eager == graphed and trees_equal(after, [lm.params, lm.opt_state])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm.fit_batches(*stacked)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3 / 2
+    for k, c in counters.items():
+        launches[k] += c.launches - before[k]
+    b = {"k": 2, "losses_eager": eager, "losses_graph": graphed, "bitwise": bitwise,
+         "graphs": len(lm._fit_graphs), "replay_ms_per_step": replay_ms,
+         "eager_ms_per_step": med}
+    emit({"phase": "sharded", "arm": "b_fit_batches", **b})
+    if not (bitwise and len(lm._fit_graphs) == 1):
+        bad.append("b: the graph is not bitwise its eager steps, or captured again")
+    return {"a": a, "b": b, "launches": launches}, bad
+
+
+def sharded_card_vs_cpu():
+    """Arm (c): a 2-layer cut at GPT-2 widths, f32, [2, 128], 2 SGD steps
+    on the card and on the CPU from the same weights."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+
+    tree = gpt2_tree(2)
+    tok, tgt = lm_tokens(2, 128, SEED + 220)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        lm = sharded_lm(2, dev, tree=tree, updater=Sgd(lr=0.1))
+        losses = [float(lm.fit_batch(tok, tgt)) for _ in range(2)]
+        runs.append((losses, lm.params_numpy()))
+    (lg, pg), (lc, pc) = runs
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    c = {"cut": "2 layers at GPT-2 widths, f32, [2, 128], Sgd(0.1)", "losses_card": lg,
+         "losses_cpu": lc, "loss_max_rel_diff": loss_rel, "params_max_abs_diff": diff,
+         "tolerance": 1e-4}
+    emit({"phase": "sharded", "arm": "c_card_vs_cpu", **c})
+    return c, ([] if loss_rel <= 1e-4 and diff <= 1e-4 else ["c: card against CPU"])
+
+
+def leaf_hashes(tree, prefix=""):
+    """sha1 of each leaf's bytes (``prefix/key`` → hex)."""
+    import hashlib
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(leaf_hashes(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = hashlib.sha1(v.detach().contiguous().cpu().numpy().tobytes()
+                                           ).hexdigest()
+    return out
+
+
+def sharded_rank(rank: int, work: str) -> None:
+    """One of arm (d)'s four gloo ranks on cuda:0 (``--sharded-rank R
+    DIR``): every mesh of ``SHARDED_ARMS`` in turn from ``gpt2_tree``'s
+    weights, ``SHARDED_STEPS`` steps each; the gathered parameters held
+    against the one-rank run's (DIR/reference.npz) on rank 0; writes
+    DIR/rankR.json."""
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd, tree_leaves
+    from deeplearning4j_tpu_torch.parallel import build_mesh, initialize, shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize(init_method="file://" + os.path.join(work, "rendezvous"), num_processes=4,
+               process_id=rank, backend="gloo", timeout_s=600)
+    tree = gpt2_tree(SHARDED_CUT_LAYERS)
+    tok, tgt = lm_tokens(8, MAX_LEN, SEED + 230)
+    ref = dict(np.load(os.path.join(work, "reference.npz"))) if rank == 0 else None
+    counters = flash_counters()
+    out = {"rank": rank, "arms": {}}
+    for name, (axes, kw, dtype) in SHARDED_ARMS.items():
+        lm = sharded_lm(SHARDED_CUT_LAYERS, "cuda", mesh=build_mesh(axes), tree=tree,
+                        updater=Sgd(lr=0.1), compute_dtype=dtype, **kw)
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(SHARDED_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(lm.fit_batch(tok, tgt)))
+            times.append((time.perf_counter() - t0) * 1e3)
+        rec = {"losses": losses, "step_ms": times, "median_step_ms": statistics.median(times),
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches": {k: c.launches for k, c in counters.items()},
+               "coords": [lm.mesh.coords[a] for a in ("data", "model", "seq", "pipe")],
+               "local": leaf_hashes(lm.params)}
+        whole = lm.params_numpy()                                     # a collective
+        if ref is not None and dtype is None:
+            flat = {k: v for k, v in whole.items() if k != "blocks"}
+            flat.update({f"blocks/{k}": v for k, v in whole["blocks"].items()})
+            rec["params_max_abs_diff"] = max(float(np.abs(flat[k] - ref[k]).max()) for k in ref)
+        out["arms"][name] = rec
+        del lm, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutdown()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def run_ranks(flag: str, n: int, work: str, limit_s: float = 900) -> list:
+    """``n`` processes of this script with ``flag R work``, waited for (all
+    killed past ``limit_s``); their DIR/rankR.json records."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r), work])
+             for r in range(n)]
+    try:
+        deadline = time.monotonic() + limit_s
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        raise AssertionError(f"{flag}: a rank failed (exit codes {rcs})")
+    out = []
+    for r in range(n):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def sharded_meshes():
+    """Arm (d): the meshes of ``SHARDED_ARMS`` on four gloo ranks on
+    cuda:0 against a one-rank run of the same cut on the card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+
+    tok, tgt = lm_tokens(8, MAX_LEN, SEED + 230)
+    ref = sharded_lm(SHARDED_CUT_LAYERS, "cuda", updater=Sgd(lr=0.1))
+    ref_losses = [float(ref.fit_batch(tok, tgt)) for _ in range(SHARDED_STEPS)]
+    whole = ref.params_numpy()
+    del ref
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        np.savez(os.path.join(work, "reference.npz"),
+                 **{k: v for k, v in whole.items() if k != "blocks"},
+                 **{f"blocks/{k}": v for k, v in whole["blocks"].items()})
+        del whole
+        ranks = run_ranks("--sharded-rank", 4, work)
+    bad, arms = [], {}
+    for name, (axes, kw, dtype) in SHARDED_ARMS.items():
+        recs = [r["arms"][name] for r in ranks]
+        losses = recs[0]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        # leaves a line shares are bitwise alike along it: all across seq,
+        # the replicated ones across model, the non-block ones across pipe
+        shared_ok, pairs = True, 0
+        for i in range(4):
+            for j in range(i + 1, 4):
+                diff = [a for a in range(4) if recs[i]["coords"][a] != recs[j]["coords"][a]]
+                if len(diff) != 1:
+                    continue
+                ax = ("data", "model", "seq", "pipe")[diff[0]]
+                for k, h in recs[i]["local"].items():
+                    leaf = k.split("/")[-1]
+                    split = ((ax == "model" and (k == "head" or leaf in
+                                                 ("Wq", "Wk", "Wv", "W1", "b1", "Wo", "W2")))
+                             or (ax == "pipe" and k.startswith("blocks/")))
+                    if not split:
+                        pairs += 1
+                        shared_ok = shared_ok and h == recs[j]["local"][k]
+        rec = {"mesh": axes, **kw, "compute_dtype": dtype or "float32", "losses": losses,
+               "losses_one_rank": ref_losses, "loss_max_rel_diff": rel,
+               "median_step_ms_per_rank": [r["median_step_ms"] for r in recs],
+               "peak_memory_gib_per_rank": [r["peak_memory_gib"] for r in recs],
+               "launches_rank0": recs[0]["launches"], "shared_leaves_bitwise": shared_ok,
+               "shared_leaf_pairs": pairs,
+               "ranks_same_losses": all(r["losses"] == losses for r in recs)}
+        if dtype is None:
+            rec["params_max_abs_diff"] = recs[0]["params_max_abs_diff"]
+            if rel > 1e-4 or rec["params_max_abs_diff"] > 1e-4:
+                bad.append(f"d/{name}: against the one-rank run")
+        if name.startswith("tp_pp_1f1b"):
+            # the value pass is GPipe's program at the same microbatch count
+            rec["first_loss_bitwise_gpipe"] = (
+                losses[0] == ranks[0]["arms"][name.replace("1f1b", "gpipe")]["losses"][0])
+            if not rec["first_loss_bitwise_gpipe"]:
+                bad.append(f"d/{name}: first loss not bitwise GPipe's")
+        if not (shared_ok and pairs and rec["ranks_same_losses"]):
+            bad.append(f"d/{name}: shared leaves or losses differ across ranks")
+        if not all(math.isfinite(x) for x in losses):
+            bad.append(f"d/{name}: loss")
+        want_flash = SHARDED_STEPS * SHARDED_CUT_LAYERS * (1 if "ulysses" in name else 0)
+        if name.startswith("tp_pp"):
+            m = kw["n_microbatches"]
+            want_flash = SHARDED_STEPS * (SHARDED_CUT_LAYERS // 2) * m
+        if recs[0]["launches"]["flash_fwd"] < want_flash:
+            bad.append(f"d/{name}: K1 launches {recs[0]['launches']}")
+        arms[name] = rec
+        emit({"phase": "sharded", "arm": f"d_{name}", **rec})
+    launches = {k: sum(r["arms"][n]["launches"][k] for r in ranks for n in SHARDED_ARMS)
+                for k in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+    return {"arms": arms, "depth_cut": f"{SHARDED_CUT_LAYERS} of {LAYERS} layers",
+            "launches": launches}, bad
+
+
+def sharded_decode():
+    """Arm (e): an f32 ``ShardedTransformerLM`` at GPT-2 widths, 12
+    layers, behind ``DecodeEngine``: one-way and 2-way tensor-parallel
+    with both head shards on cuda:0."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import kv_cache as kvc
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+
+    tree = gpt2_tree(LAYERS, SEED + 240)
+    prompts, kws = serve_requests()
+    out, bad = {}, []
+    launches = 0
+    for n in (1, 2):
+        lm = sharded_lm(LAYERS, "cuda", mesh=build_mesh({"data": n}, world_size=n), tree=tree)
+        run = serve_run(lm, prompts, kws)
+        results = run["outcomes"]
+        failed = [r for r in results if isinstance(r, BaseException)]
+        launches += run["launches"]["det_attention"]
+        bitwise = not failed and all(
+            np.array_equal(r.logits, reencode_rows(run["engine"], p, r.tokens))
+            for p, r in zip(prompts, results))
+        rec = {"tp": n, "shard_devices": "cuda:0 x 2" if n == 2 else "cuda:0",
+               **run["metrics"], "launches": run["launches"],
+               "pages_in_use_after": run["snap"]["pages_in_use"],
+               "snapshot_tp": run["snap"].get("tp"), "logits_bitwise_reencode": bitwise}
+        if n == 1 and not failed:
+            err = 0.0
+            for p, r in zip(prompts, results):
+                with torch.inference_mode():
+                    full = lm.logits(np.asarray([p + r.tokens[:-1]]))[0, len(p) - 1:].float()
+                want = torch.log_softmax(full, -1).cpu().numpy()
+                got = torch.log_softmax(torch.from_numpy(r.logits).float(), -1).numpy()
+                err = max(err, float(np.abs(got - want).max()))
+            rec["logprob_max_abs_diff_vs_logits"] = err
+            if err > 1e-4:
+                bad.append("e: one-way decode against logits()")
+        # D1 launches of one step of all 4 slots, from a trace of the card
+        prog = lm.decode_program(page_size=16, max_len=MAX_LEN)
+        cache = kvc.alloc_cache(prog.n_layers, 1 + 4 * prog.pages_per_slot, 16, HEADS,
+                                D_MODEL // HEADS, device="cuda",
+                                shard_devices=prog.shard_devices if n > 1 else None)
+        dev = torch.device("cuda")
+        step = lambda: prog.step(lm.params, cache[0], cache[1],
+                                 torch.zeros((4, prog.pages_per_slot), dtype=torch.long, device=dev),
+                                 torch.zeros(4, dtype=torch.long, device=dev),
+                                 torch.zeros(4, dtype=torch.long, device=dev),
+                                 torch.zeros(4, dtype=torch.bool, device=dev))
+        before = kvc.det_attention_cuda.launches
+        rec["d1_traced_per_step"] = traced_kernels(step, D1_KERNELS)
+        kvc.det_attention_cuda.launches = before
+        if rec["d1_traced_per_step"] != LAYERS * n:
+            bad.append(f"e/tp{n}: D1 per step {rec['d1_traced_per_step']}")
+        if failed or not bitwise or rec["pages_in_use_after"] != 0 or rec["snapshot_tp"] != n:
+            bad.append(f"e/tp{n}: failed requests, bits, pages or tp")
+        emit({"phase": "sharded", "arm": f"e_decode_tp{n}", **rec})
+        out[f"tp{n}"] = rec
+        del lm, run, cache
+        torch.cuda.empty_cache()
+    return {**out, "launches": {"det_attention": launches}}, bad
+
+
+def iris_adam_mlp(device):
+    """The Iris MLP with Adam (lr 1e-2) and per-layer L2 clipping at 1.0,
+    so the model axis's updater slices and summed norms both run."""
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import Dense, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Adam, GradientNormalization
+
+    conf = (NeuralNetConfiguration.builder().seed(SEED + 250).updater(Adam(lr=1e-2))
+            .gradient_normalization(GradientNormalization.CLIP_L2_PER_LAYER, 1.0)
+            .layer(Dense(n_out=16, activation="tanh"))
+            .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(4)).build())
+    net = MultiLayerNetwork(conf, device=device)
+    net.init()
+    return net
+
+
+MODEL_AXIS_STEPS = 5
+
+
+def model_axis_rank(rank: int, work: str) -> None:
+    """One of arm (g)'s two gloo ranks on cuda:0 (``--model-axis-rank R
+    DIR``): the Iris MLP on ``{model 2}``, K4 on, 5 steps; its first
+    step's K4 calls (on this rank's slices) held bitwise to K4's plain
+    version; writes DIR/rankR.json."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    from deeplearning4j_tpu_torch.ops import update_kernel as uk
+    from deeplearning4j_tpu_torch.parallel import (ShardedTrainer, build_mesh, initialize,
+                                                   shutdown)
+
+    initialize(init_method="file://" + os.path.join(work, "rendezvous"), num_processes=2,
+               process_id=rank, backend="gloo", timeout_s=300)
+    os.environ[uk.ENV_SWITCH] = "1"
+    x, y = iris_data()
+    ds = DataSet(x, y)
+    trainer = ShardedTrainer(iris_adam_mlp("cuda"), build_mesh({"model": 2}))
+    uk.fused_update_cuda.launches = 0
+    with recorded(uk, "fused_update_cuda") as calls:
+        losses = [float(trainer.fit_batch(ds))]
+    k4 = k4_against_plain(calls)
+    losses += [float(trainer.fit_batch(ds)) for _ in range(MODEL_AXIS_STEPS - 1)]
+    whole = trainer.gather_params()
+    out = {"losses": losses, "k4": k4, "k4_launches": uk.fused_update_cuda.launches,
+           "local_numel": [int(t.numel()) for p in trainer.net.params for t in tree_leaves(p)],
+           "whole": [t.cpu().numpy().tolist() for p in whole for t in tree_leaves(p)]}
+    shutdown()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def sharded_model_axis():
+    """Arm (g): ``ShardedTrainer``'s model axis on two gloo ranks against
+    one process on the card."""
+    import tempfile
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    from deeplearning4j_tpu_torch.ops import update_kernel as uk
+
+    os.environ[uk.ENV_SWITCH] = "1"
+    net = iris_adam_mlp("cuda")
+    x, y = iris_data()
+    want = [float(net.fit_batch(DataSet(x, y))) for _ in range(MODEL_AXIS_STEPS)]
+    whole = [t.cpu().numpy() for p in net.params for t in tree_leaves(p)]
+    full_numel = [int(t.size) for t in whole]
+    with tempfile.TemporaryDirectory() as work:
+        ranks = run_ranks("--model-axis-rank", 2, work, limit_s=300)
+    diff = max(float(np.abs(np.asarray(a, np.float32) - b).max())
+               for r in ranks for a, b in zip(r["whole"], whole))
+    loss_diff = max(abs(a - b) for r in ranks for a, b in zip(r["losses"], want))
+    # sorted keys a layer: Dense W [4, 16] and b [16] split by columns,
+    # the head's W [16, 3] by rows, its b [3] whole
+    halves = all(r["local_numel"] == [n // 2 if n != 3 else n for n in full_numel]
+                 for r in ranks)
+    g = {"mesh": {"model": 2}, "model": "Iris MLP 4-16-3, Adam(1e-2), clip L2 per layer 1.0",
+         "steps": MODEL_AXIS_STEPS, "losses": ranks[0]["losses"], "losses_one_process": want,
+         "loss_max_abs_diff": loss_diff, "params_max_abs_diff": diff,
+         "local_numel": ranks[0]["local_numel"], "full_numel": full_numel,
+         "each_rank_holds_half": halves, "k4_on_shards": [r["k4"] for r in ranks],
+         "k4_launches": sum(r["k4_launches"] for r in ranks)}
+    emit({"phase": "sharded", "arm": "g_model_axis", **g})
+    ok = (diff <= 1e-5 and loss_diff <= 1e-5 and halves
+          and all(r["k4"]["bitwise"] for r in ranks))
+    return g, ([] if ok else ["g: model axis against one process, halves or K4"])
+
+
+def sharded_kernels():
+    """Arm (f): K1-K3 in bf16 at the slice's new shapes, and D1 at a
+    6-head shard, against their plain versions."""
+    import torch
+
+    fwd = [flash_case("bf16_tp2_pipe2_micro", torch.bfloat16, 0.0, B=4, H=6),
+           flash_case("bf16_ulysses_tp2_sp2", torch.bfloat16, 0.0, B=8, H=3),
+           flash_case("bf16_config7", torch.bfloat16, 0.0, B=8, H=HEADS)]
+    bwd = [flash_bwd_case("bf16_tp2_pipe2_micro", torch.bfloat16, 0.0, B=4, H=6),
+           flash_bwd_case("bf16_ulysses_tp2_sp2", torch.bfloat16, 0.0, B=8, H=3),
+           flash_bwd_case("bf16_config7", torch.bfloat16, 0.0, B=8, H=HEADS)]
+    det = [det_case("step_shard6", 4, 1, MAX_LEN, [[15], [300], [700], [MAX_LEN - 1]], True,
+                    H=HEADS // 2),
+           det_case("prefill_shard6", 1, 512, MAX_LEN, [list(range(512))], True, H=HEADS // 2)]
+    bad = [r["case"] for r in fwd if not (r["max_abs_err"] <= 2e-2 and r["rel_err"] <= 1e-2)]
+    bad += [f"{r['case']}/{k}" for r in bwd for k in ("flash_bwd_dkdv", "flash_bwd_dq")
+            if not (r[k]["max_abs_err"] <= 2e-2 and r[k]["rel_err"] <= 1e-2
+                    and r[k]["bitwise_repeat"])]
+    bad += [r["case"] for r in det if r["max_abs_err"] > 2e-5]
+    return {"flash_fwd": fwd, "flash_bwd": bwd, "det": det}, [f"f: {b}" for b in bad]
+
+
+def phase_sharded():
+    """The sharded phase, arms (a)-(g) (the module docstring)."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    bad = []
+    out = {}
+    for name, arm in (("config7", sharded_config7), ("card_vs_cpu", sharded_card_vs_cpu),
+                      ("kernels", sharded_kernels), ("decode", sharded_decode),
+                      ("model_axis", sharded_model_axis), ("meshes", sharded_meshes)):
+        out[name], b = arm()
+        bad += b
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {
+        "flash_fwd": out["config7"]["launches"]["flash_fwd"] + out["meshes"]["launches"]["flash_fwd"],
+        "flash_bwd_dkdv": (out["config7"]["launches"]["flash_bwd_dkdv"]
+                           + out["meshes"]["launches"]["flash_bwd_dkdv"]),
+        "flash_bwd_dq": (out["config7"]["launches"]["flash_bwd_dq"]
+                         + out["meshes"]["launches"]["flash_bwd_dq"]),
+        "det_attention": out["decode"]["launches"]["det_attention"],
+        "fused_update": out["model_axis"]["k4_launches"]}
+    emit({"phase": "sharded", "seconds": time.perf_counter() - t0, "launches": launches,
+          "failures": bad})
+    if bad:
+        raise AssertionError(f"sharded phase failed: {bad}")
+    return {**out, "launches": launches}
+
+
 def trace_probe(n: int) -> None:
     """``--trace-probe N``: the serve and predict phases, each traced
     replay taken N times hard against the trace's ends (pause 0) and N
@@ -4171,6 +4739,14 @@ def main() -> int:
     if sys.argv[1:2] == ["--trace-probe"]:
         trace_probe(int(sys.argv[2]))
         return 0
+    if sys.argv[1:3] == ["--phase", "sharded"]:
+        card = card_line()
+        emit({"torch": torch.__version__, "device": torch.cuda.get_device_name(0),
+              "card": card})
+        cuda_build.build(cuda_build.sources())
+        phase_sharded()
+        print(card, flush=True)
+        return 0
     card = card_line()
     emit({"torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "card": card})
@@ -4202,6 +4778,7 @@ def main() -> int:
     heads = phase_heads()
     _, k6 = phase_kernel_encode(DP_BUCKET_SIZES)
     compressed = phase_compressed()
+    sharded = phase_sharded()["launches"]
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda",
@@ -4220,11 +4797,13 @@ def main() -> int:
 
     def trained(name, kernel):
         return (train["launches"][name] + graph_n[kernel] + attn["launches"].get(name, 0)
-                + conv["rnn_launches"].get(name, 0) + heads["launches"].get(name, 0))
+                + conv["rnn_launches"].get(name, 0) + heads["launches"].get(name, 0)
+                + sharded.get(name, 0))
     emit({"kernels": [
         entry("flash_fwd", "flash_fwd.cu", "deeplearning4j_tpu/ops/attention.py:138",
               score["launches"]["flash_fwd"] + predict["launches"]["flash_fwd"]
-              + graph_n["flash_fwd_kernel"] + attn["launches"]["flash_fwd"], k1),
+              + graph_n["flash_fwd_kernel"] + attn["launches"]["flash_fwd"]
+              + sharded["flash_fwd"], k1),
         entry("flash_bwd_dkdv", "flash_bwd.cu", "deeplearning4j_tpu/ops/attention.py:329",
               trained("flash_bwd_dkdv", "flash_bwd_dkdv_kernel"),
               {**bwd["flash_bwd_dkdv"], **bwd_lib}),
@@ -4234,7 +4813,8 @@ def main() -> int:
               trained("fused_update", "fused_update_kernel"), k4),
         entry("det_attention", "det_attention.cu",
               "deeplearning4j_tpu/ops/kv_cache.py:362",
-              serve["launches"]["det_attention"] + http["launches"]["det_attention"], det),
+              serve["launches"]["det_attention"] + http["launches"]["det_attention"]
+              + sharded["det_attention"], det),
         entry("lstm_seq_fwd", "lstm_cell.cu", "deeplearning4j_tpu/ops/lstm_kernel.py:81",
               k5_launches["lstm_seq_fwd"] + conv["rnn_launches"]["lstm_seq_fwd"],
               k5["lstm_seq_fwd"]),
@@ -4254,7 +4834,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--compressed-rank"]:
-        compressed_rank(int(sys.argv[2]), sys.argv[3])
+    ranks = {"--compressed-rank": "compressed_rank", "--sharded-rank": "sharded_rank",
+             "--model-axis-rank": "model_axis_rank"}
+    if sys.argv[1:2] and sys.argv[1] in ranks:
+        globals()[ranks[sys.argv[1]]](int(sys.argv[2]), sys.argv[3])
         sys.exit(0)
     sys.exit(main())

@@ -23,7 +23,7 @@ calls.  On the card ``fit_batches`` is one CUDA graph of its k steps
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -553,14 +553,18 @@ class MultiLayerNetwork:
         self._commit_step(grads, new_s, ok)
         return (loss, carries, ok) if guarded else (loss, carries)
 
-    def _commit_step(self, grads, new_s: list, ok: Optional[Tensor] = None) -> None:
+    def _commit_step(self, grads, new_s: list, ok: Optional[Tensor] = None,
+                     apply_updates: Optional[Callable] = None) -> None:
         """Apply ``grads`` at the current iteration, install the new
         parameters, updater state and layer state ``new_s``, and advance
         the iteration.  Where the device flag ``ok`` is false the old
-        parameters and states are kept bitwise."""
+        parameters and states are kept bitwise.  ``apply_updates`` stands
+        in for ``_apply_updates`` (a tensor-parallel trainer's, over its
+        slices)."""
         it = self._iter_tensor()
         with torch.no_grad():
-            new_p, new_o = self._apply_updates(grads, self.params, self.opt_state, it)
+            new_p, new_o = (apply_updates or self._apply_updates)(
+                grads, self.params, self.opt_state, it)
             if ok is not None:
                 new_p = [self._select_tree(ok, n, o) for n, o in zip(new_p, self.params)]
                 new_o = [self._select_tree(ok, n, o) for n, o in zip(new_o, self.opt_state)]

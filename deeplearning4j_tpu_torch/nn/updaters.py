@@ -18,7 +18,7 @@ the state dicts come out with the reference's key order.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -422,28 +422,34 @@ def _clip_scale(norm: Tensor, threshold: float) -> Tensor:
 
 
 def normalize_gradients(layer_grads: Dict[str, Tensor], mode: str,
-                        threshold: float) -> Dict[str, Tensor]:
-    """One layer's gradient normalization (the reference's preApply)."""
+                        threshold: float, sq_norms: Optional[Callable] = None
+                        ) -> Dict[str, Tensor]:
+    """One layer's gradient normalization (the reference's preApply).
+    ``sq_norms(leaves)`` gives each leaf's squared L2 norm (default: its
+    own); a tensor-parallel caller whose leaves are slices sums them over
+    the ranks holding the other slices."""
     if mode in (None, GradientNormalization.NONE):
         return layer_grads
     leaves = tree_leaves(layer_grads)
     G = GradientNormalization
+    sq = (lambda: [_sq_norm(g) for g in leaves]) if sq_norms is None else \
+        (lambda: sq_norms(leaves))
     if mode == G.RENORMALIZE_L2_PER_LAYER:
-        norm = torch.sqrt(sum(_sq_norm(g) for g in leaves))
+        norm = torch.sqrt(sum(sq()))
         scale = 1.0 / torch.clamp(norm, min=1e-8)
         out = [g * scale.to(g.dtype) for g in leaves]
     elif mode == G.RENORMALIZE_L2_PER_PARAM_TYPE:
-        out = [g / torch.clamp(torch.sqrt(_sq_norm(g)), min=1e-8).to(g.dtype)
-               for g in leaves]
+        out = [g / torch.clamp(torch.sqrt(n), min=1e-8).to(g.dtype)
+               for g, n in zip(leaves, sq())]
     elif mode == G.CLIP_ELEMENTWISE_ABSOLUTE:
         out = [torch.clamp(g, -threshold, threshold) for g in leaves]
     elif mode == G.CLIP_L2_PER_LAYER:
-        norm = torch.sqrt(sum(_sq_norm(g) for g in leaves))
+        norm = torch.sqrt(sum(sq()))
         scale = _clip_scale(norm, threshold)
         out = [g * scale.to(g.dtype) for g in leaves]
     elif mode == G.CLIP_L2_PER_PARAM_TYPE:
-        out = [g * _clip_scale(torch.sqrt(_sq_norm(g)), threshold).to(g.dtype)
-               for g in leaves]
+        out = [g * _clip_scale(torch.sqrt(n), threshold).to(g.dtype)
+               for g, n in zip(leaves, sq())]
     else:
         raise ValueError(f"unknown gradient normalization mode {mode}")
     return tree_unflatten(layer_grads, out)

@@ -88,6 +88,27 @@ def mha(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
     return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v)
 
 
+def blockwise_update(acc: Tensor, m: Tensor, l: Tensor, q: Tensor, k: Tensor,
+                     v: Tensor, scale: float, bias: Optional[Tensor] = None):
+    """One online-softmax step (reference ``blockwise_update``): fold the
+    (q, k-block) score tile into the f32 accumulators ``acc`` [..., T, D]
+    (un-normalized output), ``m`` [..., T, 1] (running max) and ``l``
+    [..., T, 1] (running denominator) → (acc, m, l).  Products take the
+    input dtype and sum in f32; ``p`` takes v's dtype before the P·V
+    product; float64 inputs run in f32.  Ring attention runs on it."""
+    if q.dtype == torch.float64:
+        q, k, v = q.float(), k.float(), v.float()
+    s = torch.matmul(q, k.transpose(-1, -2)).float() * scale
+    if bias is not None:
+        s = s + bias
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    p = torch.exp(s - m_new)
+    correction = torch.exp(m - m_new)
+    l_new = l * correction + p.sum(dim=-1, keepdim=True)
+    acc_new = acc * correction + torch.matmul(p.to(v.dtype), v).float()
+    return acc_new, m_new, l_new
+
+
 def _check(q: Tensor, k: Tensor, v: Tensor, kmask: Optional[Tensor]):
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"flash attention wants q [B,H,T,D], k/v [B,H,S,D]; "

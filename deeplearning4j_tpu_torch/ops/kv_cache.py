@@ -39,7 +39,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Any, Callable, NamedTuple, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -61,7 +61,13 @@ class QuantPages(NamedTuple):
     scale: Tensor
 
 
-KVPool = Union[Tensor, QuantPages]
+class ShardedPages(tuple):
+    """A tensor-parallel program's page pool: one f32 pool a head shard,
+    [n_layers, n_pages, page_size, n_heads / n, d_head] each, shard s on
+    its own device.  The engine's page ids index every shard alike."""
+
+
+KVPool = Union[Tensor, QuantPages, ShardedPages]
 
 
 class KVCache(NamedTuple):
@@ -73,22 +79,31 @@ class KVCache(NamedTuple):
 
 
 def _leaves(pages: KVPool):
-    return tuple(pages) if isinstance(pages, QuantPages) else (pages,)
+    return tuple(pages) if isinstance(pages, (QuantPages, ShardedPages)) else (pages,)
 
 
 def alloc_cache(n_layers: int, n_pages: int, page_size: int, n_heads: int,
                 d_head: int, dtype=torch.float32, device=None,
-                kv_dtype: Optional[str] = None) -> KVCache:
+                kv_dtype: Optional[str] = None,
+                shard_devices: Optional[Sequence] = None) -> KVCache:
     """Zero-filled pool; ``n_pages`` includes the scratch page 0.
     ``kv_dtype`` None/"f32"/"float32" gives f32 pages, "int8"/"i8"
     ``QuantPages`` (zero scales dequantize untouched rows to the 0.0 an
-    f32 pool starts with)."""
+    f32 pool starts with).  ``shard_devices`` gives ``ShardedPages``:
+    the heads split evenly over those devices (f32 only)."""
     if kv_dtype not in (None, "f32", "float32", "int8", "i8"):
         raise ValueError(f"kv_dtype {kv_dtype!r} not supported (float32 or int8)")
     if dtype != torch.float32:
         raise NotImplementedError(
             f"KV pages hold float32 values (or kv_dtype='int8'), got {dtype}")
     shape = (n_layers, n_pages, page_size, n_heads, d_head)
+    if shard_devices:
+        if kv_dtype in ("int8", "i8"):
+            raise ValueError("int8 pages cannot be split into head shards")
+        n = len(shard_devices)
+        shard = shape[:3] + (n_heads // n, d_head)
+        return KVCache(*(ShardedPages(torch.zeros(shard, dtype=dtype, device=d)
+                                      for d in shard_devices) for _ in range(2)))
     if kv_dtype in ("int8", "i8"):
         pool = lambda: QuantPages(torch.zeros(shape, dtype=torch.int8, device=device),
                                   torch.zeros(shape[:3], dtype=torch.float32,
@@ -394,3 +409,5 @@ class DecodeProgram(NamedTuple):
     prefill_at: Any = None
     spec_step: Any = None
     step_multi: Any = None
+    tp: int = 1                  # head shards of a tensor-parallel program
+    shard_devices: Any = None    # their devices (``ShardedPages``)

@@ -192,3 +192,52 @@ def summed_per_example(loss_name, labels, preout, activation="identity",
     any trailing time axis (the output layers' ``score_examples``)."""
     pe = get_loss(loss_name).per_example(labels, preout, activation or "identity", mask)
     return pe.sum(dim=tuple(range(1, pe.ndim))) if pe.ndim > 1 else pe
+
+
+class _SparseXent(torch.autograd.Function):
+    """The reference's ``sparse_softmax_xent`` custom VJP, optionally over
+    a vocabulary split across the ranks of ``axis``."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, n, axis, v0):
+        from ..parallel.collectives import all_reduce, pmax
+
+        v_local = logits.shape[-1]
+        lmax = pmax(logits.amax(dim=-1), axis)                  # [...] in dtype
+        sumexp = torch.exp((logits - lmax[..., None]).float()).sum(dim=-1)
+        local = targets.long() - v0
+        inside = (local >= 0) & (local < v_local)
+        idx = torch.where(inside, local, torch.zeros_like(local))
+        tgt = torch.gather(logits, -1, idx[..., None])[..., 0]
+        tgt = torch.where(inside, tgt, torch.zeros_like(tgt))
+        if axis is not None and axis.size > 1:
+            sumexp = all_reduce(sumexp, axis)
+            tgt = all_reduce(tgt, axis)                        # one rank's, exactly
+        lse = lmax.float() + torch.log(sumexp)
+        ctx.save_for_backward(logits, idx, inside, lse)
+        ctx.n = n
+        return (lse - tgt.float()).sum() / n
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, idx, inside, lse = ctx.saved_tensors
+        p = torch.exp(logits.float() - lse[..., None])
+        onehot = torch.zeros_like(p).scatter_(-1, idx[..., None], inside[..., None].float())
+        return ((p - onehot) * (g / ctx.n)).to(logits.dtype), None, None, None, None
+
+
+def sparse_softmax_xent(logits: Tensor, targets: Tensor, n: Optional[int] = None,
+                        axis=None, vocab_offset: int = 0) -> Tensor:
+    """Mean token NLL of ``logits`` [..., V] for integer ``targets`` [...]
+    without an f32 log-softmax over the vocabulary (the reference's op):
+    the max and the target logit in the logits' dtype, the sum of exp and
+    the log-sum-exp in f32; the backward rebuilds softmax − onehot from
+    the saved LSE, in the logits' dtype.  ``n``: the count the sum is
+    divided by (default this call's token count; a data- or
+    sequence-parallel caller passes the global one and sums the ranks'
+    losses).  ``axis`` (a ``parallel.collectives.Axis``): ``logits`` hold
+    vocabulary columns ``vocab_offset .. vocab_offset + V_local - 1`` of
+    a vocabulary split over the axis; the max and the sums are reduced
+    over it and the loss is the whole vocabulary's."""
+    n = targets.numel() if n is None else n
+    return _SparseXent.apply(logits, targets, n, axis, vocab_offset)

@@ -17,6 +17,12 @@ entered by all ranks alike.  Axes of size 1 get no group.
 
 Axis convention: ``data`` (DP), ``model`` (TP), ``seq``, ``pipe``, ``dcn``
 (cross-slice DP); absent axes have size 1.
+
+Tensor parallelism of a generic network follows the reference's
+``_shard_leaf`` rule: a leaf is split over ``model`` along its
+trailing-most axis whose size divides by the ``model`` size and is at
+least twice it, else replicated.  ``infer_param_shardings`` gives that
+axis (or None) per leaf and ``local_shard`` this rank's slice of a leaf.
 """
 
 from __future__ import annotations
@@ -128,3 +134,36 @@ def build_two_tier_mesh(n_slices: int, axes: Optional[Dict[str, int]] = None,
     if DCN_AXIS in inner:
         raise ValueError("pass the dcn size as n_slices, not in axes")
     return build_mesh({DCN_AXIS: n_slices, **inner}, world_size)
+
+
+def shard_axis(shape, msize: int, min_size: int = 2) -> Optional[int]:
+    """The reference's ``_shard_leaf`` rule for one leaf of ``shape`` on
+    a ``model`` axis of ``msize``: the trailing-most axis whose size
+    divides by ``msize`` and is at least ``min_size`` times it (the
+    weights are [in, out] / HWIO, so the output features come first),
+    else None (replicated)."""
+    if msize <= 1 or len(shape) == 0:
+        return None
+    for ax in reversed(range(len(shape))):
+        if shape[ax] % msize == 0 and shape[ax] >= msize * min_size:
+            return ax
+    return None
+
+
+def infer_param_shardings(params, mesh: RankMesh, model_axis: str = MODEL_AXIS):
+    """The params tree with each leaf replaced by the axis it is split on
+    over ``model_axis`` (``shard_axis``), or None where it is replicated."""
+    msize = mesh.shape.get(model_axis, 1)
+    if isinstance(params, dict):
+        return {k: infer_param_shardings(v, mesh, model_axis) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(infer_param_shardings(v, mesh, model_axis) for v in params)
+    return shard_axis(tuple(params.shape), msize)
+
+
+def local_shard(t, axis: Optional[int], n: int, index: int):
+    """Rank ``index``'s contiguous copy of ``t`` split ``n`` ways on
+    ``axis`` (``t`` itself when ``axis`` is None)."""
+    if axis is None or n == 1:
+        return t
+    return t.chunk(n, dim=axis)[index].contiguous()

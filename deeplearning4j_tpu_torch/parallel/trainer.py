@@ -57,8 +57,24 @@ the compressed path leaves the residual as it was too, so the replicas
 stay equal and the poisoned gradient is not carried into the next step.
 The budget is the network's (``set_nan_guard``, ``DivergenceError``).
 
-Not ported (ROADMAP queue 1 item 7): the ``model`` (TP), ``seq`` and
-``pipe`` axes, pipeline schedules, and the elastic residual snapshot.
+A ``model`` axis splits every parameter of a ``MultiLayerNetwork`` by
+the reference's ``_shard_leaf`` rule (``mesh.infer_param_shardings``):
+a rank keeps only its slice of each split leaf, and of its updater
+state, between steps.  A step all-gathers the slices over ``model``,
+runs the forward and backward on the whole parameters (the ranks of a
+``model`` line take the same rows, as the devices of the reference's
+GSPMD program see the same batch), averages the gradient over the
+data-parallel ranks, and each rank applies the updater to its slices
+(K4, when switched on, runs over each layer's slices): per-layer
+gradient normalization and clipping take each layer's squared norm
+summed over ``model``, and a layer's constraints see its gathered
+parameters.  ``output`` and ``save`` gather.  ``pipeline_schedule`` is
+forwarded to a network with a ``schedule`` attribute (a
+``ShardedTransformerLM``) and ignored otherwise, as in the reference;
+``seq`` and ``pipe`` axes belong to ``ShardedTransformerLM``.
+
+Not ported (ROADMAP queue 1 item 7): the elastic residual snapshot, and
+the ``model`` axis for a ``ComputationGraph``.
 """
 
 from __future__ import annotations
@@ -70,36 +86,43 @@ import torch
 
 from ..datasets.dataset import DataSet
 from ..nn.layers import normalization
+from ..nn.updaters import (GradientNormalization, _sq_norm, normalize_gradients,
+                           tree_leaves, tree_map)
 from ..ops import compression as C
 from ..optimize.score import LazyScore
-from .distributed import detect_num_slices, process_count
-from .mesh import DATA_AXIS, DCN_AXIS, RankMesh, build_mesh, build_two_tier_mesh
+from .collectives import Axis, all_gather, all_reduce
+from .distributed import process_count
+from .mesh import (DATA_AXIS, DCN_AXIS, MODEL_AXIS, RankMesh, build_mesh,
+                   build_two_tier_mesh, infer_param_shardings, local_shard)
+from .pipeline import SCHEDULES
 
 Tensor = torch.Tensor
 
-_SCHEDULES = ("gpipe", "1f1b")
-
 
 class _SumOverRanks(torch.autograd.Function):
-    """All-reduce (sum) of a tensor over every rank, in autograd: the
-    backward all-reduces the incoming gradient, since every rank's loss
-    depends on every rank's share of the sum."""
+    """All-reduce (sum) of a tensor over the data-parallel ranks (every
+    rank, or the ``groups`` in turn), in autograd: the backward
+    all-reduces the incoming gradient, since every rank's loss depends on
+    every rank's share of the sum."""
 
     @staticmethod
-    def forward(ctx, t: Tensor) -> Tensor:
+    def forward(ctx, t: Tensor, groups=None) -> Tensor:
         import torch.distributed as dist
 
+        ctx.groups = groups
         out = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
+        for g in groups or [None]:
+            dist.all_reduce(out, group=g)
         return out
 
     @staticmethod
-    def backward(ctx, g: Tensor) -> Tensor:
+    def backward(ctx, g: Tensor):
         import torch.distributed as dist
 
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g)
-        return g
+        for grp in ctx.groups or [None]:
+            dist.all_reduce(g, group=grp)
+        return g, None
 
 
 def _rank_seed(seed: int, dp_index: int) -> int:
@@ -115,7 +138,8 @@ class ShardedTrainer:
     >>> trainer = ShardedTrainer.two_tier(net, 2, grad_compression="threshold")
     >>> trainer.fit(batches, epochs=2)
 
-    Every rank passes the same global batch; each takes its own rows."""
+    Every rank passes the same global batch; each takes its rows (the
+    ranks of a ``model`` line take the same rows)."""
 
     @classmethod
     def two_tier(cls, net, n_slices: Optional[int] = None,
@@ -127,15 +151,15 @@ class ShardedTrainer:
         return cls(net, build_two_tier_mesh(n_slices, axes), **kwargs)
 
     def __init__(self, net, mesh: Optional[RankMesh] = None,
-                 data_axis: str = DATA_AXIS,
+                 data_axis: str = DATA_AXIS, model_axis: str = MODEL_AXIS,
                  pipeline_schedule: str = "gpipe",
                  grad_compression: Optional[str] = None,
                  dcn_axis: str = DCN_AXIS,
                  compression_threshold: Optional[float] = None,
                  compression_bucket_mb: float = 4.0,
                  nan_guard: Optional[int] = None):
-        if pipeline_schedule not in _SCHEDULES:
-            raise ValueError(f"pipeline_schedule must be one of {_SCHEDULES}, "
+        if pipeline_schedule not in SCHEDULES:
+            raise ValueError(f"pipeline_schedule must be one of {SCHEDULES}, "
                              f"got {pipeline_schedule!r}")
         if grad_compression is not None and grad_compression not in C.METHODS:
             raise ValueError(
@@ -143,7 +167,7 @@ class ShardedTrainer:
                 f"None, got {grad_compression!r}")
         self.net = net
         self.mesh = mesh if mesh is not None else build_mesh()
-        self.data_axis, self.dcn_axis = data_axis, dcn_axis
+        self.data_axis, self.dcn_axis, self.model_axis = data_axis, dcn_axis, model_axis
         self.grad_compression = grad_compression
         self.compression_threshold = compression_threshold
         self.compression_bucket_bytes = max(4, int(compression_bucket_mb * (1 << 20)))
@@ -161,13 +185,22 @@ class ShardedTrainer:
                         f"only (axis {ax!r} has size {size}); drop the axis "
                         "or run grad_compression=None")
         for ax, size in shape.items():
-            if ax not in (dcn_axis, data_axis) and size > 1:
+            if ax not in (dcn_axis, data_axis, model_axis) and size > 1:
                 raise NotImplementedError(
-                    f"mesh axis {ax!r} (size {size}): tensor, sequence and pipeline "
-                    "parallelism are not ported yet (ROADMAP queue 9)")
-        if pipeline_schedule != "gpipe":
+                    f"mesh axis {ax!r} (size {size}): a network trains over the "
+                    "data, dcn and model axes; sequence and pipeline parallelism "
+                    "run in ShardedTransformerLM, and the elastic runtime is not "
+                    "ported yet (ROADMAP queue 9)")
+        # microbatch order for a network that pipelines over a pipe axis
+        # (ShardedTransformerLM); a layer stack without one ignores it
+        self.pipeline_schedule = pipeline_schedule
+        if hasattr(net, "schedule"):
+            net.schedule = pipeline_schedule
+        self.n_model = shape.get(model_axis, 1)
+        if self.n_model > 1 and not isinstance(net.params, list):
             raise NotImplementedError(
-                "pipeline schedules are not ported yet (ROADMAP queue 9)")
+                "the model axis splits a MultiLayerNetwork's parameters; a "
+                "ComputationGraph's is not ported yet (ROADMAP queue 9)")
         if self.mesh.size != process_count():
             raise RuntimeError(
                 f"the mesh spans {self.mesh.size} ranks but the process group has "
@@ -184,6 +217,19 @@ class ShardedTrainer:
                 raise ValueError(f"nan_guard budget must be >= 1, got {nan_guard}")
             net.set_nan_guard(nan_guard)
         self.bucketer = C.GradBucketer(net.params, self.compression_bucket_bytes)
+        #: per-layer trees of the dim each leaf is split on over ``model``
+        #: (None: replicated); every leaf None without a model axis
+        self.shardings = infer_param_shardings(net.params, self.mesh, model_axis)
+        self._model = self._dp_groups = None
+        if self.n_model > 1:
+            self._model = Axis(self.mesh, model_axis)
+            self._dp_groups = [self.mesh.group(a) for a in (data_axis, dcn_axis)
+                               if shape.get(a, 1) > 1]
+            full = net.params
+            net.params = self._slices(full)
+            net.opt_state = [self._layer_state_slices(os_, p, sp) for os_, p, sp in
+                             zip(net.opt_state, full, self.shardings)]
+            self.bucketer.template = net.params      # structure only
         #: bytes this rank received from the other slices in the last step's
         #: tier-2 gather (the compressed path's wire)
         self.wire_bytes_last_step = 0
@@ -197,7 +243,118 @@ class ShardedTrainer:
         if self.dp_index:
             net._gen.manual_seed(_rank_seed(net.conf.seed, self.dp_index))
 
+    # -- the model axis ------------------------------------------------------
+
+    def _slices(self, tree):
+        """This rank's slices of a params-shaped tree (per-layer dicts)."""
+        n, i = self.n_model, self.mesh.coords.get(self.model_axis, 0)
+        return [tree_map(lambda t, a: local_shard(t, a, n, i), layer, spec)
+                if layer else layer for layer, spec in zip(tree, self.shardings)]
+
+    def _layer_state_slices(self, os_, params, spec):
+        """A layer's updater state sliced like its parameters (each subtree
+        shaped like them: Adam's m and v, a momentum); the rest as is."""
+        if not os_:
+            return os_
+        struct = [tuple(t.shape) for t in tree_leaves(params)]
+        n, i = self.n_model, self.mesh.coords.get(self.model_axis, 0)
+        return {k: tree_map(lambda t, a: local_shard(t, a, n, i), v, spec)
+                if isinstance(v, dict) and [tuple(t.shape) for t in tree_leaves(v)] == struct
+                else v for k, v in os_.items()}
+
+    def _gather_layer(self, layer, spec):
+        return tree_map(lambda t, a: t if a is None else all_gather(t, self._model, a),
+                        layer, spec)
+
+    def gather_params(self):
+        """The network's whole parameters from every rank's slices (a
+        collective over ``model``; the parameters themselves without one)."""
+        if self._model is None:
+            return self.net.params
+        return [self._gather_layer(l, sp) if l else l
+                for l, sp in zip(self.net.params, self.shardings)]
+
+    def _gather_opt_state(self):
+        def like(v, p):
+            return (isinstance(v, dict) and [t.shape for t in tree_leaves(v)]
+                    == [t.shape for t in tree_leaves(p)])
+
+        return [{k: self._gather_layer(v, sp) if like(v, p) else v
+                 for k, v in os_.items()} if os_ else os_
+                for os_, p, sp in zip(self.net.opt_state, self.net.params, self.shardings)]
+
+    @contextlib.contextmanager
+    def _whole(self, opt_state: bool = False):
+        """The network holds its whole parameters (and, with
+        ``opt_state``, updater state) for the body, its slices again
+        after; a collective over ``model`` (a no-op without one)."""
+        net = self.net
+        if self._model is None:
+            yield
+            return
+        sliced_p, sliced_o = net.params, net.opt_state
+        whole_p = self.gather_params()
+        if opt_state:
+            net.opt_state = self._gather_opt_state()
+        net.params = whole_p
+        try:
+            yield
+        finally:
+            net.params, net.opt_state = sliced_p, sliced_o
+
+    def _sq_norms(self, spec):
+        """Per-leaf squared norms of a layer's gradient slices, each split
+        leaf's summed over ``model`` (one all-reduce a layer)."""
+        split = [a is not None for a in tree_leaves(spec)]
+
+        def norms(leaves):
+            sq = [_sq_norm(g) for g in leaves]
+            if any(split):
+                summed = all_reduce(torch.stack([q for q, s in zip(sq, split) if s]),
+                                     self._model)
+                it = iter(summed)
+                sq = [next(it) if s else q for q, s in zip(sq, split)]
+            return sq
+
+        return norms
+
+    def _apply_sharded(self, grads, params, opt_state, it):
+        """``_apply_updates`` over this rank's slices: each layer's whole
+        averaged gradient is cut to the slices, normalized with norms
+        summed over ``model``, and the updater steps the slices; a layer's
+        constraints see its gathered parameters."""
+        from ..nn.conf.regularizers import apply_constraints
+
+        net, conf = self.net, self.net.conf
+        g_slices = self._slices(grads)
+        new_p, new_o = [], []
+        for layer, g, p, os_, spec in zip(conf.layers, g_slices, params, opt_state,
+                                          self.shardings):
+            if not p:
+                new_p.append(p)
+                new_o.append(os_)
+                continue
+            if conf.gradient_normalization != GradientNormalization.NONE:
+                g = normalize_gradients(g, conf.gradient_normalization,
+                                        conf.gradient_normalization_threshold,
+                                        sq_norms=self._sq_norms(spec))
+            p2, os2 = net._updater_for(layer).apply(p, g, os_, it)
+            if layer.constraints:
+                whole = apply_constraints(layer.constraints, self._gather_layer(p2, spec))
+                p2 = tree_map(lambda t, a: local_shard(t, a, self.n_model, self._model.index),
+                              whole, spec)
+            new_p.append(p2)
+            new_o.append(os2)
+        return new_p, new_o
+
     # -- collectives -------------------------------------------------------
+
+    def _dp_mean(self, t: Tensor) -> Tensor:
+        """Mean of ``t`` over the data-parallel ranks (every rank without a
+        ``model`` axis; the ``data`` then the ``dcn`` line with one)."""
+        if self._model is None:
+            return self._all_reduce_mean(t, None)
+        return self._all_reduce_mean(self._all_reduce_mean(t, self.data_axis), self.dcn_axis)
 
     def _all_reduce_mean(self, t: Tensor, axis: Optional[str]) -> Tensor:
         """Mean of ``t`` over ``axis``'s group (None: every rank)."""
@@ -256,12 +413,13 @@ class ShardedTrainer:
         from ..utils.serializer import save_model
 
         residual = self.gather_residual()
-        if self.mesh.rank == 0:
-            self.net.grad_residual = residual
-            try:
-                save_model(self.net, path, save_updater=save_updater)
-            finally:
-                self.net.grad_residual = None
+        with self._whole(opt_state=True):
+            if self.mesh.rank == 0:
+                self.net.grad_residual = residual
+                try:
+                    save_model(self.net, path, save_updater=save_updater)
+                finally:
+                    self.net.grad_residual = None
         if self.mesh.size > 1:
             dist.barrier()
 
@@ -291,7 +449,7 @@ class ShardedTrainer:
         """The mean gradient over the data-parallel ranks from this rank's
         flat gradient; on the compressed path also the next residual."""
         if self.grad_compression is None:
-            return self._all_reduce_mean(flat, None)
+            return self._dp_mean(flat)
         flat = self._all_reduce_mean(flat, self.data_axis)           # tier 1
         acc = flat + self._residual                                   # tier 2
 
@@ -334,8 +492,9 @@ class ShardedTrainer:
         guard = self.nan_guard is not None
         dense = self.grad_compression is None and self.dp_size > 1
         new_s: list = []
-        with (normalization.global_batch(_SumOverRanks.apply, self.dp_size) if dense
-              else contextlib.nullcontext()):
+        global_sum = lambda t: _SumOverRanks.apply(t, self._dp_groups)  # noqa: E731
+        with (normalization.global_batch(global_sum, self.dp_size) if dense
+              else contextlib.nullcontext()), self._whole():
             loss, grads, carries = net._loss_and_grads(local, carries, state_out=new_s)
         ok = None
         with torch.no_grad():
@@ -346,11 +505,12 @@ class ShardedTrainer:
             mean = self._exchange(flat)
             if self.grad_compression is not None:
                 new_s = self._mean_state(new_s)
-            net._commit_step(self.bucketer.unflat(mean), new_s, ok)
+            net._commit_step(self.bucketer.unflat(mean), new_s, ok,
+                             apply_updates=None if self._model is None else self._apply_sharded)
             if guard and residual is not None:
                 self._residual = torch.where(ok, self._residual, residual)
             if self.grad_compression is None:
-                loss = self._all_reduce_mean(loss.reshape(1), None)
+                loss = self._dp_mean(loss.reshape(1))
             else:
                 loss = self._all_reduce_mean(self._all_reduce_mean(
                     loss.reshape(1), self.data_axis), self.dcn_axis)
@@ -415,5 +575,6 @@ class ShardedTrainer:
 
     def output(self, x, **kw) -> Tensor:
         """Inference on this rank's replica (the parameters are equal on
-        every rank)."""
-        return self.net.output(x, **kw)
+        every rank; with a ``model`` axis gathered first, a collective)."""
+        with self._whole():
+            return self.net.output(x, **kw)

@@ -61,10 +61,15 @@ Decode features, each off by default:
   int8 KV pages (``kv_dtype="int8"``)
       ``ops.kv_cache.QuantPages``: about 4x less pool memory; tokens
       agree with f32 within an envelope, not bitwise.
+  tensor-parallel decode (a program with ``tp > 1``, e.g.
+      ``parallel.ShardedTransformerLM`` over a ``data`` mesh)
+      The pool is split into head shards (``ops.kv_cache.ShardedPages``)
+      on the program's ``shard_devices``; int8 pages are refused; the
+      snapshot reports ``tp``.
 
 Not ported here: tenant lanes, hot-swap and named models, the
-prefill/decode roles and page transfer, warm bundles, autoscaling,
-tensor-parallel decode and trace spans.
+prefill/decode roles and page transfer, warm bundles, autoscaling and
+trace spans.
 """
 
 from __future__ import annotations
@@ -288,6 +293,11 @@ class DecodeEngine:
         self.device = resolve_device(device)
         self.program = model.decode_program(page_size=page_size, max_len=max_len)
         prog = self.program
+        if prog.tp > 1 and kv_dtype in ("int8", "i8"):
+            raise ValueError(
+                "int8 KV + tensor-parallel decode is unsupported: the "
+                "per-row quantization scale is an amax over ALL heads "
+                "and cannot be computed inside one head shard")
         self._prefix_on = bool(prefix_cache)
         if self._prefix_on and prog.prefill_at is None:
             raise ValueError(
@@ -378,7 +388,8 @@ class DecodeEngine:
         prog = self.program
         self._cache = alloc_cache(prog.n_layers, self.total_pages, prog.page_size,
                                   prog.n_heads, prog.d_head, device=self.device,
-                                  kv_dtype=self._kv_dtype)
+                                  kv_dtype=self._kv_dtype,
+                                  shard_devices=prog.shard_devices if prog.tp > 1 else None)
         if self._draft_program is not None:
             dprog = self._draft_program
             self._draft_cache = alloc_cache(dprog.n_layers, self.total_pages,
@@ -1108,6 +1119,7 @@ class DecodeEngine:
         snap["decode_horizon"] = self.decode_horizon
         snap["prefill_chunk"] = self.prefill_chunk
         snap["device"] = str(self.device)
+        snap["tp"] = int(self.program.tp)
         return snap
 
     def health_snapshot(self) -> dict:

@@ -50,7 +50,11 @@ score, input gradient and decoded predictions 1e-5, a center-loss step
 (loss, parameters, centres) 1e-5, the VAE's ELBO and IWAE estimate fed
 one noise stream 1e-5, a frozen layer's parameters bitwise unchanged;
 TinyYOLO's ``fit_batches(2)`` with dict labels as one CUDA graph bitwise
-two ``fit_batch`` calls under deterministic cuDNN.
+two ``fit_batch`` calls under deterministic cuDNN.  ``ShardedTransformerLM``
+on one rank: three f32 steps on the card against the CPU 1e-5 (losses,
+parameters), ``fit_batches(2)`` in bf16 with bf16 Adam moments bitwise
+its eager steps, and decode one-way and over two head shards bitwise
+each program's own re-encode.
 """
 
 import importlib.util
@@ -1750,3 +1754,86 @@ def test_tinyyolo_fit_batches_graph_with_dict_labels_is_bitwise_eager(cuda_dev):
     for a, b in ((p0, p1), (s0, s1)):
         for u, v in zip(a, b):
             assert all(torch.equal(u[k], v[k]) for k in u)
+
+
+# -- ShardedTransformerLM on one rank ---------------------------------------------
+
+_LM = dict(vocab_size=64, n_layers=2, d_model=64, n_heads=4, max_len=64)
+
+
+def _sharded_lm(dev, **kw):
+    from deeplearning4j_tpu_torch.parallel import ShardedTransformerLM, build_mesh
+
+    return ShardedTransformerLM(**_LM, mesh=kw.pop("mesh", build_mesh({"data": 1})),
+                                seed=5, device=dev, **kw)
+
+
+def _lm_batch(seed=3, b=4, t=64):
+    tok = np.random.default_rng(seed).integers(0, _LM["vocab_size"], (b, t))
+    return tok, np.roll(tok, -1, axis=1)
+
+
+def test_sharded_lm_step_on_card_matches_cpu(cuda_dev):
+    """Three f32 SGD steps (K1-K3 on the card, their plain versions on the
+    CPU): losses and parameters within 1e-5."""
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd, tree_leaves
+
+    tok, tgt = _lm_batch()
+    runs = []
+    for dev in (cuda_dev, "cpu"):
+        lm = _sharded_lm(dev, updater=Sgd(lr=0.1))
+        losses = [float(lm.fit_batch(tok, tgt)) for _ in range(3)]
+        runs.append((losses, [np.asarray(a) for a in tree_leaves(lm.params_numpy())]))
+    np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=1e-5)
+    for a, b in zip(runs[0][1], runs[1][1]):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+def test_sharded_lm_fit_batches_graph_is_bitwise_eager_in_bf16(cuda_dev):
+    """``fit_batches(2)`` as one CUDA graph against two ``fit_batch`` calls
+    from the same start, bf16 compute and bf16 Adam moments: losses,
+    parameters and moments bitwise; one graph after a repeat call."""
+    from deeplearning4j_tpu_torch.nn.updaters import Adam, tree_leaves
+
+    batches = [_lm_batch(seed) for seed in (7, 8)]
+    runs = []
+    for graphed in (False, True):
+        lm = _sharded_lm(cuda_dev, compute_dtype="bfloat16",
+                         updater=Adam(lr=3e-4, moment_dtype="bfloat16"))
+        if graphed:
+            losses = [float(s) for s in lm.fit_batches(np.stack([b[0] for b in batches]),
+                                                       np.stack([b[1] for b in batches]))]
+        else:
+            losses = [float(lm.fit_batch(*b)) for b in batches]
+        runs.append((losses, [t.clone() for t in tree_leaves((lm.params, lm.opt_state))]))
+    lm.fit_batches(np.stack([b[0] for b in batches]), np.stack([b[1] for b in batches]))
+    assert len(lm._fit_graphs) == 1
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_sharded_lm_decode_on_card_is_bitwise_its_reencode(cuda_dev, tp):
+    """One-way and two head shards on the card: every echoed logit bitwise
+    the program's own re-encode; the tensor-parallel pool is two shards."""
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    lm = _sharded_lm(cuda_dev, mesh=build_mesh({"data": tp}, world_size=tp))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, _LM["vocab_size"], n).tolist() for n in (5, 17, 40)]
+    eng = DecodeEngine(lm, max_slots=4, page_size=16, device=cuda_dev).load()
+    try:
+        futs = [eng.generate_async(p, max_new_tokens=8, echo_logits=True, temperature=0.0)
+                for p in prompts]
+        results = [f.result(timeout=120) for f in futs]
+        assert eng.metrics_snapshot()["tp"] == tp
+        if tp > 1:
+            assert all(len(pool) == tp for pool in eng._cache)
+        for p, r in zip(prompts, results):
+            with torch.inference_mode():
+                ref = eng.program.reencode(eng.params, torch.tensor([p + r.tokens[:-1]],
+                                                                    device=cuda_dev))
+            np.testing.assert_array_equal(r.logits, ref[0, len(p) - 1:].cpu().numpy())
+    finally:
+        eng.shutdown()

@@ -95,6 +95,30 @@ def _jax_mlp(seed=3, lr=0.05):
     return net
 
 
+def _jax_adam_clip_mlp(seed=3):
+    """``_jax_mlp`` with Adam (lr 0.01) and per-layer L2 clipping at 0.5:
+    the model axis's updater state slices and its layer norms summed
+    over ``model``."""
+    from deeplearning4j_tpu.nn.conf.inputs import InputType
+    from deeplearning4j_tpu.nn.layers import Dense, OutputLayer
+    from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu.nn.updaters import Adam, GradientNormalization
+
+    conf = (NeuralNetConfiguration.builder().seed(seed).updater(Adam(lr=0.01))
+            .gradient_normalization(GradientNormalization.CLIP_L2_PER_LAYER, 0.5)
+            .layer(Dense(n_out=16, activation="tanh"))
+            .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(12)).build())
+    net = MultiLayerNetwork(conf)
+    net.init()
+    return net
+
+
+#: the model-axis arms: name → the JAX network builder (its conf and the
+#: shared weights are what the port's ranks load)
+MODEL_ARMS = {"model_sgd": "_jax_mlp", "model_adam_clip": "_jax_adam_clip_mlp"}
+
+
 def _jax_bn_net(seed=5):
     """Dense(16) → BatchNormalization(relu) → OutputLayer(3), SGD 0.05."""
     from deeplearning4j_tpu.nn.conf.inputs import InputType
@@ -143,11 +167,11 @@ def _flat(tree):
 # -- the port's ranks ---------------------------------------------------------------
 
 
-def _port_net(work):
+def _port_net(work, conf="conf.json"):
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerConfiguration, MultiLayerNetwork
     from deeplearning4j_tpu_torch.utils.params import params_from_numpy
 
-    with open(os.path.join(work, "conf.json")) as f:
+    with open(os.path.join(work, conf)) as f:
         net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(json.load(f)), device="cpu")
     w = np.load(os.path.join(work, "weights.npz"))
     net.params = params_from_numpy([{"W": w[f"{i}/W"], "b": w[f"{i}/b"]} for i in range(2)],
@@ -238,6 +262,18 @@ def _worker(rank: int, work: str) -> None:
     out["dropout/params"] = _flat(params_to_numpy(trainer.net.params))
     trainer = ShardedTrainer(_port_net(work), build_two_tier_mesh(2, {"data": 2}))
     out["no_dropout/acts"] = trainer.net.feed_forward(xs[:8], train=True)[0].numpy()
+    # the model axis: {data 2, model 2}, each rank stores its slices
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+
+    for arm in MODEL_ARMS:
+        trainer = ShardedTrainer(_port_net(work, f"{arm}.json"),
+                                 build_mesh({"data": 2, "model": 2}))
+        out[f"{arm}/losses"] = np.asarray([float(trainer.fit_batch(ds))
+                                           for _ in range(STEPS)], np.float32)
+        out[f"{arm}/params"] = _flat(params_to_numpy(trainer.gather_params()))
+        out[f"{arm}/local_sizes"] = np.asarray([t.numel() for l in trainer.net.params
+                                                for k in sorted(l) for t in [l[k]]])
+        out[f"{arm}/output"] = trainer.output(xs[:8]).numpy()
     # a zip the JAX package wrote: every rank adopts its slice's residual
     net = load_model(os.path.join(work, "jax.zip"), device="cpu")
     out["adopt/loaded_shape"] = np.asarray(net.grad_residual[0]["W"].shape)
@@ -261,6 +297,7 @@ def runs(tmp_path_factory):
     from deeplearning4j_tpu.datasets import DataSet as JDataSet
     from deeplearning4j_tpu.ops import compression as J
     from deeplearning4j_tpu.parallel import ShardedTrainer as JTrainer
+    from deeplearning4j_tpu.parallel.mesh import build_mesh as j_mesh
     from deeplearning4j_tpu.parallel.mesh import build_two_tier_mesh as j_two_tier
 
     work = str(tmp_path_factory.mktemp("ranks"))
@@ -302,6 +339,15 @@ def runs(tmp_path_factory):
             trace.append(np.concatenate([_flat(jax.tree_util.tree_map(np.asarray, t))
                                          for t in (trainer.net.params, trainer.net.state)]))
         jax_out[arm] = {"losses": np.asarray(losses, np.float32), "trace": np.stack(trace)}
+    for arm, builder in MODEL_ARMS.items():
+        jnet = globals()[builder]()
+        with open(os.path.join(work, f"{arm}.json"), "w") as f:
+            json.dump(jnet.conf.to_dict(), f)
+        trainer = JTrainer(jnet, j_mesh({"data": 2, "model": 2}, devices=jax.devices()[:4]))
+        jax_out[arm] = {"losses": np.asarray([float(trainer.fit_batch(ds))
+                                              for _ in range(STEPS)], np.float32),
+                        "params": _flat(jax.tree_util.tree_map(np.asarray, trainer.net.params)),
+                        "output": np.asarray(trainer.output(xs[:8]))}
     _jax_tbptt_net().save(os.path.join(work, "tbptt.zip"))
     trainer = JTrainer(_jax_tbptt_net(), j_two_tier(2, {"data": 2}, jax.devices()[:4]))
     xs_t, ys_t = _sequences()
@@ -448,6 +494,42 @@ def test_jax_loads_the_port_trainers_residual(runs):
                                   runs["port"][0]["threshold_fixed_top_k/params"])
 
 
+@pytest.mark.parametrize("arm", list(MODEL_ARMS))
+def test_model_axis_matches_the_jax_trainer(runs, arm):
+    """``{data 2, model 2}``: losses, the gathered parameters and
+    ``output`` within 1e-5 of the JAX trainer on the same mesh after 5
+    steps, bitwise across ranks; each rank stores half of each split leaf
+    (Dense W [12, 16] and b [16] by columns, the head's W [16, 3] by rows,
+    its b [3] whole)."""
+    want = runs["jax"][arm]
+    for r in range(RANKS):
+        port = runs["port"][r]
+        np.testing.assert_allclose(port[f"{arm}/losses"], want["losses"], atol=1e-5, rtol=0)
+        np.testing.assert_allclose(port[f"{arm}/params"], want["params"], atol=1e-5, rtol=0)
+        np.testing.assert_allclose(port[f"{arm}/output"], want["output"], atol=1e-5, rtol=0)
+        np.testing.assert_array_equal(port[f"{arm}/params"], runs["port"][0][f"{arm}/params"])
+        # sorted keys per layer: W then b
+        assert port[f"{arm}/local_sizes"].tolist() == [12 * 8, 8, 8 * 3, 3]
+    assert want["losses"][-1] < want["losses"][0]
+
+
+def test_trainer_forwards_the_schedule():
+    """The reference's ``test_trainer_forwards_schedule``: LeNet accepts
+    ``pipeline_schedule="1f1b"`` (it has no pipe dimension and ignores
+    it); a network with a ``schedule`` attribute gets it."""
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.parallel import ShardedTrainer, build_mesh
+
+    net = LeNet(height=8, width=8, channels=1, num_classes=4, device="cpu")
+    trainer = ShardedTrainer(net, build_mesh(), pipeline_schedule="1f1b")
+    assert trainer.pipeline_schedule == "1f1b"
+    with pytest.raises(ValueError, match="pipeline_schedule"):
+        ShardedTrainer(net, build_mesh(), pipeline_schedule="nope")
+    net.schedule = "gpipe"
+    ShardedTrainer(net, build_mesh(), pipeline_schedule="1f1b")
+    assert net.schedule == "1f1b"
+
+
 # -- validation, in one process -------------------------------------------------------
 
 
@@ -474,10 +556,10 @@ _INVALID = {
     "model": (lambda m: m.build_mesh({"dcn": 2, "data": 2, "model": 2}, world_size=8),
               {"grad_compression": "threshold"}, ValueError),
     "pipeline_schedule": (lambda m: m.build_mesh(), {"pipeline_schedule": "zigzag"}, ValueError),
-    "queue 9": (lambda m: m.build_mesh({"data": 2, "model": 2}, world_size=4), {},
+    "queue 9": (lambda m: m.build_mesh({"data": 2, "seq": 2}, world_size=4), {},
                 NotImplementedError),
-    "pipeline schedules": (lambda m: m.build_mesh(), {"pipeline_schedule": "1f1b"},
-                           NotImplementedError),
+    # accepted and kept, as in the reference (tests/test_pipeline_1f1b.py)
+    "pipeline schedules": (lambda m: m.build_mesh(), {"pipeline_schedule": "1f1b"}, None),
     "nan_guard": (lambda m: m.build_mesh(), {"nan_guard": 0}, ValueError),
     "initialize": (lambda m: m.build_two_tier_mesh(2, world_size=2), {}, RuntimeError),
 }
@@ -485,15 +567,44 @@ _INVALID = {
 
 @pytest.mark.parametrize("match", list(_INVALID))
 def test_trainer_validation_errors(match):
-    """The reference's errors (tests/test_compression.py), plus what the
-    port does not run yet, a nan guard budget below 1 (the guard itself is
-    ported: tests/test_torch_multilayer_surface.py) and a mesh wider than
-    the process group."""
+    """The reference's errors (tests/test_compression.py), plus what a
+    MultiLayerNetwork does not train over (a ``seq`` axis), a nan guard
+    budget below 1 (the guard itself is ported:
+    tests/test_torch_multilayer_surface.py) and a mesh wider than the
+    process group.  A 1F1B schedule is accepted, as the reference accepts
+    it for any network."""
     from deeplearning4j_tpu_torch.parallel import ShardedTrainer, mesh
 
     make_mesh, kw, err = _INVALID[match]
+    if err is None:
+        assert ShardedTrainer(_cpu_mlp(), make_mesh(mesh), **kw).pipeline_schedule == "1f1b"
+        return
     with pytest.raises(err, match=match):
         ShardedTrainer(_cpu_mlp(), make_mesh(mesh), **kw)
+
+
+@pytest.mark.parametrize("model", [2, 4])
+def test_shard_rule_matches_the_reference(model):
+    """``mesh.shard_axis`` / ``infer_param_shardings`` split each leaf on
+    the axis the reference's ``_shard_leaf`` picks (the trailing-most
+    axis divisible by the ``model`` size and at least twice it), or keep
+    it whole where the reference replicates it."""
+    import jax
+
+    from deeplearning4j_tpu.parallel.mesh import _shard_leaf
+    from deeplearning4j_tpu.parallel.mesh import build_mesh as j_mesh
+    from deeplearning4j_tpu_torch.parallel import build_mesh, infer_param_shardings, shard_axis
+
+    jmesh = j_mesh({"data": 1, "model": model}, devices=jax.devices()[:model])
+    shapes = [(), (3,), (4,), (8,), (16, 3), (3, 16), (12, 16), (5, 5), (3, 3, 8, 16),
+              (7, 9, 4), (model,), (2 * model, 1)]
+    for shape in shapes:
+        spec = _shard_leaf(jmesh, np.zeros(shape, np.float32), "model").spec
+        want = next((i for i, a in enumerate(spec) if a == "model"), None)
+        assert shard_axis(shape, model) == want, shape
+    mesh = build_mesh({"data": 1, "model": model}, world_size=model)
+    tree = [{"W": torch.zeros(12, 16), "b": torch.zeros(3)}, {}]
+    assert infer_param_shardings(tree, mesh) == [{"W": 1, "b": None}, {}]
 
 
 def test_mesh_layout_and_errors():
