@@ -6,6 +6,8 @@
                                            # replays, N traces each way
     python3 chip_smoke.py --phase sharded  # the build and the sharded
                                            # phase alone (no result line)
+    python3 chip_smoke.py --phase elastic  # the build and the elastic
+                                           # phase alone (no result line)
 
 It builds every CUDA kernel of the port from ``deeplearning4j_tpu_torch/csrc``
 with ``nvcc`` (one process per source, started together), then drives the
@@ -326,6 +328,62 @@ and the recurrent path's training and streaming:
           run on the card, 1F1B's first loss bitwise GPipe's at the same
           M, the leaves a line of ranks shares bitwise equal along it;
           step ms and peak memory of each rank.
+  elastic the elastic runtime (``parallel/elastic.py``, ``chaos.py``,
+          ``preemption.py``, ``launcher.py``, the CLI's ``launch``), MoE and
+          the graph's ``model`` axis.  (c)/(d) first: three ``launch
+          --nprocs 2 --bootstrap distributed`` runs at once of ``train --zoo
+          lenet --data mnist --batch-size 256 --epochs 3 --mesh
+          dcn=2,data=1,compress=threshold --elastic-dir D
+          --checkpoint-every 4`` (the reference's launch example: the zoo's
+          LeNet on the 2048-image MNIST surrogate, 24 steps, 128 rows a
+          rank, two gloo ranks on cuda:0, the adaptive threshold, which
+          encodes by top-k and launches no K6):
+          chaos-off; ``proc_kill`` of worker 1 at step 8 (relaunched once,
+          the membership epoch past the chaos-off run's, both workers
+          resume the same checkpoint and complete, no orphan, every step's
+          loss, replays included, bitwise the chaos-off run's); a
+          preemption notice to worker 0 at step 10 (the ranks agree the
+          notice at the next boundary of ``sync_every`` = 4 steps, step
+          12; the emergency checkpoint lands within the 60 s grace, exit
+          75, relaunched without spending the budget, resumed at the
+          preempted step, bitwise the chaos-off run); K6 bitwise its plain
+          version on one step of LeNet's buckets at a fixed threshold
+          (``ShardedTrainer(compression_threshold=1e-3)``).  (a) bench
+          config 2's LeNet
+          ([256, 32, 32, 3], Nesterovs(0.01, 0.9), nan guard 2) under
+          ``ElasticTrainer(step_timeout=1.5, backoff_base=0.05,
+          jitter_seed=0)``, 30 steps, deterministic cuDNN: chaos-off
+          bitwise a plain ``fit_batch`` loop; a device loss, a crashed
+          checkpoint write, a 2 s hung step, a truncated and a bit-flipped
+          newest checkpoint (each with a device loss, so the restore meets
+          it) and NaN gradients: 5 recoveries, both corrupt checkpoints
+          quarantined and the restore fallen back to an older intact one,
+          no stale .tmp, every step before the guarded NaN step (replays
+          included) bitwise the fault-free run.  (g) ``ParallelInference``
+          over LeNet, buckets 1/2/4: every result bitwise the eager forward
+          of its bucket, a request after ``shutdown`` fails.  (e)/(f) two
+          gloo ranks on cuda:0: ``moe_forward_ep`` on ``{model 2}`` at GPT-2
+          widths (d_model 768, d_ff 3072, 8 experts, k 2, 8,192 tokens, f32,
+          capacity factor 1.0, so the busiest experts drop routings) against the same function in one process
+          (forward 1e-5, gradients 1e-4 relative in norm) and against
+          ``moe_forward_dense`` on the tokens none of whose routings
+          dropped (1e-5), the dropped routings those counted from the
+          gates; then the zoo's ResNet-50 graph at 224x224 on
+          ``ShardedTrainer({model 2})``, batch 16, 3 SGD steps,
+          deterministic cuDNN: losses (relative) and the gathered
+          parameters within 1e-4 of one process, each rank holding half of
+          each split leaf; ms and peak memory per rank.  (b) runs around
+          them: GPT-2-small (the train phase's model, f32, Adam 3e-4 with
+          per-layer clipping, K4 on) under
+          ``ElasticTrainer(async_checkpoints=True, checkpoint_every=2)``
+          takes steps 1-2 first, and the step-2 checkpoint deflates on its
+          background thread while (c)-(g) run; then a device loss at step
+          3: the restored parameters and Adam moments bitwise the
+          fault-free run's at step 2, the replayed step's loss bitwise,
+          K1-K3 12 and K4 15 launches per step run; prints the
+          checkpoint's bytes, the snapshot ms, the deflate/write seconds,
+          whether the write had landed before the restore, the restore
+          seconds and the step ms before and after.
 
 Each phase prints JSON lines; then one ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -4699,6 +4757,571 @@ def phase_sharded():
     return {**out, "launches": launches}
 
 
+# -- elastic phase -------------------------------------------------------------------
+
+ELASTIC_LENET_STEPS = 30
+#: the launched workers' command, the reference's own ``launch`` example:
+#: its adaptive threshold encodes by top-k and launches no K6
+LAUNCH_TRAIN = ["train", "--zoo", "lenet", "--data", "mnist", "--batch-size", "256",
+                "--epochs", "3", "--mesh", "dcn=2,data=1,compress=threshold",
+                "--checkpoint-every", "4", "--print-every", "1000"]
+MOE_TOKENS, MOE_EXPERTS, MOE_K, MOE_CF = 8192, 8, 2, 1.0
+ELASTIC_CNN_B, ELASTIC_CNN_STEPS = 16, 3
+
+
+class _Plain:
+    def __init__(self, net):
+        self.net = net
+
+    def fit_batch(self, ds):
+        return self.net.fit_batch(ds)
+
+
+def elastic_lenet(tmp):
+    """(a): bench config 2's LeNet through a chaos soak under
+    ``ElasticTrainer``; every gate of the module docstring."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.parallel import (ChaosInjector, CheckpointManager,
+                                                   ElasticTrainer, FaultSchedule)
+
+    def make():
+        net = LeNet(LENET_HW, LENET_HW, 3, LENET_CLASSES,
+                    updater=Nesterovs(lr=0.01, momentum=0.9), device="cuda")
+        net.set_nan_guard(2)
+        return net
+
+    batches = [images(LENET_B, LENET_HW, LENET_CLASSES, SEED + 300 + i) for i in range(10)]
+    epochs = ELASTIC_LENET_STEPS // len(batches)
+
+    def run():
+        plain = make()
+        want = [float(plain.fit_batch(b)) for b in batches * epochs]
+        net = make()
+        off = ElasticTrainer(_Plain(net), os.path.join(tmp, "off"), checkpoint_every=5)
+        got_off = [float(l) for l in off.fit(batches, epochs=epochs)]
+        # injector call -> faults; a corruption shares its call with a
+        # device loss so the restore meets the corrupt newest checkpoint
+        sched = FaultSchedule.scripted({
+            7: "device_loss", 12: "ckpt_write_crash", 21: "hung_step",
+            27: ["ckpt_truncate", "device_loss"], 38: ["ckpt_bitflip", "device_loss"],
+            50: "nan_grads"})
+        net = make()
+        inj = ChaosInjector(_Plain(net), sched, hang_seconds=2.0)
+        d = os.path.join(tmp, "chaos")
+        et = ElasticTrainer(inj, d, checkpoint_every=5, keep_last=3, max_restarts=4,
+                            sync_every=1, step_timeout=1.5, backoff_base=0.05,
+                            jitter_seed=0)
+        inj.attach_checkpoints(et.ckpt)
+        t0 = time.perf_counter()
+        et.fit(batches, epochs=epochs)
+        wall = time.perf_counter() - t0
+        CheckpointManager(d)                           # a restart's manager
+        return want, got_off, et, inj, sched, net, wall
+
+    want, got_off, et, inj, sched, net, wall = deterministic(run)
+    files = sorted(os.listdir(os.path.join(tmp, "chaos")))
+    steps = [(s, float(l)) for s, l in et.step_losses]
+    # the guarded NaN step skips its update: steps from it on leave the
+    # fault-free trajectory; every step before it, replays included, is on it
+    nan_at = next((s for s, l in steps if l != l), None)
+    replays = len(steps) - len({s for s, _ in steps})
+    bad = []
+    if got_off != want:
+        bad.append("a: chaos-off losses not bitwise the plain loop")
+    if sched.pending() or len(inj.events) != 8:
+        bad.append(f"a: faults not all injected ({inj.events})")
+    if et.total_restarts != 5:
+        bad.append(f"a: {et.total_restarts} recoveries, want 5")
+    quarantined = [f for f in files if f.endswith(".corrupt")]
+    if len(quarantined) != 2:
+        bad.append(f"a: quarantined {quarantined}, want the truncated and the flipped")
+    if any(f.endswith(".tmp") for f in files):
+        bad.append(f"a: a stale .tmp is left ({files})")
+    mismatched = [s for s, l in steps if (nan_at is None or s < nan_at) and l != want[s - 1]]
+    if mismatched or nan_at is None or replays == 0:
+        bad.append(f"a: steps {mismatched} not bitwise the fault-free run "
+                   f"(nan step {nan_at}, {replays} replays)")
+    if et.global_step != ELASTIC_LENET_STEPS or net._bad_steps > 1:
+        bad.append(f"a: ended at step {et.global_step}")
+    out = {"steps": ELASTIC_LENET_STEPS, "recoveries": et.total_restarts,
+           "restored_steps": et.restored_steps, "replayed_steps": replays,
+           "quarantined": quarantined, "faults": [(e["step"], e["kind"]) for e in inj.events],
+           "backoff_s": et.backoff_sleeps, "recovery_s": et.recovery_seconds,
+           "wall_s": wall, "nan_step": nan_at}
+    return out, bad
+
+
+def elastic_gpt2():
+    """(b): GPT-2-small under ``ElasticTrainer(async_checkpoints=True)``, a
+    device loss one step after a checkpoint; restore and replay.  A
+    generator: it yields once the async checkpoint's write has started, so
+    the phase runs its other arms while the write deflates on its
+    background thread, and is resumed for the fault, the restore and the
+    replay."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.ops import update_kernel as uk
+    from deeplearning4j_tpu_torch.parallel import ChaosInjector, ElasticTrainer, FaultSchedule
+
+    os.environ[uk.ENV_SWITCH] = "1"
+    net = build_model()
+    rng = np.random.default_rng(SEED + 400)
+    dev = torch.device("cuda")
+    batches = []
+    for _ in range(3):
+        seq = rng.integers(0, VOCAB, (8, MAX_LEN + 1))
+        batches.append(DataSet(torch.from_numpy(seq[:, :-1]).to(dev),
+                               torch.from_numpy(seq[:, 1:]).to(dev)))
+    start = snapshot(net)
+
+    def timed_step(b):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = float(net.fit_batch(b))
+        return loss, (time.perf_counter() - t) * 1e3
+
+    want, base_ms, at2 = [], [], None
+    for i, b in enumerate(batches):
+        loss, ms = timed_step(b)
+        want.append(loss)
+        base_ms.append(ms)
+        if i == 1:
+            at2 = (net.clone_params(), clone_trees(net.opt_state))
+    restore(net, snapshot_of(start))
+    counters = {**flash_counters(), "fused_update": uk.fused_update_cuda}
+    launches = dict.fromkeys(counters, 0)
+    tmp = tempfile.mkdtemp(prefix="elastic_gpt2_")
+    inj = ChaosInjector(_Plain(net), FaultSchedule.scripted({3: "device_loss"}))
+    et = ElasticTrainer(inj, tmp, checkpoint_every=2, sync_every=1, async_checkpoints=True,
+                        keep_last=2)
+    stamps = {}
+    real_async, real_restore = et.ckpt.save_async, et._restore
+
+    def save_async(src, step):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fut = real_async(src, step)
+        stamps.setdefault("snapshot_ms", []).append((time.perf_counter() - t) * 1e3)
+        return fut
+
+    def restore_():
+        t = time.perf_counter()
+        real_restore()
+        stamps["restore_s"] = time.perf_counter() - t
+        stamps["restored_bitwise"] = (trees_equal(net.params, at2[0])
+                                      and trees_equal(net.opt_state, at2[1]))
+    et.ckpt.save_async, et._restore = save_async, restore_
+    step_ms = []
+    real_fit = net.fit_batch
+
+    def fit_timed(b):
+        # this arm's steps' own launches: the arms that run while the
+        # checkpoint deflates launch kernels too
+        before = {n: c.launches for n, c in counters.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_fit(b)
+        float(out)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        for n, c in counters.items():
+            launches[n] += c.launches - before[n]
+        return out
+    net.fit_batch = fit_timed
+    try:
+        # one deflated write (step 2), overlapped with the phase's other
+        # arms; then the fault at call 3, whose retry replays step 3
+        for b in batches[:2]:
+            et.fit_batch(b)
+        t_write = time.perf_counter()
+        yield
+        stamps["write_landed_before_restore"] = et.ckpt._pending.done()
+        stamps["write_wall_s"] = time.perf_counter() - t_write
+        et.fit_batch(batches[2])
+    finally:
+        del net.fit_batch
+    steps = [(s, float(l)) for s, l in et.step_losses]
+    ckpt_path = et.ckpt.latest()[0]
+    bad = []
+    if [s for s, _ in steps] != [1, 2, 3] or et.restored_steps != [2]:
+        bad.append(f"b: steps {steps}, restored {et.restored_steps}")
+    if any(l != want[s - 1] for s, l in steps):
+        bad.append("b: losses after recovery not bitwise the fault-free run's")
+    if not stamps.get("restored_bitwise"):
+        bad.append("b: restored parameters / Adam moments not bitwise the checkpoint's")
+    per_step = {"flash_fwd": 12, "flash_bwd_dkdv": 12, "flash_bwd_dq": 12,
+                "fused_update": 15}
+    if any(launches[n] != 3 * k for n, k in per_step.items()):
+        bad.append(f"b: launches {launches}, want 3 steps of {per_step}")
+    out = {"losses": [l for _, l in steps], "fault_free": want,
+           "checkpoint_bytes": os.path.getsize(ckpt_path),
+           "snapshot_ms": stamps.get("snapshot_ms"),
+           "deflate_write_s": et.ckpt.last_save_seconds,
+           "restore_s": stamps.get("restore_s"), "recovery_s": et.recovery_seconds,
+           "write_landed_before_restore": stamps.get("write_landed_before_restore"),
+           "other_arms_s_during_write": stamps.get("write_wall_s"),
+           "step_ms_before": sorted(base_ms[1:])[len(base_ms[1:]) // 2],
+           "step_ms_elastic": step_ms, "launches": launches}
+    shutil.rmtree(tmp, ignore_errors=True)
+    del net, start, at2
+    return out, bad
+
+
+def snapshot_of(snap):
+    """Fresh clones of a ``snapshot`` (so it can be restored again)."""
+    return (clone_trees(snap[0]), clone_trees(snap[1]), clone_trees(snap[2]), snap[3])
+
+
+def launch_runs(tmp):
+    """(c) and (d): three ``launch`` runs of two gloo ranks on cuda:0, in
+    parallel: chaos-off, a ``proc_kill`` of worker 1, a preemption notice
+    to worker 0 → {arm: (report, {(worker, incarnation): losses file})}."""
+    arms = {"off": [], "kill": ["--chaos-worker", "1:proc_kill@8"],
+            "preempt": ["--grace", "60", "--chaos-worker", "0:preempt_notice@10"]}
+    procs = {}
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for arm, extra in arms.items():
+        d = os.path.join(tmp, arm)
+        os.makedirs(d)
+        cmd = ([sys.executable, "-m", "deeplearning4j_tpu_torch", "launch", "--nprocs", "2",
+                "--bootstrap", "distributed", "--run-dir", os.path.join(d, "run"),
+                "--report", os.path.join(d, "report.json"), "--deadline", "420",
+                "--heartbeat-timeout", "60", "--connect-timeout", "180"] + extra
+               + ["--"] + LAUNCH_TRAIN
+               + ["--elastic-dir", os.path.join(d, "ck"),
+                  "--losses-out", os.path.join(d, "losses_{process}_{incarnation}.json")])
+        procs[arm] = subprocess.Popen(cmd, cwd=d, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT)
+    logs = {}
+    try:
+        for arm, p in procs.items():
+            logs[arm] = p.communicate(timeout=480)[0].decode(errors="replace")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = {}
+    for arm, p in procs.items():
+        d = os.path.join(tmp, arm)
+        if p.returncode != 0:
+            raise AssertionError(f"launch {arm} exited {p.returncode}:\n{logs[arm][-3000:]}")
+        with open(os.path.join(d, "report.json")) as f:
+            rep = json.load(f)
+        files = {}
+        for fn in os.listdir(d):
+            if fn.startswith("losses_"):
+                w, inc = fn[len("losses_"):-len(".json")].split("_")
+                with open(os.path.join(d, fn)) as f:
+                    files[(int(w), int(inc))] = json.load(f)
+        out[arm] = (rep, files)
+    return out
+
+
+def elastic_launch(tmp):
+    """(c) and (d) gates; K6 bitwise its plain version on LeNet's buckets
+    (at a fixed threshold: the launched workers' adaptive path has no K6)."""
+    runs = launch_runs(tmp)
+    bad = []
+    rep_off, off = runs["off"]
+    base = {s: l for s, l in off[(0, 0)]["steps"]}
+    if [s for s, _ in off[(0, 0)]["steps"]] != list(range(1, 25)):
+        bad.append("c: the chaos-off run did not take 24 steps")
+    if off[(1, 0)]["steps"] != off[(0, 0)]["steps"]:
+        bad.append("c: the chaos-off workers' losses differ")
+
+    def on_baseline(files):
+        return all(l == base.get(s) for f in files.values() for s, l in f["steps"])
+
+    rep, kill = runs["kill"]
+    leaves = [(e["worker"], e["cause"]) for e in rep["leaves"]]
+    if not (rep["ok"] and rep["restarts"] == 1 and leaves == [(1, "crash")]
+            and rep["completed"] == [0, 1] and rep["leaked_killed"] == 0):
+        bad.append(f"c: report {({k: rep[k] for k in ('ok', 'restarts', 'completed')})}, "
+                   f"leaves {leaves}")
+    if rep["epoch"] <= rep_off["epoch"]:
+        bad.append(f"c: membership epoch {rep['epoch']} did not move past {rep_off['epoch']}")
+    resumed = kill.get((1, 1), {"steps": [[0, 0]]})["steps"][0][0] - 1
+    restored0 = [s for s, _ in kill[(0, 0)]["steps"]]
+    if sorted(kill) != [(0, 0), (1, 1)] or restored0.count(resumed + 1) != 2:
+        bad.append(f"c: workers did not both resume at step {resumed}")
+    if not on_baseline(kill):
+        bad.append("c: a trajectory is not bitwise the chaos-off run")
+    rep_p, pre = runs["preempt"]
+    p_leaves = [(e["cause"], e["rc"]) for e in rep_p["leaves"]]
+    notice = pre[(0, 0)].get("preempted", {})
+    if not (rep_p["ok"] and rep_p["restarts"] == 0 and rep_p["planned_leaves"] >= 1
+            and all(l == ("preempted", 75) for l in p_leaves)):
+        bad.append(f"d: report restarts {rep_p['restarts']}, leaves {p_leaves}")
+    if not notice or notice["seconds"] > 60 or notice["checkpoint"] is None:
+        bad.append(f"d: emergency checkpoint {notice}")
+    p_step = notice.get("step", -1)
+    if [s for s, _ in pre.get((0, 1), {"steps": []})["steps"]][:1] != [p_step + 1]:
+        bad.append("d: the relaunch did not resume at the preempted step")
+    if not on_baseline(pre):
+        bad.append("d: the preempted run's trajectory is not bitwise the chaos-off run")
+    k6 = sum(f["launches"]["threshold_encode"] for r in ("kill", "preempt")
+             for f in runs[r][1].values())
+    out = {"kill": {"restarts": rep["restarts"], "epoch": rep["epoch"],
+                    "epoch_chaos_off": rep_off["epoch"], "wall_s": rep["wall_seconds"],
+                    "resumed_at": resumed, "events": [(e["kind"], e.get("worker"))
+                                                      for e in rep["events"]]},
+           "preempt": {"planned_leaves": rep_p["planned_leaves"], "step": p_step,
+                       "grace_used_s": notice.get("seconds"), "stored": notice.get("stored"),
+                       "wall_s": rep_p["wall_seconds"]},
+           "chaos_off_wall_s": rep_off["wall_seconds"], "k6_launches": k6}
+    k6b, b = lenet_k6_bitwise()
+    out["k6_bitwise"] = k6b
+    bad += b
+    return out, bad
+
+
+def lenet_k6_bitwise():
+    """K6 on one compressed step of LeNet's buckets (a one-slice trainer
+    at a fixed threshold, ``compression_threshold=1e-3``), bitwise its
+    plain version."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models import ZOO
+    from deeplearning4j_tpu_torch.ops import compression as comp
+    from deeplearning4j_tpu_torch.parallel import ShardedTrainer, build_two_tier_mesh
+
+    net = ZOO["lenet"](device="cuda")
+    rng = np.random.default_rng(SEED + 500)
+    ds = DataSet(torch.from_numpy(rng.random((128, 28, 28, 1), dtype=np.float32)).cuda(),
+                 torch.from_numpy(np.eye(10, dtype=np.float32)[rng.integers(0, 10, 128)]).cuda())
+    trainer = ShardedTrainer(net, build_two_tier_mesh(1), grad_compression="threshold",
+                             compression_threshold=1e-3)
+    with recorded(comp, "threshold_encode_buckets_cuda") as calls:
+        trainer.fit_batch(ds)
+    r = k6_against_plain(comp, calls)
+    return r, ([] if r["bitwise"] and r["calls"] == 1 else [f"c: K6 not bitwise {r}"])
+
+
+def elastic_rank(rank: int, work: str) -> None:
+    """A rank of arms (e) and (f): MoE expert parallelism on {model 2},
+    then the ResNet-50 graph on ``ShardedTrainer({model 2})``; rank 0 then
+    runs both in one process as the reference."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    from deeplearning4j_tpu_torch.parallel import (ShardedTrainer, build_mesh, initialize,
+                                                   shutdown)
+    from deeplearning4j_tpu_torch.parallel.collectives import Axis, all_reduce
+    from deeplearning4j_tpu_torch.parallel.moe import (dropped_tokens, init_moe_params_numpy,
+                                                       moe_forward_dense, moe_forward_ep)
+    from deeplearning4j_tpu_torch.utils.params import params_to_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    initialize(init_method="file://" + os.path.join(work, "rendezvous"), num_processes=2,
+               process_id=rank, backend="gloo", timeout_s=300)
+    mesh = build_mesh({"model": 2})
+    p_np = init_moe_params_numpy(SEED + 600, D_MODEL, D_FF, MOE_EXPERTS)
+    rng = np.random.default_rng(SEED + 601)
+    x_np = rng.standard_normal((MOE_TOKENS, D_MODEL), dtype=np.float32)
+    w_np = rng.standard_normal((MOE_TOKENS, D_MODEL), dtype=np.float32)
+
+    def moe(fn):
+        p = {k: torch.tensor(v, device="cuda", requires_grad=True) for k, v in p_np.items()}
+        x = torch.tensor(x_np, device="cuda", requires_grad=True)
+        y, aux = fn(p, x)
+        (torch.sum(y * torch.from_numpy(w_np).cuda()) + aux).backward()
+        return y.detach(), aux.detach(), {k: v.grad for k, v in p.items()}, x.grad
+
+    ep = lambda p, x: moe_forward_ep(p, x, mesh, k=MOE_K, capacity_factor=MOE_CF)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    y, aux, gp, gx = moe(ep)
+    ms = cuda_ms(lambda: moe(ep), iters=3, warmup=1)
+    ax = Axis(mesh, "model")
+    gp = {k: (g if k == "Wg" else all_reduce(g, ax)) for k, g in gp.items()}
+    res = {"moe_ms": ms, "moe_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    # the ResNet-50 graph, {model 2}
+    torch.cuda.reset_peak_memory_stats()
+
+    def resnet50():
+        return ResNet50(CNN_HW, CNN_HW, 3, CNN_CLASSES, updater=Sgd(lr=0.01), device="cuda")
+    batches = [images(ELASTIC_CNN_B, CNN_HW, CNN_CLASSES, SEED + 700 + i)
+               for i in range(ELASTIC_CNN_STEPS)]
+    net = resnet50()
+    whole = [k for k, v in net.params.items() if v]
+    trainer = ShardedTrainer(net, mesh)
+    t0 = time.perf_counter()
+    losses = [float(trainer.fit_batch(b)) for b in batches]
+    torch.cuda.synchronize()
+    res["cnn_step_ms"] = (time.perf_counter() - t0) / len(batches) * 1e3
+    res["cnn_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["cnn_losses"] = losses
+    res["split_leaves"] = sum(1 for k in whole for a in trainer.shardings[k].values()
+                              if a is not None)
+    full = trainer.gather_params()
+    res["half_of_split"] = all(
+        t.numel() * 2 == full[k][n].numel()
+        for k, layer in net.params.items() for n, t in layer.items()
+        if trainer.shardings[k][n] is not None)
+    gathered = params_to_numpy(full)
+    shutdown()
+    if rank == 0:
+        dense = moe(lambda p, x: moe_forward_dense(p, x, MOE_K))
+        drops = dropped_tokens({k: torch.from_numpy(v).cuda() for k, v in p_np.items()},
+                               torch.from_numpy(x_np).cuda(), MOE_K, MOE_CF)
+        kept = ~drops.any(dim=1)
+        # the reference EP semantics in one process: the same capacity drops
+        one = moe(lambda p, x: moe_forward_ep(p, x, build_mesh({"model": 1}, world_size=1),
+                                              k=MOE_K, capacity_factor=MOE_CF))
+
+        def rel(a, b):
+            return float((a - b).double().norm() / b.double().norm().clamp_min(1e-30))
+        res["moe_fwd_err_vs_one"] = float((y - one[0]).abs().max())
+        res["moe_fwd_err_vs_dense_kept"] = float((y[kept] - dense[0][kept]).abs().max())
+        res["moe_grad_rel"] = max([rel(gp[k], one[2][k]) for k in gp] + [rel(gx, one[3])])
+        res["moe_dropped"] = int(drops.sum())
+        res["moe_dropped_same"] = bool(torch.equal(
+            drops, _ep_drops(p_np, x_np)))
+        ref = resnet50()
+        want = [float(ref.fit_batch(b)) for b in batches]
+        res["cnn_losses_one"] = want
+        res["cnn_param_err"] = max(
+            float(np.abs(a - b).max()) for k in gathered for n in gathered[k]
+            for a, b in [(gathered[k][n], params_to_numpy(ref.params)[k][n])])
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _ep_drops(p_np, x_np):
+    """The (token, expert) routings past capacity counted from the gates
+    in numpy (an independent count of ``dispatch``'s drops)."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel.moe import _router, capacity
+
+    gates, _ = _router({"Wg": torch.from_numpy(p_np["Wg"]).cuda()},
+                       torch.from_numpy(x_np).cuda(), MOE_K)
+    routed = (gates > 0).cpu().numpy()
+    pos = np.cumsum(routed, axis=0) - routed
+    return torch.from_numpy(routed & (pos >= capacity(MOE_TOKENS, MOE_EXPERTS, MOE_K,
+                                                      MOE_CF))).cuda()
+
+
+def elastic_ranks(tmp):
+    """(e) and (f): two gloo ranks on cuda:0."""
+    work = os.path.join(tmp, "ranks")
+    os.makedirs(work)
+    r = run_ranks("--elastic-rank", 2, work, limit_s=600)
+    bad = []
+    r0 = r[0]
+    if not (r0["moe_fwd_err_vs_one"] <= 1e-5 and r0["moe_fwd_err_vs_dense_kept"] <= 1e-5
+            and r0["moe_grad_rel"] <= 1e-4):
+        bad.append(f"e: MoE errors {r0['moe_fwd_err_vs_one']}, "
+                   f"{r0['moe_fwd_err_vs_dense_kept']}, grad {r0['moe_grad_rel']}")
+    if not (r0["moe_dropped_same"] and r0["moe_dropped"] > 0):
+        bad.append("e: the dropped tokens differ")
+    for k in range(2):
+        if not r[k]["half_of_split"] or r[k]["split_leaves"] == 0:
+            bad.append(f"f: rank {k} does not hold half of each split leaf")
+        if max(abs(a - b) / abs(b) for a, b in zip(r[k]["cnn_losses"],
+                                                    r0["cnn_losses_one"])) > 1e-4:
+            bad.append(f"f: rank {k} losses {r[k]['cnn_losses']} vs {r0['cnn_losses_one']}")
+    if r0["cnn_param_err"] > 1e-4:
+        bad.append(f"f: gathered parameters {r0['cnn_param_err']} from one process")
+    out = {"moe": {k: [x[k] for x in r] if k in ("moe_ms", "moe_peak_gib") else r0[k]
+                   for k in ("moe_ms", "moe_peak_gib", "moe_fwd_err_vs_one",
+                             "moe_fwd_err_vs_dense_kept", "moe_grad_rel", "moe_dropped")},
+           "cnn": {"losses": r0["cnn_losses"], "one_process": r0["cnn_losses_one"],
+                   "param_err": r0["cnn_param_err"], "split_leaves": r0["split_leaves"],
+                   "step_ms": [x["cnn_step_ms"] for x in r],
+                   "peak_gib": [x["cnn_peak_gib"] for x in r]}}
+    return out, bad
+
+
+def elastic_inference():
+    """(g): ``ParallelInference`` over LeNet: results bitwise the eager
+    forward of their bucket; ``shutdown`` fails a late request."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
+    net = LeNet(LENET_HW, LENET_HW, 3, LENET_CLASSES, device="cuda")
+    pi = ParallelInference(net, max_batch=4, bucket_sizes=[1, 2, 4])
+    rng = np.random.default_rng(SEED + 800)
+    xs = [rng.standard_normal((1 + i % 3, LENET_HW, LENET_HW, 3), dtype=np.float32)
+          for i in range(8)]
+    outs = [pi.output(x) for x in xs]
+    bitwise = all(np.array_equal(o, eager_bucket(net, x, b)[:len(x)].cpu().numpy())
+                  for x, o in zip(xs, outs) for b in [min(c for c in pi.buckets if c >= len(x))])
+    pi.shutdown()
+    late_failed = False
+    try:
+        pi.output_async(xs[0]).result(timeout=30)
+    except RuntimeError:
+        late_failed = True
+    bad = [] if bitwise and late_failed else [f"g: bitwise {bitwise}, late failed {late_failed}"]
+    return {"requests": len(xs), "bitwise_eager_bucket": bitwise,
+            "late_request_failed": late_failed, "buckets": pi.buckets}, bad
+
+
+def _finish(gen):
+    """The return value of a generator run to its end."""
+    try:
+        next(gen)
+    except StopIteration as stop:
+        return stop.value
+    raise AssertionError("the generator yielded twice")
+
+
+def phase_elastic():
+    """The elastic phase, arms (a)-(g) (the module docstring)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_elastic_")
+    bad, out = [], {}
+    try:
+        t = time.perf_counter()
+        gpt2 = elastic_gpt2()
+        next(gpt2)                      # steps 1-2; the checkpoint deflates behind
+        gpt2_s = time.perf_counter() - t
+        for name, arm in (("launch", lambda: elastic_launch(tmp)),
+                          ("lenet", lambda: elastic_lenet(tmp)),
+                          ("inference", elastic_inference),
+                          ("ranks", lambda: elastic_ranks(tmp)),
+                          ("gpt2", lambda: _finish(gpt2))):
+            t = time.perf_counter()
+            out[name], b = arm()
+            out[name]["seconds"] = time.perf_counter() - t + (gpt2_s if name == "gpt2" else 0)
+            bad += b
+            emit({"phase": "elastic", "arm": name, **out[name]})
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {**out["gpt2"]["launches"], "threshold_encode": out["launch"]["k6_launches"]}
+    emit({"phase": "elastic", "seconds": time.perf_counter() - t0, "launches": launches,
+          "failures": bad})
+    if bad:
+        raise AssertionError(f"elastic phase failed: {bad}")
+    return {**out, "launches": launches}
+
+
 def trace_probe(n: int) -> None:
     """``--trace-probe N``: the serve and predict phases, each traced
     replay taken N times hard against the trace's ends (pause 0) and N
@@ -4739,12 +5362,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--trace-probe"]:
         trace_probe(int(sys.argv[2]))
         return 0
-    if sys.argv[1:3] == ["--phase", "sharded"]:
+    if sys.argv[1:2] == ["--phase"] and sys.argv[2:3] in (["sharded"], ["elastic"]):
         card = card_line()
         emit({"torch": torch.__version__, "device": torch.cuda.get_device_name(0),
               "card": card})
         cuda_build.build(cuda_build.sources())
-        phase_sharded()
+        {"sharded": phase_sharded, "elastic": phase_elastic}[sys.argv[2]]()
         print(card, flush=True)
         return 0
     card = card_line()
@@ -4779,6 +5402,7 @@ def main() -> int:
     _, k6 = phase_kernel_encode(DP_BUCKET_SIZES)
     compressed = phase_compressed()
     sharded = phase_sharded()["launches"]
+    elastic = phase_elastic()["launches"]
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda",
@@ -4798,12 +5422,12 @@ def main() -> int:
     def trained(name, kernel):
         return (train["launches"][name] + graph_n[kernel] + attn["launches"].get(name, 0)
                 + conv["rnn_launches"].get(name, 0) + heads["launches"].get(name, 0)
-                + sharded.get(name, 0))
+                + sharded.get(name, 0) + elastic.get(name, 0))
     emit({"kernels": [
         entry("flash_fwd", "flash_fwd.cu", "deeplearning4j_tpu/ops/attention.py:138",
               score["launches"]["flash_fwd"] + predict["launches"]["flash_fwd"]
               + graph_n["flash_fwd_kernel"] + attn["launches"]["flash_fwd"]
-              + sharded["flash_fwd"], k1),
+              + sharded["flash_fwd"] + elastic["flash_fwd"], k1),
         entry("flash_bwd_dkdv", "flash_bwd.cu", "deeplearning4j_tpu/ops/attention.py:329",
               trained("flash_bwd_dkdv", "flash_bwd_dkdv_kernel"),
               {**bwd["flash_bwd_dkdv"], **bwd_lib}),
@@ -4824,7 +5448,8 @@ def main() -> int:
         entry("threshold_encode", "threshold_encode.cu",
               "deeplearning4j_tpu/ops/compression.py:128",
               compressed["arms"]["a_one_pass"]["k6_launches"]
-              + sum(compressed["arms"]["e_tinyyolo_batchnorm"]["k6_launches_per_step"][0]), k6),
+              + sum(compressed["arms"]["e_tinyyolo_batchnorm"]["k6_launches_per_step"][0])
+              + elastic["threshold_encode"], k6),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -4835,7 +5460,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     ranks = {"--compressed-rank": "compressed_rank", "--sharded-rank": "sharded_rank",
-             "--model-axis-rank": "model_axis_rank"}
+             "--model-axis-rank": "model_axis_rank", "--elastic-rank": "elastic_rank"}
     if sys.argv[1:2] and sys.argv[1] in ranks:
         globals()[ranks[sys.argv[1]]](int(sys.argv[2]), sys.argv[3])
         sys.exit(0)

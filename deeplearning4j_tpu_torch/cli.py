@@ -13,6 +13,11 @@ through ``rnn_time_step``, and ``serve``).  Runs on ``cuda`` unless
     python -m deeplearning4j_tpu_torch generate --model m.zip --prompt "hello"
         [--prefix-cache] [--speculate DRAFT_CKPT[,k]] [--kv-dtype {float32,int8}]
     python -m deeplearning4j_tpu_torch serve --model m.zip --port 9000 [--smoke N]
+    python -m deeplearning4j_tpu_torch train --zoo lenet --data mnist --elastic-dir ckpts \
+        [--chaos device_loss@5,ckpt_truncate@9] [--checkpoint-every 4] [--grace 30]
+    python -m deeplearning4j_tpu_torch launch --nprocs 2 --bootstrap distributed \
+        -- train --zoo lenet --data mnist --mesh dcn=2,data=1,compress=threshold \
+        --elastic-dir ckpts --checkpoint-every 4
 """
 
 from __future__ import annotations
@@ -28,14 +33,7 @@ import numpy as np
 
 #: train flags that wait for later ports, with the ROADMAP item that ports them
 LATER_FLAGS = {
-    "mesh": "queue 1 item 7.5 (the CLI's train --mesh)",
     "prefetch": "queue 1 item 9 (datasets/device_prefetch)",
-    "elastic_dir": "queue 1 item 7.4 (the elastic runtime)",
-    "chaos": "queue 1 item 7.4 (the elastic runtime)",
-    "checkpoint_every": "queue 1 item 7.4 (the elastic runtime)",
-    "step_timeout": "queue 1 item 7.4 (the elastic runtime)",
-    "grace": "queue 1 item 7.4 (the elastic runtime)",
-    "trace": "queue 1 item 9 (obs/)",
     "compile_cache": "queue 1 item 8 (serving/warmcache)",
     "dashboard": "queue 1 item 9 (ui/)",
 }
@@ -104,28 +102,364 @@ def _build_model(args):
     raise SystemExit("pass --zoo NAME or --config conf.json")
 
 
+def _parse_mesh(spec: str, n_ranks: Optional[int] = None) -> tuple:
+    """'data=4,model=2[,schedule=1f1b][,compress=threshold]' →
+    ({"data": 4, "model": 2}, schedule, compress): the reference's
+    grammar and error texts; -1 is inferred from the rank count
+    (``n_ranks``, default the process group's), and a ``data`` axis is
+    always there."""
+    from .ops.compression import METHODS
+    from .parallel.pipeline import SCHEDULES
+
+    axes = {}
+    schedule = "gpipe"
+    compress = None
+    seen_schedule = False
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        name = name.strip()
+        if name == "schedule":
+            if seen_schedule:
+                raise SystemExit(f"bad --mesh {spec!r}: duplicate schedule token")
+            if size.strip() not in SCHEDULES:
+                raise SystemExit(
+                    f"bad --mesh {spec!r}: schedule must be one of "
+                    f"{'/'.join(SCHEDULES)}, got {size.strip()!r}")
+            schedule = size.strip()
+            seen_schedule = True
+            continue
+        if name == "compress":
+            if compress is not None:
+                raise SystemExit(f"bad --mesh {spec!r}: duplicate compress token")
+            if size.strip() not in METHODS:
+                raise SystemExit(
+                    f"bad --mesh {spec!r}: compress must be one of "
+                    f"{'/'.join(METHODS)}, got {size.strip()!r}")
+            compress = size.strip()
+            continue
+        if name in axes:
+            raise SystemExit(f"bad --mesh {spec!r}: duplicate axis {name!r}")
+        try:
+            axes[name] = int(size)
+        except ValueError:
+            size = ""  # fall through to the shared message
+        if not name or not size or axes.get(name) == 0 or (axes.get(name, 0) < -1):
+            raise SystemExit(
+                f"bad --mesh {spec!r}: expected name=size[,name=size...] "
+                "with positive integer sizes (or one -1 to infer), "
+                "e.g. 'data=8', 'data=4,model=2' or "
+                "'data=2,pipe=4,schedule=1f1b'")
+    axes.setdefault("data", 1)
+    if list(axes.values()).count(-1) > 1:
+        raise SystemExit(f"bad --mesh {spec!r}: at most one -1 (infer) axis")
+    if -1 in axes.values():
+        if n_ranks is None:
+            from .parallel.distributed import process_count
+            n_ranks = process_count()
+        known = 1
+        for v in axes.values():
+            if v != -1:
+                known *= v
+        if known == 0 or n_ranks % known:
+            raise SystemExit(f"bad --mesh {spec!r}: cannot infer -1 axis "
+                             f"from {n_ranks} device(s)")
+        axes = {k: (n_ranks // known if v == -1 else v) for k, v in axes.items()}
+    if compress is not None and "dcn" not in axes:
+        raise SystemExit(f"bad --mesh {spec!r}: compress={compress} needs a "
+                         "dcn axis, e.g. 'dcn=2,data=4,compress=threshold'")
+    return axes, schedule, compress
+
+
+def _parse_chaos(spec: str):
+    """'kind@step[,kind@step...][,seed=S][,hang=SECONDS][,slow=SECONDS]' →
+    (FaultSchedule, seed, hang_seconds, slow_seconds), with the reference's
+    error texts."""
+    from .parallel.chaos import FaultKind, FaultSchedule
+
+    faults: dict = {}
+    seed, hang, slow = 0, 5.0, None
+    for part in spec.split(","):
+        part = part.strip()
+        if "=" in part and "@" not in part:
+            key, _, val = part.partition("=")
+            try:
+                if key == "seed":
+                    seed = int(val)
+                elif key == "hang":
+                    hang = float(val)
+                elif key == "slow":
+                    slow = float(val)
+                else:
+                    raise SystemExit(f"bad --chaos {spec!r}: unknown option "
+                                     f"{key!r} (seed=, hang=, slow=)")
+            except ValueError:
+                raise SystemExit(f"bad --chaos {spec!r}: {key}= needs a number")
+            continue
+        kind, _, step = part.partition("@")
+        if kind not in FaultKind.ALL:
+            raise SystemExit(f"bad --chaos {spec!r}: unknown fault kind "
+                             f"{kind!r} — one of {'/'.join(FaultKind.ALL)}")
+        try:
+            step_i = int(step)
+            if step_i < 1:
+                raise ValueError
+        except ValueError:
+            raise SystemExit(f"bad --chaos {spec!r}: {kind} needs a positive "
+                             f"step, e.g. '{kind}@5'")
+        faults.setdefault(step_i, []).append(kind)
+    if not faults:
+        raise SystemExit(f"bad --chaos {spec!r}: no faults — expected "
+                         "kind@step[,kind@step...], e.g. "
+                         "'device_loss@5,nan_grads@9,seed=1'")
+    return FaultSchedule(faults), seed, hang, slow
+
+
+def _parse_chaos_worker(specs):
+    """['1:proc_kill@10', ...] → {worker: chaos spec} (clean CLI errors)."""
+    out = {}
+    for item in specs or []:
+        worker_s, sep, spec = item.partition(":")
+        try:
+            worker = int(worker_s)
+            if worker < 0 or not sep or not spec:
+                raise ValueError
+        except ValueError:
+            raise SystemExit(f"bad --chaos-worker {item!r}: expected "
+                             "WORKER:SPEC, e.g. '1:proc_kill@10'")
+        if worker in out:
+            raise SystemExit(f"bad --chaos-worker {item!r}: duplicate "
+                             f"worker {worker}")
+        _parse_chaos(spec)   # validate now; workers parse it again from the env
+        out[worker] = spec
+    return out
+
+
+def _setup_trace(args):
+    """Arm span tracing from ``--trace PATH`` (``{process}`` expands) or
+    the launcher's ``DL4J_TPU_TRACE_DIR`` (worker{i}.inc{j}.trace.json)
+    → the armed path, or None."""
+    import os
+
+    from .parallel.distributed import ENV_INCARNATION, ENV_TRACE_DIR, resolve_process_index
+
+    path = getattr(args, "trace", None)
+    if path:
+        path = path.replace("{process}", str(resolve_process_index()))
+    else:
+        trace_dir = os.environ.get(ENV_TRACE_DIR)
+        if trace_dir:
+            inc = os.environ.get(ENV_INCARNATION, "0")
+            path = os.path.join(trace_dir,
+                                f"worker{resolve_process_index()}.inc{inc}.trace.json")
+    if not path:
+        return None
+    from .obs import trace as obs_trace
+
+    obs_trace.enable_tracing(path=path)
+    return path
+
+
+def _flush_trace(trace_path) -> None:
+    if not trace_path:
+        return
+    from .obs import trace as obs_trace
+
+    written = obs_trace.flush()
+    if written:
+        print(f"trace: {written} (chrome://tracing / ui.perfetto.dev)")
+
+
+class _Plain:
+    """A network as a trainer (``fit_batch`` and ``net``)."""
+
+    def __init__(self, net):
+        self.net = net
+
+    def fit_batch(self, ds):
+        return self.net.fit_batch(ds)
+
+
 def cmd_train(args) -> int:
+    import os
+
     from .datasets import DataSet, ListDataSetIterator
     from .optimize.listeners import ScoreIterationListener
+    from .parallel.distributed import (ENV_CHAOS, ENV_COORDINATOR, process_count,
+                                       resolve_process_index)
+    from .parallel.launcher import Heartbeat, maybe_bootstrap_from_env
+    from .parallel.preemption import PreemptedError
 
     for flag, item in LATER_FLAGS.items():
         if getattr(args, flag) is not None:
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
                              f"(ROADMAP {item})")
+    chaos_spec = args.chaos or os.environ.get(ENV_CHAOS) or None
+    if chaos_spec and not args.elastic_dir:
+        raise SystemExit("--chaos needs --elastic-dir (faults are injected "
+                         "into the ElasticTrainer recovery loop)")
+    if args.elastic_dir:
+        # a replayed step must equal the step it replays
+        import torch
+
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    # under `launch`: beat the shared membership (the bootstrap waits for
+    # every worker's beat), then join the process group when the launcher
+    # exported a coordinator
+    heartbeat = Heartbeat.start_from_env()
+    if maybe_bootstrap_from_env(collective_timeout_s=args.step_timeout):
+        print(f"distributed: process {resolve_process_index()}/{process_count()}")
+    trace_path = _setup_trace(args)
+
     net = _build_model(args)
     xs, ys = _load_data(args.data, train=True, num_classes=_num_classes_of(net))
     batches = DataSet(xs, ys).shuffle(args.seed).batch_by(args.batch_size)
+    mesh_axes, schedule, compress = (_parse_mesh(args.mesh) if args.mesh
+                                     else (None, "gpipe", None))
+    if mesh_axes:
+        dp = mesh_axes["data"] * mesh_axes.get("dcn", 1)
+        if args.batch_size % dp:
+            raise SystemExit(f"--batch-size {args.batch_size} not divisible "
+                             f"by mesh data axis {dp}")
+        full = [b for b in batches if len(b.features) == args.batch_size]
+        dropped = len(xs) - len(full) * args.batch_size
+        if not full:
+            raise SystemExit(
+                f"dataset ({len(xs)} samples) has no full batch of "
+                f"{args.batch_size}; lower --batch-size for --mesh training")
+        if dropped:
+            print(f"mesh training drops the ragged tail: {dropped} of "
+                  f"{len(xs)} samples not in a full batch of {args.batch_size}")
+        batches = full
     net.set_listeners(ScoreIterationListener(args.print_every))
-    if args.nan_guard is not None:
+    trainer = None
+
+    def sharded():
+        from .parallel import ShardedTrainer, build_mesh
+
+        return ShardedTrainer(net, build_mesh(mesh_axes), pipeline_schedule=schedule,
+                              grad_compression=compress, nan_guard=args.nan_guard)
+
+    if mesh_axes:
+        total = 1
+        for v in mesh_axes.values():
+            total *= v
+        if total != process_count():
+            raise SystemExit(f"--mesh {args.mesh!r} needs {total} process(es), "
+                             f"found {process_count()} (run it under launch "
+                             "--bootstrap distributed)")
+        trainer = sharded()
+        print(f"mesh: {dict(trainer.mesh.shape)} over {trainer.mesh.size} rank(s)"
+              + (f", pipeline schedule {schedule}" if schedule != "gpipe" else "")
+              + (f", grad compression {compress}" if compress else "")
+              + (f", nan guard budget {args.nan_guard}" if args.nan_guard else ""))
+    elif args.nan_guard is not None:
         net.set_nan_guard(args.nan_guard)
         print(f"nan guard armed (budget {args.nan_guard})")
-    losses = net.fit(ListDataSetIterator(batches), epochs=args.epochs)
-    print(f"trained {args.epochs} epoch(s), {len(losses)} iterations, "
-          f"final loss {losses[-1]:.5f}")
+    et = None
+    if args.elastic_dir:
+        from .parallel import ChaosInjector, ElasticTrainer
+        from .parallel.preemption import PreemptionHandler
+
+        inner = trainer if trainer is not None else _Plain(net)
+        injector = None
+        if chaos_spec:
+            sched, seed, hang, slow = _parse_chaos(chaos_spec)
+            injector = inner = ChaosInjector(inner, sched, hang_seconds=hang, seed=seed,
+                                             slow_seconds=slow)
+            print(f"chaos armed: {sched.pending()} fault(s) scheduled")
+        preemption = PreemptionHandler.install_from_env(grace_s=args.grace)
+        rebuild_fn = None
+        if trainer is not None and process_count() > 1 and os.environ.get(ENV_COORDINATOR):
+            def rebuild_fn():
+                # a peer left: rejoin once the ledger lists every process
+                # again, load whole parameters for the new trainer to slice
+                # (the recovery's restore then sets the step every rank
+                # agrees on), rebuild the mesh
+                from .parallel.launcher import rejoin_from_env
+
+                rejoin_from_env(collective_timeout_s=args.step_timeout)
+                model, _ = et.ckpt.restore_latest(et.loader)
+                if model is not None:
+                    net.params, net.state, net.opt_state = (model.params, model.state,
+                                                            model.opt_state)
+                    net.grad_residual = model.grad_residual
+                new = sharded()
+                if injector is not None:
+                    injector.trainer = new
+                    return injector
+                return new
+        et = ElasticTrainer(inner, args.elastic_dir, checkpoint_every=args.checkpoint_every,
+                            sync_every=min(10, args.checkpoint_every),
+                            step_timeout=args.step_timeout, backoff_base=0.5, jitter_seed=0,
+                            preemption=preemption, rebuild_fn=rebuild_fn)
+        if injector is not None:
+            injector.attach_checkpoints(et.ckpt)
+        if heartbeat is not None:
+            heartbeat.set_step_fn(lambda: et.global_step)
+            heartbeat.set_ckpt_step_fn(lambda: et.last_checkpoint_step)
+        resumed = et.resume()
+        if resumed:
+            print(f"resumed from checkpoint @ step {resumed}")
+    try:
+        if et is not None:
+            losses = et.fit(batches, epochs=args.epochs, skip_done=True)
+        else:
+            runner = trainer if trainer is not None else net
+            losses = runner.fit(ListDataSetIterator(batches), epochs=args.epochs)
+    except PreemptedError as exc:
+        print(f"preempted: {exc}")
+        _write_losses(args, et, exc)
+        _flush_trace(trace_path)
+        if heartbeat is not None:
+            heartbeat.stop()
+        return exc.exit_code
+    if et is not None:
+        print(f"elastic: {et.total_restarts} recovery(ies), "
+              f"{et.recovery_seconds:.1f}s in recovery, final checkpoint @ "
+              f"step {et.global_step} in {args.elastic_dir}")
+        _write_losses(args, et)
+    if losses:
+        print(f"trained {args.epochs} epoch(s), {len(losses)} iterations, "
+              f"final loss {float(losses[-1]):.5f}")
     if args.output:
-        net.save(args.output)
-        print(f"saved: {args.output}")
+        out_path = args.output.replace("{process}", str(resolve_process_index()))
+        if trainer is not None:
+            trainer.save(out_path)          # a collective: rank 0 writes
+        else:
+            net.save(out_path)
+        print(f"saved: {out_path}")
+    _flush_trace(trace_path)
+    if heartbeat is not None:
+        heartbeat.stop()
     return 0
+
+
+def _write_losses(args, et, preempted=None) -> None:
+    """``--losses-out``: every completed step's (global step, loss) as JSON,
+    replays included (Python floats: exact), the training kernels' launch
+    counts of this process, its recoveries, and the preemption's step and
+    emergency checkpoint seconds when the run was preempted."""
+    if not getattr(args, "losses_out", None) or et is None:
+        return
+    import os
+
+    from .nn.train_graph import TRAIN_COUNTERS
+    from .ops import compression
+    from .parallel.distributed import ENV_INCARNATION, resolve_process_index
+
+    path = (args.losses_out.replace("{process}", str(resolve_process_index()))
+            .replace("{incarnation}", os.environ.get(ENV_INCARNATION, "0")))
+    launches = {n: c.launches for n, c in TRAIN_COUNTERS.items()}
+    launches["threshold_encode"] = compression.threshold_encode_buckets_cuda.launches
+    out = {"steps": [[s, float(l)] for s, l in et.step_losses], "launches": launches,
+           "restarts": et.total_restarts}
+    if preempted is not None:
+        out["preempted"] = {"step": preempted.step, "seconds": preempted.seconds,
+                            "stored": preempted.stored,
+                            "checkpoint": preempted.checkpoint_path}
+    with open(path, "w") as f:
+        json.dump(out, f)
 
 
 def cmd_evaluate(args) -> int:
@@ -349,7 +683,17 @@ def cmd_serve(args) -> int:
         print(json.dumps(engine.metrics_snapshot()))
         engine.shutdown()
         return 0
-    server = UIServer(port=args.port, host=args.host)
+    import os
+
+    from .parallel.distributed import ENV_SERVE_PORT, PREEMPTED_EXIT_CODE
+    from .parallel.launcher import Heartbeat
+    from .parallel.preemption import PreemptionHandler
+
+    # under `launch --serve` each worker gets a stable port; --port wins
+    port = args.port
+    if port == 9000 and os.environ.get(ENV_SERVE_PORT):
+        port = int(os.environ[ENV_SERVE_PORT])
+    server = UIServer(port=port, host=args.host)
     if engine is not None:
         server.attach_engine(engine)
     decode_eng = None
@@ -364,11 +708,25 @@ def cmd_serve(args) -> int:
         print(f"decode engine on POST /generate: prefix_cache={args.prefix_cache}, "
               f"speculate={args.speculate}, kv_dtype={args.kv_dtype}")
     server.start()
+    heartbeat = Heartbeat.start_from_env()
+    handler = PreemptionHandler.install_from_env()
     print(f"listening on http://{args.host}:{server.port} — "
           "POST /predict, POST /generate, GET /metrics, GET /healthz", flush=True)
+    preempted = False
     try:
-        while True:
+        while not handler.requested:
             time.sleep(0.2)
+        preempted = True
+        # a preemption notice: shed new requests, let queued ones finish
+        # inside the grace window, then hand the port back
+        for e in (engine, decode_eng):
+            if e is not None:
+                e.begin_drain()
+        print(f"serve: preemption notice — draining "
+              f"({handler.remaining_s:.1f}s grace)", flush=True)
+        drain_of = engine if engine is not None else decode_eng
+        while _serve_queue_depth(drain_of) > 0 and handler.remaining_s > 0.5:
+            time.sleep(0.05)
     except KeyboardInterrupt:
         pass
     finally:
@@ -376,6 +734,110 @@ def cmd_serve(args) -> int:
         for e in (engine, decode_eng):
             if e is not None:
                 e.shutdown()
+        if heartbeat is not None:
+            heartbeat.stop()
+        handler.uninstall()
+    return PREEMPTED_EXIT_CODE if preempted else 0
+
+
+def _serve_queue_depth(engine) -> int:
+    """Requests still queued in a serving engine (the drain waits for 0)."""
+    batcher = getattr(engine, "batcher", None)
+    if batcher is not None:
+        return batcher.qsize()
+    return int(engine.metrics_snapshot().get("queue_depth", 0))
+
+
+def cmd_launch(args) -> int:
+    """The pod launcher: fork N workers running the subcommand after
+    ``--`` (``python -m deeplearning4j_tpu_torch <cmd>``), or join an
+    existing cluster with ``--join``; watch heartbeats and relaunch
+    workers that die or hang."""
+    import os
+
+    rest = list(args.worker_args or [])
+    if rest and rest[0] == "--":
+        rest = rest[1:]
+    if not rest:
+        raise SystemExit("launch needs a worker command after '--', e.g. "
+                         "launch --nprocs 2 -- train --zoo lenet ...")
+    if rest[0] not in ("train", "evaluate", "predict", "serve", "summary"):
+        raise SystemExit(f"launch worker command must be a "
+                         f"deeplearning4j_tpu_torch subcommand, got {rest[0]!r}")
+    if args.compile_cache is not None:
+        raise SystemExit("--compile-cache is not ported yet "
+                         f"(ROADMAP {LATER_FLAGS['compile_cache']})")
+    if args.join:
+        from .parallel.distributed import (ENV_CONNECT_TIMEOUT, ENV_COORDINATOR,
+                                           ENV_NUM_PROCESSES, ENV_PROCESS_ID, ENV_RUN_DIR)
+        if args.process_id is None:
+            raise SystemExit("launch --join needs --process-id")
+        if args.coordinator:
+            os.environ[ENV_COORDINATOR] = args.coordinator
+        os.environ[ENV_PROCESS_ID] = str(args.process_id)
+        os.environ[ENV_NUM_PROCESSES] = str(args.nprocs)
+        os.environ[ENV_CONNECT_TIMEOUT] = str(args.connect_timeout)
+        if args.run_dir:
+            os.environ[ENV_RUN_DIR] = args.run_dir
+        return main(rest)
+    from .parallel.launcher import PodLauncher
+
+    run_dir = args.run_dir
+    if not run_dir:
+        import tempfile
+        run_dir = tempfile.mkdtemp(prefix="dl4j_tpu_launch_")
+    trace_dir = None
+    if args.trace:
+        from .obs import trace as obs_trace
+        trace_dir = os.path.join(run_dir, "trace")
+        obs_trace.enable_tracing(path=os.path.join(trace_dir, "launcher.trace.json"),
+                                 process_id=-1, process_name="launcher")
+    chaos = _parse_chaos_worker(args.chaos_worker)
+    launcher = PodLauncher(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch"] + rest,
+        num_workers=args.nprocs, run_dir=run_dir,
+        devices_per_worker=args.devices_per_proc, chaos=chaos or None,
+        bootstrap=args.bootstrap, heartbeat_timeout=args.heartbeat_timeout,
+        max_restarts=args.max_restarts, deadline_s=args.deadline,
+        connect_timeout_s=args.connect_timeout, megascale_slices=args.megascale_slices,
+        trace_dir=trace_dir, grace_s=args.grace, straggler_factor=args.straggler_factor,
+        straggler_beats=args.straggler_beats, straggler_policy=args.straggler_policy,
+        serve=args.serve)
+    print(f"launch: {args.nprocs} worker(s) x "
+          f"{args.devices_per_proc or 'default'} device(s), "
+          f"bootstrap={args.bootstrap}, run dir {run_dir}"
+          + (f", chaos {chaos}" if chaos else ""), flush=True)
+    if args.serve:
+        print("launch: fleet endpoints " + ",".join(launcher.serve_endpoints()), flush=True)
+    report = launcher.run()
+    print(f"launch: completed={report['completed']} "
+          f"restarts={report['restarts']} "
+          f"planned_leaves={report['planned_leaves']} "
+          f"stragglers={len(report['stragglers'])} "
+          f"epoch={report['epoch']} "
+          f"last_ckpt_step={report['last_checkpoint_step']} "
+          f"leaked={report['leaked_killed']} "
+          f"wall={report['wall_seconds']}s")
+    for e in report["events"]:
+        print(f"  [{e['t']:8.2f}s] {e['kind']}"
+              + (f" worker {e['worker']}" if 'worker' in e else "")
+              + (f" ({e['cause']}, rc={e.get('rc')})"
+                 if e['kind'] in ('leave', 'unrecovered') else ""))
+    if args.report:
+        with open(args.report, "w") as f:
+            json.dump({k: v for k, v in report.items() if k != "pod_metrics"}, f,
+                      default=str)
+    if args.trace:
+        merged = launcher.merge_trace(args.trace)
+        if merged is None:
+            print(f"trace: no worker traces found under {trace_dir}")
+        else:
+            print(f"trace: pod timeline ({merged['metadata']['events']} "
+                  f"events) -> {args.trace}")
+    if report["unrecovered"]:
+        print(f"launch: UNRECOVERED workers {report['unrecovered']} — "
+              f"logs under {run_dir}/logs")
+        return 1
     return 0
 
 
@@ -400,12 +862,106 @@ def build_parser() -> argparse.ArgumentParser:
                    help="arm the divergence guard: steps with non-finite "
                    "gradients apply no update; more than BUDGET consecutive "
                    "bad steps raise")
+    t.add_argument("--mesh", metavar="SPEC",
+                   help="train on a mesh of ranks, e.g. 'data=2' or "
+                   "'dcn=2,data=1,compress=threshold' (name=size axes, one "
+                   "-1 inferred from the rank count; schedule=gpipe|1f1b; "
+                   "compress=threshold|bitmap over a dcn axis); needs the "
+                   "ranks of `launch --bootstrap "
+                   "distributed`; the ragged tail batch is dropped")
+    t.add_argument("--elastic-dir", metavar="DIR",
+                   help="checkpoint-restore recovery: rolling checkpoints in "
+                   "DIR, recoverable failures restore the newest intact one "
+                   "and replay from it; a relaunched worker resumes there")
+    t.add_argument("--checkpoint-every", type=int, default=100, metavar="N",
+                   help="checkpoint every N steps with --elastic-dir (default 100)")
+    t.add_argument("--step-timeout", type=float, default=None, metavar="SECONDS",
+                   help="a step slower than this is hung and recovered; also "
+                   "the process group's collective timeout")
+    t.add_argument("--chaos", metavar="SPEC",
+                   help="inject scripted faults into the --elastic-dir run, "
+                   "e.g. 'device_loss@5,ckpt_truncate@9,seed=1,hang=2'")
+    t.add_argument("--grace", type=float, default=None, metavar="SECONDS",
+                   help="preemption grace budget for --elastic-dir runs: on "
+                   "SIGTERM/SIGUSR1 the next step boundary writes an "
+                   "emergency checkpoint and exits 75 (default: "
+                   "DL4J_TPU_GRACE_S, else 30)")
+    t.add_argument("--trace", metavar="PATH",
+                   help="write a Chrome trace of the run's spans to PATH "
+                   "({process} expands to the process index)")
+    t.add_argument("--losses-out", metavar="PATH",
+                   help="with --elastic-dir: write every completed step's "
+                   "(global step, loss) and the training kernels' launch counts "
+                   "as JSON ({process} and {incarnation} expand)")
     for flag in LATER_FLAGS:
         t.add_argument("--" + flag.replace("_", "-"), default=None,
                        help=f"not ported yet (ROADMAP {LATER_FLAGS[flag]})")
     t.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' to run on the CPU)")
     t.set_defaults(fn=cmd_train)
+
+    ln = sub.add_parser(
+        "launch", help="multi-process pod launcher: fork N workers (or join a "
+        "cluster) with heartbeat membership and host leave/join recovery")
+    ln.add_argument("--nprocs", type=int, default=2,
+                    help="number of worker processes (cluster size)")
+    ln.add_argument("--devices-per-proc", type=int, default=None, metavar="K",
+                    help="each worker sees K cards (CUDA_VISIBLE_DEVICES, "
+                    "wrapping around the cards there are)")
+    ln.add_argument("--bootstrap", choices=("replica", "distributed"),
+                    default="replica",
+                    help="'distributed' = workers form one process group; "
+                    "'replica' = independent replicas (default)")
+    ln.add_argument("--run-dir", help="shared run directory for heartbeats/"
+                    "membership/logs (default: a fresh temp dir)")
+    ln.add_argument("--heartbeat-timeout", type=float, default=5.0, metavar="S",
+                    help="a worker whose heartbeat is older than this is "
+                    "declared hung, killed, and relaunched")
+    ln.add_argument("--max-restarts", type=int, default=2,
+                    help="per-worker relaunch budget (host rejoin)")
+    ln.add_argument("--deadline", type=float, default=600.0, metavar="S",
+                    help="overall run deadline; survivors are reaped")
+    ln.add_argument("--connect-timeout", type=float, default=60.0, metavar="S",
+                    help="coordinator bootstrap budget; a dead coordinator "
+                    "raises CoordinatorUnreachableError instead of hanging")
+    ln.add_argument("--megascale-slices", type=int, default=None, metavar="N",
+                    help="export MEGASCALE_NUM_SLICES=N to workers; distributed "
+                    "bootstrap defaults it to --nprocs")
+    ln.add_argument("--grace", type=float, default=30.0, metavar="S",
+                    help="preemption grace budget exported to workers and the "
+                    "launcher's escalation deadline; PREEMPTED exits (75) "
+                    "relaunch without spending the restart budget")
+    ln.add_argument("--straggler-factor", type=float, default=2.0, metavar="K",
+                    help="flag a worker whose step time exceeds K x its peers' "
+                    "median (default 2.0)")
+    ln.add_argument("--straggler-beats", type=int, default=3, metavar="M",
+                    help="consecutive over-threshold heartbeats before a worker "
+                    "is flagged (default 3)")
+    ln.add_argument("--straggler-policy", choices=("off", "flag", "relaunch"),
+                    default="flag", help="what to do with a flagged straggler")
+    ln.add_argument("--chaos-worker", action="append", metavar="I:SPEC",
+                    help="arm worker I with a --chaos spec (repeatable), e.g. "
+                    "'1:proc_kill@10'; only its first incarnation gets it")
+    ln.add_argument("--trace", metavar="PATH",
+                    help="trace every worker and merge the files and the "
+                    "launcher's events into one pod timeline at PATH")
+    ln.add_argument("--serve", action="store_true",
+                    help="assign each worker a stable serve port "
+                    "(DL4J_TPU_SERVE_PORT) and print the endpoints")
+    ln.add_argument("--compile-cache", metavar="DIR",
+                    help=f"not ported yet (ROADMAP {LATER_FLAGS['compile_cache']})")
+    ln.add_argument("--report", metavar="PATH",
+                    help="write the run report (events, restarts, epoch) as JSON")
+    ln.add_argument("--join", action="store_true",
+                    help="join an existing cluster as one worker instead of forking")
+    ln.add_argument("--process-id", type=int, default=None,
+                    help="this host's index (with --join)")
+    ln.add_argument("--coordinator", metavar="HOST:PORT",
+                    help="coordinator address (with --join)")
+    ln.add_argument("worker_args", nargs=argparse.REMAINDER,
+                    help="-- followed by the worker subcommand, e.g. "
+                    "-- train --zoo lenet --data mnist --elastic-dir ckpts")
+    ln.set_defaults(fn=cmd_launch)
 
     e = sub.add_parser("evaluate", help="evaluate a saved model")
     e.add_argument("--model", required=True)

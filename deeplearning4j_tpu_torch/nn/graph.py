@@ -783,15 +783,30 @@ class ComputationGraph:
         → (loss, carries after it).  The state is replaced by the step's."""
         new_s: dict = {}
         loss, grads, carries = self._loss_and_grads(batch, carries, state_out=new_s)
+        self._commit_step(grads, new_s)
+        return loss, carries
+
+    def _commit_step(self, grads, new_s: dict, ok: Optional[Tensor] = None,
+                     apply_updates=None) -> None:
+        """Apply ``grads`` at the current iteration, install the new
+        parameters, updater state and vertex state ``new_s``, and advance
+        the iteration (``MultiLayerNetwork._commit_step`` over vertex
+        dicts).  Where the device flag ``ok`` is false the old trees are
+        kept bitwise; ``apply_updates`` stands in for ``_apply_updates``
+        (a tensor-parallel trainer's, over its slices)."""
         it = self._iter_tensor()
         with torch.no_grad():
-            self.params, self.opt_state = self._apply_updates(grads, self.params,
-                                                              self.opt_state, it)
-            self.state = new_s
+            new_p, new_o = (apply_updates or self._apply_updates)(
+                grads, self.params, self.opt_state, it)
+            if ok is not None:
+                sel = MultiLayerNetwork._select_tree
+                new_p = {n: sel(ok, new_p[n], self.params[n]) for n in self.params}
+                new_o = {n: sel(ok, new_o[n], self.opt_state[n]) for n in self.opt_state}
+                new_s = {n: sel(ok, new_s[n], self.state[n]) for n in self.state}
+            self.params, self.opt_state, self.state = new_p, new_o, new_s
             self._it_dev = it + 1
         self.iteration += 1
         self._it_dev_val = self.iteration
-        return loss, carries
 
     def fit_batch(self, ds) -> LazyScore:
         """One optimization step on one minibatch (one per chunk under

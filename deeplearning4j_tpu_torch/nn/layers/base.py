@@ -63,6 +63,7 @@ def config_to_dict(obj: Any) -> Any:
 _LAZY_CONFIG_PROVIDERS = {
     "TransformerBlock": "deeplearning4j_tpu_torch.models.transformer",
     "PositionalEmbedding": "deeplearning4j_tpu_torch.models.transformer",
+    "MoE": "deeplearning4j_tpu_torch.parallel.moe",
 }
 
 

@@ -48,8 +48,9 @@ def tensor_to_leaf(t: torch.Tensor) -> Tuple[str, np.ndarray]:
 
 
 def leaf_to_tensor(a: np.ndarray, bf16: bool = False) -> torch.Tensor:
-    """Inverse of :func:`tensor_to_leaf`."""
-    a = np.ascontiguousarray(a)
+    """Inverse of :func:`tensor_to_leaf`.  A 0-d leaf stays 0-d
+    (``np.ascontiguousarray`` alone makes it [1])."""
+    a = np.ascontiguousarray(a).reshape(np.shape(a))
     if bf16:
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     return torch.from_numpy(a.copy())

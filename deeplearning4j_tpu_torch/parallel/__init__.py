@@ -20,8 +20,17 @@
     decode programs; ``collectives`` holds the autograd collectives they
     run on
 
-Not ported yet (ROADMAP queue 1 item 7): MoE, inference wrappers and
-the elastic runtime (launcher, chaos, preemption).
+  reference CheckpointListener + Spark task retry
+                                → ``ElasticTrainer`` (checkpoint-restore
+    recovery with backoff and jitter, the step watchdog, async
+    checkpoints), chaos-tested by deterministic fault injection
+    (``chaos``) and announced preemption (``preemption``)
+  the reference's cluster entry point → the pod launcher (``launcher``
+    and the CLI's ``launch``): worker processes with heartbeat
+    membership epochs, relaunch on leave, process-kill chaos, planned
+    leaves that do not spend the restart budget
+  Mixture-of-Experts with expert parallelism → ``moe``
+  ParallelInference → a shim over one ``serving.Engine``
 """
 
 from .collectives import Axis
@@ -37,12 +46,34 @@ from .trainer import ShardedTrainer
 from .transformer import ShardedTransformerLM
 from .ulysses import ulysses_attention, ulysses_self_attention
 
+from .chaos import (ChaosInjector, FaultKind, FaultSchedule, FleetChaos, ServingChaos,
+                    bitflip_file, truncate_file)
+from .distributed import (PREEMPTED_EXIT_CODE, CoordinatorUnreachableError,
+                          probe_multiprocess_support, reinitialize, resolve_process_index)
+from .elastic import (CheckpointManager, ElasticTrainer, FailureDetector,
+                      RecoverableInfraError, StepHangError)
+from .inference import ParallelInference
+from .launcher import (Heartbeat, HostLostError, Membership, MembershipChangedError,
+                       PodLauncher, ProcessFailureDetector, elect_coordinator,
+                       maybe_bootstrap_from_env)
+from .mesh import surviving_mesh
+from .moe import MoE, init_moe_params, moe_forward_dense, moe_forward_ep
+from .preemption import PreemptedError, PreemptionHandler
+
 __all__ = [
-    "Axis", "RankMesh", "SCHEDULES", "ShardedTrainer", "ShardedTransformerLM",
-    "build_mesh", "build_two_tier_mesh", "detect_num_slices", "infer_param_shardings",
+    "Axis", "ChaosInjector", "CheckpointManager", "CoordinatorUnreachableError",
+    "ElasticTrainer", "FailureDetector", "FaultKind", "FaultSchedule", "FleetChaos",
+    "Heartbeat", "HostLostError", "Membership", "MembershipChangedError", "MoE",
+    "PREEMPTED_EXIT_CODE", "ParallelInference", "PodLauncher", "PreemptedError",
+    "PreemptionHandler", "ProcessFailureDetector", "RankMesh", "RecoverableInfraError",
+    "SCHEDULES", "ServingChaos", "ShardedTrainer", "ShardedTransformerLM",
+    "StepHangError", "bitflip_file", "build_mesh", "build_two_tier_mesh",
+    "detect_num_slices", "elect_coordinator", "infer_param_shardings", "init_moe_params",
     "initialize", "is_coordinator", "local_batch_slice", "local_shard",
-    "pipeline_apply", "pipeline_schedule_stats", "process_count", "process_index",
+    "maybe_bootstrap_from_env", "moe_forward_dense", "moe_forward_ep",
+    "pipeline_apply", "pipeline_schedule_stats", "probe_multiprocess_support",
+    "process_count", "process_index", "reinitialize", "resolve_process_index",
     "ring_attention", "ring_self_attention", "shard_axis", "shutdown",
-    "stack_stage_params", "stage_sharding", "ulysses_attention",
-    "ulysses_self_attention", "validate_coordinator_address",
+    "stack_stage_params", "stage_sharding", "surviving_mesh", "truncate_file",
+    "ulysses_attention", "ulysses_self_attention", "validate_coordinator_address",
 ]

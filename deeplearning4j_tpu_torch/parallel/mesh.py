@@ -136,6 +136,32 @@ def build_two_tier_mesh(n_slices: int, axes: Optional[Dict[str, int]] = None,
     return build_mesh({DCN_AXIS: n_slices, **inner}, world_size)
 
 
+def surviving_mesh(alive_slices, n_slices: int, axes: Optional[Dict[str, int]] = None,
+                   world_size: Optional[int] = None) -> RankMesh:
+    """A two-tier mesh over the ranks of the SURVIVING slices only: when a
+    slice leaves, the job goes on over a smaller ``dcn`` axis instead of
+    waiting for the whole pod.  ``alive_slices`` index the ORIGINAL
+    ``n_slices`` slices of ``world_size`` ranks (default: the process
+    group holds the survivors already, ``distributed.reinitialize``,
+    so ``world_size`` is its size scaled back to ``n_slices``).  Restore
+    the newest checkpoint after rebuilding (``ElasticTrainer(rebuild_fn=)``
+    does both)."""
+    alive = sorted(set(int(s) for s in alive_slices))
+    world, _, _ = _world()
+    if world_size is None:
+        world_size = world * n_slices // max(1, len(alive))
+    if n_slices < 1 or world_size % n_slices:
+        raise ValueError(f"{world_size} devices not divisible into "
+                         f"{n_slices} slices")
+    if not alive:
+        raise ValueError("no surviving slices — nothing to rebuild on")
+    if alive[0] < 0 or alive[-1] >= n_slices:
+        raise ValueError(f"alive slices {alive} out of range "
+                         f"[0, {n_slices})")
+    per = world_size // n_slices
+    return build_two_tier_mesh(len(alive), axes, world_size=len(alive) * per)
+
+
 def shard_axis(shape, msize: int, min_size: int = 2) -> Optional[int]:
     """The reference's ``_shard_leaf`` rule for one leaf of ``shape`` on
     a ``model`` axis of ``msize``: the trailing-most axis whose size

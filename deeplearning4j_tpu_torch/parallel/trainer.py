@@ -57,8 +57,9 @@ the compressed path leaves the residual as it was too, so the replicas
 stay equal and the poisoned gradient is not carried into the next step.
 The budget is the network's (``set_nan_guard``, ``DivergenceError``).
 
-A ``model`` axis splits every parameter of a ``MultiLayerNetwork`` by
-the reference's ``_shard_leaf`` rule (``mesh.infer_param_shardings``):
+A ``model`` axis splits every parameter of a ``MultiLayerNetwork`` or a
+``ComputationGraph`` (each vertex's leaves) by the reference's
+``_shard_leaf`` rule (``mesh.infer_param_shardings``):
 a rank keeps only its slice of each split leaf, and of its updater
 state, between steps.  A step all-gathers the slices over ``model``,
 runs the forward and backward on the whole parameters (the ranks of a
@@ -73,8 +74,11 @@ forwarded to a network with a ``schedule`` attribute (a
 ``ShardedTransformerLM``) and ignored otherwise, as in the reference;
 ``seq`` and ``pipe`` axes belong to ``ShardedTransformerLM``.
 
-Not ported (ROADMAP queue 1 item 7): the elastic residual snapshot, and
-the ``model`` axis for a ``ComputationGraph``.
+For the elastic runtime (``parallel/elastic.py``): ``_snapshot_state``
+gathers the whole parameters, updater state and every slice's residual
+(a collective: every rank takes the snapshot, the writer writes it), and
+``_place_model`` re-slices restored whole parameters and updater state
+for the ``model`` axis and re-adopts the restored residual.
 """
 
 from __future__ import annotations
@@ -91,7 +95,7 @@ from ..nn.updaters import (GradientNormalization, _sq_norm, normalize_gradients,
 from ..ops import compression as C
 from ..optimize.score import LazyScore
 from .collectives import Axis, all_gather, all_reduce
-from .distributed import process_count
+from .distributed import detect_num_slices, process_count
 from .mesh import (DATA_AXIS, DCN_AXIS, MODEL_AXIS, RankMesh, build_mesh,
                    build_two_tier_mesh, infer_param_shardings, local_shard)
 from .pipeline import SCHEDULES
@@ -189,18 +193,13 @@ class ShardedTrainer:
                 raise NotImplementedError(
                     f"mesh axis {ax!r} (size {size}): a network trains over the "
                     "data, dcn and model axes; sequence and pipeline parallelism "
-                    "run in ShardedTransformerLM, and the elastic runtime is not "
-                    "ported yet (ROADMAP queue 9)")
+                    "run in ShardedTransformerLM")
         # microbatch order for a network that pipelines over a pipe axis
         # (ShardedTransformerLM); a layer stack without one ignores it
         self.pipeline_schedule = pipeline_schedule
         if hasattr(net, "schedule"):
             net.schedule = pipeline_schedule
         self.n_model = shape.get(model_axis, 1)
-        if self.n_model > 1 and not isinstance(net.params, list):
-            raise NotImplementedError(
-                "the model axis splits a MultiLayerNetwork's parameters; a "
-                "ComputationGraph's is not ported yet (ROADMAP queue 9)")
         if self.mesh.size != process_count():
             raise RuntimeError(
                 f"the mesh spans {self.mesh.size} ranks but the process group has "
@@ -225,11 +224,6 @@ class ShardedTrainer:
             self._model = Axis(self.mesh, model_axis)
             self._dp_groups = [self.mesh.group(a) for a in (data_axis, dcn_axis)
                                if shape.get(a, 1) > 1]
-            full = net.params
-            net.params = self._slices(full)
-            net.opt_state = [self._layer_state_slices(os_, p, sp) for os_, p, sp in
-                             zip(net.opt_state, full, self.shardings)]
-            self.bucketer.template = net.params      # structure only
         #: bytes this rank received from the other slices in the last step's
         #: tier-2 gather (the compressed path's wire)
         self.wire_bytes_last_step = 0
@@ -238,18 +232,62 @@ class ShardedTrainer:
         #: the top-k pack (empty for the other modes)
         self.last_bucket_counts: List[tuple] = []
         self._residual: Optional[Tensor] = None
-        if grad_compression is not None:
-            self._place_residual()
+        self._place_model()
         if self.dp_index:
             net._gen.manual_seed(_rank_seed(net.conf.seed, self.dp_index))
 
+    # -- placement -----------------------------------------------------------
+
+    def _place_model(self) -> None:
+        """Put the network's WHOLE parameters and updater state (at
+        construction, or restored from a checkpoint) on this rank's mesh:
+        its slices of each split leaf over ``model``; and this slice's
+        residual, adopted from ``net.grad_residual`` when it matches."""
+        net = self.net
+        if self.n_model > 1:
+            full = net.params
+            net.params = self._slices(full)
+            net.opt_state = self._map_layers(
+                lambda k, os_, p, sp: self._layer_state_slices(os_, p, sp),
+                net.opt_state, full, self.shardings)
+            self.bucketer.template = net.params      # structure only
+        if self.grad_compression is not None:
+            self._place_residual()
+
+    def _snapshot_state(self):
+        """(params, state, opt_state, residual), whole: the parameters and
+        updater state gathered over ``model``, every slice's residual over
+        ``dcn``.  A collective: every rank calls it (the elastic
+        checkpoint's snapshot)."""
+        residual = self.gather_residual()
+        if self._model is None:
+            return self.net.params, self.net.state, self.net.opt_state, residual
+        return self.gather_params(), self.net.state, self._gather_opt_state(), residual
+
     # -- the model axis ------------------------------------------------------
+
+    def _map_layers(self, fn, *trees):
+        """``fn(key, *layer_subtrees)`` over per-layer trees (a list of
+        layers, or a ComputationGraph's dict of vertices), same container."""
+        first = trees[0]
+        if isinstance(first, dict):
+            return {k: fn(k, *(t[k] for t in trees)) for k in first}
+        return [fn(i, *(t[i] for t in trees)) for i in range(len(first))]
+
+    def _layers(self) -> dict:
+        """key → layer of every layer (vertex) of the network."""
+        if isinstance(self.net.params, dict):
+            from ..nn.graph import _layer_of
+
+            return {s.name: _layer_of(s) for s in self.net.conf.vertices}
+        return dict(enumerate(self.net.conf.layers))
 
     def _slices(self, tree):
         """This rank's slices of a params-shaped tree (per-layer dicts)."""
         n, i = self.n_model, self.mesh.coords.get(self.model_axis, 0)
-        return [tree_map(lambda t, a: local_shard(t, a, n, i), layer, spec)
-                if layer else layer for layer, spec in zip(tree, self.shardings)]
+        return self._map_layers(
+            lambda k, layer, spec: tree_map(lambda t, a: local_shard(t, a, n, i), layer, spec)
+            if layer else layer, tree, self.shardings)
 
     def _layer_state_slices(self, os_, params, spec):
         """A layer's updater state sliced like its parameters (each subtree
@@ -271,17 +309,18 @@ class ShardedTrainer:
         collective over ``model``; the parameters themselves without one)."""
         if self._model is None:
             return self.net.params
-        return [self._gather_layer(l, sp) if l else l
-                for l, sp in zip(self.net.params, self.shardings)]
+        return self._map_layers(lambda k, l, sp: self._gather_layer(l, sp) if l else l,
+                                self.net.params, self.shardings)
 
     def _gather_opt_state(self):
         def like(v, p):
             return (isinstance(v, dict) and [t.shape for t in tree_leaves(v)]
                     == [t.shape for t in tree_leaves(p)])
 
-        return [{k: self._gather_layer(v, sp) if like(v, p) else v
-                 for k, v in os_.items()} if os_ else os_
-                for os_, p, sp in zip(self.net.opt_state, self.net.params, self.shardings)]
+        return self._map_layers(
+            lambda key, os_, p, sp: {k: self._gather_layer(v, sp) if like(v, p) else v
+                                     for k, v in os_.items()} if os_ else os_,
+            self.net.opt_state, self.net.params, self.shardings)
 
     @contextlib.contextmanager
     def _whole(self, opt_state: bool = False):
@@ -326,14 +365,12 @@ class ShardedTrainer:
         from ..nn.conf.regularizers import apply_constraints
 
         net, conf = self.net, self.net.conf
-        g_slices = self._slices(grads)
-        new_p, new_o = [], []
-        for layer, g, p, os_, spec in zip(conf.layers, g_slices, params, opt_state,
-                                          self.shardings):
-            if not p:
-                new_p.append(p)
-                new_o.append(os_)
-                continue
+        layers = self._layers()
+
+        def one(key, g, p, os_, spec):
+            layer = layers.get(key)
+            if layer is None or not p:
+                return p, os_
             if conf.gradient_normalization != GradientNormalization.NONE:
                 g = normalize_gradients(g, conf.gradient_normalization,
                                         conf.gradient_normalization_threshold,
@@ -343,9 +380,12 @@ class ShardedTrainer:
                 whole = apply_constraints(layer.constraints, self._gather_layer(p2, spec))
                 p2 = tree_map(lambda t, a: local_shard(t, a, self.n_model, self._model.index),
                               whole, spec)
-            new_p.append(p2)
-            new_o.append(os2)
-        return new_p, new_o
+            return p2, os2
+
+        pairs = self._map_layers(one, self._slices(grads), params, opt_state, self.shardings)
+        if isinstance(pairs, dict):
+            return ({k: v[0] for k, v in pairs.items()}, {k: v[1] for k, v in pairs.items()})
+        return [v[0] for v in pairs], [v[1] for v in pairs]
 
     # -- collectives -------------------------------------------------------
 
@@ -469,8 +509,9 @@ class ShardedTrainer:
         ranks, in one all-reduce (the compressed path)."""
         import torch.distributed as dist
 
-        leaves = [(i, k) for i, s in enumerate(state) for k in sorted(s)
-                  if s[k].is_floating_point()]
+        keys = list(state) if isinstance(state, dict) else range(len(state))
+        leaves = [(i, k) for i in keys for k in sorted(state[i])
+                  if state[i][k].is_floating_point()]
         if self.mesh.size == 1 or not leaves:
             return state
         dt = (torch.float64 if any(state[i][k].dtype == torch.float64 for i, k in leaves)
@@ -478,7 +519,9 @@ class ShardedTrainer:
         flat = torch.cat([state[i][k].reshape(-1).to(dt) for i, k in leaves])
         dist.all_reduce(flat)
         flat = flat / self.mesh.size
-        out, off = [dict(s) for s in state], 0
+        out = ({i: dict(s) for i, s in state.items()} if isinstance(state, dict)
+               else [dict(s) for s in state])
+        off = 0
         for i, k in leaves:
             t = state[i][k]
             out[i][k] = flat[off:off + t.numel()].reshape(t.shape).to(t.dtype)
@@ -491,7 +534,7 @@ class ShardedTrainer:
         net = self.net
         guard = self.nan_guard is not None
         dense = self.grad_compression is None and self.dp_size > 1
-        new_s: list = []
+        new_s = type(net.state)()
         global_sum = lambda t: _SumOverRanks.apply(t, self._dp_groups)  # noqa: E731
         with (normalization.global_batch(global_sum, self.dp_size) if dense
               else contextlib.nullcontext()), self._whole():

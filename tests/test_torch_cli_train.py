@@ -106,16 +106,156 @@ def test_train_with_the_nan_guard_and_a_zoo_model(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,value,queue", [
-    ("--mesh", "data=2", "queue 1 item 7.5"), ("--prefetch", "2", "queue 1 item 9"),
-    ("--elastic-dir", "ck", "queue 1 item 7.4"), ("--chaos", "x", "queue 1 item 7.4"),
-    ("--checkpoint-every", "5", "queue 1 item 7.4"), ("--step-timeout", "3", "queue 1 item 7.4"),
-    ("--grace", "1", "queue 1 item 7.4"), ("--trace", "t.json", "queue 1 item 9"),
-    ("--compile-cache", "c", "queue 1 item 8"), ("--dashboard", "d.html", "queue 1 item 9")])
+    ("--prefetch", "2", "queue 1 item 9"), ("--compile-cache", "c", "queue 1 item 8"),
+    ("--dashboard", "d.html", "queue 1 item 9")])
 def test_flags_that_wait_for_later_queues_name_them(tmp_path, flag, value, queue):
     spec, _ = _npz(tmp_path)
     with pytest.raises(SystemExit, match=f"not ported yet \\(ROADMAP {queue}"):
         cli.main(["train", "--config", _conf(tmp_path, 10, 4), "--data", spec, flag, value,
                   "--device", "cpu"])
+
+
+#: the flags this slice ports: (extra train arguments; what both CLIs
+#: must agree on)
+PORTED = {
+    "mesh": (["--mesh", "data=1"], "iterations"),
+    "elastic_dir": (["--elastic-dir", "{ck}"], "checkpoints"),
+    "checkpoint_every": (["--elastic-dir", "{ck}", "--checkpoint-every", "2"], "checkpoints"),
+    "chaos": (["--elastic-dir", "{ck}", "--checkpoint-every", "2", "--chaos",
+               "device_loss@4,ckpt_truncate@7,nan_grads@9,seed=1"], "recoveries"),
+    "step_timeout": (["--elastic-dir", "{ck}", "--step-timeout", "100"], "recoveries"),
+    "grace": (["--elastic-dir", "{ck}", "--grace", "5"], "checkpoints"),
+    "trace": (["--trace", "{ck}/t.json"], "trace"),
+}
+
+
+def _elastic_line(out):
+    return next((l.split(",")[0] for l in out.splitlines() if l.startswith("elastic:")), None)
+
+
+@pytest.mark.parametrize("name", list(PORTED))
+def test_ported_train_flags_agree_with_the_reference(tmp_path, capsys, name):
+    """Each flag this slice ports, on both CLIs over the same data and
+    configuration: the same iteration count, the same checkpoint files
+    (``--elastic-dir``), the same count of recoveries (``--chaos``: a
+    device loss, a truncated checkpoint and a poisoned batch, recovered
+    in the port as in the reference), a Chrome trace that passes both
+    validators (``--trace``)."""
+    import os
+
+    from deeplearning4j_tpu.obs.trace import validate_chrome_trace as jvalidate
+    from deeplearning4j_tpu_torch.obs.trace import validate_chrome_trace
+
+    spec, _ = _npz(tmp_path)
+    conf = _conf(tmp_path, 10, 4)
+    extra, what = PORTED[name]
+    outs = {}
+    for who, main in (("port", cli.main), ("ref", jcli.main)):
+        ck = tmp_path / who
+        ck.mkdir()
+        argv = (["train", "--config", conf, "--data", spec, "--batch-size", "16",
+                 "--epochs", "2"] + [a.replace("{ck}", str(ck)) for a in extra])
+        rc, out = _run(main, argv + (["--device", "cpu"] if who == "port" else []), capsys)
+        assert rc == 0, (who, out)
+        outs[who] = (out, sorted(f for f in os.listdir(ck) if f.startswith("checkpoint_")),
+                     ck)
+    (port, port_ck, pdir), (ref, ref_ck, rdir) = outs["port"], outs["ref"]
+    iters = [l.split(", final")[0] for l in port.splitlines() if l.startswith("trained ")]
+    if what == "checkpoints":
+        assert port_ck == ref_ck and port_ck
+    if what == "recoveries":
+        assert _elastic_line(port) == _elastic_line(ref)
+        # the port replays from the restored step, so it ends at the plan's
+        # 12 steps (the reference retries the failed batch and ends short)
+        assert port_ck[-1] == "checkpoint_0000000012.zip"
+        assert iters == ["trained 2 epoch(s), 12 iterations"]
+        return
+    assert iters == [l.split(", final")[0] for l in ref.splitlines()
+                     if l.startswith("trained ")]
+    if what == "trace":
+        for d in (pdir, rdir):
+            obj = json.loads((d / "t.json").read_text())
+            assert validate_chrome_trace(obj) == [] and jvalidate(obj) == []
+
+
+@pytest.mark.parametrize("spec", [
+    "data=4,data=2", "data=0", "data=x", "=4", "data=-1,model=-1", "data=2,schedule=zigzag",
+    "data=2,schedule=1f1b,schedule=gpipe", "dcn=2,compress=gzip", "data=2,compress=threshold",
+    "dcn=2,compress=threshold,compress=bitmap", "data=-2", "dcn=2,compress=threshold:1e-3"])
+def test_mesh_parse_errors_are_the_references(spec):
+    with pytest.raises(SystemExit) as port:
+        cli._parse_mesh(spec, n_ranks=8)
+    with pytest.raises(SystemExit) as ref:
+        jcli._parse_mesh(spec)
+    assert str(port.value) == str(ref.value)
+
+
+def test_mesh_parse_values_are_the_references():
+    import jax
+
+    n = jax.device_count()
+    for spec in ("data=2,model=2", "dcn=2,data=-1,compress=threshold", "data=2,pipe=2,"
+                 "schedule=1f1b", "model=2"):
+        assert cli._parse_mesh(spec, n_ranks=n) == jcli._parse_mesh(spec)
+
+
+@pytest.mark.parametrize("spec", ["", "meteor@3", "device_loss", "device_loss@0",
+                                  "device_loss@x", "seed=x,device_loss@2", "color=2,hung_step@1",
+                                  "seed=3"])
+def test_chaos_parse_errors_are_the_references(spec):
+    with pytest.raises(SystemExit) as port:
+        cli._parse_chaos(spec)
+    with pytest.raises(SystemExit) as ref:
+        jcli._parse_chaos(spec)
+    assert str(port.value) == str(ref.value)
+    with pytest.raises(SystemExit) as port:
+        cli._parse_chaos_worker([f"x:{spec}", "1"])
+    with pytest.raises(SystemExit) as ref:
+        jcli._parse_chaos_worker([f"x:{spec}", "1"])
+    assert str(port.value) == str(ref.value)
+
+
+def test_chaos_needs_an_elastic_dir(tmp_path):
+    spec, _ = _npz(tmp_path)
+    with pytest.raises(SystemExit, match="--chaos needs --elastic-dir"):
+        cli.main(["train", "--config", _conf(tmp_path, 10, 4), "--data", spec, "--chaos",
+                  "device_loss@2", "--device", "cpu"])
+
+
+def test_serve_drains_and_exits_75_on_a_preemption_notice(tmp_path):
+    """``serve`` answers until a SIGTERM, then drains and exits 75."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerConfiguration, MultiLayerNetwork
+
+    with open(_conf(tmp_path, 10, 4)) as f:
+        net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(json.load(f)), device="cpu")
+    net.init()
+    net.save(str(tmp_path / "m.zip"))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.Popen([sys.executable, "-m", "deeplearning4j_tpu_torch", "serve", "--model",
+                          str(tmp_path / "m.zip"), "--port", "0", "--device", "cpu"],
+                         env=dict(os.environ, PYTHONPATH=repo), stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    try:
+        lines = []
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            lines.append(p.stdout.readline())
+            if "listening on" in lines[-1]:
+                break
+        assert "listening on" in lines[-1], "".join(lines)
+        p.send_signal(signal.SIGTERM)
+        out, _ = p.communicate(timeout=60)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    assert p.returncode == 75 and "preemption notice — draining" in out
 
 
 def test_data_errors_are_clean_cli_errors(tmp_path):

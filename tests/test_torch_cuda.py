@@ -54,7 +54,10 @@ two ``fit_batch`` calls under deterministic cuDNN.  ``ShardedTransformerLM``
 on one rank: three f32 steps on the card against the CPU 1e-5 (losses,
 parameters), ``fit_batches(2)`` in bf16 with bf16 Adam moments bitwise
 its eager steps, and decode one-way and over two head shards bitwise
-each program's own re-encode.
+each program's own re-encode.  The elastic runtime: a snapshot of card
+tensors is a host copy (dtype and bits kept) that later steps do not
+move, and a ``fit_batches`` graph captured before a restore replays on
+the restored weights, bitwise an eager run from the checkpoint.
 """
 
 import importlib.util
@@ -1837,3 +1840,95 @@ def test_sharded_lm_decode_on_card_is_bitwise_its_reencode(cuda_dev, tp):
             np.testing.assert_array_equal(r.logits, ref[0, len(p) - 1:].cpu().numpy())
     finally:
         eng.shutdown()
+
+
+# -- the elastic runtime on the card ---------------------------------------------------------
+
+
+def _card_mlp(dev, seed=3):
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import Dense, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    conf = (NeuralNetConfiguration.builder().seed(seed).updater(Adam(lr=0.01))
+            .layer(Dense(n_out=32, activation="tanh"))
+            .layer(OutputLayer(n_out=4, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(16)).build())
+    net = MultiLayerNetwork(conf, device=dev)
+    net.init()
+    return net
+
+
+def _card_batches(dev, k=4, seed=5):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    rng = np.random.default_rng(seed)
+    return [DataSet(torch.from_numpy(rng.standard_normal((64, 16), dtype=np.float32)).to(dev),
+                    torch.from_numpy(np.eye(4, dtype=np.float32)[rng.integers(0, 4, 64)]).to(dev))
+            for _ in range(k)]
+
+
+def test_elastic_snapshot_of_card_tensors_is_a_host_copy(cuda_dev, tmp_path):
+    """The snapshot's tensors live in host memory and keep their dtype
+    (a bf16 leaf bit for bit); the async write lands the values of the
+    step it was taken at, not of the steps after it."""
+    from deeplearning4j_tpu_torch.parallel import CheckpointManager
+    from deeplearning4j_tpu_torch.parallel.elastic import _HostSnapshot
+    from deeplearning4j_tpu_torch.utils.serializer import load_model
+
+    net = _card_mlp(cuda_dev)
+    bs = _card_batches(cuda_dev)
+    net.fit_batch(bs[0])
+    net.params[0]["b"] = net.params[0]["b"].to(torch.bfloat16)
+    snap = _HostSnapshot(net)
+    leaves = [t for layer in snap.params for t in layer.values()]
+    assert all(t.device.type == "cpu" for t in leaves)
+    assert snap.params[0]["b"].dtype == torch.bfloat16
+    assert torch.equal(snap.params[0]["b"], net.params[0]["b"].cpu())
+    net.params[0]["b"] = net.params[0]["b"].float()
+    want = [{k: v.cpu().clone() for k, v in layer.items()} for layer in net.params]
+
+    class Src:
+        def __init__(self, n):
+            self.net = n
+    fut = CheckpointManager(str(tmp_path)).save_async(Src(net), 1)
+    for b in bs:
+        net.fit_batch(b)
+    back = load_model(fut.result(), device="cpu")
+    for a, w in zip(back.params, want):
+        for k in w:
+            assert torch.equal(a[k], w[k])
+
+
+def test_restore_then_fit_batches_graph_replays_on_the_restored_weights(cuda_dev, tmp_path):
+    """A ``fit_batches`` CUDA graph captured before a restore replays on
+    the restored weights: its losses after the restore are bitwise those
+    of a fresh network that loads the checkpoint and runs eagerly."""
+    from deeplearning4j_tpu_torch.parallel import ElasticTrainer
+    from deeplearning4j_tpu_torch.utils.serializer import load_model
+
+    bs = _card_batches(cuda_dev)
+    net = _card_mlp(cuda_dev)
+
+    class Plain:
+        def __init__(self, n):
+            self.net = n
+
+        def fit_batch(self, ds):
+            return self.net.fit_batch(ds)
+    et = ElasticTrainer(Plain(net), str(tmp_path), checkpoint_every=2)
+    net.fit_batches(bs[:2])                        # captures the graph
+    assert net.fit_graph_count == 1
+    et.global_step = 2
+    path = et.ckpt.save(Plain(net), 2)
+    net.fit_batches(bs[2:])                        # replays: moves on
+    et._restore()                                  # rebinds net.params
+    got = [float(l) for l in net.fit_batches(bs[2:])]
+    assert net.fit_graph_count == 1
+    fresh = load_model(path, device=cuda_dev)
+    want = [float(fresh.fit_batch(b)) for b in bs[2:]]
+    assert got == want
+    for a, b in zip(net.params, fresh.params):
+        for k in a:
+            assert torch.equal(a[k], b[k])

@@ -865,3 +865,47 @@ def test_decode_engine_health_drain_and_tag():
 def test_replica_crash_error_is_shared_with_the_decode_engine():
     from deeplearning4j_tpu_torch.serving import decode, engine
     assert decode.ReplicaCrashError is engine.ReplicaCrashError is ReplicaCrashError
+
+
+# -- ParallelInference (parallel/inference.py) ---------------------------------------------
+
+
+def test_parallel_inference_shim_matches_the_reference():
+    """The back-compatible shim: the same weights answer the reference's
+    ``ParallelInference`` within 1e-6 in request order (any leading batch
+    size), concurrent requests fuse, a model error reaches the waiter, and
+    ``shutdown`` fails a late request in both packages."""
+    from deeplearning4j_tpu.parallel import ParallelInference as JPI
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
+    jnet = _jmlp()
+    pi = ParallelInference(_port_of(jnet), max_batch=8, bucket_sizes=[1, 2, 4, 8],
+                           device="cpu")
+    jpi = JPI(jnet, max_batch=8, bucket_sizes=[1, 2, 4, 8])
+    assert pi.buckets == jpi.buckets == [1, 2, 4, 8]
+    rng = np.random.default_rng(3)
+    xs = [rng.normal(size=(1 + i % 5, 12)).astype(np.float32) for i in range(10)]
+    futs = [pi.output_async(x) for x in xs]
+    for x, f in zip(xs, futs):
+        np.testing.assert_allclose(f.result(timeout=30), jpi.output(x), rtol=0, atol=1e-6)
+    big = rng.normal(size=(11, 12)).astype(np.float32)     # past max_batch
+    np.testing.assert_allclose(pi.output(big), jpi.output(big), rtol=0, atol=1e-6)
+    for shim in (pi, jpi):
+        shim.shutdown()
+        with pytest.raises(RuntimeError):
+            shim.output_async(xs[0]).result(timeout=10)
+
+
+def test_parallel_inference_propagates_model_errors():
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
+    class Broken:
+        def output(self, x):
+            raise ValueError("bad model")
+
+    pi = ParallelInference(Broken(), max_batch=4, device="cpu")
+    try:
+        with pytest.raises(ValueError, match="bad model"):
+            pi.output(np.zeros((2, 3), np.float32))
+    finally:
+        pi.shutdown()
