@@ -8,6 +8,8 @@
                                            # phase alone (no result line)
     python3 chip_smoke.py --phase elastic  # the build and the elastic
                                            # phase alone (no result line)
+    python3 chip_smoke.py --phase predict_features  # the build and the
+                                           # predict_features phase alone
 
 It builds every CUDA kernel of the port from ``deeplearning4j_tpu_torch/csrc``
 with ``nvcc`` (one process per source, started together), then drives the
@@ -78,6 +80,47 @@ and the recurrent path's training and streaming:
           torch.profiler trace of one replay per bucket.  Prints requests/s, e2e p50/p99,
           and per bucket a replay's and the eager forward's time (CUDA
           events, one call) and the rows' copy to the host;
+  predict_features  the predict engine's features over the same network.
+          (a) ``Engine(replicas=2, max_batch=4)`` loaded with
+          ``quantize="int8"`` (calibrated on 4 seeded rows of ids: the
+          head's W, the one 2-D ``W`` leaf a matmul uses, becomes an
+          ``Int8Weight`` served through ``torch._int_mm``), 16 requests of
+          1-3 rows from 4 threads: graphs flat at 6, no capture and no
+          unwarmed serve while serving, K1 12 per replay (counter and a
+          trace), every row bitwise the eager quantized forward of its
+          bucket, the head's int32 accumulator on the card bitwise the
+          CPU's ``_int_mm`` on the same int8 operands (64 rows), every
+          request within 0.05 relative of the f32 network (the
+          reference's envelope; top-1 agreement printed); the f32 and int8
+          head products at bucket 4 timed against their bounds.  (b) the
+          Iris MLP in f32 and ``init_pretrained_int8`` on the 150 Iris rows
+          placed on that engine while GPT-2 traffic flows: each request
+          bitwise its own model's eager bucket, 6 programs per model
+          before and after, a batch never mixes models, int8 accuracy
+          > 0.97 and agreement with f32 >= 0.99, an unplaced name answers
+          HTTP 404 ``model_not_loaded``, ``remove_model`` strands no
+          future.  (c) tenants at weights 3:1 with quotas on an Iris
+          engine: a 64-request burst of the light tenant, the heavy one's
+          e2e p99 below the burst's and all its requests in the first half
+          of the batches; 16 threads racing a ``DynamicBatcher``'s quotas
+          (5/3/7) are admitted exactly to the caps; over a QPS quota HTTP
+          answers 429 ``tenant_overloaded``.  (g) /metrics with both
+          engines: the ``registry`` key holds both collectors, every
+          histogram ``buckets_ms`` and ``counts``.  (f) GPT-2 f32, one
+          replica: ``save_warmup_bundle``; a fresh engine with
+          ``load(warm_bundle=)`` counts 3 hits and 0 misses and serves
+          bitwise the first; a corrupted bundle warns once, counts 3
+          misses, serves bitwise; ``load()`` seconds of each.  (d)
+          ``enable_autoscale`` (1-2 replicas) under a burst of 24 requests:
+          a born replica captures its 3 graphs before it is routable, then
+          serves; idle retires it; 3 graphs a replica throughout, no
+          unwarmed serve, no capture on a replica thread, K1 12 per replay.
+          (e) v1 → v2 (the weights nudged by 1e-4) through
+          ``set_alias(canary=0.5, canary_window=4)`` under traffic, then a
+          v3 whose head bias is NaN: v2 promoted, v3 rolled back,
+          ``canary_history`` holds both, 12 captures in all, none on a
+          replica thread, no unwarmed serve, users never see a non-finite
+          row;
   http    ``UIServer`` on 127.0.0.1 at an ephemeral port with an ``Engine``
           over the repository's Iris MLP checkpoint and a ``DecodeEngine``
           over the TransformerLM: POST /predict bitwise the engine's direct
@@ -399,6 +442,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1785,6 +1829,633 @@ def phase_predict(net):
     if not ok:
         raise AssertionError("predict phase failed")
     return rec
+
+
+# -- predict_features phase ------------------------------------------------------------
+
+PF_REQUESTS, PF_CLIENTS = 16, 4
+PF_BURST, PF_RACE_THREADS, PF_RACE_PER_THREAD = 64, 16, 9
+PF_RACE_CAPS = {"t0": 5, "t1": 3, "t2": 7}
+PEAK_INT8_OPS = 1979e12          # H100 SXM int8 tensor cores, dense (data sheet)
+
+
+class GraphSpy:
+    """Counts ``ForwardGraph`` replays and captures (the thread of each
+    capture too) for the length of a ``with`` block, so a window's K1
+    launches can be held to 12 per replay and 24 per capture's two eager
+    warm-up forwards, even on graphs released inside the window."""
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.serving import cuda_graphs as cg
+        self.cg, self.replays, self.captures = cg, 0, []
+        self._call, self._init = cg.ForwardGraph.__call__, cg.ForwardGraph.__init__
+        spy = self
+
+        def call(g, *a, **k):
+            spy.replays += 1
+            return spy._call(g, *a, **k)
+
+        def init(g, *a, **k):
+            spy.captures.append(threading.current_thread().name)
+            return spy._init(g, *a, **k)
+        cg.ForwardGraph.__call__, cg.ForwardGraph.__init__ = call, init
+        return self
+
+    def __exit__(self, *exc):
+        self.cg.ForwardGraph.__call__ = self._call
+        self.cg.ForwardGraph.__init__ = self._init
+
+    def served_captures(self) -> int:
+        """Captures made on a replica thread: a capture at serve time."""
+        return sum(name.startswith("engine-replica-") for name in self.captures)
+
+
+def run_clients(eng, xs, clients=PF_CLIENTS, **kw):
+    """``xs`` through ``eng.output_async`` from ``clients`` threads →
+    (futures, results, errors, wall s)."""
+    futs, outs, errors = [None] * len(xs), [None] * len(xs), []
+
+    def client(k):
+        for i in range(k, len(xs), clients):
+            futs[i] = eng.output_async(xs[i], **kw)
+            try:
+                outs[i] = futs[i].result(timeout=600)
+            except Exception as e:   # gated: every future completes
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return futs, outs, errors, time.perf_counter() - t0
+
+
+def bitwise_buckets(eng, model, xs, futs, outs, log0):
+    """Every request's rows bitwise the eager forward of ``model`` over the
+    padded bucket it was served in (from ``batch_log``'s request ids)."""
+    import numpy as np
+    import torch
+    index = {id(f): i for i, f in enumerate(futs) if f is not None}
+    ok, n = True, 0
+    for b in eng.batch_log[log0:]:
+        members = [index[r] for r in b["request_ids"] if r in index]
+        if not members:
+            continue
+        x = np.concatenate([xs[i] for i in members])
+        y = eager_bucket(model, x, b["rows"] + b["padded"])
+        ofs = 0
+        for i in members:
+            got = torch.from_numpy(outs[i]).to("cuda")
+            ok = ok and torch.equal(got, y[ofs:ofs + xs[i].shape[0]].float())
+            ofs += xs[i].shape[0]
+            n += 1
+        del y
+    return ok and n > 0
+
+
+def int8_head_times(w_f32, q):
+    """The head product at bucket 4 ([4096, 768] x [768, 50304]) in f32 and
+    in int8 (``Int8Weight``: quantize, ``torch._int_mm``, dequantize):
+    device ms, bound ms and what binds."""
+    import torch
+    m, k, n = 4 * MAX_LEN, D_MODEL, VOCAB
+    x = torch.randn(4, MAX_LEN, k, device="cuda") * 0.5
+    flops = 2.0 * m * k * n
+    f32 = {"ms": device_ms(lambda: x @ w_f32, iters=10)}
+    f32["bound_ms"], f32["bound_by"] = bound(flops, (m * k + k * n + m * n) * 4, "float32")
+    i8 = {"ms": device_ms(lambda: x @ q, iters=10)}
+    nbytes = m * k * 4 + k * n + n * 4 + m * n * 4      # x, W int8, scales in; y out
+    t_ops, t_bytes = flops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    i8["bound_ms"], i8["bound_by"] = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                                           else "bytes")
+    # the accumulator's round trip, which the product's own layout adds
+    i8["with_int32_accumulator_ms"] = (nbytes + 2 * m * n * 4) / PEAK_BYTES * 1e3
+    return {"f32": f32, "int8": i8}
+
+
+def pf_int8(net, rng):
+    """(a) ``Engine(GPT-2-small, replicas=2, max_batch=4)`` loaded int8."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.ops.quantize import Int8Weight
+    from deeplearning4j_tpu_torch.serving import Engine
+
+    calib = rng.integers(0, VOCAB, (4, MAX_LEN)).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(net, max_batch=4, replicas=2, slo_ms=600_000, device="cuda").load(
+        input_shape=(MAX_LEN,), quantize="int8", calibration_inputs=calib)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    qm = eng._current.model
+    head = len(qm.params) - 1
+    q = qm.params[head]["W"]
+    graphs_before = eng.compile_cache_size()
+    xs = [rng.integers(0, VOCAB, (1 + (5 * i) % 3, MAX_LEN)).astype(np.float32)
+          for i in range(PF_REQUESTS)]
+    log0 = len(eng.batch_log)
+    with GraphSpy() as spy:
+        att.flash_forward_cuda.launches = 0
+        futs, outs, errors, wall = run_clients(eng, xs)
+        k1 = att.flash_forward_cuda.launches
+    graphs_after = eng.compile_cache_size()
+    snap = eng.metrics_snapshot()
+    bitwise = bitwise_buckets(eng, qm, xs, futs, outs, log0)
+    # against the f32 network: the reference's relative envelope, top-1
+    rel, agree, rows = 0.0, 0, 0
+    for x, y in zip(xs, outs):
+        y32 = net.output(x)
+        y8 = torch.from_numpy(y).to("cuda")
+        rel = max(rel, float((y8 - y32).abs().max() / y32.abs().max()))
+        agree += int((y8.argmax(-1) == y32.argmax(-1)).sum())
+        rows += y8.shape[0] * y8.shape[1]
+        del y32, y8
+    # the head's int32 accumulator on the card against the CPU's _int_mm on
+    # the same int8 operands (64 rows of a request's head input)
+    with torch.inference_mode():
+        h = qm._apply_layers(qm.params, qm.state, torch.from_numpy(xs[0]).cuda(), None,
+                             train=False, upto=head)[0]
+        xq = q.quantize_input(h).reshape(-1, D_MODEL)[:64]
+        acc_card = q.int_mm(xq).cpu()
+        acc_cpu = q.to("cpu").int_mm(xq.cpu())
+    acc_bitwise = bool(torch.equal(acc_card, acc_cpu))
+    programs = dict(eng._current.programs)
+    timing = {}
+    for bucket in PREDICT_BUCKETS:
+        g = programs[(0, bucket, "float32")]
+        with torch.inference_mode(), torch.cuda.stream(g.stream):
+            g.input.copy_(torch.from_numpy(rng.integers(0, VOCAB, (bucket, MAX_LEN))
+                                           .astype(np.float32)).cuda())
+            timing[bucket] = {"replay_ms": cuda_ms(g.graph.replay, 5)}
+    traced = traced_replay_k1(programs[(0, 4, "float32")])
+    head_times = int8_head_times(net.params[head]["W"], q)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec = {"arm": "a_int8", "load_s": load_s, "graphs_before": graphs_before,
+           "graphs_after": graphs_after, "replays": spy.replays, "k1": k1,
+           "k1_per_replay": k1 / max(spy.replays, 1), "k1_traced_per_replay": traced,
+           "unwarmed_serves": snap["counters"]["unwarmed_serves"], "errors": errors,
+           "bitwise_eager_quantized_bucket": bitwise, "int32_acc_card_bitwise_cpu": acc_bitwise,
+           "max_rel_diff_vs_f32": rel, "top1_agreement_vs_f32": agree / rows,
+           "requests_per_s": len(xs) / wall, "e2e_p50_ms": snap["e2e_ms"]["p50_ms"],
+           "e2e_p99_ms": snap["e2e_ms"]["p99_ms"], "per_bucket": timing,
+           "head_product": head_times, "peak_gib": peak_gib,
+           "int8_leaves": sum(isinstance(v, Int8Weight) for p in qm.params for v in p.values())}
+    bad = []
+    if not (graphs_before == graphs_after == 6 and rec["unwarmed_serves"] == 0 and not errors
+            and spy.captures == [] and spy.replays > 0 and k1 == LAYERS * spy.replays
+            and traced == LAYERS):
+        bad.append(f"a: graphs {graphs_before}/{graphs_after}, k1 {k1} over {spy.replays} "
+                   f"replays (traced {traced}), errors {errors[:2]}")
+    if not (bitwise and acc_bitwise and rel < 0.05 and rec["int8_leaves"] == 1):
+        bad.append(f"a: bitwise {bitwise}, acc {acc_bitwise}, rel {rel}, "
+                   f"int8 leaves {rec['int8_leaves']}")
+    return eng, rec, bad
+
+
+def pf_named(eng, rng, tmp):
+    """(b) the Iris MLP in f32 and int8 placed beside the int8 GPT-2 while it
+    serves; an unplaced name over HTTP; a removal that strands nothing."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets.fetchers import load_iris
+    from deeplearning4j_tpu_torch.models import pretrained
+    from deeplearning4j_tpu_torch.serving import ModelNotLoadedError
+    from deeplearning4j_tpu_torch.ui import UIServer
+    from deeplearning4j_tpu_torch.utils.serializer import load_model
+
+    xs_all, ys = load_iris()
+    iris = load_model(os.path.join(REPO, IRIS_ZIP), device="cuda")
+    iris8 = pretrained.init_pretrained_int8("iris_mlp", "iris", calibration_inputs=xs_all,
+                                            cache_dir=tmp, device="cuda")
+    stop, gpt_errors, gpt_done = threading.Event(), [], []
+
+    def gpt_traffic():
+        while not stop.is_set():
+            try:
+                gpt_done.append(eng.output(rng.integers(0, VOCAB, (1, MAX_LEN))
+                                           .astype(np.float32)).shape)
+            except Exception as e:
+                gpt_errors.append(repr(e))
+    t = threading.Thread(target=gpt_traffic)
+    t.start()
+    try:
+        eng.add_model("iris", iris)
+        eng.add_model("iris_int8", iris8)
+        counts0 = {m: eng.compile_cache_size(model=m) for m in ("iris", "iris_int8")}
+        xs = [xs_all[i:i + 1 + i % 3] for i in range(0, 120, 5)]
+        names = ["iris" if i % 2 else "iris_int8" for i in range(len(xs))]
+        log0 = len(eng.batch_log)
+        futs = [eng.output_async(x, model=m) for x, m in zip(xs, names)]
+        outs = [f.result(timeout=120) for f in futs]
+        ok_f = bitwise_buckets(eng, iris, [x if m == "iris" else None for x, m in
+                                           zip(xs, names)],
+                               [f if m == "iris" else None for f, m in zip(futs, names)],
+                               outs, log0)
+        ok_q = bitwise_buckets(eng, iris8, xs, [f if m == "iris_int8" else None
+                                                for f, m in zip(futs, names)], outs, log0)
+        one_model = all(b["model"] in ("iris", "iris_int8") or b["model"] is None
+                        for b in eng.batch_log[log0:])
+        # accuracy and agreement over the 150 rows, served
+        f32 = np.concatenate([eng.output(xs_all[i:i + 4], model="iris")
+                              for i in range(0, 150, 4)])
+        i8 = np.concatenate([eng.output(xs_all[i:i + 4], model="iris_int8")
+                             for i in range(0, 150, 4)])
+        acc8, agree = float((i8.argmax(1) == ys).mean()), float((i8.argmax(1)
+                                                                 == f32.argmax(1)).mean())
+        counts1 = {m: eng.compile_cache_size(model=m) for m in ("iris", "iris_int8")}
+        server = UIServer(port=0, host="127.0.0.1").attach_engine(eng).start()
+        try:
+            code, r = http_call(f"http://127.0.0.1:{server.port}/predict",
+                                {"inputs": xs_all[:1].tolist(), "model": "nope"})
+        finally:
+            server.stop()
+        late = [eng.output_async(xs_all[i:i + 2], model="iris") for i in range(8)]
+        removed = eng.remove_model("iris")
+        # every future resolves: served before the removal, or typed after
+        late_kinds = sorted({"ok" if f.exception(timeout=60) is None
+                             else type(f.exception()).__name__ for f in late})
+        late_done = all(f.done() for f in late)
+        try:
+            eng.output(xs_all[:1], model="iris")
+            gone = False
+        except ModelNotLoadedError:
+            gone = True
+    finally:
+        stop.set()
+        t.join(timeout=600)
+    rec = {"arm": "b_named", "programs_before": counts0, "programs_after": counts1,
+           "bitwise_f32": ok_f, "bitwise_int8": ok_q, "one_model_a_batch": one_model,
+           "iris_int8_accuracy": acc8, "iris_int8_agreement_f32": agree,
+           "http_unplaced": [code, r.get("error_class")], "removed": removed,
+           "late_requests_done": late_done, "late_outcomes": late_kinds,
+           "removed_then_404": gone, "gpt2_requests_meanwhile": len(gpt_done),
+           "gpt2_errors": gpt_errors, "models": eng.placed_models()}
+    bad = []
+    if not (counts0 == counts1 == {"iris": 6, "iris_int8": 6} and ok_f and ok_q and one_model
+            and acc8 > 0.97 and agree >= 0.99 and code == 404
+            and r.get("error_class") == "model_not_loaded" and removed and late_done
+            and gone and not gpt_errors and len(gpt_done) > 0):
+        bad.append(f"b: {rec}")
+    return rec, bad
+
+
+def pf_tenants(rng):
+    """(c) two tenants at weights 3:1 with quotas on the Iris MLP; the light
+    one bursts; 16 threads race the caps; over quota is 429."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import (DynamicBatcher, Engine, TenantOverloadedError,
+                                                  TenantTable)
+    from deeplearning4j_tpu_torch.ui import UIServer
+    from deeplearning4j_tpu_torch.utils.serializer import load_model
+
+    iris = load_model(os.path.join(REPO, IRIS_ZIP), device="cuda")
+    table = TenantTable.from_specs([
+        {"tenant": "gold", "weight": 3.0, "quota_concurrent": 16},
+        {"tenant": "free", "weight": 1.0, "quota_concurrent": PF_BURST},
+        {"tenant": "metered", "quota_qps": 1, "burst": 1}])
+    eng = Engine(iris, max_batch=4, replicas=2, slo_ms=60_000, max_wait_ms=1.0,
+                 device="cuda", tenants=table).load()
+    x = iris_data(1)[0]
+    lat = {"gold": [], "free": []}
+
+    def timed_submit(tenant):
+        t0 = time.perf_counter()
+        f = eng.output_async(x, tenant=tenant)
+        f.add_done_callback(lambda _f: lat[tenant].append((time.perf_counter() - t0) * 1e3))
+        return f
+    log0 = len(eng.batch_log)
+    burst = [timed_submit("free") for _ in range(PF_BURST)]
+    gold = [timed_submit("gold") for _ in range(8)]
+    for f in burst + gold:
+        f.result(timeout=60)
+    ids = {id(f) for f in gold}
+    order = [i in ids for b in eng.batch_log[log0:] for i in b["request_ids"]]
+    last_gold = max(k for k, g in enumerate(order) if g)
+    p99 = {t: float(np.percentile(v, 99)) for t, v in lat.items()}
+    # the quota race on the engine's front door (its DynamicBatcher kind)
+    caps_table = TenantTable.from_specs([{"tenant": k, "quota_concurrent": v}
+                                         for k, v in PF_RACE_CAPS.items()])
+    b = DynamicBatcher(max_batch=4, slo_ms=10_000, max_queue=10_000, tenants=caps_table)
+    start = threading.Barrier(PF_RACE_THREADS)
+    admitted, shed, lock = [], [], threading.Lock()
+
+    def pump(tid):
+        tenant = f"t{tid % 3}"
+        start.wait()
+        for _ in range(PF_RACE_PER_THREAD):
+            try:
+                b.submit(x, tenant=tenant)
+                with lock:
+                    admitted.append(tenant)
+            except TenantOverloadedError as e:
+                with lock:
+                    shed.append((tenant, e.tenant))
+    threads = [threading.Thread(target=pump, args=(i,)) for i in range(PF_RACE_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+    b.close(fail_pending=True)
+    race = {k: admitted.count(k) for k in PF_RACE_CAPS}
+    server = UIServer(port=0, host="127.0.0.1").attach_engine(eng).start()
+    try:
+        url = f"http://127.0.0.1:{server.port}/predict"
+        first = http_call(url, {"inputs": x.tolist(), "tenant": "metered"})
+        second = http_call(url, {"inputs": x.tolist(), "tenant": "metered"})
+    finally:
+        server.stop()
+    rec = {"arm": "c_tenants", "burst": PF_BURST, "gold_requests": len(gold),
+           "e2e_p99_ms": p99, "last_gold_position": last_gold, "served": len(order),
+           "race_admitted": race, "race_caps": PF_RACE_CAPS,
+           "race_shed_typed": all(a == b_ for a, b_ in shed),
+           "over_quota": [first[0], second[0], second[1].get("error_class"),
+                          second[1].get("tenant"), second[1].get("reason")],
+           "tenants": eng.metrics_snapshot()["tenants"]}
+    bad = []
+    if not (p99["gold"] < p99["free"] and last_gold < len(order) // 2 and race == PF_RACE_CAPS
+            and rec["race_shed_typed"] and len(admitted) + len(shed)
+            == PF_RACE_THREADS * PF_RACE_PER_THREAD
+            and first[0] == 200 and second[0] == 429
+            and second[1].get("error_class") == "tenant_overloaded"
+            and table.concurrent("gold") == table.concurrent("free") == 0):
+        bad.append(f"c: {rec}")
+    return eng, rec, bad
+
+
+def pf_metrics(engines):
+    """(g) /metrics with both engines attached: the ``registry`` key holds
+    each engine's collector, every histogram has ``buckets_ms`` and
+    ``counts``."""
+    from deeplearning4j_tpu_torch.ui import UIServer
+    server = UIServer(port=0, host="127.0.0.1")
+    for e in engines:
+        server.attach_engine(e)
+    server.start()
+    try:
+        code, m = http_call(f"http://127.0.0.1:{server.port}/metrics")
+    finally:
+        server.stop()
+    names = [e.metrics.global_name for e in engines]
+    hists = [s[k] for s in m.get("serving", []) for k in ("queue_wait_ms", "device_time_ms",
+                                                          "e2e_ms")]
+    ok = (code == 200 and "registry" in m
+          and all(n in m["registry"]["collected"] for n in names)
+          and len(hists) == 3 * len(engines)
+          and all("buckets_ms" in h and "counts" in h and sum(h["counts"]) == h["count"]
+                  for h in hists))
+    rec = {"arm": "g_metrics", "status": code, "collectors": names,
+           "registry_collected": sorted(m.get("registry", {}).get("collected", {})),
+           "histograms_with_buckets": len(hists)}
+    return rec, ([] if ok else [f"g: {rec}"])
+
+
+def pf_bundle(net, rng, tmp):
+    """(f) ``save_warmup_bundle``, a fresh engine ``load(warm_bundle=)``, and
+    a corrupted bundle (GPT-2-small f32, one replica)."""
+    import warnings
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import Engine
+
+    xs = [rng.integers(0, VOCAB, (r, MAX_LEN)).astype(np.float32) for r in (1, 3)]
+    path = os.path.join(tmp, "gpt2.zip.warm")
+    loads, outs, counts, warned = {}, {}, {}, {}
+    for arm in ("first", "bundle", "corrupt"):
+        if arm == "corrupt":
+            with open(path, "r+b") as f:
+                f.seek(os.path.getsize(path) // 2)
+                f.write(b"\x00" * 64)
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            eng = Engine(net, max_batch=4, replicas=1, slo_ms=600_000, device="cuda").load(
+                input_shape=(MAX_LEN,), warm_bundle=None if arm == "first" else path)
+            loads[arm] = time.perf_counter() - t0
+        warned[arm] = sum(issubclass(x.category, RuntimeWarning) for x in w)
+        try:
+            outs[arm] = [eng.output(x) for x in xs]
+            counts[arm] = {k: int(eng.metrics.counter_value(k))
+                           for k in ("bundle_hits", "bundle_misses", "unwarmed_serves")}
+            if arm == "first":
+                eng.save_warmup_bundle(path)
+        finally:
+            eng.shutdown()
+    same = {a: all(np.array_equal(u, v) for u, v in zip(outs[a], outs["first"]))
+            for a in ("bundle", "corrupt")}
+    rec = {"arm": "f_bundle", "load_s": loads, "counters": counts, "warnings": warned,
+           "bitwise_first": same}
+    ok = (counts["first"]["bundle_misses"] == 3 and counts["bundle"] == {
+        "bundle_hits": 3, "bundle_misses": 0, "unwarmed_serves": 0}
+          and counts["corrupt"]["bundle_misses"] == 3 and counts["corrupt"]["bundle_hits"] == 0
+          and warned == {"first": 0, "bundle": 0, "corrupt": 1} and all(same.values()))
+    return rec, ([] if ok else [f"f: {rec}"])
+
+
+def pf_autoscale(net, rng):
+    """(d) ``enable_autoscale`` with bounds 1-2 over GPT-2-small f32."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.serving import Engine
+
+    eng = Engine(net, max_batch=4, replicas=1, slo_ms=600_000, device="cuda").load(
+        input_shape=(MAX_LEN,))
+    births = []
+    real = eng._rewarm_replica
+
+    def watch(idx):
+        routable = idx < len(eng._replicas)
+        t0 = time.perf_counter()
+        real(idx)
+        births.append({"replica": idx, "routable_before_capture": routable,
+                       "graphs_after_capture": eng.compile_cache_size(),
+                       "capture_s": time.perf_counter() - t0})
+    eng._rewarm_replica = watch
+    try:
+        per_replica = eng.compile_cache_size()
+        eng.enable_autoscale(min_replicas=1, max_replicas=2, up_load=2.0, down_load=0.5,
+                             up_ticks=2, down_ticks=5, cooldown_s=1.0, interval_s=0.1)
+        xs = [rng.integers(0, VOCAB, (1 + i % 3, MAX_LEN)).astype(np.float32)
+              for i in range(24)]
+        with GraphSpy() as spy:
+            att.flash_forward_cuda.launches = 0
+            t0 = time.perf_counter()
+            futs = [eng.output_async(x) for x in xs]
+            errors = []
+            for f in futs:
+                try:
+                    f.result(timeout=600)
+                except Exception as e:
+                    errors.append(repr(e))
+            burst_s = time.perf_counter() - t0
+            k1 = att.flash_forward_cuda.launches
+        peak = {"replicas": len(eng._replicas), "graphs": eng.compile_cache_size()}
+        deadline = time.monotonic() + 30
+        while eng.metrics.counter_value("scale_downs") < 1 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        c = eng.metrics_snapshot()["counters"]
+        by_replica = {}
+        for b in eng.batch_log:
+            by_replica[b["replica"]] = by_replica.get(b["replica"], 0) + 1
+        rec = {"arm": "d_autoscale", "births": births, "burst_s": burst_s, "peak": peak,
+               "after": {"replicas": len(eng._replicas), "graphs": eng.compile_cache_size()},
+               "scale_ups": c["scale_ups"], "scale_downs": c["scale_downs"],
+               "unwarmed_serves": c["unwarmed_serves"], "batches_by_replica": by_replica,
+               "replays": spy.replays, "captures": len(spy.captures),
+               "served_captures": spy.served_captures(), "k1": k1, "errors": errors}
+    finally:
+        eng.shutdown()
+    ok = (c["scale_ups"] >= 1 and c["scale_downs"] >= 1 and c["unwarmed_serves"] == 0
+          and births and not births[0]["routable_before_capture"]
+          and births[0]["graphs_after_capture"] == 2 * per_replica == 6
+          and peak["graphs"] == per_replica * peak["replicas"]
+          and rec["after"] == {"replicas": 1, "graphs": per_replica}
+          and by_replica.get(1, 0) > 0 and spy.served_captures() == 0 and not errors
+          and k1 == LAYERS * (spy.replays + 2 * len(spy.captures)))
+    return rec, ([] if ok else [f"d: {rec}"])
+
+
+def perturbed(net, fill_nan=False, seed=SEED + 60):
+    """Another version of ``net``: the same network object's configuration,
+    its parameters cloned on the card and nudged by 1e-4 of noise (or the
+    head's bias NaN)."""
+    import copy
+
+    import torch
+    other = copy.copy(net)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    other.params = [{k: v + 1e-4 * torch.randn(v.shape, generator=gen, device="cuda")
+                     for k, v in p.items()} for p in net.params]
+    if fill_nan:
+        other.params[-1]["b"] = torch.full_like(other.params[-1]["b"], float("nan"))
+    return other
+
+
+def pf_canary(net, rng):
+    """(e) v1 → v2 of GPT-2-small through ``set_alias(canary=0.5,
+    canary_window=4)``, then a NaN-poisoned v3."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.serving import Engine, ModelRegistry
+
+    reg = ModelRegistry(device="cuda")
+    v1 = reg.register("gpt2", net)
+    v2 = reg.register("gpt2", perturbed(net))
+    v3 = reg.register("gpt2", perturbed(net, fill_nan=True))
+    reg.set_alias("gpt2", "prod", v1)
+    eng = Engine.from_registry(reg, "gpt2", "prod", max_batch=4, replicas=2,
+                               slo_ms=600_000, max_wait_ms=1.0, device="cuda").load(
+        input_shape=(MAX_LEN,))
+    stop, errors, served = threading.Event(), [], []
+
+    def traffic():
+        while not stop.is_set():
+            try:
+                y = eng.output_async(rng.integers(0, VOCAB, (1, MAX_LEN)).astype(np.float32)
+                                     ).result(timeout=120)
+                served.append(bool(np.isfinite(y).all()))
+            except Exception as e:
+                errors.append(repr(e))
+    threads = [threading.Thread(target=traffic) for _ in range(2)]
+    try:
+        with GraphSpy() as spy:
+            att.flash_forward_cuda.launches = 0
+            for t in threads:
+                t.start()
+            good = reg.set_alias("gpt2", "prod", v2, canary=0.5, canary_window=4,
+                                 canary_timeout_s=120)
+            bad_rec = reg.set_alias("gpt2", "prod", v3, canary=0.5, canary_window=4,
+                                    canary_timeout_s=120)
+            stop.set()
+            for t in threads:
+                t.join(timeout=600)
+            k1 = att.flash_forward_cuda.launches
+        c = eng.metrics_snapshot()["counters"]
+        rec = {"arm": "e_canary", "promoted_v2": good["promoted"],
+               "v2_decision": good["decisions"][0], "promoted_v3": bad_rec["promoted"],
+               "v3_decision": bad_rec["decisions"][0],
+               "history": [(r["to"], r["promoted"]) for r in reg.canary_history("gpt2")],
+               "current": eng.current_tag, "alias": reg.resolve("gpt2", "prod")[0],
+               "graphs": eng.compile_cache_size(), "captures": len(spy.captures),
+               "served_captures": spy.served_captures(), "replays": spy.replays, "k1": k1,
+               "unwarmed_serves": c["unwarmed_serves"], "requests": len(served),
+               "all_finite": all(served), "errors": errors,
+               "counters": {k: c[k] for k in ("canary_promotions", "canary_rollbacks",
+                                              "canary_mirrored_batches", "swaps")}}
+    finally:
+        stop.set()
+        eng.shutdown()
+    ok = (good["promoted"] and not bad_rec["promoted"] and rec["history"] == [(v2, True),
+                                                                             (v3, False)]
+          and rec["current"] == f"gpt2:v{v2}" and rec["alias"] == v2 and rec["graphs"] == 6
+          and len(spy.captures) == 12 and spy.served_captures() == 0
+          and c["unwarmed_serves"] == 0 and rec["all_finite"] and not errors
+          and bad_rec["decisions"][0]["error_rate"] == 1.0
+          and k1 == LAYERS * (spy.replays + 2 * len(spy.captures)))
+    return rec, ([] if ok else [f"e: {rec}"])
+
+
+def phase_predict_features(net):
+    """The predict side's features on the card, arms (a)-(g) (the module
+    docstring); every gate must hold."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import attention as att
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 90)
+    tmp = tempfile.mkdtemp(prefix="chip_pf_")
+    out, bad, k1 = {}, [], 0
+    try:
+        eng8, out["a"], b = pf_int8(net, rng)
+        bad += b
+        emit({"phase": "predict_features", **out["a"]})
+        try:
+            out["b"], b = pf_named(eng8, rng, tmp)
+            bad += b
+            emit({"phase": "predict_features", **out["b"]})
+            eng_t, out["c"], b = pf_tenants(rng)
+            bad += b
+            emit({"phase": "predict_features", **out["c"]})
+            try:
+                out["g"], b = pf_metrics([eng8, eng_t])
+                bad += b
+                emit({"phase": "predict_features", **out["g"]})
+            finally:
+                eng_t.shutdown()
+        finally:
+            eng8.shutdown()
+        k1 += out["a"]["k1"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        for key, arm in (("f", lambda: pf_bundle(net, rng, tmp)),
+                         ("d", lambda: pf_autoscale(net, rng)),
+                         ("e", lambda: pf_canary(net, rng))):
+            att.flash_forward_cuda.launches = 0
+            out[key], b = arm()
+            k1 += att.flash_forward_cuda.launches if key == "f" else out[key]["k1"]
+            bad += b
+            emit({"phase": "predict_features", **out[key]})
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "predict_features", "seconds": time.perf_counter() - t0,
+          "launches": {"flash_fwd": k1}, "failures": bad})
+    if bad:
+        raise AssertionError(f"predict_features phase failed: {bad}")
+    return {**out, "launches": {"flash_fwd": k1}}
 
 
 # -- http phase ----------------------------------------------------------------------
@@ -5362,12 +6033,14 @@ def main() -> int:
     if sys.argv[1:2] == ["--trace-probe"]:
         trace_probe(int(sys.argv[2]))
         return 0
-    if sys.argv[1:2] == ["--phase"] and sys.argv[2:3] in (["sharded"], ["elastic"]):
+    if sys.argv[1:2] == ["--phase"] and sys.argv[2:3] in (["sharded"], ["elastic"],
+                                                          ["predict_features"]):
         card = card_line()
         emit({"torch": torch.__version__, "device": torch.cuda.get_device_name(0),
               "card": card})
         cuda_build.build(cuda_build.sources())
-        {"sharded": phase_sharded, "elastic": phase_elastic}[sys.argv[2]]()
+        {"sharded": phase_sharded, "elastic": phase_elastic,
+         "predict_features": lambda: phase_predict_features(build_model())}[sys.argv[2]]()
         print(card, flush=True)
         return 0
     card = card_line()
@@ -5385,6 +6058,7 @@ def main() -> int:
     score = phase_score(net)
     serve = phase_serve(net)
     predict = phase_predict(net)
+    features = phase_predict_features(net)
     http = phase_http(net)
     train = phase_train(net)
     k4 = fused_update_case(net)
@@ -5426,8 +6100,8 @@ def main() -> int:
     emit({"kernels": [
         entry("flash_fwd", "flash_fwd.cu", "deeplearning4j_tpu/ops/attention.py:138",
               score["launches"]["flash_fwd"] + predict["launches"]["flash_fwd"]
-              + graph_n["flash_fwd_kernel"] + attn["launches"]["flash_fwd"]
-              + sharded["flash_fwd"] + elastic["flash_fwd"], k1),
+              + features["launches"]["flash_fwd"] + graph_n["flash_fwd_kernel"]
+              + attn["launches"]["flash_fwd"] + sharded["flash_fwd"] + elastic["flash_fwd"], k1),
         entry("flash_bwd_dkdv", "flash_bwd.cu", "deeplearning4j_tpu/ops/attention.py:329",
               trained("flash_bwd_dkdv", "flash_bwd_dkdv_kernel"),
               {**bwd["flash_bwd_dkdv"], **bwd_lib}),

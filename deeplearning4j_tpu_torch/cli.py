@@ -34,7 +34,7 @@ import numpy as np
 #: train flags that wait for later ports, with the ROADMAP item that ports them
 LATER_FLAGS = {
     "prefetch": "queue 1 item 9 (datasets/device_prefetch)",
-    "compile_cache": "queue 1 item 8 (serving/warmcache)",
+    "compile_cache": "queue 1 item 8.2 (the serve and launch flags)",
     "dashboard": "queue 1 item 9 (ui/)",
 }
 

@@ -119,9 +119,27 @@ def init_pretrained(model_name: str,
     return load_model(path, device=device)
 
 
-def init_pretrained_int8(*_, **__):
-    """The int8 serving entry needs post-training quantization
-    (``ops/quantize.py``), which the port does not have yet."""
-    raise NotImplementedError(
-        "init_pretrained_int8 needs ops/quantize.py, which is not ported yet "
-        "(ROADMAP queue 1 item 8)")
+def init_pretrained_int8(model_name: str,
+                         pretrained_type: str = PretrainedType.IMAGENET,
+                         calibration_inputs=None,
+                         expected_checksum: Optional[int] = None,
+                         cache_dir: Optional[str] = None,
+                         local_file: Optional[str] = None,
+                         device: DeviceLike = None):
+    """The zoo's int8 serving entry: ``init_pretrained``, the calibration
+    pass and per-channel weight quantization in one step
+    (``ops/quantize.py``).  ``calibration_inputs`` is an array or a list
+    of arrays of representative inputs (leading batch axis); there is no
+    synthetic default, since the activation scales are only as good as
+    the pass.  Returns a ``QuantizedModel`` ready for ``serving.Engine``
+    (load it without ``quantize=``)."""
+    from ..ops.quantize import quantize_model
+
+    if calibration_inputs is None:
+        raise ValueError(
+            "init_pretrained_int8 needs calibration_inputs — a batch (or "
+            "list of batches) of representative per-example inputs")
+    net = init_pretrained(model_name, pretrained_type,
+                          expected_checksum=expected_checksum,
+                          cache_dir=cache_dir, local_file=local_file, device=device)
+    return quantize_model(net, calibration_inputs)

@@ -146,9 +146,12 @@ class LSTM(Layer):
     def init_params(self, generator, in_type, dtype=torch.float32) -> Dict[str, Tensor]:
         return self._init_direction(generator, dtype)
 
-    def init_carry(self, mb: int, dtype=torch.float32, device=None) -> Tuple[Tensor, Tensor]:
+    def zero_carry(self, mb: int, dtype=torch.float32, device=None) -> Tuple[Tensor, Tensor]:
         return (torch.zeros((mb, self.n_out), dtype=dtype, device=device),
                 torch.zeros((mb, self.n_out), dtype=dtype, device=device))
+
+    def init_carry(self, mb: int, dtype=torch.float32, device=None) -> Tuple[Tensor, Tensor]:
+        return self.zero_carry(mb, dtype, device)
 
     def forward(self, params, state, x, *, train=False, generator=None, mask=None,
                 carry=None) -> ForwardOut:
@@ -157,6 +160,15 @@ class LSTM(Layer):
         h0, c0 = carry if carry is not None else self.init_carry(x.shape[0], cdt, x.device)
         ys, final = _scan_lstm(self, params, x, mask, h0, c0)
         return ForwardOut(ys, state, mask, final)
+
+    def step(self, params, carry, x_t):
+        """One streaming step (``rnnTimeStep``): ``x_t`` [mb, n_in] dense or
+        [mb] integer ids, ``carry`` (h, c) → (h, (h, c)).  It is the
+        sequence path at one step, so a standard cell on a card runs K5a."""
+        h, c = carry
+        x = x_t[:, None] if x_t.is_floating_point() else x_t[:, None].long()
+        _, final = _scan_lstm(self, params, x, None, h, c)
+        return final[0], final
 
 
 @register_layer

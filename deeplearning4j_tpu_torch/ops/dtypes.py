@@ -1,10 +1,12 @@
-"""Dtype names as configuration JSON carries them, and the checkpoint's
-bfloat16 leaf scheme (mirrors ``deeplearning4j_tpu/ops/dtypes.py`` and
-the v2 rule of ``utils/serializer.py``)."""
+"""Dtype names as configuration JSON carries them, the dtype policy, and
+the checkpoint's bfloat16 leaf scheme (mirrors
+``deeplearning4j_tpu/ops/dtypes.py`` and the v2 rule of
+``utils/serializer.py``)."""
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+import dataclasses
+from typing import Any, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +38,41 @@ def canonical_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
     if key not in _BY_NAME:
         raise ValueError(f"unknown dtype {name!r}; known: {sorted(_BY_NAME)}")
     return _BY_NAME[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class DTypePolicy:
+    """Parameter, compute and output dtypes of a layer: ``param_dtype``
+    stores the parameters (float32), ``compute_dtype`` runs activations
+    and matmuls, ``output_dtype`` accumulates losses and metrics
+    (float32)."""
+
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.float32
+    output_dtype: torch.dtype = torch.float32
+
+    def cast_to_compute(self, x: Any) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=self.compute_dtype)
+
+    def cast_to_param(self, x: Any) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=self.param_dtype)
+
+    def cast_to_output(self, x: Any) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=self.output_dtype)
+
+
+_DEFAULT = DTypePolicy()
+_MIXED = DTypePolicy(compute_dtype=torch.bfloat16)
+
+
+def default_policy() -> DTypePolicy:
+    """Full precision (parity and tests)."""
+    return _DEFAULT
+
+
+def mixed_policy() -> DTypePolicy:
+    """bfloat16 compute, float32 parameters and outputs."""
+    return _MIXED
 
 
 def tensor_to_leaf(t: torch.Tensor) -> Tuple[str, np.ndarray]:

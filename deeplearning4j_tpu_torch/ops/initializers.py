@@ -14,6 +14,30 @@ from typing import Sequence
 import torch
 
 
+class WeightInit:
+    """The scheme names ``init_weight`` takes (DL4J's ``WeightInit``)."""
+
+    ZERO = "zero"
+    ONES = "ones"
+    NORMAL = "normal"
+    UNIFORM = "uniform"
+    XAVIER = "xavier"
+    XAVIER_UNIFORM = "xavier_uniform"
+    XAVIER_FAN_IN = "xavier_fan_in"
+    RELU = "relu"
+    RELU_UNIFORM = "relu_uniform"
+    SIGMOID_UNIFORM = "sigmoid_uniform"
+    LECUN_NORMAL = "lecun_normal"
+    LECUN_UNIFORM = "lecun_uniform"
+    IDENTITY = "identity"
+    VAR_SCALING_NORMAL_FAN_IN = "var_scaling_normal_fan_in"
+    VAR_SCALING_NORMAL_FAN_OUT = "var_scaling_normal_fan_out"
+    VAR_SCALING_NORMAL_FAN_AVG = "var_scaling_normal_fan_avg"
+    VAR_SCALING_UNIFORM_FAN_IN = "var_scaling_uniform_fan_in"
+    VAR_SCALING_UNIFORM_FAN_OUT = "var_scaling_uniform_fan_out"
+    VAR_SCALING_UNIFORM_FAN_AVG = "var_scaling_uniform_fan_avg"
+
+
 def draw_normal(shape, std: float, generator) -> torch.Tensor:
     """N(0, std²) of ``shape`` in float32 from ``generator``."""
     return torch.randn(shape, generator=generator) * std

@@ -427,8 +427,7 @@ class ServingChaos:
     (``poison_input``, ``bad_version``) are injected by the workload
     itself.
 
-    The engine's hook (``Engine(chaos=)``) is not ported yet (ROADMAP
-    queue 1 item 8: the serving fleet).  A
+    The predict engine takes it as ``Engine(chaos=)``.  A
     ``replica_crash`` raises out of the replica loop so the thread
     genuinely dies with its batch in limbo; a ``replica_hang`` parks the
     replica thread in a sleep longer than the engine's
@@ -488,7 +487,7 @@ class FleetChaos:
     (kill a host's engine, deliver a preemption notice, slow a host) —
     the :class:`~..serving.fleet.FleetRouter` under test only observes
     the consequences.  The fleet is not ported yet (ROADMAP queue 1
-    item 8).
+    item 8.2).
     """
 
     def __init__(self, schedule: FaultSchedule,

@@ -86,6 +86,7 @@ from __future__ import annotations
 import contextlib
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..datasets.dataset import DataSet
@@ -482,6 +483,26 @@ class ShardedTrainer:
             return a[self.dp_index * per:(self.dp_index + 1) * per]
         return DataSet(cut(ds.features), cut(ds.labels), cut(ds.features_mask),
                        cut(ds.labels_mask))
+
+    def shard_dataset(self, ds: DataSet) -> DataSet:
+        """A global batch placed on this rank's device once, so a batch
+        reused across steps (a benchmark, an evaluation loop) pays the
+        host-to-device copy once.  Every rank keeps the global rows, as
+        ``fit_batch`` takes them; the row count must divide by the
+        data-parallel ranks."""
+        def put(a):
+            if a is None:
+                return None
+            if isinstance(a, dict):
+                return {k: put(v) for k, v in a.items()}
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+            if t.shape[0] % self.dp_size:
+                raise ValueError(
+                    f"global batch {t.shape[0]} not divisible by data axis "
+                    f"{self.dp_size} (pad or drop the remainder)")
+            return t.to(self.net.device)
+        return DataSet(put(ds.features), put(ds.labels), put(ds.features_mask),
+                       put(ds.labels_mask))
 
     # -- training ----------------------------------------------------------
 

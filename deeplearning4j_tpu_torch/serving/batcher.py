@@ -22,8 +22,16 @@ request whose deadline passes while queued fails fast with
 ``next_batch`` the decode loop calls ``admit(limit)`` at each step
 boundary, so a new request joins the running batch at the next step.
 
-One FIFO lane: the reference's per-tenant fair-share lanes, quotas and
-model tags are later work.
+Multi-tenancy (``serving/tenancy.py``): requests carry a tenant, and the
+queue is a set of per-tenant lanes drained by stride scheduling (the
+non-empty lane with the smallest virtual time ``served_rows / weight``
+goes next), so a bursting tenant's backlog queues behind its own lane,
+never in front of another tenant's requests.  Per-tenant quotas (a
+concurrent cap, a QPS bucket) are checked and charged in one critical
+section at submit; a tenant over quota sheds with
+``TenantOverloadedError``.  Untagged traffic rides the anonymous lane
+(weight 1) and behaves as a plain FIFO.  Requests also carry an optional
+``model``; a batch never mixes models.
 """
 
 from __future__ import annotations
@@ -32,11 +40,13 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from typing import Any, Deque, List, Optional, Sequence
+from typing import Any, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 
 ADMISSION_POLICIES = ("block", "shed")
+
+_ANY_MODEL = object()      # lane selection unconstrained by model
 
 
 class DeadlineExceededError(RuntimeError):
@@ -50,10 +60,10 @@ class OverloadedError(RuntimeError):
 
 class _Request:
     __slots__ = ("x", "rows", "future", "t_submit", "deadline",
-                 "retries", "tried", "payload")
+                 "retries", "tried", "payload", "tenant", "model")
 
     def __init__(self, x: Any, future: Future, t_submit: float,
-                 deadline: float):
+                 deadline: float, tenant: str = "", model: Optional[str] = None):
         self.x = x
         self.rows = int(x.shape[0])
         self.future = future
@@ -62,6 +72,8 @@ class _Request:
         self.retries = 0          # failure-isolation retries consumed
         self.tried = set()        # replica indices that failed this request
         self.payload = None       # the decode path's request spec
+        self.tenant = tenant      # "" = the anonymous lane
+        self.model = model        # None = the engine's default model
 
 
 def pow2_buckets(max_batch: int) -> List[int]:
@@ -81,13 +93,15 @@ def _shut_down() -> RuntimeError:
 class DynamicBatcher:
     """Bounded request queue and deadline-aware batch former: any number
     of caller threads ``submit``; a dispatcher thread calls
-    ``next_batch``."""
+    ``next_batch``.  ``tenants`` (a ``tenancy.TenantTable``) arms
+    per-tenant quotas and weighted-fair lanes; without it every request
+    rides the anonymous lane."""
 
     def __init__(self, max_batch: int = 32, slo_ms: float = 50.0,
                  bucket_sizes: Optional[Sequence[int]] = None,
                  max_queue: int = 1024, admission: str = "block",
                  max_wait_ms: Optional[float] = None,
-                 metrics=None, clock=time.monotonic):
+                 metrics=None, clock=time.monotonic, tenants=None):
         if admission not in ADMISSION_POLICIES:
             raise ValueError(f"admission must be one of "
                              f"{ADMISSION_POLICIES}, got {admission!r}")
@@ -105,7 +119,13 @@ class DynamicBatcher:
         self.admission = admission
         self.metrics = metrics
         self.clock = clock
-        self._q: Deque[_Request] = deque()
+        self.tenants = tenants
+        # tenant -> FIFO lane, drained by stride scheduling over _pass
+        # (rows served / weight); a new lane joins at the minimum live
+        # pass, so it neither starves nor is starved
+        self._lanes: Dict[str, Deque[_Request]] = {}
+        self._pass: Dict[str, float] = {}
+        self._n_pending = 0
         self._lock = threading.Lock()
         self._nonempty = threading.Condition(self._lock)
         self._space = threading.Condition(self._lock)
@@ -138,104 +158,189 @@ class DynamicBatcher:
         ema = self._exec_ema_ms.get(self.bucket_for(min(rows, self.max_batch)))
         return ema if ema is not None else self.slo_ms * 0.25
 
+    # -- tenant lanes ------------------------------------------------------
+
+    def _weight_of(self, tenant: str) -> float:
+        if not tenant or self.tenants is None:
+            return 1.0
+        return self.tenants.weight(tenant)
+
+    def _append_locked(self, r: _Request, front: bool = False) -> None:
+        lane = self._lanes.get(r.tenant)
+        if lane is None:
+            lane = self._lanes[r.tenant] = deque()
+            live = [p for t, p in self._pass.items() if self._lanes.get(t)]
+            self._pass[r.tenant] = max(self._pass.get(r.tenant, 0.0),
+                                       min(live, default=0.0))
+        if front:
+            lane.appendleft(r)
+        else:
+            lane.append(r)
+        self._n_pending += 1
+
+    def _iter_pending(self):
+        for lane in self._lanes.values():
+            yield from lane
+
+    def _next_lane_locked(self, model=_ANY_MODEL) -> Optional[str]:
+        """Stride scheduling: the non-empty lane with the smallest virtual
+        time whose head is of ``model`` (a batch never mixes models)."""
+        best, best_pass = None, None
+        for t, lane in self._lanes.items():
+            if not lane or (model is not _ANY_MODEL and lane[0].model != model):
+                continue
+            p = self._pass.get(t, 0.0)
+            if best_pass is None or p < best_pass:
+                best, best_pass = t, p
+        return best
+
+    def _pop_one_locked(self, tenant: str) -> _Request:
+        r = self._lanes[tenant].popleft()
+        self._n_pending -= 1
+        self._pass[tenant] = self._pass.get(tenant, 0.0) + r.rows / self._weight_of(tenant)
+        return r
+
     # -- submission --------------------------------------------------------
 
-    def _count_shed(self) -> None:
+    def _count_shed(self, tenant: str) -> None:
         if self.metrics:
-            self.metrics.inc("shed")
+            self.metrics.inc("shed", tenant=tenant or None)
 
-    def _admission_locked(self, fut: Future) -> bool:
+    def _admission_locked(self, fut: Future, tenant: str, model: Optional[str]) -> bool:
         """Every admission gate, under the lock: closed fails the future
         (False: do not enqueue); draining and a full ``shed`` queue raise
-        ``OverloadedError``; a full ``block`` queue waits for space."""
+        ``OverloadedError``; a full ``block`` queue waits for space.  A
+        tenant's quota is checked and charged here too: over it, a
+        ``shed`` tenant raises ``TenantOverloadedError`` and a ``block``
+        one waits; once charged, the slot's release rides the future's
+        done-callback (every future resolves, so it runs exactly once)."""
         if self._closed:
             fut.set_exception(_shut_down())
             return False
         if self._draining:
-            self._count_shed()
+            self._count_shed(tenant)
             raise OverloadedError(
                 "admission stopped: engine is draining (preemption notice)")
-        if len(self._q) >= self.max_queue:
+        if self._n_pending >= self.max_queue:
             if self.admission == "shed":
-                self._count_shed()
+                self._count_shed(tenant)
                 raise OverloadedError(
                     f"admission queue full ({self.max_queue} requests); "
                     "policy=shed")
-            while (len(self._q) >= self.max_queue
+            while (self._n_pending >= self.max_queue
                    and not self._closed and not self._draining):
                 self._space.wait(timeout=0.1)
             if self._closed:
                 fut.set_exception(_shut_down())
                 return False
             if self._draining:
-                self._count_shed()
+                self._count_shed(tenant)
                 raise OverloadedError(
                     "admission stopped: engine is draining (preemption notice)")
+        if self.tenants is not None and tenant:
+            if not self.tenants.try_admit(tenant, model, now=self.clock()):
+                if self.tenants.admission_for(tenant, model) != "block":
+                    self._count_shed(tenant)
+                    raise self.tenants.shed(tenant, model)
+                # releases run on other threads' done-callbacks, which
+                # cannot notify this condition: poll every 50 ms
+                while (not self._closed and not self._draining
+                       and not self.tenants.try_admit(tenant, model, now=self.clock())):
+                    self._space.wait(timeout=0.05)
+                if self._closed:
+                    fut.set_exception(_shut_down())
+                    return False
+                if self._draining:
+                    self._count_shed(tenant)
+                    raise OverloadedError(
+                        "admission stopped: engine is draining (preemption notice)")
+            fut.add_done_callback(lambda f, t=tenant: self.tenants.release(t))
         return True
 
     def _resolve_deadline(self, now: float, slo_ms: Optional[float],
-                          deadline: Optional[float]) -> float:
+                          deadline: Optional[float], tenant: str = "",
+                          model: Optional[str] = None) -> float:
         if deadline is not None:
             return deadline
+        if slo_ms is None and tenant and self.tenants is not None:
+            slo_ms = self.tenants.slo_ms_for(tenant, model)
         return now + (slo_ms if slo_ms is not None else self.slo_ms) / 1000.0
 
     def submit(self, x, slo_ms: Optional[float] = None,
-               deadline: Optional[float] = None) -> Future:
-        """Enqueue one request (a leading batch axis); returns its Future.
-        Shedding raises ``OverloadedError`` synchronously; a closed
-        batcher fails the future."""
+               deadline: Optional[float] = None, tenant: Optional[str] = None,
+               model: Optional[str] = None) -> Future:
+        """Enqueue one request (a leading batch axis) in ``tenant``'s lane
+        for ``model``; returns its Future.  Shedding raises
+        ``OverloadedError`` (``TenantOverloadedError`` over a tenant's
+        quota) synchronously; a closed batcher fails the future."""
         x = np.asarray(x)
         if x.ndim < 1 or x.shape[0] < 1:
             raise ValueError(f"request must have a leading batch axis, "
                              f"got shape {x.shape}")
+        tenant = tenant or ""
         fut: Future = Future()
         now = self.clock()
-        dl = self._resolve_deadline(now, slo_ms, deadline)
+        dl = self._resolve_deadline(now, slo_ms, deadline, tenant, model)
         with self._lock:
-            if not self._admission_locked(fut):
+            if not self._admission_locked(fut, tenant, model):
                 return fut
-            self._q.append(_Request(x, fut, now, dl))
+            self._append_locked(_Request(x, fut, now, dl, tenant, model))
             self._nonempty.notify()
         return fut
 
     def qsize(self) -> int:
         with self._lock:
-            return len(self._q)
+            return self._n_pending
+
+    def tenant_qsize(self, tenant: str) -> int:
+        with self._lock:
+            lane = self._lanes.get(tenant or "")
+            return len(lane) if lane else 0
 
     # -- batch formation ---------------------------------------------------
 
     def _expire_locked(self, now: float) -> None:
         """Fail-fast every queued request whose deadline already passed."""
-        if not any(r.deadline < now for r in self._q):
-            return
-        keep: Deque[_Request] = deque()
         expired = 0
-        for r in self._q:
-            if r.deadline < now:
-                expired += 1
-                if not r.future.done():
-                    r.future.set_exception(DeadlineExceededError(
-                        f"request waited {(now - r.t_submit) * 1e3:.1f}ms in "
-                        f"queue, past its "
-                        f"{(r.deadline - r.t_submit) * 1e3:.0f}ms deadline"))
-            else:
-                keep.append(r)
-        self._q = keep
-        if self.metrics:
-            self.metrics.inc("deadline_missed", expired)
-        self._space.notify_all()
+        for t, lane in self._lanes.items():
+            if not any(r.deadline < now for r in lane):
+                continue
+            keep: Deque[_Request] = deque()
+            lane_expired = 0
+            for r in lane:
+                if r.deadline < now:
+                    lane_expired += 1
+                    if not r.future.done():
+                        r.future.set_exception(DeadlineExceededError(
+                            f"request waited {(now - r.t_submit) * 1e3:.1f}ms in "
+                            f"queue, past its "
+                            f"{(r.deadline - r.t_submit) * 1e3:.0f}ms deadline"))
+                else:
+                    keep.append(r)
+            self._lanes[t] = keep
+            expired += lane_expired
+            if self.metrics:
+                self.metrics.inc("deadline_missed", lane_expired, tenant=t or None)
+        if expired:
+            self._n_pending -= expired
+            self._space.notify_all()
 
     def _pop_batch_locked(self) -> List[_Request]:
         batch: List[_Request] = []
         rows = 0
-        while self._q:
-            head = self._q[0]
+        model = _ANY_MODEL
+        while self._n_pending:
+            t = self._next_lane_locked(model)
+            if t is None:          # only other models' lanes remain
+                break
+            head = self._lanes[t][0]
             # split at max_batch before bucketing; one oversized request
             # still goes alone (it cannot be split)
             if batch and rows + head.rows > self.max_batch:
                 break
-            batch.append(self._q.popleft())
+            batch.append(self._pop_one_locked(t))
             rows += head.rows
+            model = head.model     # the batch never mixes models
             if rows >= self.max_batch:
                 break
         self._space.notify_all()
@@ -247,16 +352,16 @@ class DynamicBatcher:
             while True:
                 now = self.clock()
                 self._expire_locked(now)
-                if not self._q:
+                if not self._n_pending:
                     if self._closed:
                         return None
                     self._nonempty.wait(timeout=0.5)
                     continue
-                total = sum(r.rows for r in self._q)
+                total = sum(r.rows for r in self._iter_pending())
                 if total >= self.max_batch or self._closed:
                     return self._pop_batch_locked()
-                earliest = min(r.deadline for r in self._q)
-                oldest = min(r.t_submit for r in self._q)
+                earliest = min(r.deadline for r in self._iter_pending())
+                oldest = min(r.t_submit for r in self._iter_pending())
                 t_close = min(oldest + self.max_wait_ms / 1000.0,
                               earliest - self._exec_budget_ms(total) / 1000.0)
                 if now >= t_close:
@@ -285,10 +390,12 @@ class DynamicBatcher:
         with self._lock:
             self._closed = True
             if fail_pending:
-                while self._q:
-                    r = self._q.popleft()
-                    if not r.future.done():
-                        r.future.set_exception(_shut_down())
+                for lane in self._lanes.values():
+                    while lane:
+                        r = lane.popleft()
+                        if not r.future.done():
+                            r.future.set_exception(_shut_down())
+                self._n_pending = 0
             self._nonempty.notify_all()
             self._space.notify_all()
 
@@ -302,18 +409,20 @@ class ContinuousBatcher(DynamicBatcher):
     input array."""
 
     def submit_request(self, payload, slo_ms: Optional[float] = None,
-                       deadline: Optional[float] = None) -> Future:
+                       deadline: Optional[float] = None, tenant: Optional[str] = None,
+                       model: Optional[str] = None) -> Future:
         """Enqueue one decode request; the admission semantics of
         ``DynamicBatcher.submit``."""
+        tenant = tenant or ""
         fut: Future = Future()
         now = self.clock()
-        dl = self._resolve_deadline(now, slo_ms, deadline)
+        dl = self._resolve_deadline(now, slo_ms, deadline, tenant, model)
         with self._lock:
-            if not self._admission_locked(fut):
+            if not self._admission_locked(fut, tenant, model):
                 return fut
-            r = _Request(np.empty((1, 0), np.float32), fut, now, dl)
+            r = _Request(np.empty((1, 0), np.float32), fut, now, dl, tenant, model)
             r.payload = payload
-            self._q.append(r)
+            self._append_locked(r)
             self._nonempty.notify()
         return fut
 
@@ -338,11 +447,12 @@ class ContinuousBatcher(DynamicBatcher):
             self._expire_locked(self.clock())
             out: List[_Request] = []
             spent = 0
-            while self._q and len(out) < limit:
+            while self._n_pending and len(out) < limit:
+                t = self._next_lane_locked()
                 if (token_budget is not None and out
-                        and spent + cost(self._q[0]) > token_budget):
+                        and spent + cost(self._lanes[t][0]) > token_budget):
                     break
-                r = self._q.popleft()
+                r = self._pop_one_locked(t)
                 spent += cost(r)
                 out.append(r)
             if out:
@@ -350,22 +460,25 @@ class ContinuousBatcher(DynamicBatcher):
             return out
 
     def requeue_front(self, r: _Request) -> None:
-        """Put a request back at the head: admission raced ahead of
-        capacity (no free pages or slot yet), or its batch crashed and it
-        has retries left."""
+        """Put a request back at the head of its lane: admission raced
+        ahead of capacity (no free pages or slot yet), or its batch crashed
+        and it has retries left.  The lane's charge for the pop is
+        refunded."""
         with self._lock:
             if self._closed:
                 if not r.future.done():
                     r.future.set_exception(_shut_down())
                 return
-            self._q.appendleft(r)
+            self._pass[r.tenant] = (self._pass.get(r.tenant, 0.0)
+                                    - r.rows / self._weight_of(r.tenant))
+            self._append_locked(r, front=True)
             self._nonempty.notify()
 
     def wait_for_work(self, timeout: float = 0.05) -> bool:
         """Park the decode loop until a request is queued (or timeout /
         close).  True when work is pending."""
         with self._lock:
-            if self._q or self._closed:
-                return bool(self._q)
+            if self._n_pending or self._closed:
+                return bool(self._n_pending)
             self._nonempty.wait(timeout=timeout)
-            return bool(self._q)
+            return bool(self._n_pending)

@@ -30,6 +30,7 @@ count (and the capture itself, which launches nothing, adds none).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Callable, Dict, Tuple
 
@@ -46,6 +47,52 @@ FORWARD_COUNTERS = {"flash_fwd": attention.flash_forward_cuda,
 # replicas replay (and a swap captures) on several threads: the counters'
 # read-modify-writes of a capture's measure and of a replay's add hold it
 _COUNT_LOCK = threading.Lock()
+
+
+class _Gate:
+    """Replays share it; a capture holds it alone, so no replica replays
+    or copies its rows to the host while another thread allocates, warms
+    up and captures a forward graph on the same card (under full-width
+    traffic such an overlap was seen to hang the capturing thread inside
+    a device allocation).  A waiting capture blocks new replays, so
+    steady traffic cannot starve it."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0
+        self._writer = False
+
+    @contextlib.contextmanager
+    def shared(self):
+        with self._cond:
+            while self._writer:
+                self._cond.wait()
+            self._readers += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._readers -= 1
+                if not self._readers:
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        with self._cond:
+            while self._writer:
+                self._cond.wait()
+            self._writer = True
+            while self._readers:
+                self._cond.wait()
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writer = False
+                self._cond.notify_all()
+
+
+_GATE = _Gate()
 
 
 class ForwardGraph:
@@ -66,7 +113,7 @@ class ForwardGraph:
             raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
         self.replays = 0
         self.stream = torch.cuda.Stream(device)
-        with torch.inference_mode():
+        with _GATE.exclusive(), torch.inference_mode():
             self.input = torch.zeros(tuple(shape), dtype=dtype, device=device)
             # warm up on the graph's stream: kernel libraries load and
             # cuBLAS picks its kernels before capture
@@ -91,7 +138,7 @@ class ForwardGraph:
         ``rows`` output rows for finiteness on the device and copy them to
         the host → (rows [rows, ...] as numpy, finite).  The output buffer
         is overwritten by the next replay; the rows returned are a copy."""
-        with torch.inference_mode(), torch.cuda.stream(self.stream):
+        with _GATE.shared(), torch.inference_mode(), torch.cuda.stream(self.stream):
             self.input.copy_(torch.from_numpy(np.ascontiguousarray(x)))
             self.graph.replay()
             with _COUNT_LOCK:

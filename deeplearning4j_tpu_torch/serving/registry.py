@@ -15,11 +15,20 @@ Versions are immutable once registered; deployment is a pointer move:
 after each has warmed the incoming version, flipped its current pointer
 and drained every in-flight batch on the outgoing one.
 
+``set_alias(..., canary=frac)`` promotes through a canary instead: every
+subscribed engine mirrors ``frac`` of its live batches to the incoming
+version as shadow traffic (users still get the incumbent's results),
+compares error rate, p99 and prediction divergence over a decision window
+and votes.  The alias moves only if every engine votes promote; otherwise
+the promotion rolls back and the alias stays.  The decision, with each
+engine's numbers, is returned and kept in ``canary_history``.
+
 Lineage: ``register``/``load`` take a ``lineage=`` provenance record
 (run, data slice, eval scores, parent version, weights hash), immutable
 beside the version; ``rollback_target`` follows it to the last
-eval-passing ancestor.  Not ported here: canary promotion
-(``set_alias(..., canary=frac)``) and its history.
+eval-passing ancestor.  ``load`` also stamps the checkpoint path on the
+model (``_checkpoint_path``), which is how serving finds a version's warm
+bundle (``<checkpoint>.warm``).
 """
 
 from __future__ import annotations
@@ -29,6 +38,27 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..utils.device import DeviceLike
+
+
+class CanaryRejectedError(RuntimeError):
+    """``set_alias(..., canary=frac, raise_on_reject=True)`` did not
+    promote: an engine voted rollback (or its window never filled).
+    ``record`` is the decision ``canary_history`` keeps."""
+
+    def __init__(self, record: dict):
+        reasons = [r for d in record.get("decisions", ())
+                   for r in d.get("reasons", ())]
+        super().__init__(
+            f"canary rejected {record.get('name')} "
+            f"v{record.get('from')} -> v{record.get('to')} on alias "
+            f"{record.get('alias')!r}: {'; '.join(reasons) or 'no votes'}")
+        self.record = record
+        self.name = record.get("name")
+        self.alias = record.get("alias")
+        self.incumbent = record.get("from")
+        self.candidate = record.get("to")
+        self.reasons = reasons
+
 
 #: lineage-record fields every record carries (absent inputs become None)
 LINEAGE_FIELDS = ("run_id", "data_fingerprint", "parent_version",
@@ -48,7 +78,10 @@ class ModelRegistry:
         self.clock = clock
         self.device = device
         self._last_access: Dict[str, float] = {}
-        self._subs: Dict[Tuple[str, str], List[Callable[[int, Any], None]]] = {}
+        # (name, alias) -> [(callback(version, model), canary callback or None)]
+        self._subs: Dict[Tuple[str, str],
+                         List[Tuple[Callable[[int, Any], None], Optional[Callable]]]] = {}
+        self._canary_log: Dict[str, List[dict]] = {}
         self._paths: Dict[Tuple[str, int], str] = {}
         self._lineage: Dict[Tuple[str, int], dict] = {}
 
@@ -121,11 +154,13 @@ class ModelRegistry:
     def load(self, name: str, path: str, version: Optional[int] = None,
              lineage: Optional[dict] = None) -> int:
         """Load a checkpoint zip (serializer format 1-4) onto the
-        registry's device and register it; the path is kept as provenance
-        (``models_snapshot``)."""
+        registry's device and register it.  The path is kept as provenance,
+        on the registry (``checkpoint_path``) and on the model
+        (``_checkpoint_path``), where serving looks for the warm bundle."""
         from ..utils.serializer import load_model
 
         model = load_model(path, device=self.device)
+        model._checkpoint_path = str(path)
         if lineage is not None:
             lineage = dict(lineage)
             lineage.setdefault("checkpoint_path", str(path))
@@ -133,6 +168,18 @@ class ModelRegistry:
         with self._lock:
             self._paths[(name, version)] = str(path)
         return version
+
+    def checkpoint_path(self, name: str, ref: Any = "latest") -> Optional[str]:
+        """The checkpoint zip a version was loaded from (None for in-memory
+        registrations)."""
+        with self._lock:
+            if name not in self._models:
+                return None
+            try:
+                v = self._resolve_version_locked(name, ref)
+            except KeyError:
+                return None
+            return self._paths.get((name, v))
 
     # -- lookup ------------------------------------------------------------
 
@@ -147,6 +194,12 @@ class ModelRegistry:
     def aliases(self, name: str) -> Dict[str, int]:
         with self._lock:
             return dict(self._aliases.get(name, {}))
+
+    def list_aliases(self) -> Dict[str, Dict[str, int]]:
+        """Every alias pin in the registry, name -> {alias -> version}; a
+        name without aliases is left out (the deployable view)."""
+        with self._lock:
+            return {n: dict(a) for n, a in sorted(self._aliases.items()) if a}
 
     def models_snapshot(self) -> Dict[str, dict]:
         """Inventory: every name with its versions, aliases, prod-pinned
@@ -214,11 +267,26 @@ class ModelRegistry:
 
     # -- aliases and hot swap ----------------------------------------------
 
-    def set_alias(self, name: str, alias: str, version: Any) -> Optional[int]:
+    def set_alias(self, name: str, alias: str, version: Any,
+                  canary: Optional[float] = None, canary_window: int = 32,
+                  canary_timeout_s: float = 60.0,
+                  canary_thresholds: Optional[Dict[str, Any]] = None,
+                  raise_on_reject: bool = False):
         """Move ``alias`` to ``version`` and hot-swap every subscribed
         engine, synchronously (returns after the old versions drained) →
         the alias's previous version (None if new).  Rollback is another
-        ``set_alias`` to the old version."""
+        ``set_alias`` to the old version.
+
+        With ``canary=frac`` (0 < frac <= 1) the move goes through a canary
+        first: each subscribed engine mirrors ``frac`` of its live batches
+        to the incoming version over ``canary_window`` mirrored batches
+        (bounded by ``canary_timeout_s``), judged by ``canary_thresholds``
+        (``max_error_rate``, ``p99_factor``, ``max_divergence``: see
+        ``Engine.run_canary``).  The alias moves only if every engine votes
+        promote.  Returns the decision record (kept in ``canary_history``)
+        instead of the previous version; with ``raise_on_reject`` a
+        rejection raises ``CanaryRejectedError`` carrying the record.  A
+        first pin or a move to the same version goes directly."""
         with self._lock:
             if name not in self._models:
                 raise KeyError(f"no model named {name!r} registered")
@@ -227,17 +295,61 @@ class ModelRegistry:
             prev = amap.get(alias)
             model = self._models[name][version]
             subs = list(self._subs.get((name, alias), ()))
-            amap[alias] = version
+            canary_pairs = [(cb, c) for cb, c in subs if c is not None]
+            run_canary = (canary is not None and prev is not None
+                          and prev != version and canary_pairs)
+            if not run_canary:
+                amap[alias] = version
+        if run_canary:
+            # the alias has not moved: engines judge the candidate on
+            # shadow traffic first, outside the lock (the window is live
+            # serving time)
+            thresholds = dict(canary_thresholds or {})
+            decisions = [c(version, model, frac=canary, window=canary_window,
+                           timeout_s=canary_timeout_s, **thresholds)
+                         for _, c in canary_pairs]
+            promoted = all(d.get("promote") for d in decisions)
+            record = {"name": name, "alias": alias, "from": prev, "to": version,
+                      "promoted": promoted, "decisions": decisions}
+            with self._lock:
+                self._canary_log.setdefault(name, []).append(record)
+                if promoted:
+                    self._aliases[name][alias] = version
+                incumbent_model = self._models[name][prev]
+            if promoted:
+                # the canary engines swapped inside run_canary; plain
+                # subscribers still need the swap
+                for cb, canary_cb in subs:
+                    if canary_cb is None:
+                        cb(version, model)
+            else:
+                # an engine that voted promote has already swapped: swap it
+                # back so every engine serves the alias's version
+                for (cb, _), d in zip(canary_pairs, decisions):
+                    if d.get("promote"):
+                        cb(prev, incumbent_model)
+                if raise_on_reject:
+                    raise CanaryRejectedError(record)
+            return record
         if prev != version:
             # outside the lock: a swap blocks on draining in-flight
             # batches, whose replica threads must never need this lock
-            for cb in subs:
+            for cb, _ in subs:
                 cb(version, model)
         return prev
 
-    def subscribe(self, name: str, alias: str,
-                  callback: Callable[[int, Any], None]) -> None:
-        """Engine hook: ``callback(version, model)`` fires on every
-        ``set_alias`` move of (name, alias)."""
+    def canary_history(self, name: str) -> List[dict]:
+        """Every canary decision recorded for ``name``."""
         with self._lock:
-            self._subs.setdefault((name, alias), []).append(callback)
+            return list(self._canary_log.get(name, ()))
+
+    def subscribe(self, name: str, alias: str,
+                  callback: Callable[[int, Any], None],
+                  canary: Optional[Callable] = None) -> None:
+        """Engine hook: ``callback(version, model)`` fires on every
+        ``set_alias`` move of (name, alias); ``canary(version, model,
+        frac=, window=, timeout_s=, **thresholds)``, when given, judges a
+        ``set_alias(..., canary=frac)`` and returns the decision dict
+        (``Engine.run_canary``'s)."""
+        with self._lock:
+            self._subs.setdefault((name, alias), []).append((callback, canary))

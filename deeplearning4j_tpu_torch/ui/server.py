@@ -1,21 +1,26 @@
 """The serving HTTP server (mirrors ``deeplearning4j_tpu/ui/server.py``:
 the routes of the serving engines on a stdlib ``ThreadingHTTPServer``).
 
-    POST /predict   {"inputs": [[...]], "slo_ms"?} → {"outputs", "model"}
-                    through an attached predict ``Engine``
+    POST /predict   {"inputs": [[...]], "slo_ms"?, "tenant"?, "model"?} →
+                    {"outputs", "model"} through an attached predict
+                    ``Engine`` (``model`` names a placed named model,
+                    ``tenant`` the request's tenant lane and quota)
     POST /generate  {"prompt_ids": [...], "max_tokens"?, "temperature"?,
                     "top_k"?, "top_p"?, "seed"?, "slo_ms"?} → {"tokens",
                     "n_prompt", "finish_reason", "model", "ttft_ms",
                     "tpot_ms"} through an attached ``DecodeEngine``
     GET  /healthz   readiness of every attached engine (200 / 503)
-    GET  /metrics   {"serving": [one snapshot per attached provider]}
+    GET  /metrics   {"serving": [one snapshot per attached provider],
+                    "registry": the process-wide ``obs.metrics`` registry's
+                    snapshot (every live engine's metrics as a collector)}
 
 Every error is structured JSON with a stable ``error_class``: 429
-``overloaded``, 504 ``deadline_exceeded``, 422 ``poison_input``, 500
-``replica_failure``, 400 ``bad_request``, 503 ``unavailable``, 500
-``internal`` (exception type and message only, never a traceback).
-The reference's stats sessions, unified registry, dashboard, ``/trace``
-and ``/remote`` are not ported here.
+``tenant_overloaded`` (with ``tenant``, ``shed_count`` and ``reason``: a
+tenant's own quota) or ``overloaded``, 404 ``model_not_loaded``, 504
+``deadline_exceeded``, 422 ``poison_input``, 500 ``replica_failure``, 400
+``bad_request``, 503 ``unavailable``, 500 ``internal`` (exception type
+and message only, never a traceback).  The reference's stats sessions,
+dashboard, ``/trace`` and ``/remote`` are not ported here.
 """
 
 from __future__ import annotations
@@ -35,7 +40,13 @@ def _error_reply(e: BaseException):
     kin, so a poison input answers 422, never 400."""
     from ..serving import (DeadlineExceededError, ModelNotLoadedError,
                            OverloadedError, PoisonInputError, ReplicaCrashError,
-                           ReplicaHungError)
+                           ReplicaHungError, TenantOverloadedError)
+    if isinstance(e, TenantOverloadedError):
+        # the tenant's own quota, not the engine's: clients back off
+        # rather than retry elsewhere
+        return 429, {"error": str(e), "error_class": "tenant_overloaded",
+                     "tenant": e.tenant, "shed_count": e.shed_count,
+                     "reason": e.reason}
     if isinstance(e, OverloadedError):
         return 429, {"error": str(e), "error_class": "overloaded"}
     if isinstance(e, ModelNotLoadedError):
@@ -83,9 +94,10 @@ class UIServer:
         return self.attach_metrics(engine.metrics_snapshot)
 
     def _metrics_json(self) -> str:
+        from ..obs.metrics import get_registry
         serving = [p() if callable(p) else p.snapshot()
                    for p in self._metrics_providers]
-        return json.dumps({"serving": serving})
+        return json.dumps({"serving": serving, "registry": get_registry().snapshot()})
 
     def _predict_json(self, body: bytes):
         """(status, payload) for POST /predict."""
@@ -95,7 +107,14 @@ class UIServer:
         try:
             payload = json.loads(body)
             x = np.asarray(payload["inputs"], np.float32)
-            out = self._engine.output(x, slo_ms=payload.get("slo_ms"))
+            kw = {}
+            # the tenancy fields go on only when present, so a duck-typed
+            # engine without them still serves
+            if payload.get("tenant") is not None:
+                kw["tenant"] = str(payload["tenant"])
+            if payload.get("model") is not None:
+                kw["model"] = str(payload["model"])
+            out = self._engine.output(x, slo_ms=payload.get("slo_ms"), **kw)
             return 200, {"outputs": np.asarray(out).tolist(),
                          "model": self._engine.current_tag}
         except Exception as e:  # model exceptions too: no traceback leaks

@@ -57,7 +57,13 @@ its eager steps, and decode one-way and over two head shards bitwise
 each program's own re-encode.  The elastic runtime: a snapshot of card
 tensors is a host copy (dtype and bits kept) that later steps do not
 move, and a ``fit_batches`` graph captured before a restore replays on
-the restored weights, bitwise an eager run from the checkpoint.
+the restored weights, bitwise an eager run from the checkpoint.  Int8
+serving: ``Int8Weight``'s padded ``torch._int_mm`` on the card (M below
+17, K and N not multiples of 8, and GPT-2's head shape cut to 64 rows)
+bitwise the CPU's int32 accumulator and output, inside a CUDA graph too;
+an int8 predict engine's rows bitwise the eager quantized bucket, and a
+replica born by the autoscaler serving from graphs captured before it
+was routable.
 """
 
 import importlib.util
@@ -1932,3 +1938,62 @@ def test_restore_then_fit_batches_graph_replays_on_the_restored_weights(cuda_dev
     for a, b in zip(net.params, fresh.params):
         for k in a:
             assert torch.equal(a[k], b[k])
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 4, 3), (5, 12, 10), (64, 768, 50304)])
+def test_int8_product_on_the_card_is_the_cpus(cuda_dev, m, k, n):
+    from deeplearning4j_tpu_torch.ops.quantize import quantize_weight
+    gen = torch.Generator().manual_seed(m + k + n)
+    w, x = torch.randn(k, n, generator=gen), 2 * torch.randn(m, k, generator=gen)
+    qc = quantize_weight(w, 3.0)
+    qd = quantize_weight(w.to(cuda_dev), 3.0)
+    assert torch.equal(qd.padded.cpu(), qc.padded)
+    assert torch.equal(qd.scales.cpu(), qc.scales)
+    xd = x.to(cuda_dev)
+    assert torch.equal(qd.int_mm(qd.quantize_input(xd)).cpu(), qc.int_mm(qc.quantize_input(x)))
+    y = (xd @ qd).cpu()
+    assert torch.equal(y, x @ qc)
+    stream, xs = torch.cuda.Stream(), xd.clone()
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            xs @ qd
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        yg = xs @ qd
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(yg.cpu(), y)
+
+
+def test_int8_engine_and_an_autoscaled_replica_serve_captured_graphs(cuda_dev):
+    import time
+
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.serving import Engine
+
+    net = TransformerLM(**SIZE, seed=3, device=cuda_dev)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, SIZE["vocab_size"], (4, SIZE["max_len"])).astype(np.float32)
+    eng = Engine(net, max_batch=4, replicas=1, slo_ms=60_000, device=cuda_dev).load(
+        input_shape=(SIZE["max_len"],), quantize="int8", calibration_inputs=x)
+    try:
+        qm = eng._current.model
+        for rows in (1, 3):
+            got = eng.output(x[:rows])
+            pad = np.concatenate([x[:rows], np.zeros((4 - rows, SIZE["max_len"]), np.float32)])
+            want = qm.output(pad)[:rows].cpu().numpy()
+            assert np.array_equal(got, want)
+        eng.enable_autoscale(min_replicas=1, max_replicas=2, up_load=2.0, down_load=0.5,
+                             up_ticks=1, down_ticks=1000, cooldown_s=0.0, interval_s=0.01)
+        futs = [eng.output_async(x[:1 + i % 3]) for i in range(64)]
+        for f in futs:
+            f.result(timeout=120)
+        deadline = time.monotonic() + 30
+        while len(eng._replicas) < 2 and time.monotonic() < deadline:
+            eng.output(x[:2])
+        assert len(eng._replicas) == 2 and eng.compile_cache_size() == 6
+        assert eng.metrics_snapshot()["counters"]["unwarmed_serves"] == 0
+        assert all(g is not None for g in eng._current.programs.values())
+    finally:
+        eng.shutdown()

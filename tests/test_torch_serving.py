@@ -13,6 +13,7 @@ Everything runs on the CPU (``device="cpu"``).
 """
 
 import json
+import os
 import threading
 import time
 import urllib.error
@@ -41,9 +42,9 @@ from deeplearning4j_tpu_torch.models.transformer import (TransformerDecodeAdapte
 from deeplearning4j_tpu_torch.nn.multilayer import (MultiLayerConfiguration,
                                                     MultiLayerNetwork)
 from deeplearning4j_tpu_torch.serving import (
-    ContinuousBatcher, DeadlineExceededError, DecodeEngine, DynamicBatcher, Engine,
-    ModelRegistry, OverloadedError, PoisonInputError, ReplicaCrashError,
-    ServingMetrics, pow2_buckets,
+    CanaryRejectedError, ContinuousBatcher, DeadlineExceededError, DecodeEngine,
+    DynamicBatcher, Engine, ModelNotLoadedError, ModelRegistry, OverloadedError,
+    PoisonInputError, ReplicaCrashError, ServingMetrics, pow2_buckets, warmcache,
 )
 from deeplearning4j_tpu_torch.serving.engine import _fail_safe, _set_safe
 from deeplearning4j_tpu_torch.ui import UIServer
@@ -909,3 +910,526 @@ def test_parallel_inference_propagates_model_errors():
             pi.output(np.zeros((2, 3), np.float32))
     finally:
         pi.shutdown()
+
+
+# -- F1: the fixed-bucket latency histograms and the unified registry ------------------------
+
+
+def test_latency_snapshots_are_the_references_on_the_same_samples():
+    """1,000 lognormal(3, 0.7) samples (numpy seed 0) into the port's and
+    the reference's ``LatencyHistogram``: equal snapshot dicts (fixed
+    buckets, interpolated percentiles, 3 decimals), and equal empty ones."""
+    from deeplearning4j_tpu.serving.metrics import LatencyHistogram as JHist
+    from deeplearning4j_tpu_torch.serving import LatencyHistogram
+
+    samples = np.random.default_rng(0).lognormal(3.0, 0.7, 1000)
+    port, ref = LatencyHistogram(), JHist()
+    assert port.snapshot() == ref.snapshot()
+    assert port.snapshot()["max_ms"] == 0.0
+    for v in samples:
+        port.record(float(v))
+        ref.record(float(v))
+    got, want = port.snapshot(), ref.snapshot()
+    assert got == want
+    assert got["buckets_ms"] and sum(got["counts"]) == 1000
+    assert (port.count, port.sum_ms, port.max_ms) == (ref.count, ref.sum_ms, ref.max_ms)
+
+
+def test_metric_sets_register_with_the_process_registry_and_match_the_reference_keys():
+    from deeplearning4j_tpu.serving.metrics import ServingMetrics as JServing
+    from deeplearning4j_tpu_torch.obs.metrics import get_registry
+    from deeplearning4j_tpu_torch.serving import DecodeMetrics
+
+    m, d = ServingMetrics(), DecodeMetrics()
+    collected = get_registry().snapshot()["collected"]
+    assert m.global_name.startswith("serving#") and m.global_name in collected
+    assert d.global_name.startswith("decode#") and d.global_name in collected
+    assert set(m.snapshot()["counters"]) == set(JServing().snapshot()["counters"])
+    m.inc("shed", tenant="gold")
+    assert m.counter_value("shed") == 1 and m.counter_value("shed", tenant="gold") == 1
+    assert m.registry.snapshot()["counters"]["shed{tenant=gold}"] == 1
+    for snap in (m.snapshot(), d.snapshot()):
+        for k, h in snap.items():
+            if k.endswith("_ms") and isinstance(h, dict):
+                assert "buckets_ms" in h and "counts" in h, k
+
+
+def test_metrics_endpoint_carries_the_registry():
+    eng = _engine(_mlp(), max_batch=4).load()
+    server = UIServer(port=0).attach_engine(eng).start()
+    try:
+        eng.output(np.zeros((2, 12), np.float32))
+        code, m = _get(f"http://127.0.0.1:{server.port}/metrics")
+        assert code == 200 and "registry" in m
+        mine = m["registry"]["collected"][eng.metrics.global_name]
+        assert mine["counters"]["requests"] == 1
+        for h in ("queue_wait_ms", "device_time_ms", "e2e_ms"):
+            assert "buckets_ms" in m["serving"][0][h] and "counts" in m["serving"][0][h]
+            assert sum(mine[h]["counts"]) == mine[h]["count"]
+    finally:
+        server.stop()
+        eng.shutdown()
+
+
+# -- named models -----------------------------------------------------------------------------
+
+
+class _Conf3:
+    class input_type:                                   # noqa: N801
+        @staticmethod
+        def batch_shape(n):
+            return (n, 3)
+
+
+class _Const3(_ConstModel):
+    """A constant model whose conf gives ``add_model`` its shape (3,)."""
+
+    conf = _Conf3()
+
+
+def _three_models():
+    reg = ModelRegistry(device="cpu")
+    for name, val in (("m1", 1.0), ("m2", 2.0), ("m3", 3.0)):
+        reg.set_alias(name, "prod", reg.register(name, _Const3(val)))
+    return reg
+
+
+X3 = np.zeros((1, 3), np.float32)
+
+
+class TestMultiModelEngine:
+    def _engine(self, reg):
+        return Engine.from_registry(reg, "m1", max_batch=8, slo_ms=10_000, device="cpu").load(
+            input_shape=(3,))
+
+    def test_add_model_places_and_routes(self):
+        reg = _three_models()
+        eng = self._engine(reg)
+        try:
+            eng.add_model_from_registry(reg, "m2", input_shape=(3,))
+            assert eng.has_model("m2") and eng.has_model("m1") and eng.has_model(None)
+            assert eng.placed_models() == {"m1": "m1:v1", "m2": "m2:v1"}
+            assert float(eng.output(X3)[0, 0]) == 1.0
+            assert float(eng.output(X3, model="m2")[0, 0]) == 2.0
+            assert float(eng.output(X3, model="m1")[0, 0]) == 1.0
+            assert eng.model_last_used("m2") is not None
+            assert eng.metrics_snapshot()["models"] == eng.placed_models()
+            assert eng.metrics.counter_value("model_loads") == 1
+            assert all(len({e["model"]}) == 1 for e in eng.batch_log)
+        finally:
+            eng.shutdown()
+
+    def test_add_model_rejects_duplicates_and_default(self):
+        reg = _three_models()
+        eng = self._engine(reg)
+        try:
+            eng.add_model("m2", _Const3(2.0))
+            with pytest.raises(ValueError, match="already placed"):
+                eng.add_model("m2", _Const3(9.0))
+            with pytest.raises(ValueError, match="already placed"):
+                eng.add_model("m1", _Const3(9.0))
+            with pytest.raises(ValueError, match="input shape"):
+                eng.add_model("m4", _ConstModel(4.0))
+        finally:
+            eng.shutdown()
+
+    def test_remove_model_evicts_but_never_the_default(self):
+        reg = _three_models()
+        eng = self._engine(reg)
+        try:
+            eng.add_model("m2", _Const3(2.0))
+            assert eng.remove_model("m2") is True and not eng.has_model("m2")
+            assert eng.remove_model("m2") is False
+            with pytest.raises(ModelNotLoadedError):
+                eng.output_async(X3, model="m2").result(timeout=10)
+            with pytest.raises(ValueError, match="default model"):
+                eng.remove_model("m1")
+            with pytest.raises(ModelNotLoadedError):
+                eng.compile_cache_size(model="m2")
+            assert eng.metrics.counter_value("model_evictions") == 1
+        finally:
+            eng.shutdown()
+
+    def test_named_networks_keep_their_own_programs_and_answers(self):
+        """Two real networks of different widths beside each other: each
+        request is its own model's eager forward, each model's program
+        count flat; a removal drains and strands nothing."""
+        a, b = _mlp(seed=1), _port_of(_np_init(4))
+        eng = _engine(a, max_batch=4, replicas=2, slo_ms=30_000).load()
+        try:
+            eng.add_model("small", b)
+            assert eng.compile_cache_size() == eng.compile_cache_size(model="small") == 6
+            rng = np.random.default_rng(5)
+            futs = []
+            for i in range(24):
+                if i % 2:
+                    x = rng.normal(size=(1 + i % 3, 4)).astype(np.float32)
+                    futs.append((b, x, eng.output_async(x, model="small")))
+                else:
+                    x = rng.normal(size=(1 + i % 3, 12)).astype(np.float32)
+                    futs.append((a, x, eng.output_async(x)))
+            for net, x, f in futs:
+                np.testing.assert_allclose(f.result(timeout=30), _out(net, x), rtol=0,
+                                           atol=1e-6)
+            assert eng.compile_cache_size() == eng.compile_cache_size(model="small") == 6
+            assert eng.metrics_snapshot()["counters"]["unwarmed_serves"] == 0
+            late = [eng.output_async(rng.normal(size=(1, 4)).astype(np.float32),
+                                     model="small") for _ in range(6)]
+            assert eng.remove_model("small")
+            for f in late:
+                f.exception(timeout=30)           # each resolves: a result or typed
+            assert all(f.done() for f in late)
+        finally:
+            eng.shutdown()
+
+
+def _np_init(n_in):
+    """A 4 → 5 → 2 reference network for ``_port_of`` (built in place)."""
+    net = JNet(JConf.builder().seed(2).layer(JDense(n_out=5, activation="relu"))
+               .layer(JOutputLayer(n_out=2, activation="softmax", loss="mcxent"))
+               .set_input_type(JInputType.feed_forward(n_in)).build())
+    net.init()
+    return net
+
+
+class TestRegistryInventory:
+    def test_list_aliases_and_checkpoint_path(self, tmp_path):
+        reg = _three_models()
+        assert reg.list_aliases() == {"m1": {"prod": 1}, "m2": {"prod": 1},
+                                      "m3": {"prod": 1}}
+        reg.register("m4", _ConstModel(4.0))
+        assert "m4" not in reg.list_aliases()
+        assert reg.checkpoint_path("m1") is None and reg.checkpoint_path("nope") is None
+        p = str(tmp_path / "m.zip")
+        j_save(_jmlp(), p)
+        v = reg.load("mlp", p)
+        assert reg.checkpoint_path("mlp", v) == p
+        assert reg.resolve("mlp", v)[1]._checkpoint_path == p
+
+
+# -- canary promotion ---------------------------------------------------------------------------
+
+
+class _NaNModel:
+    def output(self, x):
+        return np.full((x.shape[0], 1), np.nan, np.float32)
+
+
+class _Traffic:
+    """Background traffic driving a canary window."""
+
+    def __init__(self, eng, shape=(1, 3), **kw):
+        self.eng, self.shape, self.kw = eng, shape, kw
+        self.stop = threading.Event()
+        self.results, self.errors = [], []
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self.stop.is_set():
+            try:
+                self.results.append(self.eng.output(np.zeros(self.shape, np.float32),
+                                                    **self.kw))
+            except Exception as e:
+                self.errors.append(e)
+            time.sleep(0.002)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *a):
+        self.stop.set()
+        self.thread.join(timeout=10)
+
+
+class TestCanary:
+    def _setup(self, v2_model):
+        reg = ModelRegistry(device="cpu")
+        v1 = reg.register("m", _ConstModel(1.0))
+        v2 = reg.register("m", v2_model)
+        reg.set_alias("m", "prod", v1)
+        eng = Engine.from_registry(reg, "m", "prod", max_batch=4, slo_ms=10_000,
+                                   max_wait_ms=0.5, device="cpu")
+        return reg, v1, v2, eng
+
+    def test_healthy_candidate_promotes(self):
+        reg, v1, v2, eng = self._setup(_ConstModel(1.0))
+        try:
+            with _Traffic(eng):
+                record = reg.set_alias("m", "prod", v2, canary=0.5, canary_window=4,
+                                       canary_timeout_s=30)
+            assert record["promoted"] is True
+            d = record["decisions"][0]
+            assert d["promote"] and d["mirrored_batches"] >= 4
+            assert d["error_rate"] == 0.0 and d["mean_divergence"] == 0.0
+            assert reg.resolve("m", "prod")[0] == v2 and eng.current_tag == "m:v2"
+            c = eng.metrics_snapshot()["counters"]
+            assert (c["canary_promotions"], c["canary_rollbacks"]) == (1, 0)
+            assert c["canary_mirrored_batches"] >= 4
+            assert reg.canary_history("m")[0]["promoted"] is True
+            assert eng.metrics_snapshot()["canary_decisions"][0]["promote"] is True
+        finally:
+            eng.shutdown()
+
+    def test_regressed_candidate_rolls_back(self):
+        reg, v1, v_bad, eng = self._setup(_NaNModel())
+        try:
+            with _Traffic(eng) as traffic:
+                record = reg.set_alias("m", "prod", v_bad, canary=0.5, canary_window=4,
+                                       canary_timeout_s=30)
+            d = record["decisions"][0]
+            assert record["promoted"] is False and not d["promote"]
+            assert d["error_rate"] == 1.0 and any("error rate" in r for r in d["reasons"])
+            assert reg.resolve("m", "prod")[0] == v1 and eng.current_tag == "m:v1"
+            assert eng.metrics_snapshot()["counters"]["canary_rollbacks"] == 1
+            assert not traffic.errors
+            assert all(np.isfinite(r).all() and r[0, 0] == 1.0 for r in traffic.results)
+        finally:
+            eng.shutdown()
+
+    def test_divergent_candidate_rolls_back_on_threshold_and_raises_on_request(self):
+        reg, v1, v2, eng = self._setup(_ConstModel(5.0))
+        try:
+            with _Traffic(eng):
+                with pytest.raises(CanaryRejectedError) as e:
+                    reg.set_alias("m", "prod", v2, canary=1.0, canary_window=3,
+                                  canary_timeout_s=30,
+                                  canary_thresholds={"max_divergence": 0.5},
+                                  raise_on_reject=True)
+            assert any("divergence" in r for r in e.value.reasons)
+            assert e.value.record["promoted"] is False and e.value.candidate == v2
+            assert eng.current_tag == "m:v1"
+        finally:
+            eng.shutdown()
+
+    def test_no_traffic_window_times_out_to_rollback(self):
+        reg, v1, v2, eng = self._setup(_ConstModel(1.0))
+        try:
+            record = reg.set_alias("m", "prod", v2, canary=0.5, canary_window=4,
+                                   canary_timeout_s=0.3)
+            assert record["promoted"] is False
+            assert any("window incomplete" in r for r in record["decisions"][0]["reasons"])
+            assert reg.resolve("m", "prod")[0] == v1
+        finally:
+            eng.shutdown()
+
+    def test_canary_to_first_pin_or_same_version_is_direct(self):
+        reg = ModelRegistry(device="cpu")
+        v1 = reg.register("m", _ConstModel(1.0))
+        assert reg.set_alias("m", "prod", v1, canary=0.5) is None
+        assert reg.set_alias("m", "prod", v1, canary=0.5) == v1
+
+    def test_canary_programs_are_prepared_before_mirroring_and_released_on_rollback(self):
+        """A network canary: its programs exist (every pair, every replica)
+        before the first mirrored batch, none is prepared at serve time, and
+        a NaN-poisoned candidate's programs are dropped at the rollback."""
+        good, bad = _mlp(seed=3), _mlp(seed=4)
+        bad.params[-1]["b"] = torch.full_like(bad.params[-1]["b"], float("nan"))
+        reg = ModelRegistry(device="cpu")
+        v1, v2, v3 = (reg.register("m", n) for n in (_mlp(seed=3), good, bad))
+        reg.set_alias("m", "prod", v1)
+        eng = Engine.from_registry(reg, "m", "prod", max_batch=4, replicas=2,
+                                   slo_ms=10_000, max_wait_ms=0.5, device="cpu").load()
+        seen = []
+        real = eng._mirror_canary
+
+        def spy(can, *a):
+            seen.append(can.version.cache_size())
+            return real(can, *a)
+        eng._mirror_canary = spy
+        try:
+            # the programs are this test's subject: a loaded CPU's timing
+            # noise must not veto v2 through the p99 rule
+            loose = {"p99_factor": 1000.0}
+            with _Traffic(eng, shape=(1, 12)) as traffic:
+                ok = reg.set_alias("m", "prod", v2, canary=0.5, canary_window=4,
+                                   canary_timeout_s=30, canary_thresholds=loose)
+                bad_rec = reg.set_alias("m", "prod", v3, canary=0.5, canary_window=4,
+                                        canary_timeout_s=30, canary_thresholds=loose)
+            assert ok["promoted"] and not bad_rec["promoted"], (ok, bad_rec)
+            assert seen and all(n == 6 for n in seen)
+            assert [r["promoted"] for r in reg.canary_history("m")] == [True, False]
+            assert eng.current_tag == "m:v2" and eng.compile_cache_size() == 6
+            assert eng.metrics_snapshot()["counters"]["unwarmed_serves"] == 0
+            assert not traffic.errors
+        finally:
+            eng.shutdown()
+
+
+# -- warm bundles -------------------------------------------------------------------------------
+
+
+def _bundle_engine(net):
+    return _engine(net, max_batch=4, slo_ms=60_000)
+
+
+class TestWarmBundle:
+    def test_round_trip_counts_hits_and_serves_bitwise(self, tmp_path):
+        net = _mlp()
+        bundle = str(tmp_path / "m.zip.warm")
+        x = np.random.default_rng(0).normal(size=(4, 12)).astype(np.float32)
+        cold = _bundle_engine(net).load()
+        try:
+            c0 = cold.compile_cache_size()
+            out_cold = cold.output(x)
+            assert cold.metrics.counter_value("bundle_misses") == 3
+            assert cold.metrics.counter_value("bundle_hits") == 0
+            assert cold.save_warmup_bundle(bundle) == bundle
+        finally:
+            cold.shutdown()
+        warm = _bundle_engine(net).load(warm_bundle=bundle)
+        try:
+            assert warm.metrics.counter_value("bundle_hits") == 3
+            assert warm.metrics.counter_value("bundle_misses") == 0
+            assert warm.compile_cache_size() == c0
+            np.testing.assert_array_equal(warm.output(x), out_cold)
+            assert warm.compile_cache_size() == c0
+        finally:
+            warm.shutdown()
+        with zipfile.ZipFile(bundle) as z:
+            meta = json.loads(z.read("meta.json"))
+        assert meta["tag"] == "v0" and len(meta["entries"]) == 3
+        assert set(meta["integrity"]) == set(meta["entries"])
+
+    def test_missing_bundle_is_silent(self, tmp_path):
+        import warnings
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            assert warmcache.load_bundle(str(tmp_path / "nope.warm")) == {}
+            eng = _bundle_engine(_mlp()).load(warm_bundle=str(tmp_path / "still_nope.warm"))
+            try:
+                assert eng.metrics.counter_value("bundle_misses") == 3
+            finally:
+                eng.shutdown()
+        assert [x for x in w if issubclass(x.category, RuntimeWarning)] == []
+
+    @pytest.mark.parametrize("spoil", ["corrupt", "truncate", "fingerprint", "reference"])
+    def test_unusable_bundle_warns_once_and_serves(self, tmp_path, spoil):
+        net = _mlp()
+        bundle = str(tmp_path / "m.zip.warm")
+        x = np.random.default_rng(1).normal(size=(3, 12)).astype(np.float32)
+        cold = _bundle_engine(net).load()
+        want = cold.output(x)
+        cold.save_warmup_bundle(bundle)
+        cold.shutdown()
+        if spoil == "corrupt":
+            with open(bundle, "r+b") as f:
+                f.seek(os.path.getsize(bundle) // 2)
+                f.write(b"\x00" * 32)
+        elif spoil == "truncate":
+            with open(bundle, "r+b") as f:
+                f.truncate(100)
+        elif spoil == "fingerprint":
+            spoiled = str(tmp_path / "spoiled.warm")
+            with zipfile.ZipFile(bundle) as zin, zipfile.ZipFile(spoiled, "w") as zout:
+                for name in zin.namelist():
+                    b = zin.read(name)
+                    if name == "meta.json":
+                        meta = json.loads(b)
+                        meta["fingerprint"] = "NVIDIA B200|8|sm_100|9.9|13.0|0"
+                        b = json.dumps(meta).encode()
+                    zout.writestr(name, b)
+            bundle = spoiled
+        else:
+            # a bundle the reference writes (its layout, its fingerprint)
+            from deeplearning4j_tpu.serving import warmcache as jwarm
+            bundle = jwarm.save_bundle(str(tmp_path / "ref.zip.warm"), "v0", {})
+        with pytest.warns(RuntimeWarning, match="falling back to capture") as rec:
+            eng = _bundle_engine(net).load(warm_bundle=bundle)
+        try:
+            assert len([r for r in rec if issubclass(r.category, RuntimeWarning)]) == 1
+            assert eng.metrics.counter_value("bundle_hits") == 0
+            assert eng.metrics.counter_value("bundle_misses") == 3
+            np.testing.assert_array_equal(eng.output(x), want)
+        finally:
+            eng.shutdown()
+
+    def test_wrong_tag_falls_back(self, tmp_path):
+        bundle = str(tmp_path / "m.zip.warm")
+        eng = _bundle_engine(_mlp()).load()
+        eng.save_warmup_bundle(bundle)
+        eng.shutdown()
+        with pytest.warns(RuntimeWarning, match="tag"):
+            assert warmcache.load_bundle(bundle, tag="someone-else") == {}
+        assert warmcache.load_bundle(bundle, tag="v0")
+
+    def test_save_without_programs_or_path_raises(self, tmp_path):
+        eng = _engine(_ConstModel(1.0), max_batch=4).load(input_shape=(3,))
+        try:
+            with pytest.raises(RuntimeError, match="nothing to bundle"):
+                eng.save_warmup_bundle(str(tmp_path / "x.warm"))
+        finally:
+            eng.shutdown()
+        eng2 = _bundle_engine(_mlp()).load()
+        try:
+            with pytest.raises(ValueError, match="path"):
+                eng2.save_warmup_bundle()
+        finally:
+            eng2.shutdown()
+
+    def test_registry_provenance_finds_the_bundle(self, tmp_path):
+        p = str(tmp_path / "m.zip")
+        j_save(_jmlp(seed=4), p)
+        reg = ModelRegistry(device="cpu")
+        reg.set_alias("m", "prod", reg.load("m", p))
+        first = Engine.from_registry(reg, "m", max_batch=4, slo_ms=60_000,
+                                     device="cpu").load()
+        try:
+            assert first.save_warmup_bundle() == p + ".warm"
+        finally:
+            first.shutdown()
+        second = Engine.from_registry(reg, "m", max_batch=4, slo_ms=60_000,
+                                      device="cpu").load()
+        try:
+            assert second.metrics.counter_value("bundle_hits") == 3
+            assert second.metrics.counter_value("bundle_misses") == 0
+        finally:
+            second.shutdown()
+
+
+# -- tenants and models over HTTP, and the chaos hook ------------------------------------------
+
+
+def test_predict_forwards_tenant_and_model_and_answers_429_and_404():
+    from deeplearning4j_tpu_torch.serving import TenantTable
+
+    table = TenantTable.from_specs([{"tenant": "free", "quota_qps": 1, "burst": 1},
+                                    {"tenant": "gold", "weight": 3.0}])
+    eng = _engine(_Const3(1.0), max_batch=4, slo_ms=10_000, tenants=table).load(
+        input_shape=(3,))
+    eng.add_model("m2", _Const3(2.0))
+    server = UIServer(port=0).attach_engine(eng).start()
+    base = f"http://127.0.0.1:{server.port}/predict"
+    try:
+        body = {"inputs": [[0.0, 0.0, 0.0]]}
+        code, r = _post(base, json.dumps({**body, "model": "m2", "tenant": "gold"}).encode())
+        assert code == 200 and r["outputs"] == [[2.0]]
+        code, r = _post(base, json.dumps({**body, "model": "nope"}).encode())
+        assert code == 404 and r["error_class"] == "model_not_loaded"
+        code, _ = _post(base, json.dumps({**body, "tenant": "free"}).encode())
+        assert code == 200
+        code, r = _post(base, json.dumps({**body, "tenant": "free"}).encode())
+        assert code == 429 and r["error_class"] == "tenant_overloaded"
+        assert (r["tenant"], r["shed_count"], r["reason"]) == ("free", 1, "quota")
+        code, m = _get(f"http://127.0.0.1:{server.port}/metrics")
+        assert m["serving"][0]["tenants"]["free"]["shed"] == 1
+        assert m["serving"][0]["models"] == {"": "v0", "m2": "m2"}
+    finally:
+        server.stop()
+        eng.shutdown()
+
+
+def test_chaos_hook_crashes_a_replica_and_the_request_is_retried():
+    from deeplearning4j_tpu_torch.parallel.chaos import FaultKind, FaultSchedule, ServingChaos
+
+    chaos = ServingChaos(FaultSchedule.scripted({2: FaultKind.REPLICA_CRASH}))
+    eng = _engine(_ConstModel(1.0), max_batch=4, slo_ms=10_000, replicas=2, chaos=chaos,
+                  supervise_interval_s=0.01)
+    try:
+        for _ in range(3):
+            assert float(eng.output(np.zeros((1, 2), np.float32))[0, 0]) == 1.0
+        assert chaos.injected(FaultKind.REPLICA_CRASH) == 1
+        c = eng.metrics_snapshot()["counters"]
+        assert c["replica_crashes"] == 1 and c["retries"] >= 1
+    finally:
+        eng.shutdown()

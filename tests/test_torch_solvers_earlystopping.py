@@ -263,5 +263,7 @@ def test_builtin_iris_weights_load_and_are_checksum_enforced(tmp_path, monkeypat
     monkeypatch.setitem(tpt.BUILTIN_WEIGHTS, ("iris_mlp", "iris"), ("iris_mlp_iris.zip", 1))
     with pytest.raises(IOError, match="corrupt"):
         tpt.init_pretrained("iris_mlp", "iris", cache_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tpt.init_pretrained_int8("iris_mlp", "iris")
+    # the int8 entry is ported: without calibration inputs it refuses, as
+    # the reference's does
+    with pytest.raises(ValueError, match="calibration_inputs"):
+        tpt.init_pretrained_int8("iris_mlp", "iris", cache_dir=str(tmp_path), device="cpu")
