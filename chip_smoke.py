@@ -10,6 +10,8 @@
                                            # phase alone (no result line)
     python3 chip_smoke.py --phase predict_features  # the build and the
                                            # predict_features phase alone
+    python3 chip_smoke.py --phase fleet    # the build and the fleet phase
+                                           # alone
 
 It builds every CUDA kernel of the port from ``deeplearning4j_tpu_torch/csrc``
 with ``nvcc`` (one process per source, started together), then drives the
@@ -135,6 +137,42 @@ and the recurrent path's training and streaming:
           and on the CPU from the same weights: the loss falls, parameters
           stay float32, losses within two bfloat16 spacings and parameters
           within 1e-2 of their norm of the CPU's;
+  fleet   the serving fleet (``serving/fleet.py``) over the same network.
+          First K1 at the predict hosts' shapes [1 | 2 | 4, 12, 256, 64]
+          f32 against its plain version (the kernel phase's tolerances).
+          (a) a ``FleetRouter`` over two in-process hosts, each
+          ``Engine(replicas=1, max_batch=4)`` (buckets 1, 2, 4 captured at
+          ``load()`` for [rows, 256] token ids), 32 requests of 1-3 rows
+          from 4 threads, ``FleetChaos`` killing host h1 (engine shut
+          down, host marked down) at request 12: every future delivers
+          exactly once (delivered 32, failed 0, late discards 0), the
+          router's retries equal the attempts h1 failed, every request
+          bitwise the eager forward of the padded bucket it was served in
+          (from its host's ``batch_log``), no unwarmed serve, K1 12 per
+          replay.  (b) a fresh h2 beside h0: ``rolling_swap`` v0 → v2 (the
+          weights nudged by 1e-4) under two threads of traffic: no request
+          dropped, each bitwise the eager bucket of the version its batch's
+          tag names (both versions served), 6 captures, none on a replica
+          thread; then a swap to v3 in which h2 dies: h2 down, h0 rolled
+          back to v0 and serving it bitwise.  (c) ``DecodeEngine`` roles:
+          a prefill host and a decode host (``max_slots=4``,
+          ``page_size=16``) behind the router against a unified engine on
+          the serve phase's 8 requests, f32 and int8 pages: tokens equal,
+          echoed logits bitwise, every pool back to 0 pages; each
+          request's handoff bytes, the pack → unpack → ``set_pages`` stages
+          of a 512-token prompt (f32 and int8, bitwise), TTFT and TPOT p50
+          against the unified engine's; the f32 ``ShardedTransformerLM``'s
+          one-way prefill host into a sink of two head shards: every
+          token equal, echoed logits within 1e-5.  (d) 8 sessions twice each on two unified hosts: every
+          session on its ring host; an ``HttpHost`` over a loopback
+          ``UIServer`` of the Iris engine answers bitwise the in-process
+          engine; a prefill host's /generate answers 409
+          ``prefill_role``.  (e) a fused-horizon decode engine's warm
+          bundle: it names the one captured graph, which the loaded
+          engine captures again (a hit, no miss) and serves bitwise;
+          ``compile_cache_size`` flat on every engine of the
+          phase; ``enable_compile_cache(tmp)`` builds D1 and K1 there and
+          a fresh process pointed at it loads both with no ``nvcc``;
   train   ``fit_batch`` 5 times on one fixed [8, 1024] batch with Adam
           (lr 3e-4, per-layer L2 clipping 1.0) and ``DL4J_TPU_FUSED_UPDATE=1``:
           the loss is finite and falls on every step, each step launches
@@ -5993,6 +6031,625 @@ def phase_elastic():
     return {**out, "launches": launches}
 
 
+# -- fleet phase ---------------------------------------------------------------------
+
+#: the fleet phase's predict rows: [rows, 256] token ids (the 1024-long
+#: rows' outputs are 206 MB a row, 4x the copy to the host for no more
+#: model: the width is GPT-2-small's either way)
+FLEET_T = 256
+FLEET_REQUESTS, FLEET_CLIENTS, FLEET_KILL_AT = 32, 4, 12
+
+
+class HostTap:
+    """Records every attempt a ``FleetRouter`` sends one predict engine:
+    (request index, the engine's future), and the attempts refused
+    synchronously.  ``index`` maps ``id(x)`` of a request's array to its
+    index (the router hands the engine the caller's array)."""
+
+    def __init__(self, name, eng, index):
+        self.name, self.eng, self.index = name, eng, index
+        self.attempts, self.sync_failures = [], 0
+        orig, tap = eng.output_async, self
+
+        def call(x, *a, **kw):
+            try:
+                f = orig(x, *a, **kw)
+            except Exception:
+                tap.sync_failures += 1
+                raise
+            tap.attempts.append((tap.index.get(id(x)), f))
+            return f
+        eng.output_async = call
+
+    def failed(self) -> int:
+        return self.sync_failures + sum(1 for _, f in self.attempts
+                                        if f.done() and f.exception() is not None)
+
+
+def fleet_bitwise(taps, xs, outs, models):
+    """Every delivered request bitwise the eager forward of the padded
+    bucket it was served in, on the model its batch's tag names
+    (``models``: tag → network), from each host's ``batch_log`` → (ok,
+    requests checked, tags seen)."""
+    import numpy as np
+    import torch
+    ok, n, tags = True, 0, {}
+    for tap in taps:
+        fid = {id(f): i for i, f in tap.attempts
+               if i is not None and f.done() and f.exception() is None}
+        for b in tap.eng.batch_log:
+            members = [fid[r] for r in b["request_ids"] if r in fid]
+            if not members:
+                continue
+            x = np.concatenate([xs[i] for i in members])
+            y = eager_bucket(models[b["tag"]], x, b["rows"] + b["padded"])
+            ofs = 0
+            for i in members:
+                got = torch.from_numpy(outs[i]).to("cuda")
+                ok = ok and torch.equal(got, y[ofs:ofs + xs[i].shape[0]])
+                ofs += xs[i].shape[0]
+                n += 1
+                tags[b["tag"]] = tags.get(b["tag"], 0) + 1
+            del y
+    return ok, n, tags
+
+
+def fleet_predict(net):
+    """(a) a ``FleetRouter`` over two in-process hosts, each
+    ``Engine(replicas=1, max_batch=4)``: 32 requests of 1-3 rows from 4
+    threads, ``FleetChaos`` killing host h1 at request 12; (b) a rolling
+    swap v0 → v2 under traffic, then a swap to v3 whose second host dies
+    mid-swap, rolling the survivor back to v0."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.parallel import FaultKind, FaultSchedule, FleetChaos
+    from deeplearning4j_tpu_torch.serving import (Engine, FleetHost, FleetRouter,
+                                                  ReplicaCrashError)
+    from deeplearning4j_tpu_torch.serving.engine import _fail_safe
+
+    bad = []
+    load = lambda: Engine(net, max_batch=4, replicas=1, slo_ms=600_000,
+                          device="cuda").load(input_shape=(FLEET_T,))
+    engines = [load(), load()]
+    rng = np.random.default_rng(SEED + 310)
+    xs = [rng.integers(0, VOCAB, (1 + (5 * i) % 3, FLEET_T)).astype(np.float32)
+          for i in range(FLEET_REQUESTS)]
+    index = {id(x): i for i, x in enumerate(xs)}
+    taps = [HostTap(f"h{i}", e, index) for i, e in enumerate(engines)]
+    router = FleetRouter([FleetHost(f"h{i}", engine=e) for i, e in enumerate(engines)],
+                         max_retries=2)
+    programs = [dict(e._current.programs) for e in engines]
+    chaos = FleetChaos(FaultSchedule.scripted({FLEET_KILL_AT: FaultKind.HOST_KILL}))
+    lock = threading.Lock()
+    futs, outs, errors = [None] * len(xs), [None] * len(xs), []
+    killed_inflight = []
+
+    def client(k):
+        for i in range(k, len(xs), FLEET_CLIENTS):
+            with lock:
+                if FaultKind.HOST_KILL in chaos.pop_request():
+                    # kill h1 while it holds work (up to 2 s for some to
+                    # land): its unfinished attempts are lost, as a dead
+                    # host's are, then its engine stops
+                    h1 = router.host("h1")
+                    deadline = time.monotonic() + 2.0
+                    while h1.inflight == 0 and time.monotonic() < deadline:
+                        time.sleep(0.001)
+                    killed_inflight.append(h1.inflight)
+                    for _, f in list(taps[1].attempts):
+                        _fail_safe(f, ReplicaCrashError("host h1 killed"))
+                    engines[1].shutdown()
+                    router.mark_host_down("h1", reason="chaos host_kill")
+                futs[i] = router.output_async(xs[i])
+            try:
+                outs[i] = futs[i].result(timeout=600)
+            except Exception as e:   # gated: every future delivers
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    try:
+        replays0 = sum(g.replays for p in programs for g in p.values())
+        att.flash_forward_cuda.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(FLEET_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        k1 = att.flash_forward_cuda.launches
+        replays = sum(g.replays for p in programs for g in p.values()) - replays0
+        counters = router.metrics_snapshot()["counters"]
+        unwarmed = sum(e.metrics.counter_value("unwarmed_serves") for e in engines)
+        bitwise, checked, _ = fleet_bitwise(taps, xs, outs, {"v0": net})
+        failed_attempts = sum(t.failed() for t in taps)
+        rec_a = {"hosts": 2, "requests": FLEET_REQUESTS, "clients": FLEET_CLIENTS,
+                 "kill_at_request": FLEET_KILL_AT, "row_tokens": FLEET_T,
+                 "h1_inflight_at_kill": killed_inflight,
+                 "chaos_injected": chaos.injected(), "errors": errors,
+                 "delivered": counters["delivered"], "retries": counters["retries"],
+                 "failed_attempts": failed_attempts, "failed": counters["failed"],
+                 "late_discards": counters["late_discards"],
+                 "host_down": counters["host_down"], "graph_replays": replays,
+                 "launches": {"flash_fwd": k1}, "k1_per_replay": k1 / max(replays, 1),
+                 "unwarmed_serves": unwarmed, "bitwise_eager_bucket": bitwise,
+                 "requests_checked": checked, "wall_s": wall,
+                 "requests_per_s": FLEET_REQUESTS / wall,
+                 "e2e_p50_ms": router.metrics_snapshot()["fleet_e2e_ms"]["p50_ms"],
+                 "e2e_p99_ms": router.metrics_snapshot()["fleet_e2e_ms"]["p99_ms"]}
+        emit({"phase": "fleet", "arm": "a_predict_fleet", **rec_a})
+        if (errors or not all(o is not None for o in outs) or not bitwise
+                or checked != FLEET_REQUESTS or counters["delivered"] != FLEET_REQUESTS
+                or counters["failed"] or counters["late_discards"]
+                or counters["retries"] != failed_attempts or failed_attempts < 1
+                or chaos.injected() != 1
+                or unwarmed or replays < 1 or k1 != LAYERS * replays):
+            bad.append("a: predict fleet")
+    finally:
+        router.shutdown()
+    del outs
+
+    # (b) a rolling swap under traffic on h0 and a fresh h2
+    engines = [engines[0], load()]
+    v2, v3 = perturbed(net, seed=SEED + 311), perturbed(net, seed=SEED + 312)
+    xs, index = [], {}
+    taps = [HostTap(n, e, index) for n, e in zip(("h0", "h2"), engines)]
+    for e in engines:
+        e.batch_log.clear()
+    router = FleetRouter([FleetHost(n, engine=e) for n, e in zip(("h0", "h2"), engines)],
+                         max_retries=2)
+    stop, sent, pump_errors = threading.Event(), [], []
+    rng = np.random.default_rng(SEED + 313)
+
+    def pump():
+        while not stop.is_set():
+            with lock:
+                x = rng.integers(0, VOCAB, (1 + len(xs) % 3, FLEET_T)).astype(np.float32)
+                index[id(x)] = len(xs)
+                xs.append(x)
+                fut = router.output_async(x)
+                sent.append(fut)
+            try:
+                fut.result(timeout=600)
+            except Exception as e:
+                pump_errors.append(f"{type(e).__name__}: {e}")
+    try:
+        att.flash_forward_cuda.launches = 0
+        with GraphSpy() as spy:
+            pumps = [threading.Thread(target=pump) for _ in range(2)]
+            for t in pumps:
+                t.start()
+            t0 = time.perf_counter()
+            report = router.rolling_swap(v2, "v2", drain_timeout_s=300)
+            swap_s = time.perf_counter() - t0
+            time.sleep(0.5)
+            stop.set()
+            for t in pumps:
+                t.join(timeout=600)
+        k1_swap = att.flash_forward_cuda.launches
+        outs = [None if f.exception() else f.result() for f in sent]
+        bitwise, checked, tags = fleet_bitwise(taps, xs, outs, {"v0": net, "v2": v2})
+
+        def die(*a, **kw):
+            engines[1].shutdown()
+            raise RuntimeError("host h2 killed mid-swap")
+        engines[1].swap_model = die
+        kill = router.rolling_swap(v3, "v3", rollback_model=net, rollback_tag="v0")
+        after_tags = router.tags()
+        x = np.random.default_rng(SEED + 314).integers(0, VOCAB, (2, FLEET_T)).astype(np.float32)
+        back = torch.equal(torch.from_numpy(router.output(x)).to("cuda"),
+                           eager_bucket(net, x, 2))
+        rec_b = {"swap": report, "swap_s": swap_s, "launches": {"flash_fwd": k1_swap}, "requests": len(sent),
+                 "errors": pump_errors, "bitwise_eager_bucket_of_tag": bitwise,
+                 "requests_checked": checked, "by_tag": tags,
+                 "captures": len(spy.captures),
+                 "captures_on_replica_threads": spy.served_captures(),
+                 "mid_swap_kill": {k: kill[k] for k in ("ok", "failed_host", "swapped",
+                                                         "rolled_back")},
+                 "tags_after": after_tags, "after_rollback_bitwise_v0": back}
+        emit({"phase": "fleet", "arm": "b_rolling_swap", **rec_b})
+        if (not report["ok"] or pump_errors or not bitwise or checked != len(sent)
+                or set(tags) != {"v0", "v2"} or spy.served_captures()
+                or len(spy.captures) != 2 * len(PREDICT_BUCKETS)
+                or kill["ok"] or kill["failed_host"] != "h2" or not kill["rolled_back"]
+                or after_tags != {"h0": "v0"} or not back):
+            bad.append("b: rolling swap")
+    finally:
+        router.shutdown(shutdown_hosts=True)
+        del v2, v3
+        torch.cuda.empty_cache()
+    return {"a": rec_a, "b": rec_b, "launches": {"flash_fwd": k1 + k1_swap}}, bad
+
+
+def transfer_times(pool_kw, n_pages):
+    """Milliseconds of each stage of moving ``n_pages`` pages (a 512-token
+    prompt at page 16) from one pool to another through the wire, on the
+    card: gather and copy to the host, pack, unpack, copy to the card and
+    ``set_pages``."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import kv_cache as kvc
+    src = kvc.alloc_cache(**pool_kw)
+    dst = kvc.alloc_cache(**pool_kw)
+    for pool in src:
+        for leaf in (pool if isinstance(pool, tuple) else (pool,)):
+            if leaf.dtype == torch.int8:
+                leaf.copy_(torch.randint(-127, 128, leaf.shape, device="cuda"))
+            else:
+                leaf.normal_()
+    ids = torch.arange(1, 1 + n_pages, device="cuda")
+    host = lambda p: (kvc.QuantPages(p.q.cpu().numpy(), p.scale.cpu().numpy())
+                      if isinstance(p, kvc.QuantPages) else p.cpu().numpy())
+    dev = lambda p: (kvc.QuantPages(*(torch.from_numpy(a.copy()).to("cuda") for a in p))
+                     if isinstance(p, kvc.QuantPages) else torch.from_numpy(p.copy()).to("cuda"))
+    out = {}
+    for _ in range(2):          # the second pass is the one kept
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k, v = host(kvc.gather_pages(src[0], ids)), host(kvc.gather_pages(src[1], ids))
+        t1 = time.perf_counter()
+        data = kvc.pack_transfer(kvc.PageTransfer(n_pages, k, v))
+        t2 = time.perf_counter()
+        t = kvc.unpack_transfer(data)
+        t3 = time.perf_counter()
+        kvc.set_pages(dst[0], ids, dev(t.k))
+        kvc.set_pages(dst[1], ids, dev(t.v))
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        out = {"gather_to_host_ms": (t1 - t0) * 1e3, "pack_ms": (t2 - t1) * 1e3,
+               "unpack_ms": (t3 - t2) * 1e3, "to_card_set_pages_ms": (t4 - t3) * 1e3,
+               "total_ms": (t4 - t0) * 1e3, "bytes": len(data),
+               "payload_bytes": kvc.transfer_nbytes(t)}
+    # every leaf of the pages: an int8 pool's q and its f32 scale
+    leaves = lambda p: tuple(p) if isinstance(p, kvc.QuantPages) else (p,)
+    same = all(torch.equal(x, y) for a, b in zip(src, dst)
+               for x, y in zip(leaves(kvc.gather_pages(a, ids)),
+                               leaves(kvc.gather_pages(b, ids))))
+    return {**out, "bitwise": same}
+
+
+def decode_trio_run(adapter, sink_model=None, kv_dtype=None, **kw):
+    """A unified engine and a prefill → decode pair behind a router, each
+    answering the serve phase's 8 requests with echoed logits → (unified
+    results, pair results, snapshots, D1 launches of the pair, the
+    engines)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.ops import kv_cache as kvc
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, FleetHost, FleetRouter
+
+    ekw = dict(max_slots=4, page_size=16, max_len=MAX_LEN, device="cuda", kv_dtype=kv_dtype)
+    uni = DecodeEngine(adapter, **ekw).load()
+    pre = DecodeEngine(adapter, role="prefill", **ekw).load()
+    dec = DecodeEngine(sink_model or adapter, role="decode", **ekw).load()
+    prompts, kws = serve_requests()
+    send = lambda eng, p, k: eng.generate_async(p, max_new_tokens=SERVE_NEW,
+                                                echo_logits=True, **k)
+    ref = [f.result(timeout=600) for f in [send(uni, p, k) for p, k in zip(prompts, kws)]]
+    # the prefill host's TTFT per request: its submit to the handoff
+    ttft_pre, orig = [], pre.generate_async
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        f = orig(*a, **k)
+        f.add_done_callback(lambda _: ttft_pre.append((time.perf_counter() - t0) * 1e3))
+        return f
+    pre.generate_async = timed
+    router = FleetRouter([FleetHost("pre0", decode=pre), FleetHost("dec0", decode=dec)],
+                         max_retries=1)
+    try:
+        kvc.det_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        got = [f.exception(timeout=600) or f.result()
+               for f in [send(router, p, k) for p, k in zip(prompts, kws)]]
+        wall = time.perf_counter() - t0
+        d1 = kvc.det_attention_cuda.launches
+        rsnap = router.metrics_snapshot()
+    finally:
+        router.shutdown()
+        del pre.generate_async
+    deadline = time.monotonic() + 5
+    while (max(e.metrics.gauge("pages_in_use") for e in (uni, pre, dec)) > 0
+           and time.monotonic() < deadline):
+        time.sleep(0.01)
+    snaps = {n: e.metrics_snapshot() for n, e in (("unified", uni), ("prefill", pre),
+                                                   ("decode", dec))}
+    med = lambda xs: float(np.median([x for x in xs if x is not None])) if xs else None
+    ok = [r for r in got if not isinstance(r, BaseException)]
+    exact = {"unified_ttft_p50_ms": med([r.ttft_ms for r in ref]),
+             "unified_tpot_p50_ms": med([r.tpot_ms for r in ref]),
+             "prefill_host_ttft_p50_ms": med(ttft_pre),
+             "decode_host_tpot_p50_ms": med([r.tpot_ms for r in ok])}
+    return {"ref": ref, "got": got, "snaps": snaps, "router": rsnap, "d1": d1,
+            "wall": wall, "engines": (uni, pre, dec), "prompts": prompts, "kws": kws,
+            "exact": exact}
+
+
+def fleet_decode(net):
+    """(c) disaggregated decode of GPT-2-small: a prefill host and a
+    decode host behind the router against a unified engine (f32 and int8
+    pages), and a one-way prefill host of the f32 ``ShardedTransformerLM``
+    into a two-head-shard decode sink; (d) sessions on the ring, an
+    ``HttpHost`` and a prefill host's /generate; (e) a decode warm bundle
+    and the kernel-build cache."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import TransformerDecodeAdapter
+    from deeplearning4j_tpu_torch.ops import kv_cache as kvc
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+    from deeplearning4j_tpu_torch.serving import (DecodeEngine, Engine, FleetHost,
+                                                  FleetRouter, HttpHost)
+    from deeplearning4j_tpu_torch.ui import UIServer
+    from deeplearning4j_tpu_torch.utils.serializer import load_model
+
+    bad, recs = [], {}
+    adapter = TransformerDecodeAdapter(net)
+    d1_total = 0
+    sizes = {}
+    for kv in (None, "int8"):
+        run = decode_trio_run(adapter, kv_dtype=kv)
+        uni, pre, dec = run["engines"]
+        d1_total += run["d1"]
+        failed = [r for r in run["got"] if isinstance(r, BaseException)]
+        toks, bits = same_as(run["got"], run["ref"]) if not failed else (False, False)
+        # the handoffs themselves, for their bytes (prefills only: no decode)
+        hs = [pre.generate(p, max_new_tokens=SERVE_NEW, **k)
+              for p, k in zip(run["prompts"], run["kws"])]
+        name = kv or "float32"
+        s = run["snaps"]
+        rec = {"kv_dtype": name, "tokens_equal": toks, "logits_bitwise": bits,
+               "errors": [repr(r) for r in failed],
+               "pages_in_use_after": {n: v["pages_in_use"] for n, v in s.items()},
+               "handoff_bytes": [len(h.pages) for h in hs],
+               "payload_bytes": [kvc.transfer_nbytes(kvc.unpack_transfer(h.pages))
+                                 for h in hs],
+               "prompt_tokens": [len(p) for p in run["prompts"]],
+               "router": {k: run["router"]["counters"][k]
+                          for k in ("disagg_requests", "page_transfers", "transfer_bytes",
+                                    "retries", "failed")},
+               "launches": {"det_attention": run["d1"]},
+               **run["exact"],
+               "decode_host_attach_p50_ms": s["decode"]["ttft_ms"]["p50_ms"],
+               "router_e2e_p50_ms": run["router"]["fleet_e2e_ms"]["p50_ms"],
+               "pair_wall_s": run["wall"],
+               "compile_cache_size": {n: v["compile_cache_size"] for n, v in s.items()}}
+        sizes[name] = sum(rec["payload_bytes"])
+        emit({"phase": "fleet", "arm": f"c_disagg_{name}", **rec})
+        if (failed or not toks or not bits or any(rec["pages_in_use_after"].values())
+                or run["d1"] < 1 or rec["router"]["disagg_requests"] != len(hs)):
+            bad.append(f"c: disaggregated decode {name}")
+        recs[f"c_{name}"] = rec
+        if kv is None:
+            keep = (uni, pre, dec, {n: v["compile_cache_size"] for n, v in s.items()})
+        else:
+            for e in (uni, pre, dec):
+                e.shutdown()
+    uni, pre, dec, cache_sizes = keep
+    times = {kv or "float32": transfer_times(
+        dict(n_layers=LAYERS, n_pages=33, page_size=16, n_heads=HEADS,
+             d_head=D_MODEL // HEADS, device="cuda", kv_dtype=kv), 32)
+        for kv in (None, "int8")}
+    emit({"phase": "fleet", "arm": "c_transfer_512", "times": times,
+          "payload_bytes_ratio_f32_over_int8": sizes["float32"] / sizes["int8"]})
+    if not all(t["bitwise"] for t in times.values()) or sizes["float32"] < 3.5 * sizes["int8"]:
+        bad.append("c: page transfer")
+
+    # the same pair into a sink of two head shards
+    tree = gpt2_tree(LAYERS, SEED + 240)
+    one = sharded_lm(LAYERS, "cuda", tree=tree)
+    two = sharded_lm(LAYERS, "cuda", mesh=build_mesh({"data": 2}, world_size=2), tree=tree)
+    run = decode_trio_run(one, sink_model=two)
+    for e in run["engines"]:
+        e.shutdown()
+    d1_total += run["d1"]
+    failed = [r for r in run["got"] if isinstance(r, BaseException)]
+    agree, first_equal, max_diff = 0, True, 0.0
+    for r, g in zip(run["ref"], run["got"]):
+        if isinstance(g, BaseException):
+            continue
+        first_equal = first_equal and r.tokens[0] == g.tokens[0]
+        n = next((j for j, (a, b) in enumerate(zip(r.tokens, g.tokens)) if a != b),
+                 len(r.tokens))
+        agree += n
+        upto = min(n + 1, len(r.tokens))
+        max_diff = max(max_diff, float(np.abs(r.logits[:upto] - g.logits[:upto]).max()))
+    s = run["snaps"]
+    rec = {"sink_tp": s["decode"]["tp"], "errors": [repr(r) for r in failed],
+           "first_tokens_equal": first_equal,
+           "tokens_agreeing_before_first_divergence": agree,
+           "tokens": sum(len(r.tokens) for r in run["ref"]),
+           "max_abs_logit_diff_to_divergence": max_diff,
+           "pages_in_use_after": {n: v["pages_in_use"] for n, v in s.items()},
+           "launches": {"det_attention": run["d1"]}, **run["exact"]}
+    emit({"phase": "fleet", "arm": "c_disagg_tp2_sink", **rec})
+    # every token as the one-way unified engine's, and the echoed logits
+    # within 1e-5 (the head-sharded sink sums its heads' halves in
+    # another order; on an H100 it read 2.98e-6 and 256 of 256 tokens)
+    if (failed or not first_equal or agree != rec["tokens"] or max_diff > 1e-5
+            or rec["sink_tp"] != 2 or any(rec["pages_in_use_after"].values())):
+        bad.append("c: two-shard sink")
+    del one, two, run
+    torch.cuda.empty_cache()
+
+    # (d) sessions on the ring, over two unified hosts
+    uni_b = DecodeEngine(adapter, max_slots=4, page_size=16, max_len=MAX_LEN,
+                         device="cuda").load()
+    served = {}
+
+    def tap(name, eng):
+        orig = eng.generate_async
+
+        def recorded(prompt_ids=None, **kw):
+            served.setdefault(tuple(prompt_ids), []).append(name)
+            return orig(prompt_ids, **kw)
+        eng.generate_async = recorded
+    tap("u0", uni)
+    tap("u1", uni_b)
+    router = FleetRouter([FleetHost("u0", decode=uni), FleetHost("u1", decode=uni_b)])
+    rng = np.random.default_rng(SEED + 320)
+    try:
+        sessions = [f"user-{k}" for k in range(8)]
+        prompts = {}
+        for rnd in range(2):
+            futs = []
+            for k, sess in enumerate(sessions):
+                p = rng.integers(0, VOCAB, 16).tolist()
+                prompts[(rnd, sess)] = p
+                futs.append(router.generate_async(p, max_new_tokens=4, session=sess))
+            for f in futs:
+                f.result(timeout=600)
+        homes = {}
+        for (rnd, sess), p in prompts.items():
+            homes.setdefault(sess, set()).update(served[tuple(p)])
+        with router._lock:
+            ring = {s: router._ring_lookup_locked(s, "decode", set()).host_id
+                    for s in sessions}
+        sticky = all(len(h) == 1 and ring[s] in h for s, h in homes.items())
+        affinity = router.metrics_snapshot()["counters"]["affinity_routed"]
+    finally:
+        router.shutdown()
+        del uni.generate_async, uni_b.generate_async
+        uni_b.shutdown()
+    # an HttpHost over a loopback UIServer, and a prefill host's /generate
+    iris = load_model(os.path.join(REPO, IRIS_ZIP), device="cuda")
+    ie = Engine(iris, max_batch=4, replicas=1, slo_ms=60_000, device="cuda").load()
+    srv = UIServer(port=0, host="127.0.0.1").attach_engine(ie).start()
+    srv_pre = UIServer(port=0, host="127.0.0.1").attach_decode_engine(pre).start()
+    router = FleetRouter([FleetHost("remote", engine=HttpHost(f"127.0.0.1:{srv.port}",
+                                                              timeout_s=60.0))],
+                         start_watchdog=False)
+    try:
+        x, _ = iris_data(5)
+        http_bitwise = np.array_equal(np.asarray(router.output(x), np.float32), ie.output(x))
+        code, body = http_call(f"http://127.0.0.1:{srv_pre.port}/generate",
+                               {"prompt_ids": [1, 2, 3], "max_tokens": 4})
+    finally:
+        router.shutdown()
+        srv.stop()
+        srv_pre.stop()
+        ie.shutdown()
+    rec = {"sessions": len(sessions), "requests": 2 * len(sessions),
+           "sticky_on_ring_host": sticky,
+           "hosts_used": sorted({h for hs in homes.values() for h in hs}),
+           "affinity_routed": affinity, "http_host_bitwise": http_bitwise,
+           "prefill_generate_status": code, "prefill_generate_error_class":
+               body.get("error_class")}
+    emit({"phase": "fleet", "arm": "d_sessions_http", **rec})
+    if (not sticky or affinity != 2 * len(sessions) or not http_bitwise or code != 409
+            or body.get("error_class") != "prefill_role"):
+        bad.append("d: sessions and HTTP")
+
+    # (e) a decode warm bundle naming the captured graph, the build cache
+    import tempfile
+
+    from deeplearning4j_tpu_torch.serving import warmcache
+    from deeplearning4j_tpu_torch.utils import cuda_build
+    tmp = tempfile.mkdtemp(prefix="fleet_phase_")
+    try:
+        cold = DecodeEngine(adapter, max_slots=4, page_size=16, max_len=MAX_LEN,
+                            decode_horizon=2, device="cuda").load()
+        prompt = [(7 * j) % VOCAB for j in range(MAX_LEN // 16)]
+        want = cold.generate(prompt, max_new_tokens=8, echo_logits=True)
+        n = cold.compile_cache_size()
+        path = cold.save_warmup_bundle(os.path.join(tmp, "gpt2.warm"))
+        keys = set(cold._prepared)
+        cold.shutdown()
+        t0 = time.perf_counter()
+        warm = DecodeEngine(adapter, max_slots=4, page_size=16, max_len=MAX_LEN,
+                            decode_horizon=2, device="cuda").load(warm_bundle=path)
+        warm_load_s = time.perf_counter() - t0
+        got = warm.generate(prompt, max_new_tokens=8, echo_logits=True)
+        same = got.tokens == want.tokens and np.array_equal(got.logits, want.logits)
+        rec_e = {"prepared": n, "bundle_hits": warm.metrics.counter_value("bundle_hits"),
+                 "bundle_misses": warm.metrics.counter_value("bundle_misses"),
+                 "same_programs": set(warm._prepared) == keys,
+                 "graph_captured": warm.step_multi_graph is not None,
+                 "warm_load_s": warm_load_s, "bitwise": same,
+                 "compile_cache_size_flat": {
+                     "unified": uni.compile_cache_size() == cache_sizes["unified"],
+                     "prefill": pre.compile_cache_size() == cache_sizes["prefill"],
+                     "decode": dec.compile_cache_size() == cache_sizes["decode"],
+                     "warm": warm.compile_cache_size() == n}}
+        warm.shutdown()
+        for e in (uni, pre, dec):
+            e.shutdown()
+        old_dir, old_env = cuda_build.BUILD_DIR, os.environ.get(warmcache.ENV_VAR)
+        try:
+            cache = warmcache.enable_compile_cache(os.path.join(tmp, "kernels"))
+            names = ["det_attention", "flash_fwd"]
+            before = list(cuda_build.compiled)
+            t0 = time.perf_counter()
+            cuda_build.build(names)
+            build_s = time.perf_counter() - t0
+            built_here = cuda_build.compiled[len(before):]
+            code = ("import json, time\n"
+                    "from deeplearning4j_tpu_torch.utils import cuda_build as c\n"
+                    f"t = time.perf_counter()\nfor n in {names!r}: c.load(n)\n"
+                    "print(json.dumps({'dir': str(c.BUILD_DIR), 'compiled': c.compiled,"
+                    " 'load_s': time.perf_counter() - t}))\n")
+            p = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                               text=True, timeout=300,
+                               env=dict(os.environ, PYTHONPATH=REPO))
+            child = json.loads(p.stdout.strip().splitlines()[-1]) if p.returncode == 0 else {}
+        finally:
+            cuda_build.BUILD_DIR = old_dir
+            warmcache._enabled_dir = None
+            if old_env is None:
+                os.environ.pop(warmcache.ENV_VAR, None)
+            else:
+                os.environ[warmcache.ENV_VAR] = old_env
+        rec_e["compile_cache"] = {"dir": cache, "nvcc_here": built_here, "build_s": build_s,
+                                  "child": child, "child_rc": p.returncode,
+                                  "child_stderr": p.stderr[-2000:] if p.returncode else ""}
+        emit({"phase": "fleet", "arm": "e_bundle_cache", **rec_e})
+        if (n != 1 or rec_e["bundle_misses"] or rec_e["bundle_hits"] != n
+                or not rec_e["same_programs"]
+                or not rec_e["graph_captured"] or not same
+                or not all(rec_e["compile_cache_size_flat"].values())
+                or built_here != names or p.returncode != 0
+                or child.get("compiled") != [] or child.get("dir") != cache):
+            bad.append("e: warm bundle and build cache")
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {**recs, "launches": {"det_attention": d1_total}}, bad
+
+
+def fleet_kernels():
+    """K1 at the fleet's predict shapes [1 | 2 | 4, 12, FLEET_T, 64] f32
+    against its plain version, with the kernel phase's f32 tolerances
+    (the fleet rows are held bitwise to the eager bucket, which runs K1
+    too) → (records, failures)."""
+    import torch
+    recs = [flash_case(f"f32_fleet_b{b}", torch.float32, 0.0, B=b, T=FLEET_T)
+            for b in (1, 2, 4)]
+    bad = [r["case"] for r in recs
+           if not (r["max_abs_err"] <= 2e-5 and r["rel_err"] <= 1e-5
+                   and r["lse_max_abs_err"] <= 2e-5)]
+    return recs, [f"K1 at the fleet's shapes: {bad}"] if bad else []
+
+
+def phase_fleet(net):
+    """The fleet phase: K1 at its predict shapes (``fleet_kernels``),
+    ``fleet_predict`` (a, b) and ``fleet_decode`` (c, d, e).  Returns the
+    launches of K1 and D1 it made on its path."""
+    t0 = time.perf_counter()
+    _, bad = fleet_kernels()
+    pred, bad_a = fleet_predict(net)
+    bad += bad_a
+    dec, bad2 = fleet_decode(net)
+    bad += bad2
+    rec = {"phase": "fleet", "seconds": time.perf_counter() - t0, "failed": bad,
+           "launches": {**pred["launches"], **dec["launches"]}}
+    emit(rec)
+    if bad:
+        raise AssertionError(f"fleet phase failed: {bad}")
+    return rec
+
+
 def trace_probe(n: int) -> None:
     """``--trace-probe N``: the serve and predict phases, each traced
     replay taken N times hard against the trace's ends (pause 0) and N
@@ -6034,13 +6691,14 @@ def main() -> int:
         trace_probe(int(sys.argv[2]))
         return 0
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:3] in (["sharded"], ["elastic"],
-                                                          ["predict_features"]):
+                                                          ["predict_features"], ["fleet"]):
         card = card_line()
         emit({"torch": torch.__version__, "device": torch.cuda.get_device_name(0),
               "card": card})
         cuda_build.build(cuda_build.sources())
         {"sharded": phase_sharded, "elastic": phase_elastic,
-         "predict_features": lambda: phase_predict_features(build_model())}[sys.argv[2]]()
+         "predict_features": lambda: phase_predict_features(build_model()),
+         "fleet": lambda: phase_fleet(build_model())}[sys.argv[2]]()
         print(card, flush=True)
         return 0
     card = card_line()
@@ -6060,6 +6718,7 @@ def main() -> int:
     predict = phase_predict(net)
     features = phase_predict_features(net)
     http = phase_http(net)
+    fleet = phase_fleet(net)["launches"]
     train = phase_train(net)
     k4 = fused_update_case(net)
     from deeplearning4j_tpu_torch.ops.compression import GradBucketer
@@ -6100,7 +6759,8 @@ def main() -> int:
     emit({"kernels": [
         entry("flash_fwd", "flash_fwd.cu", "deeplearning4j_tpu/ops/attention.py:138",
               score["launches"]["flash_fwd"] + predict["launches"]["flash_fwd"]
-              + features["launches"]["flash_fwd"] + graph_n["flash_fwd_kernel"]
+              + features["launches"]["flash_fwd"] + fleet["flash_fwd"]
+              + graph_n["flash_fwd_kernel"]
               + attn["launches"]["flash_fwd"] + sharded["flash_fwd"] + elastic["flash_fwd"], k1),
         entry("flash_bwd_dkdv", "flash_bwd.cu", "deeplearning4j_tpu/ops/attention.py:329",
               trained("flash_bwd_dkdv", "flash_bwd_dkdv_kernel"),
@@ -6112,7 +6772,7 @@ def main() -> int:
         entry("det_attention", "det_attention.cu",
               "deeplearning4j_tpu/ops/kv_cache.py:362",
               serve["launches"]["det_attention"] + http["launches"]["det_attention"]
-              + sharded["det_attention"], det),
+              + fleet["det_attention"] + sharded["det_attention"], det),
         entry("lstm_seq_fwd", "lstm_cell.cu", "deeplearning4j_tpu/ops/lstm_kernel.py:81",
               k5_launches["lstm_seq_fwd"] + conv["rnn_launches"]["lstm_seq_fwd"],
               k5["lstm_seq_fwd"]),

@@ -13,6 +13,9 @@ through ``rnn_time_step``, and ``serve``).  Runs on ``cuda`` unless
     python -m deeplearning4j_tpu_torch generate --model m.zip --prompt "hello"
         [--prefix-cache] [--speculate DRAFT_CKPT[,k]] [--kv-dtype {float32,int8}]
     python -m deeplearning4j_tpu_torch serve --model m.zip --port 9000 [--smoke N]
+        [--models a=a.zip,b=b.zip] [--tenants tenants.json] [--warm-bundle W]
+        [--compile-cache DIR] [--trace T] [--decode-role {unified,prefill,decode}]
+    python -m deeplearning4j_tpu_torch serve --fleet 127.0.0.1:9001,127.0.0.1:9002
     python -m deeplearning4j_tpu_torch train --zoo lenet --data mnist --elastic-dir ckpts \
         [--chaos device_loss@5,ckpt_truncate@9] [--checkpoint-every 4] [--grace 30]
     python -m deeplearning4j_tpu_torch launch --nprocs 2 --bootstrap distributed \
@@ -34,7 +37,6 @@ import numpy as np
 #: train flags that wait for later ports, with the ROADMAP item that ports them
 LATER_FLAGS = {
     "prefetch": "queue 1 item 9 (datasets/device_prefetch)",
-    "compile_cache": "queue 1 item 8.2 (the serve and launch flags)",
     "dashboard": "queue 1 item 9 (ui/)",
 }
 
@@ -289,10 +291,15 @@ def cmd_train(args) -> int:
     from .parallel.launcher import Heartbeat, maybe_bootstrap_from_env
     from .parallel.preemption import PreemptedError
 
+    from .serving.warmcache import enable_compile_cache
+
     for flag, item in LATER_FLAGS.items():
         if getattr(args, flag) is not None:
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
                              f"(ROADMAP {item})")
+    cache_dir = enable_compile_cache(args.compile_cache)
+    if cache_dir:
+        print(f"compile cache: {cache_dir}")
     chaos_spec = args.chaos or os.environ.get(ENV_CHAOS) or None
     if chaos_spec and not args.elastic_dir:
         raise SystemExit("--chaos needs --elastic-dir (faults are injected "
@@ -534,8 +541,9 @@ def _parse_speculate(spec):
 
 
 def _decode_opts(args) -> dict:
-    """``DecodeEngine`` arguments for the decode flags of ``generate``:
-    --prefix-cache, --speculate DRAFT_CKPT[,k], --kv-dtype."""
+    """``DecodeEngine`` arguments for the decode flags of ``generate`` and
+    ``serve``: --prefix-cache, --speculate DRAFT_CKPT[,k], --kv-dtype and
+    (serve) --decode-role."""
     from .models.transformer import TransformerDecodeAdapter
     from .utils.serializer import load_model
 
@@ -545,7 +553,8 @@ def _decode_opts(args) -> dict:
         draft = TransformerDecodeAdapter(load_model(draft_path, device=args.device))
     return {"prefix_cache": bool(args.prefix_cache), "draft_model": draft,
             "speculate_k": k,
-            "kv_dtype": None if args.kv_dtype in (None, "float32") else args.kv_dtype}
+            "kv_dtype": None if args.kv_dtype in (None, "float32") else args.kv_dtype,
+            "role": getattr(args, "decode_role", None) or "unified"}
 
 
 def cmd_generate(args) -> int:
@@ -637,37 +646,152 @@ def _generate_recurrent(net, args) -> int:
     return 0
 
 
+def _parse_tenants(path):
+    """tenants.json → ``serving.TenantTable``: a JSON list of tenant rows
+    (or an object with a "tenants" list), each a ``TenantConfig`` dict
+    such as {"tenant": "acme", "weight": 2.0, "quota_qps": 100,
+    "admission": "shed"}.  A parse or validation failure is a one-line
+    CLI error."""
+    from .serving import TenantTable
+
+    try:
+        with open(path) as f:
+            rows = json.load(f)
+    except OSError as e:
+        raise SystemExit(f"bad --tenants {path!r}: {e}")
+    except json.JSONDecodeError as e:
+        raise SystemExit(f"bad --tenants {path!r}: invalid JSON ({e})")
+    if isinstance(rows, dict):
+        rows = rows.get("tenants", rows)
+    if not isinstance(rows, list) or not rows or not all(
+            isinstance(r, dict) for r in rows):
+        raise SystemExit(f"bad --tenants {path!r}: expected a non-empty "
+                         "JSON list of tenant rows (or "
+                         '{"tenants": [...]})')
+    try:
+        return TenantTable.from_specs(rows)
+    except (TypeError, ValueError) as e:
+        raise SystemExit(f"bad --tenants {path!r}: {e}")
+
+
+def _parse_models(spec):
+    """'NAME=PATH[,NAME=PATH...]' (or bare checkpoint paths, named by the
+    file stem) → [(name, path)], with clean CLI errors."""
+    import os
+
+    out, seen = [], set()
+    for part in [p.strip() for p in spec.split(",") if p.strip()]:
+        name, sep, path = part.partition("=")
+        if not sep:
+            name = os.path.splitext(os.path.basename(part))[0]
+            path = part
+        if not name or not path:
+            raise SystemExit(f"bad --models {spec!r}: expected "
+                             "NAME=PATH[,NAME=PATH...] or a comma-"
+                             "separated list of checkpoint paths")
+        if name in seen:
+            raise SystemExit(f"bad --models {spec!r}: duplicate model "
+                             f"name {name!r}")
+        seen.add(name)
+        out.append((name, path))
+    if not out:
+        raise SystemExit(f"bad --models {spec!r}: no models")
+    return out
+
+
 def cmd_serve(args) -> int:
-    """Serve a checkpoint: register it in a ``ModelRegistry`` (alias
-    ``prod``), warm every bucket of a predict ``Engine`` and answer POST
-    /predict, GET /metrics and GET /healthz on the HTTP server; or, with
-    ``--smoke N``, push N synthetic requests through the engine, print its
-    metrics snapshot and exit.  A TransformerLM checkpoint is served
-    decode-only: POST /generate through a ``DecodeEngine`` (the decode
-    flags as ``generate``'s), /predict answers 503.  Runs until
+    """Serve checkpoints: register them in a ``ModelRegistry`` (alias
+    ``prod``), warm every bucket of a predict ``Engine`` (``--models``
+    places more models beside the first, ``--tenants`` arms tenant lanes
+    and quotas, ``--warm-bundle`` names the graphs to capture) and answer
+    POST /predict, GET /metrics and GET /healthz; or, with ``--fleet``,
+    run a ``FleetRouter`` over remote serve hosts; or, with ``--smoke N``,
+    push N synthetic requests through the engine, print its metrics
+    snapshot and exit.  A TransformerLM checkpoint is served decode-only:
+    POST /generate through a ``DecodeEngine`` of ``--decode-role``
+    (a prefill host answers /generate with 409; a fleet router carries
+    its handoffs), /predict answers 503.  ``--compile-cache DIR`` builds
+    the kernels into DIR, where a restarted host finds them built.  A
+    SIGTERM preemption notice drains and exits 75.  Runs until
     interrupted."""
+    import os
+
     from .models.transformer import TransformerBlock, TransformerDecodeAdapter
-    from .serving import DecodeEngine, Engine, ModelRegistry
+    from .parallel.distributed import ENV_SERVE_PORT, PREEMPTED_EXIT_CODE
+    from .parallel.launcher import Heartbeat
+    from .parallel.preemption import PreemptionHandler
+    from .serving import DecodeEngine, Engine, FleetRouter, HttpHost, ModelRegistry
+    from .serving.warmcache import enable_compile_cache
     from .ui import UIServer
 
-    reg = ModelRegistry(device=args.device)
-    version = reg.load(args.name, args.model, version=args.version)
-    _, net = reg.resolve(args.name, version)
-    is_lm = any(isinstance(l, TransformerBlock) for l in getattr(net.conf, "layers", ()))
-    engine = None
-    if not is_lm:
-        reg.set_alias(args.name, "prod", version)
-        engine = Engine.from_registry(
-            reg, args.name, "prod", max_batch=args.max_batch, slo_ms=args.slo_ms,
-            replicas=args.replicas, max_queue=args.queue_cap,
-            admission=args.admission, forward_timeout_s=args.forward_timeout,
-            max_retries=args.max_retries, breaker_threshold=args.breaker_threshold,
-            device=args.device).load()
-        print(f"serving {args.name} v{version} (alias 'prod'): "
-              f"max_batch={args.max_batch}, slo={args.slo_ms}ms, "
-              f"replicas={len(engine._replicas)}, admission={args.admission}, "
-              f"warmed buckets {engine.batcher.buckets}, "
-              f"programs {engine.compile_cache_size()}")
+    trace_path = _setup_trace(args)
+    cache_dir = enable_compile_cache(args.compile_cache)
+    if cache_dir:
+        print(f"compile cache: {cache_dir}")
+    if not args.fleet and not args.model and not args.models:
+        raise SystemExit("serve needs --model/--models "
+                         "(or --fleet HOST:PORT,...)")
+    tenants = _parse_tenants(args.tenants) if args.tenants else None
+    net = None
+    is_lm = False
+    if args.fleet:
+        if args.smoke:
+            raise SystemExit("serve --smoke is incompatible with --fleet")
+        if tenants is not None:
+            raise SystemExit("--tenants configures a serve HOST's "
+                             "admission — pass it to each `serve --model` "
+                             "worker, not the --fleet router")
+        engine = FleetRouter(max_retries=args.max_retries,
+                             request_timeout_s=args.forward_timeout,
+                             breaker_threshold=args.breaker_threshold)
+        for ep in [e.strip() for e in args.fleet.split(",") if e.strip()]:
+            url = ep if ep.startswith("http") else f"http://{ep}"
+            engine.add_host(ep, engine=HttpHost(url, timeout_s=args.forward_timeout or 5.0))
+        print(f"fleet router over {sorted(engine.hosts())}: "
+              f"max_retries={args.max_retries}, "
+              f"request_timeout={args.forward_timeout}")
+    else:
+        model_pairs = _parse_models(args.models) if args.models else []
+        if args.model:
+            model_pairs = [(args.name, args.model)] + model_pairs
+        name, default_path = model_pairs[0]
+        reg = ModelRegistry(device=args.device)
+        version = reg.load(name, default_path, version=args.version)
+        _, net = reg.resolve(name, version)
+        is_lm = any(isinstance(l, TransformerBlock)
+                    for l in getattr(net.conf, "layers", ()))
+        engine = None
+        if is_lm:
+            # a transformer LM has no float /predict surface: it serves
+            # decode-only (POST /generate), /predict answers 503
+            if len(model_pairs) > 1:
+                raise SystemExit("--models needs predict checkpoints "
+                                 "(float feature inputs) — a transformer "
+                                 "LM serves decode-only via --model")
+        else:
+            reg.set_alias(name, "prod", version)
+            engine = Engine.from_registry(
+                reg, name, "prod", max_batch=args.max_batch, slo_ms=args.slo_ms,
+                replicas=args.replicas, max_queue=args.queue_cap,
+                admission=args.admission, forward_timeout_s=args.forward_timeout,
+                max_retries=args.max_retries, breaker_threshold=args.breaker_threshold,
+                tenants=tenants, device=args.device)
+            # an explicit --warm-bundle wins, else the registry's
+            # provenance finds <checkpoint>.warm
+            engine.load(warm_bundle=args.warm_bundle)
+            for extra_name, extra_path in model_pairs[1:]:
+                v = reg.load(extra_name, extra_path)
+                reg.set_alias(extra_name, "prod", v)
+                engine.add_model_from_registry(reg, extra_name, "prod")
+            print(f"serving {name} v{version} (alias 'prod'): "
+                  f"max_batch={args.max_batch}, slo={args.slo_ms}ms, "
+                  f"replicas={len(engine._replicas)}, admission={args.admission}, "
+                  f"warmed buckets {engine.batcher.buckets}, "
+                  f"programs {engine.compile_cache_size()}")
+            if len(model_pairs) > 1:
+                print(f"models placed: {engine.placed_models()}")
+    if tenants is not None:
+        print(f"tenants: {sorted(tenants.tenants())} from {args.tenants}")
     if args.smoke:
         if engine is None:
             raise SystemExit("serve --smoke needs a predict checkpoint (float "
@@ -682,12 +806,8 @@ def cmd_serve(args) -> int:
             f.result(timeout=120)
         print(json.dumps(engine.metrics_snapshot()))
         engine.shutdown()
+        _flush_trace(trace_path)
         return 0
-    import os
-
-    from .parallel.distributed import ENV_SERVE_PORT, PREEMPTED_EXIT_CODE
-    from .parallel.launcher import Heartbeat
-    from .parallel.preemption import PreemptionHandler
 
     # under `launch --serve` each worker gets a stable port; --port wins
     port = args.port
@@ -697,16 +817,25 @@ def cmd_serve(args) -> int:
     if engine is not None:
         server.attach_engine(engine)
     decode_eng = None
-    if is_lm or args.prefix_cache or args.speculate or args.kv_dtype not in (None, "float32"):
+    wants_decode = (is_lm or args.prefix_cache or args.speculate
+                    or args.decode_role not in (None, "unified")
+                    or args.kv_dtype not in (None, "float32"))
+    if wants_decode:
+        if args.fleet:
+            raise SystemExit("--prefix-cache/--speculate/--kv-dtype need "
+                             "a local --model, not --fleet")
         if not is_lm:
             raise SystemExit("--prefix-cache/--speculate/--kv-dtype need a "
                              "transformer LM checkpoint")
         adapter = TransformerDecodeAdapter(net)
+        opts = _decode_opts(args)
         decode_eng = DecodeEngine(adapter, page_size=_page_size(adapter, 16),
-                                  device=args.device, **_decode_opts(args)).load()
+                                  tenants=tenants, device=args.device,
+                                  **opts).load(warm_bundle=args.warm_bundle)
         server.attach_decode_engine(decode_eng)
-        print(f"decode engine on POST /generate: prefix_cache={args.prefix_cache}, "
-              f"speculate={args.speculate}, kv_dtype={args.kv_dtype}")
+        print(f"decode engine on POST /generate: role={opts['role']}, "
+              f"prefix_cache={args.prefix_cache}, speculate={args.speculate}, "
+              f"kv_dtype={args.kv_dtype}, programs {decode_eng.compile_cache_size()}")
     server.start()
     heartbeat = Heartbeat.start_from_env()
     handler = PreemptionHandler.install_from_env()
@@ -737,6 +866,7 @@ def cmd_serve(args) -> int:
         if heartbeat is not None:
             heartbeat.stop()
         handler.uninstall()
+        _flush_trace(trace_path)
     return PREEMPTED_EXIT_CODE if preempted else 0
 
 
@@ -764,9 +894,12 @@ def cmd_launch(args) -> int:
     if rest[0] not in ("train", "evaluate", "predict", "serve", "summary"):
         raise SystemExit(f"launch worker command must be a "
                          f"deeplearning4j_tpu_torch subcommand, got {rest[0]!r}")
-    if args.compile_cache is not None:
-        raise SystemExit("--compile-cache is not ported yet "
-                         f"(ROADMAP {LATER_FLAGS['compile_cache']})")
+    # the cache is armed before any worker exists: the exported
+    # DL4J_TPU_COMPILE_CACHE reaches the forked workers and a --join re-exec
+    from .serving.warmcache import enable_compile_cache
+    cache_dir = enable_compile_cache(args.compile_cache)
+    if cache_dir:
+        print(f"launch: compile cache {cache_dir}")
     if args.join:
         from .parallel.distributed import (ENV_CONNECT_TIMEOUT, ENV_COORDINATOR,
                                            ENV_NUM_PROCESSES, ENV_PROCESS_ID, ENV_RUN_DIR)
@@ -893,6 +1026,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --elastic-dir: write every completed step's "
                    "(global step, loss) and the training kernels' launch counts "
                    "as JSON ({process} and {incarnation} expand)")
+    t.add_argument("--compile-cache", metavar="DIR",
+                   help="persistent kernel-build cache: the CUDA kernels are "
+                   "built into DIR and later processes load them without "
+                   "nvcc (default: the DL4J_TPU_COMPILE_CACHE variable; unset "
+                   "= the package's _build/)")
     for flag in LATER_FLAGS:
         t.add_argument("--" + flag.replace("_", "-"), default=None,
                        help=f"not ported yet (ROADMAP {LATER_FLAGS[flag]})")
@@ -949,7 +1087,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="assign each worker a stable serve port "
                     "(DL4J_TPU_SERVE_PORT) and print the endpoints")
     ln.add_argument("--compile-cache", metavar="DIR",
-                    help=f"not ported yet (ROADMAP {LATER_FLAGS['compile_cache']})")
+                    help="export DL4J_TPU_COMPILE_CACHE=DIR to every worker: they "
+                    "share one kernel-build cache, so a relaunched worker (or "
+                    "the next run) loads the built kernels without nvcc")
     ln.add_argument("--report", metavar="PATH",
                     help="write the run report (events, restarts, epoch) as JSON")
     ln.add_argument("--join", action="store_true",
@@ -1021,7 +1161,23 @@ def build_parser() -> argparse.ArgumentParser:
     g.set_defaults(fn=cmd_generate)
 
     v = sub.add_parser("serve", help="serve a saved model over HTTP")
-    v.add_argument("--model", required=True, help="checkpoint zip to serve")
+    v.add_argument("--model", default=None,
+                   help="checkpoint zip to serve (required unless --fleet or "
+                   "--models)")
+    v.add_argument("--models", metavar="NAME=PATH,...",
+                   help="a multi-model host: comma-separated checkpoints "
+                   "(NAME=PATH, or bare paths named by the file stem) on one "
+                   "engine; the first (or --model) is the default, the rest "
+                   "answer the request's 'model' field")
+    v.add_argument("--tenants", metavar="JSON",
+                   help="per-tenant admission: a JSON list of rows {tenant, "
+                   "model?, slo_ms?, weight?, quota_qps?, quota_concurrent?, "
+                   "admission?} enforced by the batcher's weighted-fair "
+                   "lanes; over-quota requests answer 429 with the tenant")
+    v.add_argument("--fleet", metavar="HOST:PORT,...",
+                   help="run a fleet router instead of a local engine: "
+                   "least-loaded dispatch over the comma-separated serve "
+                   "hosts, session affinity, dead-host failover")
     v.add_argument("--name", default="model",
                    help="registry name for the model (default: 'model')")
     v.add_argument("--version", type=int, default=None,
@@ -1050,15 +1206,31 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--breaker-threshold", type=int, default=3,
                    help="consecutive replica failures that trip its circuit "
                    "breaker (default 3)")
+    v.add_argument("--compile-cache", metavar="DIR",
+                   help="persistent kernel-build cache: a restarted server "
+                   "loads DIR's built kernels without nvcc (default: the "
+                   "DL4J_TPU_COMPILE_CACHE variable)")
+    v.add_argument("--warm-bundle", metavar="PATH",
+                   help="warm bundle naming the programs to prepare at load "
+                   "(default: <checkpoint>.warm next to --model when present)")
     v.add_argument("--smoke", type=int, default=0, metavar="N",
                    help="push N synthetic requests through the engine, print "
                    "the metrics snapshot, and exit (self-test)")
+    v.add_argument("--trace", metavar="PATH",
+                   help="record request/batch spans and write them to PATH as "
+                   "a Chrome trace on exit")
     v.add_argument("--prefix-cache", action="store_true",
                    help="radix prefix cache for POST /generate (transformer LM)")
     v.add_argument("--speculate", metavar="DRAFT_CKPT[,k]",
                    help="speculative decoding for POST /generate")
     v.add_argument("--kv-dtype", choices=("float32", "int8"), default="float32",
                    help="KV page storage of the decode engine")
+    v.add_argument("--decode-role", choices=("unified", "prefill", "decode"),
+                   default="unified",
+                   help="disaggregated serving role of the decode engine: "
+                   "'prefill' hosts prefill and export KV pages as handoffs "
+                   "(/generate answers 409), 'decode' hosts attach handoffs "
+                   "and stream tokens; a fleet router routes the two stages")
     v.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' to run on the CPU)")
     v.set_defaults(fn=cmd_serve)

@@ -1,7 +1,6 @@
 """Paged KV-cache and deterministic attention for autoregressive decode
-(mirrors ``deeplearning4j_tpu/ops/kv_cache.py``: the f32 pool and the
-int8 ``QuantPages`` pool; page transfer for disaggregated decode is not
-ported).
+(mirrors ``deeplearning4j_tpu/ops/kv_cache.py``: the f32 pool, the
+int8 ``QuantPages`` pool, and page transfer for disaggregated decode).
 
 The pool is one buffer per K and V of shape [n_layers, n_pages,
 page_size, n_heads, d_head]; a slot's cache is the pages its page-table
@@ -38,9 +37,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import json
 import math
 from typing import Any, Callable, NamedTuple, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from .attention import NEG_INF
@@ -229,6 +230,146 @@ def reset_pool(pages: KVPool) -> KVPool:
     for leaf in _leaves(pages):
         leaf.zero_()
     return pages
+
+
+# -- page transfer (disaggregated prefill/decode) ------------------------------------
+
+
+def gather_pages(pages: KVPool, ids: Tensor) -> KVPool:
+    """Pages ``ids`` of every layer as a dense payload [n_layers,
+    len(ids), page_size, n_heads, d_head]: the export half of a
+    prefill→decode transfer.  Bits are copied as stored: f32 rows
+    verbatim, an int8 pool's ``q`` and ``scale`` verbatim (a
+    ``QuantPages`` payload).  A ``ShardedPages`` pool's shards are
+    concatenated along the head axis, so the payload always holds all
+    heads, on the first shard's device."""
+    if isinstance(pages, QuantPages):
+        return QuantPages(pages.q[:, ids.to(pages.q.device)],
+                          pages.scale[:, ids.to(pages.scale.device)])
+    if isinstance(pages, ShardedPages):
+        dev = pages[0].device
+        return torch.cat([p[:, ids.to(p.device)].to(dev) for p in pages], dim=3)
+    return pages[:, ids.to(pages.device)]
+
+
+def set_pages(pages: KVPool, ids: Tensor, payload: KVPool) -> KVPool:
+    """Write a gathered ``payload`` at page ids ``ids`` (generally not
+    the ids it was gathered from): the attach half of a transfer, in
+    place (``index_copy_`` into the pool's own storage, which a captured
+    graph keeps reading).  A ``ShardedPages`` pool takes an all-heads
+    payload and splits it along the head axis over its shards.  Returns
+    ``pages``."""
+    if isinstance(pages, QuantPages):
+        for leaf, part in zip(pages, payload):
+            leaf.index_copy_(1, ids.to(leaf.device), part.to(leaf.device, leaf.dtype))
+        return pages
+    if isinstance(pages, ShardedPages):
+        per = pages[0].shape[3]
+        for s, leaf in enumerate(pages):
+            part = payload[:, :, :, s * per:(s + 1) * per]
+            leaf.index_copy_(1, ids.to(leaf.device), part.to(leaf.device, leaf.dtype))
+        return pages
+    pages.index_copy_(1, ids.to(pages.device), payload.to(pages.device, pages.dtype))
+    return pages
+
+
+def pool_layout(pages: KVPool) -> tuple:
+    """(n_layers, page_size, all heads, d_head, kv dtype name) of a
+    pool: what a transfer's payload must match to attach."""
+    lead = _leaves(pages)[0]
+    heads = sum(p.shape[3] for p in pages) if isinstance(pages, ShardedPages) \
+        else lead.shape[3]
+    kind = "int8" if isinstance(pages, QuantPages) else "float32"
+    return (lead.shape[0], lead.shape[2], heads, lead.shape[4], kind)
+
+
+class PageTransfer(NamedTuple):
+    """One request's exported KV pages on the host.
+
+    ``n_pages`` real pages; ``k`` / ``v`` are numpy payloads [n_layers,
+    n_pages, page_size, n_heads, d_head]: float32 arrays, or
+    ``QuantPages`` of numpy arrays (int8 ``q`` and float32 row ``scale``)
+    for an int8 pool.  ``pack_transfer`` / ``unpack_transfer`` are the
+    wire form, the reference's byte for byte; the round trip is bitwise."""
+
+    n_pages: int
+    k: Any
+    v: Any
+
+
+_TRANSFER_MAGIC = b"KVPX1\n"
+
+
+def _transfer_arrays(t: PageTransfer):
+    out = []
+    for name, side in (("k", t.k), ("v", t.v)):
+        if isinstance(side, QuantPages):
+            out.append((name + ".q", side.q))
+            out.append((name + ".scale", side.scale))
+        else:
+            out.append((name, side))
+    return out
+
+
+def transfer_nbytes(t: PageTransfer) -> int:
+    """Payload bytes a transfer puts on the wire (header excluded)."""
+    return int(sum(np.asarray(a).nbytes for _, a in _transfer_arrays(t)))
+
+
+def pack_transfer(t: PageTransfer) -> bytes:
+    """The wire form of a ``PageTransfer``: the magic ``b"KVPX1\\n"``, an
+    8-byte big-endian header length, a JSON header (page count and each
+    array's name, dtype and shape), then the raw arrays in header order.
+    No pickling: ``unpack_transfer`` validates untrusted bytes."""
+    arrs = [(n, np.ascontiguousarray(np.asarray(a))) for n, a in _transfer_arrays(t)]
+    header = json.dumps({
+        "n_pages": int(t.n_pages),
+        "arrays": [{"name": n, "dtype": a.dtype.name, "shape": a.shape}
+                   for n, a in arrs],
+    }).encode()
+    body = b"".join(a.tobytes() for _, a in arrs)
+    return _TRANSFER_MAGIC + len(header).to_bytes(8, "big") + header + body
+
+
+def unpack_transfer(data: bytes) -> PageTransfer:
+    """Inverse of ``pack_transfer``.  Raises ``ValueError`` on a bad
+    magic, a truncated header or body, or a corrupt header, so a decode
+    host fails the one request the bytes belong to before it allocates a
+    page."""
+    m = len(_TRANSFER_MAGIC)
+    if len(data) < m + 8 or data[:m] != _TRANSFER_MAGIC:
+        raise ValueError("not a KV page transfer (bad magic)")
+    hlen = int.from_bytes(data[m:m + 8], "big")
+    if len(data) < m + 8 + hlen:
+        raise ValueError("truncated page transfer (header)")
+    try:
+        header = json.loads(data[m + 8:m + 8 + hlen])
+        descs = header["arrays"]
+        n_pages = int(header["n_pages"])
+    except (ValueError, KeyError, TypeError) as e:
+        raise ValueError(f"corrupt page transfer header: {e}") from e
+    off = m + 8 + hlen
+    parts: dict = {}
+    try:
+        for d in descs:
+            dt = np.dtype(d["dtype"])
+            shape = tuple(int(x) for x in d["shape"])
+            nbytes = int(dt.itemsize * math.prod(shape)) if shape else dt.itemsize
+            if len(data) < off + nbytes:
+                raise ValueError(f"truncated page transfer (array {d['name']})")
+            parts[d["name"]] = np.frombuffer(data[off:off + nbytes], dtype=dt).reshape(shape)
+            off += nbytes
+    except (KeyError, TypeError) as e:
+        raise ValueError(f"corrupt page transfer header: {e}") from e
+
+    def side(name):
+        if name in parts:
+            return parts[name]
+        if name + ".q" in parts and name + ".scale" in parts:
+            return QuantPages(parts[name + ".q"], parts[name + ".scale"])
+        raise ValueError(f"page transfer missing {name!r} payload")
+
+    return PageTransfer(n_pages=n_pages, k=side("k"), v=side("v"))
 
 
 def _seq_sum(x: Tensor, dim: int) -> Tensor:

@@ -485,10 +485,9 @@ class FleetChaos:
     All fleet kinds are workload-side: the load harness calls
     ``pop_request()`` before each submission and acts on what comes back
     (kill a host's engine, deliver a preemption notice, slow a host) —
-    the :class:`~..serving.fleet.FleetRouter` under test only observes
-    the consequences.  The fleet is not ported yet (ROADMAP queue 1
-    item 8.2).
-    """
+    the ``serving.fleet.FleetRouter`` under test only observes the
+    consequences (``chip_smoke.py``'s fleet phase kills a host this
+    way)."""
 
     def __init__(self, schedule: FaultSchedule,
                  clock: Callable[[], float] = time.monotonic):

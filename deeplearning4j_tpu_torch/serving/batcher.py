@@ -44,6 +44,8 @@ from typing import Any, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..obs import trace as obs_trace
+
 ADMISSION_POLICIES = ("block", "shed")
 
 _ANY_MODEL = object()      # lane selection unconstrained by model
@@ -344,6 +346,12 @@ class DynamicBatcher:
             if rows >= self.max_batch:
                 break
         self._space.notify_all()
+        if batch:
+            # batch formation ran from the oldest member's submit until
+            # this close decision
+            obs_trace.complete_at(
+                "serve/batch_form", min(r.t_submit for r in batch),
+                self.clock(), cat="serve", rows=rows, n_requests=len(batch))
         return batch
 
     def next_batch(self) -> Optional[List[_Request]]:

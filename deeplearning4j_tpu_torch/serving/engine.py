@@ -70,7 +70,15 @@ replica's circuit breaker until ``breaker_cooldown_s`` passes, then one
 probe batch half-opens it.  A batch with non-finite outputs is bisected
 so only the poison request fails (``PoisonInputError``).  ``chaos=`` (a
 ``parallel.chaos.ServingChaos``) injects replica crashes and hangs.
-Trace spans are not emitted here.
+
+Trace spans and instants (``obs.trace``) are the reference's, with its
+names, categories and argument keys: ``serve/warmup``,
+``serve/queue_wait``, ``serve/forward``, ``serve/request``,
+``serve/batch``, ``serve/retry``, ``serve/scale_up`` /
+``serve/scale_down``, ``serve/replica_crash`` / ``serve/replica_hang``,
+``serve/circuit_open``, ``serve/respawn`` / ``serve/respawn_failed``,
+``serve/canary_decision``, ``serve/swap``, ``serve/model_load`` /
+``serve/model_evict`` and ``serve/drain``.
 """
 
 from __future__ import annotations
@@ -85,6 +93,7 @@ from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from ..obs import trace as obs_trace
 from ..ops.quantize import Int8Weight
 from ..utils.device import DeviceLike, resolve_device
 from .batcher import DeadlineExceededError, DynamicBatcher, _Request
@@ -520,9 +529,11 @@ class Engine:
                     if v.forwardable:
                         self.metrics.inc("bundle_hits" if _bundle_key(b, dts) in bundle
                                          else "bundle_misses")
-                    for i in range(len(self._replicas)):
-                        self._prepare(v, i, b, dts)
-                        self._run_forward(v, i, x)
+                    with obs_trace.span("serve/warmup", cat="serve", bucket=b,
+                                        dtype=dts, tag=v.tag):
+                        for i in range(len(self._replicas)):
+                            self._prepare(v, i, b, dts)
+                            self._run_forward(v, i, x)
                     self.metrics.inc("warmup_seconds_total", self.clock() - t0)
                     t1 = self.clock()
                     self._run_forward(v, 0, x)
@@ -810,6 +821,8 @@ class Engine:
             return
         for r in live:
             self.metrics.queue_wait.record((now - r.t_submit) * 1e3)
+            obs_trace.complete_at("serve/queue_wait", r.t_submit, now,
+                                  cat="serve", rows=r.rows)
         # a batch holds one model, so it reads one version snapshot
         model_name = live[0].model
         with self._vlock:
@@ -834,6 +847,9 @@ class Engine:
             out, finite, rows, bucket, padded = self._forward_padded(
                 v, replica.idx, live, warmed=warmed)
             device_ms = (self.clock() - t0) * 1e3
+            obs_trace.complete_at("serve/forward", t0, self.clock(), cat="serve",
+                                  replica=replica.idx, rows=rows, bucket=bucket,
+                                  tag=v.tag)
             if self.poison_isolation and not finite:
                 # bisect to isolate the poison request(s): co-batched
                 # requests still succeed
@@ -868,6 +884,11 @@ class Engine:
             _set_safe(r.future, out[ofs:ofs + r.rows])
             ofs += r.rows
             self.metrics.e2e.record((done - r.t_submit) * 1e3)
+            obs_trace.complete_at("serve/request", r.t_submit, done, cat="serve",
+                                  rows=r.rows, retries=r.retries)
+        obs_trace.complete_at("serve/batch", now, done, cat="serve",
+                              replica=replica.idx, n_requests=len(live),
+                              rows=rows, padded=padded, tag=v.tag)
         can = self._canary
         if can is not None and not can.done.is_set() and model_name is None:
             # a canary shadows the default model's traffic only
@@ -954,6 +975,8 @@ class Engine:
         if not retry:
             return
         self.metrics.inc("retries", len(retry))
+        obs_trace.instant("serve/retry", cat="serve", n_requests=len(retry),
+                          failed_replica=failed_idx, error=type(error).__name__)
         self._redispatch(retry)
 
     def _redispatch(self, reqs: List[_Request]) -> None:
@@ -1034,8 +1057,12 @@ class Engine:
         if ex is not None:
             self._release(ex)       # idempotent against the hung finally
         self.metrics.inc("replica_crashes" if crashed else "replica_hangs")
+        obs_trace.instant("serve/replica_crash" if crashed else "serve/replica_hang",
+                          cat="serve", replica=r.idx,
+                          in_flight=len(batch) if batch else 0)
         if opened:
             self.metrics.inc("circuit_opens")
+            obs_trace.instant("serve/circuit_open", cat="serve", replica=r.idx)
         # respawn first, so a retry has a live target even with one replica
         self._start_replica_thread(r)
         error: RuntimeError = (
@@ -1050,11 +1077,14 @@ class Engine:
     def _recover_replica(self, r: _Replica, batch: Optional[List[_Request]],
                          error: RuntimeError) -> None:
         try:
-            self._rewarm_replica(r.idx)
-        except Exception:
+            with obs_trace.span("serve/respawn", cat="serve", replica=r.idx):
+                self._rewarm_replica(r.idx)
+        except Exception as e:
             # the replica fails its next batch and re-enters the
             # supervisor; the breaker bounds the retries
             self.metrics.inc("respawn_failures")
+            obs_trace.instant("serve/respawn_failed", cat="serve", replica=r.idx,
+                              error=f"{type(e).__name__}: {e}")
             _log.exception("re-warm of replica %d failed", r.idx)
         self.metrics.inc("replica_respawns")
         if batch:
@@ -1155,16 +1185,17 @@ class Engine:
         with self._topology:
             idx = len(self._replicas)
             r = _Replica(idx, self._device_of(idx), self._inflight_per_replica)
-            self._devices.append(r.device)
-            try:
-                self._rewarm_replica(idx)
-            except BaseException:
-                self._devices.pop()
-                for v, _ in self._live_versions():
-                    v.release(idx)
-                raise
-            self._start_replica_thread(r)
-            self._replicas.append(r)
+            with obs_trace.span("serve/scale_up", cat="serve", replica=idx):
+                self._devices.append(r.device)
+                try:
+                    self._rewarm_replica(idx)
+                except BaseException:
+                    self._devices.pop()
+                    for v, _ in self._live_versions():
+                        v.release(idx)
+                    raise
+                self._start_replica_thread(r)
+                self._replicas.append(r)
         self.metrics.inc("scale_ups")
 
     def _retire_replica(self) -> None:
@@ -1181,25 +1212,26 @@ class Engine:
                 busy = r.busy_since is not None
             if not alive or busy or not r.queue.empty():
                 return
-            # unroute first (the dispatcher reads the list each round),
-            # then send the thread its sentinel
-            self._replicas.pop()
-            r.queue.put(_SENTINEL)
-            if r.thread is not None:
-                r.thread.join(timeout=5.0)
-            leftovers = []
-            while True:
-                try:
-                    item = r.queue.get_nowait()
-                except queue.Empty:
-                    break
-                if item is not _SENTINEL:
-                    leftovers.append(item)
-            for item in leftovers:
-                self._redispatch([q for q in item if not q.future.done()])
-            self._devices.pop()
-            for v, _ in self._live_versions():
-                v.release(r.idx)
+            with obs_trace.span("serve/scale_down", cat="serve", replica=r.idx):
+                # unroute first (the dispatcher reads the list each round),
+                # then send the thread its sentinel
+                self._replicas.pop()
+                r.queue.put(_SENTINEL)
+                if r.thread is not None:
+                    r.thread.join(timeout=5.0)
+                leftovers = []
+                while True:
+                    try:
+                        item = r.queue.get_nowait()
+                    except queue.Empty:
+                        break
+                    if item is not _SENTINEL:
+                        leftovers.append(item)
+                for item in leftovers:
+                    self._redispatch([q for q in item if not q.future.done()])
+                self._devices.pop()
+                for v, _ in self._live_versions():
+                    v.release(r.idx)
         self.metrics.inc("scale_downs")
 
     # -- canary ------------------------------------------------------------------
@@ -1294,6 +1326,8 @@ class Engine:
         if max_divergence is not None and mean_div is not None and mean_div > max_divergence:
             reasons.append(f"prediction divergence {mean_div:.4f} > {max_divergence}")
         promote = not reasons
+        obs_trace.instant("serve/canary_decision", cat="serve", candidate=nv.tag,
+                          promote=promote, reasons=list(reasons))
         decision = {
             "candidate": nv.tag, "incumbent": self.current_tag,
             "promote": promote, "reasons": reasons,
@@ -1351,6 +1385,8 @@ class Engine:
                     entry.version = nv
             self._drain_and_release(old)
             self.metrics.inc("swaps")
+            obs_trace.instant("serve/swap", cat="serve", incoming=nv.tag,
+                              retired=old.tag, model=name)
             return old.tag
 
     def _swap_version(self, nv: _ModelVersion, warm_bundle: Optional[str] = None,
@@ -1367,6 +1403,8 @@ class Engine:
                     self._current = nv
             self._drain_and_release(old)
             self.metrics.inc("swaps")
+            obs_trace.instant("serve/swap", cat="serve", incoming=nv.tag,
+                              retired=old.tag)
             return old.tag
 
     @property
@@ -1394,7 +1432,7 @@ class Engine:
                              "pass input_shape=(...) explicitly")
         v = _ModelVersion(model, tag or name, self._devices)
         entry = _ModelEntry(v, shape, tuple(dtypes))
-        entry.last_used = self.clock()
+        t0 = entry.last_used = self.clock()
         with self._topology:
             if self._loaded:
                 self._warm_version(v, warm_bundle=warm_bundle, shape=shape,
@@ -1407,6 +1445,8 @@ class Engine:
                     raise ValueError(f"model {name!r} is already placed")
                 self._named[name] = entry
         self.metrics.inc("model_loads")
+        obs_trace.instant("serve/model_load", cat="serve", model=name, tag=v.tag,
+                          warm_ms=(self.clock() - t0) * 1e3)
         return self
 
     def add_model_from_registry(self, registry, name: str, ref: str = "prod", *,
@@ -1441,6 +1481,8 @@ class Engine:
             return False
         self._drain_and_release(entry.version, timeout)
         self.metrics.inc("model_evictions")
+        obs_trace.instant("serve/model_evict", cat="serve", model=name,
+                          tag=entry.version.tag)
         return True
 
     def has_model(self, name: Optional[str]) -> bool:
@@ -1492,6 +1534,7 @@ class Engine:
         complete; call ``shutdown()`` once the queue is empty."""
         self.batcher.begin_drain()
         self.metrics.inc("drains")
+        obs_trace.instant("serve/drain", cat="serve")
 
     def shutdown(self, timeout: float = 5.0) -> None:
         """Every request (queued, in a replica queue, or submitted

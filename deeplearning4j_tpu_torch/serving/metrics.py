@@ -1,9 +1,10 @@
 """Serving metrics on the unified registry (mirrors ``ServingMetrics``,
-``DecodeMetrics`` and ``LatencyHistogram`` of
+``DecodeMetrics``, ``FleetMetrics`` and ``LatencyHistogram`` of
 ``deeplearning4j_tpu/serving/metrics.py``).
 
-A ``ServingMetrics`` belongs to one predict ``Engine`` and a
-``DecodeMetrics`` to one ``DecodeEngine``.  Each exports three ways: the
+A ``ServingMetrics`` belongs to one predict ``Engine``, a
+``DecodeMetrics`` to one ``DecodeEngine`` and a ``FleetMetrics`` to one
+``FleetRouter``.  Each exports three ways: the
 plain ``snapshot()`` dict (the API and test surface), its own
 ``registry`` of typed instruments, and the process-wide
 ``obs.metrics.get_registry()``, where it registers itself as a collector,
@@ -36,12 +37,27 @@ _DECODE_COUNTER_KEYS = (
     "requests", "tokens_out", "prefills", "decode_steps",
     "eos_stops", "max_token_stops", "deadline_stops",
     "shed", "deadline_missed", "errors", "retries", "poison_isolated",
-    "replica_crashes", "replica_respawns",
+    "replica_crashes", "replica_respawns", "swaps",
+    "warmup_seconds_total", "bundle_hits", "bundle_misses",
+    "scale_ups", "scale_downs",
     "prefix_hits", "prefix_misses", "prefix_inserts",
     "prefix_evictions", "prefix_hit_tokens",
     "spec_steps", "spec_proposed", "spec_accepted", "spec_committed",
+    "handoffs_out", "handoffs_in",
+    "pages_exported", "pages_attached", "pages_deduped",
     "fused_dispatches", "tokens_per_dispatch",
     "chunked_prefills", "prefill_chunks",
+)
+
+# every counter a fresh fleet router reports, at zero: dispatch, then
+# failover, then the swap/drain lifecycle, disaggregation and placement
+_FLEET_COUNTER_KEYS = (
+    "requests", "dispatched", "delivered", "retries", "shed", "failed",
+    "timeouts", "late_discards", "affinity_routed",
+    "host_failures", "host_down", "host_up",
+    "drains", "preempt_drains", "rolling_swaps", "swap_hosts", "rollbacks",
+    "disagg_requests", "page_transfers", "transfer_bytes",
+    "placements", "placement_evictions", "demand_loads", "model_misses",
 )
 
 _DECODE_GAUGES = ("active_slots", "pages_in_use", "shared_pages", "free_pages",
@@ -236,4 +252,38 @@ class ServingMetrics(_Counters):
             "queue_wait_ms": self.queue_wait.snapshot(),
             "device_time_ms": self.device_time.snapshot(),
             "e2e_ms": self.e2e.snapshot(),
+        }
+
+
+class FleetMetrics(_Counters):
+    """Per-router metric set of ``serving.fleet.FleetRouter``: the fleet's
+    end-to-end latency (submit to delivery, across retries and failover),
+    the dispatch/failover/swap/placement counters and the host gauges.
+    Registers a collector named ``fleet`` on the process-wide registry,
+    so one /metrics response carries the router beside its hosts."""
+
+    def __init__(self, buckets_ms: Sequence[float] = DEFAULT_BUCKETS_MS,
+                 registry: MetricsRegistry = None):
+        self.registry = registry or MetricsRegistry()
+        self.e2e = self.registry.register(LatencyHistogram(buckets_ms, name="fleet_e2e_ms"))
+        self._init_counters(_FLEET_COUNTER_KEYS)
+        self.hosts_up = self.registry.gauge("hosts_up")
+        self.hosts_up.set(0)
+        self.hosts_total = self.registry.gauge("hosts_total")
+        self.hosts_total.set(0)
+        self._t0 = time.monotonic()
+        self.global_name = get_registry().register_collector(
+            "fleet", self.snapshot, unique=True)
+
+    def snapshot(self) -> dict:
+        c = self._counter_snapshot()
+        elapsed = time.monotonic() - self._t0
+        return {
+            "counters": c,
+            "hosts_up": int(self.hosts_up.value()),
+            "hosts_total": int(self.hosts_total.value()),
+            "requests_per_sec": (round(c["requests"] / elapsed, 2)
+                                 if elapsed > 0 else None),
+            "uptime_sec": round(elapsed, 3),
+            "fleet_e2e_ms": self.e2e.snapshot(),
         }

@@ -1,6 +1,18 @@
-"""Warm-up bundles of the predict engine (mirrors the bundle half of
-``deeplearning4j_tpu/serving/warmcache.py``; the reference's persistent
-JAX compile cache has no counterpart here).
+"""Zero-cold-start plumbing: the persistent kernel-build cache and the
+serving engines' warm-up bundles (mirrors
+``deeplearning4j_tpu/serving/warmcache.py``).
+
+``enable_compile_cache(cache_dir)`` is the port's counterpart of the
+reference's persistent JAX compile cache.  What the port compiles ahead
+of use is its CUDA C++ kernels: ``utils/cuda_build.py`` builds each
+``csrc/*.cu`` with ``nvcc`` into one shared library whose name carries a
+digest of the source, the headers and the flags.  The cache is that
+build directory: pointed at a shared ``DIR``, a respawned serve host, a
+``launch`` worker or the next run finds every library already built and
+skips ``nvcc``.  Library writes are atomic (a temp file renamed over the
+target), so a process killed mid-build never leaves half a library.
+Nothing else is cached: a CUDA graph cannot be saved, and the engines
+capture theirs at ``load()``.
 
 The reference serializes its ahead-of-time XLA executables into a zip
 next to the checkpoint (``model.zip`` → ``model.zip.warm``), so a fresh
@@ -29,7 +41,7 @@ import json
 import os
 import warnings
 import zipfile
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -52,11 +64,44 @@ def _csrc_digest() -> str:
     return h.hexdigest()[:16]
 
 
-def device_fingerprint(device: Optional[torch.device] = None) -> str:
+ENV_VAR = "DL4J_TPU_COMPILE_CACHE"
+
+_enabled_dir: Optional[str] = None
+
+
+def enable_compile_cache(cache_dir: Optional[str] = None) -> Optional[str]:
+    """Build the kernels into (and load them from) a persistent
+    directory, process-wide.  An explicit ``cache_dir`` wins, then the
+    ``DL4J_TPU_COMPILE_CACHE`` variable; with neither this is a no-op
+    returning None.  The variable is exported, so ``launch``'s workers
+    and any subprocess inherit the directory (``utils/cuda_build.py``
+    reads it when imported).  Idempotent; returns the absolute path."""
+    global _enabled_dir
+    d = cache_dir or os.environ.get(ENV_VAR)
+    if not d:
+        return None
+    d = os.path.abspath(d)
+    if _enabled_dir == d:
+        return d
+    from pathlib import Path
+
+    from ..utils import cuda_build
+
+    os.makedirs(d, exist_ok=True)
+    cuda_build.BUILD_DIR = Path(d)
+    os.environ[ENV_VAR] = d
+    _enabled_dir = d
+    return d
+
+
+def device_fingerprint(device: Optional[torch.device] = None,
+                       mesh: Optional[Any] = None) -> str:
     """Identity of the device set a bundle's graphs were captured on: the
     card's name, the card count, its compute capability, the torch and
     CUDA versions, and a digest of the kernel sources (``cpu`` and no
-    capability on the CPU)."""
+    capability on the CPU).  ``mesh`` (a tensor-parallel decode
+    program's) appends ``mesh(axis=size,...)``, so a bundle of one
+    topology is refused by a process whose mesh differs."""
     device = torch.device(device) if device is not None else (
         torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu"))
     if device.type == "cuda":
@@ -67,6 +112,9 @@ def device_fingerprint(device: Optional[torch.device] = None) -> str:
     else:
         parts = ["cpu", "1", "none"]
     parts += [torch.__version__, str(torch.version.cuda), _csrc_digest()]
+    if mesh is not None:
+        axes = ",".join(f"{n}={int(k)}" for n, k in dict(mesh.shape).items())
+        parts.append(f"mesh({axes})")
     return "|".join(parts)
 
 
@@ -76,9 +124,11 @@ def bundle_path_for(checkpoint_path: str) -> str:
 
 
 def save_bundle(path: str, tag: str, entries: Dict[str, dict],
-                device: Optional[torch.device] = None) -> str:
+                device: Optional[torch.device] = None,
+                mesh: Optional[Any] = None) -> str:
     """Write ``entries`` ({key: JSON-able description of one graph}) to
-    ``path`` as a bundle for ``tag`` captured on ``device``; atomic."""
+    ``path`` as a bundle for ``tag`` captured on ``device`` (over
+    ``mesh``, for a sharded decode program); atomic."""
     names, blobs = {}, {}
     for i, key in enumerate(sorted(entries)):
         ename = f"graph_{i}.json"
@@ -88,7 +138,7 @@ def save_bundle(path: str, tag: str, entries: Dict[str, dict],
         "format": BUNDLE_FORMAT,
         "format_version": BUNDLE_FORMAT_VERSION,
         "tag": tag,
-        "fingerprint": device_fingerprint(device),
+        "fingerprint": device_fingerprint(device, mesh),
         "torch_version": torch.__version__,
         "entries": names,
         "integrity": {e: hashlib.sha256(b).hexdigest() for e, b in blobs.items()},
@@ -107,10 +157,12 @@ class _BundleMiss(Exception):
 
 
 def load_bundle(path: Optional[str], tag: Optional[str] = None,
-                device: Optional[torch.device] = None) -> Dict[str, dict]:
+                device: Optional[torch.device] = None,
+                mesh: Optional[Any] = None) -> Dict[str, dict]:
     """The bundle's entries ({key: description}), or ``{}`` on any miss;
     never raises.  An absent file is silent; an unusable one warns once
-    with the reason (``RuntimeWarning``)."""
+    with the reason (``RuntimeWarning``).  ``mesh`` must be the one the
+    bundle was saved with."""
     if not path or not os.path.exists(path):
         return {}
     try:
@@ -126,7 +178,7 @@ def load_bundle(path: Optional[str], tag: Optional[str] = None,
             if meta.get("torch_version") != torch.__version__:
                 raise _BundleMiss(f"torch {meta.get('torch_version')!r} != "
                                   f"{torch.__version__!r}")
-            fp = device_fingerprint(device)
+            fp = device_fingerprint(device, mesh)
             if meta.get("fingerprint") != fp:
                 raise _BundleMiss(f"device fingerprint {meta.get('fingerprint')!r} != {fp!r}")
             integrity = meta.get("integrity", {})

@@ -6,9 +6,11 @@ the routes of the serving engines on a stdlib ``ThreadingHTTPServer``).
                     ``Engine`` (``model`` names a placed named model,
                     ``tenant`` the request's tenant lane and quota)
     POST /generate  {"prompt_ids": [...], "max_tokens"?, "temperature"?,
-                    "top_k"?, "top_p"?, "seed"?, "slo_ms"?} → {"tokens",
-                    "n_prompt", "finish_reason", "model", "ttft_ms",
-                    "tpot_ms"} through an attached ``DecodeEngine``
+                    "top_k"?, "top_p"?, "seed"?, "slo_ms"?, "tenant"?,
+                    "model"?} → {"tokens", "n_prompt", "finish_reason",
+                    "model", "ttft_ms", "tpot_ms"} through an attached
+                    ``DecodeEngine`` (or a ``FleetRouter``); a
+                    prefill-role engine answers 409 ``prefill_role``
     GET  /healthz   readiness of every attached engine (200 / 503)
     GET  /metrics   {"serving": [one snapshot per attached provider],
                     "registry": the process-wide ``obs.metrics`` registry's
@@ -127,8 +129,21 @@ class UIServer:
         if self._decode_engine is None:
             return 503, {"error": "no decode engine attached",
                          "error_class": "unavailable"}
+        if getattr(self._decode_engine, "role", "unified") == "prefill":
+            # a prefill host's result is a page handoff, not tokens: only
+            # a fleet router can carry it on to a decode-role host
+            return 409, {"error": "this host is a prefill-role engine; "
+                                  "its output is a KV-page handoff, not "
+                                  "tokens — send /generate traffic to a "
+                                  "fleet router or a unified/decode host",
+                         "error_class": "prefill_role"}
         try:
             payload = json.loads(body)
+            kw = {}
+            if payload.get("tenant") is not None:
+                kw["tenant"] = str(payload["tenant"])
+            if payload.get("model") is not None:
+                kw["model"] = str(payload["model"])
             res = self._decode_engine.generate(
                 payload["prompt_ids"],
                 max_new_tokens=payload.get("max_tokens"),
@@ -136,7 +151,7 @@ class UIServer:
                 top_k=payload.get("top_k", 0),
                 top_p=payload.get("top_p", 1.0),
                 seed=payload.get("seed", 0),
-                slo_ms=payload.get("slo_ms"))
+                slo_ms=payload.get("slo_ms"), **kw)
             return 200, {"tokens": res.tokens, "n_prompt": res.n_prompt,
                          "finish_reason": res.finish_reason,
                          "model": res.model_tag, "ttft_ms": res.ttft_ms,

@@ -3,7 +3,9 @@
 Each source under ``deeplearning4j_tpu_torch/csrc/`` has a plain C
 interface and becomes one shared library for ``sm_90a`` (Hopper),
 compiled at first use into ``deeplearning4j_tpu_torch/_build/`` (listed
-in ``.gitignore``).  Sources may include the ``csrc/*.cuh`` headers.  The
+in ``.gitignore``), or into the directory the ``DL4J_TPU_COMPILE_CACHE``
+variable names (``serving.warmcache.enable_compile_cache``), where a
+later process finds the libraries built and runs no ``nvcc``.  Sources may include the ``csrc/*.cuh`` headers.  The
 library name carries a digest of the source, the headers and the flags,
 so an edited source or header is rebuilt and a stale library is never
 loaded.  A missing ``nvcc`` or a failed build raises: no path falls back
@@ -26,12 +28,14 @@ from typing import Dict, Iterable, List
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
+BUILD_DIR = Path(os.environ.get("DL4J_TPU_COMPILE_CACHE") or PKG_DIR / "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: names of the sources this process ran ``nvcc`` for
+compiled: List[str] = []
 
 
 def _nvcc() -> str:
@@ -79,6 +83,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
             errors.append(f"nvcc failed for csrc/{n}.cu:\n{log.decode(errors='replace')}")
             continue
         os.replace(tmp, out[n])     # atomic: a reader never sees half a file
+        compiled.append(n)
     if errors:
         raise RuntimeError("\n".join(errors))
     return out

@@ -63,7 +63,14 @@ serving: ``Int8Weight``'s padded ``torch._int_mm`` on the card (M below
 bitwise the CPU's int32 accumulator and output, inside a CUDA graph too;
 an int8 predict engine's rows bitwise the eager quantized bucket, and a
 replica born by the autoscaler serving from graphs captured before it
-was routable.
+was routable.  Disaggregated decode: a prefill host's handoff continued
+by a decode host on the card gives the unified engine's tokens and
+bitwise its echoed logits (f32 and int8 pages), a page round trip
+through ``pack_transfer`` is bitwise, and a swap on a fused-horizon
+engine replays its captured graph on the new weights, bitwise a fresh
+engine's, with ``compile_cache_size`` flat; so does a replay after the
+``params`` setter or a swap under the same tag, and a warm bundle names
+the captured graph.
 """
 
 import importlib.util
@@ -1997,3 +2004,130 @@ def test_int8_engine_and_an_autoscaled_replica_serve_captured_graphs(cuda_dev):
         assert all(g is not None for g in eng._current.programs.values())
     finally:
         eng.shutdown()
+
+
+def _decode_trio(cuda_dev, **kw):
+    from deeplearning4j_tpu_torch.models.transformer import TransformerDecodeAdapter
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    adapter = TransformerDecodeAdapter(_small_lm(cuda_dev))
+    return [DecodeEngine(adapter, max_slots=3, page_size=8, role=role, device=cuda_dev,
+                         **kw).load() for role in ("unified", "prefill", "decode")]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_disaggregated_handoff_on_card_is_bitwise_unified(cuda_dev, kv_dtype):
+    uni, pre, dec = _decode_trio(cuda_dev, kv_dtype=kv_dtype)
+    rng = np.random.default_rng(5)
+    try:
+        for n, kw in ((5, dict()), (17, dict(temperature=0.8, top_k=10, seed=4)),
+                      (40, dict(temperature=1.0, top_p=0.9, seed=9))):
+            prompt = rng.integers(0, SIZE["vocab_size"], n).tolist()
+            ref = uni.generate(prompt, max_new_tokens=12, echo_logits=True, **kw)
+            h = pre.generate(prompt, max_new_tokens=12, echo_logits=True, **kw)
+            got = dec.continue_async(h).result(timeout=120)
+            assert got.tokens == ref.tokens
+            np.testing.assert_array_equal(got.logits, ref.logits)
+        for e in (uni, pre, dec):
+            assert e.metrics_snapshot()["pages_in_use"] == 0
+    finally:
+        for e in (uni, pre, dec):
+            e.shutdown()
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_page_round_trip_through_the_wire_is_bitwise(cuda_dev, kv_dtype):
+    src, _ = tkv.alloc_cache(2, 9, 8, 4, 16, device=cuda_dev, kv_dtype=kv_dtype)
+    dst, _ = tkv.alloc_cache(2, 9, 8, 4, 16, device=cuda_dev, kv_dtype=kv_dtype)
+    g = torch.Generator(device=cuda_dev).manual_seed(0)
+    for leaf in (src if isinstance(src, tuple) else (src,)):
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=g, device=cuda_dev))
+        else:
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device=cuda_dev))
+    ids = torch.tensor([4, 2, 7], device=cuda_dev)
+
+    def host(p):
+        return (tkv.QuantPages(p.q.cpu().numpy(), p.scale.cpu().numpy())
+                if isinstance(p, tkv.QuantPages) else p.cpu().numpy())
+
+    payload = host(tkv.gather_pages(src, ids))
+    t = tkv.unpack_transfer(tkv.pack_transfer(tkv.PageTransfer(3, payload, payload)))
+    back = (tkv.QuantPages(*(torch.from_numpy(a.copy()).to(cuda_dev) for a in t.k))
+            if kv_dtype else torch.from_numpy(t.k.copy()).to(cuda_dev))
+    to = torch.tensor([1, 8, 3], device=cuda_dev)
+    tkv.set_pages(dst, to, back)
+    for a, b in zip(src if kv_dtype else (src,), dst if kv_dtype else (dst,)):
+        assert torch.equal(a[:, ids], b[:, to])
+
+
+def test_swap_replays_the_captured_horizon_on_the_new_weights(cuda_dev):
+    from deeplearning4j_tpu_torch.models.transformer import TransformerDecodeAdapter
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    a = TransformerDecodeAdapter(_small_lm(cuda_dev))
+    b = TransformerDecodeAdapter(_seeded_lm(cuda_dev, 8))
+    eng = DecodeEngine(a, max_slots=3, page_size=8, decode_horizon=4, device=cuda_dev).load()
+    fresh = DecodeEngine(b, max_slots=3, page_size=8, decode_horizon=4,
+                         device=cuda_dev).load()
+    prompt = list(range(3, 20))
+    try:
+        n = eng.compile_cache_size()
+        before = eng.generate(prompt, max_new_tokens=12, echo_logits=True)
+        eng.swap_model(b, "v1")
+        after = eng.generate(prompt, max_new_tokens=12, echo_logits=True)
+        want = fresh.generate(prompt, max_new_tokens=12, echo_logits=True)
+        assert after.model_tag == "v1" and after.tokens == want.tokens
+        np.testing.assert_array_equal(after.logits, want.logits)
+        assert not np.array_equal(after.logits, before.logits)
+        eng.swap_model(a, "v0")
+        again = eng.generate(prompt, max_new_tokens=12, echo_logits=True)
+        np.testing.assert_array_equal(again.logits, before.logits)
+        assert eng.compile_cache_size() == n and eng.step_multi_graph.replays > 0
+    finally:
+        eng.shutdown()
+        fresh.shutdown()
+
+
+def test_params_setter_and_same_tag_swap_reach_the_captured_horizon(cuda_dev, tmp_path):
+    from deeplearning4j_tpu_torch.models.transformer import TransformerDecodeAdapter
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    a = TransformerDecodeAdapter(_small_lm(cuda_dev))
+    b = TransformerDecodeAdapter(_seeded_lm(cuda_dev, 8))
+    c = TransformerDecodeAdapter(_seeded_lm(cuda_dev, 9))
+    kw = dict(max_slots=3, page_size=8, decode_horizon=4, device=cuda_dev)
+    eng = DecodeEngine(a, **kw).load()
+    fresh = {n: DecodeEngine(m, **kw).load() for n, m in (("b", b), ("c", c))}
+    prompt = list(range(3, 20))
+    gen = lambda e: e.generate(prompt, max_new_tokens=12, echo_logits=True)
+    try:
+        assert eng.compile_cache_size() == 1
+        bundle = eng.save_warmup_bundle(str(tmp_path / "fused.warm"))
+        before = gen(eng)
+        with eng._lock:
+            eng.params = b.params
+        after = gen(eng)
+        want = gen(fresh["b"])
+        assert after.model_tag == before.model_tag and after.tokens == want.tokens
+        np.testing.assert_array_equal(after.logits, want.logits)
+        eng.swap_model(c, after.model_tag)
+        again = gen(eng)
+        np.testing.assert_array_equal(again.logits, gen(fresh["c"]).logits)
+        assert eng.compile_cache_size() == 1 and eng.step_multi_graph.replays > 0
+    finally:
+        eng.shutdown()
+        for e in fresh.values():
+            e.shutdown()
+    warm = DecodeEngine(a, **kw).load(warm_bundle=bundle)
+    try:
+        assert warm.metrics.counter_value("bundle_hits") == 1
+        assert warm.metrics.counter_value("bundle_misses") == 0
+        np.testing.assert_array_equal(gen(warm).logits, before.logits)
+    finally:
+        warm.shutdown()
+
+
+def _seeded_lm(device, seed):
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+    return TransformerLM(**SIZE, seed=seed, device=device)
