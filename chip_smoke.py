@@ -12,6 +12,8 @@
                                            # predict_features phase alone
     python3 chip_smoke.py --phase fleet    # the build and the fleet phase
                                            # alone
+    python3 chip_smoke.py --phase flywheel # the build and the flywheel
+                                           # phase alone
 
 It builds every CUDA kernel of the port from ``deeplearning4j_tpu_torch/csrc``
 with ``nvcc`` (one process per source, started together), then drives the
@@ -465,6 +467,48 @@ and the recurrent path's training and streaming:
           checkpoint's bytes, the snapshot ms, the deflate/write seconds,
           whether the write had landed before the restore, the restore
           seconds and the step ms before and after.
+  flywheel  the promotion flywheel (``serving/lifecycle.py``) and the input
+          pipeline (``datasets/``); it runs none of K1-K6 or D1.  (a) the
+          CLI's ``flywheel --generations 5 --chaos
+          nan,regression,host_kill,crash --hosts 2`` on cuda:0, as users run
+          it (a process of its own, ``--flywheel-cli`` wrapping the CLI's
+          ``main`` in a ``GraphSpy`` and counting ``FleetRouter.output``),
+          beside the same with ``--max-divergence 0.1``: every generation's
+          outcome, version, rollback target and parent the reference CLI's
+          on the CPU (``FW_EXPECTED``), promoted 3 / rolled back 2 / resumes
+          1, alias 5; gen 3 rejected at 0.1 as the reference's; every
+          traffic call returned or counted in ``traffic_dropped``; no graph
+          captured on a replica thread; each run's canary decisions and
+          GC pauses printed.  (b) ``PromotionPipeline`` over LeNet at bench
+          config 2 ([256, 32, 32, 3], Nesterovs(0.01, 0.9)), 3 generations
+          under deterministic cuDNN: TRAIN an ``ElasticTrainer`` fed by
+          ``Cifar10DataSetIterator`` (the synthetic surrogate) through
+          ``DevicePrefetchIterator(depth=2, transform=
+          ImagePreProcessingScaler())``, EVAL ``EvalGate`` over
+          ``DataSetLossCalculator``, REGISTER with a warm bundle, CANARY on
+          the subscribed host under live traffic, ROLL over two LeNet
+          ``Engine`` hosts (buckets 1/2/4): every generation promoted, gen
+          1's losses bitwise the same batches fed synchronously through the
+          same device transform, every served row bitwise its version's
+          eager bucket, 0 unwarmed serves, bundle hits and 0 misses, the
+          journal replayed by a second controller to the same records, no
+          capture on a replica thread; ``ROCMultiClass`` AUCs and
+          ``EvaluationCalibration`` errors of the promoted model printed.
+          (c) ResNet-50 (bench config 3) on six [128, 224, 224, 3] uint8
+          batches from a numpy seed, in the native loader's row order, from
+          one start: synchronous and scaled on the host, synchronous with
+          the device transform, and through the prefetch ring: step ms
+          (median), the ring's ``stall_stats()``, one traced step's idle
+          share each, and where the ring's copies ran and how long they
+          overlapped compute kernels; the ring's losses and parameters
+          bitwise the device arm's, the device-scaled inputs bitwise the
+          host's (losses within 1e-6 relative); a ``fit_batches(2)``
+          capture at batch 32 with a producer alive completes (a watchdog
+          fails the run after 300 s).  (d) the same rows from a
+          ``NativeDataSetIterator`` (its library must load) through the
+          ring: batches bitwise ``plain_order``'s rows, training bitwise
+          the device arm.  (e) ``train --zoo lenet --data cifar10
+          --prefetch 2``: exit 0 and the stall line.
 
 Each phase prints JSON lines; then one ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -6650,6 +6694,579 @@ def phase_fleet(net):
     return rec
 
 
+# -- the flywheel phase: serving/lifecycle.py, the CLI's flywheel, the input
+# -- pipeline (datasets/device_prefetch.py, normalizers, native loader)
+
+#: what the reference's CLI prints for ``flywheel --generations 5 --chaos
+#: nan,regression,host_kill,crash --hosts 2`` on the CPU: per generation
+#: (outcome, version, rolled_back_to, parent_version), and the final stats
+FW_ARGS = ["flywheel", "--generations", "5", "--chaos", "nan,regression,host_kill,crash",
+           "--hosts", "2"]
+FW_EXPECTED = [("PROMOTED", 1, None, None), ("ROLLED_BACK", 2, 1, None),
+               ("PROMOTED", 3, None, 1), ("ROLLED_BACK", 4, 3, None),
+               ("PROMOTED", 5, None, 3)]
+FW_EXPECTED_STATS = {"promoted": 3, "rolled_back": 2, "resumes": 1, "alias": 5}
+#: the reference's CLI on the CPU rejects gen 3's canary at this ceiling
+#: (its prediction divergence 0.1644 > 0.1; 0.2 promotes it)
+FW_MAX_DIVERGENCE = 0.1
+FW_LENET_GENERATIONS = 3
+PIPE_B, PIPE_ROWS, PIPE_SEED = 128, 768, 3
+NATIVE_SEED = 7
+
+
+def flywheel_cli_run(workdir: str) -> None:
+    """``--flywheel-cli WORKDIR ARGS...``: the port's CLI ``main(ARGS)``
+    with a ``GraphSpy`` watching its captures and every
+    ``FleetRouter.output`` call counted; prints the CLI's lines, then one
+    ``{"spy": ...}`` line."""
+    import gc
+    import io
+
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.serving import engine, fleet
+
+    argv = sys.argv[sys.argv.index(workdir) + 1:]
+    calls = {"calls": 0, "returned": 0, "raised": 0}
+    lock = threading.Lock()
+    real = fleet.FleetRouter.output
+    decisions, gc_start, gc_pauses = [], [0.0], []
+    real_canary = engine.Engine.run_canary
+
+    def canary(self, *a, **kw):
+        d = real_canary(self, *a, **kw)
+        decisions.append({k: d.get(k) for k in ("candidate", "promote", "reasons",
+                                                "canary_p99_ms", "incumbent_p99_ms",
+                                                "mean_divergence")})
+        return d
+    engine.Engine.run_canary = canary
+
+    def gc_timer(phase, info):
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            gc_pauses.append((info["generation"], (time.perf_counter() - gc_start[0]) * 1e3))
+    gc.callbacks.append(gc_timer)
+
+    def counted(self, *a, **kw):
+        with lock:
+            calls["calls"] += 1
+        try:
+            out = real(self, *a, **kw)
+        except Exception:
+            with lock:
+                calls["raised"] += 1
+            raise
+        with lock:
+            calls["returned"] += 1
+        return out
+    fleet.FleetRouter.output = counted
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with GraphSpy() as spy, contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["--workdir", workdir])
+    print(buf.getvalue(), end="", flush=True)
+    emit({"spy": {"rc": rc, "seconds": time.perf_counter() - t0,
+                  "captures": len(spy.captures), "served_captures": spy.served_captures(),
+                  "capture_threads": sorted(set(spy.captures)), **calls,
+                  "canary_decisions": decisions,
+                  "gc_max_pause_ms": {g: max((ms for gg, ms in gc_pauses if gg == g), default=0.0)
+                                      for g in (0, 1, 2)}}})
+
+
+def flywheel_cli(tmp):
+    """(a) the CLI's ``flywheel`` as users run it, twice at once: the
+    reference's flags, then with ``--max-divergence FW_MAX_DIVERGENCE`` →
+    (record, failures)."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    runs = {"chaos": FW_ARGS, "divergence": FW_ARGS + ["--max-divergence",
+                                                       str(FW_MAX_DIVERGENCE)]}
+    procs = {}
+    for name, argv in runs.items():
+        wd = os.path.join(tmp, f"fw_{name}")
+        procs[name] = subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--flywheel-cli", wd, *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=tmp)
+    rec, bad = {}, []
+    for name, p in procs.items():
+        try:
+            out, err = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        lines = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+        gens = [l for l in lines if "gen" in l]
+        final = next((l for l in lines if "stats" in l), {})
+        spy = next((l["spy"] for l in lines if "spy" in l), {})
+        rec[name] = {"rc": p.returncode, "generations": [
+            {k: g.get(k) for k in ("gen", "outcome", "version", "rolled_back_to",
+                                   "parent_version", "eval_score")}
+            | {"reason": (g.get("reason") or "")[:120]} for g in gens],
+            "stats": final.get("stats"), "alias": final.get("alias"),
+            "traffic_dropped": final.get("traffic_dropped"), "spy": spy,
+            "seconds_per_generation": spy.get("seconds", float("nan")) / max(len(gens), 1)}
+        if p.returncode:
+            print(err[-3000:], file=sys.stderr, flush=True)
+            bad.append(f"flywheel CLI ({name}) exited {p.returncode}")
+        if spy.get("served_captures", 1) != 0:
+            bad.append(f"flywheel CLI ({name}): a graph captured on a replica thread")
+        if spy.get("calls") != spy.get("returned", 0) + spy.get("raised", 0) \
+                or spy.get("raised") != final.get("traffic_dropped"):
+            bad.append(f"flywheel CLI ({name}): a traffic future neither delivered "
+                       f"nor counted ({spy} vs dropped {final.get('traffic_dropped')})")
+    got = [(g["outcome"], g["version"], g["rolled_back_to"], g["parent_version"])
+           for g in rec["chaos"]["generations"]]
+    if got != FW_EXPECTED:
+        bad.append(f"flywheel CLI: generations {got} != the reference's {FW_EXPECTED}")
+    st = rec["chaos"]["stats"] or {}
+    if {k: st.get(k) for k in ("promoted", "rolled_back", "resumes")} | \
+            {"alias": rec["chaos"]["alias"]} != FW_EXPECTED_STATS:
+        bad.append(f"flywheel CLI: stats {st} alias {rec['chaos']['alias']}")
+    div = rec["divergence"]["generations"]
+    g3 = div[2] if len(div) > 2 else {}
+    rec["divergence"]["max_divergence"] = FW_MAX_DIVERGENCE
+    if not (g3.get("outcome") == "ROLLED_BACK" and "canary rejected" in g3.get("reason", "")):
+        bad.append(f"flywheel CLI: gen 3 not rejected at --max-divergence "
+                   f"{FW_MAX_DIVERGENCE}: {g3}")
+    return rec, bad
+
+
+def clone_snapshot(snap):
+    """Fresh clones of a ``snapshot`` of a layer stack or a graph."""
+    import torch
+
+    def c(tree):
+        if isinstance(tree, dict):
+            return {k: c(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(c(v) for v in tree)
+        return tree.clone() if isinstance(tree, torch.Tensor) else tree
+    return tuple(c(s) for s in snap)
+
+
+def _lenet(seed=123):
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+    return LeNet(LENET_HW, LENET_HW, 3, LENET_CLASSES, seed=seed,
+                 updater=Nesterovs(lr=0.01, momentum=0.9), device="cuda")
+
+
+def flywheel_pipeline(tmp):
+    """(b) ``PromotionPipeline`` over LeNet at bench config 2 for
+    ``FW_LENET_GENERATIONS`` generations, TRAIN through the prefetch ring,
+    a fleet of two LeNet hosts under live traffic → (record, failures)."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import (DataSet, DevicePrefetchIterator,
+                                                    ImagePreProcessingScaler)
+    from deeplearning4j_tpu_torch.datasets.fetchers import (Cifar10DataSetIterator,
+                                                             load_cifar10)
+    from deeplearning4j_tpu_torch.earlystopping import DataSetLossCalculator
+    from deeplearning4j_tpu_torch.evaluation import EvaluationCalibration, ROCMultiClass
+    from deeplearning4j_tpu_torch.parallel import ElasticTrainer
+    from deeplearning4j_tpu_torch.serving import (Engine, EvalGate, FleetRouter,
+                                                   ModelRegistry, PromotionPipeline)
+    from deeplearning4j_tpu_torch.utils.serializer import load_model
+
+    bad = []
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    scaler = ImagePreProcessingScaler()
+    xs_eval, ys_eval = load_cifar10(train=False)
+    eval_ds = scaler.pre_process(DataSet(xs_eval, np.eye(LENET_CLASSES,
+                                                         dtype=np.float32)[ys_eval]))
+    eval_batches = eval_ds.batch_by(LENET_B)
+    base = _lenet()
+    init = snapshot(base)
+
+    def batches(gen):
+        return Cifar10DataSetIterator(LENET_B, seed=SEED + gen)
+
+    # the same generation synchronously: each batch to the card, the same
+    # device transform, fit_batch
+    sync_net = _lenet()
+    restore(sync_net, clone_snapshot(init))
+    to_dev = scaler.device_transform()
+    sync_losses = [float(sync_net.fit_batch(to_dev(DataSet(
+        torch.as_tensor(d.features).cuda(), torch.as_tensor(d.labels).cuda()))))
+        for d in batches(1)]
+    del sync_net
+
+    reg = ModelRegistry(device="cuda")
+    router = FleetRouter(max_retries=3)
+    trained = {}
+
+    def train_fn(gen):
+        if gen == 1:
+            net = _lenet()
+            restore(net, clone_snapshot(init))
+        else:
+            net = load_model(reg.checkpoint_path("lenet", "prod"), device="cuda")
+        it = DevicePrefetchIterator(batches(gen), depth=2, device="cuda",
+                                    transform=ImagePreProcessingScaler())
+        tr = ElasticTrainer(net, checkpoint_dir=os.path.join(tmp, f"lenet_g{gen}"),
+                            checkpoint_every=4, run_id=f"lenet-g{gen}")
+        t = time.perf_counter()
+        tr.fit(it, epochs=1)
+        trained[gen] = {"losses": [float(l) for _, l in tr.step_losses],
+                        "seconds": time.perf_counter() - t, "stall": it.stall_stats()}
+        it.close()
+        return tr
+
+    kw = dict(max_batch=4, replicas=1, slo_ms=600_000.0, device="cuda")
+    pipe = PromotionPipeline(reg, router, "lenet", train_fn,
+                             EvalGate(DataSetLossCalculator(eval_batches), threshold=5.0),
+                             journal_path=os.path.join(tmp, "lenet.jsonl"),
+                             canary_frac=1.0, canary_window=4, canary_timeout_s=120.0,
+                             bundle_engine_kwargs=kw)
+    xs, outs, futs, index, errors = [], [], [], {}, []
+    taps, stop, traffic = [], threading.Event(), None
+    rng = np.random.default_rng(SEED + 300)
+    reports, gen_s = [], []
+    with GraphSpy() as spy:
+        try:
+            for g in range(FW_LENET_GENERATIONS):
+                t = time.perf_counter()
+                reports.append(pipe.run_generation())
+                gen_s.append(time.perf_counter() - t)
+                if reports[-1]["outcome"] != "PROMOTED":
+                    raise AssertionError(f"pipeline: generation {g + 1}: {reports[-1]}")
+                if g == 0:
+                    h0 = Engine.from_registry(reg, "lenet", "prod", **kw).load()
+                    v, model = reg.resolve("lenet", "prod")
+                    h1 = Engine(model, **kw)
+                    h1.swap_model(model, tag=f"lenet:v{v}")
+                    h1.load()
+                    for name, eng in (("h0", h0), ("h1", h1)):
+                        taps.append(HostTap(name, eng, index))
+                        router.add_host(name, engine=eng)
+
+                    def loop():
+                        i = 0
+                        while not stop.is_set():
+                            x = rng.standard_normal((1 + i % 3, LENET_HW, LENET_HW, 3),
+                                                    dtype=np.float32)
+                            index[id(x)] = len(xs)
+                            xs.append(x)
+                            outs.append(None)
+                            try:
+                                outs[-1] = router.output(x, slo_ms=600_000.0)
+                            except Exception as e:   # gated: none
+                                errors.append(f"{type(e).__name__}: {e}")
+                            i += 1
+                            time.sleep(0.004)
+                    traffic = threading.Thread(target=loop, daemon=True)
+                    traffic.start()
+        finally:
+            stop.set()
+            if traffic is not None:
+                traffic.join(timeout=60)
+        models = {f"lenet:v{v}": reg.resolve("lenet", v)[1] for v in reg.versions("lenet")}
+        bitwise, checked, tags = fleet_bitwise(taps, xs, outs, models)
+        snaps = {t.name: t.eng.metrics_snapshot()["counters"] for t in taps}
+        served_captures = spy.served_captures()
+    router.shutdown(shutdown_hosts=True)
+    replay = PromotionPipeline(reg, None, "lenet", train_fn,
+                               EvalGate(DataSetLossCalculator(eval_batches), threshold=5.0),
+                               journal_path=os.path.join(tmp, "lenet.jsonl"))
+    replay.resume()
+    same_journal = replay.completed == pipe.completed
+    v, prod = reg.resolve("lenet", "prod")
+    roc = prod.evaluate(eval_batches, ROCMultiClass())
+    cal = prod.evaluate(eval_batches, EvaluationCalibration())
+    rec = {"generations": [{k: r.get(k) for k in ("gen", "outcome", "version",
+                                                   "eval_score", "parent_version",
+                                                   "rolled_back_to")} for r in reports],
+           "seconds_per_generation": gen_s, "train": trained,
+           "prefetch_vs_sync_bitwise": trained.get(1, {}).get("losses") == sync_losses,
+           "sync_losses": sync_losses, "requests": len(xs), "errors": errors[:3],
+           "bitwise_checked": checked, "tags_served": tags, "bitwise": bitwise,
+           "unwarmed_serves": sum(s.get("unwarmed_serves", 0) for s in snaps.values()),
+           "bundle_hits": sum(s.get("bundle_hits", 0) for s in snaps.values()),
+           "bundle_misses": sum(s.get("bundle_misses", 0) for s in snaps.values()),
+           "captures": len(spy.captures), "served_captures": served_captures,
+           "journal_replays_same": same_journal, "prod_version": v,
+           "roc_average_auc": roc.calculate_average_auc(),
+           "roc_auc": [roc.calculate_auc(c) for c in range(LENET_CLASSES)],
+           "calibration_ece": [cal.expected_calibration_error(c)
+                               for c in range(LENET_CLASSES)]}
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
+    if any(r["outcome"] != "PROMOTED" for r in reports):
+        bad.append(f"pipeline: a generation was not promoted: {rec['generations']}")
+    for k in ("prefetch_vs_sync_bitwise", "bitwise", "journal_replays_same"):
+        if not rec[k]:
+            bad.append(f"pipeline: {k}")
+    if errors or not checked:
+        bad.append(f"pipeline: {len(errors)} traffic errors, {checked} rows checked")
+    if rec["unwarmed_serves"] or rec["bundle_misses"] or not rec["bundle_hits"] \
+            or served_captures:
+        bad.append(f"pipeline: unwarmed {rec['unwarmed_serves']}, bundle hits "
+                   f"{rec['bundle_hits']} misses {rec['bundle_misses']}, captures on a "
+                   f"replica thread {served_captures}")
+    return rec, bad
+
+
+def pixel_data(n=PIPE_ROWS, hw=CNN_HW, classes=CNN_CLASSES, seed=SEED + PIPE_SEED):
+    """[n, hw, hw, 3] uint8 pixels and one-hot labels from a numpy seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n)]
+    return x, y
+
+
+def h2d_overlap(fn) -> dict:
+    """One traced call of ``fn``: the host-to-device copies (count, their
+    streams, pinned or not), the kernels' streams, and the copy time that
+    overlaps a kernel on another stream."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in dev if "HtoD" in e.name]
+    kernels = [e for e in dev if "Memcpy" not in e.name and "Memset" not in e.name]
+    k_streams = {e.device_resource_id for e in kernels}
+    over = 0.0
+    for c in copies:
+        a, b = c.time_range.start, c.time_range.end
+        spans = sorted((max(a, k.time_range.start), min(b, k.time_range.end))
+                       for k in kernels if k.device_resource_id != c.device_resource_id
+                       and k.time_range.end > a and k.time_range.start < b)
+        over += busy_ms(spans) * 1e3
+    return {"copies": len(copies), "copy_names": sorted({c.name for c in copies}),
+            "copy_streams": sorted({c.device_resource_id for c in copies}),
+            "kernel_streams": sorted(k_streams),
+            "copy_ms": sum(c.time_range.end - c.time_range.start for c in copies) / 1e3,
+            "copy_ms_overlapping_kernels": over / 1e3}
+
+
+def pipeline_arms():
+    """(c) ResNet-50 at bench config 3 on [128, 224, 224, 3] uint8 pixel
+    batches, three arms from one start (synchronous scaled on the host,
+    synchronous with the device transform, the prefetch ring with it), a
+    ``fit_batches(2)`` capture with a producer alive, and (d) the native
+    loader as the ring's base → (record, failures)."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import (DataSet, DataSetIterator,
+                                                    DevicePrefetchIterator,
+                                                    ImagePreProcessingScaler,
+                                                    ListDataSetIterator)
+    from deeplearning4j_tpu_torch.datasets.native_loader import (NativeDataSetIterator,
+                                                                  load_native_lib, plain_order)
+
+    bad = []
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    x, y = pixel_data()
+    order = plain_order(PIPE_ROWS, NATIVE_SEED)
+    host = [DataSet(x[order[i:i + PIPE_B]], y[order[i:i + PIPE_B]])
+            for i in range(0, PIPE_ROWS, PIPE_B)]
+    scaler = ImagePreProcessingScaler()
+    to_dev = scaler.device_transform()
+    net = resnet("cuda")
+    net.fit_batch(DataSet(scaler.transform(host[0].features), host[0].labels))  # warm-up
+    torch.cuda.synchronize()
+    start = snapshot(net)
+
+    def arm_host():
+        for d in host:
+            yield scaler.pre_process(d)
+
+    def arm_device():
+        for d in host:
+            yield to_dev(DataSet(torch.as_tensor(d.features).cuda(),
+                                 torch.as_tensor(d.labels).cuda()))
+
+    def drain(it):
+        """The ring's batches as they come (no ``reset``: the producer
+        started at construction)."""
+        while it.has_next():
+            yield it.next()
+
+    def run(source, it=None):
+        """Six steps from ``start`` over ``source`` (or the ring ``it``)."""
+        restore(net, clone_snapshot(start))
+        losses, walls = [], []
+        src = iter(source) if it is None else drain(it)
+        while True:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ds = next(src, None)
+            if ds is None:
+                break
+            losses.append(float(net.fit_batch(ds)))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out = {"losses": losses, "step_ms": walls, "median_ms": sorted(walls)[len(walls) // 2],
+               "stall": it.stall_stats() if it is not None else None,
+               "params": snapshot(net)}
+        return out
+
+    def ring(base):
+        return DevicePrefetchIterator(base, depth=2, device="cuda",
+                                      transform=ImagePreProcessingScaler())
+
+    arms = {"host": run(arm_host()), "device": run(arm_device())}
+    it = ring(ListDataSetIterator(host))
+    arms["prefetch"] = run(None, it)
+    it.close()
+    inputs_equal = all(torch.equal(torch.from_numpy(scaler.transform(d.features)),
+                                   to_dev(DataSet(torch.as_tensor(d.features).cuda(), None))
+                                   .features.cpu()) for d in host)
+    # (d) the native loader as the ring's base, the same rows in its order
+    lib = load_native_lib()
+    native = {"library_loaded": lib is not None}
+    if lib is not None:
+        feats = x.astype(np.float32)
+        nat = NativeDataSetIterator(feats, y, PIPE_B, seed=NATIVE_SEED)
+        got = []
+        while nat.has_next():
+            got.append(nat.next())
+        native["batches_bitwise_plain_order"] = len(got) == len(host) and all(
+            np.array_equal(g.features, feats[order[i * PIPE_B:(i + 1) * PIPE_B]])
+            and np.array_equal(g.labels, y[order[i * PIPE_B:(i + 1) * PIPE_B]])
+            for i, g in enumerate(got))
+        nat2 = NativeDataSetIterator(feats, y, PIPE_B, seed=NATIVE_SEED)
+
+        class FirstPass(DataSetIterator):
+            """The native loader's first pass (its ``reset`` reshuffles)."""
+
+            def __init__(self, loader):
+                self.loader, self.batch_size = loader, PIPE_B
+
+            def reset(self):
+                pass
+
+            def has_next(self):
+                return self.loader.has_next()
+
+            def next(self):
+                return self.loader.next()
+        it = ring(FirstPass(nat2))
+        arms["native"] = run(None, it)
+        it.close()
+        nat.close()
+        nat2.close()
+        del feats
+    # one traced step of each arm, and where the ring's copies ran
+    prof = {}
+    for name, make in (("host", lambda: next(arm_host())),
+                       ("device", lambda: next(arm_device()))):
+        prof[name] = device_profile(lambda m=make: net.fit_batch(m()))
+    it = ring(ListDataSetIterator(host * 2))
+    net.fit_batch(it.next())
+    prof["prefetch"] = device_profile(lambda: net.fit_batch(it.next()))
+    overlap = h2d_overlap(lambda: [net.fit_batch(it.next()) for _ in range(6)])
+    it.close()
+    # a fit_batches(2) capture with a producer alive, at batch 32
+    small = [DataSet(d.features[:32], d.labels[:32]) for d in host]
+    restore(net, clone_snapshot(start))
+    it = ring(ListDataSetIterator(small))
+    capture = {}
+
+    def cap():
+        t = time.perf_counter()
+        ls = net.fit_batches([it.next(), it.next()])
+        capture["losses"] = [float(v) for v in ls]
+        ls = net.fit_batches([it.next(), it.next()])
+        capture["replay_losses"] = [float(v) for v in ls]
+        capture["seconds"] = time.perf_counter() - t
+    th = threading.Thread(target=cap, daemon=True)
+    th.start()
+    th.join(timeout=300)
+    if th.is_alive():
+        print("chip_smoke: fit_batches capture with a live producer hung", file=sys.stderr,
+              flush=True)
+        os._exit(3)
+    capture["graphs"] = net.fit_graph_count
+    capture["stall"] = it.stall_stats()
+    it.close()
+    torch.backends.cudnn.deterministic = False
+    rec = {"batch": [PIPE_B, CNN_HW, CNN_HW, 3], "dtype": "uint8", "batches": len(host),
+           "arms": {k: {kk: vv for kk, vv in a.items() if kk != "params"}
+                    for k, a in arms.items()},
+           "idle_share": {k: p["idle_share"] for k, p in prof.items()},
+           "traced_wall_ms": {k: p["wall_ms"] for k, p in prof.items()},
+           "ring_copies": overlap, "inputs_bitwise": inputs_equal, "native": native,
+           "capture": capture}
+    a_h, a_d, a_p = arms["host"], arms["device"], arms["prefetch"]
+    rec["device_vs_host_rel"] = max(abs(p - q) / abs(q) for p, q in zip(a_d["losses"],
+                                                                          a_h["losses"]))
+    rec["prefetch_bitwise_device"] = (a_p["losses"] == a_d["losses"]
+                                      and same_trees(a_p["params"][0], a_d["params"][0]))
+    if not rec["prefetch_bitwise_device"]:
+        bad.append("input pipeline: the prefetch arm is not bitwise the device arm")
+    if not inputs_equal or rec["device_vs_host_rel"] > 1e-6:
+        bad.append(f"input pipeline: device transform vs host: inputs bitwise "
+                   f"{inputs_equal}, losses {rec['device_vs_host_rel']:.3g} relative")
+    if not all(math.isfinite(v) for a in arms.values() for v in a["losses"]):
+        bad.append("input pipeline: a non-finite loss")
+    if not native["library_loaded"]:
+        bad.append("native loader: the library did not load")
+    elif not (native["batches_bitwise_plain_order"] and arms["native"]["losses"]
+              == a_d["losses"] and same_trees(arms["native"]["params"][0],
+                                               a_d["params"][0])):
+        bad.append("native loader: batches or training not bitwise the plain order's")
+    if not (len(capture.get("losses", [])) == 2 and capture["graphs"] == 1
+            and all(math.isfinite(v) for v in capture["losses"] + capture["replay_losses"])):
+        bad.append(f"input pipeline: fit_batches capture with a live producer: {capture}")
+    return rec, bad
+
+
+def flywheel_train_cli(tmp):
+    """(e) ``train --zoo lenet --data cifar10 --prefetch 2`` in a process of
+    its own → (record, failures)."""
+    kw = json.dumps(dict(height=LENET_HW, width=LENET_HW, channels=3,
+                         num_classes=LENET_CLASSES))
+    t = time.perf_counter()
+    rc, out = run_cli(["train", "--zoo", "lenet", "--zoo-args", kw, "--data", "cifar10",
+                       "--batch-size", str(LENET_B), "--prefetch", "2"], tmp)
+    stall = [l for l in out.splitlines() if "stall fraction" in l]
+    rec = {"rc": rc, "seconds": time.perf_counter() - t, "stall_line": stall[-1:],
+           "prefetch_line": [l for l in out.splitlines() if l.startswith("prefetch: depth")]}
+    return rec, ([] if rc == 0 and stall else [f"train --prefetch 2: rc {rc}, stall {stall}"])
+
+
+def phase_flywheel():
+    """The flywheel phase, (a)-(e) (the module docstring)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.train_graph import TRAIN_COUNTERS
+
+    t0 = time.perf_counter()
+    before = {n: c.launches for n, c in TRAIN_COUNTERS.items()}
+    tmp = tempfile.mkdtemp(prefix="chip_flywheel_")
+    bad, out = [], {}
+    try:
+        for name, arm in (("cli", lambda: flywheel_cli(tmp)),
+                          ("pipeline", lambda: flywheel_pipeline(tmp)),
+                          ("input_pipeline", pipeline_arms),
+                          ("train_cli", lambda: flywheel_train_cli(tmp))):
+            t = time.perf_counter()
+            out[name], b = arm()
+            out[name]["seconds"] = time.perf_counter() - t
+            bad += b
+            emit({"phase": "flywheel", "arm": name, **out[name]})
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {n: c.launches - before[n] for n, c in TRAIN_COUNTERS.items()}
+    rec = {"phase": "flywheel", "seconds": time.perf_counter() - t0, "failed": bad,
+           "launches": launches}
+    emit(rec)
+    if bad:
+        raise AssertionError(f"flywheel phase failed: {bad}")
+    return rec
+
+
 def trace_probe(n: int) -> None:
     """``--trace-probe N``: the serve and predict phases, each traced
     replay taken N times hard against the trace's ends (pause 0) and N
@@ -6691,14 +7308,16 @@ def main() -> int:
         trace_probe(int(sys.argv[2]))
         return 0
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:3] in (["sharded"], ["elastic"],
-                                                          ["predict_features"], ["fleet"]):
+                                                          ["predict_features"], ["fleet"],
+                                                          ["flywheel"]):
         card = card_line()
         emit({"torch": torch.__version__, "device": torch.cuda.get_device_name(0),
               "card": card})
         cuda_build.build(cuda_build.sources())
         {"sharded": phase_sharded, "elastic": phase_elastic,
          "predict_features": lambda: phase_predict_features(build_model()),
-         "fleet": lambda: phase_fleet(build_model())}[sys.argv[2]]()
+         "fleet": lambda: phase_fleet(build_model()),
+         "flywheel": phase_flywheel}[sys.argv[2]]()
         print(card, flush=True)
         return 0
     card = card_line()
@@ -6736,6 +7355,9 @@ def main() -> int:
     compressed = phase_compressed()
     sharded = phase_sharded()["launches"]
     elastic = phase_elastic()["launches"]
+    flywheel = phase_flywheel()["launches"]
+    if any(flywheel.values()):
+        raise AssertionError(f"the flywheel phase launched a kernel: {flywheel}")
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda",
@@ -6797,5 +7419,9 @@ if __name__ == "__main__":
              "--model-axis-rank": "model_axis_rank", "--elastic-rank": "elastic_rank"}
     if sys.argv[1:2] and sys.argv[1] in ranks:
         globals()[ranks[sys.argv[1]]](int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--flywheel-cli"]:
+        sys.path.insert(0, REPO)
+        flywheel_cli_run(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

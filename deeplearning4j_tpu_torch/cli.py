@@ -21,6 +21,12 @@ through ``rnn_time_step``, and ``serve``).  Runs on ``cuda`` unless
     python -m deeplearning4j_tpu_torch launch --nprocs 2 --bootstrap distributed \
         -- train --zoo lenet --data mnist --mesh dcn=2,data=1,compress=threshold \
         --elastic-dir ckpts --checkpoint-every 4
+    python -m deeplearning4j_tpu_torch train --zoo lenet --data cifar10 --prefetch 2
+    python -m deeplearning4j_tpu_torch flywheel --generations 5 \
+        --chaos nan,regression,host_kill,crash --hosts 2 [--max-divergence 0.1]
+
+``--data`` accepts a built-in name (mnist / cifar10 / iris / emnist / svhn /
+uci) or a .npz file with arrays ``x`` and ``y``.
 """
 
 from __future__ import annotations
@@ -36,8 +42,7 @@ import numpy as np
 
 #: train flags that wait for later ports, with the ROADMAP item that ports them
 LATER_FLAGS = {
-    "prefetch": "queue 1 item 9 (datasets/device_prefetch)",
-    "dashboard": "queue 1 item 9 (ui/)",
+    "dashboard": "queue 1 item 9.3 (ui/)",
 }
 
 
@@ -56,12 +61,19 @@ def _num_classes_of(net) -> Optional[int]:
 
 def _load_data(spec: str, train: bool = True,
                num_classes: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
-    """``iris``, ``mnist`` or an ``.npz`` holding ``x`` and ``y`` → (x, y)
+    """A built-in name (``mnist``, ``cifar10``, ``iris``, ``emnist``,
+    ``svhn``, ``uci``) or an ``.npz`` holding ``x`` and ``y`` → (x, y)
     float32, index labels one-hot (the reference's rules)."""
     from .datasets import fetchers
 
-    builtin = {"mnist": lambda: fetchers.load_mnist(train=train),
-               "iris": fetchers.load_iris}
+    builtin = {
+        "mnist": lambda: fetchers.load_mnist(train=train),
+        "cifar10": lambda: fetchers.load_cifar10(train=train),
+        "iris": fetchers.load_iris,
+        "emnist": lambda: fetchers.load_emnist(train=train),
+        "svhn": lambda: fetchers.load_svhn(train=train),
+        "uci": lambda: fetchers.load_uci_synthetic_control(train=train),
+    }
     if spec in builtin:
         xs, ys = builtin[spec]()
     else:
@@ -170,6 +182,43 @@ def _parse_mesh(spec: str, n_ranks: Optional[int] = None) -> tuple:
         raise SystemExit(f"bad --mesh {spec!r}: compress={compress} needs a "
                          "dcn axis, e.g. 'dcn=2,data=4,compress=threshold'")
     return axes, schedule, compress
+
+
+def _parse_prefetch(spec: str):
+    """'DEPTH[,DEVICE]' → (depth, device_spec|None).  depth 0 = the
+    synchronous path (bitwise-unchanged pre-prefetch behavior); DEVICE is
+    a torch device ('cuda:0', 'cpu') or a bare card index.  Every parse
+    failure is a one-line CLI error, not a traceback."""
+    depth_s, _, dev = spec.partition(",")
+    try:
+        depth = int(depth_s)
+        if depth < 0:
+            raise ValueError
+    except ValueError:
+        raise SystemExit(f"bad --prefetch {spec!r}: expected "
+                         "DEPTH[,DEVICE] with DEPTH >= 0, e.g. '2' or "
+                         "'2,cuda:0' (0 = synchronous feeding)")
+    dev = dev.strip() or None
+    if depth == 0 and dev:
+        raise SystemExit(f"bad --prefetch {spec!r}: a device makes no "
+                         "sense with depth 0 (synchronous feeding)")
+    return depth, dev
+
+
+def _resolve_device(spec: str):
+    """'cuda:0' / 'cpu' / '1' → a torch.device (clean CLI errors)."""
+    import torch
+
+    from .utils.device import resolve_device
+
+    try:
+        dev = resolve_device(f"cuda:{spec}" if spec.isdigit() else spec)
+        if dev.type == "cuda" and dev.index is not None \
+                and dev.index >= torch.cuda.device_count():
+            raise IndexError(f"no card {dev.index} (found {torch.cuda.device_count()})")
+        return dev
+    except (RuntimeError, IndexError, ValueError) as e:
+        raise SystemExit(f"bad --prefetch device {spec!r}: {e}")
 
 
 def _parse_chaos(spec: str):
@@ -363,6 +412,28 @@ def cmd_train(args) -> int:
     elif args.nan_guard is not None:
         net.set_nan_guard(args.nan_guard)
         print(f"nan guard armed (budget {args.nan_guard})")
+    data = ListDataSetIterator(batches)
+    prefetcher = None
+    if args.prefetch:
+        depth, dev_spec = _parse_prefetch(args.prefetch)
+        if depth > 0:
+            # the device-resident input pipeline: batches cross to the card
+            # from a background thread on a stream of their own, only this
+            # rank's rows on a mesh run (the trainer then passes them
+            # through its row split)
+            from .datasets.device_prefetch import DevicePrefetchIterator
+
+            if mesh_axes and dev_spec:
+                raise SystemExit("--prefetch DEVICE does not combine with "
+                                 "--mesh (batches land on the mesh's batch "
+                                 "sharding)")
+            sharding = trainer.batch_sharding if trainer is not None else None
+            device = (_resolve_device(dev_spec) if dev_spec
+                      else None if sharding is not None else net.device)
+            prefetcher = data = DevicePrefetchIterator(data, depth=depth,
+                                                       sharding=sharding, device=device)
+            where = "mesh batch sharding" if sharding is not None else str(device)
+            print(f"prefetch: depth {depth} onto {where}")
     et = None
     if args.elastic_dir:
         from .parallel import ChaosInjector, ElasticTrainer
@@ -410,10 +481,10 @@ def cmd_train(args) -> int:
             print(f"resumed from checkpoint @ step {resumed}")
     try:
         if et is not None:
-            losses = et.fit(batches, epochs=args.epochs, skip_done=True)
+            losses = et.fit(data, epochs=args.epochs, skip_done=True)
         else:
             runner = trainer if trainer is not None else net
-            losses = runner.fit(ListDataSetIterator(batches), epochs=args.epochs)
+            losses = runner.fit(data, epochs=args.epochs)
     except PreemptedError as exc:
         print(f"preempted: {exc}")
         _write_losses(args, et, exc)
@@ -429,6 +500,12 @@ def cmd_train(args) -> int:
     if losses:
         print(f"trained {args.epochs} epoch(s), {len(losses)} iterations, "
               f"final loss {float(losses[-1]):.5f}")
+    if prefetcher is not None:
+        s = prefetcher.stall_stats()
+        prefetcher.close()
+        print(f"prefetch: stall fraction {s['stall_fraction']:.3f} "
+              f"({s['stalls']} stall(s), avg {s['avg_stall_ms']:.1f}ms) over "
+              f"{s['batches']} batches, depth {s['depth']}")
     if args.output:
         out_path = args.output.replace("{process}", str(resolve_process_index()))
         if trainer is not None:
@@ -974,6 +1051,224 @@ def cmd_launch(args) -> int:
     return 0
 
 
+def cmd_flywheel(args) -> int:
+    """Headless train→eval→canary→fleet-promote flywheel on a synthetic
+    task (the reference's ``flywheel``): a ``PromotionPipeline`` drives
+    --generations lifecycle rounds against an in-process registry and a
+    fleet of predict ``Engine`` hosts on --device, with optional chaos
+    kinds fired on successive generations after the bootstrap.  One JSON
+    line per generation; the journal makes a killed run resumable (re-run
+    with the same --journal)."""
+    import os
+    import tempfile
+    import threading
+
+    import torch
+
+    from .datasets import DataSet
+    from .datasets.iterators import ListDataSetIterator
+    from .earlystopping import DataSetLossCalculator
+    from .nn.conf.inputs import InputType
+    from .nn.layers import Dense, OutputLayer
+    from .nn.multilayer import MultiLayerNetwork, NeuralNetConfiguration
+    from .nn.updaters import Sgd, tree_map
+    from .parallel import ChaosInjector, ElasticTrainer, FaultKind, FaultSchedule
+    from .serving import Engine, EvalGate, FleetRouter, ModelRegistry, PromotionPipeline
+    from .utils.device import resolve_device
+    from .utils.serializer import load_model
+
+    chaos_plan = [c.strip() for c in (args.chaos or "").split(",") if c.strip()]
+    known = {"device_loss", "nan", "regression", "host_kill", "crash"}
+    bad = set(chaos_plan) - known
+    if bad:
+        print(f"unknown --chaos kind(s): {sorted(bad)} (known: {sorted(known)})",
+              file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    # chaos kinds fire one per generation, starting at gen 2: the
+    # bootstrap generation always runs clean (there is nothing to roll
+    # back to before the first promote)
+    chaos_at = {i + 2: kind for i, kind in enumerate(chaos_plan)}
+
+    rng = np.random.default_rng(args.seed)
+    teacher = rng.standard_normal((12, 3)).astype(np.float32)
+
+    def data(n, seed):
+        r = np.random.default_rng(seed)
+        x = r.standard_normal((n, 12)).astype(np.float32)
+        y = np.eye(3, dtype=np.float32)[np.argmax(x @ teacher, axis=1)]
+        return DataSet(features=x, labels=y)
+
+    def mlp(seed, lr=0.05):
+        conf = (NeuralNetConfiguration.builder().seed(seed)
+                .updater(Sgd(lr=lr))
+                .layer(Dense(n_out=16, activation="tanh"))
+                .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+                .set_input_type(InputType.feed_forward(12)).build())
+        net = MultiLayerNetwork(conf, device=device)
+        net.init()
+        return net
+
+    train_ds, eval_ds = data(96, args.seed + 1), data(48, args.seed + 2)
+    workdir = args.workdir or tempfile.mkdtemp(prefix="flywheel_")
+    os.makedirs(workdir, exist_ok=True)
+    journal = args.journal or os.path.join(workdir, "flywheel.jsonl")
+    reg = ModelRegistry(device=device)
+    router = FleetRouter(max_retries=3)
+    killable = {"host": None}
+
+    def train_fn(gen):
+        kind = chaos_at.get(gen)
+        if kind == "nan":
+            net = mlp(args.seed + gen)
+            net.params = tree_map(lambda a: torch.full_like(a, float("nan")), net.params)
+            return {"model": net, "run_id": f"flywheel-g{gen}"}
+        labels = train_ds.labels
+        if kind == "regression":
+            net = mlp(args.seed + gen, lr=0.1)
+            labels = np.roll(labels, 1, axis=1)   # confidently wrong
+        elif gen == 1:
+            net = mlp(args.seed, lr=0.08)
+        else:
+            net = load_model(reg.checkpoint_path("flywheel", args.alias), device=device)
+        trainee = net
+        if kind == "device_loss":
+            trainee = ChaosInjector(net, FaultSchedule.scripted({3: FaultKind.DEVICE_LOSS}))
+        tr = ElasticTrainer(trainee, checkpoint_dir=os.path.join(workdir, f"gen{gen}"),
+                            checkpoint_every=2, sync_every=1, run_id=f"flywheel-g{gen}")
+        idx = np.random.default_rng(args.seed + 10 * gen).permutation(train_ds.features.shape[0])
+        xs, ys = train_ds.features[idx], labels[idx]
+        batches = ListDataSetIterator([DataSet(features=xs[i:i + 24], labels=ys[i:i + 24])
+                                       for i in range(0, xs.shape[0], 24)])
+        tr.fit(batches, epochs=1 if kind == "regression" else args.epochs)
+        return tr
+
+    class _Crash(Exception):
+        pass
+
+    crash_armed = {g for g, k in chaos_at.items() if k == "crash"}
+
+    def stage_hook(stage, gen):
+        if stage == "CANARY" and gen in crash_armed:
+            crash_armed.discard(gen)
+            raise _Crash(f"controller crash injected at gen {gen}")
+
+    thresholds = {}
+    if args.max_divergence is not None:
+        thresholds["max_divergence"] = args.max_divergence
+
+    def make_pipe():
+        return PromotionPipeline(
+            reg, router, "flywheel", train_fn,
+            EvalGate(DataSetLossCalculator(eval_ds), threshold=args.eval_threshold),
+            alias=args.alias, journal_path=journal,
+            canary_frac=args.canary, canary_window=args.canary_window,
+            canary_timeout_s=args.canary_timeout_s,
+            canary_thresholds=thresholds, stage_hook=stage_hook,
+            bundle_engine_kwargs={"max_batch": 8, "replicas": 1, "slo_ms": 30_000.0,
+                                  "device": device})
+
+    pipe = make_pipe()
+    resumed = pipe.resume()
+    if resumed["completed"] or resumed["partial"] is not None:
+        print(f"resumed from journal: completed={resumed['completed']} "
+              f"partial={resumed['partial']}", file=sys.stderr)
+
+    stop = threading.Event()
+    traffic = None
+    dropped = [0]
+    try:
+        while len(pipe.completed) < args.generations:
+            gen_no = max(pipe.completed, default=0) + 1
+            if chaos_at.get(gen_no) == "host_kill" and killable["host"] is not None:
+                killable["host"].kill_on_swap = True
+            try:
+                rec = pipe.run_generation()
+            except _Crash as exc:
+                print(f"# {exc} — resuming from the journal", file=sys.stderr)
+                pipe = make_pipe()
+                pipe.resume()
+                rec = pipe.run_generation()
+            print(json.dumps(rec), flush=True)
+            if args.hosts > 0 and not router.hosts():
+                # fleet birth after the bootstrap promote: every host loads
+                # with the registry's warm bundle
+                kw = dict(max_batch=8, slo_ms=30_000.0, replicas=1, admission="block",
+                          device=device)
+                h0 = Engine.from_registry(reg, "flywheel", args.alias, **kw)
+                h0.load()
+                router.add_host("h0", engine=h0)
+                v, model = reg.resolve("flywheel", args.alias)
+                for i in range(1, args.hosts):
+                    eng = Engine(model, **kw)
+                    eng.swap_model(model, tag=f"flywheel:v{v}")
+                    eng.load()
+                    host = _KillableEngine(eng)
+                    killable["host"] = host
+                    router.add_host(f"h{i}", engine=host)
+
+                def loop():   # canary mirror windows need live traffic
+                    probes = [rng.standard_normal((r, 12)).astype(np.float32)
+                              for r in (1, 2, 4)]
+                    i = 0
+                    while not stop.is_set():
+                        try:
+                            router.output(probes[i % 3], slo_ms=30_000.0)
+                        except Exception:   # counted: expected in chaos windows
+                            dropped[0] += 1
+                        i += 1
+                        time.sleep(0.002)
+                traffic = threading.Thread(target=loop, daemon=True, name="flywheel-traffic")
+                traffic.start()
+    finally:
+        stop.set()
+        if traffic is not None:
+            traffic.join(timeout=10)
+        router.shutdown(shutdown_hosts=True)
+    print(json.dumps({"stats": pipe.stats(),
+                      "alias": reg.resolve("flywheel", args.alias)[0],
+                      "traffic_dropped": dropped[0],
+                      "journal": journal}), flush=True)
+    return 0
+
+
+class _KillableEngine:
+    """``flywheel``'s --chaos host_kill seam: dies the moment a rolling
+    swap touches it."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.kill_on_swap = False
+        self.killed = False
+
+    def output_async(self, x, slo_ms=None):
+        from .serving import ServingUnavailableError
+        if self.killed:
+            raise ServingUnavailableError("host killed (chaos)")
+        return self.inner.output_async(x, slo_ms=slo_ms)
+
+    def swap_model(self, model, tag=None, warm_bundle=None):
+        if self.kill_on_swap or self.killed:
+            self.killed = True
+            raise RuntimeError("host killed mid-roll (chaos)")
+        return self.inner.swap_model(model, tag, warm_bundle=warm_bundle)
+
+    @property
+    def current_tag(self):
+        return self.inner.current_tag
+
+    def metrics_snapshot(self):
+        return self.inner.metrics_snapshot()
+
+    def health_snapshot(self):
+        if self.killed:
+            return {"status": "unready", "ready": False}
+        return self.inner.health_snapshot()
+
+    def shutdown(self, timeout: float = 5.0):
+        self.inner.shutdown(timeout=timeout)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="deeplearning4j_tpu_torch",
@@ -984,8 +1279,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--zoo", help="zoo model name (e.g. lenet, resnet50)")
     t.add_argument("--zoo-args", help="JSON kwargs for the zoo constructor")
     t.add_argument("--config", help="MultiLayerConfiguration JSON file")
-    t.add_argument("--data", required=True, help="builtin name (iris/mnist) or .npz "
-                   "with arrays 'x' and 'y'")
+    t.add_argument("--data", required=True, help="builtin name (mnist/cifar10/iris/"
+                   "emnist/svhn/uci) or .npz with arrays 'x' and 'y'")
     t.add_argument("--epochs", type=int, default=1)
     t.add_argument("--batch-size", type=int, default=128)
     t.add_argument("--seed", type=int, default=12345)
@@ -1031,6 +1326,12 @@ def build_parser() -> argparse.ArgumentParser:
                    "built into DIR and later processes load them without "
                    "nvcc (default: the DL4J_TPU_COMPILE_CACHE variable; unset "
                    "= the package's _build/)")
+    t.add_argument("--prefetch", default=None, metavar="DEPTH[,DEVICE]",
+                   help="device-resident input pipeline: a background thread "
+                   "copies DEPTH batches ahead of the step (pinned staging, a "
+                   "CUDA stream of its own; this rank's rows under --mesh), "
+                   "onto DEVICE (default the network's device); 0 = "
+                   "synchronous feeding")
     for flag in LATER_FLAGS:
         t.add_argument("--" + flag.replace("_", "-"), default=None,
                        help=f"not ported yet (ROADMAP {LATER_FLAGS[flag]})")
@@ -1234,6 +1535,47 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' to run on the CPU)")
     v.set_defaults(fn=cmd_serve)
+    fw = sub.add_parser(
+        "flywheel", help="continuous train→eval→canary→fleet-promote "
+        "lifecycle on a synthetic task: repeated PromotionPipeline generations "
+        "with lineage-aware rollback, a crash-resumable journal, and optional "
+        "per-generation chaos")
+    fw.add_argument("--generations", type=int, default=3, metavar="K",
+                    help="lifecycle generations to complete (default 3)")
+    fw.add_argument("--eval-threshold", type=float, default=3.0,
+                    help="eval-gate loss ceiling; non-finite scores always fail "
+                    "(default 3.0)")
+    fw.add_argument("--canary", type=float, default=1.0, metavar="FRAC",
+                    help="fraction of live batches mirrored to the canary "
+                    "(default 1.0)")
+    fw.add_argument("--canary-window", type=int, default=4,
+                    help="mirrored batches per canary decision (default 4)")
+    fw.add_argument("--canary-timeout-s", type=float, default=60.0,
+                    help="canary window deadline; an unfilled window is a "
+                    "rejection (default 60)")
+    fw.add_argument("--max-divergence", type=float, default=None,
+                    help="canary prediction-divergence ceiling (mean abs diff vs "
+                    "the incumbent; default off)")
+    fw.add_argument("--hosts", type=int, default=2,
+                    help="fleet hosts; host 0 is the subscribed canary engine, the "
+                    "rest roll via rolling_swap; 0 = no fleet, alias-only "
+                    "promotion (default 2)")
+    fw.add_argument("--chaos", default="", metavar="KIND[,KIND...]",
+                    help="chaos kinds fired one per generation starting at gen 2: "
+                    "device_loss (mid-train, recovered), nan (eval gate catches), "
+                    "regression (canary rejects), host_kill (mid-roll, lineage "
+                    "rollback), crash (controller dies at CANARY, journal resume)")
+    fw.add_argument("--workdir", help="checkpoint/journal directory (default: fresh "
+                    "temp dir)")
+    fw.add_argument("--journal", help="journal path override — reuse one to resume "
+                    "a killed run (default: <workdir>/flywheel.jsonl)")
+    fw.add_argument("--alias", default="prod")
+    fw.add_argument("--epochs", type=int, default=3,
+                    help="training epochs per generation (default 3)")
+    fw.add_argument("--seed", type=int, default=12345)
+    fw.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; 'cpu' to run on the CPU)")
+    fw.set_defaults(fn=cmd_flywheel)
     return p
 
 

@@ -1065,8 +1065,9 @@ class ComputationGraph:
         return pe
 
     def evaluate(self, data, evaluation=None, output_index: int = 0):
-        """Classification metrics of one output (``output_index``), masks
-        honoured, in an ``Evaluation``."""
+        """Metrics of one output (``output_index``), masks honoured, in
+        ``evaluation`` — an ``Evaluation`` by default, or any metric of
+        ``evaluation/``, fed host arrays."""
         from ..evaluation.evaluation import Evaluation
         ev = evaluation if evaluation is not None else Evaluation()
         for ds in self._as_iterator(data):

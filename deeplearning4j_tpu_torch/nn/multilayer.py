@@ -938,8 +938,11 @@ class MultiLayerNetwork:
         return acts
 
     def evaluate(self, data, evaluation=None):
-        """Classification metrics over ``data`` (an iterator, a DataSet or
-        an ``(x, y)`` pair) in an ``Evaluation``."""
+        """Metrics over ``data`` (an iterator, a DataSet or an ``(x, y)``
+        pair) in ``evaluation`` — an ``Evaluation`` by default, or any
+        metric of ``evaluation/`` (``ROC``, ``ROCBinary``, ``ROCMultiClass``,
+        ``EvaluationBinary``, ``RegressionEvaluation``,
+        ``EvaluationCalibration``), fed host arrays."""
         from ..evaluation.evaluation import Evaluation
         ev = evaluation if evaluation is not None else Evaluation()
         for ds in self._as_iterator(data):

@@ -23,6 +23,12 @@ dropout and weight noise from it: the stream differs from k ``fit_batch``
 calls', and repeats from the same seed.  The capture launches nothing:
 the kernels' counters are taken back after it and advanced by the
 captured counts at each replay (``TRAIN_COUNTERS``).
+
+The warm-up and the capture hold every live ``DevicePrefetchIterator``
+producer (``datasets.device_prefetch.producers_paused``: a producer in
+the middle of a batch finishes enqueueing it first), and the capture runs
+in ``thread_local`` mode, so another thread's CUDA call cannot invalidate
+it.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..datasets.device_prefetch import producers_paused
 from ..ops import attention, lstm_kernel, update_kernel
 from .updaters import tree_leaves
 
@@ -79,29 +86,30 @@ class TrainStepsGraph:
         self.params, self.state, self.opt_state = net.params, net.state, net.opt_state
         self._static = _leaves(net.params, net.state, net.opt_state)
 
-        snapshot = [t.clone() for t in self._static]
-        gen_state = net._gen.get_state()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.it.fill_(float(net.iteration))
-            self._steps(net)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        with torch.no_grad():
-            for t, s in zip(self._static, snapshot):
-                t.copy_(s)
-        del snapshot
-        net._gen.set_state(gen_state)
+        with producers_paused():
+            snapshot = [t.clone() for t in self._static]
+            gen_state = net._gen.get_state()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.it.fill_(float(net.iteration))
+                self._steps(net)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            with torch.no_grad():
+                for t, s in zip(self._static, snapshot):
+                    t.copy_(s)
+            del snapshot
+            net._gen.set_state(gen_state)
 
-        before = {n: c.launches for n, c in TRAIN_COUNTERS.items()}
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(net._gen)
-        with torch.cuda.graph(self.graph):
-            self._steps(net)
-        self.launches = {n: c.launches - before[n] for n, c in TRAIN_COUNTERS.items()}
-        for n, c in TRAIN_COUNTERS.items():
-            c.launches = before[n]
+            before = {n: c.launches for n, c in TRAIN_COUNTERS.items()}
+            self.graph = torch.cuda.CUDAGraph()
+            self.graph.register_generator_state(net._gen)
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self._steps(net)
+            self.launches = {n: c.launches - before[n] for n, c in TRAIN_COUNTERS.items()}
+            for n, c in TRAIN_COUNTERS.items():
+                c.launches = before[n]
 
     def _steps(self, net) -> None:
         for i in range(self.k):

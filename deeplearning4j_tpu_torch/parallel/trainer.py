@@ -84,6 +84,7 @@ for the ``model`` axis and re-adopts the restored residual.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import List, Optional
 
 import numpy as np
@@ -134,6 +135,41 @@ def _rank_seed(seed: int, dp_index: int) -> int:
     """The generator seed of data-parallel rank ``dp_index`` (rank 0 keeps
     the configuration's)."""
     return (int(seed) + dp_index * 0x9E3779B97F4A7C15) % (1 << 63)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchSharding:
+    """Where one rank's rows of a global batch go: rows ``[index * per,
+    (index + 1) * per)`` of every field (``per = rows // size``), on
+    ``device``.  ``DevicePrefetchIterator(sharding=trainer.batch_sharding)``
+    copies only these rows and marks the batch, and the trainer passes a
+    batch so marked through its row split."""
+
+    index: int
+    size: int
+    device: str
+
+    def local_rows(self, batch):
+        """This rank's rows of a DataSet, or of a tree (tuple / list /
+        dict) of arrays or tensors."""
+        def cut(a):
+            if a is None:
+                return None
+            if isinstance(a, dict):
+                return {k: cut(v) for k, v in a.items()}
+            if isinstance(a, (list, tuple)):
+                return type(a)(cut(v) for v in a)
+            n = a.shape[0]
+            if n % self.size:
+                raise ValueError(
+                    f"global batch {n} not divisible by data axis {self.size} "
+                    "(pad or drop the remainder)")
+            per = n // self.size
+            return a[self.index * per:(self.index + 1) * per]
+        if isinstance(batch, DataSet):
+            return DataSet(cut(batch.features), cut(batch.labels),
+                           cut(batch.features_mask), cut(batch.labels_mask))
+        return cut(batch)
 
 
 class ShardedTrainer:
@@ -233,6 +269,8 @@ class ShardedTrainer:
         #: the top-k pack (empty for the other modes)
         self.last_bucket_counts: List[tuple] = []
         self._residual: Optional[Tensor] = None
+        #: this rank's rows of a global batch (a prefetcher's ``sharding=``)
+        self.batch_sharding = BatchSharding(self.dp_index, self.dp_size, str(net.device))
         self._place_model()
         if self.dp_index:
             net._gen.manual_seed(_rank_seed(net.conf.seed, self.dp_index))
@@ -468,21 +506,11 @@ class ShardedTrainer:
 
     def _local(self, ds: DataSet) -> DataSet:
         """This rank's rows of the global batch (of each entry of dict
-        labels)."""
-        def cut(a):
-            if a is None:
-                return None
-            if isinstance(a, dict):
-                return {k: cut(v) for k, v in a.items()}
-            n = a.shape[0]
-            if n % self.dp_size:
-                raise ValueError(
-                    f"global batch {n} not divisible by data axis {self.dp_size} "
-                    "(pad or drop the remainder)")
-            per = n // self.dp_size
-            return a[self.dp_index * per:(self.dp_index + 1) * per]
-        return DataSet(cut(ds.features), cut(ds.labels), cut(ds.features_mask),
-                       cut(ds.labels_mask))
+        labels); a batch a prefetcher already cut for this rank passes
+        through."""
+        if getattr(ds, "sharded_as", None) == self.batch_sharding:
+            return ds
+        return self.batch_sharding.local_rows(ds)
 
     def shard_dataset(self, ds: DataSet) -> DataSet:
         """A global batch placed on this rank's device once, so a batch

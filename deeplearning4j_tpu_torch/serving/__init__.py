@@ -5,6 +5,8 @@ from .decode import DecodeEngine, GenerationResult, PrefillHandoff
 from .engine import (Engine, ModelNotLoadedError, PoisonInputError, ReplicaCrashError,
                      ReplicaHungError, ServingUnavailableError)
 from .fleet import FleetHost, FleetRouter, FleetTimeoutError, HttpHost
+from .lifecycle import (EvalGate, PipelineJournal, PipelineStageError, PromotionPipeline,
+                        StageDeadlineError, data_fingerprint, weights_sha)
 from .metrics import DecodeMetrics, FleetMetrics, LatencyHistogram, ServingMetrics
 from .placement import PlacementController
 from .registry import CanaryRejectedError, ModelRegistry
@@ -14,13 +16,14 @@ from .warmcache import (bundle_path_for, device_fingerprint, enable_compile_cach
                         load_bundle, save_bundle)
 
 __all__ = ["ADMISSION_POLICIES", "CanaryRejectedError", "ContinuousBatcher",
-           "DeadlineExceededError", "DecodeEngine", "DecodeMetrics",
-           "DynamicBatcher", "Engine", "FleetHost", "FleetMetrics", "FleetRouter",
+           "DeadlineExceededError", "DecodeEngine", "DecodeMetrics", "DynamicBatcher",
+           "Engine", "EvalGate", "FleetHost", "FleetMetrics", "FleetRouter",
            "FleetTimeoutError", "GenerationResult", "HttpHost", "LatencyHistogram",
-           "ModelNotLoadedError", "ModelRegistry", "OverloadedError",
-           "PlacementController", "PoisonInputError", "PrefillHandoff",
-           "ReplicaAutoscaler", "ReplicaCrashError", "ReplicaHungError",
-           "ServingMetrics", "ServingUnavailableError", "TenantConfig",
-           "TenantOverloadedError", "TenantTable", "bundle_path_for",
-           "device_fingerprint", "enable_compile_cache", "load_bundle",
-           "pow2_buckets", "save_bundle"]
+           "ModelNotLoadedError", "ModelRegistry", "OverloadedError", "PipelineJournal",
+           "PipelineStageError", "PlacementController", "PoisonInputError",
+           "PrefillHandoff", "PromotionPipeline", "ReplicaAutoscaler",
+           "ReplicaCrashError", "ReplicaHungError", "ServingMetrics",
+           "ServingUnavailableError", "StageDeadlineError", "TenantConfig",
+           "TenantOverloadedError", "TenantTable", "bundle_path_for", "data_fingerprint",
+           "device_fingerprint", "enable_compile_cache", "load_bundle", "pow2_buckets",
+           "save_bundle", "weights_sha"]

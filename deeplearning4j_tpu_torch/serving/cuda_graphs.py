@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -112,7 +112,11 @@ class ForwardGraph:
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
         self.replays = 0
+        #: device ms of the last replay (events around it on its stream)
+        self.last_ms: Optional[float] = None
         self.stream = torch.cuda.Stream(device)
+        self._events = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
         with _GATE.exclusive(), torch.inference_mode():
             self.input = torch.zeros(tuple(shape), dtype=dtype, device=device)
             # warm up on the graph's stream: kernel libraries load and
@@ -137,15 +141,21 @@ class ForwardGraph:
         """Copy ``x`` into the static input, replay, check the first
         ``rows`` output rows for finiteness on the device and copy them to
         the host → (rows [rows, ...] as numpy, finite).  The output buffer
-        is overwritten by the next replay; the rows returned are a copy."""
+        is overwritten by the next replay; the rows returned are a copy.
+        ``last_ms`` then holds the replay's device time."""
+        start, end = self._events
         with _GATE.shared(), torch.inference_mode(), torch.cuda.stream(self.stream):
             self.input.copy_(torch.from_numpy(np.ascontiguousarray(x)))
+            start.record(self.stream)
             self.graph.replay()
+            end.record(self.stream)
             with _COUNT_LOCK:
                 self.replays += 1
                 for k, n in self.launches.items():
                     FORWARD_COUNTERS[k].launches += n
-            return rows_to_host(self.output, rows)
+            out = rows_to_host(self.output, rows)     # synchronizes
+            self.last_ms = start.elapsed_time(end)
+            return out
 
     def release(self) -> None:
         """Free the graph and its private memory pool."""

@@ -100,6 +100,10 @@ from .batcher import DeadlineExceededError, DynamicBatcher, _Request
 from .metrics import ServingMetrics
 
 _SENTINEL = object()
+
+# the device ms of the calling thread's last forward when it replayed a
+# CUDA graph, else None: the canary compares these, not wall clocks
+_FORWARD_MS = threading.local()
 _log = logging.getLogger(__name__)
 
 # the engine-side serving chaos kinds (``parallel.chaos.FaultKind``'s
@@ -781,6 +785,7 @@ class Engine:
         another shape, so it runs eagerly and the model's own shape check
         applies)."""
         rows = xs.shape[0] if rows is None else rows
+        _FORWARD_MS.ms = None
         if not v.forwardable:
             out = v.model.output(xs)
             return _rows_of(out[0] if isinstance(out, list) else out, rows)
@@ -789,7 +794,9 @@ class Engine:
             with v.lock:
                 g = v.programs.get((idx, xs.shape[0], str(xs.dtype)))
         if g is not None:
-            return g(xs, rows)
+            out = g(xs, rows)
+            _FORWARD_MS.ms = g.last_ms
+            return out
         from .cuda_graphs import rows_to_host
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(xs)).to(self._devices[idx])
@@ -847,6 +854,7 @@ class Engine:
             out, finite, rows, bucket, padded = self._forward_padded(
                 v, replica.idx, live, warmed=warmed)
             device_ms = (self.clock() - t0) * 1e3
+            replay_ms = _FORWARD_MS.ms
             obs_trace.complete_at("serve/forward", t0, self.clock(), cat="serve",
                                   replica=replica.idx, rows=rows, bucket=bucket,
                                   tag=v.tag)
@@ -892,7 +900,8 @@ class Engine:
         can = self._canary
         if can is not None and not can.done.is_set() and model_name is None:
             # a canary shadows the default model's traffic only
-            self._mirror_canary(can, replica, live, out, device_ms)
+            self._mirror_canary(can, replica, live, out,
+                                device_ms if replay_ms is None else replay_ms)
 
     def _log_batch(self, v: _ModelVersion, replica: _Replica, live: List[_Request],
                    rows: int, padded: int, poison: bool = False) -> None:
@@ -1241,7 +1250,10 @@ class Engine:
                        incumbent_ms: float) -> None:
         """Shadow one live batch to the canary version after the
         incumbent's results were delivered (a user never waits for the
-        canary) and record the comparison."""
+        canary) and record the comparison.  A forward that replayed a CUDA
+        graph is timed by the replay's device time, so a pause of the host
+        (the interpreter's lock, a collection) cannot veto a candidate; an
+        eager forward is timed by the wall clock."""
         with can.lock:
             if can.done.is_set() or not can.select():
                 return
@@ -1265,6 +1277,8 @@ class Engine:
         finally:
             self._release(ex)
         ms = (self.clock() - t0) * 1e3
+        if not err and _FORWARD_MS.ms is not None:
+            ms = _FORWARD_MS.ms
         self.metrics.inc("canary_mirrored_batches")
         with can.lock:
             can.mirrored += 1

@@ -106,7 +106,7 @@ def test_train_with_the_nan_guard_and_a_zoo_model(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,value,queue", [
-    ("--prefetch", "2", "queue 1 item 9"), ("--dashboard", "d.html", "queue 1 item 9")])
+    ("--dashboard", "d.html", "queue 1 item 9")])
 def test_flags_that_wait_for_later_queues_name_them(tmp_path, flag, value, queue):
     spec, _ = _npz(tmp_path)
     with pytest.raises(SystemExit, match=f"not ported yet \\(ROADMAP {queue}"):

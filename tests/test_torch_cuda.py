@@ -70,7 +70,13 @@ through ``pack_transfer`` is bitwise, and a swap on a fused-horizon
 engine replays its captured graph on the new weights, bitwise a fresh
 engine's, with ``compile_cache_size`` flat; so does a replay after the
 ``params`` setter or a swap under the same tag, and a warm bundle names
-the captured graph.
+the captured graph.  The input pipeline: a batch of the prefetch ring read
+right after ``next()`` equals its host source while the compute stream is
+busy, a slow consumer's queued reads of a dropped batch still see it
+(``record_stream``), a ``fit_batches`` capture beside a live producer
+completes bitwise two ``fit_batch`` calls, and a canary's p99 reads the
+replays' device time, so a host pause inside the candidate's forward does
+not veto it.
 """
 
 import importlib.util
@@ -2131,3 +2137,148 @@ def test_params_setter_and_same_tag_swap_reach_the_captured_horizon(cuda_dev, tm
 def _seeded_lm(device, seed):
     from deeplearning4j_tpu_torch.models.transformer import TransformerLM
     return TransformerLM(**SIZE, seed=seed, device=device)
+
+
+# -- the input pipeline: datasets/device_prefetch.py on the card ------------------
+
+
+def _pixel_batches(n, rows, hw, seed):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    rng = np.random.default_rng(seed)
+    return [DataSet(rng.integers(0, 256, (rows, hw, hw, 3), dtype=np.uint8),
+                    np.eye(4, dtype=np.float32)[rng.integers(0, 4, rows)])
+            for _ in range(n)]
+
+
+def test_prefetch_ring_orders_each_batch_before_its_first_read(cuda_dev):
+    """A batch read on the consumer's stream right after ``next()`` equals
+    its host source, while the compute stream is busy and the producer
+    copies the next batches on its own stream."""
+    from deeplearning4j_tpu_torch.datasets import DevicePrefetchIterator, ListDataSetIterator
+
+    host = _pixel_batches(12, 64, 64, 0)
+    it = DevicePrefetchIterator(ListDataSetIterator(host), depth=2, device=cuda_dev)
+    for d in host:
+        torch.cuda._sleep(2_000_000)        # keep the compute stream busy
+        got = it.next()
+        assert got.features.device.type == "cuda" and got.features.dtype == torch.uint8
+        np.testing.assert_array_equal(got.features.cpu().numpy(), d.features)
+        np.testing.assert_array_equal(got.labels.cpu().numpy(), d.labels)
+    assert not it.has_next()
+    it.close()
+
+
+def test_prefetch_ring_memory_is_not_reused_under_a_slow_consumer(cuda_dev):
+    """Each handed-over batch is ``record_stream``-ed on the consumer's
+    stream: a slow consumer's queued reads of a batch it already dropped
+    its reference to still see that batch, while the producer runs ahead
+    allocating and copying the next ones."""
+    from deeplearning4j_tpu_torch.datasets import (DevicePrefetchIterator,
+                                                    ImagePreProcessingScaler,
+                                                    ListDataSetIterator)
+
+    host = _pixel_batches(16, 32, 64, 1)
+    scaler = ImagePreProcessingScaler()
+    it = DevicePrefetchIterator(ListDataSetIterator(host), depth=3, device=cuda_dev,
+                                transform=scaler)
+    sums = []
+    for _ in host:
+        torch.cuda._sleep(5_000_000)        # the consumer's stream lags the producer's
+        x = it.next().features
+        sums.append(x.double().sum())       # queued behind the sleep
+        del x                               # the batch's memory returns to the allocator
+    want = [float(scaler.transform(d.features).astype(np.float64).sum()) for d in host]
+    got = [float(s) for s in sums]
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    it.close()
+
+
+def test_fit_batches_captures_with_a_live_producer(cuda_dev):
+    """A ``fit_batches(2)`` graph captured while a prefetch producer is
+    alive (paused across the capture) neither breaks nor hangs; its losses
+    are bitwise two ``fit_batch`` calls on the same batches from the same
+    start, and the producer goes on to deliver every batch."""
+    import threading
+
+    from deeplearning4j_tpu_torch.datasets import (DataSet, DevicePrefetchIterator,
+                                                    ListDataSetIterator)
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+
+    rng = np.random.default_rng(3)
+    host = [DataSet(rng.standard_normal((32, 32, 32, 3), dtype=np.float32),
+                    np.eye(10, dtype=np.float32)[rng.integers(0, 10, 32)]) for _ in range(8)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        net = LeNet(32, 32, 3, 10, updater=Sgd(lr=0.01), device=cuda_dev)
+        ref = LeNet(32, 32, 3, 10, updater=Sgd(lr=0.01), device=cuda_dev)
+        ref.params = net.clone_params()
+        it = DevicePrefetchIterator(ListDataSetIterator(host), depth=2, device=cuda_dev)
+        out = {}
+
+        def capture():
+            out["losses"] = [float(v) for v in net.fit_batches([it.next(), it.next()])]
+        th = threading.Thread(target=capture, daemon=True)
+        th.start()
+        th.join(timeout=120)
+        assert not th.is_alive(), "fit_batches capture hung beside a live producer"
+        assert net.fit_graph_count == 1
+        want = [float(ref.fit_batch(DataSet(torch.as_tensor(d.features).to(cuda_dev),
+                                             torch.as_tensor(d.labels).to(cuda_dev))))
+                for d in host[:2]]
+        assert out["losses"] == want
+        rest = []
+        while it.has_next():
+            rest.append(it.next())
+        assert len(rest) == 6
+        for d, r in zip(host[2:], rest):
+            np.testing.assert_array_equal(r.features.cpu().numpy(), d.features)
+        it.close()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def test_canary_latency_verdict_reads_the_replays_device_time(cuda_dev, monkeypatch):
+    """A pause of the host inside the candidate's forward (20 ms, after its
+    replay) does not veto it: the canary's p99 compares the replays' device
+    times, where a wall clock would read 3x the incumbent's and roll back."""
+    import threading
+    import time
+
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.serving import Engine
+    from deeplearning4j_tpu_torch.serving import cuda_graphs as cg
+
+    eng = Engine(LeNet(32, 32, 3, 10, device=cuda_dev), max_batch=4, replicas=1,
+                 device=cuda_dev).load()
+    candidate = LeNet(32, 32, 3, 10, seed=7, device=cuda_dev)
+    real_init, real_call, created = cg.ForwardGraph.__init__, cg.ForwardGraph.__call__, []
+
+    def init(g, *a, **kw):
+        real_init(g, *a, **kw)
+        created.append(g)
+
+    def call(g, *a, **kw):
+        out = real_call(g, *a, **kw)
+        if any(g is c for c in created):
+            time.sleep(0.02)
+        return out
+    monkeypatch.setattr(cg.ForwardGraph, "__init__", init)
+    monkeypatch.setattr(cg.ForwardGraph, "__call__", call)
+    stop = threading.Event()
+    x = np.random.default_rng(0).standard_normal((2, 32, 32, 3), dtype=np.float32)
+
+    def traffic():
+        while not stop.is_set():
+            eng.output(x)
+    th = threading.Thread(target=traffic, daemon=True)
+    th.start()
+    try:
+        decision = eng.run_canary(candidate, "v2", frac=1.0, window=4, timeout_s=60)
+    finally:
+        stop.set()
+        th.join(timeout=30)
+        eng.shutdown()
+    assert created and decision["mirrored_batches"] == 4
+    assert decision["promote"], decision
+    assert decision["canary_p99_ms"] < 10.0

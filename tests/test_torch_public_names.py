@@ -107,3 +107,24 @@ def test_shard_dataset_places_the_global_batch_like_the_references():
     tt.dp_size = 3                       # a batch of 8 rows over 3 ranks
     with pytest.raises(ValueError, match="not divisible by data axis 3"):
         tt.shard_dataset(DataSet(x, y))
+
+
+def test_serving_all_is_the_references():
+    import deeplearning4j_tpu.serving as jserving
+    import deeplearning4j_tpu_torch.serving as tserving
+
+    assert sorted(tserving.__all__) == sorted(jserving.__all__)
+    assert all(hasattr(tserving, n) for n in tserving.__all__)
+
+
+@pytest.mark.parametrize("pkg", ["datasets", "evaluation"])
+def test_datasets_and_evaluation_export_the_references_names(pkg):
+    import importlib
+    import types
+
+    j = importlib.import_module(f"deeplearning4j_tpu.{pkg}")
+    t = importlib.import_module(f"deeplearning4j_tpu_torch.{pkg}")
+    names = {n for n, v in vars(j).items()
+             if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+    assert names and names <= set(t.__all__)
+    assert all(hasattr(t, n) for n in t.__all__)
