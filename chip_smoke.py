@@ -14,6 +14,8 @@
                                            # alone
     python3 chip_smoke.py --phase flywheel # the build and the flywheel
                                            # phase alone
+    python3 chip_smoke.py --phase learning # the build and the learning
+                                           # phase alone
 
 It builds every CUDA kernel of the port from ``deeplearning4j_tpu_torch/csrc``
 with ``nvcc`` (one process per source, started together), then drives the
@@ -509,6 +511,63 @@ and the recurrent path's training and streaming:
           ring: batches bitwise ``plain_order``'s rows, training bitwise
           the device arm.  (e) ``train --zoo lenet --data cifar10
           --prefetch 2``: exit 0 and the stall line.
+  learning  the learning libraries (``nlp/``, ``graph/``, ``clustering/``,
+          ``plot/``, ``streaming/``); it runs none of K1-K6 or D1 (their
+          counters are gated at 0).  (a) bench config 4's Word2Vec
+          (``bench.py:560-568``: 48,000 sentences of 20 words over 2,000
+          words from numpy seed 0, ``layer_size=128, window=5, negative=5,
+          batch_size=4096, subsampling=0``): a warm fit, then three fits
+          timed with ``word_vector("w0")`` inside the window, the best
+          words/s; the native window library loaded, the tables finite,
+          and on the first 2,000 sentences the card's ``syn0`` within rtol
+          1e-4, atol 1e-5 of the port's on the CPU, a fit stacking 16
+          batches a dispatch bitwise a one-batch fit, a repeat fit (the
+          ordered scatter) and an eager fit (no CUDA graph replays).  (a2) the same at the published
+          300-wide embedding: 250,000 sentences of 20 Zipf(1.1) ids over
+          100,000 ids: words/s, and the device share of a torch.profiler
+          window of 2 dispatches (32 batches) inside the fit.  (b) on the
+          reference tests' two-topic corpus: CBOW and SG-HS on 20,000
+          sentences, one epoch (within > across + 0.2);
+          ``ParagraphVectors`` with the reference test's recipe (20
+          epochs): DM and DBOW at its 120 documents and DBOW at 2,000 (the
+          documents' mean within-topic cosine > across + 0.15, and
+          ``infer`` on 100 unseen documents: 80% of their 10 nearest
+          documents of their topic), DM at 20,000 (where the recipe
+          separates the topics in neither package: within and across
+          within 1e-3 of the reference package's, as DBOW at 2,000;
+          ``scripts/torch_pv_recipe_scale.py``); ``Glove`` (width 128) on
+          (a)'s corpus for 5 epochs: the loss falls every epoch, ms a
+          batch.  (c)
+          ``DistributedWord2Vec`` on two gloo ranks on cuda:0 over (a)'s
+          first 8,000 sentences: the ranks' tables bitwise equal and within
+          rtol 1e-4, atol 1e-5 of one-rank ``Word2Vec``; bytes gathered a
+          batch.  (d) ``DeepWalk`` on a planted graph of 10 communities of
+          500 vertices, walks of 40, 10 a vertex, lr 0.05, HS and negative
+          sampling: within-community cosine > across + 0.2.  (e)
+          ``NearestNeighbors`` over 1,000,000 x 128 f32 points, 8,192
+          queries at k = 10, euclidean and cosine: ms a 4,096-query block
+          against its bound; on 256 queries every neighbour's float64
+          distance (computed on the card) within 1e-6 relative of the
+          float64 oracle's at its rank (indices may differ only at ties);
+          the index behind ``NearestNeighborsServer``: 64 ``/knnnew`` and
+          ``/knn`` requests answer exactly the direct ``knn`` calls, p50
+          and p99.  (f) ``KMeansClustering`` k = 256 on 200,000 x 128
+          points: ``predict`` equals the training assignment, the inertia
+          never rises, the first Lloyd step equals the same step on the
+          CPU (assignments but at ties within 1e-5, centroids within 1e-5
+          x (1 + |c|), inertia 1e-5 relative), ms a Lloyd step.  (g) t-SNE: exact on 5,000 points
+          (500 iterations; the KL finite and below the first
+          unexaggerated iteration's), chunked on 200,000 points of the
+          reference's large demo (10 blobs, d = 16, perplexity 30, 3
+          iterations, block 1,024): finite, peak ``max_memory_allocated``
+          under 1/10 of a dense [N, N] f32 buffer, the last iteration's
+          new velocity of 2,048 rows within 1e-4 in norm and its KL within
+          1e-5 of a float64 evaluation of its formula on the card, seconds
+          for the kNN and a gradient iteration.  (h) a ``TensorBroker`` on loopback carries 200
+          batches of [512, 784] f32 (and one-hot labels) into bench config
+          1's MLP ``fit_batch`` on the card: every batch consumed bitwise
+          the one published, the loss falls (mean of the last 10 below the
+          first 10), MB/s.
 
 Each phase prints JSON lines; then one ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -7267,6 +7326,820 @@ def phase_flywheel():
     return rec
 
 
+# -- learning phase -------------------------------------------------------------
+
+#: bench config 4's Word2Vec (``bench.py:560-568``): 48,000 sentences of 20
+#: words over a 2,000-word vocabulary from numpy seed 0
+W2V_SENTENCES, W2V_WORDS, W2V_VOCAB = 48_000, 20, 2000
+W2V_KW = dict(layer_size=128, window=5, min_word_frequency=1, epochs=1, batch_size=4096,
+              subsampling=0)
+W2V_CUT = 2000          # (a)'s card-against-CPU and stacking gates
+DIST_CUT = 8000         # (c)'s sentences
+WIDE_SENTENCES, WIDE_IDS, WIDE_ZIPF = 250_000, 100_000, 1.1
+WIDE_TRACE_START, WIDE_TRACE_CALLS = 25, 2   # (a2)'s traced dispatches: batches 400-431
+TOPIC_DOCS = 20_000
+PV_REF_DOCS = 120         # tests/test_nlp_vectors.py's ParagraphVectors recipe
+PV_DBOW_DOCS = 2000      # 20 epochs of DBOW micro-chunks: ~9 ms a document on the card
+#: the reference package's PV fits with that recipe on the CPU
+#: (scripts/torch_pv_recipe_scale.py): (mode, documents) -> (within, across)
+PV_REFERENCE = {("dbow", 2000): (0.9904502394323099, -0.9340549185075061),
+                ("dm", 20_000): (0.6692198402398055, 0.6591743151585967)}
+ANIMALS = ["cat", "dog", "pet", "fur", "paw", "tail", "meow", "bark"]
+TECH = ["cpu", "ram", "disk", "code", "byte", "chip", "core", "cache"]
+DW_COMMUNITIES, DW_SIZE = 10, 500
+KNN_POINTS, KNN_DIM, KNN_QUERIES, KNN_K, KNN_ORACLE = 1_000_000, 128, 8192, 10, 256
+KM_POINTS, KM_K = 200_000, 256
+TSNE_EXACT, TSNE_CHUNKED = 5000, 200_000
+PUBSUB_BATCHES = 200
+
+
+def bench4_corpus(n: int = W2V_SENTENCES) -> list:
+    """The bench's corpus, sentence for sentence (the same draws as its
+    ``rng.choice(vocab, size=20)``; the first n of them)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    vocab = np.asarray([f"w{i}" for i in range(W2V_VOCAB)])
+    return [" ".join(vocab[rng.choice(W2V_VOCAB, size=W2V_WORDS)]) for _ in range(n)]
+
+
+def all_launch_counters() -> dict:
+    """Every hand kernel's launch counter (K1-K6 and D1)."""
+    from deeplearning4j_tpu_torch.nn.train_graph import TRAIN_COUNTERS
+    from deeplearning4j_tpu_torch.ops import compression as comp
+    from deeplearning4j_tpu_torch.ops import kv_cache as kv
+
+    return {**TRAIN_COUNTERS, "det_attention": kv.det_attention_cuda,
+            "threshold_encode": comp.threshold_encode_cuda,
+            "threshold_encode_buckets": comp.threshold_encode_buckets_cuda}
+
+
+class BatchWindow:
+    """A torch.profiler trace of calls [start, start + n) of a fit: the
+    attribute ``name`` of ``mod`` (a module's step function, or a class's
+    method) is wrapped so the trace starts before call ``start`` and stops
+    after call ``start + n - 1``, with a synchronize at each end;
+    ``result()`` gives the window's wall ms, the device's busy ms and its
+    busy share."""
+
+    def __init__(self, mod, name: str, start: int, n: int):
+        self.mod, self.name, self.real = mod, name, getattr(mod, name)
+        self.start, self.n, self.calls = start, n, 0
+        self.prof = self.t0 = self.t1 = None
+
+    def __enter__(self):
+        def call(*a):                # a plain function: a method binds it
+            return self._call(*a)
+        setattr(self.mod, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+        if self.prof is not None and self.t1 is None:
+            self.prof.stop()
+
+    def _call(self, *a):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if self.calls == self.start:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.start()
+            self.t0 = time.perf_counter()
+        out = self.real(*a)
+        self.calls += 1
+        if self.calls == self.start + self.n:
+            torch.cuda.synchronize()
+            self.t1 = time.perf_counter()
+            self.prof.stop()
+        return out
+
+    def result(self) -> dict:
+        import torch
+
+        if self.t1 is None:
+            raise AssertionError(f"the fit ran {self.calls} batches, fewer than the window")
+        spans = [(e.time_range.start, e.time_range.end) for e in self.prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        wall = (self.t1 - self.t0) * 1e3
+        busy = busy_ms(spans)
+        return {"calls": self.n, "wall_ms": wall, "busy_ms": busy,
+                "device_share": busy / wall, "kernels": len(spans)}
+
+
+def learning_w2v_bench():
+    """(a) bench config 4's Word2Vec at full width on the card."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    from deeplearning4j_tpu_torch.nlp._native_windows import load_window_lib
+
+    bad = []
+    native = load_window_lib() is not None
+    sentences = bench4_corpus()
+    n_words = sum(len(s.split()) for s in sentences)
+    warm = Word2Vec(device="cuda", **W2V_KW)
+    warm.fit(sentences)
+    warm.word_vector("w0")
+    fits = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        m = Word2Vec(device="cuda", **W2V_KW)
+        m.fit(sentences)
+        m.word_vector("w0")                    # the bench's end-to-end window
+        fits.append(time.perf_counter() - t0)
+    finite = bool(np.isfinite(m.syn0).all() and np.isfinite(m.syn1).all())
+    cut = sentences[:W2V_CUT]
+    card = Word2Vec(device="cuda", **W2V_KW).fit(cut)
+    cpu = Word2Vec(device="cpu", **W2V_KW).fit(cut)
+    one = Word2Vec(device="cuda", **W2V_KW)
+    one._device_batches = 1
+    one.fit(cut)
+    again = Word2Vec(device="cuda", **W2V_KW).fit(cut)
+    eager = Word2Vec(device="cuda", **W2V_KW)
+    eager._graphs = False
+    eager.fit(cut)
+    gap = float(np.max(np.abs(card.syn0 - cpu.syn0)))
+    close = bool(np.allclose(card.syn0, cpu.syn0, rtol=1e-4, atol=1e-5))
+    stacked = bool(np.array_equal(card.syn0, one.syn0) and np.array_equal(card.syn1, one.syn1))
+    repeat = bool(np.array_equal(card.syn0, again.syn0) and np.array_equal(card.syn1, again.syn1))
+    replays = bool(np.array_equal(card.syn0, eager.syn0) and np.array_equal(card.syn1, eager.syn1))
+    rec = {"sentences": len(sentences), "words": n_words, "vocab": len(m.vocab),
+           "fit_s": fits, "words_per_s": n_words / min(fits), "native_windows": native,
+           "finite": finite, "cut_sentences": W2V_CUT, "card_vs_cpu_max_abs": gap,
+           "card_vs_cpu_within_1e-4_1e-5": close,
+           "card_vs_cpu_bitwise": bool(np.array_equal(card.syn0, cpu.syn0)),
+           "stacked_16_bitwise_1": stacked, "repeat_bitwise": repeat,
+           "graph_replays_bitwise_eager": replays}
+    for name, ok in (("native windows library", native), ("finite tables", finite),
+                     ("card vs CPU", close), ("16 stacked vs 1", stacked),
+                     ("repeat", repeat), ("graph replays vs eager", replays)):
+        if not ok:
+            bad.append(f"w2v_bench: {name}")
+    return rec, bad
+
+
+def learning_w2v_wide():
+    """(a2) Word2Vec at the published 300-wide embedding, Zipf ids."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    from deeplearning4j_tpu_torch.nlp import sequencevectors as sv
+
+    rng = np.random.default_rng(SEED + 90)
+    p = 1.0 / np.arange(1, WIDE_IDS + 1) ** WIDE_ZIPF
+    seqs = rng.choice(WIDE_IDS, size=(WIDE_SENTENCES, W2V_WORDS), p=p / p.sum()).tolist()
+    m = Word2Vec(device="cuda", **dict(W2V_KW, layer_size=300))
+    with BatchWindow(sv._Replays, "__call__", WIDE_TRACE_START, WIDE_TRACE_CALLS) as win:
+        t0 = time.perf_counter()
+        m.fit_sequences(seqs)
+        m.word_vector(0)
+        fit_s = time.perf_counter() - t0
+    window = {**win.result(), "batches": WIDE_TRACE_CALLS * m._device_batches}
+    table_mb = 2 * len(m.vocab) * 300 * 4 / 1e6
+    finite = bool(np.isfinite(m.syn0).all())
+    rec = {"sentences": WIDE_SENTENCES, "words": WIDE_SENTENCES * W2V_WORDS,
+           "vocab": len(m.vocab), "layer_size": 300, "tables_mb": table_mb, "fit_s": fit_s,
+           "words_per_s": WIDE_SENTENCES * W2V_WORDS / fit_s, "traced_window": window,
+           "finite": finite}
+    return rec, ([] if finite else ["w2v_wide: tables not finite"])
+
+
+def topic_sentences(n, seed=0, words=8):
+    """The reference tests' two-topic corpus (``tests/test_nlp.py``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    topics = [ANIMALS, TECH]
+    return [" ".join(rng.choice(topics[int(rng.integers(0, 2))], size=words))
+            for _ in range(n)]
+
+
+def topic_docs(n, seed=0, words=20):
+    """The reference tests' topic documents (``tests/test_nlp_vectors.py``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    docs, topics = [], []
+    for _ in range(n):
+        t = int(rng.integers(0, 2))
+        docs.append(" ".join(rng.choice(ANIMALS if t == 0 else TECH, size=words)))
+        topics.append(t)
+    return docs, np.asarray(topics)
+
+
+def within_across(vecs, groups):
+    """Mean cosine similarity of distinct same-group pairs and of
+    cross-group pairs, from per-group sums of the unit vectors."""
+    import numpy as np
+
+    u = vecs / np.maximum(np.linalg.norm(vecs, axis=1, keepdims=True), 1e-9)
+    ids = np.unique(groups)
+    sums = np.stack([u[groups == g].sum(0) for g in ids]).astype(np.float64)
+    counts = np.asarray([(groups == g).sum() for g in ids], np.float64)
+    within = (np.sum(sums * sums) - counts.sum()) / np.sum(counts * (counts - 1))
+    tot = sums.sum(0)
+    across = (tot @ tot - np.sum(sums * sums)) / (counts.sum() ** 2 - np.sum(counts ** 2))
+    return float(within), float(across)
+
+
+def pv_fit(dm: bool, n_docs: int, separates: bool, infer: bool):
+    """ParagraphVectors on ``n_docs`` topic documents with the reference
+    test's recipe (20 epochs): the documents' within/across-topic cosines,
+    held to the test's gate (within > across + 0.15) where the recipe
+    separates the topics, and to the reference package's reading where
+    ``PV_REFERENCE`` has one (within 1e-3 each); then, with ``infer``,
+    ``infer`` on 100 unseen documents and their share of their own topic
+    among their 10 nearest trained documents (at least 0.8)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nlp import ParagraphVectors
+
+    mode = "dm" if dm else "dbow"
+    name = f"pv_{mode}_{n_docs}"
+    docs, topics = topic_docs(n_docs)
+    t0 = time.perf_counter()
+    pv = ParagraphVectors(dm=dm, layer_size=24, window=3, epochs=20, batch_size=128,
+                          seed=1, learning_rate=0.05, device="cuda")
+    pv.fit(docs)
+    fit_s = time.perf_counter() - t0
+    vecs = np.stack([pv.doc_vector(f"DOC_{i}") for i in range(len(docs))])
+    within, across = within_across(vecs, topics)
+    finite = bool(np.isfinite(vecs).all())
+    rec = {"documents": n_docs, "epochs": 20, "seconds": fit_s, "within": within,
+           "across": across, "finite": finite}
+    bad = [] if finite else [f"{name}: not finite"]
+    if separates and not within > across + 0.15:
+        bad.append(f"{name}: within {within:.3f} across {across:.3f}")
+    ref = PV_REFERENCE.get((mode, n_docs))
+    if ref is not None:
+        rec["reference"] = ref
+        if not (abs(within - ref[0]) <= 1e-3 and abs(across - ref[1]) <= 1e-3):
+            bad.append(f"{name}: within {within} across {across}, the reference's {ref}")
+    if infer:
+        unseen, unseen_topics = topic_docs(100, seed=1)
+        t1 = time.perf_counter()
+        inferred = np.stack([pv.infer(d) for d in unseen])
+        rec["infer_ms_per_doc"] = (time.perf_counter() - t1) * 1e3 / len(unseen)
+        u = vecs / np.maximum(np.linalg.norm(vecs, axis=1, keepdims=True), 1e-9)
+        q = inferred / np.maximum(np.linalg.norm(inferred, axis=1, keepdims=True), 1e-9)
+        near = np.argsort(-(q @ u.T), axis=1)[:, :10]
+        hits = rec["infer_top10_same_topic"] = float(np.mean(topics[near]
+                                                             == unseen_topics[:, None]))
+        if not (np.isfinite(inferred).all() and hits >= 0.8):
+            bad.append(f"{name}: inferred docs' top-10 same-topic share {hits:.3f}")
+    return name, rec, bad
+
+
+def learning_modes():
+    """(b) CBOW, SG-HS, ParagraphVectors DM and DBOW with inference, and
+    GloVe on (a)'s corpus."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp import Glove, Word2Vec
+    from deeplearning4j_tpu_torch.nlp import glove as gl
+
+    bad, out = [], {}
+    sents = topic_sentences(TOPIC_DOCS)
+    for mode in ("cbow", "sg_hs"):
+        t0 = time.perf_counter()
+        w = Word2Vec(layer_size=32, window=3, min_word_frequency=2, negative=5, epochs=1,
+                     batch_size=128, seed=1, learning_rate=0.05, subsampling=0,
+                     cbow=mode == "cbow", hierarchic_softmax=mode == "sg_hs", device="cuda")
+        w.fit(sents)
+        within, across = w.similarity("cat", "dog"), w.similarity("cat", "cpu")
+        out[mode] = {"sentences": TOPIC_DOCS, "seconds": time.perf_counter() - t0,
+                     "within": within, "across": across}
+        if not within > across + 0.2:
+            bad.append(f"{mode}: within {within:.3f} across {across:.3f}")
+    # in both packages the recipe separates DM's topics at the test's 120
+    # documents only, DBOW's at 120-5,000, neither at 20,000
+    for dm, n_docs, separates, infer in ((True, PV_REF_DOCS, True, True),
+                                         (False, PV_REF_DOCS, True, True),
+                                         (False, PV_DBOW_DOCS, True, True),
+                                         (True, TOPIC_DOCS, False, False)):
+        name, out[name], b = pv_fit(dm, n_docs, separates, infer)
+        bad += b
+    calls, first = [], []
+    real = gl._glove_step
+
+    def counted(*a):
+        if not first:
+            first.append(time.perf_counter())
+        calls.append(1)
+        return real(*a)
+    gl._glove_step = counted
+    try:
+        t0 = time.perf_counter()
+        g = Glove(layer_size=128, epochs=5, batch_size=4096, device="cuda")
+        g.fit(bench4_corpus())                 # the epoch losses are read: synced
+        t_end = time.perf_counter()
+    finally:
+        gl._glove_step = real
+    falls = all(b < a for a, b in zip(g.losses, g.losses[1:]))
+    out["glove"] = {"seconds": t_end - t0, "count_and_setup_s": first[0] - t0,
+                    "batches": len(calls), "ms_per_batch": (t_end - first[0]) * 1e3 / len(calls),
+                    "epoch_losses": g.losses, "loss_falls_every_epoch": falls,
+                    "finite": bool(np.isfinite(g.syn0).all())}
+    if not (falls and np.isfinite(g.syn0).all()):
+        bad.append(f"glove: losses {g.losses}")
+    torch.cuda.empty_cache()
+    return out, bad
+
+
+def learning_rank(rank: int, work: str) -> None:
+    """One rank of (c) (``--learning-rank R DIR``): DistributedWord2Vec over
+    a two-rank ``data`` mesh on cuda:0 (gloo); writes DIR/rankR.json and
+    DIR/rankR.npy (syn0)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from deeplearning4j_tpu_torch.nlp import DistributedWord2Vec
+    from deeplearning4j_tpu_torch.parallel import build_mesh, initialize, shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize(init_method="file://" + os.path.join(work, "rendezvous"), num_processes=2,
+               process_id=rank, backend="gloo", timeout_s=600)
+    corpus = bench4_corpus(DIST_CUT)
+    t0 = time.perf_counter()
+    m = DistributedWord2Vec(mesh=build_mesh({"data": 2}), device="cuda", **W2V_KW)
+    m.fit(corpus)
+    syn0 = m.syn0
+    seconds = time.perf_counter() - t0
+    shutdown()
+    np.save(os.path.join(work, f"rank{rank}.npy"), syn0)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "seconds": seconds,
+                   "gathered_bytes_per_batch": m._dp_step.last_gathered_bytes}, f)
+
+
+def learning_distributed():
+    """(c) DistributedWord2Vec on two gloo ranks against one-rank Word2Vec."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+    work = tempfile.mkdtemp(prefix="chip_dw2v_")
+    try:
+        ranks = run_ranks("--learning-rank", 2, work, limit_s=300)
+        syn0 = [np.load(os.path.join(work, f"rank{r}.npy")) for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    one = Word2Vec(device="cuda", **W2V_KW).fit(bench4_corpus(DIST_CUT))
+    one_s = time.perf_counter() - t0
+    same = bool(np.array_equal(syn0[0], syn0[1]))
+    close = bool(np.allclose(syn0[0], one.syn0, rtol=1e-4, atol=1e-5))
+    rec = {"sentences": DIST_CUT, "ranks": 2, "seconds_per_rank": [r["seconds"] for r in ranks],
+           "one_rank_s": one_s,
+           "gathered_bytes_per_batch": ranks[0]["gathered_bytes_per_batch"],
+           "ranks_bitwise_equal": same,
+           "max_abs_vs_one_rank": float(np.max(np.abs(syn0[0] - one.syn0))),
+           "within_1e-4_1e-5_of_one_rank": close}
+    bad = [] if same and close else [f"distributed: ranks equal {same}, close {close}"]
+    return rec, bad
+
+
+def planted_graph(seed=SEED + 91):
+    """10 communities of 500 vertices: 8 random edges a vertex inside its
+    community, and one edge to another community for every fifth vertex."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.graph import Graph
+
+    rng = np.random.default_rng(seed)
+    n = DW_COMMUNITIES * DW_SIZE
+    comm = np.arange(n) // DW_SIZE
+    a = np.repeat(np.arange(n), 8)
+    b = comm[a] * DW_SIZE + rng.integers(0, DW_SIZE, len(a))
+    keep = a != b
+    cross = np.arange(0, n, 5)
+    other = (comm[cross] + rng.integers(1, DW_COMMUNITIES, len(cross))) % DW_COMMUNITIES
+    g = Graph(n)
+    g.add_edges(zip(a[keep].tolist(), b[keep].tolist()))
+    g.add_edges(zip(cross.tolist(), (other * DW_SIZE + rng.integers(0, DW_SIZE, len(cross))
+                                     ).tolist()))
+    return g, comm
+
+
+def learning_deepwalk():
+    """(d) DeepWalk on the planted graph, hierarchical softmax and negative
+    sampling."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.graph import DeepWalk, RandomWalkIterator
+
+    g, comm = planted_graph()
+    t0 = time.perf_counter()
+    walks = list(RandomWalkIterator(g, 40, 10, seed=12345))
+    walk_s = time.perf_counter() - t0
+    out, bad = {"vertices": g.n, "walks": len(walks), "walk_s": walk_s}, []
+    for hs in (True, False):
+        name = "hs" if hs else "neg"
+        t0 = time.perf_counter()
+        dw = DeepWalk(walk_length=40, walks_per_vertex=10, hierarchic_softmax=hs,
+                      learning_rate=0.05, device="cuda").fit(g, walks=walks)
+        fit_s = time.perf_counter() - t0
+        vecs = np.stack([dw.vertex_vector(v) for v in range(g.n)])
+        within, across = within_across(vecs, comm)
+        out[name] = {"seconds": fit_s, "within": within, "across": across}
+        if not within > across + 0.2:
+            bad.append(f"deepwalk {name}: within {within:.3f} across {across:.3f}")
+    return out, bad
+
+
+def learning_knn():
+    """(e) NearestNeighbors over 1M x 128 points and its REST server."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.clustering import (NearestNeighbors, NearestNeighborsClient,
+                                                     NearestNeighborsServer)
+
+    rng = np.random.default_rng(SEED + 92)
+    pts = rng.standard_normal((KNN_POINTS, KNN_DIM), dtype=np.float32)
+    queries = rng.standard_normal((KNN_QUERIES, KNN_DIM), dtype=np.float32)
+    out, bad = {"points": KNN_POINTS, "dim": KNN_DIM, "queries": KNN_QUERIES, "k": KNN_K}, []
+    p64 = torch.from_numpy(pts).cuda().double()
+    for metric in ("euclidean", "cosine"):
+        nn = NearestNeighbors(pts, metric=metric, device="cuda")
+        q = torch.from_numpy(queries).cuda()
+        nn.knn_device(q[:64], KNN_K)                 # warm-up
+        blocks = []
+        for s in range(0, KNN_QUERIES, nn.query_block):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d, i = nn.knn_device(q[s:s + nn.query_block], KNN_K)
+            torch.cuda.synchronize()
+            blocks.append((time.perf_counter() - t0) * 1e3)
+            if s == 0:
+                first_i = i[:KNN_ORACLE]
+        q64 = q[:KNN_ORACLE].double()
+        if metric == "euclidean":
+            d64 = (q64 * q64).sum(1, keepdim=True) + (p64 * p64).sum(1)[None] - 2 * q64 @ p64.T
+        else:
+            qn = q64 / q64.norm(dim=1, keepdim=True)
+            pn = p64 / p64.norm(dim=1, keepdim=True)
+            d64 = 1 - qn @ pn.T
+        want = torch.topk(d64, KNN_K, dim=1, largest=False).values
+        got = torch.gather(d64, 1, first_i)
+        scale = torch.clamp(want.abs(), min=1e-30)
+        tied_ok = bool(((got - want).abs() <= 1e-6 * scale).all())
+        oracle_i = torch.topk(d64, KNN_K, dim=1, largest=False).indices
+        differ = int((oracle_i != first_i).sum())
+        del d64
+        flops = 2 * nn.query_block * KNN_POINTS * KNN_DIM
+        out[metric] = {"ms_per_block": blocks, "query_block": nn.query_block,
+                       "bound_ms_per_block": max(flops / PEAK_FLOPS["float32"],
+                                                 KNN_POINTS * KNN_DIM * 4 / PEAK_BYTES) * 1e3,
+                       "oracle_rows": KNN_ORACLE, "oracle_agrees": tied_ok,
+                       "index_differences_at_ties": differ}
+        if not tied_ok:
+            bad.append(f"knn {metric}: indices off the float64 oracle beyond ties")
+        del nn
+        torch.cuda.empty_cache()
+    del p64
+    srv = NearestNeighborsServer(pts, device="cuda").start()
+    try:
+        client = NearestNeighborsClient(srv.url)
+        lat, mismatch = [], 0
+        for r in range(64):
+            t0 = time.perf_counter()
+            if r % 2:
+                got = client.knn_new(queries[r], KNN_K)
+                d, i = srv.index.knn(queries[r], KNN_K)
+            else:
+                pid = (r * 15_485_863) % KNN_POINTS
+                got = client.knn(pid, KNN_K)
+                d, i = srv.index.knn(srv.index.points[pid][None, :], KNN_K + 1)
+                keep = i[0] != pid
+                d, i = d[0][keep][:KNN_K], i[0][keep][:KNN_K]
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if [x["index"] for x in got] != [int(v) for v in i] or \
+                    [x["distance"] for x in got] != [float(v) for v in d]:
+                mismatch += 1
+    finally:
+        srv.stop()
+    lat.sort()
+    out["server"] = {"requests": 64, "p50_ms": lat[31], "p99_ms": lat[63],
+                     "answers_not_the_direct_knn": mismatch}
+    if mismatch:
+        bad.append(f"knn server: {mismatch} answers differ from direct knn")
+    torch.cuda.empty_cache()
+    return out, bad
+
+
+def learning_kmeans():
+    """(f) KMeansClustering, k = 256 on 200,000 x 128 points; the fit's
+    first Lloyd step held against the same step on the CPU."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.clustering import kmeans as km_mod
+
+    rng = np.random.default_rng(SEED + 93)
+    centers = rng.normal(0, 3, (KM_K, 128))
+    x = (centers[rng.integers(0, KM_K, KM_POINTS)]
+         + rng.standard_normal((KM_POINTS, 128))).astype(np.float32)
+    real, steps, inertias, first = km_mod._lloyd_step, [], [], []
+
+    def timed_step(xs, c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real(xs, c)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        inertias.append(float(res[2]))
+        if not first:
+            first.append((c, res))
+        return res
+    km_mod._lloyd_step = timed_step
+    try:
+        t0 = time.perf_counter()
+        km = KMeansClustering(KM_K, device="cuda")
+        assign = km.apply_to(x)
+        fit_s = time.perf_counter() - t0
+    finally:
+        km_mod._lloyd_step = real
+    same = bool(np.array_equal(km.predict(x), assign))
+    never_rises = all(b <= a * (1 + 1e-6) for a, b in zip(inertias, inertias[1:]))
+    step = lloyd_step_against_cpu(x, *first[0])
+    rec = {"points": KM_POINTS, "k": KM_K, "iterations": km.n_iter_, "fit_s": fit_s,
+           "lloyd_ms": steps, "median_lloyd_ms": sorted(steps)[len(steps) // 2],
+           "seeding_and_host_s": fit_s - sum(steps) / 1e3, "inertia_first": inertias[0],
+           "inertia_last": km.inertia_, "predict_equals_assignment": same,
+           "inertia_never_rises": never_rises, "first_step_vs_cpu": step}
+    bad = [] if same and never_rises else [f"kmeans: predict {same}, monotone {never_rises}"]
+    if not step["ok"]:
+        bad.append(f"kmeans: first Lloyd step against the CPU {step}")
+    return rec, bad
+
+
+def lloyd_step_against_cpu(x, c, card):
+    """The card's Lloyd step ``card`` = (centroids, assignment, inertia)
+    from centroids ``c`` against ``_lloyd_step`` on the CPU from the same
+    inputs: assignments equal but where a point's two centroids lie within
+    1e-5 relative on the CPU's distances; the centroids of clusters whose
+    members agree within 1e-5 x (1 + |c|); the inertia within 1e-5
+    relative."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.clustering import kmeans as km_mod
+    from deeplearning4j_tpu_torch.clustering.knn import _dist_block
+
+    xc, cc = torch.from_numpy(x), c.cpu()
+    new_c, a, inertia = (t.cpu().numpy() for t in km_mod._lloyd_step(xc, cc))
+    got_c, got_a, got_in = (t.cpu().numpy() for t in card)
+    moved = np.flatnonzero(got_a != a)
+    d = _dist_block(xc[moved], cc, "euclidean").numpy() if len(moved) else np.zeros((0, 1))
+    r = np.arange(len(moved))
+    ties = bool(np.all(np.abs(d[r, got_a[moved]] - d[r, a[moved]])
+                       <= 1e-5 * d[r, a[moved]]))
+    touched = np.zeros(len(new_c), bool)
+    touched[got_a[moved]] = touched[a[moved]] = True
+    gap = np.abs(got_c - new_c)[~touched]
+    c_ok = bool(np.all(gap <= 1e-5 * (1 + np.abs(new_c[~touched]))))
+    in_rel = float(abs(got_in - inertia) / inertia)
+    return {"assignments_differ": int(len(moved)), "differ_only_at_ties": ties,
+            "centroid_max_abs": float(gap.max()), "centroids_within_1e-5": c_ok,
+            "inertia_rel": in_rel, "ok": ties and c_ok and in_rel <= 1e-5}
+
+
+def tsne_blobs(n, centers, d, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    c = rng.normal(0, 4.0, (centers, d))
+    return (c[rng.integers(0, centers, n)] + rng.normal(0, 0.5, (n, d))).astype(np.float32)
+
+
+def learning_tsne():
+    """(g) exact t-SNE at 5,000 points, chunked at 200,000."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.plot import Tsne
+    from deeplearning4j_tpu_torch.plot import tsne as ts
+
+    out, bad = {}, []
+    real_step, kls = ts._tsne_step, []
+
+    def step(*a):
+        res = real_step(*a)
+        kls.append(res[3])
+        return res
+    ts._tsne_step = step
+    try:
+        t0 = time.perf_counter()
+        t = Tsne(method="exact", device="cuda")
+        y = t.fit_transform(tsne_blobs(TSNE_EXACT, 10, 50, SEED + 94))
+        fit_s = time.perf_counter() - t0
+    finally:
+        ts._tsne_step = real_step
+    kl = torch.stack(kls).cpu().numpy()
+    first_true = kl[t.stop_lying_iteration]
+    ok = bool(np.isfinite(kl).all() and np.isfinite(y).all() and kl[-1] < first_true)
+    out["exact"] = {"points": TSNE_EXACT, "iterations": len(kl), "seconds": fit_s,
+                    "kl_first_unexaggerated": float(first_true), "kl_last": float(kl[-1]),
+                    "finite_and_falls": ok}
+    if not ok:
+        bad.append(f"tsne exact: kl {first_true} -> {kl[-1]}")
+    out["chunked"], b = tsne_chunked(TSNE_CHUNKED)
+    return out, bad + b
+
+
+def tsne_chunked(n: int):
+    """The chunked t-SNE on ``n`` points of the reference's large demo (10
+    blobs, d = 16, perplexity 30, 3 iterations, block 1,024): seconds for
+    the kNN and each gradient iteration, peak device memory against a
+    dense [N, N] f32 buffer."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.plot import Tsne
+    from deeplearning4j_tpu_torch.plot import tsne as ts
+
+    real_knn, real_chunk, times = ts._knn_blocked, ts._chunked_tsne_step, {"iter_s": []}
+
+    def knn(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_knn(*a, **k)
+        torch.cuda.synchronize()
+        times["knn_s"] = time.perf_counter() - t0
+        return res
+
+    def chunk(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_chunk(*a)
+        torch.cuda.synchronize()
+        times["iter_s"].append(time.perf_counter() - t0)
+        times["last"] = (a, res)
+        return res
+    x = tsne_blobs(n, 10, 16, SEED + 95)
+    ts._knn_blocked, ts._chunked_tsne_step = knn, chunk
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    try:
+        t0 = time.perf_counter()
+        y = Tsne(method="chunked", perplexity=30.0, max_iter=3, stop_lying_iteration=2,
+                 block_size=1024, device="cuda").fit_transform(x)
+        fit_s = time.perf_counter() - t0
+    finally:
+        ts._knn_blocked, ts._chunked_tsne_step = real_knn, real_chunk
+    peak = torch.cuda.max_memory_allocated() - base
+    dense = 4 * n ** 2
+    finite = bool(np.isfinite(y).all())
+    step = tsne_step_against_float64(times["last"])
+    del times["last"]
+    rec = {"points": n, "d": 16, "perplexity": 30.0, "block_size": 1024,
+           "seconds": fit_s, "knn_s": times["knn_s"], "iteration_s": times["iter_s"],
+           "peak_bytes": peak, "dense_nn_bytes": dense, "peak_share_of_dense": peak / dense,
+           "finite": finite, "last_iteration_vs_float64": step}
+    torch.cuda.empty_cache()
+    ok = finite and peak < dense / 10 and step["ok"]
+    return rec, ([] if ok else [f"tsne chunked: finite {finite}, peak {peak}, step {step}"])
+
+
+def tsne_step_against_float64(call, rows: int = 2048):
+    """One chunked gradient iteration on the card, ``call`` = (inputs,
+    outputs) of ``_chunked_tsne_step``, against the same iteration in
+    float64 on the card written out from its formula: every pair's
+    1/(1 + |y_i - y_j|^2) by row blocks for Z, the repulsion of ``rows``
+    seeded rows over all N points, the attraction of every kNN edge on
+    both its ends.  The new velocity of those rows within 1e-4 of the
+    float64 one in norm, the KL within 1e-5 relative."""
+    import numpy as np
+    import torch
+
+    (idx, p_cond, p_sym, y, vel, gains, momentum, lr, _), (_, got_v, _, got_kl) = call
+    y, vel, gains = y.double(), vel.double(), gains.double()
+    n, d = y.shape
+    z = torch.zeros((), dtype=torch.float64, device=y.device)
+    for r0 in range(0, n, 1024):
+        yr = y[r0:r0 + 1024]
+        num = 1.0 / (1.0 + sum((yr[:, k, None] - y[None, :, k]) ** 2 for k in range(d)))
+        num[torch.arange(len(yr)), torch.arange(r0, r0 + len(yr))] = 0.0
+        z += num.sum()
+        del num
+    sel = torch.from_numpy(np.sort(np.random.default_rng(SEED + 96).choice(n, rows, False))
+                           ).to(y.device)
+    ys = y[sel]
+    num = 1.0 / (1.0 + sum((ys[:, k, None] - y[None, :, k]) ** 2 for k in range(d)))
+    num[torch.arange(rows), sel] = 0.0
+    rep = (num.square().sum(1)[:, None] * ys - num.square() @ y) / z
+    del num
+    dif = y[:, None, :] - y[idx]
+    num_k = 1.0 / (1.0 + (dif * dif).sum(2))
+    f = (p_cond.double() / (2.0 * n) * num_k)[:, :, None] * dif
+    attr = f.sum(1) - torch.zeros_like(y).index_add_(0, idx.reshape(-1), f.reshape(-1, d))
+    grad = 4.0 * (attr[sel] - rep)
+    g = torch.clamp(torch.where((grad > 0) == (vel[sel] > 0), gains[sel] * 0.8,
+                                gains[sel] + 0.2), min=0.01)
+    want_v = float(momentum) * vel[sel] - float(lr) * g * grad
+    ps = p_sym.double()
+    want_kl = torch.sum(torch.where(ps > 0, ps * torch.log(
+        torch.clamp(ps, min=1e-12) / torch.clamp(num_k / z, min=1e-12)), 0.0))
+    v_rel = float(torch.linalg.norm(got_v[sel].double() - want_v) / torch.linalg.norm(want_v))
+    kl_rel = float(abs(float(got_kl) - float(want_kl)) / abs(float(want_kl)))
+    return {"rows": rows, "velocity_norm_rel": v_rel, "kl_rel": kl_rel,
+            "ok": v_rel <= 1e-4 and kl_rel <= 1e-5}
+
+
+def learning_pubsub():
+    """(h) a TensorBroker on loopback feeding bench config 1's MLP."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.streaming import (NDArrayPublisher, StreamingDataSetIterator,
+                                                    TensorBroker)
+
+    xs, ys = mlp_data()
+    rng = np.random.default_rng(SEED + 96)
+    picks = [rng.choice(MLP_ROWS, MLP_BATCH, replace=False) for _ in range(PUBSUB_BATCHES)]
+    eye = np.eye(MLP_CLASSES, dtype=np.float32)
+    batches = [(xs[p], eye[ys[p]]) for p in picks]
+    net = mlp_net("cuda")
+    broker = TensorBroker().start()
+    try:
+        it = StreamingDataSetIterator(broker.address, max_batches=PUBSUB_BATCHES, timeout=60)
+        time.sleep(0.1)
+        fpub = NDArrayPublisher(broker.address, "features").connect()
+        lpub = NDArrayPublisher(broker.address, "labels").connect()
+
+        def publish():
+            for x, y in batches:
+                fpub.publish(x)
+                lpub.publish(y)
+        th = threading.Thread(target=publish, daemon=True)
+        t0 = time.perf_counter()
+        th.start()
+        losses, mismatched, nbytes = [], 0, 0
+        for k, ds in enumerate(it):
+            x, y = batches[k]
+            if not (np.array_equal(ds.features, x) and np.array_equal(ds.labels, y)):
+                mismatched += 1
+            nbytes += ds.features.nbytes + ds.labels.nbytes
+            losses.append(net.fit_batch(ds))
+        losses = [float(v) for v in losses]
+        wall = time.perf_counter() - t0
+        th.join(timeout=60)
+        it.close()
+        fpub.close()
+        lpub.close()
+    finally:
+        broker.stop()
+    falls = float(np.mean(losses[-10:])) < float(np.mean(losses[:10]))
+    rec = {"batches": len(losses), "batch": [MLP_BATCH, MLP_IN], "bytes": nbytes,
+           "seconds": wall, "mb_per_s": nbytes / 1e6 / wall, "mismatched_batches": mismatched,
+           "loss_first10": float(np.mean(losses[:10])), "loss_last10": float(np.mean(losses[-10:]))}
+    ok = len(losses) == PUBSUB_BATCHES and mismatched == 0 and falls
+    return rec, ([] if ok else [f"pubsub: {len(losses)} batches, {mismatched} mismatched, "
+                                f"falls {falls}"])
+
+
+def phase_learning():
+    """The learning phase, (a)-(h) (the module docstring)."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    counters = all_launch_counters()
+    before = {n: c.launches for n, c in counters.items()}
+    bad, out = [], {}
+    for name, arm in (("w2v_bench", learning_w2v_bench), ("w2v_wide", learning_w2v_wide),
+                      ("modes", learning_modes), ("distributed", learning_distributed),
+                      ("deepwalk", learning_deepwalk), ("knn", learning_knn),
+                      ("kmeans", learning_kmeans), ("tsne", learning_tsne),
+                      ("pubsub", learning_pubsub)):
+        t = time.perf_counter()
+        out[name], b = arm()
+        out[name]["seconds_arm"] = time.perf_counter() - t
+        bad += b
+        emit({"phase": "learning", "arm": name, **out[name]})
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {n: c.launches - before[n] for n, c in counters.items()}
+    rec = {"phase": "learning", "seconds": time.perf_counter() - t0, "failed": bad,
+           "launches": launches}
+    emit(rec)
+    if bad:
+        raise AssertionError(f"learning phase failed: {bad}")
+    if any(launches.values()):
+        raise AssertionError(f"the learning phase launched a kernel: {launches}")
+    return rec
+
+
 def trace_probe(n: int) -> None:
     """``--trace-probe N``: the serve and predict phases, each traced
     replay taken N times hard against the trace's ends (pause 0) and N
@@ -7309,7 +8182,7 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:3] in (["sharded"], ["elastic"],
                                                           ["predict_features"], ["fleet"],
-                                                          ["flywheel"]):
+                                                          ["flywheel"], ["learning"]):
         card = card_line()
         emit({"torch": torch.__version__, "device": torch.cuda.get_device_name(0),
               "card": card})
@@ -7317,7 +8190,7 @@ def main() -> int:
         {"sharded": phase_sharded, "elastic": phase_elastic,
          "predict_features": lambda: phase_predict_features(build_model()),
          "fleet": lambda: phase_fleet(build_model()),
-         "flywheel": phase_flywheel}[sys.argv[2]]()
+         "flywheel": phase_flywheel, "learning": phase_learning}[sys.argv[2]]()
         print(card, flush=True)
         return 0
     card = card_line()
@@ -7358,6 +8231,7 @@ def main() -> int:
     flywheel = phase_flywheel()["launches"]
     if any(flywheel.values()):
         raise AssertionError(f"the flywheel phase launched a kernel: {flywheel}")
+    phase_learning()                      # launches none of K1-K6 or D1 (gated)
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda",
@@ -7416,7 +8290,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     ranks = {"--compressed-rank": "compressed_rank", "--sharded-rank": "sharded_rank",
-             "--model-axis-rank": "model_axis_rank", "--elastic-rank": "elastic_rank"}
+             "--model-axis-rank": "model_axis_rank", "--elastic-rank": "elastic_rank",
+             "--learning-rank": "learning_rank"}
     if sys.argv[1:2] and sys.argv[1] in ranks:
         globals()[ranks[sys.argv[1]]](int(sys.argv[2]), sys.argv[3])
         sys.exit(0)

@@ -19,12 +19,13 @@ tensor on the logits' device and no read back to the host, so the fused
 multi-step decode (``DecodeProgram.step_multi``) can run inside a CUDA
 graph; ``sample_tokens`` takes host lists and gives the same bits.
 ``uniform`` and ``gumbel_from_key`` draw from any key, for speculative
-decoding's own streams.
+decoding's own streams; ``split``, ``randint`` and ``uniform`` over a
+row are jax's, for the word2vec negative sampler.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -127,12 +128,42 @@ def xla_cpu_log(x: Tensor) -> Tensor:
     return t + e * _LOG_Q2
 
 
-def uniform(key: Tuple[Tensor, Tensor]) -> Tensor:
-    """``jax.random.uniform(key)``, one float32 draw over [0, 1) per key,
-    bitwise; the key words share any shape, which the result takes."""
-    bits = random_bits((key[0].reshape(-1, 1), key[1].reshape(-1, 1)), 1)
+def uniform(key: Tuple[Tensor, Tensor], n: Optional[int] = None) -> Tensor:
+    """``jax.random.uniform(key)`` over [0, 1) in float32, bitwise: one
+    draw per key (``n`` None; the result takes the key words' shape), or
+    ``jax.random.uniform(key, (n,))`` per key (shape ``[*key, n]``; a
+    draw of any shape is this one of its element count, reshaped)."""
+    bits = random_bits((key[0].reshape(-1, 1), key[1].reshape(-1, 1)), n or 1)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return f.reshape(key[0].shape)
+    return f.reshape(key[0].shape) if n is None else f.reshape(*key[0].shape, n)
+
+
+def split(key: Tuple[Tensor, Tensor], num: int = 2) -> List[Tuple[Tensor, Tensor]]:
+    """``jax.random.split(key, num)`` in partitionable mode: key ``j``
+    hashes the count pair (0, j).  Key words of any shape split
+    elementwise."""
+    k0, k1 = key[0].unsqueeze(-1), key[1].unsqueeze(-1)
+    j = torch.arange(num, dtype=torch.int64, device=key[0].device)
+    b1, b2 = threefry2x32(k0, k1, torch.zeros_like(j), j)
+    return [(b1[..., i], b2[..., i]) for i in range(num)]
+
+
+def randint(key: Tuple[Tensor, Tensor], n: int, minval: int, maxval: int) -> Tensor:
+    """``jax.random.randint(key, (n,), minval, maxval)``'s int32 values (as
+    int64), one row of ``n`` per key, shape ``[*key, n]``: two 32-bit draws
+    from the key's split, reduced by jax's span-multiplier rule
+    ``((hi % span) * m + lo % span) % span`` with ``m = (2**16 % span)**2
+    % span`` and every product and sum wrapped to uint32, as jax computes
+    it (so ``m`` is 0 for spans of 2**16 and more)."""
+    k1, k2 = split(key)
+    flat = lambda k: (k[0].reshape(-1, 1), k[1].reshape(-1, 1))
+    hi, lo = random_bits(flat(k1), n), random_bits(flat(k2), n)
+    span = max(int(maxval) - int(minval), 1)
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _M32) % span       # uint32: 0 once span >= 2**16
+    off = (((hi % span) * mult) & _M32) + lo % span
+    off = (off & _M32) % span
+    return (off + int(minval)).reshape(*key[0].shape, n)
 
 
 def gumbel_from_key(key: Tuple[Tensor, Tensor], n: int) -> Tensor:

@@ -76,7 +76,14 @@ busy, a slow consumer's queued reads of a dropped batch still see it
 (``record_stream``), a ``fit_batches`` capture beside a live producer
 completes bitwise two ``fit_batch`` calls, and a canary's p99 reads the
 replays' device time, so a host pause inside the candidate's forward does
-not veto it.
+not veto it.  The learning libraries: the negative sampler's draws on the
+card bitwise the CPU's; the ordered row scatter deterministic (and, for
+rows of 128 or 300, bitwise the CPU's serial ``index_add_``); Word2Vec
+(SG, CBOW, SG-HS) and PV-DBOW/DM fits stacking 16 batches bitwise
+one-batch, repeat and eager (no CUDA graph) fits, and within rtol 1e-4,
+atol 1e-5 of the CPU's, as GloVe is; kNN tie order the CPU's; and the
+chunked t-SNE's peak memory at 100,000 points under 1/10 of a dense
+[N, N] f32 buffer.
 """
 
 import importlib.util
@@ -2282,3 +2289,173 @@ def test_canary_latency_verdict_reads_the_replays_device_time(cuda_dev, monkeypa
     assert created and decision["mirrored_batches"] == 4
     assert decision["promote"], decision
     assert decision["canary_p99_ms"] < 10.0
+
+
+# -- the learning libraries (nlp/, clustering/, plot/) ---------------------------
+
+
+def _zipf_sentences(n, vocab, length, seed):
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, vocab + 1) ** 1.1
+    return [" ".join(f"w{i}" for i in rng.choice(vocab, size=length, p=p / p.sum()))
+            for _ in range(n)]
+
+
+def test_negatives_on_the_card_are_the_cpus_bitwise(cuda_dev):
+    """The threefry sampler's draws on the card are the CPU's (which the
+    CPU tests hold bitwise to ``jax.random``), at several seeds, counters
+    and vocabulary sizes."""
+    from deeplearning4j_tpu_torch.nlp.sequencevectors import _build_alias_table, _device_negs
+
+    counters = torch.tensor([0, 1, 15, 16, 4095, 2**31 + 3])
+    for vocab in (16, 2000, 100_000):
+        p = 1.0 / np.arange(1, vocab + 1) ** 1.1
+        prob, alias = _build_alias_table(p ** 0.75 / np.sum(p ** 0.75))
+        cpu_t = (torch.from_numpy(prob.astype(np.float32)), torch.from_numpy(alias))
+        dev_t = tuple(t.to(cuda_dev) for t in cpu_t)
+        for seed in (0, 3_482_212_781, 2**32 - 1):
+            key = ts.prng_key(torch.tensor(seed))
+            want = _device_negs(key, counters, cpu_t, 5, 4096)
+            got = _device_negs(tuple(w.to(cuda_dev) for w in key), counters.to(cuda_dev),
+                               dev_t, 5, 4096)
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("width", [128, 300, 1])
+def test_ordered_scatter_on_the_card(cuda_dev, width):
+    """``add_rows`` on the card (``index_put_(accumulate=True)``, CUDA's
+    sort-based path) sums repeated rows deterministically: a second call is
+    bitwise the first; rows of width 128 and 300 are bitwise the CPU's
+    serial ``index_add_`` (each row's duplicates added in index order).  A
+    1-D table (GloVe's biases and AdaGrad sums) takes CUDA's stride-1
+    kernel, which adds an entry's duplicates in another fixed order: it is
+    held to the float64 sum within 16 x 2^-24 x sqrt(sum of s_k^2), s_k the
+    entry's partial sums in index order (the spread of f32 rounding over
+    the entry's additions), and every term is at least 0.5 in magnitude,
+    above every entry's bound, so a dropped or doubled term fails."""
+    from deeplearning4j_tpu_torch.ops.scatter import add_rows
+
+    rng = np.random.default_rng(width)
+    shape = (1000,) if width == 1 else (1000, width)
+    table = rng.standard_normal(shape, dtype=np.float32)
+    idx = (rng.zipf(1.3, 50_000) % 1000).astype(np.int64)       # heavy repeats
+    rows = (rng.choice([-1.0, 1.0], (50_000,) + shape[1:])
+            * rng.uniform(0.5, 1.5, (50_000,) + shape[1:])).astype(np.float32)
+    want = add_rows(torch.from_numpy(table.copy()), torch.from_numpy(idx),
+                    torch.from_numpy(rows))
+    dev = [add_rows(torch.from_numpy(table.copy()).to(cuda_dev), torch.from_numpy(idx).to(cuda_dev),
+                    torch.from_numpy(rows).to(cuda_dev)).cpu() for _ in range(2)]
+    assert torch.equal(dev[0], dev[1])
+    if width == 1:
+        order = np.argsort(idx, kind="stable")
+        starts = np.searchsorted(idx[order], np.arange(1000))
+        terms = np.insert(rows[order].astype(np.float64), starts, table.astype(np.float64))
+        owner = np.insert(idx[order], starts, np.arange(1000))
+        cum = np.cumsum(terms)
+        partial = cum - np.repeat(np.r_[0.0, cum][starts + np.arange(1000)],
+                                  np.bincount(owner, minlength=1000))
+        exact = np.bincount(owner, weights=terms, minlength=1000)
+        bound = 16 * 2.0 ** -24 * np.sqrt(np.bincount(owner, weights=partial ** 2,
+                                                      minlength=1000))
+        assert bound.max() < 0.5
+        err = np.abs(dev[0].numpy() - exact)
+        assert (err <= bound).all(), f"worst error/bound {np.max(err / bound)}"
+    else:
+        assert torch.equal(dev[0], want)
+
+
+@pytest.mark.parametrize("mode", ["sg", "cbow", "sg_hs", "dbow", "dm"])
+def test_word2vec_on_the_card_stacks_bitwise_and_matches_the_cpu(cuda_dev, mode):
+    """A fit stacking 16 batches a dispatch is bitwise a one-batch fit, a
+    repeat fit and an eager fit (no CUDA graph replays) on the card; the
+    card's tables are within rtol 1e-4, atol 1e-5 of the port's on the CPU
+    from the same seed.  ParagraphVectors' inferences (the first eager, the
+    second captured, the third replayed) are bitwise eager ones."""
+    from deeplearning4j_tpu_torch.nlp import ParagraphVectors, Word2Vec
+
+    sents = _zipf_sentences(400, 300, 12, 0)
+
+    def fit(device, k, graphs=True):
+        if mode in ("dbow", "dm"):
+            m = ParagraphVectors(dm=mode == "dm", layer_size=32, window=3, epochs=2,
+                                 batch_size=256, seed=2, device=device)
+        else:
+            m = Word2Vec(layer_size=32, window=4, min_word_frequency=1, epochs=2,
+                         batch_size=256, seed=2, subsampling=0, cbow=mode == "cbow",
+                         hierarchic_softmax=mode == "sg_hs", device=device)
+        m._device_batches = k
+        m._graphs = graphs
+        m.fit(sents)
+        return m
+    model = fit(cuda_dev, 16)
+    card = model.syn0, model.syn1
+    one, again = fit(cuda_dev, 1), fit(cuda_dev, 16)
+    eager, cpu = fit(cuda_dev, 16, graphs=False), fit("cpu", 16)
+    if mode in ("dbow", "dm"):
+        docs = [s.split() for s in sents[:3]]
+        replayed = [model.infer_vector(d, seed=i) for i, d in enumerate(docs)]
+        model._graphs = False
+        for i, d in enumerate(docs):
+            np.testing.assert_array_equal(replayed[i], model.infer_vector(d, seed=i))
+    one, again, eager, cpu = ((m.syn0, m.syn1) for m in (one, again, eager, cpu))
+    for a, b, c, e, d in zip(card, one, again, eager, cpu):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(a, e)
+        np.testing.assert_allclose(a, d, rtol=1e-4, atol=1e-5)
+
+
+def test_glove_on_the_card_repeats_and_matches_the_cpu(cuda_dev):
+    from deeplearning4j_tpu_torch.nlp import Glove
+
+    sents = _zipf_sentences(300, 200, 15, 1)
+    kw = dict(layer_size=32, window=5, epochs=4, batch_size=512, seed=3)
+    a = Glove(device=cuda_dev, **kw).fit(sents)
+    b = Glove(device=cuda_dev, **kw).fit(sents)
+    c = Glove(device="cpu", **kw).fit(sents)
+    np.testing.assert_array_equal(a.syn0, b.syn0)
+    np.testing.assert_allclose(a.syn0, c.syn0, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(a.losses, c.losses, rtol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "manhattan"])
+@pytest.mark.parametrize("col_block", [1 << 17, 7])
+def test_knn_tie_order_on_the_card(cuda_dev, metric, col_block, monkeypatch):
+    """Integer points with exact duplicates: the card's neighbours and their
+    order among ties are the CPU port's (the lower index first, held to
+    ``jax.lax.top_k`` by the CPU tests), across column tiles too."""
+    from deeplearning4j_tpu_torch.clustering import NearestNeighbors
+    from deeplearning4j_tpu_torch.clustering import knn as tknn
+
+    monkeypatch.setattr(tknn, "COLUMN_BLOCK", col_block)
+    rng = np.random.default_rng(0)
+    base = rng.integers(-2, 3, (12, 4)).astype(np.float32)
+    pts = base[rng.integers(0, 12, 90)]
+    q = np.concatenate([base[:5], rng.integers(-2, 3, (9, 4)).astype(np.float32)])
+    for k in (1, 4, 11, 90):
+        d, i = NearestNeighbors(pts, metric=metric, query_block=5, device=cuda_dev).knn(q, k)
+        cd, ci = NearestNeighbors(pts, metric=metric, device="cpu").knn(q, k)
+        np.testing.assert_array_equal(i, ci)
+        np.testing.assert_allclose(d, cd, rtol=1e-6, atol=1e-6)
+
+
+def test_chunked_tsne_peak_memory_is_block_bounded(cuda_dev):
+    """100,000 points through the chunked t-SNE (kNN, bisection,
+    symmetrization and 2 gradient iterations): the peak device memory
+    above the start stays under 1/10 of one dense [N, N] f32 buffer (4
+    GB), and the embedding is finite."""
+    from deeplearning4j_tpu_torch.plot import Tsne
+
+    rng = np.random.default_rng(0)
+    n = 100_000
+    c = rng.normal(0, 4.0, (10, 16))
+    x = (c[rng.integers(0, 10, n)] + rng.normal(0, 0.5, (n, 16))).astype(np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y = Tsne(method="chunked", perplexity=30.0, max_iter=2, block_size=1024,
+             device=cuda_dev).fit_transform(x)
+    peak = torch.cuda.max_memory_allocated() - base
+    assert np.isfinite(y).all() and y.shape == (n, 2)
+    assert peak < 4 * n * n / 10, f"peak {peak} bytes"

@@ -1,7 +1,9 @@
 """The public names the ported modules lacked against the reference's:
 ``ops.initializers.WeightInit``, ``ops.dtypes.DTypePolicy`` with
 ``default_policy`` / ``mixed_policy`` (exported from ``ops``),
-``LSTM.step`` / ``zero_carry`` and ``ShardedTrainer.shard_dataset``."""
+``LSTM.step`` / ``zero_carry`` and ``ShardedTrainer.shard_dataset``; the
+exports of ``serving``, ``datasets``, ``evaluation`` and the learning
+packages (``nlp``, ``graph``, ``clustering``, ``plot``, ``streaming``)."""
 
 import jax
 import jax.numpy as jnp
@@ -127,4 +129,19 @@ def test_datasets_and_evaluation_export_the_references_names(pkg):
     names = {n for n, v in vars(j).items()
              if not n.startswith("_") and not isinstance(v, types.ModuleType)}
     assert names and names <= set(t.__all__)
+    assert all(hasattr(t, n) for n in t.__all__)
+
+
+@pytest.mark.parametrize("pkg", ["nlp", "graph", "clustering", "plot", "streaming"])
+def test_learning_libraries_export_the_references_names(pkg):
+    """The five learning packages export exactly the reference's public
+    names, each present."""
+    import importlib
+    import types
+
+    j = importlib.import_module(f"deeplearning4j_tpu.{pkg}")
+    t = importlib.import_module(f"deeplearning4j_tpu_torch.{pkg}")
+    names = {n for n, v in vars(j).items()
+             if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+    assert names and set(t.__all__) == names
     assert all(hasattr(t, n) for n in t.__all__)
