@@ -16,6 +16,8 @@
                                            # phase alone
     python3 chip_smoke.py --phase learning # the build and the learning
                                            # phase alone
+    python3 chip_smoke.py --phase ui       # the build and the ui phase
+                                           # alone
 
 It builds every CUDA kernel of the port from ``deeplearning4j_tpu_torch/csrc``
 with ``nvcc`` (one process per source, started together), then drives the
@@ -568,6 +570,51 @@ and the recurrent path's training and streaming:
           1's MLP ``fit_batch`` on the card: every batch consumed bitwise
           the one published, the loss falls (mean of the last 10 below the
           first 10), MB/s.
+  ui      the training UI, the Keras importer and the wrappers.  (a)
+          GPT-2-small (f32, [8, 1024], K4 on) takes 6 ``fit_batch`` steps in
+          each of four arms (the yardstick's 3, ~6 s each): no listener;
+          ``StatsListener`` (every iteration, 20-bin histograms: each
+          leaf's statistics computed on the card, one copy of every leaf's
+          min and max and one of all the numbers to the host); the same
+          without histograms; and the reference's host route as a
+          yardstick (every leaf copied to the host, numpy's statistics:
+          ``host_stats_listener``), beside which the device route rides on
+          the same parameters, timed apart.
+          Each arm prints step ms (median; the yardstick's also less the
+          rider's time), the listener's ms per recorded iteration (timed
+          alone, the step synced out) and peak memory.  The gate, on the
+          yardstick arm's 3 records of both routes: histogram counts and
+          edges equal, min and max bitwise, std, mean magnitude and update
+          ratios within rtol 1e-5, the mean within 1e-5 x the mean
+          magnitude, ``memory`` present and nonzero.  (b) ``train --zoo
+          resnet50 --data <npz> --prefetch 2 --dashboard`` (bench config
+          3: 512 uint8 [224, 224, 3] images, 4 steps of 128) in this
+          process: exit 0, the page names ``cli_train``, every record
+          carries ``input_pipeline`` with a ``stall_fraction``.  (c) LeNet
+          (bench config 2) posts its records through a
+          ``RemoteStatsRouter`` to ``UIServer(port=0).attach(storage)
+          .enable_remote_listener()`` in this process, beside a local
+          storage on the same pinned clock: the stored records equal the
+          local ones (but ``memory``: each listener's own copy of the
+          parameters moves the allocator's count), ``/metrics``
+          ``sessions`` counts them, ``/trace`` (tracing on) validates as a
+          Chrome trace and holds the fit's span, ``/train/0/lenet``
+          answers 200.  (d) ``profile_trace`` around 2 GPT-2 steps: its
+          span says the profiler started and the written trace names
+          ``flash_fwd`` and ``fused_update`` kernels.  (e) Keras VGG16
+          (Sequential, 138,357,544 weights) and ResNet50 (functional,
+          25,636,712: ZeroPadding2D, BN epsilon 1.001e-5, Add,
+          GlobalAveragePooling2D) built by ``keras_vgg16`` /
+          ``keras_resnet50`` with numpy weights from a seed, imported
+          through the importer's stages after the read from memory
+          (``KerasFile``, no ``h5py`` needed): the published weight
+          counts, ``output()`` on 4 images on the card within 1e-4 of the
+          port on the CPU, VGG16's categorical cross-entropy head takes a
+          ``fit_batch`` with a finite loss (the functional import makes
+          no loss head, as the reference's); a ``NeuralNetClassifier`` on
+          bench config 1's MLP fits one epoch on the card and ``predict``
+          is the argmax of its network's ``output``.  K1-K4's launches in
+          (a), (b) and (d) go on the kernels line.
 
 Each phase prints JSON lines; then one ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -8140,6 +8187,649 @@ def phase_learning():
     return rec
 
 
+# -- ui phase ----------------------------------------------------------------------
+
+
+class KerasFile:
+    """A Keras 2 full-model file held in memory: the ``model_config`` and
+    ``training_config`` attributes and each layer's weight arrays under
+    ``model_weights``.  It has the ``Hdf5Archive`` read methods the
+    importer's stages after the read call, so they take it where ``h5py``
+    is not installed; ``write(path)`` saves the same file with ``h5py``."""
+
+    def __init__(self, model_config, weights, training_config=None):
+        self.attrs = {"model_config": json.dumps(model_config)}
+        if training_config is not None:
+            self.attrs["training_config"] = json.dumps(training_config)
+        self.weights = weights
+
+    def has_attr(self, name, group=None) -> bool:
+        return group is None and name in self.attrs
+
+    def read_attr_as_json(self, name, group=None):
+        return json.loads(self.attrs[name])
+
+    def has_group(self, path) -> bool:
+        return path == "model_weights"
+
+    def layer_weights(self, root, layer_name) -> dict:
+        return dict(self.weights.get(layer_name, {}))
+
+    def write(self, path) -> None:
+        """The same model as a Keras 2 ``.h5`` file (h5py)."""
+        import h5py
+        import numpy as np
+
+        with h5py.File(path, "w") as f:
+            for k, v in self.attrs.items():
+                f.attrs[k] = v
+            mw = f.create_group("model_weights")
+            mw.attrs["layer_names"] = np.array([n.encode() for n in self.weights], dtype="S64")
+            for lname, ws in self.weights.items():
+                g = mw.create_group(lname)
+                g.attrs["weight_names"] = np.array(
+                    [f"{lname}/{wn}:0".encode() for wn in ws], dtype="S128")
+                for wn, arr in ws.items():
+                    g.create_dataset(f"{lname}/{wn}:0", data=arr)
+
+    def n_weights(self) -> int:
+        """Every weight's element count, the BN moving statistics included
+        (Keras's "Total params")."""
+        return sum(int(a.size) for ws in self.weights.values() for a in ws.values())
+
+
+class _KerasLayers:
+    """Layer configs and He-scaled weights from a numpy generator, the way
+    ``keras.applications`` names and shapes them."""
+
+    def __init__(self, rng, functional: bool):
+        self.rng, self.functional = rng, functional
+        self.layers, self.weights = [], {}
+
+    def add(self, cls, name, inputs=(), **cfg):
+        cfg = {"name": name, **cfg}
+        ld = {"class_name": cls, "config": cfg}
+        if self.functional:
+            ld["name"] = name
+            ld["inbound_nodes"] = [[[i, 0, 0, {}] for i in inputs]] if inputs else []
+        self.layers.append(ld)
+        return name
+
+    def conv(self, name, cin, cout, k, stride=1, padding="valid", activation="linear",
+             inputs=()):
+        import numpy as np
+        self.weights[name] = {
+            "kernel": (self.rng.standard_normal((k, k, cin, cout), dtype=np.float32)
+                       * np.float32(math.sqrt(2.0 / (k * k * cin)))),
+            "bias": self.rng.standard_normal(cout, dtype=np.float32) * np.float32(0.01)}
+        return self.add("Conv2D", name, inputs, filters=cout, kernel_size=[k, k],
+                        strides=[stride, stride], padding=padding, activation=activation,
+                        use_bias=True, data_format="channels_last", dilation_rate=[1, 1])
+
+    def bn(self, name, c, inputs=(), gamma=1.0):
+        import numpy as np
+        r = self.rng
+        self.weights[name] = {
+            "gamma": (gamma * (1 + 0.1 * r.standard_normal(c))).astype(np.float32),
+            "beta": (0.1 * r.standard_normal(c)).astype(np.float32),
+            "moving_mean": (0.1 * r.standard_normal(c)).astype(np.float32),
+            "moving_variance": r.uniform(0.5, 1.5, c).astype(np.float32)}
+        return self.add("BatchNormalization", name, inputs, axis=3, momentum=0.99,
+                        epsilon=1.001e-5, center=True, scale=True)
+
+    def dense(self, name, cin, cout, activation, inputs=()):
+        import numpy as np
+        scale = math.sqrt((1.0 if activation == "softmax" else 2.0) / cin)
+        self.weights[name] = {
+            "kernel": self.rng.standard_normal((cin, cout), dtype=np.float32) * np.float32(scale),
+            "bias": np.zeros(cout, np.float32)}
+        return self.add("Dense", name, inputs, units=cout, activation=activation,
+                        use_bias=True)
+
+
+def keras_vgg16(seed, hw=224, classes=1000, widths=(64, 128, 256, 512, 512), fc=4096):
+    """``keras.applications.VGG16`` as a Keras 2 ``Sequential`` model
+    (its layers, names and shapes: 13 3x3 convolutions in five blocks,
+    each closed by a 2x2 max pool, then fc1, fc2, predictions), with a
+    categorical cross-entropy training config: 138,357,544 weights at the
+    published widths."""
+    import numpy as np
+    k = _KerasLayers(np.random.default_rng(seed), functional=False)
+    cin, first = 3, True
+    for b, (w, n) in enumerate(zip(widths, (2, 2, 3, 3, 3)), start=1):
+        for i in range(1, n + 1):
+            k.conv(f"block{b}_conv{i}", cin, w, 3, padding="same", activation="relu")
+            if first:
+                k.layers[-1]["config"]["batch_input_shape"] = [None, hw, hw, 3]
+                first = False
+            cin = w
+        k.add("MaxPooling2D", f"block{b}_pool", pool_size=[2, 2], strides=[2, 2],
+              padding="valid", data_format="channels_last")
+    k.add("Flatten", "flatten")
+    side = hw // 32
+    k.dense("fc1", side * side * cin, fc, "relu")
+    k.dense("fc2", fc, fc, "relu")
+    k.dense("predictions", fc, classes, "softmax")
+    return KerasFile({"class_name": "Sequential", "config": {"name": "vgg16",
+                                                             "layers": k.layers}},
+                     k.weights, {"loss": "categorical_crossentropy"})
+
+
+RESNET50_STAGES = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2))
+
+
+def keras_resnet50(seed, hw=224, classes=1000, stem=64, stages=RESNET50_STAGES):
+    """``keras.applications.ResNet50`` as a Keras 2 functional ``Model``
+    the way it builds one: ZeroPadding2D 3 and a 7x7/2 convolution,
+    BatchNormalization (epsilon 1.001e-5), ZeroPadding2D 1 and a 3x3/2 max
+    pool, then per stage (filters, blocks, stride) bottleneck blocks
+    ``convS_blockB_{0,1,2,3}_{conv,bn}`` (a projection shortcut in the
+    first block, the stride on its 1x1 convolutions) closed by ``Add`` and
+    a ReLU, then GlobalAveragePooling2D and the softmax head: 25,636,712
+    weights at the published widths.  The last BN of each block starts at
+    a small scale so random activations stay finite through 16 blocks."""
+    import numpy as np
+    k = _KerasLayers(np.random.default_rng(seed), functional=True)
+    x = k.add("InputLayer", "input_1", batch_input_shape=[None, hw, hw, 3],
+              dtype="float32", sparse=False)
+    x = k.add("ZeroPadding2D", "conv1_pad", [x], padding=[[3, 3], [3, 3]],
+              data_format="channels_last")
+    x = k.conv("conv1_conv", 3, stem, 7, stride=2, inputs=[x])
+    x = k.bn("conv1_bn", stem, [x])
+    x = k.add("Activation", "conv1_relu", [x], activation="relu")
+    x = k.add("ZeroPadding2D", "pool1_pad", [x], padding=[[1, 1], [1, 1]],
+              data_format="channels_last")
+    x = k.add("MaxPooling2D", "pool1_pool", [x], pool_size=[3, 3], strides=[2, 2],
+              padding="valid", data_format="channels_last")
+    cin = stem
+    for s, (filters, blocks, stride) in enumerate(stages, start=2):
+        for b in range(1, blocks + 1):
+            name = f"conv{s}_block{b}"
+            st = stride if b == 1 else 1
+            if b == 1:
+                sc = k.conv(f"{name}_0_conv", cin, 4 * filters, 1, stride=st, inputs=[x])
+                sc = k.bn(f"{name}_0_bn", 4 * filters, [sc])
+            else:
+                sc = x
+            y = k.conv(f"{name}_1_conv", cin, filters, 1, stride=st, inputs=[x])
+            y = k.bn(f"{name}_1_bn", filters, [y])
+            y = k.add("Activation", f"{name}_1_relu", [y], activation="relu")
+            y = k.conv(f"{name}_2_conv", filters, filters, 3, padding="same", inputs=[y])
+            y = k.bn(f"{name}_2_bn", filters, [y])
+            y = k.add("Activation", f"{name}_2_relu", [y], activation="relu")
+            y = k.conv(f"{name}_3_conv", filters, 4 * filters, 1, inputs=[y])
+            y = k.bn(f"{name}_3_bn", 4 * filters, [y], gamma=0.2)
+            y = k.add("Add", f"{name}_add", [sc, y])
+            x = k.add("Activation", f"{name}_out", [y], activation="relu")
+            cin = 4 * filters
+    x = k.add("GlobalAveragePooling2D", "avg_pool", [x], data_format="channels_last")
+    k.dense("predictions", cin, classes, "softmax", inputs=[x])
+    return KerasFile({"class_name": "Functional", "config": {
+        "name": "resnet50", "layers": k.layers, "input_layers": [["input_1", 0, 0]],
+        "output_layers": [["predictions", 0, 0]]}}, k.weights,
+        {"loss": "categorical_crossentropy"})
+
+
+UI_STEPS = 6                 # (a)'s fit_batch calls per arm
+UI_HOST_STEPS = 3            # the yardstick arm's (~6 s a record on the host)
+UI_BINS = 20
+UI_RESNET_ROWS = 512         # (b): 4 steps of bench config 3's batch
+UI_LENET_STEPS = 4
+UI_KERAS_ROWS = 4
+
+
+def host_leaf_stats(arr, bins: int, with_histogram: bool = True) -> dict:
+    """(a)'s yardstick: a copy of the reference's numpy ``_leaf_stats``
+    (``deeplearning4j_tpu/ui/stats.py``)."""
+    import numpy as np
+    a = np.asarray(arr, np.float32).ravel()
+    if a.size == 0:
+        return {}
+    out = {
+        "mean": float(a.mean()), "std": float(a.std()),
+        "min": float(a.min()), "max": float(a.max()),
+        "mean_magnitude": float(np.abs(a).mean()),
+    }
+    if with_histogram:
+        hist, edges = np.histogram(a, bins=bins)
+        out["histogram"] = hist.tolist()
+        out["histogram_edges"] = [float(edges[0]), float(edges[-1])]
+    return out
+
+
+def host_stats_listener(storage, **kw):
+    """(a)'s yardstick: the port's ``StatsListener`` with the reference's
+    host route put back: every leaf copied to the host (``.cpu()``) on
+    every recorded iteration, the previous parameters kept there, and
+    numpy's statistics of each leaf and delta."""
+    from deeplearning4j_tpu_torch.ui import StatsListener
+
+    class HostStatsListener(StatsListener):
+        def iteration_done(self, model, iteration, loss):
+            if iteration % self.update_frequency != 0:
+                return
+            now = self.clock()
+            record = {"iteration": int(iteration), "timestamp": now,
+                      "relative_time": now - self._start_time, "score": float(loss)}
+            if self._last_time is not None:
+                record["iterations_per_sec"] = self.update_frequency / max(
+                    now - self._last_time, 1e-9)
+            self._last_time = now
+            params_np, param_stats, update_stats, ratios = {}, {}, {}, {}
+            device = None
+            for name, key, v in self._param_items(model):
+                pid = f"{name}/{key}"
+                device = v.device
+                arr = v.detach().cpu().numpy()
+                params_np[pid] = arr
+                param_stats[pid] = host_leaf_stats(arr, self.histogram_bins,
+                                                   self.collect_histograms)
+                if self._last_params is not None and pid in self._last_params:
+                    ustats = host_leaf_stats(arr - self._last_params[pid],
+                                             self.histogram_bins, self.collect_histograms)
+                    update_stats[pid] = ustats
+                    pm = param_stats[pid].get("mean_magnitude", 0.0)
+                    um = ustats.get("mean_magnitude", 0.0)
+                    ratios[pid] = (um / pm / self.update_frequency) if pm > 0 else 0.0
+            self._last_params = params_np
+            record["parameters"] = param_stats
+            if update_stats:
+                record["updates"] = update_stats
+                record["update_ratios"] = ratios
+            mem = self._memory(device)
+            if mem:
+                record["memory"] = mem
+            self.storage.put_update(self.session_id, record)
+
+    return HostStatsListener(storage, **kw)
+
+
+class TimedListener:
+    """A listener timed alone: the step's work is synced out first, so each
+    entry of ``ms`` is the listener's own time for one recorded iteration."""
+
+    requires_model_state = True
+
+    def __init__(self, inner):
+        self.inner, self.ms = inner, []
+
+    def iteration_done(self, model, iteration, loss):
+        import torch
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        self.inner.iteration_done(model, iteration, loss)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t) * 1e3)
+
+    def epoch_done(self, model, epoch):
+        pass
+
+
+def records_agree(dev_recs, host_recs) -> list:
+    """(a)'s gate: the device route's records against the yardstick's on
+    the same parameters → the failures.  Histogram counts and edges equal,
+    min and max bitwise, std, mean magnitude and update ratios within rtol
+    1e-5, the mean within 1e-5 x the mean magnitude, ``memory`` present and
+    nonzero."""
+    bad = []
+    if len(dev_recs) != len(host_recs) or not dev_recs:
+        return [f"{len(dev_recs)} device records against {len(host_recs)}"]
+    for d, h in zip(dev_recs, host_recs):
+        it = h["iteration"]
+        if d.keys() != h.keys():
+            bad.append(f"@{it}: keys {sorted(d)} against {sorted(h)}")
+            continue
+        mem = d.get("memory", {})
+        if not mem.get("bytes_in_use") or not mem.get("peak_bytes_in_use"):
+            bad.append(f"@{it}: memory {mem}")
+        for section in ("parameters", "updates"):
+            for pid, want in h.get(section, {}).items():
+                got = d[section][pid]
+                if (got["histogram"] != want["histogram"]
+                        or got["histogram_edges"] != want["histogram_edges"]
+                        or (got["min"], got["max"]) != (want["min"], want["max"])):
+                    bad.append(f"@{it} {section} {pid}: histogram/edges/min/max")
+                for k in ("std", "mean_magnitude"):
+                    if abs(got[k] - want[k]) > 1e-5 * abs(want[k]):
+                        bad.append(f"@{it} {section} {pid} {k}: {got[k]} vs {want[k]}")
+                if abs(got["mean"] - want["mean"]) > 1e-5 * want["mean_magnitude"]:
+                    bad.append(f"@{it} {section} {pid} mean: {got['mean']} vs {want['mean']}")
+        for pid, want in h.get("update_ratios", {}).items():
+            if abs(d["update_ratios"][pid] - want) > 1e-5 * abs(want):
+                bad.append(f"@{it} ratio {pid}: {d['update_ratios'][pid]} vs {want}")
+    return bad
+
+
+def ui_gpt2(tmp):
+    """(a) GPT-2-small with and without the listener, and (d) the profiler
+    around two of its steps → (record, failures)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.obs import trace as obs_trace
+    from deeplearning4j_tpu_torch.ops import update_kernel as uk
+    from deeplearning4j_tpu_torch.ui import InMemoryStatsStorage, StatsListener, profile_trace
+
+    os.environ[uk.ENV_SWITCH] = "1"
+    net = build_model()
+    rng = np.random.default_rng(SEED + 400)
+    seq = rng.integers(0, VOCAB, (8, MAX_LEN + 1))
+    dev = torch.device("cuda")
+    ds = DataSet(torch.from_numpy(seq[:, :-1]).to(dev), torch.from_numpy(seq[:, 1:]).to(dev))
+    net.fit_batch(ds)                                   # warm-up, no listener
+    n_leaves = sum(len(p) for p in net.params)
+    clocks = [iter(range(10 ** 6)), iter(range(10 ** 6))]
+
+    def device(s, **kw):
+        return StatsListener(s, session_id="gpt2", **kw)
+
+    def host(s):
+        # the yardstick, and beside it the device route on the same
+        # parameters (timed apart) for the gate
+        return (host_stats_listener(s, session_id="gpt2", histogram_bins=UI_BINS,
+                                    clock=lambda: float(next(clocks[0]))),
+                device(InMemoryStatsStorage(), histogram_bins=UI_BINS,
+                       clock=lambda: float(next(clocks[1]))))
+    arms = (("a_none", lambda s: ()),
+            ("b_device_histograms", lambda s: (device(s, histogram_bins=UI_BINS),)),
+            ("c_device_no_histograms", lambda s: (device(s, collect_histograms=False),)),
+            ("d_host_yardstick", host))
+    out, bad = {"leaves": n_leaves, "arms": {}}, []
+    for name, make in arms:
+        storage = InMemoryStatsStorage()
+        timed = [TimedListener(lst) for lst in make(storage)]
+        steps = UI_HOST_STEPS if name == "d_host_yardstick" else UI_STEPS
+        net.set_listeners(*timed)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            net.fit_batch(ds)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        recs = storage.get_updates("gpt2")
+        arm = {"step_ms": walls, "median_step_ms": sorted(walls)[steps // 2],
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "records": len(recs)}
+        if timed:
+            ms = timed[0].ms
+            arm["listener_ms"] = ms
+            arm["median_listener_ms"] = sorted(ms)[len(ms) // 2]
+            later = sorted(ms[1:])               # the records with deltas
+            arm["median_listener_ms_with_deltas"] = later[len(later) // 2]
+            if len(recs) != steps:
+                bad.append(f"(a) {name}: {len(recs)} records of {steps} steps")
+        if len(timed) == 2:
+            # the gate: both routes' records on the same parameters
+            rider = timed[1].ms
+            arm["device_rider_ms"] = rider
+            arm["median_step_ms_less_rider"] = sorted(
+                w - r for w, r in zip(walls, rider))[steps // 2]
+            fails = records_agree(timed[1].inner.storage.get_updates("gpt2"), recs)
+            out["agreement"] = {"records": len(recs), "failures": fails[:20],
+                                "n_failures": len(fails)}
+            bad += [f"(a) {f}" for f in fails[:5]]
+        out["arms"][name] = arm
+        emit({"phase": "ui", "arm": "gpt2", "case": name, **arm})
+    emit({"phase": "ui", "arm": "gpt2_agreement", **out["agreement"]})
+    # (d) the profiler around two steps
+    net.set_listeners()
+    obs_trace.enable_tracing()
+    logdir = os.path.join(tmp, "profile")
+    try:
+        with profile_trace(logdir):
+            for _ in range(2):
+                net.fit_batch(ds)
+            torch.cuda.synchronize()
+        spans = [e for e in obs_trace.get_recorder().export()["traceEvents"]
+                 if e["name"].startswith("profiler/")]
+    finally:
+        obs_trace.disable_tracing()
+    files = sorted(os.listdir(logdir)) if os.path.isdir(logdir) else []
+    names = set()
+    for f in files:
+        with open(os.path.join(logdir, f)) as fh:
+            names |= {e.get("name", "") for e in json.load(fh).get("traceEvents", [])
+                      if e.get("cat") == "kernel"}
+    kernels = {k: sorted(n for n in names if k in n) for k in ("flash_fwd", "fused_update")}
+    prof = {"spans": [(e["name"], e.get("args", {}).get("backend_started")) for e in spans],
+            "files": files, "kernel_names": len(names), "port_kernels": kernels,
+            "bytes": sum(os.path.getsize(os.path.join(logdir, f)) for f in files)}
+    emit({"phase": "ui", "arm": "profiler", **prof})
+    if prof["spans"] != [("profiler/trace", True)] or not all(kernels.values()):
+        bad.append(f"(d) profiler: spans {prof['spans']}, kernels {kernels}")
+    out["profiler"] = prof
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, bad
+
+
+def ui_resnet_cli(tmp):
+    """(b) ``train --zoo resnet50 --data <npz> --prefetch 2 --dashboard`` in
+    this process on [512, 224, 224, 3] uint8 pixels: 4 steps of bench
+    config 3's batch; the stats storage the CLI makes is kept to read its
+    records → (record, failures)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import cli, ui
+
+    x, y = pixel_data(UI_RESNET_ROWS, CNN_HW, CNN_CLASSES, SEED + 401)
+    data = os.path.join(tmp, "pixels.npz")
+    np.savez(data, x=x, y=np.argmax(y, axis=1))
+    kept = []
+
+    class KeptStorage(ui.InMemoryStatsStorage):
+        def __init__(self):
+            super().__init__()
+            kept.append(self)
+
+    html_path = os.path.join(tmp, "resnet50.html")
+    made = ui.InMemoryStatsStorage
+    ui.InMemoryStatsStorage = KeptStorage
+    t = time.perf_counter()
+    try:
+        rc = cli.main(["train", "--zoo", "resnet50", "--zoo-args", json.dumps(
+            dict(height=CNN_HW, width=CNN_HW, channels=3, num_classes=CNN_CLASSES)),
+            "--data", data, "--batch-size", str(CNN_B), "--epochs", "1", "--prefetch", "2",
+            "--dashboard", html_path])
+    finally:
+        ui.InMemoryStatsStorage = made
+    seconds = time.perf_counter() - t
+    recs = [r for s in kept for r in s.get_updates("cli_train") if "score" in r]
+    page = open(html_path).read() if os.path.exists(html_path) else ""
+    stalls = [r.get("input_pipeline", [{}])[-1].get("stall_fraction") for r in recs]
+    rec = {"rc": rc, "seconds": seconds, "records": len(recs),
+           "html_bytes": len(page), "names_cli_train": "cli_train" in page,
+           "stall_fractions": stalls, "scores": [r["score"] for r in recs],
+           "memory_gib": [r.get("memory", {}).get("bytes_in_use", 0) / 2 ** 30 for r in recs]}
+    ok = (rc == 0 and rec["names_cli_train"] and len(recs) == UI_RESNET_ROWS // CNN_B
+          and all(s is not None for s in stalls))
+    return rec, ([] if ok else [f"(b) train --dashboard: {rec}"])
+
+
+def ui_http():
+    """(c) LeNet (bench config 2) posting its records through a
+    ``RemoteStatsRouter`` to a ``UIServer`` in this process, beside a local
+    storage fed by a listener on the same pinned clock → (record,
+    failures)."""
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.obs import trace as obs_trace
+    from deeplearning4j_tpu_torch.ui import (InMemoryStatsStorage, RemoteStatsRouter,
+                                             StatsListener, UIServer)
+
+    obs_trace.enable_tracing()
+    storage = InMemoryStatsStorage()
+    server = UIServer(port=0).attach(storage).enable_remote_listener().start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        net = LeNet(LENET_HW, LENET_HW, 3, LENET_CLASSES,
+                    updater=Nesterovs(lr=0.01, momentum=0.9), device="cuda")
+        router = RemoteStatsRouter(base)
+        local = InMemoryStatsStorage()
+        clocks = [iter(range(10 ** 6)), iter(range(10 ** 6))]
+        net.set_listeners(
+            StatsListener(router, session_id="lenet", clock=lambda: float(next(clocks[0]))),
+            StatsListener(local, session_id="lenet", clock=lambda: float(next(clocks[1]))))
+        t = time.perf_counter()
+        with obs_trace.span("ui/lenet_fit", cat="ui", steps=UI_LENET_STEPS):
+            for i in range(UI_LENET_STEPS):
+                net.fit_batch(images(LENET_B, LENET_HW, LENET_CLASSES, SEED + 402 + i))
+        router.close()
+        seconds = time.perf_counter() - t
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=30) as r:
+                return r.status, r.read()
+        _, metrics = get("/metrics")
+        _, trace = get("/trace")
+        page_status, page = get("/train/0/lenet")
+    finally:
+        server.stop()
+        obs_trace.disable_tracing()
+    trace = json.loads(trace)
+    sessions = json.loads(metrics)["sessions"]
+    stored, want = storage.get_updates("lenet"), json.loads(json.dumps(local.get_updates("lenet")))
+
+    def bare(recs):
+        # each listener holds its own device copy of the parameters, so
+        # the allocator's bytes differ between the two streams
+        return [{k: v for k, v in r.items() if k != "memory"} for r in recs]
+    rec = {"seconds": seconds, "stored": len(stored), "local": len(want),
+           "equal": bare(stored) == bare(want),
+           "memory_in_both": all("memory" in r for r in stored + want),
+           "sessions": sessions, "dropped": router.dropped,
+           "trace_events": len(trace["traceEvents"]),
+           "trace_has_span": any(e.get("name") == "ui/lenet_fit" for e in trace["traceEvents"]),
+           "trace_problems": obs_trace.validate_chrome_trace(trace)[:5],
+           "page_status": page_status, "page_bytes": len(page)}
+    ok = (rec["equal"] and rec["memory_in_both"] and len(stored) == UI_LENET_STEPS
+          and sessions.get("lenet", {}).get("updates") == len(want)
+          and not rec["trace_problems"] and rec["trace_has_span"] and page_status == 200
+          and b"Score vs iteration" in page and router.dropped == 0)
+    return rec, ([] if ok else [f"(c) records over HTTP: {rec}"])
+
+
+def _tree_count(tree) -> int:
+    parts = tree.values() if isinstance(tree, dict) else tree
+    return sum(int(v.numel()) for p in parts for v in (p or {}).values())
+
+
+def ui_keras():
+    """(e) Keras VGG16 and ResNet50 through the importer's in-memory seam
+    at the published widths, on the card and on the CPU; the wrappers on
+    bench config 1's MLP → (record, failures)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.modelimport import keras as tkeras
+    from deeplearning4j_tpu_torch.wrappers import NeuralNetClassifier
+
+    rng = np.random.default_rng(SEED + 403)
+    x = rng.standard_normal((UI_KERAS_ROWS, CNN_HW, CNN_HW, 3), dtype=np.float32)
+    out, bad = {}, []
+    for name, make, published in (("vgg16", keras_vgg16, 138_357_544),
+                                  ("resnet50", keras_resnet50, 25_636_712)):
+        t = time.perf_counter()
+        kf = make(SEED + 300)
+        card = tkeras._import_archive(kf, device="cuda")
+        import_s = time.perf_counter() - t
+        counts = {"keras": kf.n_weights(),
+                  "card": _tree_count(card.params) + _tree_count(card.state)}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = card.output(x)
+        got = (got[0] if isinstance(got, list) else got).cpu().numpy()
+        output_ms = (time.perf_counter() - t) * 1e3
+        cpu = tkeras._import_archive(kf, device="cpu")
+        want = cpu.output(x)
+        want = (want[0] if isinstance(want, list) else want).numpy()
+        del cpu
+        rec = {"weights": counts, "published": published, "import_s": import_s,
+               "output_ms": output_ms, "output_shape": list(got.shape),
+               "max_abs_diff_vs_cpu": float(np.abs(got - want).max()),
+               "rows_sum_to_1": bool(np.allclose(got.sum(-1), 1, atol=1e-4))}
+        if isinstance(card.params, list):
+            # a Sequential with a training config: its loss head trains
+            y = np.eye(CNN_CLASSES, dtype=np.float32)[rng.integers(0, CNN_CLASSES,
+                                                                   UI_KERAS_ROWS)]
+            rec["fit_batch_loss"] = float(card.fit_batch(DataSet(
+                torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())))
+            if not math.isfinite(rec["fit_batch_loss"]):
+                bad.append(f"(e) {name}: fit_batch loss {rec['fit_batch_loss']}")
+        out[name] = rec
+        emit({"phase": "ui", "arm": "keras", "model": name, **rec})
+        if counts["keras"] != published or counts["card"] != published:
+            bad.append(f"(e) {name}: weights {counts}, published {published}")
+        if rec["max_abs_diff_vs_cpu"] > 1e-4 or not rec["rows_sum_to_1"]:
+            bad.append(f"(e) {name}: card vs CPU {rec['max_abs_diff_vs_cpu']}")
+        del card, kf
+        gc.collect()
+        torch.cuda.empty_cache()
+    xs, ys = mlp_data()
+    t = time.perf_counter()
+    clf = NeuralNetClassifier(mlp_conf, epochs=1, batch_size=MLP_BATCH, device="cuda").fit(xs, ys)
+    fit_s = time.perf_counter() - t
+    pred = clf.predict(xs)
+    argmax = clf.classes_[np.argmax(clf.net_.output(xs).cpu().numpy(), axis=-1)]
+    rec = {"fit_s": fit_s, "steps": len(clf.losses_), "device": str(clf.net_.device),
+           "accuracy": clf.score(xs, ys), "predict_is_argmax": bool(np.array_equal(pred, argmax)),
+           "last_loss": float(clf.losses_[-1])}
+    out["wrapper"] = rec
+    emit({"phase": "ui", "arm": "wrapper", **rec})
+    if not (rec["predict_is_argmax"] and rec["device"].startswith("cuda")
+            and rec["steps"] == MLP_ROWS // MLP_BATCH and math.isfinite(rec["last_loss"])):
+        bad.append(f"(e) wrapper: {rec}")
+    return out, bad
+
+
+def phase_ui():
+    """The ui phase, (a)-(e) (the module docstring)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.train_graph import TRAIN_COUNTERS
+
+    t0 = time.perf_counter()
+    before = {n: c.launches for n, c in TRAIN_COUNTERS.items()}
+    tmp = tempfile.mkdtemp(prefix="chip_ui_")
+    bad, out = [], {}
+    try:
+        for name, arm in (("gpt2", lambda: ui_gpt2(tmp)), ("resnet_cli", lambda: ui_resnet_cli(tmp)),
+                          ("http", ui_http), ("keras", ui_keras)):
+            t = time.perf_counter()
+            out[name], b = arm()
+            bad += b
+            emit({"phase": "ui", "arm": name, "seconds": time.perf_counter() - t,
+                  "failed": b})
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {n: c.launches - before[n] for n, c in TRAIN_COUNTERS.items()}
+    rec = {"phase": "ui", "seconds": time.perf_counter() - t0, "failed": bad,
+           "launches": launches}
+    emit(rec)
+    if bad:
+        raise AssertionError(f"ui phase failed: {bad}")
+    return rec
+
+
 def trace_probe(n: int) -> None:
     """``--trace-probe N``: the serve and predict phases, each traced
     replay taken N times hard against the trace's ends (pause 0) and N
@@ -8182,7 +8872,7 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:3] in (["sharded"], ["elastic"],
                                                           ["predict_features"], ["fleet"],
-                                                          ["flywheel"], ["learning"]):
+                                                          ["flywheel"], ["learning"], ["ui"]):
         card = card_line()
         emit({"torch": torch.__version__, "device": torch.cuda.get_device_name(0),
               "card": card})
@@ -8190,7 +8880,8 @@ def main() -> int:
         {"sharded": phase_sharded, "elastic": phase_elastic,
          "predict_features": lambda: phase_predict_features(build_model()),
          "fleet": lambda: phase_fleet(build_model()),
-         "flywheel": phase_flywheel, "learning": phase_learning}[sys.argv[2]]()
+         "flywheel": phase_flywheel, "learning": phase_learning,
+         "ui": phase_ui}[sys.argv[2]]()
         print(card, flush=True)
         return 0
     card = card_line()
@@ -8232,6 +8923,7 @@ def main() -> int:
     if any(flywheel.values()):
         raise AssertionError(f"the flywheel phase launched a kernel: {flywheel}")
     phase_learning()                      # launches none of K1-K6 or D1 (gated)
+    ui = phase_ui()["launches"]
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda",
@@ -8251,13 +8943,14 @@ def main() -> int:
     def trained(name, kernel):
         return (train["launches"][name] + graph_n[kernel] + attn["launches"].get(name, 0)
                 + conv["rnn_launches"].get(name, 0) + heads["launches"].get(name, 0)
-                + sharded.get(name, 0) + elastic.get(name, 0))
+                + sharded.get(name, 0) + elastic.get(name, 0) + ui.get(name, 0))
     emit({"kernels": [
         entry("flash_fwd", "flash_fwd.cu", "deeplearning4j_tpu/ops/attention.py:138",
               score["launches"]["flash_fwd"] + predict["launches"]["flash_fwd"]
               + features["launches"]["flash_fwd"] + fleet["flash_fwd"]
               + graph_n["flash_fwd_kernel"]
-              + attn["launches"]["flash_fwd"] + sharded["flash_fwd"] + elastic["flash_fwd"], k1),
+              + attn["launches"]["flash_fwd"] + sharded["flash_fwd"] + elastic["flash_fwd"]
+              + ui["flash_fwd"], k1),
         entry("flash_bwd_dkdv", "flash_bwd.cu", "deeplearning4j_tpu/ops/attention.py:329",
               trained("flash_bwd_dkdv", "flash_bwd_dkdv_kernel"),
               {**bwd["flash_bwd_dkdv"], **bwd_lib}),

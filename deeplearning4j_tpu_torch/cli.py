@@ -6,6 +6,7 @@ through ``rnn_time_step``, and ``serve``).  Runs on ``cuda`` unless
 
     python -m deeplearning4j_tpu_torch train --config mlp.json --data iris --output m.zip
     python -m deeplearning4j_tpu_torch train --zoo lenet --data mnist --output lenet.zip
+    python -m deeplearning4j_tpu_torch train --config mlp.json --data iris --dashboard out.html
     python -m deeplearning4j_tpu_torch summary --zoo resnet50
     python -m deeplearning4j_tpu_torch evaluate --model m.zip --data iris
     python -m deeplearning4j_tpu_torch summary --model m.zip
@@ -38,12 +39,6 @@ import time
 from typing import Optional, Tuple
 
 import numpy as np
-
-
-#: train flags that wait for later ports, with the ROADMAP item that ports them
-LATER_FLAGS = {
-    "dashboard": "queue 1 item 9.3 (ui/)",
-}
 
 
 def _num_classes_of(net) -> Optional[int]:
@@ -342,10 +337,6 @@ def cmd_train(args) -> int:
 
     from .serving.warmcache import enable_compile_cache
 
-    for flag, item in LATER_FLAGS.items():
-        if getattr(args, flag) is not None:
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
-                             f"(ROADMAP {item})")
     cache_dir = enable_compile_cache(args.compile_cache)
     if cache_dir:
         print(f"compile cache: {cache_dir}")
@@ -387,7 +378,14 @@ def cmd_train(args) -> int:
             print(f"mesh training drops the ragged tail: {dropped} of "
                   f"{len(xs)} samples not in a full batch of {args.batch_size}")
         batches = full
-    net.set_listeners(ScoreIterationListener(args.print_every))
+    listeners = [ScoreIterationListener(args.print_every)]
+    storage = None
+    if args.dashboard:
+        from .ui import InMemoryStatsStorage, StatsListener
+
+        storage = InMemoryStatsStorage()
+        listeners.append(StatsListener(storage, session_id="cli_train"))
+    net.set_listeners(*listeners)
     trainer = None
 
     def sharded():
@@ -506,6 +504,11 @@ def cmd_train(args) -> int:
         print(f"prefetch: stall fraction {s['stall_fraction']:.3f} "
               f"({s['stalls']} stall(s), avg {s['avg_stall_ms']:.1f}ms) over "
               f"{s['batches']} batches, depth {s['depth']}")
+    if args.dashboard:
+        from .ui import render_dashboard
+
+        render_dashboard(storage, args.dashboard)
+        print(f"dashboard: {args.dashboard}")
     if args.output:
         out_path = args.output.replace("{process}", str(resolve_process_index()))
         if trainer is not None:
@@ -1332,9 +1335,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "CUDA stream of its own; this rank's rows under --mesh), "
                    "onto DEVICE (default the network's device); 0 = "
                    "synchronous feeding")
-    for flag in LATER_FLAGS:
-        t.add_argument("--" + flag.replace("_", "-"), default=None,
-                       help=f"not ported yet (ROADMAP {LATER_FLAGS[flag]})")
+    t.add_argument("--dashboard", help="HTML training report to write")
     t.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' to run on the CPU)")
     t.set_defaults(fn=cmd_train)

@@ -1,5 +1,16 @@
-"""The serving HTTP server (mirrors ``deeplearning4j_tpu/ui/server.py``:
-the routes of the serving engines on a stdlib ``ThreadingHTTPServer``).
+"""The training UI and serving HTTP server (the port of
+``deeplearning4j_tpu/ui/server.py``: its routes on a stdlib
+``ThreadingHTTPServer``).
+
+    GET  /, /index.html    the sessions of every attached stats storage
+    GET  /train/<i>/<sid>  storage ``i``'s session ``sid`` as the dashboard
+                    page (``render_session_html``)
+    GET  /trace     the ``obs.trace`` ring buffer as Chrome trace-event JSON
+                    (an empty trace with a hint while tracing is off)
+    POST /remote    {"session_id", "record"} or a list of them, stored in
+                    the first attached storage (``RemoteStatsRouter``'s
+                    posts): 403 unless ``enable_remote_listener()``, 503
+                    with no storage attached, 200 stored, 400 malformed
 
     POST /predict   {"inputs": [[...]], "slo_ms"?, "tenant"?, "model"?} →
                     {"outputs", "model"} through an attached predict
@@ -13,6 +24,8 @@ the routes of the serving engines on a stdlib ``ThreadingHTTPServer``).
                     prefill-role engine answers 409 ``prefill_role``
     GET  /healthz   readiness of every attached engine (200 / 503)
     GET  /metrics   {"serving": [one snapshot per attached provider],
+                    "sessions": {sid: {"updates", "last_iteration",
+                    "last_score"}} over the attached storages,
                     "registry": the process-wide ``obs.metrics`` registry's
                     snapshot (every live engine's metrics as a collector)}
 
@@ -21,12 +34,12 @@ Every error is structured JSON with a stable ``error_class``: 429
 tenant's own quota) or ``overloaded``, 404 ``model_not_loaded``, 504
 ``deadline_exceeded``, 422 ``poison_input``, 500 ``replica_failure``, 400
 ``bad_request``, 503 ``unavailable``, 500 ``internal`` (exception type
-and message only, never a traceback).  The reference's stats sessions,
-dashboard, ``/trace`` and ``/remote`` are not ported here.
+and message only, never a traceback).
 """
 
 from __future__ import annotations
 
+import html
 import json
 import threading
 import urllib.parse
@@ -34,6 +47,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 
 import numpy as np
+
+from .render import render_session_html
 
 
 def _error_reply(e: BaseException):
@@ -65,16 +80,33 @@ def _error_reply(e: BaseException):
 
 
 class UIServer:
-    """``UIServer(port).attach_engine(eng).start()`` → POST /predict."""
+    """``UIServer(port).attach(storage).start()`` → browse /;
+    ``attach_engine(eng)`` → POST /predict."""
 
-    def __init__(self, port: int = 9000, host: str = "127.0.0.1"):
+    def __init__(self, port: int = 9000, host: str = "127.0.0.1",
+                 enable_remote: bool = False):
         self.port = port
         self.host = host
+        self.enable_remote = enable_remote
+        self._storages: List = []
         self._metrics_providers: List = []
         self._engine = None
         self._decode_engine = None
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+
+    def attach(self, storage) -> "UIServer":
+        """Serve a stats storage's sessions on / and /train/<i>/<sid>, count
+        them in /metrics ``sessions``; the first attached one receives
+        POST /remote."""
+        self._storages.append(storage)
+        return self
+
+    def enable_remote_listener(self) -> "UIServer":
+        """Accept POSTed stats on /remote into the first attached storage
+        (reference RemoteReceiverModule: UIServer.enableRemoteListener())."""
+        self.enable_remote = True
+        return self
 
     def attach_metrics(self, provider) -> "UIServer":
         """Export a metrics source on GET /metrics: a zero-argument
@@ -99,7 +131,50 @@ class UIServer:
         from ..obs.metrics import get_registry
         serving = [p() if callable(p) else p.snapshot()
                    for p in self._metrics_providers]
-        return json.dumps({"serving": serving, "registry": get_registry().snapshot()})
+        sessions = {}
+        for storage in self._storages:
+            for sid in storage.list_session_ids():
+                ups = storage.get_updates(sid)
+                last = ups[-1] if ups else {}
+                sessions[sid] = {"updates": len(ups),
+                                 "last_iteration": last.get("iteration"),
+                                 "last_score": last.get("score")}
+        return json.dumps({"serving": serving, "sessions": sessions,
+                           "registry": get_registry().snapshot()})
+
+    def _trace_json(self) -> str:
+        """GET /trace: the ring buffer as a Chrome trace-event JSON object;
+        an empty trace with a hint when tracing is off."""
+        from ..obs import trace as obs_trace
+        rec = obs_trace.get_recorder()
+        if rec is None:
+            return json.dumps({"traceEvents": [], "metadata": {
+                "tracing": "disabled — enable with --trace PATH or "
+                           "obs.enable_tracing()"}})
+        return json.dumps(rec.export())
+
+    def _handle_remote(self, body: bytes) -> int:
+        """POST /remote body: {"session_id": ..., "record": {...}} or a list
+        of such — returns the HTTP status."""
+        if not self.enable_remote:
+            return 403
+        if not self._storages:
+            return 503
+        payload = json.loads(body)
+        items = payload if isinstance(payload, list) else [payload]
+        for item in items:
+            self._storages[0].put_update(item["session_id"], item["record"])
+        return 200
+
+    def _render_index(self) -> str:
+        rows = []
+        for si, storage in enumerate(self._storages):
+            for sid in storage.list_session_ids():
+                href = f"/train/{si}/{urllib.parse.quote(sid, safe='')}"
+                rows.append(f'<li><a href="{href}">'
+                            f"{html.escape(sid)}</a></li>")
+        return ("<html><body><h1>deeplearning4j_tpu UI</h1><ul>"
+                + "".join(rows) + "</ul></body></html>")
 
     def _predict_json(self, body: bytes):
         """(status, payload) for POST /predict."""
@@ -206,13 +281,26 @@ class UIServer:
                 self._reply(code, json.dumps(payload).encode(), "application/json")
 
             def do_GET(self):
-                path = urllib.parse.urlsplit(self.path).path
-                if path == "/metrics":
-                    self._reply(200, server._metrics_json().encode(), "application/json")
-                elif path == "/healthz":
-                    self._json(*server._healthz_json())
-                else:
-                    self._reply(404, b"not found", "text/plain")
+                try:
+                    path = urllib.parse.urlsplit(self.path).path
+                    if path == "/metrics":
+                        self._reply(200, server._metrics_json().encode(), "application/json")
+                    elif path == "/trace":
+                        self._reply(200, server._trace_json().encode(), "application/json")
+                    elif path == "/healthz":
+                        self._json(*server._healthz_json())
+                    elif path.startswith("/train/"):
+                        _, _, si, sid = path.split("/", 3)
+                        page = render_session_html(server._storages[int(si)],
+                                                   urllib.parse.unquote(sid))
+                        self._reply(200, page.encode(), "text/html; charset=utf-8")
+                    elif path in ("", "/", "/index.html"):
+                        self._reply(200, server._render_index().encode(),
+                                    "text/html; charset=utf-8")
+                    else:   # unknown paths are 404s, not the index page
+                        self._reply(404, b"not found", "text/plain")
+                except Exception as e:  # a bad storage index, a broken record
+                    self._reply(500, str(e).encode(), "text/plain")
 
             def do_POST(self):
                 n = int(self.headers.get("Content-Length", 0))
@@ -220,6 +308,12 @@ class UIServer:
                     self._json(*server._predict_json(self.rfile.read(n)))
                 elif self.path == "/generate":
                     self._json(*server._generate_json(self.rfile.read(n)))
+                elif self.path == "/remote":
+                    try:
+                        code = server._handle_remote(self.rfile.read(n))
+                    except Exception:   # malformed body or record
+                        code = 400
+                    self._reply(code, b"", "text/plain")
                 else:
                     self._reply(404, b"not found", "text/plain")
 

@@ -105,15 +105,6 @@ def test_train_with_the_nan_guard_and_a_zoo_model(tmp_path, capsys):
     assert rc == 0 and "Yolo2OutputLayer" in out and "queue 1 item 6" not in out
 
 
-@pytest.mark.parametrize("flag,value,queue", [
-    ("--dashboard", "d.html", "queue 1 item 9")])
-def test_flags_that_wait_for_later_queues_name_them(tmp_path, flag, value, queue):
-    spec, _ = _npz(tmp_path)
-    with pytest.raises(SystemExit, match=f"not ported yet \\(ROADMAP {queue}"):
-        cli.main(["train", "--config", _conf(tmp_path, 10, 4), "--data", spec, flag, value,
-                  "--device", "cpu"])
-
-
 #: the flags this slice ports: (extra train arguments; what both CLIs
 #: must agree on)
 PORTED = {

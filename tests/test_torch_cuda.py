@@ -83,7 +83,12 @@ rows of 128 or 300, bitwise the CPU's serial ``index_add_``); Word2Vec
 one-batch, repeat and eager (no CUDA graph) fits, and within rtol 1e-4,
 atol 1e-5 of the CPU's, as GloVe is; kNN tie order the CPU's; and the
 chunked t-SNE's peak memory at 100,000 points under 1/10 of a dense
-[N, N] f32 buffer.
+[N, N] f32 buffer.  The training UI: the StatsListener's statistics of
+card tensors against numpy's (histogram counts and edges equal, also for
+values on every computed edge; min and max bitwise; the moments 1e-6),
+its records on the card the CPU's (with the allocator's memory), and a
+Keras import on the card the CPU's network (parameters bitwise, outputs
+1e-5).
 """
 
 import importlib.util
@@ -2459,3 +2464,108 @@ def test_chunked_tsne_peak_memory_is_block_bounded(cuda_dev):
     peak = torch.cuda.max_memory_allocated() - base
     assert np.isfinite(y).all() and y.shape == (n, 2)
     assert peak < 4 * n * n / 10, f"peak {peak} bytes"
+
+
+def _numpy_leaf_stats(a, bins):
+    """The reference's per-leaf record, in numpy (float32)."""
+    a = np.asarray(a, np.float32).ravel()
+    hist, edges = np.histogram(a, bins=bins)
+    return {"mean": float(a.mean()), "std": float(a.std()), "min": float(a.min()),
+            "max": float(a.max()), "mean_magnitude": float(np.abs(a).mean()),
+            "histogram": hist.tolist(), "histogram_edges": [float(edges[0]), float(edges[-1])]}
+
+
+def _stats_leaves(n=1 << 16):
+    rng = np.random.default_rng(11)
+    base = rng.standard_normal(n).astype(np.float32)
+    edges = np.histogram_bin_edges(base, 20).astype(np.float32)
+    return [base, np.zeros(9, np.float32), np.full(5, -2.5, np.float32),
+            np.array([1.0, np.nextafter(np.float32(1), np.float32(2))], np.float32),
+            np.concatenate([np.repeat(edges, 3), base[:1000]]),
+            (base * 1e15).astype(np.float32), (base * 1e-30).astype(np.float32),
+            np.linspace(-1, 1, 101, dtype=np.float32), np.array([3.0], np.float32),
+            (rng.standard_normal((768, 3072)) * 0.02).astype(np.float32)]
+
+
+@pytest.mark.parametrize("bins", [20, 3, 64])
+def test_stats_histograms_on_the_card_count_as_numpy(cuda_dev, bins):
+    """The StatsListener's device statistics (``ui.stats.leaf_stats``) of
+    leaves on the card against numpy's on the host: histogram counts and
+    edges equal (values placed on every computed edge, constant, one-
+    spacing, huge and tiny ranges, a GPT-2 MLP-sized leaf), min and max
+    bitwise, std and mean magnitude 1e-6 relative, the mean within 1e-6 of
+    the mean magnitude; bf16 leaves read as float32."""
+    from deeplearning4j_tpu_torch.ui.stats import leaf_stats
+
+    leaves = _stats_leaves()
+    tensors = [torch.from_numpy(a).to(cuda_dev) for a in leaves]
+    tensors.append(tensors[0][:5000].to(torch.bfloat16))
+    leaves.append(tensors[-1].float().cpu().numpy())
+    kept = []
+    for t, a in zip(tensors, leaves):
+        try:
+            kept.append((t, _numpy_leaf_stats(a, bins)))
+        except ValueError as e:
+            # numpy >= 2.1 refuses bins narrower than a float32 spacing:
+            # so does the device route, with numpy's message
+            with pytest.raises(ValueError) as got:
+                leaf_stats([t], bins)
+            assert str(got.value) == str(e)
+    assert len(kept) >= len(leaves) - 1
+    for i, (got, (_, want)) in enumerate(zip(leaf_stats([t for t, _ in kept], bins), kept)):
+        assert got["histogram"] == want["histogram"], i
+        assert got["histogram_edges"] == want["histogram_edges"], i
+        assert (got["min"], got["max"]) == (want["min"], want["max"]), i
+        for k in ("std", "mean_magnitude"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6, err_msg=f"{i} {k}")
+        assert abs(got["mean"] - want["mean"]) <= 1e-6 * max(want["mean_magnitude"], 1e-30), i
+
+
+def test_stats_listener_records_on_the_card_are_the_cpu_records(cuda_dev):
+    """The same parameter sequence as card tensors and as CPU tensors: the
+    same records (histograms equal, moments 1e-6), and on the card a
+    ``memory`` entry with the allocator's bytes."""
+    from deeplearning4j_tpu_torch.ui import InMemoryStatsStorage, StatsListener
+
+    rng = np.random.default_rng(12)
+    tree = [{"W": rng.standard_normal((64, 32)).astype(np.float32),
+             "b": np.zeros(32, np.float32)}, {"g": np.ones(7, np.float32)}]
+    recs = {}
+    for dev in ("cpu", cuda_dev):
+        storage = InMemoryStatsStorage()
+        clock = iter(range(100))
+        lst = StatsListener(storage, session_id="s", clock=lambda: float(next(clock)),
+                            collect_input_stats=False)
+        model = type("M", (), {})()
+        model.conf = type("C", (), {"layers": [None, None]})()
+        for t in range(4):
+            model.params = [{k: torch.from_numpy(v + np.float32(0.01 * t)).to(dev)
+                             for k, v in p.items()} for p in tree]
+            lst.iteration_done(model, t, 1.0 / (t + 1))
+        recs[str(dev)] = storage.get_updates("s")
+    for c, g in zip(recs["cpu"], recs["cuda"]):
+        assert "memory" not in c and g["memory"]["bytes_in_use"] > 0
+        assert g["memory"]["peak_bytes_in_use"] >= g["memory"]["bytes_in_use"]
+        for section in ("parameters", "updates"):
+            for pid, st in c.get(section, {}).items():
+                mine = g[section][pid]
+                assert mine["histogram"] == st["histogram"]
+                assert (mine["min"], mine["max"]) == (st["min"], st["max"])
+                for k in ("mean", "std", "mean_magnitude"):
+                    np.testing.assert_allclose(mine[k], st[k], rtol=1e-6, atol=1e-12)
+
+
+def test_keras_import_on_the_card_is_the_cpu_network(cuda_dev):
+    """A ResNet50-shaped functional Keras model at narrow widths, imported
+    through the in-memory archive on the card and on the CPU: parameters
+    bitwise, ``output()`` within 1e-5."""
+    from deeplearning4j_tpu_torch.modelimport import keras as tkeras
+
+    kf = cs.keras_resnet50(5, hw=32, classes=10, stem=8, stages=((4, 2, 1), (8, 1, 2)))
+    card, cpu = tkeras._import_archive(kf, device=cuda_dev), tkeras._import_archive(kf, device="cpu")
+    for name, p in cpu.params.items():
+        for k, v in p.items():
+            assert torch.equal(card.params[name][k].cpu(), v), (name, k)
+    x = np.random.default_rng(6).standard_normal((4, 32, 32, 3)).astype(np.float32)
+    np.testing.assert_allclose(card.output(x)[0].cpu().numpy(), cpu.output(x)[0].numpy(),
+                               rtol=1e-5, atol=1e-5)

@@ -21,6 +21,28 @@ ARGS = ["flywheel", "--generations", "5", "--chaos", "nan,regression,host_kill,c
 #: prediction divergence 0.1644 > 0.1) and promotes it at 0.2
 MAX_DIVERGENCE = "0.1"
 
+#: both packages' CLIs run with the canary's p99 verdict pinned off: it
+#: compares wall-clock forward times over a 4-batch window (factor 3, a
+#: 1 ms floor), so on a loaded host (the test suite's other workers) a
+#: pause of a few ms rejects a healthy generation in either package, and
+#: the story would be the host's.  Every other verdict (error rate,
+#: divergence, window, the chaos kinds) decides as it does for users.
+PIN_P99 = """
+import functools
+from {pkg}.serving.engine import Engine
+
+_run_canary = Engine.run_canary
+
+
+@functools.wraps(_run_canary)
+def run_canary(self, *args, **kwargs):
+    kwargs["p99_factor"] = float("inf")
+    return _run_canary(self, *args, **kwargs)
+
+
+Engine.run_canary = run_canary
+"""
+
 
 def _parse(text):
     lines = [json.loads(l) for l in text.splitlines() if l.startswith("{")]
@@ -28,21 +50,23 @@ def _parse(text):
     return {"gens": [{k: g.get(k) for k in ("gen", "outcome", "version", "rolled_back_to",
                                             "parent_version")} for g in gens],
             "reasons": [(g.get("reason") or "").split(":")[0] for g in gens],
+            "reason_text": [g.get("reason") for g in gens],
             "final": next(l for l in lines if "stats" in l)}
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both arms in both packages, one run at a time: the canary's p99
-    verdict compares wall-clock forward times over a 4-batch window, so
-    runs competing for the cores would judge the host's contention (and
-    so would the serving threads' intra-op pools competing with each
-    other: the port's runs take one torch thread).  The reference's CLI
-    runs as a process of its own on one CPU device, as users run it, with
-    single-threaded XLA."""
+    """Both arms in both packages, one run at a time, the canary's p99
+    verdict pinned off in both (``PIN_P99``); the port's runs take one
+    torch thread.  The reference's CLI runs as a process of its own on one
+    CPU device, as users run it, with single-threaded XLA."""
     import torch
 
     from deeplearning4j_tpu_torch.cli import main
+    from deeplearning4j_tpu_torch.serving.engine import Engine
+
+    ref_main = (PIN_P99.format(pkg="deeplearning4j_tpu")
+                + "import sys\nfrom deeplearning4j_tpu.cli import main\nsys.exit(main())\n")
 
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env.update(JAX_PLATFORMS="cpu", PYTHONPATH=REPO, OMP_NUM_THREADS="1",
@@ -50,7 +74,7 @@ def runs(tmp_path_factory):
     out = {}
     for arm, more in (("chaos", []), ("divergence", ["--max-divergence", MAX_DIVERGENCE])):
         p = subprocess.run(
-            [sys.executable, "-m", "deeplearning4j_tpu", *ARGS, *more, "--workdir",
+            [sys.executable, "-c", ref_main, *ARGS, *more, "--workdir",
              str(tmp_path_factory.mktemp(f"ref_{arm}"))], env=env, stdout=subprocess.PIPE,
             stderr=subprocess.DEVNULL, text=True, timeout=300)
         out["ref", arm] = {"rc": p.returncode, **_parse(p.stdout)}
@@ -58,10 +82,13 @@ def runs(tmp_path_factory):
         buf = io.StringIO()
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
+        run_canary = Engine.run_canary
         try:
+            exec(PIN_P99.format(pkg="deeplearning4j_tpu_torch"), {})
             with contextlib.redirect_stdout(buf):
                 rc = main(ARGS + more + ["--device", "cpu", "--workdir", wd])
         finally:
+            Engine.run_canary = run_canary
             torch.set_num_threads(threads)
         out["port", arm] = {"rc": rc, **_parse(buf.getvalue())}
     return out
@@ -87,8 +114,9 @@ def test_final_stats_are_the_references(runs, arm):
 
 def test_the_chaos_run_is_the_issue_story(runs):
     gens = runs["port", "chaos"]["gens"]
+    why = {pkg: runs[pkg, "chaos"]["reason_text"] for pkg in ("port", "ref")}
     assert [g["outcome"] for g in gens] == ["PROMOTED", "ROLLED_BACK", "PROMOTED",
-                                            "ROLLED_BACK", "PROMOTED"]
+                                            "ROLLED_BACK", "PROMOTED"], why
     assert gens[3]["rolled_back_to"] == 3 and gens[4]["parent_version"] == 3
     st = runs["port", "chaos"]["final"]
     assert (st["stats"]["promoted"], st["stats"]["rolled_back"], st["stats"]["resumes"],

@@ -439,7 +439,7 @@ def test_sharded_prefetch_trains_bitwise_the_synchronous_trainer(sharded_runs):
 
 def test_parse_prefetch_is_the_references():
     from deeplearning4j_tpu.cli import _parse_prefetch as jparse
-    from deeplearning4j_tpu_torch.cli import LATER_FLAGS, _parse_prefetch
+    from deeplearning4j_tpu_torch.cli import _parse_prefetch
 
     assert _parse_prefetch("2") == jparse("2") == (2, None)
     assert _parse_prefetch("4,cpu") == (4, "cpu")
@@ -447,7 +447,6 @@ def test_parse_prefetch_is_the_references():
     for bad in ("-1", "x", "0,cpu"):
         with pytest.raises(SystemExit):
             _parse_prefetch(bad)
-    assert set(LATER_FLAGS) == {"dashboard"}
 
 
 def _conf_file(tmp_path, features=4):

@@ -3,7 +3,8 @@
 ``default_policy`` / ``mixed_policy`` (exported from ``ops``),
 ``LSTM.step`` / ``zero_carry`` and ``ShardedTrainer.shard_dataset``; the
 exports of ``serving``, ``datasets``, ``evaluation`` and the learning
-packages (``nlp``, ``graph``, ``clustering``, ``plot``, ``streaming``)."""
+packages (``nlp``, ``graph``, ``clustering``, ``plot``, ``streaming``), and of
+``ui``, ``modelimport`` and ``wrappers``."""
 
 import jax
 import jax.numpy as jnp
@@ -145,3 +146,25 @@ def test_learning_libraries_export_the_references_names(pkg):
              if not n.startswith("_") and not isinstance(v, types.ModuleType)}
     assert names and set(t.__all__) == names
     assert all(hasattr(t, n) for n in t.__all__)
+
+
+@pytest.mark.parametrize("pkg", ["ui", "modelimport", "wrappers"])
+def test_ui_modelimport_and_wrappers_export_the_references_names(pkg):
+    """``ui``, ``modelimport`` and ``wrappers`` export the reference's
+    public names, each present (``wrappers`` has no ``__all__``: its public
+    classes and functions)."""
+    import importlib
+    import types
+
+    j = importlib.import_module(f"deeplearning4j_tpu.{pkg}")
+    t = importlib.import_module(f"deeplearning4j_tpu_torch.{pkg}")
+
+    def public(m):
+        if hasattr(m, "__all__"):
+            return set(m.__all__)
+        return {n for n, v in vars(m).items() if not n.startswith("_")
+                and not isinstance(v, types.ModuleType)
+                and getattr(v, "__module__", None) == m.__name__}
+    names = public(j)
+    assert names and public(t) == names
+    assert all(hasattr(t, n) for n in names)
