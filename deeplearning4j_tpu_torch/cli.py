@@ -25,6 +25,7 @@ through ``rnn_time_step``, and ``serve``).  Runs on ``cuda`` unless
     python -m deeplearning4j_tpu_torch train --zoo lenet --data cifar10 --prefetch 2
     python -m deeplearning4j_tpu_torch flywheel --generations 5 \
         --chaos nan,regression,host_kill,crash --hosts 2 [--max-divergence 0.1]
+    python -m deeplearning4j_tpu_torch check [--format json] [FILE.py ...]
 
 ``--data`` accepts a built-in name (mnist / cifar10 / iris / emnist / svhn /
 uci) or a .npz file with arrays ``x`` and ``y``.
@@ -569,6 +570,21 @@ def cmd_summary(args) -> int:
     print(f"model: {type(net).__name__}, {net.num_params():,} params")
     print(memory_report(net, minibatch=args.batch_size))
     return 0
+
+
+def cmd_check(args) -> int:
+    """graftcheck static analysis of the port (docs/STATIC_ANALYSIS.md)."""
+    from .analysis import main as analysis_main
+
+    argv = list(args.paths)
+    argv += ["--format", args.format]
+    if args.baseline != "<default>":
+        argv += ["--baseline", args.baseline]
+    if args.baseline_update:
+        argv += ["--baseline-update", "--justification", args.justification]
+    if args.show_suppressed:
+        argv += ["--show-suppressed"]
+    return analysis_main(argv)
 
 
 def cmd_predict(args) -> int:
@@ -1420,6 +1436,23 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' to run on the CPU)")
     s.set_defaults(fn=cmd_summary)
+
+    c = sub.add_parser(
+        "check", help="graftcheck: repo-native static analysis — purity "
+        "under capture, determinism, thread safety, telemetry contracts "
+        "(docs/STATIC_ANALYSIS.md)")
+    c.add_argument("paths", nargs="*",
+                   help="specific .py files (default: whole package)")
+    c.add_argument("--format", choices=("text", "json"), default="text")
+    c.add_argument("--baseline", default="<default>",
+                   help="baseline json ('none' disables)")
+    c.add_argument("--baseline-update", action="store_true",
+                   help="accept current findings into the baseline "
+                   "(REQUIRES --justification)")
+    c.add_argument("--justification", default="",
+                   help="why the baselined findings are accepted")
+    c.add_argument("--show-suppressed", action="store_true")
+    c.set_defaults(fn=cmd_check)
 
     r = sub.add_parser("predict", help="run inference")
     r.add_argument("--model", required=True)

@@ -446,7 +446,7 @@ def build_decode_program(*, tok_embed: Callable, pos_embed: Callable, head: Call
         return k_pages, v_pages, head(params, h)
 
     def step_multi(params, k_pages, v_pages, page_table, tokens, positions, active,
-                   temps, top_ks, top_ps, seeds, steps, budgets, eos_id, horizon):
+                   temps, top_ks, top_ps, seeds, steps, budgets, eos_id, horizon: int):
         # ``horizon`` steps of ``step``'s body, sampling on the device; a
         # slot that stops drops out of ``alive`` and its table row zeroes,
         # so its later writes go to the scratch page

@@ -160,6 +160,7 @@ def _sg_chunk(syn0, syn1, centers, contexts, negatives, valid, lr):
 
 
 def _lr_vector(lr, chunks: int, like: Tensor) -> Tensor:
+    # graftcheck: disable=GC101 (the captured dispatches pass a per-chunk lr vector already on the device, which passes through uncopied)
     return torch.as_tensor(lr, dtype=like.dtype, device=like.device).reshape(-1).expand(chunks)
 
 

@@ -145,6 +145,7 @@ def apply_dropout(dropout, generator, x: Tensor, train: bool) -> Tensor:
     if dropout is None:
         return x
     if isinstance(dropout, (int, float)):
+        # graftcheck: disable=GC101 (the isinstance guard above makes dropout a STATIC Python number here, not a tensor)
         return Dropout(float(dropout)).apply(generator, x, train) if dropout > 0 else x
     return dropout.apply(generator, x, train)
 

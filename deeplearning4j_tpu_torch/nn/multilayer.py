@@ -32,6 +32,7 @@ import logging
 
 from ..datasets.dataset import DataSet
 from ..datasets.iterators import DataSetIterator, ListDataSetIterator
+from ..obs import trace as obs_trace
 from ..ops.dtypes import canonical_dtype
 from ..optimize.score import LazyScore, materialize_scores
 from ..utils.device import DeviceLike, resolve_device
@@ -492,6 +493,7 @@ class MultiLayerNetwork:
         ``Yolo2OutputLayer``'s labels, entry by entry)."""
         if isinstance(a, dict):
             return {k: self._as_tensor(v) for k, v in a.items()}
+        # graftcheck: disable=GC101 (a tensor already on the device passes through uncopied; a capture hands it only the stacked batch's device slices)
         return torch.as_tensor(np.asarray(a) if not isinstance(a, Tensor) else a,
                                device=self.device)
 
@@ -622,10 +624,33 @@ class MultiLayerNetwork:
                     "set_nan_guard(None)")
             return self._fit_batch_tbptt(ds)
         if self._nan_guard_budget is not None:
-            loss, _, ok = self._step(ds, guarded=True)
-            self._note_guarded_step(bool(ok))
-        else:
-            loss, _ = self._step(ds)
+            return self._fit_batch_guarded(ds)
+        # span taxonomy (docs/OBSERVABILITY.md): train/step wraps the host
+        # side of one optimizer step; h2d is the batch's moves to the
+        # device, dispatch the forward, backward and update.  No-ops when
+        # tracing is off.
+        with obs_trace.span("train/step", cat="train",
+                            iteration=self.iteration + 1):
+            with obs_trace.span("train/h2d", cat="train"):
+                # tensors already on the device pass through _step's own
+                # moves untouched
+                ds = DataSet(*self._batch(ds))
+            with obs_trace.span("train/dispatch", cat="train"):
+                loss, _ = self._step(ds)
+        score = LazyScore(loss)
+        self._fire(self.iteration, score)
+        return score
+
+    def _fit_batch_guarded(self, ds: DataSet) -> LazyScore:
+        """``fit_batch`` through the guarded step (``set_nan_guard`` on)."""
+        with obs_trace.span("train/step", cat="train", guarded=True,
+                            iteration=self.iteration + 1):
+            with obs_trace.span("train/h2d", cat="train"):
+                ds = DataSet(*self._batch(ds))
+            with obs_trace.span("train/dispatch", cat="train"):
+                loss, _, ok = self._step(ds, guarded=True)
+        # the guard's documented cost: reading the flag is a device sync
+        self._note_guarded_step(bool(ok))
         score = LazyScore(loss)
         self._fire(self.iteration, score)
         return score

@@ -129,7 +129,7 @@ class TraceRecorder:
         self.path = path
         self.clock = clock
         self._t0_mono = clock()
-        # the one wall read: it lets per-process monotonic timelines merge
+        # graftcheck: disable=GC201 (wall-anchor BY DESIGN: the one wall read that lets per-process monotonic timelines merge; docs/OBSERVABILITY.md)
         self._t0_wall = time.time()
         if process_id is None:
             process_id = _env_int(_ENV_PROCESS_ID, 0)

@@ -187,6 +187,7 @@ def flash_forward_cuda(q: Tensor, k: Tensor, v: Tensor,
                 int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"flash forward kernel launch failed (code {rc})")
+    # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
     flash_forward_cuda.launches += 1
     return o, lse
 
@@ -308,6 +309,7 @@ def flash_bwd_dkdv_cuda(q, k, v, g, lse, delta, kmask, causal: bool,
             int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"flash backward dK/dV kernel launch failed (code {rc})")
+    # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
     flash_bwd_dkdv_cuda.launches += 1
     return dk, dv
 
@@ -330,6 +332,7 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, kmask, causal: bool,
             int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"flash backward dQ kernel launch failed (code {rc})")
+    # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
     flash_bwd_dq_cuda.launches += 1
     return dq
 

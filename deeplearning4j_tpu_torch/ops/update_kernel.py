@@ -168,3 +168,23 @@ def fused_apply(kind: str, updater, params, grads, state, it: Tensor):
     return (unflat(new_p, p_leaves, params),
             {"m": unflat(new_m, m_leaves, state["m"]),
              "v": unflat(new_v, v_leaves, state["v"])})
+
+
+def jit_apply(updater):
+    """Standalone optimizer-update harness (mirrors the reference's
+    ``jit_apply``): ``run(params, grads, state, it) -> (new_params,
+    new_state)``, each call wrapped in the ``train/update`` span
+    (docs/OBSERVABILITY.md taxonomy).  It compiles nothing: eager PyTorch
+    has no trace, so ``run.jitted`` is the plain callable the span
+    wraps."""
+    from ..obs import trace as obs_trace
+
+    def fn(params, grads, state, it):
+        return updater.apply(params, grads, state, it)
+
+    def run(params, grads, state, it) -> Tuple:
+        with obs_trace.span("train/update", cat="train"):
+            return fn(params, grads, state, it)
+
+    run.jitted = fn
+    return run

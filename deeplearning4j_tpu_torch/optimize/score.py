@@ -14,13 +14,19 @@ from typing import Optional
 
 import torch
 
+from ..obs import trace as obs_trace
+
 
 def materialize_scores(scores) -> None:
     """Read every unread LazyScore in ``scores`` with one device copy."""
     lazy = [s for s in scores if isinstance(s, LazyScore) and not s.materialized]
     if not lazy:
         return
-    vals = torch.stack([s._dev.detach().reshape(()).double() for s in lazy]).cpu().tolist()
+    # the batched device barrier (one copy for the whole epoch): the other
+    # place a step's device time shows on the host timeline
+    with obs_trace.span("train/device_sync", cat="train", n_scores=len(lazy)):
+        vals = torch.stack([s._dev.detach().reshape(()).double()
+                            for s in lazy]).cpu().tolist()
     for s, v in zip(lazy, vals):
         s._val = float(v)
         s._dev = None
@@ -38,7 +44,10 @@ class LazyScore:
 
     def value(self) -> float:
         if self._val is None:
-            self._val = float(self._dev)
+            # the host-device barrier of the step: the only blocking read
+            # in a chained fit_batch loop (docs/OBSERVABILITY.md)
+            with obs_trace.span("train/device_sync", cat="train"):
+                self._val = float(self._dev)
             self._dev = None          # drop the device buffer once read
         return self._val
 

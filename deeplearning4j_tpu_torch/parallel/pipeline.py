@@ -269,6 +269,7 @@ def microbatches(batch: int, n_microbatches: int) -> int:
     while batch % m:
         m -= 1
     if m != n_microbatches:
+        # graftcheck: disable=GC102 (shape-static degradation warning: firing ONCE at trace time is exactly the intended behavior)
         logger.warning(
             "n_microbatches=%d does not divide local batch %d — degraded to "
             "%d%s; pad the batch or pick a divisor to keep the pipeline full",

@@ -94,6 +94,7 @@ from ..datasets.dataset import DataSet
 from ..nn.layers import normalization
 from ..nn.updaters import (GradientNormalization, _sq_norm, normalize_gradients,
                            tree_leaves, tree_map)
+from ..obs import trace as obs_trace
 from ..ops import compression as C
 from ..optimize.score import LazyScore
 from .collectives import Axis, all_gather, all_reduce
@@ -624,7 +625,16 @@ class ShardedTrainer:
                     "the nan guard does not compose with TBPTT yet; run "
                     "nan_guard=None")
             return net._fit_batch_tbptt(self._local(ds), step=self._step)
-        loss, _, ok = self._step(self._local(ds))
+        if self.grad_compression is None:
+            loss, _, ok = self._step(self._local(ds))
+        else:
+            # one span for the step: the two-tier exchange (all-reduce, then
+            # the threshold-encoded gather) runs inside the dispatch
+            with obs_trace.span("train/step", cat="train",
+                                iteration=net.iteration + 1,
+                                path="compressed_exchange"):
+                with obs_trace.span("train/dispatch", cat="train"):
+                    loss, _, ok = self._step(self._local(ds))
         if ok is not None:
             net._note_guarded_step(bool(ok))
         score = LazyScore(loss)

@@ -222,6 +222,7 @@ class ShardedTransformerLM:
                     f"the mesh spans {self.mesh.size} ranks but the process group has "
                     f"{process_count()}: call distributed.initialize() in every rank "
                     "before building the mesh")
+            # graftcheck: disable=GC103 (memoized once: the axes are fixed for the model's life, so binding them at capture is what every replay reads)
             self._axes = {n: Axis(self.mesh, n) for n in CANONICAL}
         return self._axes
 

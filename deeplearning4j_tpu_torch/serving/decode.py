@@ -894,11 +894,16 @@ class DecodeEngine:
         if decision == 0:
             return
         self._logical_replicas += decision
-        name = "serve/scale_up" if decision > 0 else "serve/scale_down"
-        with obs_trace.span(name, cat="serve", kind="decode",
-                            replicas=self._logical_replicas):
-            self._autoscale_cb(1 if decision > 0 else -1, self._logical_replicas)
-        self.metrics.inc("scale_ups" if decision > 0 else "scale_downs")
+        if decision > 0:
+            with obs_trace.span("serve/scale_up", cat="serve", kind="decode",
+                                replicas=self._logical_replicas):
+                self._autoscale_cb(1, self._logical_replicas)
+            self.metrics.inc("scale_ups")
+        else:
+            with obs_trace.span("serve/scale_down", cat="serve", kind="decode",
+                                replicas=self._logical_replicas):
+                self._autoscale_cb(-1, self._logical_replicas)
+            self.metrics.inc("scale_downs")
 
     # -- the loop and its supervisor ---------------------------------------------
 

@@ -1306,6 +1306,7 @@ class Engine:
         by ``registry.set_alias(..., canary=)``."""
         if self._canary is not None:
             raise RuntimeError("a canary evaluation is already running")
+        # graftcheck: disable=GC201 (wall-anchor: human-facing default tag names WHEN the canary started; never feeds math or replay)
         nv = _ModelVersion(model, tag or f"canary@{time.time():.0f}", self._devices)
         with self._topology:
             if self._loaded:
@@ -1378,6 +1379,7 @@ class Engine:
         block until every batch on the old version has completed and drop
         its graphs.  ``name`` scopes the swap to one placed named model
         (None: the default model).  Returns the retired version's tag."""
+        # graftcheck: disable=GC201 (wall-anchor: human-facing default tag names WHEN the swap happened; never feeds math or replay)
         nv = _ModelVersion(model, tag or f"swap@{time.time():.0f}", self._devices)
         if name is None or name == self._default_name:
             return self._swap_version(nv, warm_bundle=warm_bundle, warm=True)

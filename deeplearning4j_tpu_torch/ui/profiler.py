@@ -63,8 +63,9 @@ def profile_trace(logdir: str, create_perfetto_link: bool = False) -> Iterator[N
                     torch.cuda.synchronize()
                 prof.stop()
                 os.makedirs(logdir, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(
-                    logdir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"))
+                # graftcheck: disable=GC201 (wall-anchor: the wall clock only names the trace file, as trace_<pid>_<ms>.json; it never feeds math or replay)
+                name = f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"
+                prof.export_chrome_trace(os.path.join(logdir, name))
             except Exception as e:
                 # a failed stop loses the device trace: record it on the
                 # span timeline instead of dropping it silently
