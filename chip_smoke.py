@@ -4,6 +4,10 @@
     python3 chip_smoke.py                  # every phase, on cuda:0
     python3 chip_smoke.py --trace-probe N  # serve's and predict's traced
                                            # replays, N traces each way
+    python3 chip_smoke.py --canary-probe N # predict_features arm (e)
+                                           # alone, N times, timed
+    python3 chip_smoke.py --phase kernel   # the build and the kernel
+                                           # phase alone (no result line)
     python3 chip_smoke.py --phase sharded  # the build and the sharded
                                            # phase alone (no result line)
     python3 chip_smoke.py --phase elastic  # the build and the elastic
@@ -33,9 +37,12 @@ and the recurrent path's training and streaming:
           at the shapes the main path gives it: errors, median time, the
           plain version's time, the least time the card could take (bound)
           and one PyTorch library call's time as a yardstick.  K1 (flash
-          forward, at [4, 12, 1024, 64] and the train phase's B = 8),
+          forward, at [4, 12, 1024, 64] and the train phase's B = 8; f32
+          on the SIMT kernel, bf16 on the tensor-core kernel, both at
+          both shapes, B = 8 in bf16 being bench config 7's attention),
           K2/K3 (flash backward dK/dV and dQ, at the train phase's
-          [8, 12, 1024, 64] and more cases at B = 4) and D1 (decode
+          [8, 12, 1024, 64] and more cases at B = 4; bf16 dK/dV on the
+          tensor cores at both) and D1 (decode
           attention, on the decode program's strided and paged K/V
           views; its split-key launch at the step and at speculative
           verify's 5 rows a slot, its tiled launch at the prefill, at a
@@ -86,8 +93,10 @@ and the recurrent path's training and streaming:
           bitwise the eager forward of the padded bucket it was served in
           and within 1e-4 in log-probability of ``output()`` on its rows
           alone, no batch runs unwarmed, the graph count is 6 before and
-          after, and K1 launches 12 per graph replay, by its counter and in a
-          torch.profiler trace of one replay per bucket.  Prints requests/s, e2e p50/p99,
+          after, and K1 launches 12 per graph replay by its counter (a
+          torch.profiler trace of one replay per bucket reported beside:
+          a profiler can lose records at a trace's ends).  Prints
+          requests/s, e2e p50/p99,
           and per bucket a replay's and the eager forward's time (CUDA
           events, one call) and the rows' copy to the host;
   predict_features  the predict engine's features over the same network.
@@ -96,8 +105,8 @@ and the recurrent path's training and streaming:
           head's W, the one 2-D ``W`` leaf a matmul uses, becomes an
           ``Int8Weight`` served through ``torch._int_mm``), 16 requests of
           1-3 rows from 4 threads: graphs flat at 6, no capture and no
-          unwarmed serve while serving, K1 12 per replay (counter and a
-          trace), every row bitwise the eager quantized forward of its
+          unwarmed serve while serving, K1 12 per replay (by the counter;
+          a trace's count reported), every row bitwise the eager quantized forward of its
           bucket, the head's int32 accumulator on the card bitwise the
           CPU's ``_int_mm`` on the same int8 operands (64 rows), every
           request within 0.05 relative of the f32 network (the
@@ -130,7 +139,9 @@ and the recurrent path's training and streaming:
           v3 whose head bias is NaN: v2 promoted, v3 rolled back,
           ``canary_history`` holds both, 12 captures in all, none on a
           replica thread, no unwarmed serve, users never see a non-finite
-          row;
+          row; under a 300 s limit whose expiry prints every thread's
+          stack and fails the run, with the canaries, the engine's warm,
+          swap and drain steps, each capture and the replica calls timed;
   http    ``UIServer`` on 127.0.0.1 at an ephemeral port with an ``Engine``
           over the repository's Iris MLP checkpoint and a ``DecodeEngine``
           over the TransformerLM: POST /predict bitwise the engine's direct
@@ -190,9 +201,10 @@ and the recurrent path's training and streaming:
           ``fit_batches(2)`` on two [8, 1024] batches, captured as one CUDA
           graph of both steps, against 2 ``fit_batch`` calls from the same
           parameters, Adam moments and iteration: losses and parameters
-          bitwise, the graph count 1 after a second call, and in a
-          torch.profiler trace of one replay K1, K2 and K3 24 times and K4
-          30 times; prints ms per step eager and replayed and peak memory.
+          bitwise, the graph count 1 after a second call, and one traced
+          replay adding K1, K2 and K3 24 times and K4 30 times to the
+          wrappers' counters (the trace's counts reported beside them);
+          prints ms per step eager and replayed and peak memory.
           Last, ``fit_batch`` with tracing off, on, on, off, each from
           the same state: the traced steps' spans are the reference's
           (``train/step`` over ``train/h2d`` and ``train/dispatch``, then
@@ -391,8 +403,9 @@ and the recurrent path's training and streaming:
           bf16 moments), one fixed [8, 1024] batch of seeded ids (targets
           rolled by one), 2 warm-up and 5 timed ``fit_batch`` steps (median
           ms, tokens/s, peak memory), one traced step (idle share, kernels,
-          device ms by class, K1-K3 12 each in bf16); the loss is finite and
-          falls.  (b) ``fit_batches(2)`` at (a)'s size as one CUDA graph:
+          device ms by class and of K1, K2, K3; K1-K3 12 each in bf16 by
+          the wrappers' counters, K1 and K2 on the tensor cores); the loss
+          is finite and falls.  (b) ``fit_batches(2)`` at (a)'s size as one CUDA graph:
           losses, parameters and Adam moments bitwise two ``fit_batch``
           calls from the same state, one graph after a repeat call.  (c) a
           2-layer cut at GPT-2 widths in f32 on [2, 128], 2 SGD steps, on
@@ -400,13 +413,15 @@ and the recurrent path's training and streaming:
           1e-4.  (f) K1-K3 in bf16 at [4, 6, 1024, 64] (a TP 2 x pipe 2
           microbatch), [8, 3, 1024, 64] (Ulysses at tp 2 x sp 2) and (a)'s
           [8, 12, 1024, 64] against their plain versions (2e-2 abs, 1e-2
-          norm-relative, a second K2/K3 launch bitwise the first), D1 at a
+          norm-relative, a second K2/K3 launch bitwise the first; K1, K2
+          on the tensor cores), D1 at a
           6-head shard (a step and a 512-row prefill) within 2e-5.  (e) the
           f32 LM at GPT-2 widths cut to (d)'s 4 layers, behind ``DecodeEngine`` with
           the serve phase's 8 requests, one-way and tensor-parallel with
           two head shards on cuda:0: every echoed logit bitwise the
           program's own re-encode, the pool back to 0 pages, the snapshot's
-          ``tp``, D1 4 (one-way) and 8 (two shards) a step in a trace,
+          ``tp``, D1 4 (one-way) and 8 (two shards) a step by its counter
+          (a trace's count reported),
           and one-way log-probabilities within 1e-4 of ``logits()``
           (K1); TTFT and TPOT p50.  (g) ``ShardedTrainer`` on ``{model 2}``:
           two gloo ranks on cuda:0 train an Iris MLP (Adam, per-layer
@@ -753,8 +768,10 @@ def flash_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL // HE
         km[:, 0] = 1
         kmask = torch.from_numpy(km).to(dev)
     scale = 1.0 / math.sqrt(D)
+    tc0 = att.flash_forward_tc_cuda.launches
     o, lse = att.flash_forward_cuda(q, k, v, kmask, True, scale)
     torch.cuda.synchronize()
+    tensor_cores = att.flash_forward_tc_cuda.launches - tc0 == 1
     o_ref, lse_ref = att.flash_forward_plain(q, k, v, kmask, True, scale)
     diff = o.float() - o_ref.float()
     err = float(diff.abs().max())
@@ -776,7 +793,10 @@ def flash_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL // HE
         0 if kmask is None else B * T * 4)
     dname = "float32" if dtype == torch.float32 else "bfloat16"
     t_ops, t_bytes = flops / PEAK_FLOPS[dname] * 1e3, nbytes / PEAK_BYTES * 1e3
+    if tensor_cores != (dtype == torch.bfloat16):
+        raise AssertionError(f"{name}: K1 took the wrong kernel (tensor cores {tensor_cores})")
     rec = {"phase": "kernel", "case": name, "dtype": dname,
+           "kernel": "tensor cores (flash_fwd_tc.cu)" if tensor_cores else "SIMT (flash_fwd.cu)",
            "shape": [B, H, T, D], "causal": True, "kmask": kmask is not None,
            "max_abs_err": err, "rel_err": rel_err, "lse_max_abs_err": lse_err,
            **timed(kernel, lib),
@@ -817,9 +837,12 @@ def flash_bwd_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL /
     o, lse = att.flash_forward_cuda(q, k, v, kmask, True, scale)
     delta = att.flash_delta(o, g)
     args = (q, k, v, g, lse, delta, kmask, True, scale)
+    tc0 = att.flash_bwd_dkdv_tc_cuda.launches
     dk, dv = att.flash_bwd_dkdv_cuda(*args)
     dq = att.flash_bwd_dq_cuda(*args)
     torch.cuda.synchronize()
+    if (att.flash_bwd_dkdv_tc_cuda.launches - tc0 == 1) != (dtype == torch.bfloat16):
+        raise AssertionError(f"bwd_{name}: K2 took the wrong kernel")
     rk, rv = att.flash_bwd_dkdv_plain(*args)
     rq = att.flash_bwd_dq_plain(*args)
 
@@ -843,6 +866,8 @@ def flash_bwd_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL /
     reads = 4 * B * H * T * D * es + 2 * B * H * T * 4 + (0 if kmask is None else B * T * 4)
     dname = "float32" if dtype == torch.float32 else "bfloat16"
     rec = {"phase": "kernel", "case": "bwd_" + name, "dtype": dname,
+           "dkdv_kernel": ("tensor cores (flash_bwd_tc.cu)" if dtype == torch.bfloat16
+                           else "SIMT (flash_bwd.cu)"),
            "shape": [B, H, T, D], "causal": True, "kmask": kmask is not None,
            "errors": {n: errs((pair,)) for n, pair in
                       (("dq", (dq, rq)), ("dk", (dk, rk)), ("dv", (dv, rv)))},
@@ -933,20 +958,24 @@ def phase_kernel():
     tol = {"float32": 2e-5, "bfloat16": 2e-2}
     rel_tol = {"float32": 1e-5, "bfloat16": 1e-2}
     # [4, 12, 1024, 64] first (the kernels line reports it), then the
-    # train phase's B = 8
+    # train phase's B = 8; bf16 (the tensor-core kernel) at both, B = 8
+    # being bench config 7's attention
     recs = [flash_case("f32", torch.float32, 0.0),
             flash_case("f32_train", torch.float32, 0.0, B=8),
             flash_case("bf16", torch.bfloat16, 0.0),
+            flash_case("bf16_train", torch.bfloat16, 0.0, B=8),
             flash_case("f32_kmask", torch.float32, 0.25)]
     bad = [r["case"] for r in recs
            if not (r["max_abs_err"] <= tol[r["dtype"]]
                    and r["rel_err"] <= rel_tol[r["dtype"]]
                    and r["lse_max_abs_err"] <= 2e-5)]
     # the train phase's shape [8, 12, 1024, 64] first (the kernels line
-    # reports it), then bf16 and a key mask at [4, 12, 1024, 64]
+    # reports it), then bf16 (K2 on the tensor cores) at [4, 12, 1024, 64]
+    # and at bench config 7's [8, 12, 1024, 64], and a key mask
     bwd = [flash_bwd_case("f32_train", torch.float32, 0.0, B=8),
            flash_bwd_case("f32", torch.float32, 0.0),
            flash_bwd_case("bf16", torch.bfloat16, 0.0),
+           flash_bwd_case("bf16_train", torch.bfloat16, 0.0, B=8),
            flash_bwd_case("f32_kmask", torch.float32, 0.25)]
     bad += [f"{r['case']}/{kn}" for r in bwd for kn in ("flash_bwd_dkdv", "flash_bwd_dq")
             if not (r[kn]["max_abs_err"] <= tol[r["dtype"]]
@@ -969,7 +998,7 @@ def phase_kernel():
                                            and r["rows_alone_bitwise"])]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
-    return recs[0], bwd[0], det[0]
+    return recs[0], bwd[0], det[0], recs[3], bwd[3]
 
 
 def fused_update_case(net):
@@ -1783,7 +1812,7 @@ def phase_serve(net):
         bad.extend(f"{name}:{g}" for g, ok in gates.items() if not ok)
 
     # (b) fused horizons: one graph replay per dispatch, D1 counted through
-    # them at LAYERS calls a step, as a traced replay shows
+    # them at LAYERS calls a step (a traced replay's count reported beside)
     for H in (2, 4, 8):
         run = serve_run(adapter, prompts, kws, decode_horizon=H)
         c = run["snap"]["counters"]
@@ -1793,7 +1822,7 @@ def phase_serve(net):
             "tokens_equal_a": toks, "logits_bitwise_a": bits,
             "one_replay_per_dispatch": c["fused_dispatches"] == run["replays"] > 0,
             "d1_launches_through_replays": run["launches"]["det_attention"] == want_d1,
-            "d1_traced_replay": run["d1_traced_per_replay"] == run["d1_per_replay"] == LAYERS * H,
+            "d1_per_replay": run["d1_per_replay"] == LAYERS * H,
             "pool_drained": run["snap"]["pages_in_use"] == 0},
             fused_dispatches=c["fused_dispatches"], graph_replays=run["replays"],
             d1_per_replay=run["d1_per_replay"],
@@ -1984,7 +2013,8 @@ def phase_predict(net):
                 served_rows += xs[i].shape[0]
             del y
         # K1 in one replay of each bucket's graph, from a trace of the card:
-        # the witness that a replay runs the captured K1 launches
+        # a report beside the counters' 12 a replay (a profiler can lose
+        # records at a trace's ends)
         traced = {b: traced_replay_k1(programs[(0, b, "float32")])
                   for b in PREDICT_BUCKETS}
         # time per bucket, in this call: a graph replay against the eager
@@ -2033,7 +2063,6 @@ def phase_predict(net):
     ok = (completed and not errors and bitwise and max_dlogp <= 1e-4
           and rec["unwarmed_serves"] == 0 and graphs_before == graphs_after == want_graphs
           and replays > 0 and k1 == LAYERS * replays
-          and all(n == LAYERS for n in traced.values())
           and all(t["replay_bitwise_eager"] for t in timing.values()))
     if not ok:
         raise AssertionError("predict phase failed")
@@ -2052,21 +2081,34 @@ class GraphSpy:
     """Counts ``ForwardGraph`` replays and captures (the thread of each
     capture too) for the length of a ``with`` block, so a window's K1
     launches can be held to 12 per replay and 24 per capture's two eager
-    warm-up forwards, even on graphs released inside the window."""
+    warm-up forwards, even on graphs released inside the window.  It also
+    times them: each capture's seconds, and the replica calls' (input
+    copy, replay, rows to the host) count, total and longest seconds."""
 
     def __enter__(self):
         from deeplearning4j_tpu_torch.serving import cuda_graphs as cg
         self.cg, self.replays, self.captures = cg, 0, []
+        self.capture_s, self.call_s_max, self.call_s_total = [], 0.0, 0.0
         self._call, self._init = cg.ForwardGraph.__call__, cg.ForwardGraph.__init__
         spy = self
 
         def call(g, *a, **k):
-            spy.replays += 1
-            return spy._call(g, *a, **k)
+            t = time.perf_counter()
+            try:
+                return spy._call(g, *a, **k)
+            finally:
+                dt = time.perf_counter() - t
+                spy.replays += 1
+                spy.call_s_total += dt
+                spy.call_s_max = max(spy.call_s_max, dt)
 
         def init(g, *a, **k):
             spy.captures.append(threading.current_thread().name)
-            return spy._init(g, *a, **k)
+            t = time.perf_counter()
+            try:
+                return spy._init(g, *a, **k)
+            finally:
+                spy.capture_s.append(time.perf_counter() - t)
         cg.ForwardGraph.__call__, cg.ForwardGraph.__init__ = call, init
         return self
 
@@ -2214,8 +2256,7 @@ def pf_int8(net, rng):
            "int8_leaves": sum(isinstance(v, Int8Weight) for p in qm.params for v in p.values())}
     bad = []
     if not (graphs_before == graphs_after == 6 and rec["unwarmed_serves"] == 0 and not errors
-            and spy.captures == [] and spy.replays > 0 and k1 == LAYERS * spy.replays
-            and traced == LAYERS):
+            and spy.captures == [] and spy.replays > 0 and k1 == LAYERS * spy.replays):
         bad.append(f"a: graphs {graphs_before}/{graphs_after}, k1 {k1} over {spy.replays} "
                    f"replays (traced {traced}), errors {errors[:2]}")
     if not (bitwise and acc_bitwise and rel < 0.05 and rec["int8_leaves"] == 1):
@@ -2545,9 +2586,51 @@ def perturbed(net, fill_nan=False, seed=SEED + 60):
     return other
 
 
+#: arm (e)'s time limit: a guard (its usual wall is ~15-25 s); past it
+#: every thread's stack is printed and the run fails
+PF_CANARY_LIMIT_S = 300
+
+
+class StepTimes:
+    """Seconds of each call of the named methods of ``obj`` (a class or
+    an instance), for the length of a ``with`` block: name → [s, ...]."""
+
+    def __init__(self, obj, names):
+        self.obj, self.names, self.seconds = obj, names, {n: [] for n in names}
+
+    def __enter__(self):
+        self.real = {n: getattr(self.obj, n) for n in self.names}
+        for n in self.names:
+            def timed(*a, _n=n, **k):
+                t = time.perf_counter()
+                try:
+                    return self.real[_n](*a, **k)
+                finally:
+                    self.seconds[_n].append(time.perf_counter() - t)
+            setattr(self.obj, n, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.real.items():
+            setattr(self.obj, n, f)
+
+
 def pf_canary(net, rng):
     """(e) v1 → v2 of GPT-2-small through ``set_alias(canary=0.5,
-    canary_window=4)``, then a NaN-poisoned v3."""
+    canary_window=4)``, then a NaN-poisoned v3.  Under a time limit
+    (``PF_CANARY_LIMIT_S``) whose expiry prints every thread's stack and
+    fails the run; the record times the two canaries, the engine's warm,
+    swap and drain steps, each capture and the replica calls."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(PF_CANARY_LIMIT_S, exit=True)
+    try:
+        return _pf_canary(net, rng)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _pf_canary(net, rng):
     import numpy as np
 
     from deeplearning4j_tpu_torch.ops import attention as att
@@ -2572,18 +2655,23 @@ def pf_canary(net, rng):
             except Exception as e:
                 errors.append(repr(e))
     threads = [threading.Thread(target=traffic) for _ in range(2)]
+    steps = StepTimes(eng, ("_warm_version", "_swap_version", "_drain_and_release"))
     try:
-        with GraphSpy() as spy:
+        with GraphSpy() as spy, steps:
             att.flash_forward_cuda.launches = 0
             for t in threads:
                 t.start()
+            t0 = time.perf_counter()
             good = reg.set_alias("gpt2", "prod", v2, canary=0.5, canary_window=4,
                                  canary_timeout_s=120)
+            t1 = time.perf_counter()
             bad_rec = reg.set_alias("gpt2", "prod", v3, canary=0.5, canary_window=4,
                                     canary_timeout_s=120)
+            t2 = time.perf_counter()
             stop.set()
             for t in threads:
                 t.join(timeout=600)
+            t3 = time.perf_counter()
             k1 = att.flash_forward_cuda.launches
         c = eng.metrics_snapshot()["counters"]
         rec = {"arm": "e_canary", "promoted_v2": good["promoted"],
@@ -2596,7 +2684,12 @@ def pf_canary(net, rng):
                "unwarmed_serves": c["unwarmed_serves"], "requests": len(served),
                "all_finite": all(served), "errors": errors,
                "counters": {k: c[k] for k in ("canary_promotions", "canary_rollbacks",
-                                              "canary_mirrored_batches", "swaps")}}
+                                              "canary_mirrored_batches", "swaps")},
+               "seconds": {"canary_v2": t1 - t0, "canary_v3": t2 - t1, "traffic_join": t3 - t2,
+                           **{k.strip("_"): v for k, v in steps.seconds.items()},
+                           "captures": spy.capture_s, "replica_calls": spy.replays,
+                           "replica_call_max": spy.call_s_max,
+                           "replica_call_total": spy.call_s_total}}
     finally:
         stop.set()
         eng.shutdown()
@@ -3189,8 +3282,9 @@ LM_TRAIN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_k
 def lm_fit_batches_arm(net, ds, rng, eager_step_s):
     """``fit_batches(2)`` as one CUDA graph against 2 ``fit_batch`` calls
     from the same state (parameters, Adam moments, iteration): losses and
-    every parameter bitwise; K1-K3 24 and K4 30 per replay by a trace; the
-    graph count 1 after a second call; ms per step eager and replayed."""
+    every parameter bitwise; K1-K3 24 and K4 30 per replay by the
+    wrappers' counters (a trace's counts reported beside them); the graph
+    count 1 after a second call; ms per step eager and replayed."""
     import torch
 
     from deeplearning4j_tpu_torch.datasets import DataSet
@@ -3225,10 +3319,13 @@ def lm_fit_batches_arm(net, ds, rng, eager_step_s):
         net.fit_batches(batches)
         torch.cuda.synchronize()
         replays.append((time.perf_counter() - t0) / 2)
+    # the traced replay's launches by the wrappers' counters (a replay adds
+    # the captured launches): the gate; the trace's counts are a report
+    traced0 = {n: c.launches for n, c in counters.items()}
     prof = device_profile(lambda: net.fit_batches(batches), LM_TRAIN_KERNELS)
+    per_replay = {n: c.launches - traced0[n] for n, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     counted = {n: c.launches - counted[n] for n, c in counters.items()}
-    per_replay = prof["named"]
     want = {"flash_fwd_kernel": 2 * LAYERS, "flash_bwd_dkdv_kernel": 2 * LAYERS,
             "flash_bwd_dq_kernel": 2 * LAYERS,
             "fused_update_kernel": 2 * sum(1 for p in net.params if p)}
@@ -3241,7 +3338,7 @@ def lm_fit_batches_arm(net, ds, rng, eager_step_s):
            "replay_ms_per_step": [r * 1e3 for r in replays],
            "replay_ms_per_step_median": replay_s * 1e3,
            "traced_replay": prof, "kernels_per_replay_expected": want,
-           "launches": counted,
+           "kernels_per_replay_counted": per_replay, "launches": counted,
            "peak_memory_gib": peak / 2 ** 30}
     emit({"phase": "train", **rec})
     if not (bitwise and count_first == net.fit_graph_count == 1 and per_replay == want):
@@ -5178,8 +5275,9 @@ SHARDED_ARMS = {
     "tp_pp_gpipe_bf16": ({"model": 2, "pipe": 2}, {"schedule": "gpipe", "n_microbatches": 2},
                          "bfloat16"),
 }
-#: K1-K3's bf16 instantiations, by kernel name in a trace
-FLASH_BF16_KERNELS = ("flash_fwd_kernel<__nv_bfloat16", "flash_bwd_dkdv_kernel<__nv_bfloat16",
+#: K1-K3's bf16 kernels, by kernel name in a trace: K1 and K2 on the
+#: tensor cores, K3's bf16 instantiation of the SIMT kernel
+FLASH_BF16_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
                       "flash_bwd_dq_kernel<__nv_bfloat16")
 D1_KERNELS = ("det_attention_split", "det_attention_tiled")
 
@@ -5226,8 +5324,13 @@ def lm_tokens(b, t, seed):
 
 
 def flash_counters():
+    """K1-K3's launch counters; ``flash_fwd`` and ``flash_bwd_dkdv`` count
+    both dtypes, the ``_tc`` ones the bf16 launches (the tensor-core
+    kernels)."""
     from deeplearning4j_tpu_torch.ops import attention as att
-    return {"flash_fwd": att.flash_forward_cuda, "flash_bwd_dkdv": att.flash_bwd_dkdv_cuda,
+    return {"flash_fwd": att.flash_forward_cuda, "flash_fwd_tc": att.flash_forward_tc_cuda,
+            "flash_bwd_dkdv": att.flash_bwd_dkdv_cuda,
+            "flash_bwd_dkdv_tc": att.flash_bwd_dkdv_tc_cuda,
             "flash_bwd_dq": att.flash_bwd_dq_cuda}
 
 
@@ -5254,7 +5357,12 @@ def sharded_config7():
         losses.append(float(lm.fit_batch(tok, tgt)))
         times.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the traced step's launches by the wrappers' counters (the gate); the
+    # trace's kernel counts and device ms are a report (a profiler can
+    # lose records at a trace's ends)
+    before = {k: c.launches for k, c in counters.items()}
     prof = device_profile(lambda: float(lm.fit_batch(tok, tgt)), FLASH_BF16_KERNELS, top=8)
+    counted = {k: c.launches - before[k] for k, c in counters.items()}
     launches = {k: c.launches for k, c in counters.items()}
     med = statistics.median(times)
     flash_ms = sum(prof["named_ms"].values())
@@ -5263,13 +5371,15 @@ def sharded_config7():
          "batch": [8, MAX_LEN], "losses": losses, "step_ms": times, "median_step_ms": med,
          "tokens_per_s": 8 * MAX_LEN / (med / 1e3), "peak_memory_gib": peak,
          "traced_step": prof, "k1_k3_share_of_busy": flash_ms / prof["busy_ms"],
+         "k1_k3_device_ms": dict(zip(("K1", "K2", "K3"), prof["named_ms"].values())),
+         "k1_k3_counted_per_step": counted,
          "k1_k3_traced_per_step": prof["named"], "launches": launches}
     emit({"phase": "sharded", "arm": "a_config7", **a})
     bad = []
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         bad.append("a: loss not finite and falling")
-    if any(v != LAYERS for v in prof["named"].values()):
-        bad.append(f"a: K1-K3 in bf16 per traced step {prof['named']}")
+    if any(v != LAYERS for v in counted.values()):
+        bad.append(f"a: K1-K3 in bf16 per step by the counters {counted}")
 
     # (b) fit_batches(2) as one CUDA graph against 2 eager steps
     batches = [lm_tokens(8, MAX_LEN, SEED + 211), lm_tokens(8, MAX_LEN, SEED + 212)]
@@ -5492,7 +5602,7 @@ def sharded_meshes():
         arms[name] = rec
         emit({"phase": "sharded", "arm": f"d_{name}", **rec})
     launches = {k: sum(r["arms"][n]["launches"][k] for r in ranks for n in SHARDED_ARMS)
-                for k in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+                for k in flash_counters()}
     return {"arms": arms, "depth_cut": f"{SHARDED_CUT_LAYERS} of {LAYERS} layers",
             "launches": launches}, bad
 
@@ -5547,11 +5657,14 @@ def sharded_decode():
                                  torch.zeros(4, dtype=torch.long, device=dev),
                                  torch.zeros(4, dtype=torch.long, device=dev),
                                  torch.zeros(4, dtype=torch.bool, device=dev))
+        # D1 calls a step by the wrapper's counter (the gate) and by a
+        # trace (a report); the step only measures, so the count is put back
         before = kvc.det_attention_cuda.launches
         rec["d1_traced_per_step"] = traced_kernels(step, D1_KERNELS)
+        rec["d1_counted_per_step"] = kvc.det_attention_cuda.launches - before
         kvc.det_attention_cuda.launches = before
-        if rec["d1_traced_per_step"] != SHARDED_CUT_LAYERS * n:
-            bad.append(f"e/tp{n}: D1 per step {rec['d1_traced_per_step']}")
+        if rec["d1_counted_per_step"] != SHARDED_CUT_LAYERS * n:
+            bad.append(f"e/tp{n}: D1 per step {rec['d1_counted_per_step']}")
         if failed or not bitwise or rec["pages_in_use_after"] != 0 or rec["snapshot_tp"] != n:
             bad.append(f"e/tp{n}: failed requests, bits, pages or tp")
         emit({"phase": "sharded", "arm": f"e_decode_tp{n}", **rec})
@@ -5694,11 +5807,8 @@ def phase_sharded():
         gc.collect()
         torch.cuda.empty_cache()
     launches = {
-        "flash_fwd": out["config7"]["launches"]["flash_fwd"] + out["meshes"]["launches"]["flash_fwd"],
-        "flash_bwd_dkdv": (out["config7"]["launches"]["flash_bwd_dkdv"]
-                           + out["meshes"]["launches"]["flash_bwd_dkdv"]),
-        "flash_bwd_dq": (out["config7"]["launches"]["flash_bwd_dq"]
-                         + out["meshes"]["launches"]["flash_bwd_dq"]),
+        **{k: out["config7"]["launches"][k] + out["meshes"]["launches"][k]
+           for k in flash_counters()},
         "det_attention": out["decode"]["launches"]["det_attention"],
         "fused_update": out["model_axis"]["k4_launches"]}
     emit({"phase": "sharded", "seconds": time.perf_counter() - t0, "launches": launches,
@@ -8942,6 +9052,34 @@ def trace_probe(n: int) -> None:
     print(card_line(), flush=True)
 
 
+def canary_probe(n: int) -> None:
+    """``--canary-probe N``: predict_features arm (e) alone, N times over
+    one model, each run's record (its walls, the engine's warm, swap and
+    drain steps, each capture and the replica calls timed) printed."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.utils import cuda_build
+
+    cuda_build.build(cuda_build.sources())
+    net = build_model()
+    rng = np.random.default_rng(SEED + 90)
+    bad = []
+    for i in range(n):
+        t = time.perf_counter()
+        rec, b = pf_canary(net, rng)
+        bad += b
+        emit({"phase": "canary_probe", "run": i, "wall_s": time.perf_counter() - t,
+              "ok": not b, **rec})
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(card_line(), flush=True)
+    if bad:
+        raise AssertionError(f"canary probe: {bad}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8958,7 +9096,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--trace-probe"]:
         trace_probe(int(sys.argv[2]))
         return 0
-    if sys.argv[1:2] == ["--phase"] and sys.argv[2:3] in (["sharded"], ["elastic"],
+    if sys.argv[1:2] == ["--canary-probe"]:
+        canary_probe(int(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--phase"] and sys.argv[2:3] in (["kernel"], ["sharded"], ["elastic"],
                                                           ["predict_features"], ["fleet"],
                                                           ["flywheel"], ["learning"], ["ui"],
                                                           ["train"]):
@@ -8966,7 +9107,7 @@ def main() -> int:
         emit({"torch": torch.__version__, "device": torch.cuda.get_device_name(0),
               "card": card})
         cuda_build.build(cuda_build.sources())
-        {"sharded": phase_sharded, "elastic": phase_elastic,
+        {"kernel": phase_kernel, "sharded": phase_sharded, "elastic": phase_elastic,
          "predict_features": lambda: phase_predict_features(build_model()),
          "fleet": lambda: phase_fleet(build_model()),
          "flywheel": phase_flywheel, "learning": phase_learning,
@@ -8982,7 +9123,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: os.path.relpath(str(v), REPO) for k, v in built.items()}})
 
-    k1, bwd, det = run_phase("kernel", phase_kernel)
+    k1, bwd, det, k1_tc, bwd_tc = run_phase("kernel", phase_kernel)
     k5 = run_phase("kernel_lstm", phase_kernel_lstm)
     net = run_phase("build_model", build_model)
     score = run_phase("score", phase_score, net)
@@ -9034,16 +9175,25 @@ def main() -> int:
         return (train["launches"][name] + graph_n[kernel] + attn["launches"].get(name, 0)
                 + conv["rnn_launches"].get(name, 0) + heads["launches"].get(name, 0)
                 + sharded.get(name, 0) + elastic.get(name, 0) + ui.get(name, 0))
+    # bf16 attention runs in the sharded phase alone: its K1 and K2
+    # launches there went to the tensor-core kernels (their own counters),
+    # the rest of K1's and K2's counts to the SIMT kernels
+    tc = {k: sharded[k + "_tc"] for k in ("flash_fwd", "flash_bwd_dkdv")}
     emit({"kernels": [
         entry("flash_fwd", "flash_fwd.cu", "deeplearning4j_tpu/ops/attention.py:138",
               score["launches"]["flash_fwd"] + predict["launches"]["flash_fwd"]
               + features["launches"]["flash_fwd"] + fleet["flash_fwd"]
               + graph_n["flash_fwd_kernel"]
               + attn["launches"]["flash_fwd"] + sharded["flash_fwd"] + elastic["flash_fwd"]
-              + ui["flash_fwd"], k1),
+              + ui["flash_fwd"] - tc["flash_fwd"], k1),
+        entry("flash_fwd_tc", "flash_fwd_tc.cu", "deeplearning4j_tpu/ops/attention.py:138",
+              tc["flash_fwd"], k1_tc),
         entry("flash_bwd_dkdv", "flash_bwd.cu", "deeplearning4j_tpu/ops/attention.py:329",
-              trained("flash_bwd_dkdv", "flash_bwd_dkdv_kernel"),
+              trained("flash_bwd_dkdv", "flash_bwd_dkdv_kernel") - tc["flash_bwd_dkdv"],
               {**bwd["flash_bwd_dkdv"], **bwd_lib}),
+        entry("flash_bwd_dkdv_tc", "flash_bwd_tc.cu", "deeplearning4j_tpu/ops/attention.py:329",
+              tc["flash_bwd_dkdv"],
+              {**bwd_tc["flash_bwd_dkdv"], "library_ms": bwd_tc["library_ms"]}),
         entry("flash_bwd_dq", "flash_bwd.cu", "deeplearning4j_tpu/ops/attention.py:366",
               trained("flash_bwd_dq", "flash_bwd_dq_kernel"), {**bwd["flash_bwd_dq"], **bwd_lib}),
         entry("fused_update", "fused_update.cu", "deeplearning4j_tpu/ops/update_kernel.py:84",

@@ -1,10 +1,11 @@
 // Flash-attention forward (kernel K1) for Hopper, SIMT float32.
 //
 // Replaces deeplearning4j_tpu/ops/attention.py::_flash_kernel (launched by
-// _flash_forward).  Same function: O = softmax(q.k^T * scale + bias) . v and
-// the per-row log-sum-exp, with an optional causal mask and an optional
-// [B, S] key mask (1 = attend), f32 or bf16 inputs, f32 statistics, and the
-// LSE sentinel +1e30 for rows that never saw a live key.
+// _flash_forward) for float32 inputs; bf16 inputs take the tensor-core
+// kernel in flash_fwd_tc.cu (mma.sync).  Same function: O = softmax(q.k^T *
+// scale + bias) . v and the per-row log-sum-exp, with an optional causal mask
+// and an optional [B, S] key mask (1 = attend), f32 statistics, and the LSE
+// sentinel +1e30 for rows that never saw a live key.
 //
 // Bound on H100: the work is 4*B*H*T*S*D flops (about half that when causal)
 // against ~2*(T+S)*B*H*D elements of traffic, so at the slice's shapes it is
@@ -32,8 +33,8 @@
 // that share a row with shuffles); exponentials are ex2.approx of x*log2(e).
 // Ragged T, S and D are masked in the kernel (D <= 128, zero-padded to 64 or
 // 128); a D that is not a multiple of 16 bytes takes plain loads for the
-// tiles instead of cp.async.  bf16 inputs are staged as bf16 and converted on
-// each shared load; p takes v's dtype before the P.V product.
+// tiles instead of cp.async.  The kernel is a template on the element type;
+// only float is instantiated.
 
 #include "flash_tiles.cuh"
 
@@ -237,22 +238,18 @@ int launch(const void* q, const void* k, const void* v, const int* kmask,
 
 }  // namespace
 
-// q [B,H,T,D], k/v [B,H,S,D] contiguous, f32 (is_bf16 = 0) or bf16;
-// kmask [B,S] int32 or null; o like q; lse [B,H,T] f32.
+// q [B,H,T,D], k/v [B,H,S,D] contiguous f32; kmask [B,S] int32 or null;
+// o like q; lse [B,H,T] f32.
 // Returns 0, a CUDA error code, or -1 for arguments the kernel does not take.
 extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
                               const void* kmask, void* o, void* lse,
                               int B, int H, int T_, int S, int D, float scale,
-                              int causal, int is_bf16, void* stream) {
+                              int causal, void* stream) {
   if (B < 1 || H < 1 || T_ < 1 || S < 1 || D < 1 || D > 128) return -1;
   if ((long long)B * H > 2147483647LL || (T_ + BQ - 1) / BQ > 65535) return -1;
   const int* km = static_cast<const int*>(kmask);
   float* lo = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return D <= 64 ? launch<__nv_bfloat16, 64>(q, k, v, km, o, lo, B, H, T_, S, D, scale, causal, st)
-                   : launch<__nv_bfloat16, 128>(q, k, v, km, o, lo, B, H, T_, S, D, scale, causal, st);
-  }
   return D <= 64 ? launch<float, 64>(q, k, v, km, o, lo, B, H, T_, S, D, scale, causal, st)
                  : launch<float, 128>(q, k, v, km, o, lo, B, H, T_, S, D, scale, causal, st);
 }

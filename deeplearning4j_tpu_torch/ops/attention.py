@@ -1,14 +1,26 @@
 """Multi-head attention: the plain ``mha`` path and flash attention
 forward and backward (mirrors ``deeplearning4j_tpu/ops/attention.py``).
 
-``flash_forward`` is kernel K1 (``csrc/flash_fwd.cu``, replacing the TPU
-kernel ``_flash_kernel``); ``flash_backward`` runs kernels K2 (dK, dV)
-and K3 (dQ) (``csrc/flash_bwd.cu``, replacing ``_flash_bwd_dkdv_kernel``
-and ``_flash_bwd_dq_kernel``).  For a CUDA tensor each launches its
-kernel; for a CPU tensor, and only then, it runs its plain PyTorch
-version (``flash_forward_plain``, ``flash_backward_plain``).  A CUDA call
-that a kernel cannot take raises: no path falls back.  The forward
-returns O and the per-row log-sum-exp (LSE, +1e30 for rows that never
+``flash_forward`` is kernel K1 (replacing the TPU kernel
+``_flash_kernel``); ``flash_backward`` runs kernels K2 (dK, dV) and K3
+(dQ) (replacing ``_flash_bwd_dkdv_kernel`` and ``_flash_bwd_dq_kernel``).
+Which kernel serves which dtype:
+
+==========  ==================================  ============================
+kernel      float32                             bfloat16
+==========  ==================================  ============================
+K1          ``csrc/flash_fwd.cu`` (SIMT)        ``csrc/flash_fwd_tc.cu``
+                                                (tensor cores, ``mma.sync``)
+K2          ``csrc/flash_bwd.cu`` (SIMT)        ``csrc/flash_bwd_tc.cu``
+                                                (tensor cores, ``mma.sync``)
+K3          ``csrc/flash_bwd.cu`` (SIMT)        ``csrc/flash_bwd.cu`` (SIMT)
+==========  ==================================  ============================
+
+For a CUDA tensor each wrapper launches its kernel; for a CPU tensor, and
+only then, it runs its plain PyTorch version (``flash_forward_plain``,
+``flash_backward_plain``).  A CUDA call that a kernel cannot take, or
+whose kernel fails to build or launch, raises: no path falls back.  The
+forward returns O and the per-row log-sum-exp (LSE, +1e30 for rows that never
 saw a live key); the backward rebuilds p from that LSE, so such rows get
 exactly zero gradients.  ``flash_mha`` ties them together with a
 ``torch.autograd.Function``, as the reference's ``_flash_mha_p`` custom
@@ -147,24 +159,39 @@ def flash_forward_plain(q: Tensor, k: Tensor, v: Tensor,
     return o.to(q.dtype), lse[..., 0]
 
 
+#: the C signature of both forward entries: q, k, v, kmask, o, lse; B, H,
+#: T, S, D; scale, causal, stream (pointers as c_void_p, or ctypes cuts
+#: them to 32 bits)
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
 @functools.lru_cache(maxsize=None)
 def _flash_fn():
-    """``dl4j_flash_fwd`` from the built library, its C signature set once."""
+    """``dl4j_flash_fwd`` (f32, SIMT) from the built library, its C
+    signature set once."""
     from ..utils import cuda_build
 
     fn = cuda_build.load("flash_fwd").dl4j_flash_fwd
-    fn.restype = ctypes.c_int        # pointers as c_void_p, or ctypes cuts them to 32 bits
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype, fn.argtypes = ctypes.c_int, _FWD_ARGTYPES
     return fn
 
 
-def flash_forward_cuda(q: Tensor, k: Tensor, v: Tensor,
-                       kmask: Optional[Tensor], causal: bool,
-                       scale: float) -> Tuple[Tensor, Tensor]:
-    """Launch K1 (``csrc/flash_fwd.cu``) on CUDA tensors.  Raises for
-    anything the kernel does not take (D > 128, other dtypes, tensors on
-    different devices)."""
+@functools.lru_cache(maxsize=None)
+def _flash_tc_fn():
+    """``dl4j_flash_fwd_tc`` (bf16, tensor cores) from the built library,
+    its C signature set once."""
+    from ..utils import cuda_build
+
+    fn = cuda_build.load("flash_fwd_tc").dl4j_flash_fwd_tc
+    fn.restype, fn.argtypes = ctypes.c_int, _FWD_ARGTYPES
+    return fn
+
+
+def _launch_forward(fn, q: Tensor, k: Tensor, v: Tensor, kmask: Optional[Tensor],
+                    causal: bool, scale: float) -> Tuple[Tensor, Tensor]:
+    """Check the operands, allocate O and the LSE, launch ``fn`` (one of
+    the forward entries) on q's device and current stream."""
     _check(q, k, v, kmask)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_forward_cuda needs q, k, v on one CUDA device")
@@ -172,7 +199,6 @@ def flash_forward_cuda(q: Tensor, k: Tensor, v: Tensor,
     S = k.shape[2]
     if D > 128:
         raise ValueError(f"the flash kernel supports head_dim <= 128, got {D}")
-    fn = _flash_fn()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     km = None
     if kmask is not None:
@@ -183,13 +209,44 @@ def flash_forward_cuda(q: Tensor, k: Tensor, v: Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if km is None else km.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), B, H, T, S, D, float(scale), int(bool(causal)),
-                int(q.dtype == torch.bfloat16), stream)
+                lse.data_ptr(), B, H, T, S, D, float(scale), int(bool(causal)), stream)
     if rc != 0:
         raise RuntimeError(f"flash forward kernel launch failed (code {rc})")
+    return o, lse
+
+
+def flash_forward_tc_cuda(q: Tensor, k: Tensor, v: Tensor,
+                          kmask: Optional[Tensor], causal: bool,
+                          scale: float) -> Tuple[Tensor, Tensor]:
+    """Launch K1's bf16 tensor-core kernel (``csrc/flash_fwd_tc.cu``) on
+    CUDA tensors; raises for any other dtype."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core flash forward takes bfloat16, got {q.dtype}")
+    out = _launch_forward(_flash_tc_fn(), q, k, v, kmask, causal, scale)
+    # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
+    flash_forward_tc_cuda.launches += 1
+    return out
+
+
+flash_forward_tc_cuda.launches = 0
+
+
+def flash_forward_cuda(q: Tensor, k: Tensor, v: Tensor,
+                       kmask: Optional[Tensor], causal: bool,
+                       scale: float) -> Tuple[Tensor, Tensor]:
+    """Launch K1 on CUDA tensors: bf16 takes the tensor-core kernel
+    (``flash_forward_tc_cuda``), f32 the SIMT kernel
+    (``csrc/flash_fwd.cu``).  ``launches`` counts both.  Raises for
+    anything the kernels do not take (D > 128, other dtypes, tensors on
+    different devices)."""
+    _check(q, k, v, kmask)
+    if q.dtype == torch.bfloat16:
+        out = flash_forward_tc_cuda(q, k, v, kmask, causal, scale)
+    else:
+        out = _launch_forward(_flash_fn(), q, k, v, kmask, causal, scale)
     # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
     flash_forward_cuda.launches += 1
-    return o, lse
+    return out
 
 
 flash_forward_cuda.launches = 0
@@ -260,20 +317,33 @@ def flash_backward_plain(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
     return dq, dk, dv
 
 
+_BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_fns():
-    """(``dl4j_flash_bwd_dkdv``, ``dl4j_flash_bwd_dq``) from the built
-    library, their C signatures set once."""
+    """(``dl4j_flash_bwd_dkdv`` (f32), ``dl4j_flash_bwd_dq`` (f32 or bf16))
+    from the built library, their C signatures set once."""
     from ..utils import cuda_build
 
     lib = cuda_build.load("flash_bwd")
-    tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p]
     dkdv, dq = lib.dl4j_flash_bwd_dkdv, lib.dl4j_flash_bwd_dq
     dkdv.restype = dq.restype = ctypes.c_int
-    dkdv.argtypes = [ctypes.c_void_p] * 9 + tail
-    dq.argtypes = [ctypes.c_void_p] * 8 + tail
+    dkdv.argtypes = [ctypes.c_void_p] * 9 + _BWD_TAIL + [ctypes.c_void_p]
+    dq.argtypes = [ctypes.c_void_p] * 8 + _BWD_TAIL + [ctypes.c_int, ctypes.c_void_p]
     return dkdv, dq
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_tc_fn():
+    """``dl4j_flash_bwd_dkdv_tc`` (bf16, tensor cores) from the built
+    library, its C signature set once."""
+    from ..utils import cuda_build
+
+    fn = cuda_build.load("flash_bwd_tc").dl4j_flash_bwd_dkdv_tc
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + _BWD_TAIL + [ctypes.c_void_p]
+    return fn
 
 
 def _bwd_args(q, k, v, g, lse, delta, kmask):
@@ -294,24 +364,52 @@ def _bwd_args(q, k, v, g, lse, delta, kmask):
     return [t.contiguous() for t in (q, k, v, g, lse, delta)] + [km]
 
 
-def flash_bwd_dkdv_cuda(q, k, v, g, lse, delta, kmask, causal: bool,
-                        scale: float) -> Tuple[Tensor, Tensor]:
-    """Launch K2 (``csrc/flash_bwd.cu``): → (dk, dv) [B,H,S,D]."""
+def _launch_dkdv(fn, q, k, v, g, lse, delta, kmask, causal: bool,
+                 scale: float) -> Tuple[Tensor, Tensor]:
+    """Check the operands, allocate dK and dV, launch ``fn`` (one of the
+    dK/dV entries) on q's device and current stream."""
     q, k, v, g, lse, delta, km = _bwd_args(q, k, v, g, lse, delta, kmask)
     B, H, T, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _bwd_fns()[0](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), None if km is None else km.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, H, T, k.shape[2], D, float(scale), int(bool(causal)),
-            int(q.dtype == torch.bfloat16), stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), None if km is None else km.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), B, H, T, k.shape[2], D, float(scale), int(bool(causal)),
+                stream)
     if rc != 0:
         raise RuntimeError(f"flash backward dK/dV kernel launch failed (code {rc})")
+    return dk, dv
+
+
+def flash_bwd_dkdv_tc_cuda(q, k, v, g, lse, delta, kmask, causal: bool,
+                           scale: float) -> Tuple[Tensor, Tensor]:
+    """Launch K2's bf16 tensor-core kernel (``csrc/flash_bwd_tc.cu``): →
+    (dk, dv) [B,H,S,D]; raises for any other dtype."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core flash dK/dV takes bfloat16, got {q.dtype}")
+    out = _launch_dkdv(_bwd_tc_fn(), q, k, v, g, lse, delta, kmask, causal, scale)
+    # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
+    flash_bwd_dkdv_tc_cuda.launches += 1
+    return out
+
+
+flash_bwd_dkdv_tc_cuda.launches = 0
+
+
+def flash_bwd_dkdv_cuda(q, k, v, g, lse, delta, kmask, causal: bool,
+                        scale: float) -> Tuple[Tensor, Tensor]:
+    """Launch K2: → (dk, dv) [B,H,S,D].  bf16 takes the tensor-core kernel
+    (``flash_bwd_dkdv_tc_cuda``), f32 the SIMT kernel
+    (``csrc/flash_bwd.cu``); ``launches`` counts both."""
+    _check(q, k, v, kmask)
+    if q.dtype == torch.bfloat16:
+        out = flash_bwd_dkdv_tc_cuda(q, k, v, g, lse, delta, kmask, causal, scale)
+    else:
+        out = _launch_dkdv(_bwd_fns()[0], q, k, v, g, lse, delta, kmask, causal, scale)
     # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
     flash_bwd_dkdv_cuda.launches += 1
-    return dk, dv
+    return out
 
 
 flash_bwd_dkdv_cuda.launches = 0

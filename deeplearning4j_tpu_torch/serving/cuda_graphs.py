@@ -39,8 +39,10 @@ import torch
 
 from ..ops import attention, kv_cache, lstm_kernel
 
-#: the forward-path kernels' launch counters, by name
+#: the forward-path kernels' launch counters, by name (``flash_fwd``
+#: counts both dtypes, ``flash_fwd_tc`` the bf16 launches)
 FORWARD_COUNTERS = {"flash_fwd": attention.flash_forward_cuda,
+                    "flash_fwd_tc": attention.flash_forward_tc_cuda,
                     "lstm_seq_fwd": lstm_kernel.lstm_seq_fwd_cuda,
                     "det_attention": kv_cache.det_attention_cuda}
 

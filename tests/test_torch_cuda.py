@@ -158,6 +158,22 @@ _CASES = [
     (1, 2, 33, 97, 64, True, False, torch.float32),
     (1, 2, 97, 31, 64, True, True, torch.float32),
     (1, 2, 65, 130, 128, True, True, torch.float32),
+    # the bf16 tensor-core kernels (K1, K2; 64 rows a block, key tiles of
+    # 64, query tiles of 64 at D <= 64 and 32 at D 128): every head width
+    # class, lengths that are not multiples of 64 both ways, three query
+    # rows against a 1024-key cache, non-causal with and without a key mask
+    (2, 3, 100, 100, 32, False, True, torch.bfloat16),
+    (2, 3, 100, 100, 32, True, False, torch.bfloat16),
+    (1, 2, 77, 130, 80, True, False, torch.bfloat16),
+    (1, 2, 130, 77, 80, False, True, torch.bfloat16),
+    (1, 2, 65, 130, 128, True, True, torch.bfloat16),
+    (1, 2, 97, 31, 128, False, False, torch.bfloat16),
+    (2, 3, 3, 1024, 64, False, False, torch.bfloat16),
+    (2, 3, 3, 1024, 64, True, True, torch.bfloat16),
+    (2, 3, 1, 70, 64, False, True, torch.bfloat16),
+    (2, 2, 200, 200, 16, True, True, torch.bfloat16),
+    (1, 3, 129, 129, 80, True, False, torch.bfloat16),
+    (2, 4, 256, 256, 64, False, False, torch.bfloat16),
 ]
 
 
@@ -168,15 +184,32 @@ def test_flash_kernel_matches_plain(cuda_dev, case):
     b, h, t, s, d, causal, masked, dtype = case
     q, k, v = _qkv(b, h, t, s, d, t + d, cuda_dev, dtype)
     km = _kmask(b, s, s, cuda_dev) if masked else None
-    before = tatt.flash_forward_cuda.launches
+    before = tatt.flash_forward_cuda.launches, tatt.flash_forward_tc_cuda.launches
     o, lse = tatt.flash_forward(q, k, v, km, causal)
     torch.cuda.synchronize()
-    assert tatt.flash_forward_cuda.launches == before + 1
+    # bf16 runs the tensor-core kernel, f32 the SIMT one
+    assert (tatt.flash_forward_cuda.launches, tatt.flash_forward_tc_cuda.launches) == (
+        before[0] + 1, before[1] + (dtype == torch.bfloat16))
     o_ref, lse_ref = tatt.flash_forward_plain(q, k, v, km, causal, 1.0 / math.sqrt(d))
     assert o.dtype == dtype and lse.dtype == torch.float32
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     assert float((o.float() - o_ref.float()).abs().max()) <= tol
     assert float((lse - lse_ref).abs().max()) <= 2e-5
+
+
+def test_flash_tc_kernel_fully_masked_rows_bf16(cuda_dev):
+    # the tensor-core K1: rows with no live key take the LSE sentinel and a
+    # finite O (which keys such a row averages is left to the kernel: it
+    # never loads the tiles above the diagonal); every other row matches
+    q, k, v = _qkv(1, 2, 96, 96, 64, 7, cuda_dev, torch.bfloat16)
+    km = torch.ones(1, 96, dtype=torch.int32, device=cuda_dev)
+    km[:, :3] = 0                       # causal rows 0..2 see no live key
+    o, lse = tatt.flash_forward(q, k, v, km, True)
+    assert bool((lse[..., :3] == tatt.LSE_EMPTY).all())
+    assert bool(torch.isfinite(o.float()).all())
+    o_ref, lse_ref = tatt.flash_forward_plain(q, k, v, km, True, 1.0 / 8)
+    assert float((lse[..., 3:] - lse_ref[..., 3:]).abs().max()) <= 2e-5
+    assert float((o[..., 3:, :].float() - o_ref[..., 3:, :].float()).abs().max()) <= 2e-2
 
 
 def test_flash_kernel_fully_masked_rows(cuda_dev):
@@ -404,8 +437,8 @@ def test_int8_engine_on_card_inside_the_envelope(cuda_dev):
 def test_kernel_library_builds_once(cuda_dev):
     from deeplearning4j_tpu_torch.utils import cuda_build
     built = cuda_build.build(cuda_build.sources())
-    assert sorted(built) == ["det_attention", "flash_bwd", "flash_fwd", "fused_update",
-                             "lstm_cell", "threshold_encode"]
+    assert sorted(built) == ["det_attention", "flash_bwd", "flash_bwd_tc", "flash_fwd",
+                             "flash_fwd_tc", "fused_update", "lstm_cell", "threshold_encode"]
     assert all(p.exists() for p in built.values())
     assert cuda_build.load("flash_fwd") is cuda_build.load("flash_fwd")
 
@@ -420,11 +453,14 @@ def test_flash_backward_kernels_match_plain(cuda_dev, case):
     km = _kmask(b, s, s, cuda_dev) if masked else None
     scale = 1.0 / math.sqrt(d)
     o, lse = tatt.flash_forward(q, k, v, km, causal, scale)
-    before = (tatt.flash_bwd_dkdv_cuda.launches, tatt.flash_bwd_dq_cuda.launches)
+    before = (tatt.flash_bwd_dkdv_cuda.launches, tatt.flash_bwd_dq_cuda.launches,
+              tatt.flash_bwd_dkdv_tc_cuda.launches)
     dq, dk, dv = tatt.flash_backward(q, k, v, km, o, lse, g, causal, scale)
     torch.cuda.synchronize()
-    assert (tatt.flash_bwd_dkdv_cuda.launches, tatt.flash_bwd_dq_cuda.launches) == (
-        before[0] + 1, before[1] + 1)
+    # bf16 dK/dV runs the tensor-core kernel, f32 the SIMT one
+    assert (tatt.flash_bwd_dkdv_cuda.launches, tatt.flash_bwd_dq_cuda.launches,
+            tatt.flash_bwd_dkdv_tc_cuda.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + (dtype == torch.bfloat16))
     ref = tatt.flash_backward_plain(q, k, v, g, lse, tatt.flash_delta(o, g), km,
                                     causal, scale)
     tol, rel_tol = (2e-5, 1e-5) if dtype == torch.float32 else (2e-2, 1e-2)
@@ -450,6 +486,37 @@ def test_flash_backward_kernels_are_deterministic(cuda_dev, shape, masked):
     second = tatt.flash_backward(q, k, v, km, o, lse, g, True, 1.0 / math.sqrt(d))
     for a, b2 in zip(first, second):
         assert torch.equal(a, b2)
+
+
+@pytest.mark.parametrize("shape,masked", [((8, 12, 1024, 64), False),
+                                          ((2, 12, 1000, 64), True),
+                                          ((2, 3, 200, 128), True)],
+                         ids=["train_shape", "kmask", "d128"])
+def test_flash_dkdv_tc_kernel_is_deterministic(cuda_dev, shape, masked):
+    # the bf16 tensor-core K2: no atomics, a second launch gives the same bits
+    b, h, t, d = shape
+    q, k, v = _qkv(b, h, t, t, d, 13, cuda_dev, torch.bfloat16)
+    g = _qkv(b, h, t, t, d, 14, cuda_dev, torch.bfloat16)[0]
+    km = _kmask(b, t, t, cuda_dev) if masked else None
+    scale = 1.0 / math.sqrt(d)
+    o, lse = tatt.flash_forward(q, k, v, km, True, scale)
+    delta = tatt.flash_delta(o, g)
+    first = tatt.flash_bwd_dkdv_tc_cuda(q, k, v, g, lse, delta, km, True, scale)
+    second = tatt.flash_bwd_dkdv_tc_cuda(q, k, v, g, lse, delta, km, True, scale)
+    for a, b2 in zip(first, second):
+        assert torch.equal(a, b2)
+
+
+def test_flash_backward_rows_without_a_live_key_bf16(cuda_dev):
+    # through the tensor-core K2 (and K3's bf16 SIMT kernel): rows with no
+    # live key feed exactly zero gradients
+    q, k, v = _qkv(1, 2, 96, 96, 64, 9, cuda_dev, torch.bfloat16)
+    km = torch.ones(1, 96, dtype=torch.int32, device=cuda_dev)
+    km[:, :3] = 0                       # causal rows 0..2 see no live key
+    qr, kr, vr = (t.requires_grad_() for t in (q, k, v))
+    tatt.flash_mha(qr, kr, vr, True, kmask=km).float().sum().backward()
+    assert not bool(qr.grad[:, :, :3].any())
+    assert not bool(kr.grad[:, :, :3].any()) and not bool(vr.grad[:, :, :3].any())
 
 
 def test_flash_backward_rows_without_a_live_key(cuda_dev):
