@@ -41,8 +41,8 @@ and the recurrent path's training and streaming:
           on the SIMT kernel, bf16 on the tensor-core kernel, both at
           both shapes, B = 8 in bf16 being bench config 7's attention),
           K2/K3 (flash backward dK/dV and dQ, at the train phase's
-          [8, 12, 1024, 64] and more cases at B = 4; bf16 dK/dV on the
-          tensor cores at both) and D1 (decode
+          [8, 12, 1024, 64] and more cases at B = 4; bf16 dK/dV and dQ
+          on the tensor cores at both) and D1 (decode
           attention, on the decode program's strided and paged K/V
           views; its split-key launch at the step and at speculative
           verify's 5 rows a slot, its tiled launch at the prefill, at a
@@ -404,7 +404,7 @@ and the recurrent path's training and streaming:
           rolled by one), 2 warm-up and 5 timed ``fit_batch`` steps (median
           ms, tokens/s, peak memory), one traced step (idle share, kernels,
           device ms by class and of K1, K2, K3; K1-K3 12 each in bf16 by
-          the wrappers' counters, K1 and K2 on the tensor cores); the loss
+          the wrappers' counters, all three on the tensor cores); the loss
           is finite and falls.  (b) ``fit_batches(2)`` at (a)'s size as one CUDA graph:
           losses, parameters and Adam moments bitwise two ``fit_batch``
           calls from the same state, one graph after a repeat call.  (c) a
@@ -413,7 +413,7 @@ and the recurrent path's training and streaming:
           1e-4.  (f) K1-K3 in bf16 at [4, 6, 1024, 64] (a TP 2 x pipe 2
           microbatch), [8, 3, 1024, 64] (Ulysses at tp 2 x sp 2) and (a)'s
           [8, 12, 1024, 64] against their plain versions (2e-2 abs, 1e-2
-          norm-relative, a second K2/K3 launch bitwise the first; K1, K2
+          norm-relative, a second K2/K3 launch bitwise the first; K1-K3
           on the tensor cores), D1 at a
           6-head shard (a step and a 512-row prefill) within 2e-5.  (e) the
           f32 LM at GPT-2 widths cut to (d)'s 4 layers, behind ``DecodeEngine`` with
@@ -837,12 +837,15 @@ def flash_bwd_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL /
     o, lse = att.flash_forward_cuda(q, k, v, kmask, True, scale)
     delta = att.flash_delta(o, g)
     args = (q, k, v, g, lse, delta, kmask, True, scale)
-    tc0 = att.flash_bwd_dkdv_tc_cuda.launches
+    tc0 = att.flash_bwd_dkdv_tc_cuda.launches, att.flash_bwd_dq_tc_cuda.launches
     dk, dv = att.flash_bwd_dkdv_cuda(*args)
     dq = att.flash_bwd_dq_cuda(*args)
     torch.cuda.synchronize()
-    if (att.flash_bwd_dkdv_tc_cuda.launches - tc0 == 1) != (dtype == torch.bfloat16):
-        raise AssertionError(f"bwd_{name}: K2 took the wrong kernel")
+    tc = (att.flash_bwd_dkdv_tc_cuda.launches - tc0[0],
+          att.flash_bwd_dq_tc_cuda.launches - tc0[1])
+    if tc != ((1, 1) if dtype == torch.bfloat16 else (0, 0)):
+        raise AssertionError(f"bwd_{name}: K2 / K3 took the wrong kernels "
+                             f"(tensor-core launches {tc})")
     rk, rv = att.flash_bwd_dkdv_plain(*args)
     rq = att.flash_bwd_dq_plain(*args)
 
@@ -868,6 +871,8 @@ def flash_bwd_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL /
     rec = {"phase": "kernel", "case": "bwd_" + name, "dtype": dname,
            "dkdv_kernel": ("tensor cores (flash_bwd_tc.cu)" if dtype == torch.bfloat16
                            else "SIMT (flash_bwd.cu)"),
+           "dq_kernel": ("tensor cores (flash_bwd_tc.cu)" if dtype == torch.bfloat16
+                         else "SIMT (flash_bwd.cu)"),
            "shape": [B, H, T, D], "causal": True, "kmask": kmask is not None,
            "errors": {n: errs((pair,)) for n, pair in
                       (("dq", (dq, rq)), ("dk", (dk, rk)), ("dv", (dv, rv)))},
@@ -5275,10 +5280,10 @@ SHARDED_ARMS = {
     "tp_pp_gpipe_bf16": ({"model": 2, "pipe": 2}, {"schedule": "gpipe", "n_microbatches": 2},
                          "bfloat16"),
 }
-#: K1-K3's bf16 kernels, by kernel name in a trace: K1 and K2 on the
-#: tensor cores, K3's bf16 instantiation of the SIMT kernel
+#: K1-K3's bf16 kernels, by kernel name in a trace: all three on the
+#: tensor cores
 FLASH_BF16_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
-                      "flash_bwd_dq_kernel<__nv_bfloat16")
+                      "flash_bwd_dq_tc_kernel")
 D1_KERNELS = ("det_attention_split", "det_attention_tiled")
 
 
@@ -5324,14 +5329,15 @@ def lm_tokens(b, t, seed):
 
 
 def flash_counters():
-    """K1-K3's launch counters; ``flash_fwd`` and ``flash_bwd_dkdv`` count
-    both dtypes, the ``_tc`` ones the bf16 launches (the tensor-core
-    kernels)."""
+    """K1-K3's launch counters; ``flash_fwd``, ``flash_bwd_dkdv`` and
+    ``flash_bwd_dq`` count both dtypes, the ``_tc`` ones the bf16 launches
+    (the tensor-core kernels)."""
     from deeplearning4j_tpu_torch.ops import attention as att
     return {"flash_fwd": att.flash_forward_cuda, "flash_fwd_tc": att.flash_forward_tc_cuda,
             "flash_bwd_dkdv": att.flash_bwd_dkdv_cuda,
             "flash_bwd_dkdv_tc": att.flash_bwd_dkdv_tc_cuda,
-            "flash_bwd_dq": att.flash_bwd_dq_cuda}
+            "flash_bwd_dq": att.flash_bwd_dq_cuda,
+            "flash_bwd_dq_tc": att.flash_bwd_dq_tc_cuda}
 
 
 def sharded_config7():
@@ -5378,8 +5384,11 @@ def sharded_config7():
     bad = []
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         bad.append("a: loss not finite and falling")
+    # K1-K3 12 each a step, all three on the tensor cores (each _tc
+    # counter as many as its kernel's own)
     if any(v != LAYERS for v in counted.values()):
-        bad.append(f"a: K1-K3 in bf16 per step by the counters {counted}")
+        bad.append(f"a: K1-K3 in bf16 per step by the counters {counted}, "
+                   f"want {LAYERS} each, all on the tensor cores")
 
     # (b) fit_batches(2) as one CUDA graph against 2 eager steps
     batches = [lm_tokens(8, MAX_LEN, SEED + 211), lm_tokens(8, MAX_LEN, SEED + 212)]
@@ -9175,10 +9184,10 @@ def main() -> int:
         return (train["launches"][name] + graph_n[kernel] + attn["launches"].get(name, 0)
                 + conv["rnn_launches"].get(name, 0) + heads["launches"].get(name, 0)
                 + sharded.get(name, 0) + elastic.get(name, 0) + ui.get(name, 0))
-    # bf16 attention runs in the sharded phase alone: its K1 and K2
-    # launches there went to the tensor-core kernels (their own counters),
-    # the rest of K1's and K2's counts to the SIMT kernels
-    tc = {k: sharded[k + "_tc"] for k in ("flash_fwd", "flash_bwd_dkdv")}
+    # bf16 attention runs in the sharded phase alone: its K1-K3 launches
+    # there went to the tensor-core kernels (their own counters), the rest
+    # of K1's, K2's and K3's counts to the SIMT kernels
+    tc = {k: sharded[k + "_tc"] for k in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
     emit({"kernels": [
         entry("flash_fwd", "flash_fwd.cu", "deeplearning4j_tpu/ops/attention.py:138",
               score["launches"]["flash_fwd"] + predict["launches"]["flash_fwd"]
@@ -9195,7 +9204,11 @@ def main() -> int:
               tc["flash_bwd_dkdv"],
               {**bwd_tc["flash_bwd_dkdv"], "library_ms": bwd_tc["library_ms"]}),
         entry("flash_bwd_dq", "flash_bwd.cu", "deeplearning4j_tpu/ops/attention.py:366",
-              trained("flash_bwd_dq", "flash_bwd_dq_kernel"), {**bwd["flash_bwd_dq"], **bwd_lib}),
+              trained("flash_bwd_dq", "flash_bwd_dq_kernel") - tc["flash_bwd_dq"],
+              {**bwd["flash_bwd_dq"], **bwd_lib}),
+        entry("flash_bwd_dq_tc", "flash_bwd_tc.cu", "deeplearning4j_tpu/ops/attention.py:366",
+              tc["flash_bwd_dq"],
+              {**bwd_tc["flash_bwd_dq"], "library_ms": bwd_tc["library_ms"]}),
         entry("fused_update", "fused_update.cu", "deeplearning4j_tpu/ops/update_kernel.py:84",
               trained("fused_update", "fused_update_kernel"), k4),
         entry("det_attention", "det_attention.cu",

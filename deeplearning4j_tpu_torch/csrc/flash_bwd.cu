@@ -2,9 +2,8 @@
 //
 // K2 replaces deeplearning4j_tpu/ops/attention.py::_flash_bwd_dkdv_kernel and
 // K3 replaces ::_flash_bwd_dq_kernel (both built on ::_bwd_tile, launched by
-// ::_flash_backward).  Which dtype takes which kernel: K2 here serves f32
-// only (bf16 dK/dV takes the tensor-core kernel in flash_bwd_tc.cu); K3 here
-// serves f32 and bf16 (its tensor-core kernel is later work).  Same function: with s = q.k^T * scale + bias,
+// ::_flash_backward) for f32 inputs; bf16 inputs take the tensor-core
+// kernels in flash_bwd_tc.cu.  Same function: with s = q.k^T * scale + bias,
 // p = exp(s - lse) rebuilt from the forward's saved log-sum-exp, dp = g.v^T
 // and ds = p * (dp - delta) * scale (zeroed where bias <= NEG_INF / 2), K2
 // gives dV = p^T.g and dK = ds^T.q, and K3 gives dQ = ds.k.  delta =
@@ -48,10 +47,8 @@
 //   * causal: tiles wholly above the diagonal are never loaded, and the grid
 //     (batch*head on x) walks the heaviest tiles first -- K2's lowest key
 //     tiles, K3's highest query tiles -- so they do not form the tail.
-// Exponentials are ex2.approx of x*log2(e), as in K1.  bf16 inputs (K3 only)
-// are staged as bf16 and converted on each shared load: they run on the f32
-// pipes, at a few per cent of the bf16 tensor-core bound (K2's bf16 kernel,
-// flash_bwd_tc.cu, takes mma.sync for it).
+// Exponentials are ex2.approx of x*log2(e), as in K1.  The kernels are
+// templates on the element type; only float is instantiated.
 //
 // Why two kernels and no atomics: every gradient element is summed by one
 // thread in a fixed order, so a launch is bitwise the last one on the same
@@ -420,10 +417,9 @@ bool bad_args(int B, int H, int T_, int S, int D) {
 
 }  // namespace
 
-// q, g, dq [B,H,T,D]; k, v, dk, dv [B,H,S,D]; all contiguous, f32 (dK/dV;
-// dQ also bf16 when is_bf16); lse, delta [B,H,T] f32; kmask [B,S] int32 or
-// null.  Each returns 0, a CUDA error code, or -1 for arguments it does not
-// take.
+// q, g, dq [B,H,T,D]; k, v, dk, dv [B,H,S,D]; all contiguous f32; lse, delta
+// [B,H,T] f32; kmask [B,S] int32 or null.  Each returns 0, a CUDA error code,
+// or -1 for arguments it does not take.
 extern "C" int dl4j_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                    const void* g, const void* lse, const void* delta,
                                    const void* kmask, void* dk, void* dv, int B, int H,
@@ -442,17 +438,12 @@ extern "C" int dl4j_flash_bwd_dkdv(const void* q, const void* k, const void* v,
 extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* g, const void* lse, const void* delta,
                                  const void* kmask, void* dq, int B, int H, int T_, int S,
-                                 int D, float scale, int causal, int is_bf16,
-                                 void* stream) {
+                                 int D, float scale, int causal, void* stream) {
   if (bad_args(B, H, T_, S, D)) return -1;
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const int* km = static_cast<const int*>(kmask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return D <= 64
-        ? launch_dq<__nv_bfloat16, 64>(q, k, v, g, l, dl, km, dq, B, H, T_, S, D, scale, causal, st)
-        : launch_dq<__nv_bfloat16, 128>(q, k, v, g, l, dl, km, dq, B, H, T_, S, D, scale, causal, st);
   return D <= 64
       ? launch_dq<float, 64>(q, k, v, g, l, dl, km, dq, B, H, T_, S, D, scale, causal, st)
       : launch_dq<float, 128>(q, k, v, g, l, dl, km, dq, B, H, T_, S, D, scale, causal, st);

@@ -43,14 +43,15 @@ from .updaters import tree_leaves
 
 Tensor = torch.Tensor
 
-#: the training path's kernels' launch counters, by name (``flash_fwd``
-#: and ``flash_bwd_dkdv`` count both dtypes; the ``_tc`` counters the bf16
-#: launches, which run the tensor-core kernels)
+#: the training path's kernels' launch counters, by name (``flash_fwd``,
+#: ``flash_bwd_dkdv`` and ``flash_bwd_dq`` count both dtypes; the ``_tc``
+#: counters the bf16 launches, which run the tensor-core kernels)
 TRAIN_COUNTERS = {"flash_fwd": attention.flash_forward_cuda,
                   "flash_fwd_tc": attention.flash_forward_tc_cuda,
                   "flash_bwd_dkdv": attention.flash_bwd_dkdv_cuda,
                   "flash_bwd_dkdv_tc": attention.flash_bwd_dkdv_tc_cuda,
                   "flash_bwd_dq": attention.flash_bwd_dq_cuda,
+                  "flash_bwd_dq_tc": attention.flash_bwd_dq_tc_cuda,
                   "fused_update": update_kernel.fused_update_cuda,
                   "lstm_seq_fwd": lstm_kernel.lstm_seq_fwd_cuda,
                   "lstm_cell_bwd": lstm_kernel.lstm_cell_bwd_cuda}

@@ -13,7 +13,8 @@ K1          ``csrc/flash_fwd.cu`` (SIMT)        ``csrc/flash_fwd_tc.cu``
                                                 (tensor cores, ``mma.sync``)
 K2          ``csrc/flash_bwd.cu`` (SIMT)        ``csrc/flash_bwd_tc.cu``
                                                 (tensor cores, ``mma.sync``)
-K3          ``csrc/flash_bwd.cu`` (SIMT)        ``csrc/flash_bwd.cu`` (SIMT)
+K3          ``csrc/flash_bwd.cu`` (SIMT)        ``csrc/flash_bwd_tc.cu``
+                                                (tensor cores, ``mma.sync``)
 ==========  ==================================  ============================
 
 For a CUDA tensor each wrapper launches its kernel; for a CPU tensor, and
@@ -320,30 +321,32 @@ def flash_backward_plain(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
 _BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_fns():
-    """(``dl4j_flash_bwd_dkdv`` (f32), ``dl4j_flash_bwd_dq`` (f32 or bf16))
-    from the built library, their C signatures set once."""
+def _bwd_entries(name: str, suffix: str = ""):
+    """(dK/dV entry, dQ entry) of the built library ``name``
+    (``dl4j_flash_bwd_dkdv<suffix>``, ``dl4j_flash_bwd_dq<suffix>``), their
+    C signatures set: q, k, v, g, lse, delta, kmask, the outputs; B, H, T,
+    S, D; scale, causal, stream."""
     from ..utils import cuda_build
 
-    lib = cuda_build.load("flash_bwd")
-    dkdv, dq = lib.dl4j_flash_bwd_dkdv, lib.dl4j_flash_bwd_dq
+    lib = cuda_build.load(name)
+    dkdv = getattr(lib, "dl4j_flash_bwd_dkdv" + suffix)
+    dq = getattr(lib, "dl4j_flash_bwd_dq" + suffix)
     dkdv.restype = dq.restype = ctypes.c_int
     dkdv.argtypes = [ctypes.c_void_p] * 9 + _BWD_TAIL + [ctypes.c_void_p]
-    dq.argtypes = [ctypes.c_void_p] * 8 + _BWD_TAIL + [ctypes.c_int, ctypes.c_void_p]
+    dq.argtypes = [ctypes.c_void_p] * 8 + _BWD_TAIL + [ctypes.c_void_p]
     return dkdv, dq
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_tc_fn():
-    """``dl4j_flash_bwd_dkdv_tc`` (bf16, tensor cores) from the built
-    library, its C signature set once."""
-    from ..utils import cuda_build
+def _bwd_fns():
+    """K2's and K3's f32 SIMT entries (``csrc/flash_bwd.cu``)."""
+    return _bwd_entries("flash_bwd")
 
-    fn = cuda_build.load("flash_bwd_tc").dl4j_flash_bwd_dkdv_tc
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + _BWD_TAIL + [ctypes.c_void_p]
-    return fn
+
+@functools.lru_cache(maxsize=None)
+def _bwd_tc_fns():
+    """K2's and K3's bf16 tensor-core entries (``csrc/flash_bwd_tc.cu``)."""
+    return _bwd_entries("flash_bwd_tc", "_tc")
 
 
 def _bwd_args(q, k, v, g, lse, delta, kmask):
@@ -388,7 +391,7 @@ def flash_bwd_dkdv_tc_cuda(q, k, v, g, lse, delta, kmask, causal: bool,
     (dk, dv) [B,H,S,D]; raises for any other dtype."""
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the tensor-core flash dK/dV takes bfloat16, got {q.dtype}")
-    out = _launch_dkdv(_bwd_tc_fn(), q, k, v, g, lse, delta, kmask, causal, scale)
+    out = _launch_dkdv(_bwd_tc_fns()[0], q, k, v, g, lse, delta, kmask, causal, scale)
     # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
     flash_bwd_dkdv_tc_cuda.launches += 1
     return out
@@ -415,21 +418,47 @@ def flash_bwd_dkdv_cuda(q, k, v, g, lse, delta, kmask, causal: bool,
 flash_bwd_dkdv_cuda.launches = 0
 
 
-def flash_bwd_dq_cuda(q, k, v, g, lse, delta, kmask, causal: bool,
-                      scale: float) -> Tensor:
-    """Launch K3 (``csrc/flash_bwd.cu``): → dq [B,H,T,D]."""
+def _launch_dq(fn, q, k, v, g, lse, delta, kmask, causal: bool, scale: float) -> Tensor:
+    """Check the operands, allocate dQ, launch ``fn`` (one of the dQ
+    entries) on q's device and current stream."""
     q, k, v, g, lse, delta, km = _bwd_args(q, k, v, g, lse, delta, kmask)
     B, H, T, D = q.shape
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _bwd_fns()[1](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), None if km is None else km.data_ptr(), dq.data_ptr(),
-            B, H, T, k.shape[2], D, float(scale), int(bool(causal)),
-            int(q.dtype == torch.bfloat16), stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), None if km is None else km.data_ptr(), dq.data_ptr(),
+                B, H, T, k.shape[2], D, float(scale), int(bool(causal)), stream)
     if rc != 0:
         raise RuntimeError(f"flash backward dQ kernel launch failed (code {rc})")
+    return dq
+
+
+def flash_bwd_dq_tc_cuda(q, k, v, g, lse, delta, kmask, causal: bool,
+                         scale: float) -> Tensor:
+    """Launch K3's bf16 tensor-core kernel (``csrc/flash_bwd_tc.cu``): →
+    dq [B,H,T,D]; raises for any other dtype."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core flash dQ takes bfloat16, got {q.dtype}")
+    dq = _launch_dq(_bwd_tc_fns()[1], q, k, v, g, lse, delta, kmask, causal, scale)
+    # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
+    flash_bwd_dq_tc_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_tc_cuda.launches = 0
+
+
+def flash_bwd_dq_cuda(q, k, v, g, lse, delta, kmask, causal: bool,
+                      scale: float) -> Tensor:
+    """Launch K3: → dq [B,H,T,D].  bf16 takes the tensor-core kernel
+    (``flash_bwd_dq_tc_cuda``), f32 the SIMT kernel
+    (``csrc/flash_bwd.cu``); ``launches`` counts both."""
+    _check(q, k, v, kmask)
+    if q.dtype == torch.bfloat16:
+        dq = flash_bwd_dq_tc_cuda(q, k, v, g, lse, delta, kmask, causal, scale)
+    else:
+        dq = _launch_dq(_bwd_fns()[1], q, k, v, g, lse, delta, kmask, causal, scale)
     # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
     flash_bwd_dq_cuda.launches += 1
     return dq

@@ -93,12 +93,12 @@ def build_all():
         if p.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{log.decode(errors='replace')}")
         libs[name] = ctypes.CDLL(str(lib))
-        # dims, then (dQ only) is_bf16, then the stream
-        tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
+        # pointers, dims, scale, causal, the stream
+        tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         dkdv, dq = libs[name].dl4j_flash_bwd_dkdv, libs[name].dl4j_flash_bwd_dq
         dkdv.restype = dq.restype = ctypes.c_int
-        dkdv.argtypes = [ctypes.c_void_p] * 9 + tail + [ctypes.c_void_p]
-        dq.argtypes = [ctypes.c_void_p] * 8 + tail + [ctypes.c_int, ctypes.c_void_p]
+        dkdv.argtypes = [ctypes.c_void_p] * 9 + tail
+        dq.argtypes = [ctypes.c_void_p] * 8 + tail
     return libs
 
 
@@ -125,9 +125,9 @@ def main() -> int:
     ins = [t.data_ptr() for t in (q, k, v, g, lse, delta)] + [None]
     dims = (B, H, T, T, D, scale, 1)
 
-    def launch(fn, *outs, is_bf16=()):
+    def launch(fn, *outs):
         def call():
-            rc = fn(*ins, *(t.data_ptr() for t in outs), *dims, *is_bf16, stream)
+            rc = fn(*ins, *(t.data_ptr() for t in outs), *dims, stream)
             if rc != 0:
                 raise RuntimeError(f"launch failed (code {rc})")
         return call
@@ -137,7 +137,7 @@ def main() -> int:
         lib = libs[name]
         times[name]["flash_bwd_dkdv"].append(cs.device_ms(launch(lib.dl4j_flash_bwd_dkdv, dk, dv), 50))
         times[name]["flash_bwd_dq"].append(
-            cs.device_ms(launch(lib.dl4j_flash_bwd_dq, dq, is_bf16=(0,)), 50))
+            cs.device_ms(launch(lib.dl4j_flash_bwd_dq, dq), 50))
     for name, t in times.items():
         print(json.dumps({"variant": name, "shape": [B, H, T, D], "dtype": "float32",
                           "causal": True, "device_ms": t}), flush=True)

@@ -17,6 +17,7 @@ The CUDA kernels are held against the plain versions on the card in
 ``test_torch_cuda.py``.
 """
 
+import ctypes
 import math
 
 import jax
@@ -133,12 +134,13 @@ def test_flash_backward_bf16_plain_kernels_match_jax_kernels():
 
 
 class _Stub:
-    """``cuda_build.load`` stand-in: records the libraries asked for and
-    hands back an object whose every entry returns 0 (or raises for a
-    build that fails)."""
+    """``cuda_build.load`` stand-in: records the libraries asked for, the
+    entries fetched from them and the entries called, and hands back an
+    object whose every entry returns 0 (or raises for a build that
+    fails)."""
 
     def __init__(self, fail=False):
-        self.fail, self.asked = fail, []
+        self.fail, self.asked, self.entries, self.called = fail, [], [], []
 
     def __call__(self, name):
         self.asked.append(name)
@@ -149,14 +151,19 @@ class _Stub:
     def __getattr__(self, entry):
         if not entry.startswith("dl4j_"):
             raise AttributeError(entry)
-        return lambda *a: 0
+        self.entries.append(entry)
+
+        def fn(*a):
+            self.called.append(entry)
+            return 0
+        return fn
 
 
 @pytest.fixture
 def stub_load(monkeypatch):
     from deeplearning4j_tpu_torch.utils import cuda_build
 
-    caches = (tatt._flash_fn, tatt._flash_tc_fn, tatt._bwd_fns, tatt._bwd_tc_fn)
+    caches = (tatt._flash_fn, tatt._flash_tc_fn, tatt._bwd_fns, tatt._bwd_tc_fns)
 
     def install(fail=False):
         stub = _Stub(fail)
@@ -189,7 +196,37 @@ def test_a_cuda_call_reaches_the_entry_of_its_dtype(stub_load, dtype, fwd_lib, b
         tatt.flash_forward_cuda(q, k, v, None, True, 0.5)
     with pytest.raises(ValueError, match="CUDA device"):
         tatt.flash_bwd_dkdv_cuda(q, k, v, g, lse, delta, None, True, 0.5)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tatt.flash_bwd_dq_cuda(q, k, v, g, lse, delta, None, True, 0.5)
+    # one library serves both backward kernels of a dtype
     assert stub.asked == [fwd_lib, bwd_lib]
+    tc = "_tc" if dtype == torch.bfloat16 else ""
+    assert stub.entries == ["dl4j_flash_fwd" + tc, "dl4j_flash_bwd_dkdv" + tc,
+                            "dl4j_flash_bwd_dq" + tc]
+    assert stub.called == []
+
+
+@pytest.mark.parametrize("dtype,lib,entry", [
+    (torch.bfloat16, "flash_bwd_tc", "dl4j_flash_bwd_dq_tc"),
+    (torch.float32, "flash_bwd", "dl4j_flash_bwd_dq")], ids=["bf16", "f32"])
+def test_dq_launches_the_entry_of_its_dtype_and_counts_it(stub_load, monkeypatch, dtype,
+                                                           lib, entry):
+    # past the device check (a CPU tensor stops there): the launch helper
+    # calls the entry it was handed and returns a dq of q's shape
+    stub = stub_load()
+    monkeypatch.setattr(tatt, "_launch_dq", lambda fn, q, *rest: (fn(), torch.empty_like(q))[1])
+    q, k, v, g, lse, delta = _args(dtype)
+    counters = (tatt.flash_bwd_dq_cuda, tatt.flash_bwd_dq_tc_cuda)
+    before = [c.launches for c in counters]
+    dq = tatt.flash_bwd_dq_cuda(q, k, v, g, lse, delta, None, True, 0.5)
+    assert dq.shape == q.shape and dq.dtype == dtype
+    assert stub.asked == [lib] and stub.called == [entry]
+    # flash_bwd_dq counts both dtypes, flash_bwd_dq_tc the bf16 launches
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, int(dtype == torch.bfloat16)]
+    # both dQ entries take the same C signature: no dtype flag
+    fns = tatt._bwd_tc_fns() if dtype == torch.bfloat16 else tatt._bwd_fns()
+    assert fns[1].argtypes == ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def test_a_failed_build_raises_and_nothing_falls_back(stub_load):
@@ -207,6 +244,25 @@ def test_a_failed_build_raises_and_nothing_falls_back(stub_load):
     assert [c.launches for c in counters] == before
 
 
+def test_a_failed_tc_build_fails_dq_and_nothing_falls_back(stub_load):
+    stub = stub_load(fail=True)
+    q, k, v, g, lse, delta = _args(torch.bfloat16)
+    counters = (tatt.flash_bwd_dq_cuda, tatt.flash_bwd_dq_tc_cuda)
+    before = [c.launches for c in counters]
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tatt.flash_bwd_dq_cuda(q, k, v, g, lse, delta, None, True, 0.5)
+    # the SIMT library was not asked for, no entry was called, nothing counted
+    assert stub.asked == ["flash_bwd_tc"] and stub.called == []
+    assert [c.launches for c in counters] == before
+
+
+def test_train_graph_replays_count_the_tensor_core_dq():
+    from deeplearning4j_tpu_torch.nn.train_graph import TRAIN_COUNTERS
+
+    assert TRAIN_COUNTERS["flash_bwd_dq_tc"] is tatt.flash_bwd_dq_tc_cuda
+    assert TRAIN_COUNTERS["flash_bwd_dq"] is tatt.flash_bwd_dq_cuda
+
+
 def test_the_tensor_core_entries_take_only_bf16(stub_load):
     stub = stub_load()
     q, k, v, g, lse, delta = _args(torch.float32)
@@ -214,6 +270,8 @@ def test_the_tensor_core_entries_take_only_bf16(stub_load):
         tatt.flash_forward_tc_cuda(q, k, v, None, True, 0.5)
     with pytest.raises(TypeError, match="bfloat16"):
         tatt.flash_bwd_dkdv_tc_cuda(q, k, v, g, lse, delta, None, True, 0.5)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tatt.flash_bwd_dq_tc_cuda(q, k, v, g, lse, delta, None, True, 0.5)
     assert stub.asked == []
 
 
@@ -221,7 +279,7 @@ def test_bf16_on_cpu_takes_the_plain_versions():
     (tq, tk, tv, tg), _ = _bf16_inputs(16, 16, 8, seed=9)
     counters = (tatt.flash_forward_cuda, tatt.flash_forward_tc_cuda,
                 tatt.flash_bwd_dkdv_cuda, tatt.flash_bwd_dkdv_tc_cuda,
-                tatt.flash_bwd_dq_cuda)
+                tatt.flash_bwd_dq_cuda, tatt.flash_bwd_dq_tc_cuda)
     before = [c.launches for c in counters]
     o, lse = tatt.flash_forward(tq, tk, tv, None, True)
     ref = tatt.flash_forward_plain(tq, tk, tv, None, True, 1.0 / math.sqrt(8))

@@ -158,10 +158,11 @@ _CASES = [
     (1, 2, 33, 97, 64, True, False, torch.float32),
     (1, 2, 97, 31, 64, True, True, torch.float32),
     (1, 2, 65, 130, 128, True, True, torch.float32),
-    # the bf16 tensor-core kernels (K1, K2; 64 rows a block, key tiles of
-    # 64, query tiles of 64 at D <= 64 and 32 at D 128): every head width
-    # class, lengths that are not multiples of 64 both ways, three query
-    # rows against a 1024-key cache, non-causal with and without a key mask
+    # the bf16 tensor-core kernels (K1, K2, K3; 64 rows a block; K1's key
+    # tiles 64, K2's query and K3's key tiles 64 at D <= 64 and 32 at D
+    # 128): every head width class, lengths that are not multiples of 64
+    # both ways, three query rows against a 1024-key cache, non-causal with
+    # and without a key mask
     (2, 3, 100, 100, 32, False, True, torch.bfloat16),
     (2, 3, 100, 100, 32, True, False, torch.bfloat16),
     (1, 2, 77, 130, 80, True, False, torch.bfloat16),
@@ -174,6 +175,8 @@ _CASES = [
     (2, 2, 200, 200, 16, True, True, torch.bfloat16),
     (1, 3, 129, 129, 80, True, False, torch.bfloat16),
     (2, 4, 256, 256, 64, False, False, torch.bfloat16),
+    # a head width that is not a multiple of 8: plain loads, not cp.async
+    (1, 2, 50, 70, 36, True, True, torch.bfloat16),
 ]
 
 
@@ -453,14 +456,14 @@ def test_flash_backward_kernels_match_plain(cuda_dev, case):
     km = _kmask(b, s, s, cuda_dev) if masked else None
     scale = 1.0 / math.sqrt(d)
     o, lse = tatt.flash_forward(q, k, v, km, causal, scale)
-    before = (tatt.flash_bwd_dkdv_cuda.launches, tatt.flash_bwd_dq_cuda.launches,
-              tatt.flash_bwd_dkdv_tc_cuda.launches)
+    counters = (tatt.flash_bwd_dkdv_cuda, tatt.flash_bwd_dq_cuda,
+                tatt.flash_bwd_dkdv_tc_cuda, tatt.flash_bwd_dq_tc_cuda)
+    before = [c.launches for c in counters]
     dq, dk, dv = tatt.flash_backward(q, k, v, km, o, lse, g, causal, scale)
     torch.cuda.synchronize()
-    # bf16 dK/dV runs the tensor-core kernel, f32 the SIMT one
-    assert (tatt.flash_bwd_dkdv_cuda.launches, tatt.flash_bwd_dq_cuda.launches,
-            tatt.flash_bwd_dkdv_tc_cuda.launches) == (
-        before[0] + 1, before[1] + 1, before[2] + (dtype == torch.bfloat16))
+    # bf16 dK/dV and dQ run the tensor-core kernels, f32 the SIMT ones
+    tc = int(dtype == torch.bfloat16)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, tc, tc]
     ref = tatt.flash_backward_plain(q, k, v, g, lse, tatt.flash_delta(o, g), km,
                                     causal, scale)
     tol, rel_tol = (2e-5, 1e-5) if dtype == torch.float32 else (2e-2, 1e-2)
@@ -507,14 +510,54 @@ def test_flash_dkdv_tc_kernel_is_deterministic(cuda_dev, shape, masked):
         assert torch.equal(a, b2)
 
 
+@pytest.mark.parametrize("shape,masked", [((8, 12, 1024, 64), False),
+                                          ((2, 12, 1000, 64), True),
+                                          ((2, 3, 200, 128), True)],
+                         ids=["train_shape", "kmask", "d128"])
+def test_flash_dq_tc_kernel_is_deterministic(cuda_dev, shape, masked):
+    # the bf16 tensor-core K3: no atomics, a second launch gives the same bits
+    b, h, t, d = shape
+    q, k, v = _qkv(b, h, t, t, d, 15, cuda_dev, torch.bfloat16)
+    g = _qkv(b, h, t, t, d, 16, cuda_dev, torch.bfloat16)[0]
+    km = _kmask(b, t, t, cuda_dev) if masked else None
+    scale = 1.0 / math.sqrt(d)
+    o, lse = tatt.flash_forward(q, k, v, km, True, scale)
+    delta = tatt.flash_delta(o, g)
+    first = tatt.flash_bwd_dq_tc_cuda(q, k, v, g, lse, delta, km, True, scale)
+    second = tatt.flash_bwd_dq_tc_cuda(q, k, v, g, lse, delta, km, True, scale)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_dq_tc_kernel_rows_with_the_lse_sentinel_get_zero(cuda_dev, d):
+    # non-causal, every key live: the rows whose LSE is the sentinel still
+    # take p = 0 and so dq = 0 exactly; the other rows match the plain K3
+    q, k, v = _qkv(2, 3, 100, 130, d, 17, cuda_dev, torch.bfloat16)
+    g = _qkv(2, 3, 100, 100, d, 18, cuda_dev, torch.bfloat16)[0]
+    scale = 1.0 / math.sqrt(d)
+    o, lse = tatt.flash_forward(q, k, v, None, False, scale)
+    dead = torch.zeros(100, dtype=torch.bool, device=cuda_dev)
+    dead[[0, 15, 16, 63, 64, 99]] = True
+    lse = torch.where(dead, torch.full_like(lse, tatt.LSE_EMPTY), lse)
+    delta = tatt.flash_delta(o, g)
+    dq = tatt.flash_bwd_dq_tc_cuda(q, k, v, g, lse, delta, None, False, scale)
+    assert not bool(dq[:, :, dead].any())
+    ref = tatt.flash_bwd_dq_plain(q, k, v, g, lse, delta, None, False, scale)
+    diff = dq.float() - ref.float()
+    assert float(diff.abs().max()) <= 2e-2
+    assert float(diff.norm()) <= 1e-2 * float(ref.float().norm())
+
+
 def test_flash_backward_rows_without_a_live_key_bf16(cuda_dev):
-    # through the tensor-core K2 (and K3's bf16 SIMT kernel): rows with no
-    # live key feed exactly zero gradients
+    # through the tensor-core K2 and K3: rows with no live key feed exactly
+    # zero gradients
     q, k, v = _qkv(1, 2, 96, 96, 64, 9, cuda_dev, torch.bfloat16)
     km = torch.ones(1, 96, dtype=torch.int32, device=cuda_dev)
     km[:, :3] = 0                       # causal rows 0..2 see no live key
     qr, kr, vr = (t.requires_grad_() for t in (q, k, v))
+    tc0 = tatt.flash_bwd_dq_tc_cuda.launches
     tatt.flash_mha(qr, kr, vr, True, kmask=km).float().sum().backward()
+    assert tatt.flash_bwd_dq_tc_cuda.launches == tc0 + 1
     assert not bool(qr.grad[:, :, :3].any())
     assert not bool(kr.grad[:, :, :3].any()) and not bool(vr.grad[:, :, :3].any())
 
