@@ -955,6 +955,30 @@ def det_case(name, B, Tq, L, q_pos, paged, H=HEADS, d=D_MODEL // HEADS, page=16,
     return rec
 
 
+def wgmma_in_sass() -> dict:
+    """The warpgroup MMA instructions (``HGMMA`` in SASS) of each bf16 K2
+    and K3 kernel in the built ``flash_bwd_tc`` library, by function name;
+    raises where a kernel has none or the library shows no such kernel."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.build(["flash_bwd_tc"])["flash_bwd_tc"]
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts = {}
+    for func in sass.split("Function : ")[1:]:
+        name = func.split(None, 1)[0]
+        for kernel in FLASH_BF16_KERNELS[1:]:
+            if kernel in name:
+                counts[name] = func.count("HGMMA")
+    if not all(counts.values()) or not all(
+            any(k in n for n in counts) for k in FLASH_BF16_KERNELS[1:]):
+        raise AssertionError(f"K2 / K3 (flash_bwd_tc) without wgmma in SASS: {counts}")
+    return counts
+
+
 def phase_kernel():
     import torch
     # O: max abs error, and its norm relative to the plain O's (a wrong
@@ -986,6 +1010,8 @@ def phase_kernel():
             if not (r[kn]["max_abs_err"] <= tol[r["dtype"]]
                     and r[kn]["rel_err"] <= rel_tol[r["dtype"]]
                     and r[kn]["bitwise_repeat"])]
+    # bf16 K2 and K3 are built from wgmma: each kernel's SASS holds HGMMA
+    emit({"phase": "kernel", "case": "wgmma_in_sass", "hgmma": wgmma_in_sass()})
     # decode attention at the serve phase's shapes and layouts: a 4-slot
     # step at positions spread over the cache, a 512-token prefill into
     # L = 1024, and a re-encode of 544 tokens (512 + 32)
@@ -5281,9 +5307,9 @@ SHARDED_ARMS = {
                          "bfloat16"),
 }
 #: K1-K3's bf16 kernels, by kernel name in a trace: all three on the
-#: tensor cores
-FLASH_BF16_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
-                      "flash_bwd_dq_tc_kernel")
+#: tensor cores, K2 and K3 on the warpgroup MMA (wgmma)
+FLASH_BF16_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                      "flash_bwd_dq_wgmma_kernel")
 D1_KERNELS = ("det_attention_split", "det_attention_tiled")
 
 

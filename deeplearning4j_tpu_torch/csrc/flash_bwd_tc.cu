@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper in bf16, on the tensor cores: dK/dV
-// (kernel K2) and dQ (kernel K3).
+// Flash-attention backward for Hopper in bf16, on the warpgroup MMA (wgmma):
+// dK/dV (kernel K2) and dQ (kernel K3).
 //
 // K2 replaces deeplearning4j_tpu/ops/attention.py::_flash_bwd_dkdv_kernel and
 // K3 replaces ::_flash_bwd_dq_kernel (both built on ::_bwd_tile, launched by
@@ -16,85 +16,146 @@
 // flops (s, dp, dV, dK) and K3 three (s, dp, dQ) on the bf16 tensor cores
 // (989 TFLOP/s), against ~(4*T + 4*S)*D bf16 elements of traffic per
 // batch*head at 3.35 TB/s; at D 64 and T 1024 the two are within a small
-// factor, so the work is keeping the tensor cores fed (the SIMT kernels ran
-// at ~3% of the bound).  mma.sync, not wgmma, for the reason given in
-// flash_fwd_tc.cu.  K2's design:
-//   * a block of 4 warps owns 64 keys of one (batch, head), 16 keys a warp,
-//     with K and V resident in shared memory; it streams the query tiles (Q,
-//     G, lse, delta; 64 queries at D <= 64, 32 at D 128, where the
-//     accumulators take twice the registers) through a two-stage cp.async
-//     ring, the next tile in flight during this tile's math;
-//   * S^T = K.Q^T and dP^T = V.G^T by mma.sync m16n8k16: K and V rows are
-//     the A fragments (ldmatrix), Q and G rows the B fragments (ldmatrix);
-//   * p^T and ds^T are computed in those C fragments and, rounded to bf16,
-//     are the A fragments of dV += p^T.G and dK += ds^T.Q, whose B fragments
-//     come by ldmatrix.trans of the same Q and G tiles: nothing of p or ds
-//     goes through shared memory;
+// factor, so the work is keeping the tensor cores fed.  Only wgmma reaches
+// their full rate: with mma.sync each warp reads its B operand from shared
+// memory for 16 rows, with wgmma the warpgroup reads it once for 64.  The
+// fragment layer (descriptors, the swizzled layout, TMA, mbarriers) is in
+// wgmma.cuh.
+//
+// K2's design:
+//   * a block is one warpgroup (4 warps) and owns 64 keys of one (batch,
+//     head), 16 keys a warp; K and V are resident in shared memory;
+//   * the query tiles (Q, G: 64 queries at D <= 64, 32 at D 128, where the
+//     dK and dV accumulators take twice the registers) stream through a
+//     ring of three stages filled by TMA: one thread arms the stage's
+//     mbarrier with the bytes to come and issues the copies, the lanes of
+//     its warp copy the tile's lse and delta beside them (cp.async, arriving
+//     on the same barrier), and a stage is refilled as soon as every
+//     product that reads it has retired;
+//   * S^T = K.Q^T and dP^T = V.G^T by wgmma with both operands from shared
+//     memory (K, V as A; Q, G as K-major B);
+//   * p^T and ds^T are computed in those accumulators and, rounded to bf16,
+//     are the register A operands of dV += p^T.G and dK += ds^T.Q, whose B
+//     are the same Q and G tiles read MN-major: nothing of p or ds goes
+//     through shared memory;
 //   * causal: query tiles wholly above the diagonal are never loaded, masks
 //     are computed only for tiles that need them, and the grid walks the
 //     heaviest (lowest) key tiles first.
-// K3's design is K1's (flash_fwd_tc.cu) with two score products:
-//   * a block of 4 warps owns 64 query rows of one (batch, head), 16 a warp;
-//     Q and G are loaded once, by ldmatrix, into A fragments kept in
-//     registers, and lse and delta of the lane's two rows in registers;
-//   * K and V tiles (64 keys at D <= 64, 32 at D 128, where Q's and G's
-//     fragments and the dQ accumulators take twice the registers) stream
-//     through a two-stage cp.async ring;
-//   * S = Q.K^T and dP = G.V^T by mma.sync, K and V rows the B fragments
-//     (ldmatrix); ds is computed in the C fragments with K2's expression for
-//     p, so both kernels rebuild the same p; rounded to bf16, ds is the A
-//     fragment of dQ += dS.K, whose B fragments come by ldmatrix.trans of
-//     the same K tile (so a stage is refilled only after that product);
-//   * causal: key tiles wholly above the diagonal are never loaded, masks
-//     are computed only for tiles that need them, and the grid walks the
-//     heaviest (highest) query tiles first.
-// Both: rows padded by 16 bytes, so ldmatrix and ldmatrix.trans are free of
-// bank conflicts; ragged T and S masked in the kernel (zero-filled copies,
-// guarded stores); D <= 128 zero-padded to 64 or 128, a D that is not a
-// multiple of 8 taking plain loads for the tiles.
+// K3's design is K2's with the roles turned:
+//   * a block (one warpgroup) owns 64 query rows of one (batch, head); Q and
+//     G are resident, lse and delta of the lane's two rows in registers;
+//   * key tiles (K, V; 64 keys) stream through a ring of two stages, filled
+//     by TMA as in K2;
+//   * S = Q.K^T and dP = G.V^T by wgmma from shared memory; ds is computed in
+//     the accumulators with K2's expression for p, so both kernels rebuild
+//     the same p; rounded to bf16, it is the register A operand of dQ +=
+//     ds.K, with the same K tile read MN-major (so a stage is refilled only
+//     after that product);
+//   * causal: key tiles wholly above the diagonal are never loaded, masks are
+//     computed only for tiles that need them, and the grid walks the heaviest
+//     (highest) query tiles first.
+// Both: p = 2^(s * scale * log2 e - lse * log2 e), one FFMA and one ex2 a
+// pair, computed for every pair and then selected by the mask: a branch
+// around the exponential (inline asm, which the compiler does not
+// predicate) would make every element a divergent region.  Within a block
+// the products and the exponentials take turns (one wgmma batch, its wait,
+// the exponentials, the next batch); the blocks that share an SM (three or
+// four at D <= 64, two at D 128, as registers and 50-99 KB of shared memory
+// allow) fill each other's gaps.  A software pipeline inside the
+// warpgroup (the next tile's scores, or the last tile's gradient products,
+// in flight during the exponentials) was tried and measured slower: it
+// needs a second set of A operands or accumulators, and the registers cost
+// a block an SM.  Tiles are 128-byte swizzled; TMA zero-fills rows past T or
+// S and columns past D (D <= 128 padded to 64 or 128).  Where TMA cannot
+// address a tensor (a row of D that is not a multiple of 16 bytes, a base
+// that is not 16-byte aligned), the block's threads write the same swizzled
+// tiles with plain loads and stores: routed by shape in the entry, never as
+// a fallback on failure.
 // No atomics: each dK, dV and dQ element is summed by one thread (its lane of
-// one warp's mma accumulators) in a fixed order, so a launch is bitwise the
+// one warpgroup's accumulators) in a fixed order, so a launch is bitwise the
 // last one on the same inputs, which the port's data-parallel bit gates rest
 // on (see flash_bwd.cu).
+//
+// dl4j_wgmma_tile_check runs the fragment layer alone on one tile each way,
+// for the card tests.
+
+#include <initializer_list>
 
 #include "flash_tiles.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int NT = 128;          // threads: 4 warps
+constexpr int NT = 128;          // threads: one warpgroup
 constexpr int BM = 64;           // rows a block owns, 16 a warp: K2 keys, K3 queries
 
-template <int DP> struct Dims {
-  static constexpr int SP = Tile<bf16, DP>::SP;
-  static constexpr int BN = DP <= 64 ? 64 : 32;   // rows of a streamed tile: K2 queries, K3 keys
-  // K2: K, V; two stages of Q, G; two stages of lse, delta
-  static constexpr size_t SMEM_DKDV = (size_t)(2 * BM + 4 * BN) * SP * sizeof(bf16) +
-                                      (size_t)4 * BN * sizeof(float);
-  // K3: Q, G; two stages of K, V
-  static constexpr size_t SMEM_DQ = (size_t)(2 * BM + 4 * BN) * SP * sizeof(bf16);
+template <int DP> struct Cfg {
+  static constexpr int BN2 = DP <= 64 ? 64 : 32;   // K2's streamed query tile
+  static constexpr int BN3 = 64;                    // K3's streamed key tile
+  static constexpr int NS2 = 3;                     // K2's ring stages
+  static constexpr int NS3 = 2;                     // K3's
+  // bytes, each tile a multiple of 1024 (so every panel stays aligned)
+  static constexpr int ROWS_BM = BM * DP * 2, ROWS_BN2 = BN2 * DP * 2, ROWS_BN3 = BN3 * DP * 2;
+  // K2: K, V; the stages' Q, G; the stages' lse, delta
+  static constexpr size_t SMEM_DKDV =
+      1024 + 2 * ROWS_BM + (size_t)NS2 * (2 * ROWS_BN2 + 2 * BN2 * sizeof(float));
+  // K3: Q, G; the stages' K, V
+  static constexpr size_t SMEM_DQ = 1024 + 2 * ROWS_BM + (size_t)NS3 * 2 * ROWS_BN3;
 };
 
+// rows r0 .. r0 + rows - 1 of a [n, D] matrix into a swizzled [rows, DP]
+// tile, zero past n and D, by the block's threads with plain loads (the
+// route where TMA cannot address the tensor); the caller fences and arrives
 template <int DP>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ g,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         const int* __restrict__ kmask, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int H, int T_, int S, int D, float scale,
-                         int causal) {
-  constexpr int SP = Dims<DP>::SP, BN = Dims<DP>::BN;
-  constexpr int KC = DP / 16;    // 16-wide d chunks of K, V (A fragments)
-  constexpr int ND = DP / 8;     // 8-wide d tiles of dK, dV
-  constexpr int NQ = BN / 8;     // 8-query tiles of S^T, dP^T
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);     // [BM][SP]  this block's keys
-  bf16* Vs = Ks + BM * SP;                           // [BM][SP]
-  bf16* Qs = Vs + BM * SP;                           // [2][BN][SP]  the streamed queries
-  bf16* Gs = Qs + 2 * BN * SP;                       // [2][BN][SP]
-  float* Ls = reinterpret_cast<float*>(Gs + 2 * BN * SP);   // [2][BN]  lse of the queries
-  float* Dl = Ls + 2 * BN;                           // [2][BN]  delta of the queries
+__device__ __forceinline__ void load_rows_plain(bf16* dst, const bf16* src, int rows, int r0,
+                                                int n, int D) {
+  for (int e = threadIdx.x; e < rows * DP; e += NT) {
+    const int r = e / DP, c = e % DP;
+    dst[sw128_off(r, c, rows)] =
+        (r0 + r < n && c < D) ? src[(size_t)(r0 + r) * D + c] : __float2bfloat16_rn(0.f);
+  }
+}
+
+// rows r0 .. r0 + rows - 1 of batch*head bh through a {64, rows, 1} box map,
+// one box a 64-column panel
+template <int DP>
+__device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int rows, int r0, int bh) {
+  #pragma unroll
+  for (int p = 0; p < DP / 64; ++p) tma_load_3d(dst + p * rows * 64, map, bar, 64 * p, r0, bh);
+}
+
+// blocks an SM holds at least (the registers a thread may take follow): at D
+// <= 64 three, at D 128 two
+template <int DP> constexpr int blocks_per_sm() { return DP <= 64 ? 3 : 2; }
+
+template <int DP>
+__global__ void __launch_bounds__(NT, blocks_per_sm<DP>())
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_g,
+                            const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const bf16* __restrict__ g,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            const int* __restrict__ kmask, bf16* __restrict__ dk,
+                            bf16* __restrict__ dv, int H, int T_, int S, int D, float scale,
+                            int causal, int tma) {
+  constexpr int BN = Cfg<DP>::BN2, NS = Cfg<DP>::NS2;
+  constexpr int KC = DP / 16;    // k16 slices of S^T, dP^T (over d)
+  constexpr int ND = DP / 8;     // 8-wide d blocks of dK, dV
+  constexpr int NQ = BN / 8;     // 8-query blocks of S^T, dP^T
+  constexpr unsigned STAGE_TX = 2 * Cfg<DP>::ROWS_BN2;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[NS + 1];   // the stages', then K and V's
+  bf16* Ks = reinterpret_cast<bf16*>(align1024(smem_raw));   // [BM, DP] this block's keys
+  bf16* Vs = Ks + BM * DP;
+  bf16* Qs = Vs + BM * DP;                          // [NS][BN, DP] the streamed queries
+  bf16* Gs = Qs + NS * BN * DP;
+  float* Ls = reinterpret_cast<float*>(Gs + NS * BN * DP);   // [NS][BN] their lse
+  float* Dl = Ls + NS * BN;                                   // [NS][BN] their delta
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t = lane & 3;
@@ -102,34 +163,71 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k0 = blockIdx.y * BM;   // lowest key tiles, the heaviest when causal, first
   const int kw = k0 + 16 * warp;    // this warp's first key
   const size_t qoff = (size_t)bh * T_ * D, koff = (size_t)bh * S * D;
-  const bf16* qb = q + qoff;
-  const bf16* gb = g + qoff;
-  const float* lb = lse + (size_t)bh * T_;
-  const float* db = delta + (size_t)bh * T_;
   const int* km = kmask ? kmask + (size_t)(bh / H) * S : nullptr;
-  const bool vec = D % Tile<bf16, DP>::E == 0 &&
-                   ((reinterpret_cast<size_t>(q) | reinterpret_cast<size_t>(k) |
-                     reinterpret_cast<size_t>(v) | reinterpret_cast<size_t>(g)) & 15) == 0;
 
   const int n_qt = (T_ + BN - 1) / BN;
   const int qt0 = causal ? k0 / BN : 0;   // query tiles wholly above the diagonal see no key here
+  const int n = max(n_qt - qt0, 0);       // tiles this block walks
 
-  // Q, G, lse and delta of query tile qt into stage st, one copy group
-  auto load_q = [&](int qt, int st) {
-    const int r0 = qt * BN;
-    load_tile<bf16, DP, NT>(Qs + st * BN * SP, qb, BN, r0, T_, D, vec);
-    load_tile<bf16, DP, NT>(Gs + st * BN * SP, gb, BN, r0, T_, D, vec);
-    for (int e = tid; e < BN; e += NT) {
-      const bool ok = r0 + e < T_;
-      cp4(Ls + st * BN + e, lb + (ok ? r0 + e : 0), ok);
-      cp4(Dl + st * BN + e, db + (ok ? r0 + e : 0), ok);
+  if (tid == 0) {
+    // a stage: TMA's thread and warp 0's lanes (their lse, delta copies);
+    // K and V: TMA's thread.  By plain stores: every thread.
+    for (int s = 0; s < NS; ++s) mbar_init(&bars[s], tma ? 33 : NT);
+    mbar_init(&bars[NS], tma ? 1 : NT);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // query tile qt0 + i into stage i % NS
+  auto issue = [&](int i) {
+    const int st = i % NS, r0 = (qt0 + i) * BN;
+    bf16* qd = Qs + st * BN * DP;
+    bf16* gd = Gs + st * BN * DP;
+    if (tma) {
+      if (warp == 0) {
+        if (lane == 0) {
+          mbar_arrive_tx(&bars[st], STAGE_TX);
+          tma_rows<DP>(qd, &tm_q, &bars[st], BN, r0, bh);
+          tma_rows<DP>(gd, &tm_g, &bars[st], BN, r0, bh);
+        }
+        // lse and delta by 4-byte copies (a batch*head's row of T floats
+        // need not start 16-byte aligned, as TMA wants), zero past T; each
+        // lane's copies arrive on the stage's barrier when they have landed
+        for (int e = lane; e < BN; e += 32) {
+          const bool ok = r0 + e < T_;
+          const size_t at = (size_t)bh * T_ + (ok ? r0 + e : 0);
+          cp4(Ls + st * BN + e, lse + at, ok);
+          cp4(Dl + st * BN + e, delta + at, ok);
+        }
+        cp_async_arrive(&bars[st]);
+      }
+    } else {
+      load_rows_plain<DP>(qd, q + qoff, BN, r0, T_, D);
+      load_rows_plain<DP>(gd, g + qoff, BN, r0, T_, D);
+      for (int e = tid; e < BN; e += NT) {
+        const bool ok = r0 + e < T_;
+        Ls[st * BN + e] = ok ? lse[(size_t)bh * T_ + r0 + e] : 0.f;
+        Dl[st * BN + e] = ok ? delta[(size_t)bh * T_ + r0 + e] : 0.f;
+      }
+      fence_proxy_async();
+      mbar_arrive(&bars[st]);
     }
   };
-  if (qt0 < n_qt) {                 // else no query sees these keys: dK = dV = 0
-    load_tile<bf16, DP, NT>(Ks, k + koff, BM, k0, S, D, vec);
-    load_tile<bf16, DP, NT>(Vs, v + koff, BM, k0, S, D, vec);
-    load_q(qt0, 0);
-    cp_commit();
+  if (n > 0) {                      // else no query sees these keys: dK = dV = 0
+    if (tma) {
+      if (tid == 0) {
+        mbar_arrive_tx(&bars[NS], 2 * Cfg<DP>::ROWS_BM);
+        tma_rows<DP>(Ks, &tm_k, &bars[NS], BM, k0, bh);
+        tma_rows<DP>(Vs, &tm_v, &bars[NS], BM, k0, bh);
+      }
+    } else {
+      load_rows_plain<DP>(Ks, k + koff, BM, k0, S, D);
+      load_rows_plain<DP>(Vs, v + koff, BM, k0, S, D);
+      fence_proxy_async();
+      mbar_arrive(&bars[NS]);
+    }
+    for (int i = 0; i < min(NS, n); ++i) issue(i);
+    mbar_wait(&bars[NS], 0);
   }
 
   int kmv[2];                       // the key mask of this lane's keys gq, gq + 8
@@ -138,49 +236,34 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int kj = kw + gq + 8 * h;
     kmv[h] = (km != nullptr && kj < S) ? km[kj] : 1;
   }
-  float adk[ND][4], adv[ND][4];     // keys kw + gq (+ 8), d tile j
+  const float sl2 = scale * LOG2E;  // p = 2^(s^T * scale * log2 e - lse * log2 e)
+  float adk[ND][4], adv[ND][4];     // keys kw + gq (+ 8), d block j
   #pragma unroll
   for (int j = 0; j < ND; ++j)
     #pragma unroll
     for (int r = 0; r < 4; ++r) adk[j][r] = adv[j][r] = 0.f;
 
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int st = (qt - qt0) & 1, q0 = qt * BN;
-    if (qt + 1 < n_qt) {
-      load_q(qt + 1, st ^ 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Qt = Qs + st * BN * SP;
-    const bf16* Gt = Gs + st * BN * SP;
+  for (int i = 0; i < n; ++i) {
+    const int st = i % NS, q0 = (qt0 + i) * BN;
+    mbar_wait(&bars[st], (i / NS) & 1);
+    const bf16* Qt = Qs + st * BN * DP;
+    const bf16* Gt = Gs + st * BN * DP;
     const float* Lt = Ls + st * BN;
     const float* Dt = Dl + st * BN;
 
-    // S^T = K . Q^T and dP^T = V . G^T: 16 keys x BN queries a warp
+    // S^T = K . Q^T and dP^T = V . G^T: 64 keys x BN queries
     float sT[NQ][4], dpT[NQ][4];
+    wgmma_fence();
     #pragma unroll
-    for (int j = 0; j < NQ; ++j)
-      #pragma unroll
-      for (int r = 0; r < 4; ++r) sT[j][r] = dpT[j][r] = 0.f;
+    for (int c = 0; c < KC; ++c)
+      wgmma_ss(sT, kmajor_desc(Ks, BM, c), kmajor_desc(Qt, BN, c), c);
     #pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      unsigned ka[4], va[4];
-      ldsm_x4(ka, Ks + (16 * warp + a_row(lane)) * SP + 16 * c + a_col(lane));
-      ldsm_x4(va, Vs + (16 * warp + a_row(lane)) * SP + 16 * c + a_col(lane));
-      #pragma unroll
-      for (int jp = 0; jp < NQ / 2; ++jp) {
-        unsigned b[4];
-        ldsm_x4(b, Qt + (16 * jp + b_row(lane)) * SP + 16 * c + b_col(lane));
-        mma_bf16(sT[2 * jp], ka, b[0], b[1]);
-        mma_bf16(sT[2 * jp + 1], ka, b[2], b[3]);
-        ldsm_x4(b, Gt + (16 * jp + b_row(lane)) * SP + 16 * c + b_col(lane));
-        mma_bf16(dpT[2 * jp], va, b[0], b[1]);
-        mma_bf16(dpT[2 * jp + 1], va, b[2], b[3]);
-      }
-    }
+    for (int c = 0; c < KC; ++c)
+      wgmma_ss(dpT, kmajor_desc(Vs, BM, c), kmajor_desc(Gt, BN, c), c);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sT);
+    fence_acc(dpT);
 
     // p^T and ds^T in place, for live pairs only (a blocked pair has p = 0
     // and ds = 0, a live one a bias of 0); queries past T are no queries.
@@ -188,45 +271,48 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // key, or a key mask, need the test.
     const bool edge = q0 + BN > T_ || (causal && q0 < kw + 15) || km != nullptr;
     #pragma unroll
-    for (int j = 0; j < NQ; ++j)
+    for (int j = 0; j < NQ; ++j) {
+      // lse (in log2 units) and delta of this lane's queries 8 j + 2 t, + 1
+      float2 l2 = *reinterpret_cast<const float2*>(Lt + 8 * j + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(Dt + 8 * j + 2 * t);
+      l2.x *= LOG2E;
+      l2.y *= LOG2E;
       #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int col = 8 * j + 2 * t + (r & 1);
-        float p = 0.f, ds = 0.f;
         bool live = true;
         if (edge) {
-          const int qi = q0 + col, kj = kw + gq + 8 * (r >> 1);
+          const int qi = q0 + 8 * j + 2 * t + (r & 1), kj = kw + gq + 8 * (r >> 1);
           live = qi < T_ && !(causal && qi < kj) && kmv[r >> 1] != 0;
         }
-        if (live) {
-          p = fast_exp(sT[j][r] * scale - Lt[col]);
-          ds = p * (dpT[j][r] - Dt[col]) * scale;
-        }
-        sT[j][r] = p;
-        dpT[j][r] = ds;
-      }
-
-    // dV += p^T . G and dK += ds^T . Q: p^T and ds^T, rounded to bf16, are
-    // the A fragments; G and Q (queries x d) the B fragments, by
-    // ldmatrix.trans
-    #pragma unroll
-    for (int c = 0; c < BN / 16; ++c) {
-      unsigned pa[4], da[4];
-      c_to_a(pa, sT[2 * c], sT[2 * c + 1]);
-      c_to_a(da, dpT[2 * c], dpT[2 * c + 1]);
-      #pragma unroll
-      for (int dp = 0; dp < ND / 2; ++dp) {
-        unsigned b[4];
-        ldsm_x4_t(b, Gt + (16 * c + a_row(lane)) * SP + 16 * dp + a_col(lane));
-        mma_bf16(adv[2 * dp], pa, b[0], b[1]);
-        mma_bf16(adv[2 * dp + 1], pa, b[2], b[3]);
-        ldsm_x4_t(b, Qt + (16 * c + a_row(lane)) * SP + 16 * dp + a_col(lane));
-        mma_bf16(adk[2 * dp], da, b[0], b[1]);
-        mma_bf16(adk[2 * dp + 1], da, b[2], b[3]);
+        // computed for every pair and selected: a branch around the
+        // exponential would make a divergent region of every element
+        const float p = fast_exp2(fmaf(sT[j][r], sl2, -((r & 1) ? l2.y : l2.x)));
+        const float ds = p * (dpT[j][r] - ((r & 1) ? dl.y : dl.x)) * scale;
+        sT[j][r] = live ? p : 0.f;
+        dpT[j][r] = live ? ds : 0.f;
       }
     }
-    __syncthreads();                // stage `st` is free for the tile after next
+
+    // dV += p^T . G and dK += ds^T . Q: p^T and ds^T, rounded to bf16, are
+    // the register A operands; G and Q (queries x d) the MN-major B
+    unsigned pa[BN / 16][4], da[BN / 16][4];
+    #pragma unroll
+    for (int c = 0; c < BN / 16; ++c) {
+      c_to_a(pa[c], sT[2 * c], sT[2 * c + 1]);
+      c_to_a(da[c], dpT[2 * c], dpT[2 * c + 1]);
+    }
+    wgmma_fence();
+    #pragma unroll
+    for (int c = 0; c < BN / 16; ++c) wgmma_rs(adv, pa[c], mnmajor_desc(Gt, BN, c), 1);
+    #pragma unroll
+    for (int c = 0; c < BN / 16; ++c) wgmma_rs(adk, da[c], mnmajor_desc(Qt, BN, c), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    __syncthreads();                // every product that read stage `st` has retired
+    if (i + NS < n) issue(i + NS);
   }
+  fence_acc(adk);
+  fence_acc(adv);
 
   const float one[2] = {1.f, 1.f};
   store_c_rows<DP>(dk + koff, adk, one, kw, S, D, lane);
@@ -234,21 +320,27 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DP>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ g,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       const int* __restrict__ kmask, bf16* __restrict__ dq, int H, int T_,
-                       int S, int D, float scale, int causal) {
-  constexpr int SP = Dims<DP>::SP, BN = Dims<DP>::BN;
-  constexpr int KC = DP / 16;    // 16-wide d chunks of Q, G (A fragments)
-  constexpr int ND = DP / 8;     // 8-wide d tiles of dQ
-  constexpr int NK = BN / 8;     // 8-key tiles of S, dP
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);     // [BM][SP]  this block's queries
-  bf16* Gs = Qs + BM * SP;                           // [BM][SP]
-  bf16* Ks = Gs + BM * SP;                           // [2][BN][SP]  the streamed keys
-  bf16* Vs = Ks + 2 * BN * SP;                       // [2][BN][SP]
+__global__ void __launch_bounds__(NT, blocks_per_sm<DP>())
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_g,
+                          const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ g,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const int* __restrict__ kmask, bf16* __restrict__ dq, int H, int T_,
+                          int S, int D, float scale, int causal, int tma) {
+  constexpr int BN = Cfg<DP>::BN3, NS = Cfg<DP>::NS3;
+  constexpr int KC = DP / 16;    // k16 slices of S, dP (over d)
+  constexpr int ND = DP / 8;     // 8-wide d blocks of dQ
+  constexpr int NK = BN / 8;     // 8-key blocks of S, dP
+  constexpr unsigned STAGE_TX = 2 * Cfg<DP>::ROWS_BN3;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[NS + 1];   // the stages', then Q and G's
+  bf16* Qs = reinterpret_cast<bf16*>(align1024(smem_raw));   // [BM, DP] this block's queries
+  bf16* Gs = Qs + BM * DP;
+  bf16* Ks = Gs + BM * DP;                          // [NS][BN, DP] the streamed keys
+  bf16* Vs = Ks + NS * BN * DP;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t = lane & 3;
@@ -256,77 +348,85 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest causal tiles first
   const int qw = q0 + 16 * warp;                     // this warp's first query
   const size_t qoff = (size_t)bh * T_ * D, koff = (size_t)bh * S * D;
-  const bf16* kb = k + koff;
-  const bf16* vb = v + koff;
   const int* km = kmask ? kmask + (size_t)(bh / H) * S : nullptr;
-  const bool vec = D % Tile<bf16, DP>::E == 0 &&
-                   ((reinterpret_cast<size_t>(q) | reinterpret_cast<size_t>(k) |
-                     reinterpret_cast<size_t>(v) | reinterpret_cast<size_t>(g)) & 15) == 0;
 
-  int n_kt = (S + BN - 1) / BN;
-  if (causal) n_kt = min(n_kt, (q0 + BM - 1) / BN + 1);  // skip tiles above the diagonal
+  int n = (S + BN - 1) / BN;
+  if (causal) n = min(n, (q0 + BM - 1) / BN + 1);  // skip tiles above the diagonal
 
-  load_tile<bf16, DP, NT>(Qs, q + qoff, BM, q0, T_, D, vec);
-  load_tile<bf16, DP, NT>(Gs, g + qoff, BM, q0, T_, D, vec);
-  load_tile<bf16, DP, NT>(Ks, kb, BN, 0, S, D, vec);
-  load_tile<bf16, DP, NT>(Vs, vb, BN, 0, S, D, vec);
-  cp_commit();
+  if (tid == 0) {
+    for (int s = 0; s <= NS; ++s) mbar_init(&bars[s], tma ? 1 : NT);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // key tile i into stage i % NS
+  auto issue = [&](int i) {
+    const int st = i % NS, r0 = i * BN;
+    bf16* kd = Ks + st * BN * DP;
+    bf16* vd = Vs + st * BN * DP;
+    if (tma) {
+      if (tid == 0) {
+        mbar_arrive_tx(&bars[st], STAGE_TX);
+        tma_rows<DP>(kd, &tm_k, &bars[st], BN, r0, bh);
+        tma_rows<DP>(vd, &tm_v, &bars[st], BN, r0, bh);
+      }
+    } else {
+      load_rows_plain<DP>(kd, k + koff, BN, r0, S, D);
+      load_rows_plain<DP>(vd, v + koff, BN, r0, S, D);
+      fence_proxy_async();
+      mbar_arrive(&bars[st]);
+    }
+  };
+  if (tma) {
+    if (tid == 0) {
+      mbar_arrive_tx(&bars[NS], 2 * Cfg<DP>::ROWS_BM);
+      tma_rows<DP>(Qs, &tm_q, &bars[NS], BM, q0, bh);
+      tma_rows<DP>(Gs, &tm_g, &bars[NS], BM, q0, bh);
+    }
+  } else {
+    load_rows_plain<DP>(Qs, q + qoff, BM, q0, T_, D);
+    load_rows_plain<DP>(Gs, g + qoff, BM, q0, T_, D);
+    fence_proxy_async();
+    mbar_arrive(&bars[NS]);
+  }
+  for (int i = 0; i < min(NS, n); ++i) issue(i);
 
   // lse and delta of this lane's rows qw + gq (+ 8); a row past T takes the
   // sentinel, so its p is 0
-  float ls[2], dl[2];
+  float ls2[2], dl[2];               // lse in log2 units
   #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qi = qw + gq + 8 * h;
-    ls[h] = qi < T_ ? lse[(size_t)bh * T_ + qi] : 1e30f;
+    ls2[h] = qi < T_ ? lse[(size_t)bh * T_ + qi] * LOG2E : 1e30f;
     dl[h] = qi < T_ ? delta[(size_t)bh * T_ + qi] : 0.f;
   }
-  unsigned qf[KC][4], gf[KC][4];
-  float acc[ND][4];              // rows qw + gq (+ 8), d tile j
+  const float sl2 = scale * LOG2E;  // p = 2^(s * scale * log2 e - lse * log2 e)
+  float acc[ND][4];              // rows qw + gq (+ 8), d block j
   #pragma unroll
   for (int j = 0; j < ND; ++j)
     #pragma unroll
     for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
+  mbar_wait(&bars[NS], 0);
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int buf = kt & 1, k0 = kt * BN;
-    if (kt + 1 < n_kt) {
-      load_tile<bf16, DP, NT>(Ks + (buf ^ 1) * BN * SP, kb, BN, k0 + BN, S, D, vec);
-      load_tile<bf16, DP, NT>(Vs + (buf ^ 1) * BN * SP, vb, BN, k0 + BN, S, D, vec);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    if (kt == 0) {
-      #pragma unroll
-      for (int c = 0; c < KC; ++c) {
-        ldsm_x4(qf[c], Qs + (16 * warp + a_row(lane)) * SP + 16 * c + a_col(lane));
-        ldsm_x4(gf[c], Gs + (16 * warp + a_row(lane)) * SP + 16 * c + a_col(lane));
-      }
-    }
-    const bf16* Kt = Ks + buf * BN * SP;
-    const bf16* Vt = Vs + buf * BN * SP;
+  for (int i = 0; i < n; ++i) {
+    const int st = i % NS, k0 = i * BN;
+    mbar_wait(&bars[st], (i / NS) & 1);
+    const bf16* Kt = Ks + st * BN * DP;
+    const bf16* Vt = Vs + st * BN * DP;
 
-    // S = Q . K^T and dP = G . V^T: 16 rows x BN keys a warp
+    // S = Q . K^T and dP = G . V^T: 64 rows x BN keys
     float s[NK][4], dp[NK][4];
-    #pragma unroll
-    for (int j = 0; j < NK; ++j)
-      #pragma unroll
-      for (int r = 0; r < 4; ++r) s[j][r] = dp[j][r] = 0.f;
+    wgmma_fence();
     #pragma unroll
     for (int c = 0; c < KC; ++c)
-      #pragma unroll
-      for (int jp = 0; jp < NK / 2; ++jp) {
-        unsigned b[4];
-        ldsm_x4(b, Kt + (16 * jp + b_row(lane)) * SP + 16 * c + b_col(lane));
-        mma_bf16(s[2 * jp], qf[c], b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], qf[c], b[2], b[3]);
-        ldsm_x4(b, Vt + (16 * jp + b_row(lane)) * SP + 16 * c + b_col(lane));
-        mma_bf16(dp[2 * jp], gf[c], b[0], b[1]);
-        mma_bf16(dp[2 * jp + 1], gf[c], b[2], b[3]);
-      }
+      wgmma_ss(s, kmajor_desc(Qs, BM, c), kmajor_desc(Kt, BN, c), c);
+    #pragma unroll
+    for (int c = 0; c < KC; ++c)
+      wgmma_ss(dp, kmajor_desc(Gs, BM, c), kmajor_desc(Vt, BN, c), c);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
 
     // ds in place of s, for live pairs only (a blocked pair has ds = 0, a
     // live one a bias of 0); keys past S are no keys.  Only tiles that hold
@@ -343,49 +443,170 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int kj = k0 + 8 * j + 2 * t + (r & 1), qi = qw + gq + 8 * h;
           live = kj < S && !(causal && qi < kj) && (km == nullptr || km[kj] != 0);
         }
-        float ds = 0.f;
-        if (live) {
-          const float p = fast_exp(s[j][r] * scale - ls[h]);
-          ds = p * (dp[j][r] - dl[h]) * scale;
-        }
-        s[j][r] = ds;
+        const float p = fast_exp2(fmaf(s[j][r], sl2, -ls2[h]));
+        const float ds = p * (dp[j][r] - dl[h]) * scale;
+        s[j][r] = live ? ds : 0.f;
       }
 
-    // dQ += dS . K: dS's C fragments, rounded to bf16, are the A fragments;
-    // K (keys x d) the B fragments, by ldmatrix.trans of the same tile
+    // dQ += ds . K: ds, rounded to bf16, is the register A operand; K (keys
+    // x d) the MN-major B, the same stage
+    unsigned a[BN / 16][4];
     #pragma unroll
-    for (int c = 0; c < BN / 16; ++c) {
-      unsigned a[4];
-      c_to_a(a, s[2 * c], s[2 * c + 1]);
-      #pragma unroll
-      for (int dp2 = 0; dp2 < ND / 2; ++dp2) {
-        unsigned b[4];
-        ldsm_x4_t(b, Kt + (16 * c + a_row(lane)) * SP + 16 * dp2 + a_col(lane));
-        mma_bf16(acc[2 * dp2], a, b[0], b[1]);
-        mma_bf16(acc[2 * dp2 + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();             // stage `buf` is free for the tile after next
+    for (int c = 0; c < BN / 16; ++c) c_to_a(a[c], s[2 * c], s[2 * c + 1]);
+    wgmma_fence();
+    #pragma unroll
+    for (int c = 0; c < BN / 16; ++c) wgmma_rs(acc, a[c], mnmajor_desc(Kt, BN, c), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    __syncthreads();             // every product that read stage `st` has retired
+    if (i + NS < n) issue(i + NS);
   }
+  fence_acc(acc);
 
   const float one[2] = {1.f, 1.f};
   store_c_rows<DP>(dq + qoff, acc, one, qw, T_, D, lane);
+}
+
+// One warpgroup, one tile each way, for the card tests of the fragment
+// layer: c1 = a . b^T (a [64, DP], b [N, DP], both through K-major
+// descriptors) and c2 = bf16(c1) . g (g [N, DP] through the MN-major
+// descriptor, c1's accumulators repacked as the register A), in f32; the
+// tiles come by TMA when `tma`, else by plain stores.
+template <int DP, int N>
+__global__ void __launch_bounds__(NT)
+wgmma_tile_check_kernel(const __grid_constant__ CUtensorMap tm_a,
+                        const __grid_constant__ CUtensorMap tm_b,
+                        const __grid_constant__ CUtensorMap tm_g, const bf16* a,
+                        const bf16* b, const bf16* g, float* c1, float* c2, int tma) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar;
+  bf16* As = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* Bs = As + BM * DP;
+  bf16* Gs = Bs + N * DP;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  if (tid == 0) {
+    mbar_init(&bar, tma ? 1 : NT);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tma) {
+    if (tid == 0) {
+      mbar_arrive_tx(&bar, (BM + 2 * N) * DP * 2);
+      tma_rows<DP>(As, &tm_a, &bar, BM, 0, 0);
+      tma_rows<DP>(Bs, &tm_b, &bar, N, 0, 0);
+      tma_rows<DP>(Gs, &tm_g, &bar, N, 0, 0);
+    }
+  } else {
+    load_rows_plain<DP>(As, a, BM, 0, BM, DP);
+    load_rows_plain<DP>(Bs, b, N, 0, N, DP);
+    load_rows_plain<DP>(Gs, g, N, 0, N, DP);
+    fence_proxy_async();
+    mbar_arrive(&bar);
+  }
+  mbar_wait(&bar, 0);
+  float d1[N / 8][4], d2[DP / 8][4];
+  wgmma_fence();
+  #pragma unroll
+  for (int c = 0; c < DP / 16; ++c) wgmma_ss(d1, kmajor_desc(As, BM, c), kmajor_desc(Bs, N, c), c);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(d1);
+  unsigned pa[N / 16][4];
+  #pragma unroll
+  for (int c = 0; c < N / 16; ++c) c_to_a(pa[c], d1[2 * c], d1[2 * c + 1]);
+  wgmma_fence();
+  #pragma unroll
+  for (int c = 0; c < N / 16; ++c) wgmma_rs(d2, pa[c], mnmajor_desc(Gs, N, c), c);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(d2);
+  #pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + gq + 8 * h;
+    #pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      #pragma unroll
+      for (int e = 0; e < 2; ++e) c1[r * N + 8 * j + 2 * t + e] = d1[j][2 * h + e];
+    #pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+      #pragma unroll
+      for (int e = 0; e < 2; ++e) c2[r * DP + 8 * j + 2 * t + e] = d2[j][2 * h + e];
+  }
+}
+
+// -- host: tensor maps ------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, a driver-API call, reached through the runtime so
+// that the library links only the runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a [BH, n, D] bf16 tensor in boxes of {64 columns, rows, 1}, 128-byte
+// swizzled; rows past n and columns past D read as zero
+int map_rows(CUtensorMap* m, const void* base, int BH, int n, int D, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)n, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)n * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return (int)enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (reinterpret_cast<size_t>(p) & 15) return false;
+  return true;
+}
+
+// TMA takes a tensor whose rows are a multiple of 16 bytes at a 16-byte
+// aligned base
+bool tma_route(std::initializer_list<const void*> ps, int D) {
+  return D % 8 == 0 && aligned16(ps);
 }
 
 template <int DP>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* g, const float* lse,
                 const float* delta, const int* kmask, void* dk, void* dv, int B, int H,
                 int T_, int S, int D, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = Dims<DP>::SMEM_DKDV;
+  constexpr size_t smem = Cfg<DP>::SMEM_DKDV;
+  constexpr int BN = Cfg<DP>::BN2;
   // once per template instance (a thread-safe static initialiser)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkdv_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dkdv_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid(B * H, (S + BM - 1) / BM);
-  flash_bwd_dkdv_tc_kernel<DP><<<grid, NT, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), lse, delta, kmask, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, T_, S, D, scale, causal);
+  const int BH = B * H;
+  const bool tma = tma_route({q, k, v, g}, D);
+  CUtensorMap mq{}, mk{}, mv{}, mg{};
+  if (tma) {
+    int rc;
+    if ((rc = map_rows(&mq, q, BH, T_, D, BN)) || (rc = map_rows(&mg, g, BH, T_, D, BN)) ||
+        (rc = map_rows(&mk, k, BH, S, D, BM)) || (rc = map_rows(&mv, v, BH, S, D, BM)))
+      return rc;
+  }
+  const dim3 grid(BH, (S + BM - 1) / BM);
+  flash_bwd_dkdv_wgmma_kernel<DP><<<grid, NT, smem, stream>>>(
+      mq, mk, mv, mg, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta, kmask,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T_, S, D, scale, causal, (int)tma);
   return (int)cudaGetLastError();
 }
 
@@ -393,15 +614,45 @@ template <int DP>
 int launch_dq(const void* q, const void* k, const void* v, const void* g, const float* lse,
               const float* delta, const int* kmask, void* dq, int B, int H, int T_, int S,
               int D, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = Dims<DP>::SMEM_DQ;
+  constexpr size_t smem = Cfg<DP>::SMEM_DQ;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dq_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid(B * H, (T_ + BM - 1) / BM);
-  flash_bwd_dq_tc_kernel<DP><<<grid, NT, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), lse, delta, kmask, static_cast<bf16*>(dq), H, T_, S, D,
-      scale, causal);
+  const int BH = B * H;
+  const bool tma = tma_route({q, k, v, g}, D);
+  CUtensorMap mq{}, mk{}, mv{}, mg{};
+  if (tma) {
+    int rc;
+    if ((rc = map_rows(&mq, q, BH, T_, D, BM)) || (rc = map_rows(&mg, g, BH, T_, D, BM)) ||
+        (rc = map_rows(&mk, k, BH, S, D, Cfg<DP>::BN3)) ||
+        (rc = map_rows(&mv, v, BH, S, D, Cfg<DP>::BN3)))
+      return rc;
+  }
+  const dim3 grid(BH, (T_ + BM - 1) / BM);
+  flash_bwd_dq_wgmma_kernel<DP><<<grid, NT, smem, stream>>>(
+      mq, mk, mv, mg, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta, kmask,
+      static_cast<bf16*>(dq), H, T_, S, D, scale, causal, (int)tma);
+  return (int)cudaGetLastError();
+}
+
+template <int DP, int N>
+int launch_check(const void* a, const void* b, const void* g, void* c1, void* c2, int tma,
+                 cudaStream_t stream) {
+  constexpr size_t smem = 1024 + (size_t)(BM + 2 * N) * DP * 2;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wgmma_tile_check_kernel<DP, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap ma{}, mb{}, mg{};
+  if (tma) {
+    int rc;
+    if ((rc = map_rows(&ma, a, 1, BM, DP, BM)) || (rc = map_rows(&mb, b, 1, N, DP, N)) ||
+        (rc = map_rows(&mg, g, 1, N, DP, N)))
+      return rc;
+  }
+  wgmma_tile_check_kernel<DP, N><<<1, NT, smem, stream>>>(
+      ma, mb, mg, static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<const bf16*>(g), static_cast<float*>(c1), static_cast<float*>(c2), tma);
   return (int)cudaGetLastError();
 }
 
@@ -415,7 +666,8 @@ bool bad_args(int B, int H, int T_, int S, int D) {
 
 // q, g, dq [B,H,T,D]; k, v, dk, dv [B,H,S,D]; all contiguous bf16; lse,
 // delta [B,H,T] f32; kmask [B,S] int32 or null.  Each returns 0, a CUDA
-// error code, or -1 for arguments the kernel does not take.
+// error code (or the driver's, from encoding a tensor map), or -1 for
+// arguments the kernel does not take.
 extern "C" int dl4j_flash_bwd_dkdv_tc(const void* q, const void* k, const void* v,
                                       const void* g, const void* lse, const void* delta,
                                       const void* kmask, void* dk, void* dv, int B, int H,
@@ -443,4 +695,17 @@ extern "C" int dl4j_flash_bwd_dq_tc(const void* q, const void* k, const void* v,
   return D <= 64
       ? launch_dq<64>(q, k, v, g, l, dl, km, dq, B, H, T_, S, D, scale, causal, st)
       : launch_dq<128>(q, k, v, g, l, dl, km, dq, B, H, T_, S, D, scale, causal, st);
+}
+
+// a [64, dp], b and g [n, dp] contiguous bf16 (16-byte aligned when tma);
+// c1 [64, n] and c2 [64, dp] f32; (dp, n) in {64, 128} x {32, 64}.  Returns
+// 0, a CUDA error code, or -1 for another (dp, n).
+extern "C" int dl4j_wgmma_tile_check(const void* a, const void* b, const void* g, void* c1,
+                                     void* c2, int dp, int n, int tma, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dp == 64 && n == 64) return launch_check<64, 64>(a, b, g, c1, c2, tma, st);
+  if (dp == 64 && n == 32) return launch_check<64, 32>(a, b, g, c1, c2, tma, st);
+  if (dp == 128 && n == 64) return launch_check<128, 64>(a, b, g, c1, c2, tma, st);
+  if (dp == 128 && n == 32) return launch_check<128, 32>(a, b, g, c1, c2, tma, st);
+  return -1;
 }

@@ -1,8 +1,10 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
 // flash_fwd_tc.cu, flash_bwd_tc.cu): dtype conversions, ex2 exponentials,
 // cp.async copies, float4 shared loads, the loader of row-major tiles padded
-// by 16 bytes a row, and the tensor-core fragment layer of the bf16 kernels
-// (ldmatrix, mma.sync m16n8k16, packing f32 pairs into bf16 A fragments).
+// by 16 bytes a row, and the mma.sync fragment layer of K1's bf16 kernel
+// (ldmatrix, mma.sync m16n8k16), whose packing of f32 pairs into bf16 A
+// fragments and row stores the wgmma kernels share (wgmma.cuh: the same
+// per-warp layout).
 // Each source includes this header and still builds alone
 // (utils/cuda_build.py hashes the headers into every library's name).
 
@@ -36,6 +38,12 @@ constexpr float LOG2E = 1.4426950408889634f;
 __device__ __forceinline__ float fast_exp(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * LOG2E));
+  return y;
+}
+// 2^x (the caller folds log2 e into its operands)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 

@@ -1,0 +1,268 @@
+// Hopper's warpgroup MMA (wgmma), its shared-memory descriptors, and the
+// tensor-memory copies (TMA) and mbarriers that feed it, for the bf16 flash
+// kernels (flash_bwd_tc.cu).  Each source that includes this header still
+// builds alone (utils/cuda_build.py hashes the headers into every library's
+// name).  sm_90a only: plain sm_90 refuses wgmma.
+//
+// -- tiles in shared memory ---------------------------------------------------
+//
+// A tile of R rows and DP bf16 columns (DP 64 or 128) is stored as DP / 64
+// panels of 64 columns, panel p at byte p * R * 128; a panel's row r is 128
+// bytes at r * 128 whose 16-byte chunks are permuted by the 128-byte swizzle:
+// chunk c of row r sits at chunk c ^ (r % 8).  That is what TMA writes for a
+// box of {64 columns, R rows} under CU_TENSOR_MAP_SWIZZLE_128B, and what a
+// wgmma descriptor in 128-byte-swizzle mode reads, so long as each panel
+// starts 1024-byte aligned (8 rows, one swizzle period; R is a multiple of
+// 8).  sw128_off gives the element offset of (r, c) for code that writes a
+// tile with plain stores.
+//
+// -- descriptors (PTX ISA, "Matrix Descriptor Format") ------------------------
+//
+// 64 bits: start address >> 4 in bits 0-13, leading byte offset (LBO) >> 4 in
+// bits 16-29, stride byte offset (SBO) >> 4 in bits 32-45, base offset 0 in
+// bits 49-51 (the panels are 1024-byte aligned), swizzle mode in bits 62-63
+// (1 = 128-byte).
+//   * K-major operand (the reduction dimension runs along the 128-byte rows:
+//     A of any product here, and B = K or Q of S = Q.K^T, S^T = K.Q^T): an
+//     instruction's k16 slice is 32 bytes of each row, so the slice at column
+//     16 kk of panel p starts at panel + 32 kk bytes (the hardware applies the
+//     swizzle to the address it forms); SBO = 1024, the step between 8-row
+//     groups; LBO is not read.
+//   * MN-major operand (B of dV += p^T.G, dK += ds^T.Q, dQ += ds.K: the
+//     reduction runs down the rows, N along them; the instruction's transpose
+//     bit for B is set): the k16 slice is rows 16 kk .. 16 kk + 15, starting
+//     at panel 0 + 2048 kk bytes; SBO = 1024, the step between its two 8-row
+//     groups; LBO = R * 128, the step from one 64-column panel to the next
+//     along N.
+//
+// -- fragments ------------------------------------------------------------------
+//
+// wgmma.m64nNk16 (bf16 in, f32 sums) is issued by a warpgroup (4 warps) for a
+// 64-row tile; warp w owns rows 16 w .. 16 w + 15, and within a warp the
+// layout is mma.sync's m16n8 one (flash_tiles.cuh), repeated along N: with
+// lane = 4 g + t, accumulator d[j][0..1] is (row g, columns 8 j + 2 t, +1) and
+// d[j][2..3] is (row g + 8, the same columns).  The register A operand of a
+// k16 slice is mma.sync's A fragment of the warp's 16 rows, so the
+// accumulators of columns 16 c .. 16 c + 15 (d[2c], d[2c+1]), rounded to bf16
+// by c_to_a, are the A operand of a product whose reduction runs over those
+// columns: p^T and ds^T (K2) and ds (K3) never leave registers.
+//
+// -- asynchrony -----------------------------------------------------------------
+//
+// wgmma_fence() before the first wgmma of a batch (it orders earlier register
+// writes to accumulators and A operands before the wgmma reads them);
+// wgmma_commit() closes the batch and wgmma_wait<N>() waits until at most N
+// batches are in flight.  The compiler does not know that the accumulators
+// change after the asm statement returns: fence_acc() after a wait pins every
+// later read of them below it.
+
+#pragma once
+
+#include <cuda.h>            // CUtensorMap and the driver's enums: types only, nothing links libcuda
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the first 1024-byte-aligned address at or after p (a block's dynamic
+// shared memory is asked for 1024 bytes more than its tiles take)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023u) & ~1023u) - a);
+}
+
+// element offset of (r, c) in a swizzled tile of `rows` rows (see above)
+__device__ __forceinline__ int sw128_off(int r, int c, int rows) {
+  const int cc = c & 63;
+  return (c >> 6) * rows * 64 + r * 64 + (((cc >> 3) ^ (r & 7)) << 3) + (cc & 7);
+}
+
+// -- mbarriers ------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// after the inits, before any other thread or the copy engine uses the barriers
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// one arrival, and `bytes` more to come from TMA copies before the phase ends
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// an arrival on `bar` once this thread's earlier cp.async copies have
+// landed (counted among the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// plain stores to shared memory made visible to the async proxy (wgmma, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// -- TMA: a box of a tensor map into shared memory, completing on `bar` -------
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// -- descriptors and wgmma ----------------------------------------------------------
+
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+// the k16 slice at column 16 kk of a K-major tile of `rows` rows
+__device__ __forceinline__ uint64_t kmajor_desc(const __nv_bfloat16* tile, int rows, int kk) {
+  return sw128_desc(tile + (kk >> 2) * rows * 64 + (kk & 3) * 16, 16, 1024);
+}
+// the k16 slice at rows 16 kk .. 16 kk + 15 of an MN-major tile of `rows` rows
+__device__ __forceinline__ uint64_t mnmajor_desc(const __nv_bfloat16* tile, int rows, int kk) {
+  return sw128_desc(tile + kk * 16 * 64, (uint32_t)rows * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int J> __device__ __forceinline__ void fence_acc(float (&d)[J][4]) {
+  #pragma unroll
+  for (int j = 0; j < J; ++j)
+    #pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+f"(d[j][r])::"memory");
+}
+
+// d (+)= A.B with A and B from shared memory, both K-major (scale-d = acc:
+// 0 overwrites d); d[N/8][4] for N = 32, 64
+__device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t da, uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(acc)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da, uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(acc)
+      : "memory");
+}
+
+// d (+)= A.B with A from registers (a: this warp's A fragment of the k16
+// slice) and B from shared memory, MN-major; d[N/8][4] for N = 64, 128
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const unsigned (&a)[4],
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const unsigned (&a)[4],
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc)
+      : "memory");
+}
+
+}  // namespace

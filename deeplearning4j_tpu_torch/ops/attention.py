@@ -12,9 +12,11 @@ kernel      float32                             bfloat16
 K1          ``csrc/flash_fwd.cu`` (SIMT)        ``csrc/flash_fwd_tc.cu``
                                                 (tensor cores, ``mma.sync``)
 K2          ``csrc/flash_bwd.cu`` (SIMT)        ``csrc/flash_bwd_tc.cu``
-                                                (tensor cores, ``mma.sync``)
+                                                (tensor cores, ``wgmma``
+                                                fed by TMA)
 K3          ``csrc/flash_bwd.cu`` (SIMT)        ``csrc/flash_bwd_tc.cu``
-                                                (tensor cores, ``mma.sync``)
+                                                (tensor cores, ``wgmma``
+                                                fed by TMA)
 ==========  ==================================  ============================
 
 For a CUDA tensor each wrapper launches its kernel; for a CPU tensor, and

@@ -275,6 +275,18 @@ def test_the_tensor_core_entries_take_only_bf16(stub_load):
     assert stub.asked == []
 
 
+def test_both_bf16_backward_entries_keep_their_c_signature(stub_load):
+    # the wgmma kernels took over the entries of the mma.sync ones, argument
+    # for argument: q, k, v, g, lse, delta, kmask, the outputs; B, H, T, S,
+    # D; scale, causal, the stream; an int back
+    stub_load()
+    dkdv, dq = tatt._bwd_tc_fns()
+    tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    assert dkdv.argtypes == [ctypes.c_void_p] * 9 + tail
+    assert dq.argtypes == [ctypes.c_void_p] * 8 + tail
+    assert dkdv.restype is ctypes.c_int and dq.restype is ctypes.c_int
+
+
 def test_bf16_on_cpu_takes_the_plain_versions():
     (tq, tk, tv, tg), _ = _bf16_inputs(16, 16, 8, seed=9)
     counters = (tatt.flash_forward_cuda, tatt.flash_forward_tc_cuda,

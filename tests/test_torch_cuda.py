@@ -11,7 +11,10 @@ on a machine that has only PyTorch:
 Tolerances: K1, K2, K3 f32 2e-5 and bf16 2e-2 max abs (sums in another
 order; bf16 rounds p and ds before their products), K2 and K3 also 1e-5
 (f32) and 1e-2 (bf16) in norm relative to the plain version's, and a
-second launch bitwise the first (no atomics); D1 2e-5, and a
+second launch bitwise the first (no atomics); the bf16 K2/K3's wgmma
+fragment layer (one tile through ``dl4j_wgmma_tile_check``) 1e-3 of
+``torch.matmul`` in f32 (the same bf16 products summed in another order);
+D1 2e-5, and a
 query row bitwise the same in every launch shape and batch; K4 bitwise
 (the same rounded ops in the same order); K5a/K5b f32 2e-6 (the same
 rounded ops; only expf/tanhf may differ in the last bit; K5a as one
@@ -546,6 +549,102 @@ def test_flash_dq_tc_kernel_rows_with_the_lse_sentinel_get_zero(cuda_dev, d):
     diff = dq.float() - ref.float()
     assert float(diff.abs().max()) <= 2e-2
     assert float(diff.norm()) <= 1e-2 * float(ref.float().norm())
+
+
+@pytest.mark.parametrize("tma", [1, 0], ids=["tma", "plain_stores"])
+@pytest.mark.parametrize("dp,n", [(64, 64), (64, 32), (128, 64), (128, 32)])
+def test_wgmma_fragment_layer_matches_matmul(cuda_dev, dp, n, tma):
+    # one warpgroup, one tile each way (csrc/wgmma.cuh through
+    # dl4j_wgmma_tile_check): c1 = a.b^T with both operands K-major from
+    # 128-byte-swizzled shared memory, then c2 = bf16(c1).g with c1's
+    # accumulators repacked as the register A and g MN-major; the tiles
+    # written by TMA or by plain stores.  f32 sums in another order: 1e-3
+    import ctypes
+
+    from deeplearning4j_tpu_torch.utils import cuda_build
+
+    fn = cuda_build.load("flash_bwd_tc").dl4j_wgmma_tile_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    rng = np.random.default_rng(dp + n + tma)
+    a, b, g = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+               .to(cuda_dev, torch.bfloat16) for shape in ((64, dp), (n, dp), (n, dp)))
+    c1 = torch.full((64, n), float("nan"), device=cuda_dev)
+    c2 = torch.full((64, dp), float("nan"), device=cuda_dev)
+    rc = fn(a.data_ptr(), b.data_ptr(), g.data_ptr(), c1.data_ptr(), c2.data_ptr(), dp, n, tma,
+            torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert float((c1 - a.float() @ b.float().T).abs().max()) <= 1e-3
+    assert float((c2 - c1.to(torch.bfloat16).float() @ g.float()).abs().max()) <= 1e-3
+
+
+def _tc_kmask(kind, b, s, dev):
+    """A key mask: none, random (30% masked, key 0 live), every key of batch
+    entry 1 masked, or keys 0..2 masked (causal rows 0..2 see none)."""
+    if kind is None:
+        return None
+    km = (np.random.default_rng(s).random((b, s)) >= 0.3).astype(np.int32)
+    km[:, 0] = 1
+    if kind == "dead_batch":
+        km[1] = 0
+    elif kind == "dead_prefix":
+        km[:] = 1
+        km[:, :3] = 0
+    return torch.from_numpy(km).to(dev)
+
+
+# (B, H, T, S, D, causal, key mask): D 64 and 128 on TMA, D 40 and 96 on
+# TMA with zero-filled columns, D 36 (rows not a multiple of 16 bytes) on
+# plain stores; ragged T and S both ways; fully masked rows; B*H up to 256
+# (1024 blocks a kernel: several waves)
+_TC_CASES = [
+    (2, 3, 256, 256, 64, True, None), (2, 3, 200, 200, 128, True, "random"),
+    (2, 3, 100, 130, 64, False, "random"), (1, 2, 97, 31, 64, True, "random"),
+    (1, 2, 33, 97, 128, True, None), (2, 3, 77, 77, 36, True, None),
+    (2, 3, 129, 129, 40, True, "random"), (2, 3, 65, 97, 96, False, None),
+    (2, 2, 90, 90, 64, False, "dead_batch"), (1, 2, 96, 96, 128, True, "dead_prefix"),
+    (16, 16, 256, 256, 64, True, None), (16, 16, 256, 256, 128, False, "random"),
+]
+
+
+@pytest.mark.parametrize("case", _TC_CASES, ids=[
+    f"{b}x{h}x{t}x{s}x{d}{'_causal' if c else ''}{'_' + m if m else ''}"
+    for b, h, t, s, d, c, m in _TC_CASES])
+def test_flash_bwd_wgmma_kernels_match_plain(cuda_dev, case):
+    # the bf16 K2 and K3 (wgmma, csrc/flash_bwd_tc.cu) against their plain
+    # versions: 2e-2 abs and 1e-2 norm-relative (bf16 p and ds, f32 sums in
+    # another order); a second launch bitwise the first (no atomics); rows
+    # that see no live key exactly 0
+    b, h, t, s, d, causal, kind = case
+    q, k, v = _qkv(b, h, t, s, d, 19, cuda_dev, torch.bfloat16)
+    g = _qkv(b, h, t, t, d, 20, cuda_dev, torch.bfloat16)[0]
+    km = _tc_kmask(kind, b, s, cuda_dev)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = tatt.flash_forward(q, k, v, km, causal, scale)
+    delta = tatt.flash_delta(o, g)
+    args = (q, k, v, g, lse, delta, km, causal, scale)
+    tc0 = tatt.flash_bwd_dkdv_tc_cuda.launches, tatt.flash_bwd_dq_tc_cuda.launches
+    dk, dv = tatt.flash_bwd_dkdv_tc_cuda(*args)
+    dq = tatt.flash_bwd_dq_tc_cuda(*args)
+    torch.cuda.synchronize()
+    assert (tatt.flash_bwd_dkdv_tc_cuda.launches - tc0[0],
+            tatt.flash_bwd_dq_tc_cuda.launches - tc0[1]) == (1, 1)
+    rk, rv = tatt.flash_bwd_dkdv_plain(*args)
+    rq = tatt.flash_bwd_dq_plain(*args)
+    for a, r in ((dq, rq), (dk, rk), (dv, rv)):
+        assert a.dtype == torch.bfloat16 and a.shape == r.shape
+        diff = a.float() - r.float()
+        assert float(diff.abs().max()) <= 2e-2
+        assert float(diff.norm()) <= 1e-2 * float(r.float().norm())
+    dk2, dv2 = tatt.flash_bwd_dkdv_tc_cuda(*args)
+    dq2 = tatt.flash_bwd_dq_tc_cuda(*args)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, dq2)
+    if kind == "dead_batch":
+        assert not bool(dq[1].any()) and not bool(dk[1].any()) and not bool(dv[1].any())
+    if kind == "dead_prefix":
+        assert not bool(dq[:, :, :3].any())
+        assert not bool(dk[:, :, :3].any()) and not bool(dv[:, :, :3].any())
 
 
 def test_flash_backward_rows_without_a_live_key_bf16(cuda_dev):
