@@ -79,8 +79,6 @@
 // dl4j_wgmma_tile_check runs the fragment layer alone on one tile each way,
 // for the card tests.
 
-#include <initializer_list>
-
 #include "flash_tiles.cuh"
 #include "wgmma.cuh"
 
@@ -104,28 +102,6 @@ template <int DP> struct Cfg {
   // K3: Q, G; the stages' K, V
   static constexpr size_t SMEM_DQ = 1024 + 2 * ROWS_BM + (size_t)NS3 * 2 * ROWS_BN3;
 };
-
-// rows r0 .. r0 + rows - 1 of a [n, D] matrix into a swizzled [rows, DP]
-// tile, zero past n and D, by the block's threads with plain loads (the
-// route where TMA cannot address the tensor); the caller fences and arrives
-template <int DP>
-__device__ __forceinline__ void load_rows_plain(bf16* dst, const bf16* src, int rows, int r0,
-                                                int n, int D) {
-  for (int e = threadIdx.x; e < rows * DP; e += NT) {
-    const int r = e / DP, c = e % DP;
-    dst[sw128_off(r, c, rows)] =
-        (r0 + r < n && c < D) ? src[(size_t)(r0 + r) * D + c] : __float2bfloat16_rn(0.f);
-  }
-}
-
-// rows r0 .. r0 + rows - 1 of batch*head bh through a {64, rows, 1} box map,
-// one box a 64-column panel
-template <int DP>
-__device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int rows, int r0, int bh) {
-  #pragma unroll
-  for (int p = 0; p < DP / 64; ++p) tma_load_3d(dst + p * rows * 64, map, bar, 64 * p, r0, bh);
-}
 
 // blocks an SM holds at least (the registers a thread may take follow): at D
 // <= 64 three, at D 128 two
@@ -202,8 +178,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         cp_async_arrive(&bars[st]);
       }
     } else {
-      load_rows_plain<DP>(qd, q + qoff, BN, r0, T_, D);
-      load_rows_plain<DP>(gd, g + qoff, BN, r0, T_, D);
+      load_rows_plain<DP, NT>(qd, q + qoff, BN, r0, T_, D);
+      load_rows_plain<DP, NT>(gd, g + qoff, BN, r0, T_, D);
       for (int e = tid; e < BN; e += NT) {
         const bool ok = r0 + e < T_;
         Ls[st * BN + e] = ok ? lse[(size_t)bh * T_ + r0 + e] : 0.f;
@@ -221,8 +197,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         tma_rows<DP>(Vs, &tm_v, &bars[NS], BM, k0, bh);
       }
     } else {
-      load_rows_plain<DP>(Ks, k + koff, BM, k0, S, D);
-      load_rows_plain<DP>(Vs, v + koff, BM, k0, S, D);
+      load_rows_plain<DP, NT>(Ks, k + koff, BM, k0, S, D);
+      load_rows_plain<DP, NT>(Vs, v + koff, BM, k0, S, D);
       fence_proxy_async();
       mbar_arrive(&bars[NS]);
     }
@@ -371,8 +347,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         tma_rows<DP>(vd, &tm_v, &bars[st], BN, r0, bh);
       }
     } else {
-      load_rows_plain<DP>(kd, k + koff, BN, r0, S, D);
-      load_rows_plain<DP>(vd, v + koff, BN, r0, S, D);
+      load_rows_plain<DP, NT>(kd, k + koff, BN, r0, S, D);
+      load_rows_plain<DP, NT>(vd, v + koff, BN, r0, S, D);
       fence_proxy_async();
       mbar_arrive(&bars[st]);
     }
@@ -384,8 +360,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_rows<DP>(Gs, &tm_g, &bars[NS], BM, q0, bh);
     }
   } else {
-    load_rows_plain<DP>(Qs, q + qoff, BM, q0, T_, D);
-    load_rows_plain<DP>(Gs, g + qoff, BM, q0, T_, D);
+    load_rows_plain<DP, NT>(Qs, q + qoff, BM, q0, T_, D);
+    load_rows_plain<DP, NT>(Gs, g + qoff, BM, q0, T_, D);
     fence_proxy_async();
     mbar_arrive(&bars[NS]);
   }
@@ -498,9 +474,9 @@ wgmma_tile_check_kernel(const __grid_constant__ CUtensorMap tm_a,
       tma_rows<DP>(Gs, &tm_g, &bar, N, 0, 0);
     }
   } else {
-    load_rows_plain<DP>(As, a, BM, 0, BM, DP);
-    load_rows_plain<DP>(Bs, b, N, 0, N, DP);
-    load_rows_plain<DP>(Gs, g, N, 0, N, DP);
+    load_rows_plain<DP, NT>(As, a, BM, 0, BM, DP);
+    load_rows_plain<DP, NT>(Bs, b, N, 0, N, DP);
+    load_rows_plain<DP, NT>(Gs, g, N, 0, N, DP);
     fence_proxy_async();
     mbar_arrive(&bar);
   }
@@ -533,54 +509,6 @@ wgmma_tile_check_kernel(const __grid_constant__ CUtensorMap tm_a,
       #pragma unroll
       for (int e = 0; e < 2; ++e) c2[r * DP + 8 * j + 2 * t + e] = d2[j][2 * h + e];
   }
-}
-
-// -- host: tensor maps ------------------------------------------------------------
-
-// cuTensorMapEncodeTiled, a driver-API call, reached through the runtime so
-// that the library links only the runtime
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// a [BH, n, D] bf16 tensor in boxes of {64 columns, rows, 1}, 128-byte
-// swizzled; rows past n and columns past D read as zero
-int map_rows(CUtensorMap* m, const void* base, int BH, int n, int D, int rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)n, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)n * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return (int)enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-bool aligned16(std::initializer_list<const void*> ps) {
-  for (const void* p : ps)
-    if (reinterpret_cast<size_t>(p) & 15) return false;
-  return true;
-}
-
-// TMA takes a tensor whose rows are a multiple of 16 bytes at a 16-byte
-// aligned base
-bool tma_route(std::initializer_list<const void*> ps, int D) {
-  return D % 8 == 0 && aligned16(ps);
 }
 
 template <int DP>

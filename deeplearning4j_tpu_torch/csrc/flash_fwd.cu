@@ -2,7 +2,7 @@
 //
 // Replaces deeplearning4j_tpu/ops/attention.py::_flash_kernel (launched by
 // _flash_forward) for float32 inputs; bf16 inputs take the tensor-core
-// kernel in flash_fwd_tc.cu (mma.sync).  Same function: O = softmax(q.k^T *
+// kernel in flash_fwd_tc.cu (wgmma).  Same function: O = softmax(q.k^T *
 // scale + bias) . v and the per-row log-sum-exp, with an optional causal mask
 // and an optional [B, S] key mask (1 = attend), f32 statistics, and the LSE
 // sentinel +1e30 for rows that never saw a live key.

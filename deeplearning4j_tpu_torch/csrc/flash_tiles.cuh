@@ -1,10 +1,10 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
 // flash_fwd_tc.cu, flash_bwd_tc.cu): dtype conversions, ex2 exponentials,
 // cp.async copies, float4 shared loads, the loader of row-major tiles padded
-// by 16 bytes a row, and the mma.sync fragment layer of K1's bf16 kernel
-// (ldmatrix, mma.sync m16n8k16), whose packing of f32 pairs into bf16 A
-// fragments and row stores the wgmma kernels share (wgmma.cuh: the same
-// per-warp layout).
+// by 16 bytes a row (the SIMT kernels), and, for the wgmma kernels, the
+// packing of f32 accumulator pairs into bf16 A fragments and the row stores
+// of accumulator tiles (wgmma.cuh: a warp's part of a wgmma tile has
+// mma.sync's m16n8 layout).
 // Each source includes this header and still builds alone
 // (utils/cuda_build.py hashes the headers into every library's name).
 
@@ -102,55 +102,16 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int rows, int r0
   }
 }
 
-// -- tensor-core fragments (mma.sync.m16n8k16, bf16 in, f32 sums) -----------
+// -- accumulator fragments (mma.sync's m16n8 layout, f32) ---------------------
 //
-// In a warp, lane = 4 g + t.  An A fragment (16 x 16, row-major) is four
-// registers of two bf16: a0 (row g, cols 2t, 2t+1), a1 (row g+8, the same
-// cols), a2 (row g, cols 8+2t, 9+2t), a3 (row g+8, cols 8+2t, 9+2t).  A B
-// fragment (16 x 8, k x n) is two: b0 (k 2t, 2t+1; n g), b1 (k 8+2t, 9+2t;
-// n g).  A C fragment (16 x 8, f32) is four floats: c0, c1 (row g, cols 2t,
-// 2t+1), c2, c3 (row g+8).  So the C fragments of two neighbouring 8-column
-// tiles, packed to bf16, are the A fragment of the 16 columns they cover:
-// a product's output feeds the next product from registers.
-//
-// Tiles in shared memory are row-major with rows padded by 16 bytes (Tile<>),
-// so the 8 row addresses of each 8 x 8 matrix that ldmatrix reads fall in 8
-// different 16-byte bank groups: no bank conflicts, no swizzle needed.
-
-// lane offsets (row, col) into a row-major tile for ldsm_x4 of
-//  * an A fragment at (r0, c0):                 rows r0 + a_row, cols c0 + a_col
-//  * B fragments of two 8-row n-tiles from rows that are n (K of Q.K^T):
-//                                                rows n0 + b_row, cols k0 + b_col
-//  * B fragments of two 8-column n-tiles from rows that are k, by ldsm_x4_t
-//    (V of P.V):                                 rows k0 + a_row, cols n0 + a_col
-__device__ __forceinline__ int a_row(int lane) { return lane & 15; }
-__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
-__device__ __forceinline__ int b_row(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
-__device__ __forceinline__ int b_col(int lane) { return ((lane >> 3) & 1) * 8; }
-
-// four 8 x 8 b16 matrices from shared memory; lanes 8i .. 8i+7 give the row
-// addresses of matrix i, which lands in r[i]
-__device__ __forceinline__ void ldsm_x4(unsigned r[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-// the same, each matrix transposed on the way
-__device__ __forceinline__ void ldsm_x4_t(unsigned r[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-
-// c += a . b on the tensor cores (16 x 16 by 16 x 8, f32 sums)
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// In a warp, lane = 4 g + t.  An A fragment (16 x 16 bf16, row-major) is
+// four registers of two bf16: a0 (row g, cols 2t, 2t+1), a1 (row g+8, the
+// same cols), a2 (row g, cols 8+2t, 9+2t), a3 (row g+8, cols 8+2t, 9+2t).
+// An f32 accumulator block of 16 rows x 8 columns is four floats: c0, c1
+// (row g, cols 2t, 2t+1), c2, c3 (row g+8).  So the accumulators of two
+// neighbouring 8-column blocks, packed to bf16, are the A fragment of the 16
+// columns they cover: a product's output feeds the next product from
+// registers.
 
 // two f32 rounded to bf16, the lower column in the low half
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -158,7 +119,7 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// the A fragment of 16 columns from the C fragments of its two 8-column tiles
+// the A fragment of 16 columns from the accumulators of its two 8-column blocks
 __device__ __forceinline__ void c_to_a(unsigned a[4], const float lo[4], const float hi[4]) {
   a[0] = pack_bf16(lo[0], lo[1]);
   a[1] = pack_bf16(lo[2], lo[3]);
@@ -166,7 +127,7 @@ __device__ __forceinline__ void c_to_a(unsigned a[4], const float lo[4], const f
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
-// rows [r0, r0 + 16) of a warp's 16 x DP f32 C-fragment tile (acc[j] covers
+// rows [r0, r0 + 16) of a warp's 16 x DP f32 accumulator tile (acc[j] covers
 // columns 8 j .. 8 j + 7) into out [n, D] as bf16, times mul[0] (row g) and
 // mul[1] (row g + 8); rows past n and columns past D dropped
 template <int DP>

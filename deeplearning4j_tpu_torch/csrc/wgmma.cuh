@@ -1,8 +1,11 @@
 // Hopper's warpgroup MMA (wgmma), its shared-memory descriptors, and the
 // tensor-memory copies (TMA) and mbarriers that feed it, for the bf16 flash
-// kernels (flash_bwd_tc.cu).  Each source that includes this header still
-// builds alone (utils/cuda_build.py hashes the headers into every library's
-// name).  sm_90a only: plain sm_90 refuses wgmma.
+// kernels: the forward (flash_fwd_tc.cu) and the backward (flash_bwd_tc.cu).
+// The host half (tensor maps, the choice between TMA and plain stores) is
+// here too, so both sources encode their maps the same way.  Each source
+// that includes this header still builds alone (utils/cuda_build.py hashes
+// the headers into every library's name).  sm_90a only: plain sm_90 refuses
+// wgmma.
 //
 // -- tiles in shared memory ---------------------------------------------------
 //
@@ -54,7 +57,8 @@
 // wgmma_commit() closes the batch and wgmma_wait<N>() waits until at most N
 // batches are in flight.  The compiler does not know that the accumulators
 // change after the asm statement returns: fence_acc() after a wait pins every
-// later read of them below it.
+// later read of them below it, and fence_a() keeps a register A operand of a
+// batch in flight unchanged until the wait that retires it.
 
 #pragma once
 
@@ -62,6 +66,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -136,6 +142,28 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// rows r0 .. r0 + rows - 1 of batch*head bh through a {64, rows, 1} box map
+// (map_rows below), one box a 64-column panel
+template <int DP>
+__device__ __forceinline__ void tma_rows(__nv_bfloat16* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int rows, int r0, int bh) {
+  #pragma unroll
+  for (int p = 0; p < DP / 64; ++p) tma_load_3d(dst + p * rows * 64, map, bar, 64 * p, r0, bh);
+}
+
+// rows r0 .. r0 + rows - 1 of a [n, D] matrix into a swizzled [rows, DP]
+// tile, zero past n and D, by the block's NTH threads with plain loads (the
+// route where TMA cannot address the tensor); the caller fences and arrives
+template <int DP, int NTH>
+__device__ __forceinline__ void load_rows_plain(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                int rows, int r0, int n, int D) {
+  for (int e = threadIdx.x; e < rows * DP; e += NTH) {
+    const int r = e / DP, c = e % DP;
+    dst[sw128_off(r, c, rows)] =
+        (r0 + r < n && c < D) ? src[(size_t)(r0 + r) * D + c] : __float2bfloat16_rn(0.f);
+  }
+}
+
 // -- descriptors and wgmma ----------------------------------------------------------
 
 __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
@@ -165,6 +193,14 @@ template <int J> __device__ __forceinline__ void fence_acc(float (&d)[J][4]) {
   for (int j = 0; j < J; ++j)
     #pragma unroll
     for (int r = 0; r < 4; ++r) asm volatile("" : "+f"(d[j][r])::"memory");
+}
+// the same for register A operands: an A operand read by a batch still in
+// flight must keep its registers until the wait that retires it
+template <int J> __device__ __forceinline__ void fence_a(unsigned (&a)[J][4]) {
+  #pragma unroll
+  for (int j = 0; j < J; ++j)
+    #pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[j][r])::"memory");
 }
 
 // d (+)= A.B with A and B from shared memory, both K-major (scale-d = acc:
@@ -263,6 +299,54 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const unsigned (&a)[
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc)
       : "memory");
+}
+
+// -- host: tensor maps ------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, a driver-API call, reached through the runtime so
+// that a library links only the runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a [BH, n, D] bf16 tensor in boxes of {64 columns, rows, 1}, 128-byte
+// swizzled; rows past n and columns past D read as zero
+inline int map_rows(CUtensorMap* m, const void* base, int BH, int n, int D, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)n, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)n * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return (int)enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+inline bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (reinterpret_cast<size_t>(p) & 15) return false;
+  return true;
+}
+
+// TMA takes a tensor whose rows are a multiple of 16 bytes at a 16-byte
+// aligned base
+inline bool tma_route(std::initializer_list<const void*> ps, int D) {
+  return D % 8 == 0 && aligned16(ps);
 }
 
 }  // namespace

@@ -10,7 +10,8 @@ Which kernel serves which dtype:
 kernel      float32                             bfloat16
 ==========  ==================================  ============================
 K1          ``csrc/flash_fwd.cu`` (SIMT)        ``csrc/flash_fwd_tc.cu``
-                                                (tensor cores, ``mma.sync``)
+                                                (tensor cores, ``wgmma``
+                                                fed by TMA)
 K2          ``csrc/flash_bwd.cu`` (SIMT)        ``csrc/flash_bwd_tc.cu``
                                                 (tensor cores, ``wgmma``
                                                 fed by TMA)

@@ -107,7 +107,14 @@ class ForwardGraph:
     had at capture.  The capture itself launches nothing: the forward
     kernels' counters (``FORWARD_COUNTERS``) are taken back after it and
     advanced by the captured counts at every replay.  A capture or replay
-    that fails raises; nothing falls back to the eager forward."""
+    that fails raises; nothing falls back to the eager forward.
+
+    Rows reach the host through a page-locked buffer of the bucket's
+    output size, allocated at capture: the copy is a DMA on the graph's
+    stream that the host waits for on an event.  A pageable copy of a
+    full-width output (GPT-2's [4, 1024, 50304] logits are 824 MB) holds
+    the driver for the whole copy, and two replicas copying back to back
+    were seen to starve another thread's CUDA calls for minutes."""
 
     def __init__(self, fwd: Callable[[torch.Tensor], torch.Tensor], shape,
                  dtype: torch.dtype, device: torch.device):
@@ -139,13 +146,19 @@ class ForwardGraph:
                                  for k, c in FORWARD_COUNTERS.items()}
                 for k, c in FORWARD_COUNTERS.items():
                     c.launches = before[k]
+            # the host side of the output, as rows_to_host hands it back
+            host_dtype = (torch.float32 if self.output.dtype == torch.bfloat16
+                          else self.output.dtype)
+            self.host = torch.empty(self.output.shape, dtype=host_dtype, pin_memory=True)
+            self.copied = torch.cuda.Event()
 
     def __call__(self, x: np.ndarray, rows: int) -> Tuple[np.ndarray, bool]:
         """Copy ``x`` into the static input, replay, check the first
         ``rows`` output rows for finiteness on the device and copy them to
-        the host → (rows [rows, ...] as numpy, finite).  The output buffer
-        is overwritten by the next replay; the rows returned are a copy.
-        ``last_ms`` then holds the replay's device time."""
+        the host through the page-locked buffer → (rows [rows, ...] as
+        numpy, finite).  The output buffer is overwritten by the next
+        replay; the rows returned are a copy.  ``last_ms`` then holds the
+        replay's device time."""
         start, end = self._events
         with _GATE.shared(), torch.inference_mode(), torch.cuda.stream(self.stream):
             self.input.copy_(torch.from_numpy(np.ascontiguousarray(x)))
@@ -156,24 +169,45 @@ class ForwardGraph:
                 self.replays += 1
                 for k, n in self.launches.items():
                     FORWARD_COUNTERS[k].launches += n
-            out = rows_to_host(self.output, rows)     # synchronizes
+            out = rows_to_host(self.output, rows, (self.host, self.copied))
             self.last_ms = start.elapsed_time(end)
             return out
 
     def release(self) -> None:
-        """Free the graph and its private memory pool."""
+        """Free the graph, its private memory pool and its host buffer."""
         self.graph = None
         self.output = None
+        self.host = None
 
 
-def rows_to_host(y: torch.Tensor, rows: int) -> Tuple[np.ndarray, bool]:
+def rows_to_host(y: torch.Tensor, rows: int,
+                 pinned: Optional[Tuple[torch.Tensor, torch.cuda.Event]] = None
+                 ) -> Tuple[np.ndarray, bool]:
     """(the first ``rows`` rows of ``y`` on the host, whether they are all
-    finite): the check runs where ``y`` lives, before the copy; bfloat16
-    rows widen to float32, which numpy can hold."""
+    finite): the check runs where ``y`` lives, before the copy
+    (``host_copy``, through ``pinned`` where given)."""
     y = y[:rows]
     finite = bool(torch.isfinite(y).all())
+    return host_copy(y, pinned), finite
+
+
+def host_copy(y: torch.Tensor,
+              pinned: Optional[Tuple[torch.Tensor, torch.cuda.Event]] = None) -> np.ndarray:
+    """``y`` on the host as numpy; bfloat16 widens to float32, which numpy
+    can hold.  With ``pinned`` (a page-locked host tensor of at least
+    ``y``'s shape in that dtype, and an event) the copy goes into it on
+    the current stream, the host waits on the event recorded after it,
+    and a numpy copy of the rows is returned; else it is a pageable copy.
+    Either way the bits are the same."""
     y = y.float() if y.dtype == torch.bfloat16 else y
-    return y.cpu().numpy(), finite
+    if pinned is None:
+        return y.cpu().numpy()
+    host, copied = pinned
+    dst = host[:y.shape[0]]
+    dst.copy_(y, non_blocking=True)
+    copied.record()
+    copied.synchronize()
+    return dst.numpy().copy()
 
 #: the graph's inputs in ``step_multi``'s argument order, with their dtype
 INPUTS = (("page_table", torch.int64), ("tokens", torch.int64),

@@ -287,6 +287,18 @@ def test_both_bf16_backward_entries_keep_their_c_signature(stub_load):
     assert dkdv.restype is ctypes.c_int and dq.restype is ctypes.c_int
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_both_forward_entries_keep_their_c_signature(stub_load, dtype):
+    # the wgmma K1 took over the entry of the mma.sync one, argument for
+    # argument, and shares its C signature with the SIMT entry: q, k, v,
+    # kmask, o, lse; B, H, T, S, D; scale, causal, the stream; an int back
+    stub_load()
+    fn = tatt._flash_tc_fn() if dtype == torch.bfloat16 else tatt._flash_fn()
+    assert fn.argtypes == ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    assert fn.restype is ctypes.c_int
+
+
 def test_bf16_on_cpu_takes_the_plain_versions():
     (tq, tk, tv, tg), _ = _bf16_inputs(16, 16, 8, seed=9)
     counters = (tatt.flash_forward_cuda, tatt.flash_forward_tc_cuda,
