@@ -24,6 +24,8 @@
                                            # alone
     python3 chip_smoke.py --phase train    # the build and the train phase
                                            # alone
+    python3 chip_smoke.py --phase wide_heads  # the build and the
+                                           # wide_heads phase alone
 
 It builds every CUDA kernel of the port from ``deeplearning4j_tpu_torch/csrc``
 with ``nvcc`` (one process per source, started together), then drives the
@@ -53,7 +55,13 @@ and the recurrent path's training and streaming:
           K2/K3) are device times (``device_ms``) beside the same calls
           timed alone with CUDA events (``cuda_ms``, the wrapper's host
           cost included); a second launch of K2 and of K3 must be
-          bitwise the first; K4 (fused Adam) runs after the train phase
+          bitwise the first; the new instances: f16 K1-K3 at [8, 12,
+          1024, 64], K1-K3 at head width 256 ([4, 16, 2048, 256], the
+          wide_heads phase's attention) and 160 ([2, 4, 300, 160], a key
+          mask) in f32, bf16 and f16 (bf16 / f16 repeats bitwise), D1 at
+          d 256 (step, 512-row prefill, re-encode; rows alone bitwise),
+          K5a/K5b in f16, and HGMMA in the SASS of all six tensor-core
+          instances of each of K1-K3; K4 (fused Adam) runs after the train phase
           on the model's real per-layer buffers and must match bitwise;
   score   ``MultiLayerNetwork.output`` on [4, 1024] tokens; K1 must have
           launched; the result must be a distribution and agree with the
@@ -637,6 +645,24 @@ and the recurrent path's training and streaming:
           bench config 1's MLP fits one epoch on the card and ``predict``
           is the argmax of its network's ``output``.  K1-K4's launches in
           (a), (b) and (d) go on the kernels line.
+  wide_heads  the repository's ``TransformerLM`` at GPT-J-6B's attention
+          widths (d_model 4096, 16 heads of 256, d_ff 16384, vocab 50,400,
+          2,048 positions; the repository's block, not GPT-J's rotary,
+          parallel one), 4 of its 28 layers, ~1.2 G parameters of its own
+          initialisation drawn on the card from a seed: the DP 256
+          instances of K1-K3 and D1.  (c) f32
+          ``output()`` on [4, 2048]: K1 4 times at f32/256 by its
+          instance counter, rows distributions; (d) a ``DecodeEngine``
+          over that network, the serve phase's 8 requests: decode logits
+          bitwise the re-encode's, D1 only at d 256, 0 pages after; (a)
+          3 ``fit_batch`` steps on [4, 2048] with every leaf bf16 (the
+          blocks compute in their input's dtype): K1-K3 12 each at
+          bf16/256, the loss finite and falling; (b) the same in float16,
+          K1-K3 at f16/256, the last loss below the first; (e) a 2-layer
+          cut, f32, [2, 128], 2 SGD(0.1) steps on the card and on the
+          port on the CPU from the same weights: losses 1e-4 relative,
+          parameters 1e-4.  Step ms, tokens/s and peak memory printed.
+          Its launches go on the kernels line as the DP 256 instances.
 
 Each phase prints JSON lines; then one ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -658,8 +684,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): float32 outside the
-# tensor cores, bf16 on the tensor cores, and HBM3 bandwidth
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# tensor cores, bf16 and fp16 on the tensor cores, and HBM3 bandwidth
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 PEAK_BYTES = 3.35e12
 
 VOCAB, LAYERS, D_MODEL, HEADS, D_FF, MAX_LEN = 50304, 12, 768, 12, 3072, 1024
@@ -750,6 +776,16 @@ def timed(kernel, library) -> dict:
             "library_ms": device_ms(library), "library_cuda_ms": cuda_ms(library, 20)}
 
 
+def dtype_name(dtype) -> str:
+    """``torch.float16`` → ``"float16"``."""
+    return str(dtype).replace("torch.", "")
+
+
+def head_bucket(D: int) -> int:
+    """The kernel instance a head width takes (64, 128 or 256)."""
+    return 64 if D <= 64 else 128 if D <= 128 else 256
+
+
 def flash_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL // HEADS):
     """K1 against its plain version on one input set; returns its record."""
     import numpy as np
@@ -772,10 +808,10 @@ def flash_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL // HE
     o, lse = att.flash_forward_cuda(q, k, v, kmask, True, scale)
     torch.cuda.synchronize()
     tensor_cores = att.flash_forward_tc_cuda.launches - tc0 == 1
-    # bf16: a second launch on the same inputs gives the same bits (the
+    # bf16, f16: a second launch on the same inputs gives the same bits (the
     # wgmma K1 has no atomics)
     bitwise = None
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         o2, lse2 = att.flash_forward_cuda(q, k, v, kmask, True, scale)
         bitwise = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
     o_ref, lse_ref = att.flash_forward_plain(q, k, v, kmask, True, scale)
@@ -797,11 +833,12 @@ def flash_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL // HE
     flops = 4.0 * D * pairs
     nbytes = (4 * B * H * T * D) * q.element_size() + B * H * T * 4 + (
         0 if kmask is None else B * T * 4)
-    dname = "float32" if dtype == torch.float32 else "bfloat16"
+    dname = dtype_name(dtype)
     t_ops, t_bytes = flops / PEAK_FLOPS[dname] * 1e3, nbytes / PEAK_BYTES * 1e3
-    if tensor_cores != (dtype == torch.bfloat16):
+    if tensor_cores != (dtype != torch.float32):
         raise AssertionError(f"{name}: K1 took the wrong kernel (tensor cores {tensor_cores})")
     rec = {"phase": "kernel", "case": name, "dtype": dname,
+           "instance": f"{dname}_d{head_bucket(D)}",
            "kernel": ("tensor cores, wgmma (flash_fwd_tc.cu)" if tensor_cores
                       else "SIMT (flash_fwd.cu)"),
            "shape": [B, H, T, D], "causal": True, "kmask": kmask is not None,
@@ -851,7 +888,7 @@ def flash_bwd_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL /
     torch.cuda.synchronize()
     tc = (att.flash_bwd_dkdv_tc_cuda.launches - tc0[0],
           att.flash_bwd_dq_tc_cuda.launches - tc0[1])
-    if tc != ((1, 1) if dtype == torch.bfloat16 else (0, 0)):
+    if tc != ((1, 1) if dtype != torch.float32 else (0, 0)):
         raise AssertionError(f"bwd_{name}: K2 / K3 took the wrong kernels "
                              f"(tensor-core launches {tc})")
     rk, rv = att.flash_bwd_dkdv_plain(*args)
@@ -875,11 +912,12 @@ def flash_bwd_case(name, dtype, kmask_frac, B=4, H=HEADS, T=MAX_LEN, D=D_MODEL /
     pairs = float((torch.cumsum(live, dim=1).sum()) * H)
     es = q.element_size()
     reads = 4 * B * H * T * D * es + 2 * B * H * T * 4 + (0 if kmask is None else B * T * 4)
-    dname = "float32" if dtype == torch.float32 else "bfloat16"
+    dname = dtype_name(dtype)
     rec = {"phase": "kernel", "case": "bwd_" + name, "dtype": dname,
-           "dkdv_kernel": ("tensor cores (flash_bwd_tc.cu)" if dtype == torch.bfloat16
+           "instance": f"{dname}_d{head_bucket(D)}",
+           "dkdv_kernel": ("tensor cores (flash_bwd_tc.cu)" if dtype != torch.float32
                            else "SIMT (flash_bwd.cu)"),
-           "dq_kernel": ("tensor cores (flash_bwd_tc.cu)" if dtype == torch.bfloat16
+           "dq_kernel": ("tensor cores (flash_bwd_tc.cu)" if dtype != torch.float32
                          else "SIMT (flash_bwd.cu)"),
            "shape": [B, H, T, D], "causal": True, "kmask": kmask is not None,
            "errors": {n: errs((pair,)) for n, pair in
@@ -964,10 +1002,11 @@ def det_case(name, B, Tq, L, q_pos, paged, H=HEADS, d=D_MODEL // HEADS, page=16,
 
 
 def wgmma_in_sass() -> dict:
-    """The warpgroup MMA instructions (``HGMMA`` in SASS) of each bf16 K1,
-    K2 and K3 kernel in the built ``flash_fwd_tc`` and ``flash_bwd_tc``
-    libraries, by function name; raises where a kernel has none or the
-    libraries show no such kernel."""
+    """The warpgroup MMA instructions (``HGMMA`` in SASS) of each K1, K2
+    and K3 tensor-core kernel instance (bf16 and f16, head widths up to 64,
+    128 and 256) in the built ``flash_fwd_tc`` and ``flash_bwd_tc``
+    libraries, by function name; raises where an instance has none or
+    the libraries lack one of the six instances of a kernel."""
     import shutil
 
     from deeplearning4j_tpu_torch.utils import cuda_build
@@ -980,11 +1019,14 @@ def wgmma_in_sass() -> dict:
                               check=True, timeout=300).stdout
         for func in sass.split("Function : ")[1:]:
             name = func.split(None, 1)[0]
-            for kernel in FLASH_BF16_KERNELS:
+            for kernel in FLASH_TC_KERNELS:
                 if kernel in name:
                     counts[name] = func.count("HGMMA")
-    if not all(counts.values()) or not all(
-            any(k in n for n in counts) for k in FLASH_BF16_KERNELS):
+    want = {(k, dp, t) for k in FLASH_TC_KERNELS for dp in (64, 128, 256)
+            for t in ("13__nv_bfloat16", "6__half")}
+    have = {(k, dp, t) for n in counts for k, dp, t in want
+            if k in n and f"ILi{dp}E{t}E" in n}
+    if not all(counts.values()) or have != want:
         raise AssertionError(f"K1 / K2 / K3 (flash_fwd_tc, flash_bwd_tc) without wgmma in SASS: "
                              f"{counts}")
     return counts
@@ -995,8 +1037,9 @@ def phase_kernel():
     # O: max abs error, and its norm relative to the plain O's (a wrong
     # scale or mask moves every row, not only the largest |O|); the LSE
     # is f32 from the same inputs in either dtype
-    tol = {"float32": 2e-5, "bfloat16": 2e-2}
-    rel_tol = {"float32": 1e-5, "bfloat16": 1e-2}
+    tol = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
+    rel_tol = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1e-2}
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     # [4, 12, 1024, 64] first (the kernels line reports it), then the
     # train phase's B = 8; bf16 (the tensor-core kernel) at both, B = 8
     # being bench config 7's attention
@@ -1005,6 +1048,17 @@ def phase_kernel():
             flash_case("bf16", torch.bfloat16, 0.0),
             flash_case("bf16_train", torch.bfloat16, 0.0, B=8),
             flash_case("f32_kmask", torch.float32, 0.25)]
+    # the new instances: f16 on the tensor cores at config 7's shape; head
+    # width 256 (the DP 256 instances) at the wide_heads phase's attention
+    # [4, 16, 2048, 256] in every dtype; a ragged width and length
+    # [2, 4, 300, 160] with a key mask in every dtype
+    wide_fwd = {"f16": flash_case("f16_train", f16, 0.0, B=8)}
+    for tag, dt in (("f32", f32), ("bf16", bf16), ("f16", f16)):
+        wide_fwd[f"{tag}_d256"] = flash_case(f"{tag}_d256", dt, 0.0, B=WIDE_B,
+                                             H=GPTJ["n_heads"], T=WIDE_T, D=256)
+        wide_fwd[f"{tag}_d160"] = flash_case(f"{tag}_d160_ragged", dt, 0.25, B=2, H=4,
+                                             T=300, D=160)
+    recs += list(wide_fwd.values())
     bad = [r["case"] for r in recs
            if not (r["max_abs_err"] <= tol[r["dtype"]]
                    and r["rel_err"] <= rel_tol[r["dtype"]]
@@ -1018,7 +1072,15 @@ def phase_kernel():
            flash_bwd_case("bf16", torch.bfloat16, 0.0),
            flash_bwd_case("bf16_train", torch.bfloat16, 0.0, B=8),
            flash_bwd_case("f32_kmask", torch.float32, 0.25)]
-    bad += [f"{r['case']}/{kn}" for r in bwd for kn in ("flash_bwd_dkdv", "flash_bwd_dq")
+    # the new instances, as K1's above
+    wide_bwd = {"f16": flash_bwd_case("f16_train", f16, 0.0, B=8)}
+    for tag, dt in (("f32", f32), ("bf16", bf16), ("f16", f16)):
+        wide_bwd[f"{tag}_d256"] = flash_bwd_case(f"{tag}_d256", dt, 0.0, B=WIDE_B,
+                                                 H=GPTJ["n_heads"], T=WIDE_T, D=256)
+        wide_bwd[f"{tag}_d160"] = flash_bwd_case(f"{tag}_d160_ragged", dt, 0.25, B=2, H=4,
+                                                 T=300, D=160)
+    bwd_all = bwd + list(wide_bwd.values())
+    bad += [f"{r['case']}/{kn}" for r in bwd_all for kn in ("flash_bwd_dkdv", "flash_bwd_dq")
             if not (r[kn]["max_abs_err"] <= tol[r["dtype"]]
                     and r[kn]["rel_err"] <= rel_tol[r["dtype"]]
                     and r[kn]["bitwise_repeat"])]
@@ -1037,11 +1099,24 @@ def phase_kernel():
                     alone_rows=range(5)),
            det_case("chunk_at_256", 1, 128, MAX_LEN, [list(range(256, 384))], True,
                     alone_rows=(0, 31, 64, 127))]
+    # D1's DP 256 instance at the wide_heads phase's decode (16 heads of
+    # 256): a step, a 512-row prefill and a re-encode, rows launched alone
+    # bitwise the same rows of the whole launch (split-key and tiled)
+    gh = GPTJ["n_heads"]
+    wide_det = {
+        "step": det_case("step_d256", 4, 1, MAX_LEN, [[15], [300], [700], [MAX_LEN - 1]], True,
+                         H=gh, d=256),
+        "prefill": det_case("prefill_d256", 1, 512, MAX_LEN, [list(range(512))], True, H=gh,
+                            d=256, alone_rows=(0, 31, 32, 255, 511)),
+        "reencode": det_case("reencode_d256", 1, 544, 544, [list(range(544))], False, H=gh,
+                             d=256, alone_rows=(0, 543))}
+    det += list(wide_det.values())
     bad += [r["case"] for r in det if not (r["max_abs_err"] <= 2e-5
                                            and r["rows_alone_bitwise"])]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
-    return recs[0], bwd[0], det[0], recs[3], bwd[3]
+    wide = {"fwd": wide_fwd, "bwd": wide_bwd, "det": wide_det}
+    return recs[0], bwd[0], det[0], recs[3], bwd[3], wide
 
 
 def fused_update_case(net):
@@ -1150,6 +1225,8 @@ def k4_against_plain(calls) -> dict:
 # transcendental as one: 3 sigmoids (4 each), 2 tanhs, c' (3), h' (1);
 # the backward recomputes them and adds 22 products and differences
 LSTM_FWD_OPS, LSTM_BWD_OPS = 18, 40
+#: the relative spacing of the 2-byte dtypes (2^-mantissa bits)
+SPACING = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 RNN_VOCAB, RNN_HIDDEN, RNN_B, RNN_T, RNN_TBPTT = 96, 256, 64, 100, 50
 
 
@@ -1160,11 +1237,12 @@ def lstm_case(mb, n, dtype):
     times (``device_ms``): one launch takes a few microseconds on the card
     and tens on the host, so a launch timed alone (``launch_ms``) reads the
     host's enqueue.  z ~ N(0, 1), c ~ N(0, 0.25), dh and dc' ~ N(0, 0.01),
-    a trained cell's ranges.  bf16 is held against the plain version
-    evaluated in f32 on the same bf16 inputs, element by element in units
-    of one bf16 spacing (2^-7 of the value, plus 1e-6): the kernels round
-    each result once, so each is within half a spacing; the bf16 plain
-    version rounds after every op (its gap is printed too).  The library's
+    a trained cell's ranges.  bf16 and f16 are held against the plain
+    version evaluated in f32 on the same inputs, element by element in
+    units of one spacing of the dtype (``SPACING``: 2^-7 or 2^-10 of the
+    value, plus 1e-6): the kernels round each result once, so each is
+    within half a spacing; the plain version in the dtype rounds after
+    every op (its gap is printed too).  The library's
     ``_thnn_fused_lstm_cell_backward_impl`` (gate order [i|f|g|o], columns
     permuted before timing) is a yardstick only."""
     import numpy as np
@@ -1188,14 +1266,15 @@ def lstm_case(mb, n, dtype):
     want = lk.lstm_cell_plain(*f32(z, c)) + lk.lstm_cell_bwd_plain(*f32(z, c, dh, dcn))
     same = lk.lstm_cell_plain(z, c) + lk.lstm_cell_bwd_plain(z, c, dh, dcn)
     err = [float((a.float() - w).abs().max()) for a, w in zip(got, want)]
-    spacings = [float(((a.float() - w).abs() / (2.0 ** -7 * w.abs() + 1e-6)).max())
+    sp = SPACING.get(dtype_name(dtype), 2.0 ** -7)
+    spacings = [float(((a.float() - w).abs() / (sp * w.abs() + 1e-6)).max())
                 for a, w in zip(got, want)]
     err_same = [float((a.float() - w.float()).abs().max()) for a, w in zip(got, same)]
-    dname = "float32" if dtype == torch.float32 else "bfloat16"
+    dname = dtype_name(dtype)
     rec = {"phase": "kernel", "case": f"lstm_cell_{mb}x{n}_{dname}", "shape": [mb, n],
            "dtype": dname, "library": "aten._thnn_fused_lstm_cell_backward_impl",
            "lstm_seq_t1": {"max_abs_err": max(err[:2]),
-                           "max_err_bf16_spacings": max(spacings[:2]),
+                           "max_err_spacings": max(spacings[:2]),
                            "max_abs_err_vs_same_dtype_plain": max(err_same[:2])}}
     # the library's cell: its gates [i|f|g|o], the hidden gates zero
     zl = torch.cat([z[:, :2 * n], z[:, 3 * n:], z[:, 2 * n:3 * n]], dim=1).contiguous()
@@ -1216,7 +1295,7 @@ def lstm_case(mb, n, dtype):
     fn = lambda: lk.lstm_cell_bwd_cuda(z, c, dh, dcn)
     b_ms, b_by = bound(float(LSTM_BWD_OPS * mb * n), float(12 * mb * n * es), "float32")
     rec["lstm_cell_bwd"] = {
-        "max_abs_err": max(err[2:]), "max_err_bf16_spacings": max(spacings[2:]),
+        "max_abs_err": max(err[2:]), "max_err_spacings": max(spacings[2:]),
         "max_abs_err_vs_same_dtype_plain": max(err_same[2:]),
         "ms": device_ms(fn), "plain_ms": device_ms(lambda: lk.lstm_cell_bwd_plain(z, c, dh, dcn)),
         "library_ms": None if lib_bwd is None else device_ms(lib_bwd),
@@ -1278,14 +1357,14 @@ def lstm_seq_case(mb, t_len, n, dtype, masked=False, reverse=False, timed=False)
     torch.cuda.synchronize()
     want = lk.lstm_seq_fwd_plain(*(x.float() for x in ins), mask, reverse)
     names = ("hs", "z", "c", "h_last", "c_last")
-    dname = "float32" if dtype == torch.float32 else "bfloat16"
+    dname = dtype_name(dtype)
     atol, rtol = (2e-5, 1e-5) if dtype == torch.float32 else (2e-2, 1e-2)
     errs, ok = {}, all(torch.equal(a, b) for a, b in zip(got, again))
     bitwise = ok
     for name, a, w in zip(names, got, want):
         d = (a.float() - w).abs()
         limit = (torch.full_like(w, atol) if dtype == torch.float32
-                 else torch.clamp(2.0 ** -7 * w.abs(), min=atol))
+                 else torch.clamp(SPACING[dname] * w.abs(), min=atol))
         errs[name] = {"max_abs_err": float(d.max()),
                       "rel_err": float(d.norm() / w.norm().clamp_min(1e-30))}
         ok = ok and bool((d <= limit).all()) and errs[name]["rel_err"] <= rtol
@@ -1299,7 +1378,7 @@ def lstm_seq_case(mb, t_len, n, dtype, masked=False, reverse=False, timed=False)
            "bitwise_second_launch": bitwise, "ok": ok}
     if dtype != torch.float32:
         same = lk.lstm_seq_fwd_plain(*ins, mask, reverse)
-        rec["max_abs_err_of_the_bf16_plain_vs_f32"] = max(
+        rec["max_abs_err_of_the_same_dtype_plain_vs_f32"] = max(
             float((s.float() - w).abs().max()) for s, w in zip(same, want))
     if timed:
         es = ins[0].element_size()
@@ -1341,11 +1420,11 @@ def lstm_seq_case(mb, t_len, n, dtype, masked=False, reverse=False, timed=False)
 
 def phase_kernel_lstm():
     import torch
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     # K5a over sequences: the char-RNN's chunk first (the kernels line
     # reports it), then a wider layer, ragged rows, the stream's step,
     # n % 4 != 0, masks, reverse, more tiles than the card holds at once
-    # (RW streamed from L2), bf16
+    # (RW streamed from L2), bf16, f16
     seqs = [lstm_seq_case(RNN_B, RNN_TBPTT, RNN_HIDDEN, f32, timed=True),
             lstm_seq_case(RNN_B, RNN_TBPTT, RNN_HIDDEN, bf16, timed=True),
             lstm_seq_case(1, 1, RNN_HIDDEN, f32, timed=True),
@@ -1357,25 +1436,30 @@ def phase_kernel_lstm():
             lstm_seq_case(RNN_B, RNN_TBPTT, RNN_HIDDEN, f32, reverse=True),
             lstm_seq_case(7, 13, 255, f32, masked=True, reverse=True),
             lstm_seq_case(7, 13, 255, bf16, masked=True, reverse=True),
-            lstm_seq_case(2048, 3, RNN_HIDDEN, f32)]
+            lstm_seq_case(2048, 3, RNN_HIDDEN, f32),
+            lstm_seq_case(RNN_B, RNN_TBPTT, RNN_HIDDEN, f16, timed=True),
+            lstm_seq_case(7, 13, 255, f16, masked=True, reverse=True)]
     # f32: 2e-6 max abs (the same rounded ops; expf/tanhf may differ in the
-    # last bit); bf16: every element within one bf16 spacing
+    # last bit); bf16, f16: every element within one spacing of the dtype
     ok = {"float32": lambda r: r["max_abs_err"] <= 2e-6,
-          "bfloat16": lambda r: r["max_err_bf16_spacings"] <= 1.0}
+          "bfloat16": lambda r: r["max_err_spacings"] <= 1.0,
+          "float16": lambda r: r["max_err_spacings"] <= 1.0}
     # the char-RNN's shape first (the kernels line reports it), then
     # n % 4 != 0 and a batch of many waves of K5b's blocks
     cells = [lstm_case(mb, n, dt) for dt in (f32, bf16)
              for mb, n in ((RNN_B, RNN_HIDDEN), (RNN_B, 512), (7, RNN_HIDDEN), (1, RNN_HIDDEN),
                            (RNN_B, 255), (3, 3), (4096, RNN_HIDDEN))]
+    cells += [lstm_case(RNN_B, RNN_HIDDEN, f16), lstm_case(RNN_B, 255, f16)]
     bad = [r["case"] for r in seqs if not r["ok"]]
     bad += [f"{r['case']}/{k}" for r in cells for k in ("lstm_seq_t1", "lstm_cell_bwd")
             if not ok[r["dtype"]](r[k])]
-    if seqs[-1]["rw_resident"] or not seqs[0]["rw_resident"]:
+    if seqs[11]["rw_resident"] or not seqs[0]["rw_resident"]:
         bad.append("K5a's layouts: RW must stay resident at the chunk's shape and be "
                    "streamed when the tiles outnumber the card")
     if bad:
         raise AssertionError(f"LSTM kernels disagree with their plain versions: {bad}")
-    return {"lstm_seq_fwd": seqs[0], "lstm_cell_bwd": cells[0]["lstm_cell_bwd"]}
+    return {"lstm_seq_fwd": seqs[0], "lstm_cell_bwd": cells[0]["lstm_cell_bwd"],
+            "lstm_seq_fwd_f16": seqs[12], "lstm_cell_bwd_f16": cells[14]["lstm_cell_bwd"]}
 
 
 # -- K6: the one-pass threshold encode ------------------------------------------------
@@ -5550,10 +5634,10 @@ SHARDED_ARMS = {
     "tp_pp_gpipe_bf16": ({"model": 2, "pipe": 2}, {"schedule": "gpipe", "n_microbatches": 2},
                          "bfloat16"),
 }
-#: K1-K3's bf16 kernels, by kernel name in a trace: all three on the
+#: K1-K3's bf16 / f16 kernels, by kernel name in a trace: all three on the
 #: warpgroup MMA (wgmma) of the tensor cores
-FLASH_BF16_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
-                      "flash_bwd_dq_wgmma_kernel")
+FLASH_TC_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                    "flash_bwd_dq_wgmma_kernel")
 D1_KERNELS = ("det_attention_split", "det_attention_tiled")
 
 
@@ -5600,7 +5684,7 @@ def lm_tokens(b, t, seed):
 
 def flash_counters():
     """K1-K3's launch counters; ``flash_fwd``, ``flash_bwd_dkdv`` and
-    ``flash_bwd_dq`` count both dtypes, the ``_tc`` ones the bf16 launches
+    ``flash_bwd_dq`` count every dtype, the ``_tc`` ones the bf16 and f16 launches
     (the tensor-core kernels)."""
     from deeplearning4j_tpu_torch.ops import attention as att
     return {"flash_fwd": att.flash_forward_cuda, "flash_fwd_tc": att.flash_forward_tc_cuda,
@@ -5637,7 +5721,7 @@ def sharded_config7():
     # trace's kernel counts and device ms are a report (a profiler can
     # lose records at a trace's ends)
     before = {k: c.launches for k, c in counters.items()}
-    prof = device_profile(lambda: float(lm.fit_batch(tok, tgt)), FLASH_BF16_KERNELS, top=8)
+    prof = device_profile(lambda: float(lm.fit_batch(tok, tgt)), FLASH_TC_KERNELS, top=8)
     counted = {k: c.launches - before[k] for k, c in counters.items()}
     launches = {k: c.launches for k, c in counters.items()}
     med = statistics.median(times)
@@ -9307,6 +9391,286 @@ def phase_ui():
     return rec
 
 
+# -- wide_heads phase: GPT-J-6B's attention widths ------------------------------------
+
+#: GPT-J-6B's widths (its published config: d_model 4096, 16 heads of 256,
+#: d_ff 16384, vocab 50,400, 2,048 positions) on the repository's block
+#: (learned positions, the sequential pre-LN block), not GPT-J's rotary,
+#: parallel one; depth cut from 28 layers to ``GPTJ_LAYERS``
+GPTJ = dict(vocab_size=50400, d_model=4096, n_heads=16, d_ff=16384, max_len=2048)
+GPTJ_LAYERS = 4
+WIDE_B, WIDE_T = 4, 2048
+#: Adam's rate for (a) and (b): its first steps move every weight by about
+#: the rate, so a unit's input moves by about rate x d_model; the train
+#: phase's 3e-4 at GPT-2's 768, scaled to 4096, moves it as much (at 3e-4
+#: the wide model's bf16 loss rose, 13.1 -> 16.5 -> 28.1, on an H100)
+WIDE_LR = 3e-4 * D_MODEL / GPTJ["d_model"]
+
+
+@contextlib.contextmanager
+def card_draws(seed):
+    """While open, the port's weight initializers draw on the card from a
+    CUDA generator seeded with ``seed``: a GPT-J-width network's 1.2 G
+    draws take ~10 s on the host, a few milliseconds here."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import initializers as ini
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    real = ini.draw_normal, ini.draw_uniform
+    ini.draw_normal = lambda shape, std, generator: (
+        torch.randn(shape, generator=gen, device="cuda") * std)
+    ini.draw_uniform = lambda shape, limit, generator: (
+        torch.rand(shape, generator=gen, device="cuda") * (2 * limit) - limit)
+    try:
+        yield
+    finally:
+        ini.draw_normal, ini.draw_uniform = real
+
+
+def wide_lm(n_layers, device, tree=None, dtype="float32", updater=None, seed=SEED + 500):
+    """The repository's TransformerLM at GPT-J's widths cut to ``n_layers``
+    on ``device``, every leaf in ``dtype`` (parameters and compute: the
+    blocks compute in their input's dtype, and the embedding gathers
+    parameter rows), with the weights of ``tree`` (a list of per-layer
+    f32 tensors) or, without one, its own initialisation drawn on the
+    card from ``seed`` → (network, f32 copies of its weights)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+
+    with card_draws(seed):
+        net = TransformerLM(n_layers=n_layers, **GPTJ, dtype=dtype, updater=updater,
+                            device=device)
+    if tree is None:
+        tree = [{k: v.detach().float().clone() for k, v in p.items()} for p in net.params]
+    else:
+        dt = getattr(torch, dtype)
+        net.params = [{k: a.to(device, dt, copy=True) for k, a in layer.items()}
+                      for layer in tree]
+    return net, tree
+
+
+#: each flash wrapper's and D1's counter of launches by instance
+def instance_counters():
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.ops import kv_cache as kvc
+    return {"flash_fwd": att.flash_forward_cuda, "flash_bwd_dkdv": att.flash_bwd_dkdv_cuda,
+            "flash_bwd_dq": att.flash_bwd_dq_cuda, "det_attention": kvc.det_attention_cuda}
+
+
+def zero_instances():
+    for c in instance_counters().values():
+        c.instances.clear()
+
+
+def read_instances() -> dict:
+    return {n: dict(c.instances) for n, c in instance_counters().items()}
+
+
+def wide_train_arm(name, tree, dtype, tok, tgt, falling):
+    """(a) / (b): 3 ``fit_batch`` steps on [WIDE_B, WIDE_T] with every leaf
+    in ``dtype``, Adam at ``WIDE_LR``, K1-K3 counted by instance →
+    (record, failures)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    t_arm = time.perf_counter()
+    net, _ = wide_lm(GPTJ_LAYERS, "cuda", tree, dtype, updater=Adam(lr=WIDE_LR))
+    dev = torch.device("cuda")
+    ds = DataSet(torch.from_numpy(tok).to(dev), torch.from_numpy(tgt).to(dev))
+    key = f"{dtype}_d256"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_instances()
+    losses, times = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(float(net.fit_batch(ds)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    inst = read_instances()
+    peak = torch.cuda.max_memory_allocated()
+    per_kernel = {k: inst[k].get(key, 0) for k in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+    rec = {"phase": "wide_heads", "arm": name, "dtype": dtype, "batch": [WIDE_B, WIDE_T],
+           "layers": GPTJ_LAYERS, "lr": WIDE_LR, "losses": losses, "step_s": times,
+           "step_ms": [t * 1e3 for t in times],
+           "tokens_per_s_last": WIDE_B * WIDE_T / times[-1], "peak_memory_gib": peak / 2 ** 30,
+           "instances": inst, "launches_at_d256": per_kernel,
+           "arm_s": time.perf_counter() - t_arm}
+    emit(rec)
+    del net
+    torch.cuda.empty_cache()
+    ok = (all(math.isfinite(x) for x in losses)
+          and (all(b < a for a, b in zip(losses, losses[1:])) if falling
+               else losses[-1] < losses[0])
+          and per_kernel == {k: 3 * GPTJ_LAYERS for k in per_kernel}
+          and all(set(v) <= {key} for v in inst.values()))
+    return rec, ([] if ok else [f"({name}) {dtype} training: {rec}"])
+
+
+def wide_output_arm(net, tokens):
+    """(c): f32 ``output()`` on [WIDE_B, WIDE_T] through K1's DP 256
+    instance → (record, failures)."""
+    import torch
+
+    t_arm = time.perf_counter()
+    net.output(tokens[:1, :64])
+    torch.cuda.synchronize()
+    zero_instances()
+    t0 = time.perf_counter()
+    y = net.output(tokens)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    inst = read_instances()
+    ok = (tuple(y.shape) == (WIDE_B, WIDE_T, GPTJ["vocab_size"])
+          and bool(torch.isfinite(y).all()))
+    row_sum_err = float((y.sum(-1) - 1).abs().max())
+    del y
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.output(tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rec = {"phase": "wide_heads", "arm": "c_output", "batch": [WIDE_B, WIDE_T],
+           "first_call_s": first, "call_s": times, "tokens_per_s": WIDE_B * WIDE_T / min(times),
+           "row_sum_max_err": row_sum_err, "instances": inst,
+           "arm_s": time.perf_counter() - t_arm}
+    emit(rec)
+    ok = ok and row_sum_err <= 1e-3 and inst["flash_fwd"] == {"float32_d256": GPTJ_LAYERS}
+    return rec, ([] if ok else [f"(c) output: {rec}"])
+
+
+def wide_decode_arm(net):
+    """(d): ``DecodeEngine`` over the f32 network, the serve phase's 8
+    requests (prompts 16-512, 32 new tokens): decode logits bitwise the
+    re-encode's, D1 at d 256, the pool drained → (record, failures)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models.transformer import TransformerDecodeAdapter
+
+    t_arm = time.perf_counter()
+    prompts, kws = serve_requests()
+    zero_instances()
+    run = serve_run(TransformerDecodeAdapter(net), prompts, kws)
+    inst = read_instances()
+    eng, results = run["engine"], run["outcomes"]
+    failed = [r for r in results if isinstance(r, BaseException)]
+    bitwise, greedy = not failed, not failed
+    if not failed:
+        for p, kw, r in zip(prompts, kws, results):
+            ref = reencode_rows(eng, p, r.tokens)
+            bitwise = bitwise and bool(np.array_equal(ref, r.logits))
+            if kw["temperature"] == 0.0:
+                greedy = greedy and ref.argmax(-1).tolist() == r.tokens
+    d1 = inst["det_attention"]
+    rec = {"phase": "wide_heads", "arm": "d_decode", "requests": len(results),
+           "failed": [repr(e) for e in failed], "decode_vs_reencode_bitwise": bitwise,
+           "greedy_equals_reencode_argmax": greedy, "d1_instances": d1,
+           "pages_in_use_after": run["snap"]["pages_in_use"], **run["metrics"],
+           "arm_s": time.perf_counter() - t_arm}
+    emit(rec)
+    ok = (bitwise and greedy and rec["pages_in_use_after"] == 0 and d1.get("d256", 0) > 0
+          and set(d1) == {"d256"}
+          and all(len(r.tokens) == SERVE_NEW for r in results if not failed))
+    return rec, ([] if ok else [f"(d) decode: {rec}"])
+
+
+def wide_card_vs_cpu(tree):
+    """(e): a 2-layer cut of the network ``tree`` holds (its embedding,
+    positions, first two blocks and head), f32, [2, 128], 2 SGD steps on
+    the card and on the CPU from the same weights → (record, failures)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+
+    t_arm = time.perf_counter()
+    rng = np.random.default_rng(SEED + 510)
+    tok = rng.integers(0, GPTJ["vocab_size"], (2, 129))
+    ds = DataSet(tok[:, :-1], tok[:, 1:])
+    tree, runs = tree[:4] + tree[-1:], []
+    zero_instances()
+    for dev in ("cuda", "cpu"):
+        net, _ = wide_lm(2, dev, tree, updater=Sgd(lr=0.1))
+        losses = [float(net.fit_batch(ds)) for _ in range(2)]
+        runs.append((losses, [{k: v.float().cpu().numpy() for k, v in p.items()}
+                              for p in net.params]))
+        if dev == "cuda":
+            inst = read_instances()
+        del net
+    (lg, pg), (lc, pc) = runs
+    diff = max(float(np.abs(pg[i][k] - pc[i][k]).max()) for i in range(len(pg)) for k in pg[i])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    rec = {"phase": "wide_heads", "arm": "e_card_vs_cpu",
+           "cut": "2 layers at GPT-J widths, f32, [2, 128], Sgd(0.1), 2 steps",
+           "losses_card": lg, "losses_cpu": lc, "loss_max_rel_diff": loss_rel,
+           "params_max_abs_diff": diff, "tolerance": 1e-4, "instances": inst,
+           "arm_s": time.perf_counter() - t_arm}
+    emit(rec)
+    ok = (loss_rel <= 1e-4 and diff <= 1e-4
+          and all(inst[k] == {"float32_d256": 4} for k in ("flash_fwd", "flash_bwd_dkdv",
+                                                            "flash_bwd_dq")))
+    return rec, ([] if ok else [f"(e) card vs CPU: {rec}"])
+
+
+def phase_wide_heads():
+    """The repository's TransformerLM at GPT-J-6B's attention widths (head
+    width 256: K1-K3's and D1's DP 256 instances), arms (a)-(e) (the module
+    docstring)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 501)
+    tok = rng.integers(0, GPTJ["vocab_size"], (WIDE_B, WIDE_T + 1))
+    arms, bad = {}, []
+    # (c), (d): the f32 network
+    net, tree = wide_lm(GPTJ_LAYERS, "cuda")
+    init_s = time.perf_counter() - t0
+    n_params = sum(int(v.numel()) for p in net.params for v in p.values())
+    arms["c"], b = wide_output_arm(net, tok[:, :-1])
+    bad += b
+    arms["d"], b = wide_decode_arm(net)
+    bad += b
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (a), (b): bf16 and f16 training (every leaf in the dtype)
+    arms["a"], b = wide_train_arm("a_train_bf16", tree, "bfloat16", tok[:, :-1], tok[:, 1:],
+                                  falling=True)
+    bad += b
+    arms["b"], b = wide_train_arm("b_train_f16", tree, "float16", tok[:, :-1], tok[:, 1:],
+                                  falling=False)
+    bad += b
+    # (e): card against CPU at a 2-layer cut
+    arms["e"], b = wide_card_vs_cpu(tree)
+    bad += b
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {n: sum(arms[a]["instances"][n].get(f"{dt}_d256", 0)
+                       for a in ("a", "b", "c", "e") for dt in ("float32", "bfloat16", "float16"))
+                for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+    by_instance = {f"{n}/{k}": sum(arms[a]["instances"][n].get(k, 0) for a in "abce")
+                   for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+                   for k in ("float32_d256", "bfloat16_d256", "float16_d256")}
+    by_instance["det_attention/d256"] = arms["d"]["d1_instances"].get("d256", 0)
+    rec = {"phase": "wide_heads", "parameters": n_params, "init_s": init_s,
+           "seconds": time.perf_counter() - t0, "failed": bad, "launches": launches,
+           "launches_by_instance": by_instance}
+    emit(rec)
+    if bad:
+        raise AssertionError(f"wide_heads phase failed: {bad}")
+    return rec
+
+
 def trace_probe(n: int) -> None:
     """``--trace-probe N``: the serve and predict phases, each traced
     replay taken N times hard against the trace's ends (pause 0) and N
@@ -9381,7 +9745,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:3] in (["kernel"], ["sharded"], ["elastic"],
                                                           ["predict_features"], ["fleet"],
                                                           ["flywheel"], ["learning"], ["ui"],
-                                                          ["train"]):
+                                                          ["train"], ["wide_heads"]):
         card = card_line()
         emit({"torch": torch.__version__, "device": torch.cuda.get_device_name(0),
               "card": card})
@@ -9390,7 +9754,8 @@ def main() -> int:
          "predict_features": lambda: phase_predict_features(build_model()),
          "fleet": lambda: phase_fleet(build_model()),
          "flywheel": phase_flywheel, "learning": phase_learning,
-         "ui": phase_ui, "train": lambda: phase_train(build_model())}[sys.argv[2]]()
+         "ui": phase_ui, "train": lambda: phase_train(build_model()),
+         "wide_heads": phase_wide_heads}[sys.argv[2]]()
         print(card, flush=True)
         return 0
     card = card_line()
@@ -9402,7 +9767,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: os.path.relpath(str(v), REPO) for k, v in built.items()}})
 
-    k1, bwd, det, k1_tc, bwd_tc = run_phase("kernel", phase_kernel)
+    k1, bwd, det, k1_tc, bwd_tc, wide = run_phase("kernel", phase_kernel)
     k5 = run_phase("kernel_lstm", phase_kernel_lstm)
     net = run_phase("build_model", build_model)
     score = run_phase("score", phase_score, net)
@@ -9433,6 +9798,7 @@ def main() -> int:
         raise AssertionError(f"the flywheel phase launched a kernel: {flywheel}")
     run_phase("learning", phase_learning)     # launches none of K1-K6 or D1 (gated)
     ui = run_phase("ui", phase_ui)["launches"]
+    wide_lbi = run_phase("wide_heads", phase_wide_heads)["launches_by_instance"]
     emit({"script_s": time.perf_counter() - T_START})
 
     def entry(name, source, replaces, launches, r):
@@ -9458,6 +9824,26 @@ def main() -> int:
     # there went to the tensor-core kernels (their own counters), the rest
     # of K1's, K2's and K3's counts to the SIMT kernels
     tc = {k: sharded[k + "_tc"] for k in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+    # the DP 256 instances (head widths 129-256) in each dtype, launched by
+    # the wide_heads phase; times at its attention, [4, 16, 2048, 256]
+    wide_entries = []
+    for tag, dname, fsrc, bsrc, suffix in (
+            ("f32", "float32", "flash_fwd.cu", "flash_bwd.cu", ""),
+            ("bf16", "bfloat16", "flash_fwd_tc.cu", "flash_bwd_tc.cu", "_tc"),
+            ("f16", "float16", "flash_fwd_tc.cu", "flash_bwd_tc.cu", "_tc_f16")):
+        wf, wb = wide["fwd"][f"{tag}_d256"], wide["bwd"][f"{tag}_d256"]
+        wide_entries += [
+            entry(f"flash_fwd{suffix}_d256", fsrc, "deeplearning4j_tpu/ops/attention.py:138",
+                  wide_lbi[f"flash_fwd/{dname}_d256"], wf),
+            entry(f"flash_bwd_dkdv{suffix}_d256", bsrc, "deeplearning4j_tpu/ops/attention.py:329",
+                  wide_lbi[f"flash_bwd_dkdv/{dname}_d256"],
+                  {**wb["flash_bwd_dkdv"], "library_ms": wb["library_ms"]}),
+            entry(f"flash_bwd_dq{suffix}_d256", bsrc, "deeplearning4j_tpu/ops/attention.py:366",
+                  wide_lbi[f"flash_bwd_dq/{dname}_d256"],
+                  {**wb["flash_bwd_dq"], "library_ms": wb["library_ms"]})]
+    wide_entries.append(entry("det_attention_d256", "det_attention.cu",
+                              "deeplearning4j_tpu/ops/kv_cache.py:362",
+                              wide_lbi["det_attention/d256"], wide["det"]["step"]))
     emit({"kernels": [
         entry("flash_fwd", "flash_fwd.cu", "deeplearning4j_tpu/ops/attention.py:138",
               score["launches"]["flash_fwd"] + predict["launches"]["flash_fwd"]
@@ -9496,7 +9882,7 @@ def main() -> int:
               compressed["arms"]["a_one_pass"]["k6_launches"]
               + sum(compressed["arms"]["e_tinyyolo_batchnorm"]["k6_launches_per_step"][0])
               + elastic["threshold_encode"], k6),
-    ]})
+    ] + wide_entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -43,6 +43,12 @@
 //     (b, h, row tile, chunk) writes its partials to scratch, skipping chunks
 //     no row sees without reading K/V; a second launch combines each row's
 //     partials in ascending chunk order, one warp per row.
+// Head widths 129-256 (DP 256) keep C = 64 and chunk_partial as they are, so
+// the contract holds unchanged: the tiled launch's double-buffered K/V (308
+// KB at DP 256) does not fit in a block's 227 KB, so at DP 256 it stages one
+// chunk at a time (the next chunk's copy issued after this one's math, 175 KB,
+// the split launch's size), and each thread's output tile is 4 rows x 16
+// columns.
 //
 // Bound on H100: 4*d flops per visible (row, key) pair against reading q, the
 // bias, the K/V rows some query sees, and writing out once.  The step (48
@@ -88,7 +94,8 @@ struct Args {
 
 template <int DP> struct Smem {
   static constexpr int SP = DP + 4;                   // row stride of Q/K/V tiles
-  static constexpr int FLOATS = RT * SP + 4 * C * SP + RT * PS;        // tiled: K/V doubled
+  static constexpr int NB = DP <= 128 ? 2 : 1;        // tiled: K/V buffers (DP 256: one)
+  static constexpr int FLOATS = RT * SP + 2 * NB * C * SP + RT * PS;
   static constexpr int SPLIT_FLOATS = RT * SP + 2 * C * SP + RT * PS;  // split: one chunk
 };
 
@@ -280,11 +287,12 @@ __global__ void __launch_bounds__(NT)
 det_attention_tiled(Args a) {
   constexpr int SP = Smem<DP>::SP;
   constexpr int NG = DP / 64;
+  constexpr int NB = Smem<DP>::NB;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* Ks = Qs + RT * SP;      // [2][C][SP]
-  float* Vs = Ks + 2 * C * SP;   // [2][C][SP]
-  float* Ps = Vs + 2 * C * SP;   // [RT][PS]
+  float* Ks = Qs + RT * SP;       // [NB][C][SP]
+  float* Vs = Ks + NB * C * SP;   // [NB][C][SP]
+  float* Ps = Vs + NB * C * SP;   // [RT][PS]
   __shared__ int last_key;
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -331,15 +339,15 @@ det_attention_tiled(Args a) {
   if (nch > 0) load_kv<DP>(a, Ks, Vs, b, h, 0);
   cp_commit();
   for (int ch = 0; ch < nch; ++ch) {
-    const int buf = ch & 1;
-    if (ch + 1 < nch) {
+    const int buf = NB == 2 ? ch & 1 : 0;
+    if (NB == 2 && ch + 1 < nch) {
       load_kv<DP>(a, Ks + (buf ^ 1) * C * SP, Vs + (buf ^ 1) * C * SP, b, h, ch + 1);
       cp_commit();
     }
     float bj[4][4];
     bool vis[4][4];
     load_bias(a, b, h, r0, ch, bj, vis);   // in flight while the copies land
-    if (ch + 1 < nch) cp_wait<1>();
+    if (NB == 2 && ch + 1 < nch) cp_wait<1>();
     else cp_wait<0>();
     __syncthreads();
     float mc[4], lc[4], oc[4][4 * NG];
@@ -355,6 +363,10 @@ det_attention_tiled(Args a) {
       for (int c = 0; c < 4 * NG; ++c) o[i][c] = combine_one(o[i][c], oc[i][c], fa, fb, first);
     }
     __syncthreads();             // buffer `buf` and Ps are free for the next chunks
+    if (NB == 1 && ch + 1 < nch) {   // one buffer: the next chunk once this one is done
+      load_kv<DP>(a, Ks, Vs, b, h, ch + 1);
+      cp_commit();
+    }
   }
 
   #pragma unroll
@@ -432,7 +444,9 @@ det_attention_split(Args a) {
 }
 
 // Split-key launch, second pass: one warp per row combines its partials in
-// ascending chunk order; lane owns columns lane, lane + 32, ...
+// ascending chunk order; lane owns columns lane, lane + 32, ... (NG of them:
+// 4 up to d 128, 8 at d 256)
+template <int NG>
 __global__ void __launch_bounds__(NT)
 det_attention_combine(Args a, long long n_rows) {
   const int lane = threadIdx.x & 31;
@@ -440,10 +454,12 @@ det_attention_combine(Args a, long long n_rows) {
   if (row >= n_rows) return;
   const int W = a.d + 2;
   const float* part = a.part + row * a.nch * W;
-  float m = -INFINITY, l = 0.f, o[4] = {0.f, 0.f, 0.f, 0.f};
+  float m = -INFINITY, l = 0.f, o[NG];
+  #pragma unroll
+  for (int g = 0; g < NG; ++g) o[g] = 0.f;
   constexpr int U = 8;           // chunks whose partials are loaded before they are combined
   for (int c0 = 0; c0 < a.nch; c0 += U) {
-    float mv[U], lv[U], ov[U][4];
+    float mv[U], lv[U], ov[U][NG];
     #pragma unroll
     for (int u = 0; u < U; ++u) {
       const float* pr = part + (c0 + u) * W;
@@ -451,7 +467,7 @@ det_attention_combine(Args a, long long n_rows) {
       mv[u] = in ? pr[0] : -INFINITY;
       lv[u] = in ? pr[1] : 0.f;
       #pragma unroll
-      for (int g = 0; g < 4; ++g) ov[u][g] = in && lane + 32 * g < a.d ? pr[2 + lane + 32 * g] : 0.f;
+      for (int g = 0; g < NG; ++g) ov[u][g] = in && lane + 32 * g < a.d ? pr[2 + lane + 32 * g] : 0.f;
     }
     #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -460,13 +476,13 @@ det_attention_combine(Args a, long long n_rows) {
       if (!combine_factors(m, mv[u], fa, fb)) continue;
       l = combine_one(l, lv[u], fa, fb, first);
       #pragma unroll
-      for (int g = 0; g < 4; ++g) o[g] = combine_one(o[g], ov[u][g], fa, fb, first);
+      for (int g = 0; g < NG; ++g) o[g] = combine_one(o[g], ov[u][g], fa, fb, first);
     }
   }
   const int t = (int)(row % a.Tq), bh = (int)(row / a.Tq);
   const int b = bh / a.H, h = bh % a.H;
   #pragma unroll
-  for (int g = 0; g < 4; ++g) {
+  for (int g = 0; g < NG; ++g) {
     const int col = lane + 32 * g;
     if (col >= a.d) continue;
     a.out[row * a.d + col] = m == -INFINITY
@@ -497,7 +513,8 @@ int launch(const Args& a, int B, int split, cudaStream_t st) {
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     const long long rows = (long long)B * a.H * a.Tq;
-    det_attention_combine<<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)), NT, 0, st>>>(a, rows);
+    det_attention_combine<(DP <= 128 ? 4 : 8)>
+        <<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)), NT, 0, st>>>(a, rows);
   } else {
     det_attention_tiled<DP><<<dim3(bh, tiles), NT, smem, st>>>(a);
   }
@@ -506,7 +523,7 @@ int launch(const Args& a, int B, int split, cudaStream_t st) {
 
 }  // namespace
 
-// q [B,H,Tq,d] f32 with strides (qs0, qs1, qs2, 1); k, v [B,H,L,d] f32 with
+// d <= 256; q [B,H,Tq,d] f32 with strides (qs0, qs1, qs2, 1); k, v [B,H,L,d] f32 with
 // strides (ks0, ks1, ks2, 1), the same for both, 16-byte aligned rows (d and
 // the strides multiples of 4); bias f32 addressed by strides (bs0..bs3) over
 // [B,H,Tq,L] (0 for a broadcast axis); out [B,H,Tq,d] contiguous.  split != 0
@@ -519,7 +536,7 @@ extern "C" int dl4j_det_attention(const void* q, const void* k, const void* v,
                                   long long qs2, long long ks0, long long ks1, long long ks2,
                                   long long bs0, long long bs1, long long bs2, long long bs3,
                                   float scale, int split, void* stream) {
-  if (B < 1 || H < 1 || Tq < 1 || L < 1 || d < 1 || d > 128 || d % 4) return -1;
+  if (B < 1 || H < 1 || Tq < 1 || L < 1 || d < 1 || d > 256 || d % 4) return -1;
   if ((long long)B * H > 2147483647LL || (Tq + RT - 1) / RT > 65535) return -1;
   if (ks0 % 4 || ks1 % 4 || ks2 % 4 || reinterpret_cast<size_t>(k) % 16 ||
       reinterpret_cast<size_t>(v) % 16)
@@ -531,5 +548,7 @@ extern "C" int dl4j_det_attention(const void* q, const void* k, const void* v,
          H, Tq, L, d, (L + C - 1) / C,
          qs0, qs1, qs2, ks0, ks1, ks2, bs0, bs1, bs2, bs3, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d <= 64 ? launch<64>(a, B, split, st) : launch<128>(a, B, split, st);
+  if (d <= 64) return launch<64>(a, B, split, st);
+  if (d <= 128) return launch<128>(a, B, split, st);
+  return launch<256>(a, B, split, st);
 }

@@ -12,7 +12,13 @@
 // key carries the LSE sentinel +1e30, so its p and every gradient it feeds are
 // exactly 0.  p and ds take the input dtype before the products that read
 // them; all sums are f32.  Ragged T and S (S != T too) are masked in the
-// kernels; D <= 128, zero-padded to 64 or 128.
+// kernels; D <= 256, zero-padded to 64, 128 or 256.  At head widths 129-256
+// (DP 256) a block owns one 128-wide half of its output columns (blockIdx.z:
+// dK and dV, or dQ), so its accumulators stay those of DP 128 (the 4 x 32
+// tile of dK and dV took every register at DP 128), while s and dp still
+// sum over all 256 columns: the two halves' blocks both compute them, 1.5x
+// K2's products and 1.7x K3's.  K2's tiles take 215 KB of shared memory, K3's
+// 205 KB: one block an SM.
 //
 // Bound on H100: per live (query, key) pair K2 does four products of 2*D
 // flops (s, dp, dV, dK: 8*D) and K3 three (s, dp, dQ: 6*D), against ~(4*T +
@@ -100,12 +106,21 @@ __device__ __forceinline__ void dot_tile(float acc[4][KJ], const T* A, const T* 
   }
 }
 
-// acc[i][4 g + c] += sum_n W[ty + 16 i][n] * X[n][32 g + 4 tx + c] over the
-// BN rows n of a streamed tile: W a p / ds tile (stride PS), X row-major
+// output columns a block owns: all of DP up to 128; at DP 256 one 128-wide
+// half, the first at out_col0 (blockIdx.z picks the half)
+template <int DP> __host__ __device__ constexpr int out_cols() { return DP <= 128 ? DP : 128; }
+template <int DP> __device__ __forceinline__ int out_col0() {
+  return DP <= 128 ? 0 : (int)blockIdx.z * 128;
+}
+
+// acc[i][4 g + c] += sum_n W[ty + 16 i][n] * X[n][c0 + 32 g + 4 tx + c] over
+// the BN rows n of a streamed tile: W a p / ds tile (stride PS), X row-major,
+// c0 this block's first output column
 template <typename T, int DP>
-__device__ __forceinline__ void acc_tile(float (*acc)[DP / 8], const float* W, const T* X,
-                                         int ty, int tx) {
-  constexpr int SP = Tile<T, DP>::SP, NG = DP / 32;
+__device__ __forceinline__ void acc_tile(float (*acc)[out_cols<DP>() / 8], const float* W,
+                                         const T* X, int ty, int tx) {
+  constexpr int SP = Tile<T, DP>::SP, NG = out_cols<DP>() / 32;
+  X += out_col0<DP>();
   #pragma unroll 2
   for (int n = 0; n < BN; n += 4) {
     float4 w[4];
@@ -139,20 +154,21 @@ __device__ __forceinline__ bool blocked(int qi, int kj, int causal, int kmv) {
   return (causal && qi < kj) || kmv == 0;
 }
 
-// rows [r0, r0 + BM) of the 4 x D/8 accumulator tile of every thread into
-// out [n, D], rows past n and columns past D dropped
+// rows [r0, r0 + BM) of the 4 x out_cols/8 accumulator tile of every thread
+// into out [n, D] from this block's first output column, rows past n and
+// columns past D dropped
 template <typename T, int DP>
-__device__ __forceinline__ void store_rows(T* out, const float (*acc)[DP / 8], int r0, int n,
-                                           int D, int ty, int tx) {
+__device__ __forceinline__ void store_rows(T* out, const float (*acc)[out_cols<DP>() / 8],
+                                           int r0, int n, int D, int ty, int tx) {
   #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + ty + 16 * i;
     if (r >= n) continue;
     #pragma unroll
-    for (int g = 0; g < DP / 32; ++g)
+    for (int g = 0; g < out_cols<DP>() / 32; ++g)
       #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int d = 32 * g + 4 * tx + c;
+        const int d = out_col0<DP>() + 32 * g + 4 * tx + c;
         if (d < D) out[(size_t)r * D + d] = from_f32<T>(acc[i][4 * g + c]);
       }
   }
@@ -174,15 +190,16 @@ constexpr size_t smem_bytes() {
 }
 
 template <typename T, int DP>
-// three blocks an SM at D <= 64 (168 registers), two at D 128 (255)
-__global__ void __launch_bounds__(NT, DP <= 64 ? 3 : 2)
+// three blocks an SM at D <= 64 (168 registers), two at D 128 (255), one at
+// D 256 (shared memory)
+__global__ void __launch_bounds__(NT, DP <= 64 ? 3 : DP <= 128 ? 2 : 1)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ g,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       const int* __restrict__ kmask, T* __restrict__ dk,
                       T* __restrict__ dv, int H, int T_, int S, int D, float scale,
                       int causal) {
-  constexpr int SP = Tile<T, DP>::SP, NC = DP / 8;
+  constexpr int SP = Tile<T, DP>::SP, NC = out_cols<DP>() / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);           // [BM][SP]  this block's keys
   T* Vs = Ks + BM * SP;                              // [BM][SP]
@@ -236,7 +253,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int kj = k0 + ty + 16 * i;
     kmv[i] = (km != nullptr && kj < S) ? km[kj] : 1;
   }
-  float adk[4][NC], adv[4][NC];     // keys ty + 16 i, columns 32 g + 4 tx + c
+  float adk[4][NC], adv[4][NC];     // keys ty + 16 i, columns c0 + 32 g + 4 tx + c
   #pragma unroll
   for (int i = 0; i < 4; ++i)
     #pragma unroll
@@ -282,13 +299,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(NT, DP <= 64 ? 3 : 2)
+__global__ void __launch_bounds__(NT, DP <= 64 ? 3 : DP <= 128 ? 2 : 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ g,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const int* __restrict__ kmask, T* __restrict__ dq, int H, int T_,
                     int S, int D, float scale, int causal) {
-  constexpr int SP = Tile<T, DP>::SP, NC = DP / 8;
+  constexpr int SP = Tile<T, DP>::SP, NC = out_cols<DP>() / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);           // [BM][SP]  this block's query rows
   T* Gs = Qs + BM * SP;                              // [BM][SP]
@@ -385,7 +402,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* g,
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dkdv_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid(B * H, (S + BM - 1) / BM);
+  const dim3 grid(B * H, (S + BM - 1) / BM, DP / out_cols<DP>());
   flash_bwd_dkdv_kernel<T, DP><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), lse, delta, kmask, static_cast<T*>(dk),
@@ -401,7 +418,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* g,
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid(B * H, (T_ + BM - 1) / BM);
+  const dim3 grid(B * H, (T_ + BM - 1) / BM, DP / out_cols<DP>());
   flash_bwd_dq_kernel<T, DP><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), lse, delta, kmask, static_cast<T*>(dq), H, T_, S, D,
@@ -410,7 +427,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* g,
 }
 
 bool bad_args(int B, int H, int T_, int S, int D) {
-  return B < 1 || H < 1 || T_ < 1 || S < 1 || D < 1 || D > 128 ||
+  return B < 1 || H < 1 || T_ < 1 || S < 1 || D < 1 || D > 256 ||
          (long long)B * H > 2147483647LL || (T_ + BM - 1) / BM > 65535 ||
          (S + BM - 1) / BM > 65535;
 }
@@ -430,9 +447,11 @@ extern "C" int dl4j_flash_bwd_dkdv(const void* q, const void* k, const void* v,
   const float* dl = static_cast<const float*>(delta);
   const int* km = static_cast<const int*>(kmask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D <= 64
-      ? launch_dkdv<float, 64>(q, k, v, g, l, dl, km, dk, dv, B, H, T_, S, D, scale, causal, st)
-      : launch_dkdv<float, 128>(q, k, v, g, l, dl, km, dk, dv, B, H, T_, S, D, scale, causal, st);
+  if (D <= 64)
+    return launch_dkdv<float, 64>(q, k, v, g, l, dl, km, dk, dv, B, H, T_, S, D, scale, causal, st);
+  if (D <= 128)
+    return launch_dkdv<float, 128>(q, k, v, g, l, dl, km, dk, dv, B, H, T_, S, D, scale, causal, st);
+  return launch_dkdv<float, 256>(q, k, v, g, l, dl, km, dk, dv, B, H, T_, S, D, scale, causal, st);
 }
 
 extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -444,7 +463,9 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
   const float* dl = static_cast<const float*>(delta);
   const int* km = static_cast<const int*>(kmask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D <= 64
-      ? launch_dq<float, 64>(q, k, v, g, l, dl, km, dq, B, H, T_, S, D, scale, causal, st)
-      : launch_dq<float, 128>(q, k, v, g, l, dl, km, dq, B, H, T_, S, D, scale, causal, st);
+  if (D <= 64)
+    return launch_dq<float, 64>(q, k, v, g, l, dl, km, dq, B, H, T_, S, D, scale, causal, st);
+  if (D <= 128)
+    return launch_dq<float, 128>(q, k, v, g, l, dl, km, dq, B, H, T_, S, D, scale, causal, st);
+  return launch_dq<float, 256>(q, k, v, g, l, dl, km, dq, B, H, T_, S, D, scale, causal, st);
 }

@@ -1,20 +1,20 @@
-// Flash-attention backward for Hopper in bf16, on the warpgroup MMA (wgmma):
-// dK/dV (kernel K2) and dQ (kernel K3).
+// Flash-attention backward for Hopper in bf16 and f16, on the warpgroup MMA
+// (wgmma): dK/dV (kernel K2) and dQ (kernel K3).
 //
 // K2 replaces deeplearning4j_tpu/ops/attention.py::_flash_bwd_dkdv_kernel and
 // K3 replaces ::_flash_bwd_dq_kernel (both built on ::_bwd_tile, launched by
-// ::_flash_backward) for bf16 inputs; f32 inputs take the SIMT kernels in
+// ::_flash_backward) for bf16 and f16 inputs; f32 inputs take the SIMT kernels in
 // flash_bwd.cu.  Same function: with s = q.k^T * scale + bias, p = exp(s -
 // lse) rebuilt from the forward's saved log-sum-exp, dp = g.v^T and ds = p *
 // (dp - delta) * scale (zeroed where the bias blocks), dV = p^T.g, dK =
 // ds^T.q and dQ = ds.k.  delta = rowsum(g * o) is computed outside, in f32.
-// p and ds are rounded to bf16 before the products that read them; every sum
+// p and ds are rounded to the input type before the products that read them; every sum
 // is f32.  A row with the LSE sentinel +1e30 has p = 0 and feeds no gradient
 // (its dQ is exactly 0).
 //
 // Bound on H100: per live (query, key) pair K2 does four products of 2*D
-// flops (s, dp, dV, dK) and K3 three (s, dp, dQ) on the bf16 tensor cores
-// (989 TFLOP/s), against ~(4*T + 4*S)*D bf16 elements of traffic per
+// flops (s, dp, dV, dK) and K3 three (s, dp, dQ) on the bf16/f16 tensor cores
+// (989 TFLOP/s), against ~(4*T + 4*S)*D 2-byte elements of traffic per
 // batch*head at 3.35 TB/s; at D 64 and T 1024 the two are within a small
 // factor, so the work is keeping the tensor cores fed.  Only wgmma reaches
 // their full rate: with mma.sync each warp reads its B operand from shared
@@ -34,7 +34,7 @@
 //     product that reads it has retired;
 //   * S^T = K.Q^T and dP^T = V.G^T by wgmma with both operands from shared
 //     memory (K, V as A; Q, G as K-major B);
-//   * p^T and ds^T are computed in those accumulators and, rounded to bf16,
+//   * p^T and ds^T are computed in those accumulators and, rounded to E,
 //     are the register A operands of dV += p^T.G and dK += ds^T.Q, whose B
 //     are the same Q and G tiles read MN-major: nothing of p or ds goes
 //     through shared memory;
@@ -48,7 +48,7 @@
 //     by TMA as in K2;
 //   * S = Q.K^T and dP = G.V^T by wgmma from shared memory; ds is computed in
 //     the accumulators with K2's expression for p, so both kernels rebuild
-//     the same p; rounded to bf16, it is the register A operand of dQ +=
+//     the same p; rounded to E, it is the register A operand of dQ +=
 //     ds.K, with the same K tile read MN-major (so a stage is refilled only
 //     after that product);
 //   * causal: key tiles wholly above the diagonal are never loaded, masks are
@@ -71,6 +71,21 @@
 // that is not 16-byte aligned), the block's threads write the same swizzled
 // tiles with plain loads and stores: routed by shape in the entry, never as
 // a fallback on failure.
+// Head widths 129-256 (DP 256; TMA and plain stores write four 64-column
+// panels, a panel wholly past D zero-filled):
+//   * K2 splits the output columns over the grid: a block owns one 128-wide
+//     half of dK and dV (blockIdx.z), m64n128 accumulators as at DP 128,
+//     while S^T and dP^T still contract over all 256 columns.  Two consumer
+//     warpgroups that exchange p^T or ds^T through shared memory were the
+//     other way; the split keeps the one-warpgroup body, with no named
+//     barrier and no exchange, for 1.5x the products (S^T and dP^T are
+//     computed by both halves' blocks).  K, V and three query stages take
+//     162 KB of shared memory: one block an SM;
+//   * K3 keeps dQ whole, an m64n256 accumulator (128 registers a thread),
+//     dQ += ds.K one m64n256k16 per 16 keys; Q, G and two key stages take
+//     194 KB: one block an SM.
+// The element type (bf16 or f16) changes only the instruction's type, the
+// packing of p and ds, and the tensor maps.
 // No atomics: each dK, dV and dQ element is summed by one thread (its lane of
 // one warpgroup's accumulators) in a fixed order, so a launch is bitwise the
 // last one on the same inputs, which the port's data-parallel bit gates rest
@@ -85,11 +100,13 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int NT = 128;          // threads: one warpgroup
 constexpr int BM = 64;           // rows a block owns, 16 a warp: K2 keys, K3 queries
 
 template <int DP> struct Cfg {
+  static constexpr int DO = DP <= 128 ? DP : 128;   // K2's output columns a block
   static constexpr int BN2 = DP <= 64 ? 64 : 32;   // K2's streamed query tile
   static constexpr int BN3 = 64;                    // K3's streamed key tile
   static constexpr int NS2 = 3;                     // K2's ring stages
@@ -104,32 +121,32 @@ template <int DP> struct Cfg {
 };
 
 // blocks an SM holds at least (the registers a thread may take follow): at D
-// <= 64 three, at D 128 two
-template <int DP> constexpr int blocks_per_sm() { return DP <= 64 ? 3 : 2; }
+// <= 64 three, at D 128 two, at D 256 one
+template <int DP> constexpr int blocks_per_sm() { return DP <= 64 ? 3 : DP <= 128 ? 2 : 1; }
 
-template <int DP>
+template <int DP, typename E>
 __global__ void __launch_bounds__(NT, blocks_per_sm<DP>())
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
                             const __grid_constant__ CUtensorMap tm_g,
-                            const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const bf16* __restrict__ g,
+                            const E* __restrict__ q, const E* __restrict__ k,
+                            const E* __restrict__ v, const E* __restrict__ g,
                             const float* __restrict__ lse, const float* __restrict__ delta,
-                            const int* __restrict__ kmask, bf16* __restrict__ dk,
-                            bf16* __restrict__ dv, int H, int T_, int S, int D, float scale,
+                            const int* __restrict__ kmask, E* __restrict__ dk,
+                            E* __restrict__ dv, int H, int T_, int S, int D, float scale,
                             int causal, int tma) {
   constexpr int BN = Cfg<DP>::BN2, NS = Cfg<DP>::NS2;
   constexpr int KC = DP / 16;    // k16 slices of S^T, dP^T (over d)
-  constexpr int ND = DP / 8;     // 8-wide d blocks of dK, dV
+  constexpr int ND = Cfg<DP>::DO / 8;   // 8-wide d blocks of dK, dV this block owns
   constexpr int NQ = BN / 8;     // 8-query blocks of S^T, dP^T
   constexpr unsigned STAGE_TX = 2 * Cfg<DP>::ROWS_BN2;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[NS + 1];   // the stages', then K and V's
-  bf16* Ks = reinterpret_cast<bf16*>(align1024(smem_raw));   // [BM, DP] this block's keys
-  bf16* Vs = Ks + BM * DP;
-  bf16* Qs = Vs + BM * DP;                          // [NS][BN, DP] the streamed queries
-  bf16* Gs = Qs + NS * BN * DP;
+  E* Ks = reinterpret_cast<E*>(align1024(smem_raw));   // [BM, DP] this block's keys
+  E* Vs = Ks + BM * DP;
+  E* Qs = Vs + BM * DP;                          // [NS][BN, DP] the streamed queries
+  E* Gs = Qs + NS * BN * DP;
   float* Ls = reinterpret_cast<float*>(Gs + NS * BN * DP);   // [NS][BN] their lse
   float* Dl = Ls + NS * BN;                                   // [NS][BN] their delta
 
@@ -138,6 +155,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * BM;   // lowest key tiles, the heaviest when causal, first
   const int kw = k0 + 16 * warp;    // this warp's first key
+  // the first column of dK, dV this block owns (DP 256: a half a block)
+  const int d0 = Cfg<DP>::DO < DP ? (int)blockIdx.z * Cfg<DP>::DO : 0;
   const size_t qoff = (size_t)bh * T_ * D, koff = (size_t)bh * S * D;
   const int* km = kmask ? kmask + (size_t)(bh / H) * S : nullptr;
 
@@ -157,8 +176,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // query tile qt0 + i into stage i % NS
   auto issue = [&](int i) {
     const int st = i % NS, r0 = (qt0 + i) * BN;
-    bf16* qd = Qs + st * BN * DP;
-    bf16* gd = Gs + st * BN * DP;
+    E* qd = Qs + st * BN * DP;
+    E* gd = Gs + st * BN * DP;
     if (tma) {
       if (warp == 0) {
         if (lane == 0) {
@@ -222,8 +241,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int i = 0; i < n; ++i) {
     const int st = i % NS, q0 = (qt0 + i) * BN;
     mbar_wait(&bars[st], (i / NS) & 1);
-    const bf16* Qt = Qs + st * BN * DP;
-    const bf16* Gt = Gs + st * BN * DP;
+    const E* Qt = Qs + st * BN * DP;
+    const E* Gt = Gs + st * BN * DP;
     const float* Lt = Ls + st * BN;
     const float* Dt = Dl + st * BN;
 
@@ -269,19 +288,19 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
 
-    // dV += p^T . G and dK += ds^T . Q: p^T and ds^T, rounded to bf16, are
+    // dV += p^T . G and dK += ds^T . Q: p^T and ds^T, rounded to E, are
     // the register A operands; G and Q (queries x d) the MN-major B
     unsigned pa[BN / 16][4], da[BN / 16][4];
     #pragma unroll
     for (int c = 0; c < BN / 16; ++c) {
-      c_to_a(pa[c], sT[2 * c], sT[2 * c + 1]);
-      c_to_a(da[c], dpT[2 * c], dpT[2 * c + 1]);
+      c_to_a<E>(pa[c], sT[2 * c], sT[2 * c + 1]);
+      c_to_a<E>(da[c], dpT[2 * c], dpT[2 * c + 1]);
     }
     wgmma_fence();
     #pragma unroll
-    for (int c = 0; c < BN / 16; ++c) wgmma_rs(adv, pa[c], mnmajor_desc(Gt, BN, c), 1);
+    for (int c = 0; c < BN / 16; ++c) wgmma_rs(adv, pa[c], mnmajor_desc(Gt + d0 * BN, BN, c), 1);
     #pragma unroll
-    for (int c = 0; c < BN / 16; ++c) wgmma_rs(adk, da[c], mnmajor_desc(Qt, BN, c), 1);
+    for (int c = 0; c < BN / 16; ++c) wgmma_rs(adk, da[c], mnmajor_desc(Qt + d0 * BN, BN, c), 1);
     wgmma_commit();
     wgmma_wait<0>();
     __syncthreads();                // every product that read stage `st` has retired
@@ -291,20 +310,20 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   fence_acc(adv);
 
   const float one[2] = {1.f, 1.f};
-  store_c_rows<DP>(dk + koff, adk, one, kw, S, D, lane);
-  store_c_rows<DP>(dv + koff, adv, one, kw, S, D, lane);
+  store_c_rows<Cfg<DP>::DO>(dk + koff, adk, one, kw, S, D, lane, d0);
+  store_c_rows<Cfg<DP>::DO>(dv + koff, adv, one, kw, S, D, lane, d0);
 }
 
-template <int DP>
+template <int DP, typename E>
 __global__ void __launch_bounds__(NT, blocks_per_sm<DP>())
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
                           const __grid_constant__ CUtensorMap tm_g,
-                          const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ g,
+                          const E* __restrict__ q, const E* __restrict__ k,
+                          const E* __restrict__ v, const E* __restrict__ g,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          const int* __restrict__ kmask, bf16* __restrict__ dq, int H, int T_,
+                          const int* __restrict__ kmask, E* __restrict__ dq, int H, int T_,
                           int S, int D, float scale, int causal, int tma) {
   constexpr int BN = Cfg<DP>::BN3, NS = Cfg<DP>::NS3;
   constexpr int KC = DP / 16;    // k16 slices of S, dP (over d)
@@ -313,10 +332,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   constexpr unsigned STAGE_TX = 2 * Cfg<DP>::ROWS_BN3;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[NS + 1];   // the stages', then Q and G's
-  bf16* Qs = reinterpret_cast<bf16*>(align1024(smem_raw));   // [BM, DP] this block's queries
-  bf16* Gs = Qs + BM * DP;
-  bf16* Ks = Gs + BM * DP;                          // [NS][BN, DP] the streamed keys
-  bf16* Vs = Ks + NS * BN * DP;
+  E* Qs = reinterpret_cast<E*>(align1024(smem_raw));   // [BM, DP] this block's queries
+  E* Gs = Qs + BM * DP;
+  E* Ks = Gs + BM * DP;                          // [NS][BN, DP] the streamed keys
+  E* Vs = Ks + NS * BN * DP;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t = lane & 3;
@@ -338,8 +357,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // key tile i into stage i % NS
   auto issue = [&](int i) {
     const int st = i % NS, r0 = i * BN;
-    bf16* kd = Ks + st * BN * DP;
-    bf16* vd = Vs + st * BN * DP;
+    E* kd = Ks + st * BN * DP;
+    E* vd = Vs + st * BN * DP;
     if (tma) {
       if (tid == 0) {
         mbar_arrive_tx(&bars[st], STAGE_TX);
@@ -387,8 +406,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int i = 0; i < n; ++i) {
     const int st = i % NS, k0 = i * BN;
     mbar_wait(&bars[st], (i / NS) & 1);
-    const bf16* Kt = Ks + st * BN * DP;
-    const bf16* Vt = Vs + st * BN * DP;
+    const E* Kt = Ks + st * BN * DP;
+    const E* Vt = Vs + st * BN * DP;
 
     // S = Q . K^T and dP = G . V^T: 64 rows x BN keys
     float s[NK][4], dp[NK][4];
@@ -424,11 +443,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         s[j][r] = live ? ds : 0.f;
       }
 
-    // dQ += ds . K: ds, rounded to bf16, is the register A operand; K (keys
+    // dQ += ds . K: ds, rounded to E, is the register A operand; K (keys
     // x d) the MN-major B, the same stage
     unsigned a[BN / 16][4];
     #pragma unroll
-    for (int c = 0; c < BN / 16; ++c) c_to_a(a[c], s[2 * c], s[2 * c + 1]);
+    for (int c = 0; c < BN / 16; ++c) c_to_a<E>(a[c], s[2 * c], s[2 * c + 1]);
     wgmma_fence();
     #pragma unroll
     for (int c = 0; c < BN / 16; ++c) wgmma_rs(acc, a[c], mnmajor_desc(Kt, BN, c), 1);
@@ -511,7 +530,7 @@ wgmma_tile_check_kernel(const __grid_constant__ CUtensorMap tm_a,
   }
 }
 
-template <int DP>
+template <int DP, typename E>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* g, const float* lse,
                 const float* delta, const int* kmask, void* dk, void* dv, int B, int H,
                 int T_, int S, int D, float scale, int causal, cudaStream_t stream) {
@@ -519,48 +538,48 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* g, cons
   constexpr int BN = Cfg<DP>::BN2;
   // once per template instance (a thread-safe static initialiser)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkdv_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dkdv_wgmma_kernel<DP, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const int BH = B * H;
   const bool tma = tma_route({q, k, v, g}, D);
   CUtensorMap mq{}, mk{}, mv{}, mg{};
   if (tma) {
     int rc;
-    if ((rc = map_rows(&mq, q, BH, T_, D, BN)) || (rc = map_rows(&mg, g, BH, T_, D, BN)) ||
-        (rc = map_rows(&mk, k, BH, S, D, BM)) || (rc = map_rows(&mv, v, BH, S, D, BM)))
+    if ((rc = map_rows<E>(&mq, q, BH, T_, D, BN)) || (rc = map_rows<E>(&mg, g, BH, T_, D, BN)) ||
+        (rc = map_rows<E>(&mk, k, BH, S, D, BM)) || (rc = map_rows<E>(&mv, v, BH, S, D, BM)))
       return rc;
   }
-  const dim3 grid(BH, (S + BM - 1) / BM);
-  flash_bwd_dkdv_wgmma_kernel<DP><<<grid, NT, smem, stream>>>(
-      mq, mk, mv, mg, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta, kmask,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T_, S, D, scale, causal, (int)tma);
+  const dim3 grid(BH, (S + BM - 1) / BM, DP / Cfg<DP>::DO);
+  flash_bwd_dkdv_wgmma_kernel<DP, E><<<grid, NT, smem, stream>>>(
+      mq, mk, mv, mg, static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<const E*>(g), lse, delta, kmask,
+      static_cast<E*>(dk), static_cast<E*>(dv), H, T_, S, D, scale, causal, (int)tma);
   return (int)cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, typename E>
 int launch_dq(const void* q, const void* k, const void* v, const void* g, const float* lse,
               const float* delta, const int* kmask, void* dq, int B, int H, int T_, int S,
               int D, float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = Cfg<DP>::SMEM_DQ;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dq_wgmma_kernel<DP, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const int BH = B * H;
   const bool tma = tma_route({q, k, v, g}, D);
   CUtensorMap mq{}, mk{}, mv{}, mg{};
   if (tma) {
     int rc;
-    if ((rc = map_rows(&mq, q, BH, T_, D, BM)) || (rc = map_rows(&mg, g, BH, T_, D, BM)) ||
-        (rc = map_rows(&mk, k, BH, S, D, Cfg<DP>::BN3)) ||
-        (rc = map_rows(&mv, v, BH, S, D, Cfg<DP>::BN3)))
+    if ((rc = map_rows<E>(&mq, q, BH, T_, D, BM)) || (rc = map_rows<E>(&mg, g, BH, T_, D, BM)) ||
+        (rc = map_rows<E>(&mk, k, BH, S, D, Cfg<DP>::BN3)) ||
+        (rc = map_rows<E>(&mv, v, BH, S, D, Cfg<DP>::BN3)))
       return rc;
   }
   const dim3 grid(BH, (T_ + BM - 1) / BM);
-  flash_bwd_dq_wgmma_kernel<DP><<<grid, NT, smem, stream>>>(
-      mq, mk, mv, mg, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta, kmask,
-      static_cast<bf16*>(dq), H, T_, S, D, scale, causal, (int)tma);
+  flash_bwd_dq_wgmma_kernel<DP, E><<<grid, NT, smem, stream>>>(
+      mq, mk, mv, mg, static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<const E*>(g), lse, delta, kmask,
+      static_cast<E*>(dq), H, T_, S, D, scale, causal, (int)tma);
   return (int)cudaGetLastError();
 }
 
@@ -574,8 +593,8 @@ int launch_check(const void* a, const void* b, const void* g, void* c1, void* c2
   CUtensorMap ma{}, mb{}, mg{};
   if (tma) {
     int rc;
-    if ((rc = map_rows(&ma, a, 1, BM, DP, BM)) || (rc = map_rows(&mb, b, 1, N, DP, N)) ||
-        (rc = map_rows(&mg, g, 1, N, DP, N)))
+    if ((rc = map_rows<bf16>(&ma, a, 1, BM, DP, BM)) || (rc = map_rows<bf16>(&mb, b, 1, N, DP, N)) ||
+        (rc = map_rows<bf16>(&mg, g, 1, N, DP, N)))
       return rc;
   }
   wgmma_tile_check_kernel<DP, N><<<1, NT, smem, stream>>>(
@@ -585,44 +604,80 @@ int launch_check(const void* a, const void* b, const void* g, void* c1, void* c2
 }
 
 bool bad_args(int B, int H, int T_, int S, int D) {
-  return B < 1 || H < 1 || T_ < 1 || S < 1 || D < 1 || D > 128 ||
+  return B < 1 || H < 1 || T_ < 1 || S < 1 || D < 1 || D > 256 ||
          (long long)B * H > 2147483647LL || (T_ + BM - 1) / BM > 65535 ||
          (S + BM - 1) / BM > 65535;
 }
 
+template <typename E>
+int run_dkdv(const void* q, const void* k, const void* v, const void* g, const void* lse,
+         const void* delta, const void* kmask, void* dk, void* dv, int B, int H, int T_, int S,
+         int D, float scale, int causal, void* stream) {
+  if (bad_args(B, H, T_, S, D)) return -1;
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const int* km = static_cast<const int*>(kmask);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return launch_dkdv<64, E>(q, k, v, g, l, dl, km, dk, dv, B, H, T_, S, D, scale, causal, st);
+  if (D <= 128)
+    return launch_dkdv<128, E>(q, k, v, g, l, dl, km, dk, dv, B, H, T_, S, D, scale, causal, st);
+  return launch_dkdv<256, E>(q, k, v, g, l, dl, km, dk, dv, B, H, T_, S, D, scale, causal, st);
+}
+
+template <typename E>
+int run_dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
+       const void* delta, const void* kmask, void* dq_, int B, int H, int T_, int S, int D,
+       float scale, int causal, void* stream) {
+  if (bad_args(B, H, T_, S, D)) return -1;
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const int* km = static_cast<const int*>(kmask);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return launch_dq<64, E>(q, k, v, g, l, dl, km, dq_, B, H, T_, S, D, scale, causal, st);
+  if (D <= 128)
+    return launch_dq<128, E>(q, k, v, g, l, dl, km, dq_, B, H, T_, S, D, scale, causal, st);
+  return launch_dq<256, E>(q, k, v, g, l, dl, km, dq_, B, H, T_, S, D, scale, causal, st);
+}
+
 }  // namespace
 
-// q, g, dq [B,H,T,D]; k, v, dk, dv [B,H,S,D]; all contiguous bf16; lse,
-// delta [B,H,T] f32; kmask [B,S] int32 or null.  Each returns 0, a CUDA
-// error code (or the driver's, from encoding a tensor map), or -1 for
-// arguments the kernel does not take.
+// q, g, dq [B,H,T,D]; k, v, dk, dv [B,H,S,D]; all contiguous bf16 (the _tc
+// entries) or f16 (the _tc_f16 entries), D <= 256; lse, delta [B,H,T] f32;
+// kmask [B,S] int32 or null.  Each returns 0, a CUDA error code (or the
+// driver's, from encoding a tensor map), or -1 for arguments the kernel does
+// not take.
 extern "C" int dl4j_flash_bwd_dkdv_tc(const void* q, const void* k, const void* v,
                                       const void* g, const void* lse, const void* delta,
                                       const void* kmask, void* dk, void* dv, int B, int H,
                                       int T_, int S, int D, float scale, int causal,
                                       void* stream) {
-  if (bad_args(B, H, T_, S, D)) return -1;
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  const int* km = static_cast<const int*>(kmask);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D <= 64
-      ? launch_dkdv<64>(q, k, v, g, l, dl, km, dk, dv, B, H, T_, S, D, scale, causal, st)
-      : launch_dkdv<128>(q, k, v, g, l, dl, km, dk, dv, B, H, T_, S, D, scale, causal, st);
+  return run_dkdv<bf16>(q, k, v, g, lse, delta, kmask, dk, dv, B, H, T_, S, D, scale, causal,
+                        stream);
+}
+
+extern "C" int dl4j_flash_bwd_dkdv_tc_f16(const void* q, const void* k, const void* v,
+                                          const void* g, const void* lse, const void* delta,
+                                          const void* kmask, void* dk, void* dv, int B, int H,
+                                          int T_, int S, int D, float scale, int causal,
+                                          void* stream) {
+  return run_dkdv<f16>(q, k, v, g, lse, delta, kmask, dk, dv, B, H, T_, S, D, scale, causal,
+                       stream);
 }
 
 extern "C" int dl4j_flash_bwd_dq_tc(const void* q, const void* k, const void* v,
                                     const void* g, const void* lse, const void* delta,
-                                    const void* kmask, void* dq, int B, int H, int T_, int S,
+                                    const void* kmask, void* dq_, int B, int H, int T_, int S,
                                     int D, float scale, int causal, void* stream) {
-  if (bad_args(B, H, T_, S, D)) return -1;
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  const int* km = static_cast<const int*>(kmask);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D <= 64
-      ? launch_dq<64>(q, k, v, g, l, dl, km, dq, B, H, T_, S, D, scale, causal, st)
-      : launch_dq<128>(q, k, v, g, l, dl, km, dq, B, H, T_, S, D, scale, causal, st);
+  return run_dq<bf16>(q, k, v, g, lse, delta, kmask, dq_, B, H, T_, S, D, scale, causal, stream);
+}
+
+extern "C" int dl4j_flash_bwd_dq_tc_f16(const void* q, const void* k, const void* v,
+                                        const void* g, const void* lse, const void* delta,
+                                        const void* kmask, void* dq_, int B, int H, int T_,
+                                        int S, int D, float scale, int causal, void* stream) {
+  return run_dq<f16>(q, k, v, g, lse, delta, kmask, dq_, B, H, T_, S, D, scale, causal, stream);
 }
 
 // a [64, dp], b and g [n, dp] contiguous bf16 (16-byte aligned when tma);

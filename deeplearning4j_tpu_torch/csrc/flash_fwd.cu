@@ -31,9 +31,11 @@
 //     form the tail.
 // The online-softmax statistics stay in registers (reduced over the 8 threads
 // that share a row with shuffles); exponentials are ex2.approx of x*log2(e).
-// Ragged T, S and D are masked in the kernel (D <= 128, zero-padded to 64 or
-// 128); a D that is not a multiple of 16 bytes takes plain loads for the
-// tiles instead of cp.async.  The kernel is a template on the element type;
+// Ragged T, S and D are masked in the kernel (D <= 256, zero-padded to 64,
+// 128 or 256); a D that is not a multiple of 16 bytes takes plain loads for
+// the tiles instead of cp.async.  At head widths 129-256 (DP 256) the same
+// body holds a 4-row x 32-column output tile a thread (128 registers) and the
+// tiles take 205 KB of shared memory: one block an SM.  The kernel is a template on the element type;
 // only float is instantiated.
 
 #include "flash_tiles.cuh"
@@ -54,7 +56,7 @@ constexpr size_t smem_bytes() {
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, DP <= 128 ? 2 : 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ kmask,
                  T* __restrict__ o, float* __restrict__ lse,
@@ -238,18 +240,19 @@ int launch(const void* q, const void* k, const void* v, const int* kmask,
 
 }  // namespace
 
-// q [B,H,T,D], k/v [B,H,S,D] contiguous f32; kmask [B,S] int32 or null;
+// q [B,H,T,D], k/v [B,H,S,D] contiguous f32, D <= 256; kmask [B,S] int32 or null;
 // o like q; lse [B,H,T] f32.
 // Returns 0, a CUDA error code, or -1 for arguments the kernel does not take.
 extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
                               const void* kmask, void* o, void* lse,
                               int B, int H, int T_, int S, int D, float scale,
                               int causal, void* stream) {
-  if (B < 1 || H < 1 || T_ < 1 || S < 1 || D < 1 || D > 128) return -1;
+  if (B < 1 || H < 1 || T_ < 1 || S < 1 || D < 1 || D > 256) return -1;
   if ((long long)B * H > 2147483647LL || (T_ + BQ - 1) / BQ > 65535) return -1;
   const int* km = static_cast<const int*>(kmask);
   float* lo = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? launch<float, 64>(q, k, v, km, o, lo, B, H, T_, S, D, scale, causal, st)
-                 : launch<float, 128>(q, k, v, km, o, lo, B, H, T_, S, D, scale, causal, st);
+  if (D <= 64) return launch<float, 64>(q, k, v, km, o, lo, B, H, T_, S, D, scale, causal, st);
+  if (D <= 128) return launch<float, 128>(q, k, v, km, o, lo, B, H, T_, S, D, scale, causal, st);
+  return launch<float, 256>(q, k, v, km, o, lo, B, H, T_, S, D, scale, causal, st);
 }

@@ -1,17 +1,17 @@
-// Flash-attention forward (kernel K1) for Hopper in bf16, on the warpgroup
-// MMA (wgmma).
+// Flash-attention forward (kernel K1) for Hopper in bf16 and f16, on the
+// warpgroup MMA (wgmma).
 //
 // Replaces deeplearning4j_tpu/ops/attention.py::_flash_kernel (launched by
-// _flash_forward) for bf16 inputs; f32 inputs take the SIMT kernel in
+// _flash_forward) for bf16 and f16 inputs; f32 inputs take the SIMT kernel in
 // flash_fwd.cu.  Same function: O = softmax(q.k^T * scale + bias) . v and the
 // per-row log-sum-exp, with an optional causal mask and an optional [B, S]
-// key mask (1 = attend), f32 statistics, p rounded to bf16 before the P.V
-// product (the reference's .astype, and flash_forward_plain), the row sum
+// key mask (1 = attend), f32 statistics, p rounded to the input type before
+// the P.V product (the reference's .astype, and flash_forward_plain), the row sum
 // clamped at 1e-30, and the LSE sentinel +1e30 for rows that never saw a
 // live key (their O is 0: a blocked key adds nothing to any row here).
 //
-// Bound on H100: 4*B*H*T*S*D flops (about half when causal) on the bf16
-// tensor cores (989 TFLOP/s) against ~2*(T+S)*B*H*D bf16 elements of traffic
+// Bound on H100: 4*B*H*T*S*D flops (about half when causal) on the bf16/f16
+// tensor cores (989 TFLOP/s) against ~2*(T+S)*B*H*D 2-byte elements of traffic
 // at 3.35 TB/s; at D 64 and T 1024 the two are within a small factor, so the
 // work is keeping the tensor cores fed.  Only wgmma reaches their full rate
 // (with mma.sync each warp reads K and V from shared memory for its own 16
@@ -39,8 +39,8 @@
 //     exponential would make a divergent region of every element); the
 //     maxima are reduced as trees and over the 4 lanes that share a row by
 //     shuffles, the sum kept per lane and reduced once at the end;
-//   * p, rounded to bf16, is the register A operand of O += P.V, with V read
-//     MN-major: nothing of p goes through shared memory;
+//   * p, rounded to the input type, is the register A operand of O += P.V,
+//     with V read MN-major: nothing of p goes through shared memory;
 //   * the next tile's S = Q.K^T is issued before this tile's P.V, and its
 //     softmax runs while P.V is in flight (two wgmma batches: S_next, then
 //     P.V; wait<1> retires S_next).  O is rescaled by the new max only once
@@ -51,11 +51,18 @@
 //     are computed only for tiles that need them, and the grid walks the
 //     heaviest (highest) query tiles first.
 // Four blocks share an SM at D 64 (two at D 128) and fill each other's
-// gaps.  Measured slower on the card (scripts/flash_fwd_tc_variants.py):
+// gaps.  At head widths 129-256 (DP 256) the same body runs with O as one
+// m64n256 accumulator (128 registers a thread), S contracted over 16 k16
+// slices and P.V as one m64n256k16 per 16 keys; Q and the two-slot K and V
+// rings take 161 KB of shared memory, so one block an SM.  A 256-wide tile is
+// four 64-column panels, each one TMA box of the {64, rows, 1} map (a panel
+// wholly past D is zero-filled by the copy engine).  The element type (bf16
+// or f16) changes only the instruction's type, the packing of p and the
+// tensor maps.  Measured slower on the card (scripts/flash_fwd_tc_variants.py):
 // two consumer warpgroups a block on one ring (WG = 2) and three-slot
 // rings, each of which costs a block an SM, and the grid in other orders.
-// TMA zero-fills rows past T or S and columns past D (D <= 128 padded to 64
-// or 128).  Where TMA cannot address a tensor (a row of D that is not a
+// TMA zero-fills rows past T or S and columns past D (D <= 256 padded to 64,
+// 128 or 256).  Where TMA cannot address a tensor (a row of D that is not a
 // multiple of 16 bytes, a base that is not 16-byte aligned), the block's
 // threads write the same swizzled tiles with plain loads and stores: routed
 // by shape in the entry, never as a fallback on failure.  No atomics: a
@@ -69,6 +76,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int BM = 64;           // query rows a warpgroup owns, 16 a warp
 constexpr int BN = 64;           // keys a streamed K or V tile
@@ -86,17 +94,17 @@ template <int DP> struct Cfg {
   // Q (a tile a warpgroup); the K and V slots
   static constexpr size_t SMEM = 1024 + (size_t)WG * Q_TX + (size_t)NS * 2 * KV_TX;
   // blocks an SM holds at least (the registers a thread may take follow)
-  static constexpr int MIN_BLOCKS = DP <= 64 ? 4 / WG : 2 / WG;
+  static constexpr int MIN_BLOCKS = DP <= 64 ? 4 / WG : DP <= 128 ? 2 / WG : 1;
 };
 
-template <int DP>
+template <int DP, typename E>
 __global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MIN_BLOCKS)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const int* __restrict__ kmask,
-                       bf16* __restrict__ o, float* __restrict__ lse, int H, int T_, int S,
+                       const E* __restrict__ q, const E* __restrict__ k,
+                       const E* __restrict__ v, const int* __restrict__ kmask,
+                       E* __restrict__ o, float* __restrict__ lse, int H, int T_, int S,
                        int D, float scale, int causal, int tma) {
   constexpr int WG = Cfg<DP>::WG, NS = Cfg<DP>::NS, NTH = Cfg<DP>::NTH, BQ = Cfg<DP>::BQ;
   constexpr int KC = DP / 16;    // k16 slices of S (over d)
@@ -107,16 +115,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __shared__ __align__(8) uint64_t bars[2 * NS + 1];
   uint64_t* kbar = bars;
   uint64_t* vbar = bars + NS;
-  bf16* Qs = reinterpret_cast<bf16*>(align1024(smem_raw));   // [WG][BM, DP] the queries
-  bf16* Ks = Qs + WG * BM * DP;                     // [NS][BN, DP] the streamed keys
-  bf16* Vs = Ks + NS * BN * DP;                     // [NS][BN, DP] their values
+  E* Qs = reinterpret_cast<E*>(align1024(smem_raw));   // [WG][BM, DP] the queries
+  E* Ks = Qs + WG * BM * DP;                        // [NS][BN, DP] the streamed keys
+  E* Vs = Ks + NS * BN * DP;                        // [NS][BN, DP] their values
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2, gq = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
   const int qw = q0 + 16 * warp;                     // this warp's first query
-  const bf16* Qw = Qs + wg * BM * DP;                // this warpgroup's queries
+  const E* Qw = Qs + wg * BM * DP;                   // this warpgroup's queries
   const size_t qoff = (size_t)bh * T_ * D, koff = (size_t)bh * S * D;
   const int* km = kmask ? kmask + (size_t)(bh / H) * S : nullptr;
 
@@ -131,8 +139,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // rows of key tile j of k (or v) into slot j % NS of Ks (or Vs), arriving
   // on that slot's barrier
-  auto issue = [&](const CUtensorMap* map, const bf16* src, bf16* ring, uint64_t* bar, int j) {
-    bf16* dst = ring + (j % NS) * BN * DP;
+  auto issue = [&](const CUtensorMap* map, const E* src, E* ring, uint64_t* bar, int j) {
+    E* dst = ring + (j % NS) * BN * DP;
     if (tma) {
       if (tid == 0) {
         mbar_arrive_tx(&bar[j % NS], Cfg<DP>::KV_TX);
@@ -176,18 +184,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     #pragma unroll
     for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
   float s[NK][4];                    // S, then p, of one key tile
-  unsigned pa[BN / 16][4];           // p rounded to bf16: the A operands of O += P . V
+  unsigned pa[BN / 16][4];           // p rounded to E: the A operands of O += P . V
 
   // S = Q . K^T of key tile j, one wgmma batch, committed
   auto scores = [&](int j) {
-    const bf16* Kt = Ks + (j % NS) * BN * DP;
+    const E* Kt = Ks + (j % NS) * BN * DP;
     #pragma unroll
     for (int c = 0; c < KC; ++c) wgmma_ss(s, kmajor_desc(Qw, BM, c), kmajor_desc(Kt, BN, c), c);
     wgmma_commit();
   };
   // O += P . V of key tile j, one wgmma batch, committed
   auto pv = [&](int j) {
-    const bf16* Vt = Vs + (j % NS) * BN * DP;
+    const E* Vt = Vs + (j % NS) * BN * DP;
     #pragma unroll
     for (int c = 0; c < BN / 16; ++c) wgmma_rs(acc, pa[c], mnmajor_desc(Vt, BN, c), 1);
     wgmma_commit();
@@ -268,7 +276,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   };
   auto to_a = [&]() {
     #pragma unroll
-    for (int c = 0; c < BN / 16; ++c) c_to_a(pa[c], s[2 * c], s[2 * c + 1]);
+    for (int c = 0; c < BN / 16; ++c) c_to_a<E>(pa[c], s[2 * c], s[2 * c + 1]);
   };
 
   // key tile 0's scores; then its K slot takes tile NS
@@ -336,46 +344,62 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int DP>
+template <int DP, typename E>
 int launch(const void* q, const void* k, const void* v, const int* kmask, void* o,
            float* lse, int B, int H, int T_, int S, int D, float scale, int causal,
            cudaStream_t stream) {
   constexpr size_t smem = Cfg<DP>::SMEM;
   // once per template instance (a thread-safe static initialiser)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_wgmma_kernel<DP, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const int BH = B * H;
   const bool tma = tma_route({q, k, v}, D);
   CUtensorMap mq{}, mk{}, mv{};
   if (tma) {
     int rc;
-    if ((rc = map_rows(&mq, q, BH, T_, D, BM)) || (rc = map_rows(&mk, k, BH, S, D, BN)) ||
-        (rc = map_rows(&mv, v, BH, S, D, BN)))
+    if ((rc = map_rows<E>(&mq, q, BH, T_, D, BM)) || (rc = map_rows<E>(&mk, k, BH, S, D, BN)) ||
+        (rc = map_rows<E>(&mv, v, BH, S, D, BN)))
       return rc;
   }
   const dim3 grid(BH, (T_ + Cfg<DP>::BQ - 1) / Cfg<DP>::BQ);
-  flash_fwd_wgmma_kernel<DP><<<grid, Cfg<DP>::NTH, smem, stream>>>(
-      mq, mk, mv, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), kmask, static_cast<bf16*>(o), lse, H, T_, S, D, scale,
+  flash_fwd_wgmma_kernel<DP, E><<<grid, Cfg<DP>::NTH, smem, stream>>>(
+      mq, mk, mv, static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), kmask, static_cast<E*>(o), lse, H, T_, S, D, scale,
       causal, (int)tma);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// q [B,H,T,D], k/v [B,H,S,D] contiguous bf16; kmask [B,S] int32 or null;
-// o like q; lse [B,H,T] f32.  Returns 0, a CUDA error code (or the driver's,
-// from encoding a tensor map), or -1 for arguments the kernel does not take.
-extern "C" int dl4j_flash_fwd_tc(const void* q, const void* k, const void* v,
-                                 const void* kmask, void* o, void* lse, int B, int H,
-                                 int T_, int S, int D, float scale, int causal,
-                                 void* stream) {
-  if (B < 1 || H < 1 || T_ < 1 || S < 1 || D < 1 || D > 128) return -1;
+template <typename E>
+int forward(const void* q, const void* k, const void* v, const void* kmask, void* o,
+            void* lse, int B, int H, int T_, int S, int D, float scale, int causal,
+            void* stream) {
+  if (B < 1 || H < 1 || T_ < 1 || S < 1 || D < 1 || D > 256) return -1;
   if ((long long)B * H > 2147483647LL || (T_ + BM - 1) / BM > 65535) return -1;
   const int* km = static_cast<const int*>(kmask);
   float* lo = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? launch<64>(q, k, v, km, o, lo, B, H, T_, S, D, scale, causal, st)
-                 : launch<128>(q, k, v, km, o, lo, B, H, T_, S, D, scale, causal, st);
+  if (D <= 64) return launch<64, E>(q, k, v, km, o, lo, B, H, T_, S, D, scale, causal, st);
+  if (D <= 128) return launch<128, E>(q, k, v, km, o, lo, B, H, T_, S, D, scale, causal, st);
+  return launch<256, E>(q, k, v, km, o, lo, B, H, T_, S, D, scale, causal, st);
+}
+
+}  // namespace
+
+// q [B,H,T,D], k/v [B,H,S,D] contiguous bf16 (dl4j_flash_fwd_tc) or f16
+// (dl4j_flash_fwd_tc_f16), D <= 256; kmask [B,S] int32 or null; o like q;
+// lse [B,H,T] f32.  Returns 0, a CUDA error code (or the driver's, from
+// encoding a tensor map), or -1 for arguments the kernel does not take.
+extern "C" int dl4j_flash_fwd_tc(const void* q, const void* k, const void* v,
+                                 const void* kmask, void* o, void* lse, int B, int H,
+                                 int T_, int S, int D, float scale, int causal,
+                                 void* stream) {
+  return forward<bf16>(q, k, v, kmask, o, lse, B, H, T_, S, D, scale, causal, stream);
+}
+
+extern "C" int dl4j_flash_fwd_tc_f16(const void* q, const void* k, const void* v,
+                                     const void* kmask, void* o, void* lse, int B, int H,
+                                     int T_, int S, int D, float scale, int causal,
+                                     void* stream) {
+  return forward<f16>(q, k, v, kmask, o, lse, B, H, T_, S, D, scale, causal, stream);
 }

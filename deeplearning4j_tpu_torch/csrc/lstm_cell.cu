@@ -15,7 +15,8 @@
 //        [T, mb, n]: K5b's per-step slices are contiguous) and the last (h, c);
 //   K5b  the closed-form backward (_bwd_math): the gates recomputed from (z, c),
 //        then dz [mb, 4n] and dc [mb, n] from the cotangents dh, dc'.
-// Inputs and outputs are float32 or bfloat16 (one dtype); the math runs in f32.
+// Inputs and outputs are float32, bfloat16 or float16 (one dtype); the math
+// runs in f32 and each stored value is rounded to the dtype.
 // The cell's products and sums are written with __fmul_rn / __fadd_rn /
 // __fsub_rn in the plain version's order, so nvcc cannot contract them into
 // FMAs: in f32 the cell rounds as the plain PyTorch version's separate ops do,
@@ -56,6 +57,7 @@
 // memory.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -71,6 +73,8 @@ __device__ __forceinline__ void put(float* p, long long i, float v) { p[i] = v; 
 __device__ __forceinline__ void put(__nv_bfloat16* p, long long i, float v) {
   p[i] = __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ float get(const __half* p, long long i) { return __half2float(p[i]); }
+__device__ __forceinline__ void put(__half* p, long long i, float v) { p[i] = __float2half_rn(v); }
 
 // PyTorch's CUDA sigmoid: 1 / (1 + exp(-x)) in f32
 __device__ __forceinline__ float sigm(float x) {
@@ -106,11 +110,13 @@ struct SeqArgs {
   int mb, T, n, n_pad, reverse, row_tiles, tiles, vec;
 };
 
-// a value as the plain version stores it: bf16 rounds, f32 is exact
+// a value as the plain version stores it: bf16 and f16 round, f32 is exact
 template <typename T>
 __device__ __forceinline__ float rnd(float v) {
   if constexpr (std::is_same<T, float>::value)
     return v;
+  else if constexpr (std::is_same<T, __half>::value)
+    return __half2float(__float2half_rn(v));
   else
     return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -120,6 +126,9 @@ __device__ __forceinline__ float get_cg(const float* p, long long i) { return __
 __device__ __forceinline__ float get_cg(const __nv_bfloat16* p, long long i) {
   return __bfloat162float(
       __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p) + i)));
+}
+__device__ __forceinline__ float get_cg(const __half* p, long long i) {
+  return __half2float(__ushort_as_half(__ldcg(reinterpret_cast<const unsigned short*>(p) + i)));
 }
 
 __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
@@ -148,7 +157,7 @@ template <typename T>
 __device__ __forceinline__ void stage_h(float* h_s, const T* h, long long row_stride, int r0,
                                         int k0, int klen, const SeqArgs& a) {
   if (a.vec) {  // 16-byte rows, n a multiple of their width: 16 bytes a load
-    constexpr int kW = 16 / sizeof(T);  // 4 floats or 8 bf16
+    constexpr int kW = 16 / sizeof(T);  // 4 floats, or 8 bf16 or f16
     for (int i = threadIdx.x; i < kTileRows * kChunk / kW; i += kSeqThreads) {
       const int r = i / (kChunk / kW), k = (i % (kChunk / kW)) * kW;
       if (k >= klen) continue;
@@ -158,6 +167,14 @@ __device__ __forceinline__ void stage_h(float* h_s, const T* h, long long row_st
       float* dst = h_s + r * kHStride + k;
       if constexpr (std::is_same<T, float>::value) {
         *reinterpret_cast<uint4*>(dst) = v;
+      } else if constexpr (std::is_same<T, __half>::value) {
+        const __half2* w = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 f = __half22float2(w[q]);
+          dst[2 * q] = f.x;
+          dst[2 * q + 1] = f.y;
+        }
       } else {
         const unsigned w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
@@ -441,30 +458,33 @@ int launch_bwd(const void* z, const void* c, const void* dh, const void* dcn, vo
 
 // K5a.  zx [mb, T, 4n], rw [n, 4n], b [4n], h0, c0 [mb, n], mask [mb, T] f32 or
 // null -> hs [mb, T, n], zs [T, mb, 4n], cs [T, mb, n], h_out, c_out [mb, n];
-// contiguous rows, f32 (bf16 = 0) or bf16 (bf16 = 1); arrived: one zeroed
+// contiguous rows, f32 (dtype 0), bf16 (dtype 1) or f16 (dtype 2); arrived: one zeroed
 // unsigned.  plan, when not null, receives the grid and whether RW stayed
 // resident.  Returns 0, a CUDA error code, or -1 for arguments it does not take.
 extern "C" int dl4j_lstm_seq_fwd(const void* zx, const void* rw, const void* b, const void* h0,
                                  const void* c0, const void* mask, void* hs, void* zs, void* cs,
                                  void* h_out, void* c_out, void* arrived, int mb, int T, int n,
-                                 int reverse, int bf16, int* plan, void* stream) {
-  if (mb < 1 || T < 1 || n < 1 || arrived == nullptr) return -1;
+                                 int reverse, int dtype, int* plan, void* stream) {
+  if (mb < 1 || T < 1 || n < 1 || arrived == nullptr || dtype < 0 || dtype > 2) return -1;
   SeqArgs a{zx, rw, b, h0, c0, static_cast<const float*>(mask), hs, zs, cs, h_out, c_out,
             static_cast<unsigned*>(arrived), mb, T, n, (n + kKPad - 1) / kKPad * kKPad,
             reverse != 0, (mb + kTileRows - 1) / kTileRows, 0, 0};
   a.tiles = a.row_tiles * ((n + kTileUnits - 1) / kTileUnits);
-  a.vec = n % (bf16 ? 8 : 4) == 0 && reinterpret_cast<uintptr_t>(h0) % 16 == 0 &&
+  a.vec = n % (dtype ? 8 : 4) == 0 && reinterpret_cast<uintptr_t>(h0) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(hs) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_seq_fwd<__nv_bfloat16>(a, plan, s) : launch_seq_fwd<float>(a, plan, s);
+  if (dtype == 1) return launch_seq_fwd<__nv_bfloat16>(a, plan, s);
+  if (dtype == 2) return launch_seq_fwd<__half>(a, plan, s);
+  return launch_seq_fwd<float>(a, plan, s);
 }
 
 // z [mb, 4n], c, dh, dcn [mb, n] -> dz_out [mb, 4n], dc_out [mb, n]; as above.
 extern "C" int dl4j_lstm_cell_bwd(const void* z, const void* c, const void* dh,
                                   const void* dcn, void* dz_out, void* dc_out, int mb, int n,
-                                  int bf16, void* stream) {
-  if (mb < 1 || n < 1) return -1;
+                                  int dtype, void* stream) {
+  if (mb < 1 || n < 1 || dtype < 0 || dtype > 2) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd<__nv_bfloat16>(z, c, dh, dcn, dz_out, dc_out, mb, n, s)
-              : launch_bwd<float>(z, c, dh, dcn, dz_out, dc_out, mb, n, s);
+  if (dtype == 1) return launch_bwd<__nv_bfloat16>(z, c, dh, dcn, dz_out, dc_out, mb, n, s);
+  if (dtype == 2) return launch_bwd<__half>(z, c, dh, dcn, dz_out, dc_out, mb, n, s);
+  return launch_bwd<float>(z, c, dh, dcn, dz_out, dc_out, mb, n, s);
 }

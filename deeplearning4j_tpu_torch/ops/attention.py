@@ -7,7 +7,7 @@ forward and backward (mirrors ``deeplearning4j_tpu/ops/attention.py``).
 Which kernel serves which dtype:
 
 ==========  ==================================  ============================
-kernel      float32                             bfloat16
+kernel      float32                             bfloat16 and float16
 ==========  ==================================  ============================
 K1          ``csrc/flash_fwd.cu`` (SIMT)        ``csrc/flash_fwd_tc.cu``
                                                 (tensor cores, ``wgmma``
@@ -19,6 +19,13 @@ K3          ``csrc/flash_bwd.cu`` (SIMT)        ``csrc/flash_bwd_tc.cu``
                                                 (tensor cores, ``wgmma``
                                                 fed by TMA)
 ==========  ==================================  ============================
+
+Each kernel has an instance for head widths up to 64, up to 128 and up to
+256 (``head_width_bucket``), the head zero-padded to it; a wider head
+raises.  Besides ``launches``, each of ``flash_forward_cuda``,
+``flash_bwd_dkdv_cuda`` and ``flash_bwd_dq_cuda`` counts its launches by
+instance in ``instances`` (keys ``"<dtype>_d<bucket>"``, e.g.
+``"float16_d256"``); a CUDA graph's replay adds to ``launches`` only.
 
 For a CUDA tensor each wrapper launches its kernel; for a CPU tensor, and
 only then, it runs its plain PyTorch version (``flash_forward_plain``,
@@ -40,6 +47,7 @@ Layout convention: [batch, heads, seq, head_dim] (BHTD).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -49,6 +57,12 @@ import torch
 
 NEG_INF = -1e30   # large-finite: keeps masked rows NaN-free
 LSE_EMPTY = 1e30  # LSE of a row with no live key
+#: the widest head the kernels take
+MAX_HEAD_DIM = 256
+#: the dtypes the flash kernels take: f32 on the SIMT kernels, bf16 and f16
+#: on the tensor cores
+FLASH_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+TC_DTYPES = (torch.bfloat16, torch.float16)
 
 Tensor = torch.Tensor
 
@@ -132,8 +146,8 @@ def _check(q: Tensor, k: Tensor, v: Tensor, kmask: Optional[Tensor]):
     if q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree "
                          "on batch, heads or head_dim")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash attention takes float32 or bfloat16 q/k/v of "
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in FLASH_DTYPES:
+        raise TypeError(f"flash attention takes float32, bfloat16 or float16 q/k/v of "
                         f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if kmask is not None and tuple(kmask.shape) != (q.shape[0], k.shape[2]):
         raise ValueError(f"kmask must be [B, S] = {(q.shape[0], k.shape[2])}, "
@@ -182,14 +196,37 @@ def _flash_fn():
 
 
 @functools.lru_cache(maxsize=None)
-def _flash_tc_fn():
-    """``dl4j_flash_fwd_tc`` (bf16, tensor cores) from the built library,
-    its C signature set once."""
+def _flash_tc_fn(f16: bool = False):
+    """``dl4j_flash_fwd_tc`` (bf16) or ``dl4j_flash_fwd_tc_f16`` (f16), the
+    tensor-core entries, from the built library, the C signature set once."""
     from ..utils import cuda_build
 
-    fn = cuda_build.load("flash_fwd_tc").dl4j_flash_fwd_tc
+    lib = cuda_build.load("flash_fwd_tc")
+    fn = lib.dl4j_flash_fwd_tc_f16 if f16 else lib.dl4j_flash_fwd_tc
     fn.restype, fn.argtypes = ctypes.c_int, _FWD_ARGTYPES
     return fn
+
+
+def head_width_bucket(D: int) -> int:
+    """The kernel instance a head width takes: 64, 128 or 256; raises
+    above ``MAX_HEAD_DIM``."""
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"the flash kernels support head_dim <= {MAX_HEAD_DIM}, got {D}")
+    return 64 if D <= 64 else 128 if D <= 128 else 256
+
+
+def _check_kernel(q: Tensor, k: Tensor, v: Tensor, kmask: Optional[Tensor]) -> None:
+    """``_check``, and a head no wider than the kernels take: the CUDA
+    wrappers call it before anything is built or launched."""
+    _check(q, k, v, kmask)
+    head_width_bucket(q.shape[3])
+
+
+def _count_instance(wrapper, q: Tensor) -> None:
+    """One launch of ``wrapper``'s kernel at q's dtype and head-width
+    bucket, in ``wrapper.instances``."""
+    name = str(q.dtype).replace("torch.", "")
+    wrapper.instances[f"{name}_d{head_width_bucket(q.shape[3])}"] += 1
 
 
 def _launch_forward(fn, q: Tensor, k: Tensor, v: Tensor, kmask: Optional[Tensor],
@@ -201,8 +238,6 @@ def _launch_forward(fn, q: Tensor, k: Tensor, v: Tensor, kmask: Optional[Tensor]
         raise ValueError("flash_forward_cuda needs q, k, v on one CUDA device")
     B, H, T, D = q.shape
     S = k.shape[2]
-    if D > 128:
-        raise ValueError(f"the flash kernel supports head_dim <= 128, got {D}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     km = None
     if kmask is not None:
@@ -222,11 +257,14 @@ def _launch_forward(fn, q: Tensor, k: Tensor, v: Tensor, kmask: Optional[Tensor]
 def flash_forward_tc_cuda(q: Tensor, k: Tensor, v: Tensor,
                           kmask: Optional[Tensor], causal: bool,
                           scale: float) -> Tuple[Tensor, Tensor]:
-    """Launch K1's bf16 tensor-core kernel (``csrc/flash_fwd_tc.cu``) on
-    CUDA tensors; raises for any other dtype."""
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the tensor-core flash forward takes bfloat16, got {q.dtype}")
-    out = _launch_forward(_flash_tc_fn(), q, k, v, kmask, causal, scale)
+    """Launch K1's bf16 / f16 tensor-core kernel (``csrc/flash_fwd_tc.cu``)
+    on CUDA tensors; raises for any other dtype."""
+    _check_kernel(q, k, v, kmask)
+    if q.dtype not in TC_DTYPES:
+        raise TypeError(f"the tensor-core flash forward takes bfloat16 or float16, "
+                        f"got {q.dtype}")
+    out = _launch_forward(_flash_tc_fn(q.dtype == torch.float16), q, k, v, kmask, causal,
+                          scale)
     # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
     flash_forward_tc_cuda.launches += 1
     return out
@@ -238,22 +276,24 @@ flash_forward_tc_cuda.launches = 0
 def flash_forward_cuda(q: Tensor, k: Tensor, v: Tensor,
                        kmask: Optional[Tensor], causal: bool,
                        scale: float) -> Tuple[Tensor, Tensor]:
-    """Launch K1 on CUDA tensors: bf16 takes the tensor-core kernel
-    (``flash_forward_tc_cuda``), f32 the SIMT kernel
-    (``csrc/flash_fwd.cu``).  ``launches`` counts both.  Raises for
-    anything the kernels do not take (D > 128, other dtypes, tensors on
-    different devices)."""
-    _check(q, k, v, kmask)
-    if q.dtype == torch.bfloat16:
+    """Launch K1 on CUDA tensors: bf16 and f16 take the tensor-core
+    kernel (``flash_forward_tc_cuda``), f32 the SIMT kernel
+    (``csrc/flash_fwd.cu``).  ``launches`` counts both, ``instances`` by
+    dtype and head width.  Raises for anything the kernels do not take
+    (D > 256, other dtypes, tensors on different devices)."""
+    _check_kernel(q, k, v, kmask)
+    if q.dtype in TC_DTYPES:
         out = flash_forward_tc_cuda(q, k, v, kmask, causal, scale)
     else:
         out = _launch_forward(_flash_fn(), q, k, v, kmask, causal, scale)
     # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
     flash_forward_cuda.launches += 1
+    _count_instance(flash_forward_cuda, q)
     return out
 
 
 flash_forward_cuda.launches = 0
+flash_forward_cuda.instances = collections.Counter()
 
 
 def flash_forward(q: Tensor, k: Tensor, v: Tensor,
@@ -347,9 +387,10 @@ def _bwd_fns():
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_tc_fns():
-    """K2's and K3's bf16 tensor-core entries (``csrc/flash_bwd_tc.cu``)."""
-    return _bwd_entries("flash_bwd_tc", "_tc")
+def _bwd_tc_fns(f16: bool = False):
+    """K2's and K3's bf16 (or, with ``f16``, f16) tensor-core entries
+    (``csrc/flash_bwd_tc.cu``)."""
+    return _bwd_entries("flash_bwd_tc", "_tc_f16" if f16 else "_tc")
 
 
 def _bwd_args(q, k, v, g, lse, delta, kmask):
@@ -361,8 +402,6 @@ def _bwd_args(q, k, v, g, lse, delta, kmask):
         raise ValueError(f"g must match q {tuple(q.shape)} {q.dtype}, "
                          f"got {tuple(g.shape)} {g.dtype}")
     B, H, T, D = q.shape
-    if D > 128:
-        raise ValueError(f"the flash kernels support head_dim <= 128, got {D}")
     for name, t in (("lse", lse), ("delta", delta)):
         if tuple(t.shape) != (B, H, T) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 [B,H,T] = {(B, H, T)}")
@@ -390,11 +429,14 @@ def _launch_dkdv(fn, q, k, v, g, lse, delta, kmask, causal: bool,
 
 def flash_bwd_dkdv_tc_cuda(q, k, v, g, lse, delta, kmask, causal: bool,
                            scale: float) -> Tuple[Tensor, Tensor]:
-    """Launch K2's bf16 tensor-core kernel (``csrc/flash_bwd_tc.cu``): →
-    (dk, dv) [B,H,S,D]; raises for any other dtype."""
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the tensor-core flash dK/dV takes bfloat16, got {q.dtype}")
-    out = _launch_dkdv(_bwd_tc_fns()[0], q, k, v, g, lse, delta, kmask, causal, scale)
+    """Launch K2's bf16 / f16 tensor-core kernel (``csrc/flash_bwd_tc.cu``):
+    → (dk, dv) [B,H,S,D]; raises for any other dtype."""
+    _check_kernel(q, k, v, kmask)
+    if q.dtype not in TC_DTYPES:
+        raise TypeError(f"the tensor-core flash dK/dV takes bfloat16 or float16, "
+                        f"got {q.dtype}")
+    out = _launch_dkdv(_bwd_tc_fns(q.dtype == torch.float16)[0], q, k, v, g, lse, delta,
+                       kmask, causal, scale)
     # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
     flash_bwd_dkdv_tc_cuda.launches += 1
     return out
@@ -405,20 +447,23 @@ flash_bwd_dkdv_tc_cuda.launches = 0
 
 def flash_bwd_dkdv_cuda(q, k, v, g, lse, delta, kmask, causal: bool,
                         scale: float) -> Tuple[Tensor, Tensor]:
-    """Launch K2: → (dk, dv) [B,H,S,D].  bf16 takes the tensor-core kernel
-    (``flash_bwd_dkdv_tc_cuda``), f32 the SIMT kernel
-    (``csrc/flash_bwd.cu``); ``launches`` counts both."""
-    _check(q, k, v, kmask)
-    if q.dtype == torch.bfloat16:
+    """Launch K2: → (dk, dv) [B,H,S,D].  bf16 and f16 take the
+    tensor-core kernel (``flash_bwd_dkdv_tc_cuda``), f32 the SIMT kernel
+    (``csrc/flash_bwd.cu``); ``launches`` counts both, ``instances`` by
+    dtype and head width."""
+    _check_kernel(q, k, v, kmask)
+    if q.dtype in TC_DTYPES:
         out = flash_bwd_dkdv_tc_cuda(q, k, v, g, lse, delta, kmask, causal, scale)
     else:
         out = _launch_dkdv(_bwd_fns()[0], q, k, v, g, lse, delta, kmask, causal, scale)
     # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
     flash_bwd_dkdv_cuda.launches += 1
+    _count_instance(flash_bwd_dkdv_cuda, q)
     return out
 
 
 flash_bwd_dkdv_cuda.launches = 0
+flash_bwd_dkdv_cuda.instances = collections.Counter()
 
 
 def _launch_dq(fn, q, k, v, g, lse, delta, kmask, causal: bool, scale: float) -> Tensor:
@@ -439,11 +484,14 @@ def _launch_dq(fn, q, k, v, g, lse, delta, kmask, causal: bool, scale: float) ->
 
 def flash_bwd_dq_tc_cuda(q, k, v, g, lse, delta, kmask, causal: bool,
                          scale: float) -> Tensor:
-    """Launch K3's bf16 tensor-core kernel (``csrc/flash_bwd_tc.cu``): →
-    dq [B,H,T,D]; raises for any other dtype."""
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the tensor-core flash dQ takes bfloat16, got {q.dtype}")
-    dq = _launch_dq(_bwd_tc_fns()[1], q, k, v, g, lse, delta, kmask, causal, scale)
+    """Launch K3's bf16 / f16 tensor-core kernel (``csrc/flash_bwd_tc.cu``):
+    → dq [B,H,T,D]; raises for any other dtype."""
+    _check_kernel(q, k, v, kmask)
+    if q.dtype not in TC_DTYPES:
+        raise TypeError(f"the tensor-core flash dQ takes bfloat16 or float16, "
+                        f"got {q.dtype}")
+    dq = _launch_dq(_bwd_tc_fns(q.dtype == torch.float16)[1], q, k, v, g, lse, delta, kmask,
+                    causal, scale)
     # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
     flash_bwd_dq_tc_cuda.launches += 1
     return dq
@@ -454,20 +502,23 @@ flash_bwd_dq_tc_cuda.launches = 0
 
 def flash_bwd_dq_cuda(q, k, v, g, lse, delta, kmask, causal: bool,
                       scale: float) -> Tensor:
-    """Launch K3: → dq [B,H,T,D].  bf16 takes the tensor-core kernel
-    (``flash_bwd_dq_tc_cuda``), f32 the SIMT kernel
-    (``csrc/flash_bwd.cu``); ``launches`` counts both."""
-    _check(q, k, v, kmask)
-    if q.dtype == torch.bfloat16:
+    """Launch K3: → dq [B,H,T,D].  bf16 and f16 take the tensor-core
+    kernel (``flash_bwd_dq_tc_cuda``), f32 the SIMT kernel
+    (``csrc/flash_bwd.cu``); ``launches`` counts both, ``instances`` by
+    dtype and head width."""
+    _check_kernel(q, k, v, kmask)
+    if q.dtype in TC_DTYPES:
         dq = flash_bwd_dq_tc_cuda(q, k, v, g, lse, delta, kmask, causal, scale)
     else:
         dq = _launch_dq(_bwd_fns()[1], q, k, v, g, lse, delta, kmask, causal, scale)
     # graftcheck: disable=GC103 (capture-time launch counter: a capturer reads what the capture added, takes it back and adds it at each replay)
     flash_bwd_dq_cuda.launches += 1
+    _count_instance(flash_bwd_dq_cuda, q)
     return dq
 
 
 flash_bwd_dq_cuda.launches = 0
+flash_bwd_dq_cuda.instances = collections.Counter()
 
 
 def flash_backward(q: Tensor, k: Tensor, v: Tensor, kmask: Optional[Tensor],

@@ -35,6 +35,7 @@ the query rows in chunks that keep each transient under
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import json
@@ -448,20 +449,21 @@ def det_attention_cuda(q: Tensor, k: Tensor, v: Tensor, bias: Tensor) -> Tensor:
     may be strided views (the gathered pages, the projections split into
     heads) with a unit last stride; ``bias`` is read through its
     broadcast strides.  A head width that is not a multiple of 4 is
-    zero-padded (exact: the padding adds 0·0 to each score).  Raises for
-    anything the kernel does not take."""
+    zero-padded (exact: the padding adds 0·0 to each score).  Head widths
+    up to 256 (instances at 64, 128 and 256: ``instances`` counts launches
+    by ``"d<bucket>"``).  Raises for anything the kernel does not take."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise ValueError(f"det_attention wants q [B,H,Tq,d], k/v [B,H,L,d]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if not all(t.dtype == torch.float32 for t in (q, k, v, bias)):
         raise TypeError("the det_attention kernel takes float32 q, k, v and bias")
-    if not all(t.is_cuda and t.device == q.device for t in (k, v, bias)) or not q.is_cuda:
-        raise ValueError("det_attention_cuda needs q, k, v, bias on one CUDA device")
     B, H, Tq, d = q.shape
     L = k.shape[2]
-    if d > 128:
-        raise ValueError(f"the det_attention kernel supports head_dim <= 128, got {d}")
+    if d > 256:
+        raise ValueError(f"the det_attention kernel supports head_dim <= 256, got {d}")
+    if not all(t.is_cuda and t.device == q.device for t in (k, v, bias)) or not q.is_cuda:
+        raise ValueError("det_attention_cuda needs q, k, v, bias on one CUDA device")
     scale = 1.0 / math.sqrt(d)
     bias = bias.expand(B, H, Tq, L)
     if d % 4:
@@ -488,10 +490,12 @@ def det_attention_cuda(q: Tensor, k: Tensor, v: Tensor, bias: Tensor) -> Tensor:
     if rc != 0:
         raise RuntimeError(f"det_attention kernel launch failed (code {rc})")
     det_attention_cuda.launches += 1
+    det_attention_cuda.instances[f"d{64 if d <= 64 else 128 if d <= 128 else 256}"] += 1
     return out if dk == d else out[..., :d]
 
 
 det_attention_cuda.launches = 0
+det_attention_cuda.instances = collections.Counter()
 
 
 def det_attention(q: Tensor, k: Tensor, v: Tensor, bias: Tensor) -> Tensor:

@@ -21,7 +21,7 @@ Dispatch (``lstm_sequence``), by the tensor's device and dtype:
     ``lstm_sequence_plain``, the per-step loop differentiated by autograd
     (the reference's default, and its exact float64 path: its
     ``_use_pallas`` never sends float64 to the kernel either);
-  - a float32 or bfloat16 CUDA tensor: ``LSTMSequence``, whose forward is
+  - a float32, bfloat16 or float16 CUDA tensor: ``LSTMSequence``, whose forward is
     K5a and whose backward is one reverse loop of K5b and the dz·RWᵀ
     product per step, then dRW, db and dzx each in one call over all
     steps.  Anything else the kernels do not take raises.
@@ -137,21 +137,24 @@ def _fns():
     return fwd, bwd
 
 
+#: the kernels' dtype codes (the C entries' ``dtype`` argument)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
 def _check_tensors(what: str, ts) -> None:
-    """One CUDA device, float32 or bfloat16 throughout, contiguous."""
+    """One CUDA device, float32, bfloat16 or float16 throughout, contiguous."""
     if not all(t.is_cuda and t.device == ts[0].device for t in ts):
         raise ValueError(f"the {what} needs every tensor on one CUDA device")
-    if ts[0].dtype not in (torch.float32, torch.bfloat16) or any(
-            t.dtype != ts[0].dtype for t in ts):
-        raise TypeError(f"the {what} takes float32 or bfloat16 tensors of one dtype, "
-                        f"got {[str(t.dtype) for t in ts]}")
+    if ts[0].dtype not in _DTYPE_CODE or any(t.dtype != ts[0].dtype for t in ts):
+        raise TypeError(f"the {what} takes float32, bfloat16 or float16 tensors of one "
+                        f"dtype, got {[str(t.dtype) for t in ts]}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"the {what} takes contiguous row-major tensors")
 
 
 def _check(z: Tensor, c: Tensor, *more: Tensor) -> None:
     """Raise for anything K5b does not take: z [mb, 4n] and the rest
-    [mb, n] on one CUDA device, f32 or bf16, contiguous rows."""
+    [mb, n] on one CUDA device, f32, bf16 or f16, contiguous rows."""
     ts = (z, c) + more
     _check_tensors("LSTM cell kernels", ts)
     if c.ndim != 2 or c.numel() == 0 or tuple(z.shape) != (c.shape[0], 4 * c.shape[1]) \
@@ -195,7 +198,7 @@ def lstm_seq_fwd_cuda(zx: Tensor, RW: Tensor, b: Tensor, h0: Tensor, c0: Tensor,
     with torch.cuda.device(dev):
         rc = _fns()[0](*(t.data_ptr() for t in ts), None if m is None else m.data_ptr(),
                        *(t.data_ptr() for t in (hs, zs, cs, h_t, c_t, arrived)),
-                       mb, t_len, n, int(bool(reverse)), int(zx.dtype == torch.bfloat16),
+                       mb, t_len, n, int(bool(reverse)), _DTYPE_CODE[zx.dtype],
                        plan, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"LSTM sequence kernel launch failed (code {rc})")
@@ -220,7 +223,7 @@ def lstm_cell_bwd_cuda(z: Tensor, c: Tensor, dh: Tensor, dcn: Tensor,
     dc = torch.empty_like(c)
     with torch.cuda.device(z.device):
         rc = _fns()[1](*(t.data_ptr() for t in (z, c, dh, dcn, out, dc)), c.shape[0],
-                       c.shape[1], int(z.dtype == torch.bfloat16), _stream(z.device))
+                       c.shape[1], _DTYPE_CODE[z.dtype], _stream(z.device))
     if rc != 0:
         raise RuntimeError(f"LSTM cell kernel launch failed (code {rc})")
     lstm_cell_bwd_cuda.launches += 1

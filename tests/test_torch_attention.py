@@ -120,8 +120,12 @@ def test_flash_forward_rejects_bad_arguments():
     q, k, v = _t(*_qkv(1, 1, 16, 16, 8, seed=52))
     with pytest.raises(ValueError):
         tatt.flash_forward(q, k[:, :, :, :4], v[:, :, :, :4])
+    # float64 (which flash_mha routes to mha) and mixed dtypes are refused;
+    # float16 is taken, as the reference's kernel takes it
     with pytest.raises(TypeError):
-        tatt.flash_forward(q.half(), k.half(), v.half())
+        tatt.flash_forward(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        tatt.flash_forward(q, k.half(), v)
     with pytest.raises(ValueError):
         tatt.flash_forward(q, k, v, torch.ones(2, 16, dtype=torch.int32))
 

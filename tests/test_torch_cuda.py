@@ -8,19 +8,20 @@ on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1, K2, K3 f32 2e-5 and bf16 2e-2 max abs (sums in another
-order; bf16 rounds p and ds before their products), K2 and K3 also 1e-5
-(f32) and 1e-2 (bf16) in norm relative to the plain version's, the bf16
+Tolerances: K1, K2, K3 f32 2e-5 and bf16 / f16 2e-2 max abs (sums in
+another order; bf16 and f16 round p and ds before their products; the same
+at head widths 129-256), K2 and K3 also 1e-5
+(f32) and 1e-2 (bf16, f16) in norm relative to the plain version's, the bf16
 K1 1e-2 too (on the rows that see a live key) and its LSE 2e-5, and a
 second launch bitwise the first (no atomics); the bf16 K1/K2/K3's wgmma
 fragment layer (one tile through ``dl4j_wgmma_tile_check``) 1e-3 of
 ``torch.matmul`` in f32 (the same bf16 products summed in another order);
 D1 2e-5, and a
-query row bitwise the same in every launch shape and batch; K4 bitwise
+query row bitwise the same in every launch shape and batch (d 64 and 256); K4 bitwise
 (the same rounded ops in the same order); K5a/K5b f32 2e-6 (the same
 rounded ops; only expf/tanhf may differ in the last bit; K5a as one
-step of the sequence with h0 = 0 and b = 0) and, in bf16, each element
-within one bf16 spacing (2^-7 of its size, plus 1e-6) of the plain
+step of the sequence with h0 = 0 and b = 0) and, in bf16 and f16, each element
+within one spacing of the dtype (2^-7 or 2^-10 of its size, plus 1e-6) of the plain
 version evaluated in f32 on the same bf16 inputs (the kernel rounds each
 result once); K5a over a sequence against the plain loop in f32 2e-5
 abs and 1e-5 norm-relative in f32 (h·RW sums in another order, and the
@@ -181,6 +182,30 @@ _CASES = [
     (2, 4, 256, 256, 64, False, False, torch.bfloat16),
     # a head width that is not a multiple of 8: plain loads, not cp.async
     (1, 2, 50, 70, 36, True, True, torch.bfloat16),
+    # float16 on the tensor-core kernels at every head width class and the
+    # tile edges, a head width off the multiples of 8 (plain stores)
+    (2, 3, 100, 100, 32, True, True, torch.float16),
+    (8, 12, 1024, 1024, 64, True, False, torch.float16),
+    (1, 2, 77, 130, 80, True, False, torch.float16),
+    (1, 2, 65, 130, 128, True, True, torch.float16),
+    (2, 3, 3, 1024, 64, False, False, torch.float16),
+    (1, 2, 50, 70, 36, True, True, torch.float16),
+    # head widths 129-256 (the DP 256 instances) in every dtype: a ragged
+    # width and length with a key mask, 256 causal, T != S both ways, one
+    # query row, a width off the multiples of 8 (plain loads and stores)
+    (2, 4, 300, 300, 160, True, True, torch.float32),
+    (2, 4, 300, 300, 160, True, True, torch.bfloat16),
+    (2, 4, 300, 300, 160, True, True, torch.float16),
+    (2, 3, 256, 256, 256, True, False, torch.float32),
+    (2, 3, 256, 256, 256, True, False, torch.bfloat16),
+    (2, 3, 256, 256, 256, True, False, torch.float16),
+    (1, 2, 77, 130, 256, False, True, torch.float32),
+    (1, 2, 130, 77, 256, True, True, torch.bfloat16),
+    (1, 2, 130, 77, 192, False, False, torch.float16),
+    (2, 2, 1, 70, 256, False, True, torch.bfloat16),
+    (1, 2, 90, 90, 250, True, True, torch.float32),
+    (1, 2, 90, 90, 250, True, True, torch.bfloat16),
+    (1, 2, 90, 90, 250, True, True, torch.float16),
 ]
 
 
@@ -194,9 +219,9 @@ def test_flash_kernel_matches_plain(cuda_dev, case):
     before = tatt.flash_forward_cuda.launches, tatt.flash_forward_tc_cuda.launches
     o, lse = tatt.flash_forward(q, k, v, km, causal)
     torch.cuda.synchronize()
-    # bf16 runs the tensor-core kernel, f32 the SIMT one
+    # bf16 and f16 run the tensor-core kernel, f32 the SIMT one
     assert (tatt.flash_forward_cuda.launches, tatt.flash_forward_tc_cuda.launches) == (
-        before[0] + 1, before[1] + (dtype == torch.bfloat16))
+        before[0] + 1, before[1] + (dtype != torch.float32))
     o_ref, lse_ref = tatt.flash_forward_plain(q, k, v, km, causal, 1.0 / math.sqrt(d))
     assert o.dtype == dtype and lse.dtype == torch.float32
     tol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -306,14 +331,25 @@ def test_flash_kernel_fully_masked_rows(cuda_dev):
 
 
 def test_flash_kernel_raises_for_what_it_does_not_take(cuda_dev):
-    q, k, v = _qkv(1, 1, 16, 16, 160, 8, cuda_dev)
+    # a head past 256, float64, mixed dtypes and another device; head
+    # widths 129-256 and float16 are taken (test_flash_kernel_matches_plain)
+    q, k, v = _qkv(1, 1, 16, 16, 264, 8, cuda_dev)
     with pytest.raises(ValueError, match="head_dim"):
         tatt.flash_forward(q, k, v)
+    g, lse = q.clone(), torch.zeros(1, 1, 16, device=cuda_dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        tatt.flash_bwd_dkdv_cuda(q, k, v, g, lse, lse, None, True, 0.1)
+    with pytest.raises(ValueError, match="head_dim"):
+        tatt.flash_bwd_dq_cuda(q, k, v, g, lse, lse, None, True, 0.1)
     q, k, v = _qkv(1, 1, 16, 16, 64, 8, cuda_dev)
     with pytest.raises(ValueError):
         tatt.flash_forward(q, k.cpu(), v.cpu())
     with pytest.raises(TypeError):
-        tatt.flash_forward(q.half(), k.half(), v.half())
+        tatt.flash_forward(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        tatt.flash_forward(q.half(), k.half(), v)
+    with pytest.raises(TypeError):
+        tatt.flash_forward_tc_cuda(q, k, v, None, True, 0.1)
 
 
 def test_gumbel_on_card_is_bitwise_the_cpu_noise(cuda_dev):
@@ -540,8 +576,8 @@ def test_flash_backward_kernels_match_plain(cuda_dev, case):
     before = [c.launches for c in counters]
     dq, dk, dv = tatt.flash_backward(q, k, v, km, o, lse, g, causal, scale)
     torch.cuda.synchronize()
-    # bf16 dK/dV and dQ run the tensor-core kernels, f32 the SIMT ones
-    tc = int(dtype == torch.bfloat16)
+    # bf16 and f16 dK/dV and dQ run the tensor-core kernels, f32 the SIMT ones
+    tc = int(dtype != torch.float32)
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, tc, tc]
     ref = tatt.flash_backward_plain(q, k, v, g, lse, tatt.flash_delta(o, g), km,
                                     causal, scale)
@@ -723,6 +759,31 @@ def test_flash_bwd_wgmma_kernels_match_plain(cuda_dev, case):
         assert not bool(dk[:, :, :3].any()) and not bool(dv[:, :, :3].any())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("d", [64, 160, 256])
+def test_wide_and_f16_flash_kernels_repeat_bitwise_and_count_their_instance(cuda_dev, d, dtype):
+    # no atomics at any width: a second launch of K1, K2 and K3 gives the
+    # same bits; each wrapper counts the launch under its dtype and width
+    q, k, v = _qkv(2, 4, 300, 300, d, 23, cuda_dev, dtype)
+    g = _qkv(2, 4, 300, 300, d, 24, cuda_dev, dtype)[0]
+    km = _kmask(2, 300, 300, cuda_dev)
+    scale = 1.0 / math.sqrt(d)
+    key = f"{str(dtype)[6:]}_d{64 if d <= 64 else 256}"
+    before = [w.instances[key] for w in (tatt.flash_forward_cuda, tatt.flash_bwd_dkdv_cuda,
+                                         tatt.flash_bwd_dq_cuda)]
+    o, lse = tatt.flash_forward_cuda(q, k, v, km, True, scale)
+    o2, lse2 = tatt.flash_forward_cuda(q, k, v, km, True, scale)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    first = tatt.flash_backward(q, k, v, km, o, lse, g, True, scale)
+    second = tatt.flash_backward(q, k, v, km, o, lse, g, True, scale)
+    for a, b2 in zip(first, second):
+        assert torch.equal(a, b2)
+    after = [w.instances[key] for w in (tatt.flash_forward_cuda, tatt.flash_bwd_dkdv_cuda,
+                                        tatt.flash_bwd_dq_cuda)]
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
+
+
 def test_flash_backward_rows_without_a_live_key_bf16(cuda_dev):
     # through the tensor-core K2 and K3: rows with no live key feed exactly
     # zero gradients
@@ -830,7 +891,19 @@ def test_det_attention_rows_are_bitwise_the_same_in_every_launch(cuda_dev):
     at B 2, one-row steps among 4 and 2 slots whose keys past each
     position hold other values (split-key), and the 32/33-row calls on
     either side of the split/tiled threshold."""
-    h, d, L = 12, 64, 1024
+    _det_rows_bitwise(cuda_dev, 12, 64)
+
+
+def test_det_attention_rows_are_bitwise_the_same_in_every_launch_at_d256(cuda_dev):
+    """The same contract at GPT-J's head width (H 16, d 256: D1's DP 256
+    instance, whose tiled launch stages one key chunk at a time)."""
+    before = tkv.det_attention_cuda.instances["d256"]
+    _det_rows_bitwise(cuda_dev, 16, 256)
+    assert tkv.det_attention_cuda.instances["d256"] == before + 11
+
+
+def _det_rows_bitwise(cuda_dev, h, d):
+    L = 1024
     rng = np.random.default_rng(11)
     t = lambda *shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda_dev)
     q, k, v = t(1, h, L, d), t(1, h, L, d), t(1, h, L, d)
@@ -971,12 +1044,18 @@ def _check_cell_kernels(mb, n, dtype, dev):
         if dtype == torch.float32:
             assert float(err.max()) <= 2e-6
         else:
-            # the kernel rounds the f32 result once: within one bf16
-            # spacing (2^-7 relative) of the plain version in f32
-            assert bool((err <= 2.0 ** -7 * w.abs() + 1e-6).all())
+            # the kernel rounds the f32 result once: within one spacing of
+            # the dtype (bf16 2^-7, f16 2^-10 relative) of the plain
+            # version in f32
+            assert bool((err <= _SPACING[dtype] * w.abs() + 1e-6).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+#: the relative spacing of the 2-byte dtypes (2^-mantissa bits)
+_SPACING = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("n", [32, 256, 512])
 @pytest.mark.parametrize("mb", [1, 7, 64])
 def test_lstm_cell_kernels_match_plain(cuda_dev, mb, n, dtype):
@@ -994,8 +1073,12 @@ def test_lstm_cell_kernels_match_plain_at_more_shapes(cuda_dev, mb, n, dtype):
 def test_lstm_cell_kernels_raise_for_what_they_do_not_take(cuda_dev):
     z, c, dh, dcn = _cell_inputs(4, 8, 1, cuda_dev, torch.float32)
     zx, rw, b, h0, c0, _ = _seq_inputs(4, 3, 8, 1, cuda_dev, torch.float32)
+    # float64 and mixed dtypes are refused (float16 is taken:
+    # test_lstm_seq_kernel_matches_plain)
     with pytest.raises(TypeError):
-        tlk.lstm_seq_fwd(zx.half(), rw.half(), b.half(), h0.half(), c0.half())
+        tlk.lstm_seq_fwd_cuda(zx.double(), rw.double(), b.double(), h0.double(), c0.double())
+    with pytest.raises(TypeError):
+        tlk.lstm_seq_fwd(zx.half(), rw.half(), b.half(), h0.half(), c0)
     with pytest.raises(TypeError):
         tlk.lstm_seq_fwd(zx, rw, b, h0, c0.bfloat16())
     with pytest.raises(ValueError, match="zx \\[mb, T, 4n\\]"):
@@ -1043,6 +1126,9 @@ _SEQ_CASES = [
     (64, 50, 256, torch.bfloat16, False, False),
     (7, 13, 255, torch.bfloat16, True, True),
     (1, 1, 256, torch.bfloat16, False, False),
+    (64, 50, 256, torch.float16, False, False),
+    (7, 13, 255, torch.float16, True, True),
+    (1, 1, 256, torch.float16, False, False),
 ]
 
 
@@ -1051,11 +1137,11 @@ _SEQ_CASES = [
     for mb, t, n, dt, m, r in _SEQ_CASES])
 def test_lstm_seq_kernel_matches_plain(cuda_dev, case):
     """K5a against the plain per-step loop evaluated in f32 on the same
-    inputs: f32 2e-5 abs and 1e-5 norm-relative, bf16 1e-2 norm-relative
-    and 2e-2 abs, or one bf16 spacing (2^-7 of the value) where that is
-    larger: z reaches 5-6 here, where bf16's own spacing is 0.031 and the
-    plain version in bf16 misses 2e-2 by as much; a second launch bitwise
-    the first."""
+    inputs: f32 2e-5 abs and 1e-5 norm-relative, bf16 and f16 1e-2
+    norm-relative and 2e-2 abs, or one spacing of the dtype (2^-7 of the
+    value in bf16, 2^-10 in f16) where that is larger: z reaches 5-6 here,
+    where bf16's own spacing is 0.031 and the plain version in bf16 misses
+    2e-2 by as much; a second launch bitwise the first."""
     mb, t_len, n, dtype, masked, reverse = case
     *ins, mask = _seq_inputs(mb, t_len, n, mb + t_len + n, cuda_dev, dtype)
     mask = mask if masked else None
@@ -1073,7 +1159,7 @@ def test_lstm_seq_kernel_matches_plain(cuda_dev, case):
         if dtype == torch.float32:
             assert float(d.abs().max()) <= atol
         else:
-            assert bool((d.abs() <= torch.clamp(2.0 ** -7 * w.abs(), min=atol)).all())
+            assert bool((d.abs() <= torch.clamp(_SPACING[dtype] * w.abs(), min=atol)).all())
         assert float(d.norm()) <= rel * float(w.norm())
 
 
